@@ -7,14 +7,21 @@ Phases, each fatal on failure:
   1. print the card (nvidia-smi name, power.limit) and torch/CUDA versions;
   2. build the CUDA C++ kernels from the sources in this checkout
      (one nvcc per source, in parallel) and print the build seconds;
-  3. run TPC-H Q1 through the port's own QuokkaContext on the card at scale
-     factor --sf (6.0M lineitem rows at SF1, made with numpy from --seed),
-     with every kernel's launch count set to 0 just before and read just
-     after; check the result against a numpy oracle; run it again warm;
-  4. hold each kernel against its plain torch version on the card, at the
-     shapes the Q1 run gives it (and K3, K4 also at 2^20 rows), and time
-     kernel, plain version and bound with CUDA events;
-  5. print one JSON line of per-kernel numbers, the card line, and last the
+  3. make TPC-H tables at scale factor --sf with numpy from --seed (6.0M
+     lineitem, 1.5M orders, 150K customer, 10K supplier, 25 nation and 5
+     region rows at SF1; the domains of tests/tpch_data.py);
+  4. run TPC-H Q1, Q3 (join_build=hashtable, then join_build=sort) and Q5
+     through the port's own QuokkaContext on the card, with every kernel's
+     launch count set to 0 just before each path and read just after, and
+     check each result against a numpy oracle; run each again warm;
+  5. where the time goes: a warm run of each query under the profiler
+     (device busy, idle share of the warm wall, device time per kernel);
+  6. hold each kernel against its plain torch version on the card, at the
+     shapes the query runs gave it (K1, K2 at Q1's; K3, K4 at Q1's and
+     Q3's; K5, K11, K12 at Q3's, K12 also on float64 keys with -0.0 and
+     NaN), and time kernel, plain version and bound with CUDA events; the
+     torch-primitive rows 7, 8, 14 and 15 are timed at Q3's shapes too;
+  7. print one JSON line of per-kernel numbers, the card line, and last the
      contract line {"ok": true, "device": {...}}.
 
 Details of the run go to chiprun_out/chip_smoke.json.  The script imports
@@ -42,9 +49,22 @@ Q1_AGGS = ("sum(l_quantity) as sum_qty, sum(l_extendedprice) as sum_base_price, 
            "sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) as sum_charge, "
            "avg(l_quantity) as avg_qty, avg(l_extendedprice) as avg_price, "
            "avg(l_discount) as avg_disc, count(*) as count_order")
-Q1_COLUMNS = ["l_quantity", "l_extendedprice", "l_discount", "l_tax",
-              "l_returnflag", "l_linestatus", "l_shipdate"]
+REV = "sum(l_extendedprice * (1 - l_discount)) as revenue"
+Q3_DATE = "1995-03-15"
 BATCH_ROWS = 1 << 20
+
+RETURNFLAGS = ["A", "N", "R"]
+LINESTATUS = ["F", "O"]
+REGIONS = ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"]
+NATIONS = [
+    ("ALGERIA", 0), ("ARGENTINA", 1), ("BRAZIL", 1), ("CANADA", 1), ("EGYPT", 4),
+    ("ETHIOPIA", 0), ("FRANCE", 3), ("GERMANY", 3), ("INDIA", 2), ("INDONESIA", 2),
+    ("IRAN", 4), ("IRAQ", 4), ("JAPAN", 2), ("JORDAN", 4), ("KENYA", 0),
+    ("MOROCCO", 0), ("MOZAMBIQUE", 0), ("PERU", 1), ("CHINA", 2), ("ROMANIA", 3),
+    ("SAUDI ARABIA", 4), ("VIETNAM", 2), ("RUSSIA", 3), ("UNITED KINGDOM", 3),
+    ("UNITED STATES", 1),
+]
+SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"]
 
 
 def fail(msg: str) -> None:
@@ -52,74 +72,126 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+def days(iso: str) -> int:
+    import numpy as np
+
+    return int((np.datetime64(iso, "D") - np.datetime64("1970-01-01", "D")).astype(int))
+
+
 # ---------------------------------------------------------------------------
-# data: the Q1 columns of lineitem, TPC-H domains (tests/tpch_data.py)
+# data: TPC-H tables with the domains of tests/tpch_data.py, in numpy
 # ---------------------------------------------------------------------------
 
 
-def make_lineitem(sf: float, seed: int):
+class Table:
+    """numpy columns of one table: string columns as int32 codes into a
+    dictionary, date columns as int32 days."""
+
+    def __init__(self, cols, dicts=None, dates=()):
+        import numpy as np
+
+        self.cols = cols
+        self.dicts = {k: np.array(v, dtype=object) for k, v in (dicts or {}).items()}
+        self.dates = set(dates)
+
+    @property
+    def num_rows(self) -> int:
+        return len(next(iter(self.cols.values())))
+
+
+def make_tpch(sf: float, seed: int):
+    """The six tables Q1, Q3 and Q5 read: orders have keys 4, 8, 12, ...;
+    customers whose key is a multiple of 3 place no orders; 1-7 lines per
+    order; ship date = order date + 1..121 days."""
     import numpy as np
 
     r = np.random.default_rng(seed)
-    epoch = np.datetime64("1970-01-01", "D")
-    lo = int((np.datetime64("1992-01-01", "D") - epoch).astype(int))
-    hi = int((np.datetime64("1998-08-02", "D") - epoch).astype(int))
     n_orders = max(int(1_500_000 * sf), 50)
-    odate = r.integers(lo, hi, n_orders).astype(np.int32)
+    n_cust = max(int(150_000 * sf), 20)
+    n_supp = max(int(10_000 * sf), 10)
+    i64 = np.int64
+    region = Table({"r_regionkey": np.arange(5, dtype=i64),
+                    "r_name": np.arange(5, dtype=np.int32)}, {"r_name": REGIONS})
+    nation = Table({"n_nationkey": np.arange(25, dtype=i64),
+                    "n_name": np.arange(25, dtype=np.int32),
+                    "n_regionkey": np.array([g for _, g in NATIONS], dtype=i64)},
+                   {"n_name": [n for n, _ in NATIONS]})
+    supplier = Table({"s_suppkey": np.arange(1, n_supp + 1, dtype=i64),
+                      "s_nationkey": r.integers(0, 25, n_supp).astype(i64)})
+    custkey = np.arange(1, n_cust + 1, dtype=i64)
+    customer = Table({"c_custkey": custkey,
+                      "c_nationkey": r.integers(0, 25, n_cust).astype(i64),
+                      "c_mktsegment": r.integers(0, 5, n_cust).astype(np.int32)},
+                     {"c_mktsegment": SEGMENTS})
+    odate = r.integers(days("1992-01-01"), days("1998-08-02"), n_orders).astype(np.int32)
+    with_orders = custkey[custkey % 3 != 0]
+    okey = np.arange(1, n_orders + 1, dtype=i64) * 4
+    orders = Table({"o_orderkey": okey,
+                    "o_custkey": with_orders[r.integers(0, len(with_orders), n_orders)],
+                    "o_orderdate": odate,
+                    "o_shippriority": np.zeros(n_orders, dtype=i64)}, dates=["o_orderdate"])
     lines_per = r.integers(1, 8, n_orders)
     n = int(lines_per.sum())
     qty = r.integers(1, 51, n).astype(np.float64)
-    return {
+    lineitem = Table({
+        "l_orderkey": np.repeat(okey, lines_per),
+        "l_suppkey": r.integers(1, n_supp + 1, n).astype(i64),
         "l_quantity": qty,
         "l_extendedprice": np.round(qty * (900 + r.uniform(0, 1200, n)) / 10, 2),
         "l_discount": np.round(r.uniform(0, 0.1, n), 2),
         "l_tax": np.round(r.uniform(0, 0.08, n), 2),
-        "l_returnflag": r.integers(0, 3, n).astype(np.int32),  # codes into A N R
-        "l_linestatus": r.integers(0, 2, n).astype(np.int32),  # codes into F O
+        "l_returnflag": r.integers(0, 3, n).astype(np.int32),
+        "l_linestatus": r.integers(0, 2, n).astype(np.int32),
         "l_shipdate": (np.repeat(odate, lines_per) + r.integers(1, 122, n)).astype(np.int32),
-    }
+    }, {"l_returnflag": RETURNFLAGS, "l_linestatus": LINESTATUS}, dates=["l_shipdate"])
+    return {"region": region, "nation": nation, "supplier": supplier,
+            "customer": customer, "orders": orders, "lineitem": lineitem}
 
 
-RETURNFLAGS = ["A", "N", "R"]
-LINESTATUS = ["F", "O"]
+class TableReader:
+    """Reader over a Table: 2^20-row slices dealt round-robin to the
+    channels, delivered as HostTables (no Arrow); ``num_rows`` and
+    ``sample`` feed the optimizer's catalog."""
 
-
-class LineitemReader:
-    """Reader over the generated columns: 2^20-row slices dealt round-robin
-    to the channels; dates and dictionary codes go through the bridge as a
-    HostTable (no Arrow)."""
-
-    def __init__(self, cols):
-        self.cols = cols
-        self.n = len(cols["l_quantity"])
+    def __init__(self, table: Table):
+        self.table = table
+        self.num_rows = table.num_rows
 
     @property
     def schema(self):
-        return list(Q1_COLUMNS)
+        return list(self.table.cols)
 
     def get_own_state(self, num_channels):
-        slices = [(s, min(BATCH_ROWS, self.n - s)) for s in range(0, self.n, BATCH_ROWS)]
+        n = self.num_rows
+        slices = [(s, min(BATCH_ROWS, n - s)) for s in range(0, n, BATCH_ROWS)] or [(0, 0)]
         return {ch: slices[ch::num_channels] for ch in range(num_channels)}
 
     def execute(self, channel, lineage):
-        import numpy as np
         from quokka_tpu_torch.ops.bridge import HostTable
 
         start, length = lineage
-        sl = slice(start, start + length)
-        cols = {k: v[sl] for k, v in self.cols.items()}
-        cols["l_shipdate"] = cols["l_shipdate"].astype("datetime64[D]")
-        return HostTable(cols, dictionaries={
-            "l_returnflag": np.array(RETURNFLAGS, dtype=object),
-            "l_linestatus": np.array(LINESTATUS, dtype=object)})
+        t = self.table
+        cols = {}
+        for k, v in t.cols.items():
+            v = v[start:start + length]
+            cols[k] = v.astype("datetime64[D]") if k in t.dates else v
+        return HostTable(cols, dictionaries=dict(t.dicts))
+
+    def sample(self, rows):
+        return self.execute(0, (0, min(rows, self.num_rows)))
 
 
-def q1_oracle(cols):
-    """numpy Q1: {(flag, status): {column: value}}."""
+# ---------------------------------------------------------------------------
+# numpy oracles
+# ---------------------------------------------------------------------------
+
+
+def q1_oracle(li: Table):
+    """{(flag, status): {column: value}}."""
     import numpy as np
 
-    cutoff = int((np.datetime64(SHIP_CUTOFF, "D") - np.datetime64("1970-01-01", "D")).astype(int)) - 90
-    m = cols["l_shipdate"] <= cutoff
+    cols = li.cols
+    m = cols["l_shipdate"] <= days(SHIP_CUTOFF) - 90
     gid = (cols["l_returnflag"] * 2 + cols["l_linestatus"])[m]
     q, p = cols["l_quantity"][m], cols["l_extendedprice"][m]
     d, t = cols["l_discount"][m], cols["l_tax"][m]
@@ -156,16 +228,100 @@ def check_q1(got, exp) -> None:
                 fail(f"Q1 {key} {col}: {have} vs {want} beyond rtol 1e-9")
 
 
-def collect_numpy(stream):
-    ds = stream.compute()
-    cols = ds.to_numpy()
+def _pk_lookup(keys, probe):
+    """Index of each probe value in the sorted unique ``keys`` and whether
+    it is there (a join by searchsorted)."""
+    import numpy as np
+
+    idx = np.searchsorted(keys, probe)
+    idx_c = np.minimum(idx, max(len(keys) - 1, 0))
+    return idx_c, (idx < len(keys)) & (keys[idx_c] == probe)
+
+
+def q3_oracle(t):
+    """The top 10 (l_orderkey, o_orderdate, o_shippriority, revenue)."""
+    import numpy as np
+
+    d = days(Q3_DATE)
+    li, o, c = t["lineitem"].cols, t["orders"].cols, t["customer"].cols
+    lm = li["l_shipdate"] > d
+    om = o["o_orderdate"] < d
+    cm = c["c_mktsegment"] == SEGMENTS.index("BUILDING")
+    ok = o["o_orderkey"][om]
+    oi, hit = _pk_lookup(ok, li["l_orderkey"])
+    sel = lm & hit
+    cust = o["o_custkey"][om][oi[sel]]
+    ci, chit = _pk_lookup(c["c_custkey"][cm], cust)
+    rows = np.nonzero(sel)[0][chit]
+    rev = li["l_extendedprice"][rows] * (1 - li["l_discount"][rows])
+    keys, inv = np.unique(li["l_orderkey"][rows], return_inverse=True)
+    sums = np.bincount(inv, rev, len(keys))
+    top = np.argsort(-sums, kind="stable")[:10]
+    oj, _ = _pk_lookup(o["o_orderkey"], keys[top])
+    return {"l_orderkey": keys[top], "o_orderdate": o["o_orderdate"][oj],
+            "o_shippriority": o["o_shippriority"][oj], "revenue": sums[top]}
+
+
+def check_q3(got, exp) -> None:
+    import numpy as np
+
+    if len(got["revenue"]) != len(exp["revenue"]):
+        fail(f"Q3 returned {len(got['revenue'])} rows, the oracle {len(exp['revenue'])}")
+    order = np.argsort(-got["revenue"], kind="stable")
+    gdays = (got["o_orderdate"][order].astype("datetime64[D]")
+             - np.datetime64("1970-01-01", "D")).astype(np.int64)
+    if not (np.array_equal(got["l_orderkey"][order], exp["l_orderkey"])
+            and np.array_equal(gdays, exp["o_orderdate"])
+            and np.array_equal(got["o_shippriority"][order], exp["o_shippriority"])):
+        fail(f"Q3 top-10 keys {got['l_orderkey'][order].tolist()} != oracle "
+             f"{exp['l_orderkey'].tolist()}")
+    if not np.allclose(got["revenue"][order], exp["revenue"], rtol=1e-9, atol=0):
+        fail("Q3 revenue beyond rtol 1e-9 of the oracle")
+
+
+def q5_oracle(t):
+    """{n_name: revenue} for the ASIA nations, orders of 1994."""
+    import numpy as np
+
+    li, o, c = t["lineitem"].cols, t["orders"].cols, t["customer"].cols
+    s, nat = t["supplier"].cols, t["nation"].cols
+    om = (o["o_orderdate"] >= days("1994-01-01")) & (o["o_orderdate"] < days("1995-01-01"))
+    oi, hit = _pk_lookup(o["o_orderkey"][om], li["l_orderkey"])
+    rows = np.nonzero(hit)[0]
+    cust = o["o_custkey"][om][oi[rows]]
+    ci, chit = _pk_lookup(c["c_custkey"], cust)
+    rows, ci = rows[chit], ci[chit]
+    cnat = c["c_nationkey"][ci]
+    si, shit = _pk_lookup(s["s_suppkey"], li["l_suppkey"][rows])
+    keep = shit & (s["s_nationkey"][si] == cnat)
+    rows, cnat = rows[keep], cnat[keep]
+    asia = nat["n_regionkey"][cnat] == REGIONS.index("ASIA")
+    rows, cnat = rows[asia], cnat[asia]
+    rev = li["l_extendedprice"][rows] * (1 - li["l_discount"][rows])
+    sums = np.bincount(cnat, rev, 25)
+    return {NATIONS[k][0]: float(sums[k]) for k in np.unique(cnat)}
+
+
+def check_q5(got, exp) -> None:
+    import numpy as np
+
+    names = list(got["n_name"])
+    if sorted(names) != sorted(exp):
+        fail(f"Q5 nations {sorted(names)} != oracle {sorted(exp)}")
+    for name, rev in zip(names, got["revenue"]):
+        if not np.isclose(rev, exp[name], rtol=1e-9, atol=0):
+            fail(f"Q5 {name} revenue {rev} vs {exp[name]} beyond rtol 1e-9")
+
+
+def collect_numpy(stream, what: str):
+    cols = stream.compute().to_numpy()
     if cols is None:
-        fail("Q1 returned no rows")
+        fail(f"{what} returned no rows")
     return cols
 
 
 # ---------------------------------------------------------------------------
-# timing
+# timing and capture
 # ---------------------------------------------------------------------------
 
 
@@ -184,8 +340,81 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_events(prof):
+    """{kernel name: (device us, count)} of a profile, device-side events only."""
+    import torch
+
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0)
+        if t:
+            out[ev.key] = (float(t), int(ev.count))
+    return out
+
+
+def device_us(fn, prefixes=None, iters: int = 10) -> float:
+    """Device time per call of fn (profiler, device-side events only; only
+    the kernels whose names start with ``prefixes`` when given)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ev = device_events(prof)
+    return sum(t for k, (t, _) in ev.items()
+               if prefixes is None or k.startswith(prefixes)) / iters
+
+
 def nbytes(*tensors) -> int:
     return int(sum(t.numel() * t.element_size() for t in tensors))
+
+
+def bound_ms(n_bytes: float) -> float:
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+class Capture:
+    """Count the calls of module functions during one run and keep the
+    arguments of the largest call of each (``size(args)`` decides)."""
+
+    def __init__(self, targets, keep_every=()):
+        self.targets = targets  # name -> (module, attr, size)
+        self.calls = {n: 0 for n in targets}
+        self.args = {}
+        self.every = {n: [] for n in keep_every}  # every call's arguments
+        self._best = {}
+        self._saved = []
+
+    def __enter__(self):
+        for name, (mod, attr, size) in self.targets.items():
+            real = getattr(mod, attr)
+            self._saved.append((mod, attr, real))
+
+            def wrap(*a, _name=name, _real=real, _size=size, **kw):
+                self.calls[_name] += 1
+                if _name in self.every:
+                    self.every[_name].append((a, kw))
+                s = _size(*a, **kw)
+                if s >= self._best.get(_name, -1):
+                    self._best[_name] = s
+                    self.args[_name] = (a, kw)
+                return _real(*a, **kw)
+
+            setattr(mod, attr, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, real in reversed(self._saved):
+            setattr(mod, attr, real)
+        return False
 
 
 # ---------------------------------------------------------------------------
@@ -222,12 +451,13 @@ def main() -> int:
 def smoke(dev, card: str, args) -> int:
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
-    from quokka_tpu_torch import QuokkaContext, sqlparse
-    from quokka_tpu_torch.ops import bridge, fuse, hashtable, kernels, native
+    from quokka_tpu_torch import QuokkaContext, col, date, sqlparse
+    from quokka_tpu_torch.executors.sql_execs import PartialAggExecutor
+    from quokka_tpu_torch.ops import bridge, fuse, hashtable, join, kernels, native
     from quokka_tpu_torch.ops.batch import key_limbs
     from quokka_tpu_torch.ops.expr_compile import plan_aggregation
-    from quokka_tpu_torch.executors.sql_execs import PartialAggExecutor
 
     for mod in ("jax", "quokka_tpu", "pyarrow", "pandas"):
         if mod in sys.modules:
@@ -246,125 +476,258 @@ def smoke(dev, card: str, args) -> int:
     print(f"build: {build_s:.2f} s (nvcc, {len(native.SOURCES)} sources in parallel)")
     report["build_s"] = build_s
 
-    # -- phase 3: TPC-H Q1 through the port --------------------------------------
+    # -- phase 3: data ------------------------------------------------------------
     t0 = time.perf_counter()
-    cols = make_lineitem(args.sf, args.seed)
-    exp = q1_oracle(cols)
+    tables = make_tpch(args.sf, args.seed)
+    readers = {name: TableReader(t) for name, t in tables.items()}
+    li = tables["lineitem"]
+    oracles = {"q1": q1_oracle(li), "q3": q3_oracle(tables), "q5": q5_oracle(tables)}
     report["datagen_s"] = time.perf_counter() - t0
-    report["rows"] = int(len(cols["l_quantity"]))
+    report["rows"] = {name: t.num_rows for name, t in tables.items()}
+    print(f"data sf={args.sf}: {report['rows']} in {report['datagen_s']:.1f} s "
+          "(with the oracles)")
     ctx = QuokkaContext(io_channels=2, exec_channels=2, device=dev)
 
+    def src(name):
+        return ctx.read_dataset(readers[name], schema=readers[name].schema)
+
     def q1_stream():
-        return (ctx.read_dataset(LineitemReader(cols), schema=list(Q1_COLUMNS))
-                .filter_sql(Q1_FILTER)
-                .groupby(["l_returnflag", "l_linestatus"])
-                .agg_sql(Q1_AGGS))
+        return (src("lineitem").filter_sql(Q1_FILTER)
+                .groupby(["l_returnflag", "l_linestatus"]).agg_sql(Q1_AGGS))
+
+    def q3_stream():
+        d = date(Q3_DATE)
+        return (src("lineitem").filter(col("l_shipdate") > d)
+                .join(src("orders").filter(col("o_orderdate") < d),
+                      left_on="l_orderkey", right_on="o_orderkey")
+                .join(src("customer").filter(col("c_mktsegment") == "BUILDING"),
+                      left_on="o_custkey", right_on="c_custkey")
+                .groupby(["l_orderkey", "o_orderdate", "o_shippriority"])
+                .agg_sql(REV).top_k(["revenue"], 10, [True]))
+
+    def q5_stream():
+        return (src("lineitem")
+                .join(src("orders").filter_sql(
+                    "o_orderdate >= date '1994-01-01' and o_orderdate < date '1995-01-01'"),
+                    left_on="l_orderkey", right_on="o_orderkey")
+                .join(src("customer"), left_on="o_custkey", right_on="c_custkey")
+                .join(src("supplier"), left_on=["l_suppkey", "c_nationkey"],
+                      right_on=["s_suppkey", "s_nationkey"])
+                .join(src("nation"), left_on="c_nationkey", right_on="n_nationkey")
+                .join(src("region").filter(col("r_name") == "ASIA"),
+                      left_on="n_regionkey", right_on="r_regionkey")
+                .groupby("n_name").agg_sql(REV))
 
     counters = {"K1": (fuse, "PREDICATE_LAUNCHES"), "K2": (fuse, "SMALL_AGG_LAUNCHES"),
-                "K3": (hashtable, "LAUNCHES"), "K4": (kernels, "PARTITION_LAUNCHES")}
-    for mod, attr in list(counters.values()) + [(fuse, "FALLBACKS")]:
-        setattr(mod, attr, 0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    got = collect_numpy(q1_stream())
-    torch.cuda.synchronize()
-    cold_s = time.perf_counter() - t0
-    launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
-    fallbacks = fuse.FALLBACKS
-    check_q1(got, exp)
-    print(f"q1 sf={args.sf} rows={report['rows']}: cold {cold_s:.3f} s, launches {launches}, "
-          f"fallbacks {fallbacks}; matches the numpy oracle")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        fail(f"kernels not launched on the Q1 run: {missing}")
-    if fallbacks:
-        fail(f"{fallbacks} unfused fallbacks on Q1")
-    warm = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        check_q1(collect_numpy(q1_stream()), exp)
-        torch.cuda.synchronize()
-        warm.append(time.perf_counter() - t0)
-    print(f"q1 warm: {[round(w, 4) for w in warm]} s")
-    report.update(q1_cold_s=cold_s, q1_warm_s=warm, launches=launches)
+                "K3": (hashtable, "LAUNCHES"), "K4": (kernels, "PARTITION_LAUNCHES"),
+                "K5": (fuse, "PRE_AGG_LAUNCHES"),
+                "K11 build": (hashtable, "BUILD_LAUNCHES"),
+                "K11": (hashtable, "PROBE_LAUNCHES"),
+                "K12": (join, "SORTED_PROBE_LAUNCHES")}
+    paths = {
+        "q1": (q1_stream, check_q1, ["K1", "K2", "K3", "K4"], ["K5", "K11", "K12"]),
+        "q3": (q3_stream, check_q3, ["K1", "K3", "K4", "K5", "K11 build", "K11"], ["K12"]),
+        "q3 sort": (q3_stream, check_q3, ["K1", "K3", "K4", "K5", "K12"],
+                    ["K11 build", "K11"]),
+        "q5": (q5_stream, check_q5, ["K1", "K2", "K3", "K4", "K11 build", "K11"], ["K12"]),
+    }
+    plan_text = {}
+    launches_by_path, walls = {}, {}
 
-    # where the time goes: a warm run with the engine's read+bridge step
-    # timed, host read and bridge alone, then a profiled run
+    def set_strategy(path):
+        if path == "q3 sort":
+            os.environ["QK_KERNEL_STRATEGY"] = "join_build=sort"
+        else:
+            os.environ.pop("QK_KERNEL_STRATEGY", None)
+
+    # -- phase 4: the query paths ------------------------------------------------
+    for path, (stream, check, must, must_not) in paths.items():
+        set_strategy(path)
+        exp = oracles[path.split()[0]]
+        plan_text[path] = stream().explain()
+        for mod, attr in list(counters.values()) + [(fuse, "FALLBACKS")]:
+            setattr(mod, attr, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = collect_numpy(stream(), path)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        fallbacks = fuse.FALLBACKS
+        check(got, exp)
+        launches_by_path[path] = launches
+        print(f"{path} sf={args.sf}: cold {cold:.3f} s, launches {launches}, "
+              f"fallbacks {fallbacks}; matches the numpy oracle")
+        missing = [k for k in must if launches[k] == 0]
+        if missing:
+            fail(f"kernels not launched on the {path} run: {missing}")
+        stray = [k for k in must_not if launches[k] != 0]
+        if stray:
+            fail(f"kernels launched on the {path} run that its strategy excludes: {stray}")
+        if fallbacks:
+            fail(f"{fallbacks} unfused fallbacks on {path}")
+        warm = []
+        for _ in range(3 if path != "q3 sort" else 1):
+            t0 = time.perf_counter()
+            check(collect_numpy(stream(), path), exp)
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
+        walls[path] = {"cold_s": cold, "warm_s": warm}
+        print(f"{path} warm: {[round(w, 4) for w in warm]} s")
+    os.environ.pop("QK_KERNEL_STRATEGY", None)
+    report.update(walls=walls, launches=launches_by_path, plans=plan_text)
+
+    # -- phase 5: where the time goes ----------------------------------------------
+    # a warm run of each path with the engine's host steps timed: the read +
+    # bridge of every input batch, the rest of the input tasks (K1, the
+    # partition split K4, the batch cache), and each executor kind's tasks
+    # (joins, aggregates, top-k, the result's copy to the host)
     from quokka_tpu_torch.runtime import engine as engine_mod
 
-    spent = []
-    real = engine_mod.Engine._read_and_bridge
+    Engine = engine_mod.Engine
+    real = (Engine._read_and_bridge, Engine.handle_input_task, Engine.handle_exec_task)
+    host_steps = {}
+    for path, (stream, _, _, _) in paths.items():
+        set_strategy(path)
+        spent = {}
 
-    def timed(self, *a):
-        t = time.perf_counter()
+        def add(what, t):
+            spent[what] = spent.get(what, 0.0) + time.perf_counter() - t
+
+        def read_and_bridge(self, *a):
+            t = time.perf_counter()
+            try:
+                return real[0](self, *a)
+            finally:
+                add("read+bridge", t)
+
+        def input_task(self, task):
+            t = time.perf_counter()
+            try:
+                return real[1](self, task)
+            finally:
+                add("input tasks", t)
+
+        def exec_task(self, task):
+            t = time.perf_counter()
+            try:
+                return real[2](self, task)
+            finally:
+                add("exec " + type(self.execs[(task.actor, task.channel)]).__name__, t)
+
+        Engine._read_and_bridge, Engine.handle_input_task, Engine.handle_exec_task = (
+            read_and_bridge, input_task, exec_task)
         try:
-            return real(self, *a)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            collect_numpy(stream(), path)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         finally:
-            spent.append(time.perf_counter() - t)
-
-    engine_mod.Engine._read_and_bridge = timed
-    try:
-        t0 = time.perf_counter()
-        collect_numpy(q1_stream())
-        torch.cuda.synchronize()
-        report["timed_run_wall_s"] = time.perf_counter() - t0
-    finally:
-        engine_mod.Engine._read_and_bridge = real
-    report["read_and_bridge_in_query_s"] = sum(spent)
-    print(f"where (timed warm run): wall {report['timed_run_wall_s']:.4f} s, of which the "
-          f"engine's read+bridge step {sum(spent):.4f} s over {len(spent)} batches")
-    reader = LineitemReader(cols)
-    state = reader.get_own_state(1)[0]
+            Engine._read_and_bridge, Engine.handle_input_task, Engine.handle_exec_task = real
+        spent["input tasks"] -= spent["read+bridge"]
+        spent["rest (plan, lowering, engine loop)"] = wall - sum(spent.values())
+        host_steps[path] = {"wall_s": wall, **spent}
+        print(f"where ({path} timed warm run, host seconds): wall {wall:.4f}; " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sorted(spent.items(), key=lambda kv: -kv[1])))
+    os.environ.pop("QK_KERNEL_STRATEGY", None)
+    report["host_steps"] = host_steps
+    q1_reader = TableReader(li)
+    state = q1_reader.get_own_state(1)[0]
+    q1_cols = ["l_quantity", "l_extendedprice", "l_discount", "l_tax", "l_returnflag",
+               "l_linestatus", "l_shipdate"]
     t0 = time.perf_counter()
-    tables = [reader.execute(0, lin) for lin in state]
-    report["read_s"] = time.perf_counter() - t0
+    host = [q1_reader.execute(0, lin).select(q1_cols) for lin in state]
+    report["q1_read_s"] = time.perf_counter() - t0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for table in tables:
+    for table in host:
         bridge.host_to_device(table, dev)
     torch.cuda.synchronize()
-    report["encode_and_h2d_s"] = time.perf_counter() - t0
-    del tables
-    from torch.profiler import ProfilerActivity, profile
+    report["q1_encode_and_h2d_s"] = time.perf_counter() - t0
+    del host
+    print(f"where (q1 outside a query): reader alone {report['q1_read_s']:.4f} s, bridge "
+          f"(pad, sentinels, pinned staging, H2D) alone {report['q1_encode_and_h2d_s']:.4f} s")
 
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        collect_numpy(q1_stream())
-        torch.cuda.synchronize()
-    prof_wall = time.perf_counter() - t0
-    dev_us = {}  # device-side events only (kernels, memcpy, memset)
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        t = getattr(ev, "self_device_time_total", None)
-        if t is None:
-            t = getattr(ev, "self_cuda_time_total", 0)
-        if t:
-            dev_us[ev.key] = (float(t), int(ev.count))
-    busy_s = sum(t for t, _ in dev_us.values()) / 1e6
-    # device time per launch of each hand-written kernel, from the trace
-    per_kernel = {}
-    for prefix in ("qk_predicate", "qk_small_agg", "qk_colreduce", "qk_insert_kernel",
-                   "qk_segment_kernel", "qk_partition_kernel"):
-        hits = [(t, c) for k, (t, c) in dev_us.items() if k.startswith(prefix)]
-        if hits:
-            t, c = sum(h[0] for h in hits), sum(h[1] for h in hits)
-            per_kernel[prefix] = {"us_total": t, "launches": c, "us_per_launch": t / c}
-    report["profile"] = {"wall_s": prof_wall, "device_busy_s": busy_s,
-                         "kernels_device_us": per_kernel,
-                         "top": sorted(dev_us.items(), key=lambda kv: -kv[1][0])[:15]}
-    warm_med = sorted(warm)[len(warm) // 2]
-    report["device_idle_share_of_warm"] = None if busy_s == 0 else 1 - busy_s / warm_med
-    print(f"where: reader alone {report['read_s']:.3f} s, bridge (pad, sentinels, "
-          f"pinned staging, H2D) alone {report['encode_and_h2d_s']:.3f} s; profiled run "
-          f"{prof_wall:.3f} s wall, device busy {busy_s:.4f} s "
-          f"(idle share of the warm median {warm_med:.3f} s: "
-          f"{'not measured' if busy_s == 0 else round(1 - busy_s / warm_med, 4)})")
+    prefixes = ("qk_predicate", "qk_small_agg", "qk_colreduce", "qk_pre_agg",
+                "qk_insert_kernel", "qk_segment_kernel", "qk_partition_kernel",
+                "qk_probe_kernel", "qk_sorted_probe_kernel")
+    profiles = {}
+    for path, (stream, _, _, _) in paths.items():
+        set_strategy(path)
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            collect_numpy(stream(), path)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ev = device_events(prof)
+        busy = sum(t for t, _ in ev.values()) / 1e6
+        per_kernel = {}
+        for prefix in prefixes:
+            hits = [(t, c) for k, (t, c) in ev.items() if k.startswith(prefix)]
+            if hits:
+                t, c = sum(h[0] for h in hits), sum(h[1] for h in hits)
+                per_kernel[prefix] = {"us_total": t, "launches": c, "us_per_launch": t / c}
+        med = sorted(walls[path]["warm_s"])[len(walls[path]["warm_s"]) // 2]
+        profiles[path] = {"wall_s": wall, "device_busy_s": busy, "warm_median_s": med,
+                          "idle_share_of_warm": None if busy == 0 else 1 - busy / med,
+                          "kernels_device_us": per_kernel,
+                          "top": sorted(ev.items(), key=lambda kv: -kv[1][0])[:15]}
+        print(f"where ({path}): profiled run {wall:.3f} s wall, device busy {busy:.4f} s, "
+              f"idle share of the warm median {med:.3f} s: "
+              f"{'not measured' if busy == 0 else round(1 - busy / med, 4)}")
+    os.environ.pop("QK_KERNEL_STRATEGY", None)
+    report["profiles"] = profiles
 
-    # -- phase 4: every kernel against its plain version -------------------------
-    first = bridge.host_to_device(reader.execute(0, state[0]), dev)
+    # the calls the Q3 paths make: counts per query and the largest arguments
+    def rows_of(*a, **kw):
+        for x in list(a) + list(kw.values()):
+            if isinstance(x, torch.Tensor):
+                return x.shape[0]
+            if isinstance(x, (list, tuple)) and x and isinstance(x[0], torch.Tensor):
+                return x[0].shape[0]
+            if hasattr(x, "padded_len"):
+                return x.padded_len
+            if isinstance(x, (list, tuple)) and x and hasattr(x[0], "padded_len"):
+                return sum(b.padded_len for b in x)
+        return 0
+
+    def gather_rows(cols, idx):
+        return idx.shape[0]
+
+    def targets(sorted_path):
+        t = {"K3": (hashtable, "hash_groupby", lambda l, a, o, v: v.shape[0]),
+             "K4": (kernels, "partition_split", lambda l, p, v, n: v.shape[0]),
+             "K5": (fuse.PreAggCall, "__init__", lambda self, *a: a[4].shape[0]),
+             "row 7 gather": (join, "gather_columns", gather_rows),
+             "row 8 concat": (bridge, "concat_batches", rows_of),
+             "row 14 count": (join, "_count_true", rows_of),
+             "row 15 sort": (kernels, "lexsort_perm", rows_of)}
+        if sorted_path:
+            t["K12"] = (join, "pk_probe_sorted", lambda s, pm, nv, pl, ok: ok.shape[0])
+            t["row 14 dup"] = (join, "_sorted_has_dup", rows_of)
+        else:
+            # the orders join: the largest probe against the largest table
+            t["K11"] = (hashtable, "probe", lambda tb, bl, pl, ok, cb: ok.shape[0] * 64 + cb)
+            t["K11 build"] = (hashtable, "_build_insert", lambda l, ok, cb: ok.shape[0])
+            t["row 14 distinct"] = (join, "_distinct_from_table", rows_of)
+        return t
+
+    caps = {}
+    for path in ("q3", "q3 sort"):
+        set_strategy(path)
+        with Capture(targets(path == "q3 sort"), keep_every=["K11 build"]) as cap:
+            collect_numpy(q3_stream(), path)
+        caps[path] = cap
+        print(f"{path} calls per query: {cap.calls}")
+    os.environ.pop("QK_KERNEL_STRATEGY", None)
+    report["q3_calls"] = {p: c.calls for p, c in caps.items()}
+    hcap, scap = caps["q3"], caps["q3 sort"]
+
+    # -- phase 6: every kernel against its plain version -----------------------------
+    out, t_rows = [], []
+    first = bridge.host_to_device(q1_reader.execute(0, state[0]).select(q1_cols), dev)
     n = first.padded_len
-    out = []
 
     # K1 at Q1's shape
     pred = fuse.FusedPredicate(sqlparse.parse_expression(Q1_FILTER))
@@ -376,11 +739,13 @@ def smoke(dev, card: str, args) -> int:
         fail("K1 mask/count differ from the plain version")
     out.append(dict(
         name="K1 fused predicate", route="triton", source="quokka_tpu_torch/ops/fuse.py",
-        replaces="quokka_tpu/ops/fuse.py:567", launches=launches["K1"], max_abs_err=0.0,
-        ms=cuda_ms(lambda: fuse.predicate_launch(kern, ins, first.valid)),
+        replaces="quokka_tpu/ops/fuse.py:567", launches=launches_by_path["q1"]["K1"],
+        max_abs_err=0.0, ms=cuda_ms(lambda: fuse.predicate_launch(kern, ins, first.valid)),
         plain_ms=cuda_ms(lambda: fuse.predicate_plain(e, inputs, first.valid)),
-        bound_ms=(nbytes(*ins, first.valid) + n + 4) / HBM_BYTES_PER_S * 1e3,
-        bound_by="bytes", library_ms=None, shape=f"{n} rows"))
+        bound_ms=bound_ms(nbytes(*ins, first.valid) + n + 4), bound_by="bytes",
+        library_ms=None, shape=f"{n} rows",
+        device_us=device_us(lambda: fuse.predicate_launch(kern, ins, first.valid),
+                            ("qk_predicate",))))
     filtered = pred(first)
 
     # K2 at Q1's shape
@@ -406,33 +771,20 @@ def smoke(dev, card: str, args) -> int:
     out.append(dict(
         name="K2 small-key partial aggregate", route="triton",
         source="quokka_tpu_torch/ops/fuse.py", replaces="quokka_tpu/ops/fuse.py:469",
-        launches=launches["K2"], max_abs_err=err2, ms=cuda_ms(call.launch),
+        launches=launches_by_path["q1"]["K2"], max_abs_err=err2, ms=cuda_ms(call.launch),
         plain_ms=cuda_ms(call.plain),
-        bound_ms=(nbytes(*k2_in) + sum(nbytes(x) for x in sk) + nbytes(rk))
-        / HBM_BYTES_PER_S * 1e3,
-        bound_by="bytes", library_ms=None, shape=f"{n} rows, {call.n_groups + 1} buckets"))
+        bound_ms=bound_ms(nbytes(*k2_in) + sum(nbytes(x) for x in sk) + nbytes(rk)),
+        bound_by="bytes", library_ms=None, shape=f"{n} rows, {call.n_groups + 1} buckets",
+        device_us=device_us(call.launch, ("qk_small_agg", "qk_colreduce"))))
 
-    # K3 at Q1's shape: a partial-agg recombine of a few partial batches
-    pex = PartialAggExecutor(keys, plan)
-    parts = [kernels.compact(pex._partial(pred(bridge.host_to_device(reader.execute(0, lin), dev))))
-             for lin in state[:3]]
-    merged = bridge.concat_batches(parts)
-    limbs = key_limbs(merged, keys)
-    arrays = [merged.columns[p].data for p, _ in plan.recombine]
-    ops = [op for _, op in plan.recombine]
-    k3_cases = [("Q1 recombine", limbs, arrays, ops, merged.valid)]
-    big_n = 1 << 20
-    g = torch.Generator(device="cpu").manual_seed(args.seed)
-    bkey = torch.randint(0, 100_000, (big_n,), generator=g).to(dev) * 7919 - 3
-    bval = torch.randn(big_n, generator=g, dtype=torch.float64).to(dev)
-    bval[torch.randint(0, big_n, (100,), generator=g).to(dev)] = float("nan")
-    bint = torch.randint(-1000, 1000, (big_n,), generator=g).to(dev)
-    bvalid = torch.rand(big_n, generator=g).to(dev) < 0.9
-    big_ops = ["sum", "count", "min", "max", "mean", "first"]
-    k3_cases.append(("2^20 rows, 1e5 int64 keys", [bkey],
-                     [bval, bval, bint, bval, bval, bint], big_ops, bvalid))
-    k3_err = 0.0
-    for label, lb, ar, op, va in k3_cases:
+    # K3: a Q1 recombine of a few partial batches, and Q3's largest call
+    def key_order(k):
+        idx = torch.arange(k.shape[0], device=dev)
+        for c in reversed(range(k.shape[1])):
+            idx = idx[torch.argsort(k[idx, c], stable=True)]
+        return idx
+
+    def check_k3(label, lb, ar, op, va) -> float:
         ko, kc, kr, kn = hashtable.hash_groupby(lb, ar, op, va)
         po, pc, pr, pn = hashtable.hash_groupby_plain(lb, ar, op, va)
         if int(kn) != int(pn):
@@ -441,18 +793,12 @@ def smoke(dev, card: str, args) -> int:
         # compare after a sort on the keys (group order is claim order)
         kk = torch.stack([l[kr[:g_n].long()].to(torch.float64) for l in lb], 1)
         pk = torch.stack([l[pr[:g_n].long()].to(torch.float64) for l in lb], 1)
-
-        def key_order(k):
-            idx = torch.arange(k.shape[0], device=dev)
-            for c in reversed(range(k.shape[1])):
-                idx = idx[torch.argsort(k[idx, c], stable=True)]
-            return idx
-
         ko_i, po_i = key_order(kk), key_order(pk)
         if not torch.equal(kk[ko_i], pk[po_i]):
             fail(f"K3 {label}: group keys differ from the plain version")
         if not torch.equal(kc[:g_n][ko_i], pc[:g_n][po_i]):
             fail(f"K3 {label}: counts differ")
+        err = 0.0
         for name, a, b in zip(op, ko, po):
             a, b = a[:g_n][ko_i], b[:g_n][po_i]
             if a.is_floating_point():
@@ -460,59 +806,251 @@ def smoke(dev, card: str, args) -> int:
                     fail(f"K3 {label}: {name} beyond rtol 1e-9")
                 both = ~(torch.isnan(a) | torch.isnan(b))
                 if both.any():
-                    k3_err = max(k3_err, float((a[both] - b[both]).abs().max()))
+                    err = max(err, float((a[both] - b[both]).abs().max()))
             elif not torch.equal(a, b):
                 fail(f"K3 {label}: {name} differs")
         print(f"K3 {label}: {g_n} groups match the plain version")
-    ko, kc, kr, kn = hashtable.hash_groupby(*k3_cases[0][1:])
-    q1_k3_bytes = (nbytes(*limbs, *arrays, merged.valid)
-                   + merged.padded_len * (4 + 4 + sum(a.element_size() for a in arrays)))
+        return err
+
+    def k3_bytes(lb, ar, va):
+        m = va.shape[0]
+        return nbytes(*lb, *ar, va) + m * (4 + 4 + sum(a.element_size() for a in ar))
+
+    pex = PartialAggExecutor(keys, plan)
+    parts = [kernels.compact(pex._partial(pred(bridge.host_to_device(
+        q1_reader.execute(0, lin).select(q1_cols), dev)))) for lin in state[:3]]
+    merged = bridge.concat_batches(parts)
+    limbs = key_limbs(merged, keys)
+    arrays = [merged.columns[p].data for p, _ in plan.recombine]
+    ops = [op for _, op in plan.recombine]
+    q1_k3 = (limbs, arrays, ops, merged.valid)
+    (q3_lb, q3_ar, q3_op, q3_va), _ = hcap.args["K3"]
+    k3_err = max(check_k3("Q1 recombine", *q1_k3), check_k3("Q3 largest call", q3_lb, q3_ar,
+                                                             q3_op, q3_va))
     out.append(dict(
         name="K3 hash group-by", route="cuda", source="quokka_tpu_torch/csrc/hashtable.cu",
-        replaces="quokka_tpu/ops/hashtable.py:310", launches=launches["K3"],
-        max_abs_err=k3_err, ms=cuda_ms(lambda: hashtable.hash_groupby(*k3_cases[0][1:])),
-        plain_ms=cuda_ms(lambda: hashtable.hash_groupby_plain(*k3_cases[0][1:]), iters=5),
-        bound_ms=q1_k3_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
+        replaces="quokka_tpu/ops/hashtable.py:310", launches=launches_by_path["q1"]["K3"],
+        max_abs_err=k3_err, ms=cuda_ms(lambda: hashtable.hash_groupby(*q1_k3)),
+        plain_ms=cuda_ms(lambda: hashtable.hash_groupby_plain(*q1_k3), iters=5),
+        bound_ms=bound_ms(k3_bytes(limbs, arrays, merged.valid)), bound_by="bytes",
+        library_ms=None,
         shape=f"{merged.padded_len} rows, {len(limbs)} limbs, {len(arrays)} aggregates",
-        big={"ms": cuda_ms(lambda: hashtable.hash_groupby(*k3_cases[1][1:]), iters=5),
-             "plain_ms": cuda_ms(lambda: hashtable.hash_groupby_plain(*k3_cases[1][1:]),
-                                 iters=2, warmup=1),
-             "bound_ms": (nbytes(bkey, bvalid, bval, bval, bint, bval, bval, bint)
-                          + big_n * (4 + 4 + 8 * 6)) / HBM_BYTES_PER_S * 1e3}))
+        device_us=device_us(lambda: hashtable.hash_groupby(*q1_k3),
+                            ("qk_insert_kernel", "qk_segment_kernel")),
+        q3={"shape": f"{q3_va.shape[0]} rows, {len(q3_lb)} key columns, {len(q3_ar)} aggregates",
+            "launches": launches_by_path["q3"]["K3"],
+            "ms": cuda_ms(lambda: hashtable.hash_groupby(q3_lb, q3_ar, q3_op, q3_va), iters=5),
+            "plain_ms": cuda_ms(lambda: hashtable.hash_groupby_plain(q3_lb, q3_ar, q3_op, q3_va),
+                                iters=2, warmup=1),
+            "device_us": device_us(lambda: hashtable.hash_groupby(q3_lb, q3_ar, q3_op, q3_va),
+                                   ("qk_insert_kernel", "qk_segment_kernel"), iters=5),
+            "bound_ms": bound_ms(k3_bytes(hashtable.canonical_limbs(q3_lb), q3_ar, q3_va))}))
 
-    # K4 at Q1's shape (the partial state going to the final aggregate) and 2^20
+    # K4: Q1's exchange of the partial state, and Q3's largest split
     state_b = kernels.compact(pex._recombine(parts))
-    k4_cases = [("Q1 exchange", key_limbs(state_b, keys), state_b.valid),
-                ("2^20 rows", [bkey, bval], bvalid)]
-    for label, lb, va in k4_cases:
-        for parts in (2, 7):  # 7: an id mod 2 hides a differing hash bit 31
-            a = kernels.partition_split(lb, None, va, parts)
-            b = kernels.partition_split_plain(lb, None, va, parts)
+    (q3_l4, q3_p4, q3_v4, q3_n4), _ = hcap.args["K4"]
+    for label, lb, va in (("Q1 exchange", key_limbs(state_b, keys), state_b.valid),
+                          ("Q3 largest split", q3_l4, q3_v4)):
+        for n_parts in (2, 7):  # 7: an id mod 2 hides a differing hash bit 31
+            a = kernels.partition_split(lb, None, va, n_parts)
+            b = kernels.partition_split_plain(lb, None, va, n_parts)
             if not all(torch.equal(x, y) for x, y in zip(a, b)):
-                fail(f"K4 {label}, {parts} parts: ids/masks/counts differ from the plain version")
+                fail(f"K4 {label}, {n_parts} parts: ids/masks/counts differ from the plain version")
         print(f"K4 {label}: ids, masks and counts match the plain version (2 and 7 parts)")
-    lb, va = k4_cases[0][1], k4_cases[0][2]
-    m4 = va.shape[0]
+    lb4, va4 = key_limbs(state_b, keys), state_b.valid
     out.append(dict(
         name="K4 hash partition + split", route="cuda",
         source="quokka_tpu_torch/csrc/partition.cu", replaces="quokka_tpu/ops/kernels.py:386",
-        launches=launches["K4"], max_abs_err=0.0,
-        ms=cuda_ms(lambda: kernels.partition_split(lb, None, va, 2)),
-        plain_ms=cuda_ms(lambda: kernels.partition_split_plain(lb, None, va, 2)),
-        bound_ms=(nbytes(*lb, va) + m4 * (4 + 2) + 8) / HBM_BYTES_PER_S * 1e3,
-        bound_by="bytes", library_ms=None, shape=f"{m4} rows, {len(lb)} limbs, 2 parts",
-        big={"ms": cuda_ms(lambda: kernels.partition_split([bkey, bval], None, bvalid, 2)),
-             "plain_ms": cuda_ms(lambda: kernels.partition_split_plain([bkey, bval], None,
-                                                                       bvalid, 2)),
-             "bound_ms": (nbytes(bkey, bval, bvalid) + big_n * 6 + 8)
-             / HBM_BYTES_PER_S * 1e3}))
+        launches=launches_by_path["q1"]["K4"], max_abs_err=0.0,
+        ms=cuda_ms(lambda: kernels.partition_split(lb4, None, va4, 2)),
+        plain_ms=cuda_ms(lambda: kernels.partition_split_plain(lb4, None, va4, 2)),
+        bound_ms=bound_ms(nbytes(*lb4, va4) + va4.shape[0] * (4 + 2) + 8),
+        bound_by="bytes", library_ms=None,
+        shape=f"{va4.shape[0]} rows, {len(lb4)} limbs, 2 parts",
+        device_us=device_us(lambda: kernels.partition_split(lb4, None, va4, 2),
+                            ("qk_partition_kernel",)),
+        q3={"shape": f"{q3_v4.shape[0]} rows, {len(q3_l4)} limbs, {q3_n4} parts",
+            "launches": launches_by_path["q3"]["K4"],
+            "ms": cuda_ms(lambda: kernels.partition_split(q3_l4, None, q3_v4, q3_n4)),
+            "plain_ms": cuda_ms(lambda: kernels.partition_split_plain(q3_l4, None, q3_v4,
+                                                                      q3_n4)),
+            "device_us": device_us(lambda: kernels.partition_split(q3_l4, None, q3_v4, q3_n4),
+                                   ("qk_partition_kernel",)),
+            "bound_ms": bound_ms(nbytes(*q3_l4, q3_v4) + q3_v4.shape[0] * (4 + q3_n4)
+                                 + 4 * q3_n4)}))
 
+    # K5 at Q3's shape: the pre-expression of the partial aggregate
+    (k5_call, *_), _ = hcap.args["K5"]
+    k5_k, k5_p = k5_call.launch(), k5_call.plain()
+    err5 = 0.0
+    for a, b in zip(k5_k, k5_p):
+        if a.dtype != b.dtype:
+            fail(f"K5 output dtype {a.dtype} != the plain version's {b.dtype}")
+        if a.is_floating_point():
+            if not torch.allclose(a, b, rtol=1e-12, atol=0, equal_nan=True):
+                fail("K5 values beyond rtol 1e-12 of the plain version")
+            both = ~(torch.isnan(a) | torch.isnan(b))
+            err5 = max(err5, float((a[both] - b[both]).abs().max()))
+        elif not torch.equal(a, b):
+            fail("K5 values differ from the plain version")
+    print(f"K5 Q3: {len(k5_k)} pre-expression column(s) over {k5_call.valid.shape[0]} rows "
+          f"match the plain version (max abs err {err5})")
+    k5_in = list(k5_call.inputs.values()) + [k5_call.valid]
+    out.append(dict(
+        name="K5 general partial aggregate (pre-expressions)", route="triton",
+        source="quokka_tpu_torch/ops/fuse.py", replaces="quokka_tpu/ops/fuse.py:319",
+        launches=launches_by_path["q3"]["K5"], max_abs_err=err5, ms=cuda_ms(k5_call.launch),
+        plain_ms=cuda_ms(k5_call.plain), bound_ms=bound_ms(nbytes(*k5_in, *k5_k)),
+        bound_by="bytes", library_ms=None,
+        shape=f"{k5_call.valid.shape[0]} rows, {len(k5_in) - 1} input columns",
+        device_us=device_us(k5_call.launch, ("qk_pre_agg",))))
+
+    # K11 at Q3's shapes: the lineitem probe of the orders build, and that
+    # build's insert.  The kernel probe walks the table the query's kernel
+    # built; the plain probe walks a table the plain insert builds from the
+    # same rows: both give the same (build_idx, matched).
+    (tbl, bl, pl, pok, cb), _ = hcap.args["K11"]
+    builds = [a for a, _ in hcap.every["K11 build"] if a[0][0] is bl[0]]
+    if not builds:
+        fail("K11: the probed table's build call was not captured")
+    b_limbs, b_ok, b_cap = builds[0]
+    _, t_plain, conv_p = hashtable._insert_plain(b_limbs, b_ok, b_cap)
+    t_kernel, conv_k = hashtable._build_insert(b_limbs, b_ok, b_cap)
+    if not (conv_k and conv_p):
+        fail("K11 build did not converge at Q3's shape")
+    ik, mk = hashtable._probe_cuda(tbl, bl, pl, pok, cb)
+    ip, mp = hashtable._probe_plain(t_plain, bl, pl, pok, cb)
+    ik2, mk2 = hashtable._probe_cuda(t_kernel, bl, pl, pok, cb)
+    if not (torch.equal(mk, mp) and torch.equal(ik[mk], ip[mp])
+            and torch.equal(mk2, mp) and torch.equal(ik2[mk2], ip[mp])):
+        fail("K11 probe differs from the plain version at Q3's shape")
+    n_ok, n_match = int(pok.sum()), int(mk.sum())
+    print(f"K11 Q3: build {b_ok.shape[0]} rows ({int(b_ok.sum())} keys), probe "
+          f"{pok.shape[0]} rows ({n_ok} probing, {n_match} matched) match the plain version")
+    nl = len(pl)
+    out.append(dict(
+        name="K11 hash PK probe", route="cuda", source="quokka_tpu_torch/csrc/hashtable.cu",
+        replaces="quokka_tpu/ops/hashtable.py:236", launches=launches_by_path["q3"]["K11"],
+        max_abs_err=0.0, ms=cuda_ms(lambda: hashtable._probe_cuda(tbl, bl, pl, pok, cb)),
+        plain_ms=cuda_ms(lambda: hashtable._probe_plain(t_plain, bl, pl, pok, cb), iters=3,
+                         warmup=1),
+        bound_ms=bound_ms(pok.shape[0] * (4 * nl + 1 + 5) + n_ok * 4 + n_match * 4 * nl),
+        bound_by="bytes", library_ms=None,
+        shape=f"probe {pok.shape[0]} rows x {nl} limbs, table 2^{cb}",
+        device_us=device_us(lambda: hashtable._probe_cuda(tbl, bl, pl, pok, cb),
+                            ("qk_probe_kernel",)),
+        build={"launches": launches_by_path["q3"]["K11 build"],
+               "shape": f"{b_ok.shape[0]} rows x {len(b_limbs)} limbs, table 2^{b_cap}",
+               "ms": cuda_ms(lambda: hashtable._build_insert(b_limbs, b_ok, b_cap)),
+               "plain_ms": cuda_ms(lambda: hashtable._insert_plain(b_limbs, b_ok, b_cap),
+                                   iters=3, warmup=1),
+               "device_us": device_us(lambda: hashtable._build_insert(b_limbs, b_ok, b_cap),
+                                      ("qk_insert_kernel",)),
+               "bound_ms": bound_ms(nbytes(*b_limbs, b_ok) + 4 * (1 << b_cap)
+                                    + int(b_ok.sum()) * 4)}))
+
+    # K12 at Q3's shape (the sort path's orders probe), and on float64 keys
+    (s_limbs, s_perm, s_nv, s_pl, s_ok), _ = scap.args["K12"]
+    ik, mk = join._pk_probe_sorted_cuda(s_limbs, s_perm, s_nv, s_pl, s_ok)
+    ip, mp = join._pk_probe_sorted_plain(s_limbs, s_perm, s_nv, s_pl, s_ok)
+    if not (torch.equal(mk, mp) and torch.equal(ik[mk], ip[mp])):
+        fail("K12 differs from the plain version at Q3's shape")
+    g = torch.Generator(device="cpu").manual_seed(args.seed)
+    fb = (torch.randperm(1 << 21, generator=g)[:1 << 19].to(torch.float64) - (1 << 20)) / 8
+    fb[torch.rand(1 << 19, generator=g) < 0.02] = float("nan")
+    fb[fb == 0] = 0.0625  # multiples of 1/8 only: 0.0625 is never a build key
+    fb[0] = -0.0
+    fprobe = fb[torch.randint(0, 1 << 19, (1 << 22,), generator=g)]
+    fprobe[torch.rand(1 << 22, generator=g) < 0.3] += 0.0625  # unmatched
+    fprobe[:1000] = 0.0  # +0.0 must meet the build's -0.0
+    fvalid = torch.rand(1 << 19, generator=g) < 0.95
+    f_sorted, f_perm, f_nv = join._sort_build_keys([fb.to(dev)], fvalid.to(dev))
+    f_ok = torch.ones(1 << 22, dtype=torch.bool, device=dev)
+    fk = join._pk_probe_sorted_cuda(f_sorted, f_perm, f_nv, [fprobe.to(dev)], f_ok)
+    fp = join._pk_probe_sorted_plain(f_sorted, f_perm, f_nv, [fprobe.to(dev)], f_ok)
+    if not (torch.equal(fk[1], fp[1]) and torch.equal(fk[0][fk[1]], fp[0][fp[1]])):
+        fail("K12 differs from the plain version on float64 keys with -0.0 and NaN")
+    zero_hits = int((fk[1] & (fprobe.to(dev) == 0)).sum())
+    print(f"K12 Q3: probe {s_ok.shape[0]} rows over {s_perm.shape[0]} sorted build rows, and "
+          f"float64 keys with -0.0/NaN ({int(fk[1].sum())} matched, {zero_hits} on +-0.0): "
+          "match the plain version")
+    nv = int(s_nv)
+    s_valid0 = s_limbs[0][:nv].contiguous()
+    lib_ms = (cuda_ms(lambda: torch.searchsorted(s_valid0, s_pl[0])) if len(s_limbs) == 1
+              else None)
+    steps = max(1, nv).bit_length() + 1
+    n_sok = int(s_ok.sum())
+    out.append(dict(
+        name="K12 sorted PK probe", route="cuda", source="quokka_tpu_torch/csrc/join.cu",
+        replaces="quokka_tpu/ops/join.py:84", launches=launches_by_path["q3 sort"]["K12"],
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: join._pk_probe_sorted_cuda(s_limbs, s_perm, s_nv, s_pl, s_ok)),
+        plain_ms=cuda_ms(lambda: join._pk_probe_sorted_plain(s_limbs, s_perm, s_nv, s_pl,
+                                                             s_ok), iters=5),
+        bound_ms=bound_ms(nbytes(*s_pl, s_ok) + s_ok.shape[0] * 5
+                          + min(nbytes(*s_limbs), n_sok * steps * sum(
+                              l.element_size() for l in s_limbs)) + int(mk.sum()) * 4),
+        bound_by="bytes", library_ms=lib_ms,
+        shape=f"probe {s_ok.shape[0]} rows, sorted build {s_perm.shape[0]} rows x "
+              f"{len(s_limbs)} limbs",
+        device_us=device_us(lambda: join._pk_probe_sorted_cuda(s_limbs, s_perm, s_nv, s_pl,
+                                                               s_ok),
+                            ("qk_sorted_probe_kernel",))))
+
+    # the torch-primitive rows at Q3's shapes: time, device time, bound
+    def t_row(row, what, fn, n_bytes, calls):
+        t_rows.append(dict(row=row, what=what, calls_per_q3=calls, ms=cuda_ms(fn, iters=10),
+                           device_us=device_us(fn), bound_ms=bound_ms(n_bytes)))
+        print(f"row {row} {what}: {t_rows[-1]['ms']:.4f} ms, "
+              f"{t_rows[-1]['device_us']:.1f} device us, bound {t_rows[-1]['bound_ms']:.5f} ms, "
+              f"{calls} calls per Q3")
+
+    (g_cols, g_idx), _ = hcap.args["row 7 gather"]
+    g_out = join.gather_columns(g_cols, g_idx)
+    t_row(7, "join payload gather (index_select per column)",
+          lambda: join.gather_columns(g_cols, g_idx),
+          nbytes(g_idx) + 2 * sum(nbytes(c.data if hasattr(c, "data") else c.codes)
+                                  for c in g_out.values()),
+          hcap.calls["row 7 gather"])
+    (c_parts,), _ = hcap.args["row 8 concat"]
+    c_out = bridge.concat_batches(c_parts)
+    c_cols = [c.data if hasattr(c, "data") else c.codes for c in c_out.columns.values()]
+    t_row(8, "concat + compact of coalesced batches", lambda: bridge.concat_batches(c_parts),
+          sum(nbytes(b.valid) for b in c_parts)
+          + sum(nbytes(c.data if hasattr(c, "data") else c.codes)
+                for b in c_parts for c in b.columns.values())
+          + nbytes(*c_cols, c_out.valid), hcap.calls["row 8 concat"])
+    (ct_m,), _ = hcap.args["row 14 count"]
+    t_row(14, "output live count (count_true)", lambda: join._count_true(ct_m),
+          nbytes(ct_m) + 4, hcap.calls["row 14 count"])
+    (d_tbl, d_ok), _ = hcap.args["row 14 distinct"]
+    t_row(14, "build distinct count (hashtable)", lambda: join._distinct_from_table(d_tbl, d_ok),
+          nbytes(d_tbl, d_ok) + 16, hcap.calls["row 14 distinct"])
+    (h_limbs, h_nv), _ = scap.args["row 14 dup"]
+    t_row(14, "build duplicate check (sorted)", lambda: join._sorted_has_dup(h_limbs, h_nv),
+          nbytes(*h_limbs) + 1, scap.calls["row 14 dup"])
+    (ls_keys,), _ = scap.args["row 15 sort"]
+    t_row(15, "stable lexicographic sort (build keys)", lambda: kernels.lexsort_perm(ls_keys),
+          nbytes(*ls_keys) + ls_keys[0].shape[0] * 8, scap.calls["row 15 sort"])
+    report["t_rows"] = t_rows
+
+    for kk in out:
+        print(f"{kk['name']}: {kk['launches']} launches on its path, {kk['ms']:.4f} ms per "
+              f"call, {kk['device_us']:.1f} device us per call, bound {kk['bound_ms']:.5f} ms "
+              f"({kk['shape']}); plain {kk['plain_ms']:.4f} ms")
+        for sub in ("q3", "build"):
+            if sub in kk:
+                v = kk[sub]
+                print(f"  {sub}: {v['launches']} launches, {v['ms']:.4f} ms, "
+                      f"{v['device_us']:.1f} device us, bound {v['bound_ms']:.5f} ms "
+                      f"({v['shape']}); plain {v['plain_ms']:.4f} ms")
     report["kernels"] = out
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
-    line = [{k: v for k, v in kk.items() if k not in ("shape", "big")} for kk in out]
-    print(json.dumps({"kernels": line}))
+    keep = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: kk[k] for k in keep} for kk in out]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(dev),

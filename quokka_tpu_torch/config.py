@@ -18,6 +18,10 @@ from quokka_tpu_torch.ops import sigkey
 MIN_BUCKET = sigkey.MIN_BUCKET
 MAX_BUCKET = sigkey.MAX_BUCKET
 
+# a join channel's build past this many rows would enter the reference's
+# grace-join spill tier, which the port does not carry yet
+SPILL_JOIN_BUILD_ROWS = 1 << 22
+
 DEFAULT_EXEC_CONFIG = {
     # batches an executor may consume in one dispatch
     "max_pipeline_batches": 8,

@@ -117,6 +117,7 @@ class QuokkaContext:
 
     def execute_node(self, node_id: int):
         sub, sink_id = self._prepare_plan(node_id)
+        self._assign_stages(sub, sink_id)
         graph = TaskGraph(self.device, self.exec_config)
         actor_of: Dict[int, int] = {}
         for nid in self._toposort(sub, sink_id):
@@ -160,8 +161,32 @@ class QuokkaContext:
         rec(sink_id)
         return out
 
+    def _assign_stages(self, sub: Dict[int, logical.Node], sink_id: int) -> None:
+        """Build-before-probe stage assignment: walking from the sink, a
+        build parent's subtree gets stage - 1; then normalise to 0-based
+        ascending so the engine runs stages in increasing order."""
+        stage: Dict[int, int] = {}
+
+        def rec(nid: int, s: int):
+            # only re-walk a subtree when this visit lowers its stage
+            if nid in stage and s >= stage[nid]:
+                return
+            stage[nid] = s
+            node = sub[nid]
+            for i, p in enumerate(node.parents):
+                rec(p, s - 1 if i in node.build_parents else s)
+
+        rec(sink_id, 0)
+        lo = min(stage.values())
+        for nid, s in stage.items():
+            sub[nid].stage = s - lo
+
     def explain(self, node_id: int) -> str:
         sub, sink_id = self._prepare_plan(node_id)
-        return "\n".join(
-            f"[{nid}] {sub[nid].describe()} schema={sub[nid].schema} parents={sub[nid].parents}"
-            for nid in self._toposort(sub, sink_id))
+        self._assign_stages(sub, sink_id)
+        lines = []
+        for nid in self._toposort(sub, sink_id):
+            n = sub[nid]
+            lines.append(f"{'  ' * n.stage}[{nid}] {n.describe()} stage={n.stage} "
+                         f"schema={n.schema} parents={n.parents}")
+        return "\n".join(lines)

@@ -1,6 +1,8 @@
-// Hash group-by for Hopper (sm_90a): open-addressing insert + segment
-// aggregates.  Replaces quokka_tpu/ops/hashtable.py:_hash_groupby_body
-// (its _insert_body lockstep while_loop and kernels._segment_aggs_body).
+// Hash group-by and PK-join probe for Hopper (sm_90a): open-addressing
+// insert + segment aggregates (K3), and the PK probe (K11).  K3 replaces
+// quokka_tpu/ops/hashtable.py:_hash_groupby_body (its _insert_body lockstep
+// while_loop and kernels._segment_aggs_body); K11 replaces build_table's
+// insert (hashtable.py:348) and _probe_body (hashtable.py:236).
 //
 // What bounds it: bytes.  Each row reads its key limbs (4 B each) and
 // validity once, probes a table at load factor <= 0.5 (a few random 4 B
@@ -57,7 +59,7 @@ __global__ void qk_insert_kernel(Limbs L, const uint8_t* __restrict__ valid,
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   if (!valid[i]) {
-    myslot[i] = 0;
+    if (myslot) myslot[i] = 0;
     return;
   }
   uint32_t h = qk_hash(L, i);
@@ -67,7 +69,7 @@ __global__ void qk_insert_kernel(Limbs L, const uint8_t* __restrict__ valid,
   for (uint64_t probe = 0; probe < 2 * cap; ++probe) {
     int32_t prev = atomicCAS(&table[slot], QK_EMPTY, (int32_t)i);
     if (prev == QK_EMPTY) {
-      myslot[i] = (int32_t)slot;
+      if (myslot) myslot[i] = (int32_t)slot;
       return;
     }
     bool eq = true;
@@ -78,13 +80,49 @@ __global__ void qk_insert_kernel(Limbs L, const uint8_t* __restrict__ valid,
       }
     }
     if (eq) {
-      myslot[i] = (int32_t)slot;
+      if (myslot) myslot[i] = (int32_t)slot;
       return;
     }
     slot = (slot + stride) & mask;
   }
-  myslot[i] = 0;
+  if (myslot) myslot[i] = 0;
   atomicExch(failed, 1);
+}
+
+__global__ void qk_probe_kernel(Limbs B, Limbs P, const uint8_t* __restrict__ ok,
+                                int64_t p, const int32_t* __restrict__ table,
+                                uint32_t mask, int64_t nb,
+                                int32_t* __restrict__ build_idx,
+                                uint8_t* __restrict__ matched) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p) return;
+  int32_t res = 0;
+  bool hit = false;
+  if (ok[i]) {
+    uint32_t h = qk_hash(P, i);
+    uint32_t slot = (h ^ (h >> 15)) & mask;
+    uint32_t stride = ((h >> 7) | 1u) & mask;
+    uint64_t cap = (uint64_t)mask + 1;
+    for (uint64_t probe = 0; probe < cap; ++probe) {
+      int32_t e = table[slot];
+      if (e == QK_EMPTY) break;
+      bool eq = true;
+      for (int j = 0; j < P.n; ++j) {
+        if (B.p[j][e] != P.p[j][i]) {
+          eq = false;
+          break;
+        }
+      }
+      if (eq) {
+        res = e;
+        hit = true;
+        break;
+      }
+      slot = (slot + stride) & mask;
+    }
+  }
+  build_idx[i] = (int32_t)(res < 0 ? 0 : (res > nb - 1 ? nb - 1 : res));
+  matched[i] = hit ? 1 : 0;
 }
 
 __device__ __forceinline__ double qk_pick(double cur, double v, bool is_min) {
@@ -186,6 +224,36 @@ int qk_hash_insert(const void* const* limbs, int n_limbs, const void* valid,
   qk_insert_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       L, (const uint8_t*)valid, n, (int32_t*)table, mask, (int32_t*)myslot,
       (int32_t*)failed);
+  return (int)cudaGetLastError();
+}
+
+// K11 build: the insert alone.  table (cap int32, filled with QK_EMPTY) and
+// failed (one int32, zeroed) are outputs.
+int qk_hash_build(const void* const* limbs, int n_limbs, const void* valid,
+                  long long n, void* table, unsigned int mask, void* failed,
+                  void* stream) {
+  return qk_hash_insert(limbs, n_limbs, valid, n, table, mask, nullptr, failed,
+                        stream);
+}
+
+// K11 probe: build_idx (p int32) and matched (p uint8) are outputs.
+int qk_pk_probe(const void* const* build_limbs, const void* const* probe_limbs,
+                int n_limbs, const void* ok, long long p, const void* table,
+                unsigned int mask, long long nb, void* build_idx, void* matched,
+                void* stream) {
+  if (n_limbs < 1 || n_limbs > QK_MAX_LIMBS) return (int)cudaErrorInvalidValue;
+  if (p == 0) return (int)cudaSuccess;
+  Limbs B, P;
+  B.n = P.n = n_limbs;
+  for (int j = 0; j < n_limbs; ++j) {
+    B.p[j] = (const int32_t*)build_limbs[j];
+    P.p[j] = (const int32_t*)probe_limbs[j];
+  }
+  int threads = 256;
+  unsigned int blocks = (unsigned int)((p + threads - 1) / threads);
+  qk_probe_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      B, P, (const uint8_t*)ok, p, (const int32_t*)table, mask, nb,
+      (int32_t*)build_idx, (uint8_t*)matched);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,5 @@
-"""DataStream: the lazy relational API (port of ``quokka_tpu/datastream.py``,
-the Q1 slice: filter, groupby + agg, collect).
+"""DataStream: the lazy relational API (port of ``quokka_tpu/datastream.py``:
+filter, join, groupby + agg, top_k, collect).
 
 Every method appends a logical Node to the context's plan and returns a new
 stream; nothing executes until collect() / compute().
@@ -7,7 +7,7 @@ stream; nothing executes until collect() / compute().
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 from quokka_tpu_torch import logical, sqlparse
 from quokka_tpu_torch.expression import Agg, Alias, ColRef, Expr
@@ -16,8 +16,8 @@ from quokka_tpu_torch.ops.expr_compile import plan_aggregation
 
 def _not_in_slice(what: str):
     raise NotImplementedError(
-        f"{what} is not in quokka_tpu_torch yet (the Q1 slice carries filter, "
-        "groupby/agg and collect; see ROADMAP.md for the slice that adds it)")
+        f"{what} is not in quokka_tpu_torch yet (it carries filter, join, "
+        "groupby/agg, top_k and collect; see ROADMAP.md for the slice that adds it)")
 
 
 class DataStream:
@@ -90,12 +90,41 @@ class DataStream:
     aggregate = agg
     aggregate_sql = agg_sql
 
-    # -- not in this slice -----------------------------------------------------
-    def join(self, *args, **kwargs):
-        _not_in_slice("join")
+    # -- joins -----------------------------------------------------------------
+    def join(self, right: "DataStream", on: Optional[Union[str, Sequence[str]]] = None,
+             left_on=None, right_on=None, how: str = "inner",
+             suffix: str = "_2") -> "DataStream":
+        from quokka_tpu_torch.ops.join import require_pk_how
 
-    def top_k(self, *args, **kwargs):
-        _not_in_slice("top_k")
+        require_pk_how(how)
+        if on is not None:
+            left_on = right_on = [on] if isinstance(on, str) else list(on)
+        else:
+            left_on = [left_on] if isinstance(left_on, str) else list(left_on)
+            right_on = [right_on] if isinstance(right_on, str) else list(right_on)
+        for c in left_on:
+            if c not in self.schema:
+                raise ValueError(f"left join key {c} not in {self.schema}")
+        for c in right_on:
+            if c not in right.schema:
+                raise ValueError(f"right join key {c} not in {right.schema}")
+        rename = None
+        if how in ("semi", "anti"):
+            out_schema = self.schema
+        else:
+            rpayload = [c for c in right.schema if c not in set(right_on)]
+            rename = {c: c + suffix for c in rpayload if c in set(self.schema)}
+            out_schema = self.schema + [rename.get(c, c) for c in rpayload]
+        return self._child(logical.JoinNode([self.node_id, right.node_id], out_schema,
+                                            left_on, right_on, how, suffix, rename=rename))
+
+    # -- ordering ----------------------------------------------------------------
+    def top_k(self, by, k: int, descending=None) -> "DataStream":
+        by = [by] if isinstance(by, str) else list(by)
+        descending = descending or [False] * len(by)
+        return self._child(logical.TopKNode([self.node_id], self.schema, by, k, descending))
+
+    # -- not in this slice -----------------------------------------------------
 
     def sort(self, *args, **kwargs):
         _not_in_slice("sort")

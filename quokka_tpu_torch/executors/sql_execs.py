@@ -1,19 +1,23 @@
 """Core relational executors (port of ``quokka_tpu/executors/sql_execs.py``).
 
-The UDF, Storage, SelectingStorage, PartialAgg and FinalAgg executors that
-the Q1 slice runs.  Aggregation is decomposed partial -> hash shuffle ->
-final, as in the reference.  Joins, distinct, top-k, sort and the spill tier
-come with later slices.
+The UDF, Storage, SelectingStorage, PartialAgg, FinalAgg, BuildProbeJoin,
+BroadcastJoin and TopK executors.  Aggregation is decomposed partial -> hash
+shuffle -> final, as in the reference.  Joins take the PK path
+(``ops/join.hash_join_pk``) on unique builds; many-to-many and left joins,
+the join spill tier, join checkpoints, distinct and sort come with later
+slices (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from quokka_tpu_torch import config
 from quokka_tpu_torch.executors.base import Executor
 from quokka_tpu_torch.ops import bridge, fuse, kernels
+from quokka_tpu_torch.ops import join as join_ops
 from quokka_tpu_torch.ops.batch import DeviceBatch, NumCol
 from quokka_tpu_torch.ops.expr_compile import (
     AggPlan,
@@ -127,16 +131,22 @@ class PartialAggExecutor(Executor):
         self.state = self._recombine(parts)
 
     def _partial_form(self, batch: DeviceBatch) -> DeviceBatch:
-        b = batch
-        for name, e in self.plan.pre:
-            b = b.with_column(name, evaluate_to_column(e, b))
-        cols = {k: b.columns[k] for k in self.keys}
+        """Rows in partial form, ungrouped: the partial inputs come from the
+        pre-expression kernel (K5) as on the grouped path."""
+        try:
+            call = self._fused.prepare_general(batch)
+            pre = dict(zip(call.outs, call.plain() if batch.device.type == "cpu"
+                           else call.launch()))
+        except CompileError:
+            fuse.note_fallback()
+            pre = {name: evaluate_to_column(e, batch).data for name, e in self.plan.pre}
+        cols = {k: batch.columns[k] for k in self.keys}
         for pname, op, tmp in self.plan.partials:
             if op == "count":
-                cols[pname] = NumCol(b.valid.to(torch.int32), "i")
+                cols[pname] = NumCol(batch.valid.to(torch.int32), "i")
             else:
-                cols[pname] = b.columns[tmp]
-        return DeviceBatch(cols, b.valid, b.nrows, None, b.nrows_dev)
+                cols[pname] = NumCol(pre[tmp], "f" if pre[tmp].is_floating_point() else "i")
+        return DeviceBatch(cols, batch.valid, batch.nrows, None, batch.nrows_dev)
 
     def execute(self, batches, stream_id, channel):
         outs = []
@@ -167,17 +177,21 @@ class PartialAggExecutor(Executor):
 
 class FinalAggExecutor(Executor):
     """Downstream of the key shuffle: recombines partials for its key range
-    (K3), then evaluates the final expressions and HAVING at done.  ORDER
-    BY and LIMIT come with the top-k slice."""
+    (K3), then evaluates the final expressions, HAVING, ORDER BY and LIMIT
+    at done."""
 
     MERGE_EVERY = 32
     MERGE_ROWS = 1 << 21
 
-    def __init__(self, keys: Sequence[str], plan: AggPlan, device, having=None):
+    def __init__(self, keys: Sequence[str], plan: AggPlan, device, having=None,
+                 order_by: Optional[List[Tuple[str, bool]]] = None,
+                 limit: Optional[int] = None):
         self.keys = list(keys)
         self.plan = plan
         self.device = torch.device(device)
         self.having = having
+        self.order_by = order_by
+        self.limit = limit
         self.state: Optional[DeviceBatch] = None
         self._buffer: List[DeviceBatch] = []
 
@@ -230,4 +244,146 @@ class FinalAggExecutor(Executor):
                 seen.add(c)
                 cols.append(c)
         self.state = None
-        return g.select(cols)
+        g = g.select(cols)
+        if self.order_by:
+            names = [n for n, _ in self.order_by]
+            desc = [d for _, d in self.order_by]
+            if self.limit is not None:
+                return kernels.top_k(g, names, self.limit, desc)
+            return kernels.sort_batch(g, names, desc)
+        if self.limit is not None:
+            return kernels.head(g, self.limit)
+        return g
+
+
+class BuildProbeJoinExecutor(Executor):
+    """Streamed hash join: stream 1 is the build side (buffered until its
+    stage completes), stream 0 probes.  Stage scheduling runs the build
+    before the first probe batch arrives; a probe batch that still comes
+    first is buffered until the build stream's ``source_done``."""
+
+    def __init__(self, left_on: Sequence[str], right_on: Sequence[str],
+                 how: str = "inner", suffix: str = "_2",
+                 rename: Optional[Dict[str, str]] = None):
+        join_ops.require_pk_how(how)
+        self.left_on = list(left_on)
+        self.right_on = list(right_on)
+        self.how = how
+        self.suffix = suffix
+        # plan-time rename of clashing build columns; None -> detect at
+        # runtime from the first probe batch
+        self.planned_rename = rename
+        self.build_parts: List[DeviceBatch] = []
+        self.build: Optional[DeviceBatch] = None
+        self.build_done = False
+        self.probe_buffer: List[DeviceBatch] = []
+        self.build_unique: Optional[bool] = None
+        self.payload: Optional[List[str]] = None
+        self.rename: Dict[str, str] = {}
+        self._build_rows = 0
+
+    def _finalize_build(self, probe_cols: List[str]) -> None:
+        if not self.build_parts:
+            self.build = None
+            return
+        b = (bridge.concat_batches(self.build_parts) if len(self.build_parts) > 1
+             else self.build_parts[0])
+        self.build_parts = []
+        # payload = build columns minus its join keys; rename clashes
+        payload = [c for c in b.names if c not in self.right_on]
+        if self.planned_rename is not None:
+            self.rename = {c: n for c, n in self.planned_rename.items() if c in payload}
+        else:
+            self.rename = {c: c + self.suffix for c in payload if c in probe_cols}
+        if self.rename:
+            b = b.rename(self.rename)
+            payload = [self.rename.get(c, c) for c in payload]
+        self.payload = payload
+        self.build = b
+        self.build_unique = join_ops.build_keys_unique(b, self.right_on)
+
+    def execute(self, batches, stream_id, channel):
+        live = [b for b in batches if b is not None]
+        if not live:
+            return None
+        if stream_id == 1:
+            assert self.build is None, "build batch arrived after probing began"
+            self.build_parts.extend(live)
+            # padded length bounds the live rows for free; the real counts
+            # are read only once the bound crosses the spill threshold
+            self._build_rows += sum(b.padded_len for b in live)
+            if self._build_rows > config.SPILL_JOIN_BUILD_ROWS:
+                rows = sum(b.count_valid() for b in self.build_parts)
+                if rows > config.SPILL_JOIN_BUILD_ROWS:
+                    raise NotImplementedError(
+                        f"join build of {rows} rows on one channel passes "
+                        f"SPILL_JOIN_BUILD_ROWS ({config.SPILL_JOIN_BUILD_ROWS}); the "
+                        "grace-join spill tier is not in quokka_tpu_torch yet: "
+                        "ROADMAP Queue 1 item 3")
+                self._build_rows = rows
+            return None
+        if not self.build_done:
+            self.probe_buffer.extend(live)
+            return None
+        return self._probe(live)
+
+    def source_done(self, stream_id, channel):
+        if stream_id != 1 or self.build_done:
+            return None
+        self.build_done = True
+        buffered, self.probe_buffer = self.probe_buffer, []
+        if buffered:
+            return self._probe(buffered)
+        return None
+
+    def _probe(self, live: List[DeviceBatch]) -> Optional[DeviceBatch]:
+        if self.build is None and self.build_parts:
+            self._finalize_build(live[0].names)
+        # the dispatch's whole ready set flows through one join call
+        live = _coalesce(live)
+        if self.build is None:
+            # the build source emitted no batch at all
+            if self.how == "anti":
+                return bridge.concat_batches(live) if len(live) > 1 else live[0]
+            return None
+        if self.build.count_valid() == 0 and self.how in ("inner", "semi"):
+            return None
+        outs = []
+        for probe in live:
+            if self.build_unique:
+                out = join_ops.hash_join_pk(probe, self.build, self.left_on, self.right_on,
+                                            self.how, self.payload)
+            else:
+                out = join_ops.hash_join_general(probe, self.build, self.left_on,
+                                                 self.right_on, self.how, self.payload)
+            outs.append(out)
+        return bridge.concat_batches(outs) if len(outs) > 1 else outs[0]
+
+
+class BroadcastJoinExecutor(BuildProbeJoinExecutor):
+    """Small side broadcast to every channel: the device logic is the same;
+    only the build edge's partitioner differs (Broadcast)."""
+
+
+class TopKExecutor(Executor):
+    """Running top-k by sort keys; the running state is never larger than k."""
+
+    def __init__(self, by: List[str], k: int, descending: List[bool]):
+        self.by = by
+        self.k = k
+        self.descending = descending
+        self.state: Optional[DeviceBatch] = None
+
+    def execute(self, batches, stream_id, channel):
+        parts = [b for b in batches if b is not None]
+        if self.state is not None:
+            parts.append(self.state)
+        if not parts:
+            return None
+        merged = bridge.concat_batches(parts) if len(parts) > 1 else parts[0]
+        self.state = kernels.top_k(merged, self.by, self.k, self.descending)
+        return None
+
+    def done(self, channel):
+        out, self.state = self.state, None
+        return out

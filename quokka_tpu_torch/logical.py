@@ -1,18 +1,23 @@
-"""Logical plan nodes (port of ``quokka_tpu/logical.py``, the Q1 slice).
+"""Logical plan nodes (port of ``quokka_tpu/logical.py``: Source, Filter,
+Join, Agg, FusedStage, TopK and Sink).
 
 The DataStream API builds a DAG of these; the optimizer rewrites it;
-``lower()`` emits physical actors into the runtime TaskGraph.  This slice
-carries Source, Filter, Agg and Sink.
+``lower()`` emits physical actors into the runtime TaskGraph.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 from quokka_tpu_torch.expression import Expr
 from quokka_tpu_torch.ops.expr_compile import AggPlan
-from quokka_tpu_torch.target_info import HashPartitioner, PassThroughPartitioner, TargetInfo
+from quokka_tpu_torch.target_info import (
+    BroadcastPartitioner,
+    HashPartitioner,
+    PassThroughPartitioner,
+    TargetInfo,
+)
 
 
 class Node:
@@ -22,6 +27,9 @@ class Node:
         self.stage = 0
         self.channels: Optional[int] = None  # None -> context default
         self.sorted_by: Optional[List[str]] = None
+        # parents[i] for i in build_parents run a stage earlier (builds
+        # finish before their probe starts; context._assign_stages)
+        self.build_parents: List[int] = []
 
     def lower(self, ctx, graph, actor_of: Dict[int, int], node_id: int) -> None:
         raise NotImplementedError
@@ -98,11 +106,14 @@ class AggNode(Node):
     """Decomposed group-by aggregate: a partial-agg actor on the parent's
     channels feeds a key-hash-partitioned final-agg actor."""
 
-    def __init__(self, parents, schema, keys: List[str], plan: AggPlan, having=None):
+    def __init__(self, parents, schema, keys: List[str], plan: AggPlan, having=None,
+                 order_by=None, limit=None):
         super().__init__(parents, schema)
         self.keys = keys
         self.plan = plan
         self.having = having
+        self.order_by = order_by
+        self.limit = limit
 
     def derive_schema(self, parents):
         _require(self.keys, parents[0], "groupby keys")
@@ -111,21 +122,188 @@ class AggNode(Node):
         return list(self.keys) + [n for n, _ in self.plan.finals if n not in set(self.keys)]
 
     def lower(self, ctx, graph, actor_of, node_id):
-        from quokka_tpu_torch.executors.sql_execs import FinalAggExecutor, PartialAggExecutor
+        from quokka_tpu_torch.executors.sql_execs import PartialAggExecutor
 
         partial = graph.new_exec_node(
             functools.partial(PartialAggExecutor, self.keys, self.plan),
             {0: (actor_of[self.parents[0]], _passthrough_edge())},
             self.channels or ctx.exec_channels, self.stage)
-        n_final = (self.channels or ctx.exec_channels) if self.keys else 1
+        actor_of[node_id] = self.lower_final(ctx, graph, partial, self.channels, self.stage)
+
+    def lower_final(self, ctx, graph, partial: int, channels: Optional[int],
+                    stage: int) -> int:
+        """The final half, fed by the actor holding the partials: a
+        key-partitioned final aggregate, and a one-channel merge when ORDER
+        BY / LIMIT must see every channel's rows."""
+        from quokka_tpu_torch.executors.sql_execs import FinalAggExecutor, TopKExecutor
+
+        n_final = (channels or ctx.exec_channels) if self.keys else 1
         part = HashPartitioner(self.keys) if self.keys else PassThroughPartitioner()
-        actor_of[node_id] = graph.new_exec_node(
+        final = graph.new_exec_node(
             functools.partial(FinalAggExecutor, self.keys, self.plan, ctx.device,
-                              having=self.having),
-            {0: (partial, TargetInfo(part))}, n_final, self.stage)
+                              having=self.having, order_by=self.order_by,
+                              limit=self.limit),
+            {0: (partial, TargetInfo(part))}, n_final, stage)
+        if (self.order_by or self.limit is not None) and n_final > 1:
+            if self.limit is None:
+                raise NotImplementedError("a global ORDER BY without LIMIT needs the "
+                                          "sort executor: ROADMAP Queue 1 item 3")
+            names = [n for n, _ in (self.order_by or [])]
+            desc = [d for _, d in (self.order_by or [])]
+            final = graph.new_exec_node(
+                functools.partial(TopKExecutor, names, self.limit, desc),
+                {0: (final, _passthrough_edge())}, 1, stage)
+        return final
 
     def describe(self):
         return f"Agg(keys={self.keys}, out={[n for n, _ in self.plan.finals]})"
+
+
+class JoinNode(Node):
+    """Binary hash join; parents[0] = probe (stream 0), parents[1] = build."""
+
+    def __init__(self, parents, schema, left_on, right_on, how="inner", suffix="_2",
+                 broadcast=False, rename=None):
+        super().__init__(parents, schema)
+        self.left_on = list(left_on)
+        self.right_on = list(right_on)
+        self.how = how
+        self.suffix = suffix
+        self.broadcast = broadcast
+        # plan-time build-column renames (runtime behaviour stays stable even
+        # when the optimizer prunes the clashing probe column)
+        self.rename = rename
+        self.build_parents = [1]
+
+    def derive_schema(self, parents):
+        _require(self.left_on, parents[0], "join left keys")
+        _require(self.right_on, parents[1], "join right keys")
+        if self.how in ("semi", "anti"):
+            return list(parents[0])
+        rename = self.rename or {}
+        rpayload = [c for c in parents[1] if c not in set(self.right_on)]
+        return list(parents[0]) + [rename.get(c, c) for c in rpayload]
+
+    def executor_factory(self) -> Callable:
+        from quokka_tpu_torch.executors.sql_execs import (
+            BroadcastJoinExecutor,
+            BuildProbeJoinExecutor,
+        )
+
+        cls = BroadcastJoinExecutor if self.broadcast else BuildProbeJoinExecutor
+        return functools.partial(cls, self.left_on, self.right_on, self.how, self.suffix,
+                                 self.rename)
+
+    def build_edge(self) -> TargetInfo:
+        return TargetInfo(BroadcastPartitioner() if self.broadcast
+                          else HashPartitioner(self.right_on))
+
+    def probe_edge(self) -> TargetInfo:
+        return _passthrough_edge() if self.broadcast else TargetInfo(
+            HashPartitioner(self.left_on))
+
+    def lower(self, ctx, graph, actor_of, node_id):
+        actor_of[node_id] = graph.new_exec_node(
+            self.executor_factory(),
+            {0: (actor_of[self.parents[0]], self.probe_edge()),
+             1: (actor_of[self.parents[1]], self.build_edge())},
+            self.channels or ctx.exec_channels, self.stage)
+
+    def describe(self):
+        k = "BroadcastJoin" if self.broadcast else "HashJoin"
+        return f"{k}({self.how}, {self.left_on}={self.right_on})"
+
+
+class FusedStageNode(Node):
+    """A maximal fusible linear chain rewritten into one exec actor
+    (optimizer.fuse_stages).  parents[0] is the chain head's main input;
+    parents[1:] are the member joins' build sides in chain order.  Lowers to
+    one FusedStageExecutor actor (ops/stagefuse.py); a tail AggNode
+    contributes its partial half in-stage, and its final actors are emitted
+    as AggNode.lower emits them."""
+
+    def __init__(self, members: List[Node], parents: List[int], schema: List[str]):
+        super().__init__(parents, schema)
+        self.members = members
+        self.build_parents = list(range(1, len(parents)))
+
+    def derive_schema(self, parents):
+        # replay the member chain: member i's main input is member i-1's
+        # output; join members consume build sides in chain order
+        builds = iter(parents[1:])
+        cur = list(parents[0])
+        for m in self.members:
+            if isinstance(m, JoinNode):
+                cur = m.derive_schema([cur, list(next(builds))])
+            else:
+                d = m.derive_schema([cur])
+                cur = list(m.schema) if d is None else d
+        leftover = list(builds)
+        if leftover:
+            raise ValueError(f"fused stage has {len(leftover)} build inputs with no join member")
+        return cur
+
+    def describe(self):
+        inner = "\n".join("  " + m.describe() for m in self.members)
+        return "FusedStage(\n" + inner + "\n)"
+
+    def lower(self, ctx, graph, actor_of, node_id):
+        from quokka_tpu_torch.executors.sql_execs import PartialAggExecutor
+        from quokka_tpu_torch.ops.stagefuse import FusedStageExecutor, StageSpec
+
+        steps: List[Tuple[str, Callable]] = []
+        routing: Dict[int, Tuple[int, int]] = {}
+        builds = iter(self.parents[1:])
+        agg: Optional[AggNode] = None
+        head = self.members[0]
+        main_edge = head.probe_edge() if isinstance(head, JoinNode) else _passthrough_edge()
+        sources = {0: (actor_of[self.parents[0]], main_edge)}
+        for m in self.members:
+            if isinstance(m, JoinNode):
+                stream = len(sources)
+                sources[stream] = (actor_of[next(builds)], m.build_edge())
+                routing[stream] = (len(steps), 1)
+                steps.append(("BroadcastJoin" if m.broadcast else "HashJoin",
+                              m.executor_factory()))
+            elif isinstance(m, AggNode):
+                steps.append(("PartialAgg", functools.partial(
+                    PartialAggExecutor, m.keys, m.plan)))
+                agg = m
+            else:
+                raise NotImplementedError(
+                    f"a fused stage member {m.describe()} needs FusedElementwise "
+                    "(PERF.md kernel row 16), which is not in quokka_tpu_torch yet: "
+                    "ROADMAP Queue 2 row 16")
+        fused = graph.new_exec_node(
+            functools.partial(FusedStageExecutor, StageSpec(steps, routing)),
+            sources, self.channels or ctx.exec_channels, self.stage)
+        actor_of[node_id] = fused if agg is None else agg.lower_final(
+            ctx, graph, fused, self.channels, self.stage)
+
+
+class TopKNode(Node):
+    def __init__(self, parents, schema, by, k, descending):
+        super().__init__(parents, schema)
+        self.by = by
+        self.k = k
+        self.descending = descending
+
+    def derive_schema(self, parents):
+        _require(self.by, parents[0], "top_k keys")
+        return list(parents[0])
+
+    def lower(self, ctx, graph, actor_of, node_id):
+        from quokka_tpu_torch.executors.sql_execs import TopKExecutor
+
+        factory = functools.partial(TopKExecutor, self.by, self.k, self.descending)
+        local = graph.new_exec_node(
+            factory, {0: (actor_of[self.parents[0]], _passthrough_edge())},
+            self.channels or ctx.exec_channels, self.stage)
+        actor_of[node_id] = graph.new_exec_node(
+            factory, {0: (local, _passthrough_edge())}, 1, self.stage)
+
+    def describe(self):
+        return f"TopK({self.by}, k={self.k})"
 
 
 class SinkNode(Node):

@@ -234,6 +234,10 @@ class DeviceBatch:
         return DeviceBatch(cols, self.valid, self.nrows, self.sorted_by,
                            self.nrows_dev)
 
+    def rename(self, mapping: Dict[str, str]) -> "DeviceBatch":
+        return DeviceBatch({mapping.get(n, n): c for n, c in self.columns.items()},
+                           self.valid, self.nrows, self.sorted_by, self.nrows_dev)
+
     def take(self, idx: torch.Tensor, valid: torch.Tensor,
              nrows: Optional[int]) -> "DeviceBatch":
         return DeviceBatch(gather_columns(self.columns, idx), valid, nrows,

@@ -26,11 +26,24 @@ validity); the one-hot work is arithmetic that the card hides under the
 loads at Q1's bucket count.  The live-first ordering of the <= 256 buckets
 and the padding to 256 rows are torch ops on a few hundred elements.
 
+Kernel K5, the general partial aggregate of ``FusedPartialAgg`` (any key
+shape, e.g. TPC-H Q3's ``(l_orderkey, o_orderdate, o_shippriority)``): one
+generated Triton kernel per pre-expression signature evaluates every
+pre-expression in one pass over the batch and writes one array per partial
+input, replacing the pre-expression half of the reference's general fused
+program (``FusedPartialAgg._build``); the hash group-by (K3) then groups
+them, or ``segment_aggs`` when there is no key.  Bound: bytes (Q3 reads
+two float64 columns and validity, 17 B/row, and writes 8 B/row).  Triton
+serves here for the reason it serves K1: a fused elementwise pass over a
+few columns, known only at query time, with no reuse across rows for shared
+memory or tensor cores to exploit.
+
 Each kernel has a plain torch version beside it (``predicate_plain``,
-``small_agg_plain``), taken only when the batch lies on the CPU.  Both the
-CPU and the CUDA route generate the kernel source first, so an expression
-outside the generator's subset takes the unfused path on either device, as
-the reference falls back when its prepass raises ``CompileError``.
+``small_agg_plain``, ``pre_exprs_plain``), taken only when the batch lies
+on the CPU.  Both the CPU and the CUDA route generate the kernel source
+first, so an expression outside the generator's subset takes the unfused
+path on either device, as the reference falls back when its prepass raises
+``CompileError``.
 """
 
 from __future__ import annotations
@@ -63,11 +76,12 @@ from quokka_tpu_torch.ops import expr_compile, kernels, native, sigkey
 from quokka_tpu_torch.ops.batch import DeviceBatch, NumCol, StrCol, gather_columns
 from quokka_tpu_torch.ops.bridge import pad_tail
 
-# launch counters of the two Triton kernels, and of the unfused fallbacks
+# launch counters of the three Triton kernels, and of the unfused fallbacks
 # (a predicate or partial aggregate whose expression left the generator's
-# subset); the Q1 smoke run requires the fallbacks to stay at 0
+# subset); the smoke runs require the fallbacks to stay at 0
 PREDICATE_LAUNCHES = 0
 SMALL_AGG_LAUNCHES = 0
+PRE_AGG_LAUNCHES = 0
 FALLBACKS = 0
 
 
@@ -517,19 +531,100 @@ class SmallCall:
                                 self.codes, self.valid, self.n_groups)
 
 
+# ---------------------------------------------------------------------------
+# K5: pre-expressions of the general partial aggregate
+# ---------------------------------------------------------------------------
+
+
+class _PreAggKernel:
+    """Generated source of one pre-expression signature: every listed
+    pre-expression evaluated in one pass, one output array each."""
+
+    def __init__(self, pre_exprs: Dict[str, Expr], outs: List[str], cols):
+        gen = expr_compile.TritonExpr({n: (f"c{i}", dt) for i, (n, dt) in enumerate(cols)})
+        stores = []
+        for j, tmp in enumerate(outs):
+            v = gen.value(pre_exprs[tmp])
+            code = f"(tl.zeros(valid.shape, {v.dt}) + {v.code})" if v.scalar else v.code
+            stores.append(f"    tl.store(o{j}_ptr + offs, {code}, mask=m)")
+        self.consts = gen.consts
+        args = ", ".join([f"c{i}_ptr" for i in range(len(cols))]
+                         + ["valid_ptr", "consts_ptr"]
+                         + [f"o{j}_ptr" for j in range(len(outs))]
+                         + ["n", "BLOCK: tl.constexpr"])
+        body = [
+            "    pid = tl.program_id(0)",
+            "    offs = pid * BLOCK + tl.arange(0, BLOCK)",
+            "    m = offs < n",
+            "    valid = tl.load(valid_ptr + offs, mask=m, other=0) != 0",
+            *_load_lines(cols, "    "),
+            *[f"    {l}" for l in gen.lines],
+            *stores,
+        ]
+        self.src = f"@triton.jit\ndef qk_pre_agg({args}):\n" + "\n".join(body) + "\n"
+
+
+def pre_exprs_plain(pre_exprs: Dict[str, Expr], outs: List[str],
+                    columns: Dict[str, torch.Tensor], valid: torch.Tensor) -> List[torch.Tensor]:
+    """Plain version of K5: each listed pre-expression as a column."""
+    shim = _ShimBatch(columns, valid)
+    return [expr_compile.evaluate_to_column(pre_exprs[t], shim).data for t in outs]
+
+
+def pre_exprs_launch(kern: _PreAggKernel, inputs: List[torch.Tensor], valid: torch.Tensor,
+                     out_dtypes: List[torch.dtype]) -> List[torch.Tensor]:
+    """Launch K5 on CUDA tensors: one output per pre-expression, in the
+    plain version's dtypes."""
+    global PRE_AGG_LAUNCHES
+    dev = valid.device
+    n = valid.shape[0]
+    _check_inputs(inputs + [valid], dev, n)
+    mod = _load_generated(kern.src)
+    outs = [torch.empty(n, dtype=dt, device=dev) for dt in out_dtypes]
+    if n:
+        block = 1024
+        mod.qk_pre_agg[(triton_cdiv(n, block),)](
+            *[_kernel_arg(t) for t in inputs], valid.view(torch.uint8),
+            _consts_on(kern, dev), *[_kernel_arg(o) for o in outs], n, BLOCK=block,
+            num_warps=4)
+    PRE_AGG_LAUNCHES += 1
+    return outs
+
+
+@dataclasses.dataclass
+class PreAggCall:
+    """Everything one K5 call needs, for the kernel and its plain version."""
+
+    kern: _PreAggKernel
+    pre_exprs: Dict[str, Expr]
+    outs: List[str]
+    inputs: Dict[str, torch.Tensor]
+    valid: torch.Tensor
+    out_dtypes: List[torch.dtype]
+
+    def plain(self) -> List[torch.Tensor]:
+        return pre_exprs_plain(self.pre_exprs, self.outs, self.inputs, self.valid)
+
+    def launch(self) -> List[torch.Tensor]:
+        return pre_exprs_launch(self.kern, list(self.inputs.values()), self.valid,
+                                self.out_dtypes)
+
+
 class FusedPartialAgg:
     """Per-batch partial group-by aggregate.
 
     Small-key path (K2): every key is a dictionary string, the plan has only
     sum/count partials and the product of dictionary sizes is small (TPC-H
     Q1: returnflag x linestatus).  The output is a 256-row bucket.  Other
-    shapes take the general path: pre-expressions in torch, then the hash
-    group-by (K3), as the reference's general fused program does."""
+    shapes take the general path: the pre-expressions in one kernel (K5),
+    then the hash group-by (K3), as the reference's general fused program
+    does."""
 
     def __init__(self, keys: List[str], plan):
         self.keys = keys
         self.plan = plan
         self._kernels: Dict[Tuple, _SmallAggKernel] = {}
+        self._pre_kernels: Dict[Tuple, Tuple[_PreAggKernel, List[torch.dtype]]] = {}
 
     def _small_dims(self, batch: DeviceBatch) -> Optional[Tuple[int, ...]]:
         if not self.keys:
@@ -586,9 +681,11 @@ class FusedPartialAgg:
                          batch.valid, strides, n_groups)
 
     def __call__(self, batch: DeviceBatch) -> DeviceBatch:
+        if self.keys:
+            kernels.require_hash_groupby()  # K2 is the hashtable row's variant
         call = self.prepare_small(batch)
         if call is None:
-            return self._general(batch, *self._pre_inputs(batch))
+            return self._general(batch)
         sums, rep_b = call.plain() if batch.device.type == "cpu" else call.launch()
         n = batch.padded_len
         n_groups = call.n_groups
@@ -601,11 +698,29 @@ class FusedPartialAgg:
         rep = pad_tail(torch.clamp(rep_b[order], max=n - 1), out_pad)
         return self._assemble(batch, outs, rep, num, out_pad)
 
-    def _general(self, batch, pre_exprs, inputs) -> DeviceBatch:
-        shim = _ShimBatch(inputs, batch.valid)
+    def prepare_general(self, batch: DeviceBatch) -> PreAggCall:
+        """The K5 call of this batch (general path)."""
+        pre_exprs, inputs = self._pre_inputs(batch)
+        outs = sorted({tmp for _, _, tmp in self.plan.partials if tmp is not None})
+        cols = [(n, t.dtype) for n, t in inputs.items()]
+        sig = (tuple((k, pre_exprs[k].sql()) for k in outs), tuple(cols))
+        hit = self._pre_kernels.get(sig)
+        if hit is None:
+            kern = _PreAggKernel(pre_exprs, outs, cols)
+            # the output dtypes are the plain evaluator's, read off a 0-row
+            # evaluation once per signature
+            dts = [t.dtype for t in pre_exprs_plain(
+                pre_exprs, outs, {n: t[:0] for n, t in inputs.items()}, batch.valid[:0])]
+            hit = self._pre_kernels[sig] = (kern, dts)
+        return PreAggCall(hit[0], pre_exprs, outs, inputs, batch.valid, hit[1])
+
+    def _general(self, batch: DeviceBatch) -> DeviceBatch:
+        call = self.prepare_general(batch)
+        pre = call.plain() if batch.device.type == "cpu" else call.launch()
+        by_tmp = dict(zip(call.outs, pre))
         n = batch.padded_len
         arrays = tuple(
-            expr_compile.evaluate_to_column(pre_exprs[tmp], shim).data if tmp is not None
+            by_tmp[tmp] if tmp is not None
             else torch.zeros(n, dtype=torch.int32, device=batch.device)
             for (_, _, tmp) in self.plan.partials)
         ops = tuple(op for (_, op, _) in self.plan.partials)

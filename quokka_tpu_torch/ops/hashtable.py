@@ -1,4 +1,5 @@
-"""Device hash group-by (PyTorch port of ``quokka_tpu/ops/hashtable.py``).
+"""Device hash table: group-by and PK-join probe (PyTorch port of
+``quokka_tpu/ops/hashtable.py``).
 
 Kernel K3.  ``hash_groupby`` groups rows by equality of their key limbs and
 computes segment aggregates in one pass over a power-of-two open-addressing
@@ -14,6 +15,17 @@ ranks follow table-slot order, so group order differs from the reference's
 (claim order); no consumer depends on it, and results compare after a sort
 on the keys.  A non-converged insert raises ``HashTableConvergenceError``:
 rows are never aliased to slot 0, and there is no quiet fallback.
+
+Kernel K11, the PK-join build and probe: ``build_table`` inserts a build
+batch's key limbs once (K3's insert alone, through ``qk_hash_build``) and
+caches the table on the batch; ``pk_probe`` walks each probe row's probe
+sequence (``qk_probe_kernel``) to the slot holding its key or to an EMPTY
+slot.  The table holds row ids directly (the reference packs a claim round
+above the row id, which its ``table_rid`` decodes; the port needs neither).
+A build whose insert did not converge is remembered on the batch
+(``_DIVERGED``) and raises ``HashTableConvergenceError`` at every later
+call, so the join takes the sorted probe (K12) for it.  The probe kernel's
+plain twin, ``_probe_plain``, walks the plain insert's table.
 """
 
 from __future__ import annotations
@@ -29,6 +41,9 @@ EMPTY = 2**31 - 1
 
 # launches of the CUDA path (insert + segment kernels count as one)
 LAUNCHES = 0
+# launches of K11: PK build inserts and probes
+BUILD_LAUNCHES = 0
+PROBE_LAUNCHES = 0
 
 _OP_CODES = {"sum": 0, "count": 1, "min": 2, "max": 3, "mean": 0}
 _DT_CODES = {torch.float64: 0, torch.float32: 1, torch.int64: 2, torch.int32: 3}
@@ -80,6 +95,15 @@ def canonical_limbs(limbs: Sequence[torch.Tensor],
     return tuple(out)
 
 
+def nan_rows(limbs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Rows with a NaN in any float limb (excluded from join matching)."""
+    m = torch.zeros(limbs[0].shape, dtype=torch.bool, device=limbs[0].device)
+    for l in limbs:
+        if l.is_floating_point():
+            m = m | torch.isnan(l)
+    return m
+
+
 def _u32(x: torch.Tensor) -> torch.Tensor:
     return x & 0xFFFFFFFF
 
@@ -102,7 +126,7 @@ def _insert_plain(limbs, valid, capbits: int):
     """Plain version of the insert: every unplaced row probes one step per
     round; within a round the smallest row id claims a contested EMPTY slot
     (a sequential CAS order), and rows whose key equals the occupant's join
-    it.  Returns (slot per row, table of claiming row ids)."""
+    it.  Returns (slot per row, table of claiming row ids, converged)."""
     cap = 1 << capbits
     mask = cap - 1
     n = valid.shape[0]
@@ -114,7 +138,7 @@ def _insert_plain(limbs, valid, capbits: int):
     rid = torch.arange(n, dtype=torch.int64, device=dev)
     for _ in range(2 * cap):
         if not bool(pending.any()):
-            return myslot, table
+            return myslot, table, True
         act = torch.nonzero(pending).flatten()
         s = slot[act]
         empty = table[s] == EMPTY
@@ -130,10 +154,7 @@ def _insert_plain(limbs, valid, capbits: int):
         pending[act[placed]] = False
         nxt = act[~placed]
         slot[nxt] = (slot[nxt] + stride[nxt]) & mask
-    if bool(pending.any()):
-        raise HashTableConvergenceError(
-            f"hash-table insert did not place every row (capbits={capbits}, n={n})")
-    return myslot, table
+    return myslot, table, not bool(pending.any())
 
 
 def _max_sentinel(dtype):
@@ -196,7 +217,11 @@ def hash_groupby_plain(limbs, arrays, ops, valid):
     """Plain torch version of K3 (CPU tests; the card's reference)."""
     climbs = canonical_limbs(limbs)
     capbits = capbits_for(valid.shape[0])
-    myslot, table = _insert_plain(climbs, valid, capbits)
+    myslot, table, converged = _insert_plain(climbs, valid, capbits)
+    if not converged:
+        raise HashTableConvergenceError(
+            f"hash-table insert did not place every row (capbits={capbits}, "
+            f"n={valid.shape[0]})")
     flag = (table != EMPTY).to(torch.int64)
     rank_of_slot = torch.cumsum(flag, 0) - flag
     ranks = rank_of_slot[myslot]
@@ -242,6 +267,10 @@ def _lib():
         lib.qk_hash_insert.restype = I
         lib.qk_segment_aggs.argtypes = [P, P, P, L, P, P, I, PP, PP, PI, PI, P]
         lib.qk_segment_aggs.restype = I
+        lib.qk_hash_build.argtypes = [PP, I, P, L, P, ctypes.c_uint, P, P]
+        lib.qk_hash_build.restype = I
+        lib.qk_pk_probe.argtypes = [PP, PP, I, P, L, P, ctypes.c_uint, L, P, P, P]
+        lib.qk_pk_probe.restype = I
         lib.qk_bound = True
     return lib
 
@@ -325,3 +354,149 @@ def _segment_cuda(myslot, rank_of_slot, valid, arrays, ops):
         else:
             results.append(k[1])
     return tuple(results), counts, rep
+
+
+# ---------------------------------------------------------------------------
+# K11: PK-join build and probe
+# ---------------------------------------------------------------------------
+
+
+class _TableCache:
+    """Hash table of a finalized build batch, cached on the batch object:
+    one build serves every probe batch, so the insert (and the build-side
+    null-mask work) is paid once."""
+
+    __slots__ = ("tbl", "limbs", "raw_dtypes", "capbits")
+
+    def __init__(self, tbl, limbs, raw_dtypes, capbits):
+        self.tbl = tbl
+        self.limbs = limbs
+        self.raw_dtypes = raw_dtypes
+        self.capbits = capbits
+
+
+# negative-cache sentinel: a diverged build is remembered on the batch so a
+# long probe stream does not re-run the failed insert for every probe
+_DIVERGED = object()
+
+
+def _build_insert(limbs: Tuple[torch.Tensor, ...], ok: torch.Tensor, capbits: int):
+    """Insert-only pass of K3: (table, converged).  The CUDA route reads the
+    device flag once: the one host read a build pays."""
+    if ok.device.type == "cpu":
+        _, table, converged = _insert_plain(limbs, ok, capbits)
+        return table, converged
+    _require_cuda(ok, "build_table")
+    global BUILD_LAUNCHES
+    lib = _lib()
+    dev = ok.device
+    if len(limbs) > 16:
+        raise ValueError("build_table: at most 16 key limbs")
+    limbs = [l.contiguous() for l in limbs]
+    table = torch.full((1 << capbits,), EMPTY, dtype=torch.int32, device=dev)
+    failed = torch.zeros(1, dtype=torch.int32, device=dev)
+    native.check(lib.qk_hash_build(
+        native.ptr_array([l.data_ptr() for l in limbs]), len(limbs),
+        ok.contiguous().view(torch.uint8).data_ptr(), ok.shape[0], table.data_ptr(),
+        (1 << capbits) - 1, failed.data_ptr(), native.stream_ptr(dev)), "qk_hash_build")
+    BUILD_LAUNCHES += 1
+    return table, not bool(failed.item())
+
+
+def build_table(build, build_keys: Sequence[str], key_limbs_fn, valid_fn) -> _TableCache:
+    """The cached hash table of a build batch's key columns.  Raises
+    ``HashTableConvergenceError`` when the insert did not converge, now or
+    on an earlier call for the same batch and keys."""
+    cache = getattr(build, "_ht_cache", None)
+    if cache is None:
+        cache = build._ht_cache = {}
+    key = tuple(build_keys)
+    hit = cache.get(key)
+    if hit is _DIVERGED:
+        raise HashTableConvergenceError(
+            "hash-table build previously failed to converge for this build "
+            "batch (cached); take the sort-based probe")
+    if hit is None:
+        raw = key_limbs_fn(build, build_keys)
+        limbs = tuple(l.contiguous() for l in canonical_limbs(raw, nan_unique=False))
+        capbits = capbits_for(build.padded_len)
+        tbl, converged = _build_insert(limbs, valid_fn() & ~nan_rows(raw), capbits)
+        if not converged:
+            cache[key] = _DIVERGED
+            raise HashTableConvergenceError(
+                f"hash-table build did not place every row (capbits={capbits}, "
+                f"n={build.padded_len}); caller must fall back to the sort-based probe")
+        hit = cache[key] = _TableCache(tbl, limbs, tuple(l.dtype for l in raw), capbits)
+    return hit
+
+
+def _probe_plain(table, build_limbs, probe_limbs, probe_ok, capbits: int):
+    """Plain version of K11's probe: walk each probe row's sequence until
+    its key or an EMPTY slot.  (build_idx int32 clipped to range, matched)."""
+    mask = (1 << capbits) - 1
+    slot, stride = _hash_stride(probe_limbs, mask)
+    p = probe_ok.shape[0]
+    b = max(build_limbs[0].shape[0], 1)
+    dev = probe_ok.device
+    res = torch.zeros(p, dtype=torch.int64, device=dev)
+    hit_any = torch.zeros(p, dtype=torch.bool, device=dev)
+    act = torch.nonzero(probe_ok).flatten()
+    for _ in range(1 << capbits):
+        if act.numel() == 0:
+            break
+        entry = table[slot[act]].long()
+        empty = entry == EMPTY
+        rid = torch.clamp(entry, 0, b - 1)
+        hit = ~empty
+        for bl, pl in zip(build_limbs, probe_limbs):
+            hit &= bl[rid] == pl[act]
+        res[act[hit]] = rid[hit]
+        hit_any[act[hit]] = True
+        act = act[~(hit | empty)]
+        slot[act] = (slot[act] + stride[act]) & mask
+    return torch.clamp(res, 0, b - 1).to(torch.int32), hit_any & probe_ok
+
+
+def _probe_cuda(table, build_limbs, probe_limbs, probe_ok, capbits: int):
+    """Launch K11's probe kernel: one thread per probe row."""
+    global PROBE_LAUNCHES
+    lib = _lib()
+    dev = probe_ok.device
+    p = probe_ok.shape[0]
+    b = max(build_limbs[0].shape[0], 1)
+    probe_limbs = [l.contiguous() for l in probe_limbs]
+    for l in probe_limbs:
+        if l.device != dev or l.dtype != torch.int32 or l.shape[0] != p:
+            raise TypeError(f"pk_probe: unsupported probe limb {l.dtype} "
+                            f"{tuple(l.shape)} on {l.device}")
+    build_idx = torch.empty(p, dtype=torch.int32, device=dev)
+    matched = torch.empty(p, dtype=torch.bool, device=dev)
+    native.check(lib.qk_pk_probe(
+        native.ptr_array([l.data_ptr() for l in build_limbs]),
+        native.ptr_array([l.data_ptr() for l in probe_limbs]), len(probe_limbs),
+        probe_ok.contiguous().view(torch.uint8).data_ptr(), p, table.data_ptr(),
+        (1 << capbits) - 1, b, build_idx.data_ptr(), matched.view(torch.uint8).data_ptr(),
+        native.stream_ptr(dev)), "qk_pk_probe")
+    PROBE_LAUNCHES += 1
+    return build_idx, matched
+
+
+def probe(table, build_limbs, probe_limbs, probe_ok, capbits: int):
+    """K11's probe over canonical limbs: CUDA tensors launch the kernel, CPU
+    tensors take the plain version."""
+    if probe_ok.device.type == "cpu":
+        return _probe_plain(table, build_limbs, probe_limbs, probe_ok, capbits)
+    _require_cuda(probe_ok, "pk_probe")
+    return _probe_cuda(table, build_limbs, probe_limbs, probe_ok, capbits)
+
+
+def pk_probe(table: _TableCache, probe_limbs: Sequence[torch.Tensor],
+             probe_ok: torch.Tensor):
+    """PK-join probe against a cached build table: (build_idx, matched).
+    Probe limbs are coerced to the build's raw limb dtypes first (the sort
+    path's discipline), so an int probe key matches a float build key by
+    value."""
+    coerced = [l.to(dt) for l, dt in zip(probe_limbs, table.raw_dtypes)]
+    climbs = canonical_limbs(coerced, nan_unique=False)
+    ok = probe_ok & ~nan_rows(coerced)
+    return probe(table.tbl, table.limbs, climbs, ok, table.capbits)

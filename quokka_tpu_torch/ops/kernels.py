@@ -2,9 +2,10 @@
 
 Kernel K4 lives here: hash partition + split (``csrc/partition.cu``), which
 replaces the reference's ``_partition_ids`` and ``_split_masks`` with one
-launch.  Masking, compaction and the group-by wrappers are single torch
-primitives (nonzero, gather) around the hand-written kernels; group-by goes
-to the hash table (K3), the GPU row of the reference's strategy matrix.
+launch.  Masking, compaction, sorting and the group-by wrappers are single
+torch primitives (nonzero, gather, stable sort) around the hand-written
+kernels; group-by goes to the hash table (K3), the GPU row of the
+reference's strategy matrix (``ops/strategy``).
 """
 
 from __future__ import annotations
@@ -14,9 +15,11 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+import numpy as np
+
 from quokka_tpu_torch import config
-from quokka_tpu_torch.ops import hashtable, native
-from quokka_tpu_torch.ops.batch import DeviceBatch, NumCol, gather_columns, key_limbs
+from quokka_tpu_torch.ops import hashtable, native, strategy
+from quokka_tpu_torch.ops.batch import DeviceBatch, NumCol, StrCol, gather_columns, key_limbs
 
 # launches of the K4 CUDA kernel
 PARTITION_LAUNCHES = 0
@@ -58,10 +61,20 @@ def compact_if_large(batch: DeviceBatch, threshold: int = 1 << 16) -> DeviceBatc
 # group-by aggregate
 # ---------------------------------------------------------------------------
 
+def require_hash_groupby() -> None:
+    """The port carries the hash-table group-by only; the sort strategy
+    (``sorted_groupby``, Queue 2 row 10) is not ported yet."""
+    if strategy.choice("groupby") != "hashtable":
+        raise NotImplementedError(
+            "groupby=sort (sorted_groupby and the one-hot small-key variant) is "
+            "not in quokka_tpu_torch yet: ROADMAP Queue 2 rows 6 and 10")
+
+
 def groupby_limbs(limbs: Sequence[torch.Tensor], arrays: Sequence[torch.Tensor],
                   ops: Sequence[str], valid: torch.Tensor):
-    """Group rows by key limbs.  The port carries the GPU strategy row only
-    (groupby=hashtable); the sort strategy comes with its own slice."""
+    """Group rows by key limbs through the hash table (K3)."""
+    require_hash_groupby()
+    strategy.note_used("groupby", "hashtable")
     return hashtable.hash_groupby(tuple(limbs), tuple(arrays), tuple(ops), valid)
 
 
@@ -91,6 +104,98 @@ def groupby_aggregate(
         cols[name] = NumCol(arr, "f" if arr.is_floating_point() else "i")
     group_valid = torch.arange(n, device=dev) < num
     return DeviceBatch(cols, group_valid, None, None).note_count(num)
+
+
+# ---------------------------------------------------------------------------
+# sort / top-k (Queue 2 rows 9 and 15: stable torch sorts)
+# ---------------------------------------------------------------------------
+
+
+def sort_limbs(batch: DeviceBatch, cols: Sequence[str], descending=None) -> List[torch.Tensor]:
+    """Limbs whose ascending lexicographic order is the requested column
+    order.  Strings map codes to their dictionary rank (a host argsort of
+    the dictionary), so string sorts are true lexicographic sorts; nulls
+    (code -1) sort first ascending."""
+    if descending is None:
+        descending = [False] * len(cols)
+    limbs: List[torch.Tensor] = []
+    for name, desc in zip(cols, descending):
+        c = batch.columns[name]
+        if isinstance(c, StrCol):
+            order = np.argsort(c.dictionary.values.astype(str), kind="stable")
+            rank = np.empty(len(order), dtype=np.int32)
+            rank[order] = np.arange(len(order), dtype=np.int32)
+            rank_t = torch.from_numpy(rank).to(c.codes.device)
+            limb = rank_t[torch.clamp(c.codes, min=0).long()]
+            limb = torch.where(c.codes < 0, torch.full_like(limb, -1), limb)
+            limbs.append(~limb if desc else limb)
+            continue
+        p = c.data
+        if desc:
+            # negation reverses float order; bitwise not reverses signed
+            # ints without overflow and flips bools
+            p = -p if p.is_floating_point() else ~p
+        limbs.append(p)
+    return limbs
+
+
+def _order_key(limb: torch.Tensor) -> torch.Tensor:
+    """A key whose signed-integer order is the reference sort's order of
+    ``limb``: lax.sort compares floats with -0.0 equal to +0.0 and every
+    NaN last, which torch's CUDA radix sort of float bits would not give."""
+    if limb.dtype == torch.bool:
+        return limb.to(torch.int32)
+    if not limb.is_floating_point():
+        return limb
+    x = limb.to(torch.float64)
+    x = torch.where(x == 0.0, torch.zeros((), dtype=x.dtype, device=x.device), x)
+    x = torch.where(torch.isnan(x), torch.full((), float("nan"), dtype=x.dtype,
+                                                device=x.device), x)
+    bits = x.view(torch.int64)
+    return bits ^ ((bits >> 63) & 0x7FFFFFFFFFFFFFFF)
+
+
+def lexsort_perm(keys: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Stable permutation sorting rows by ``keys`` lexicographically (first
+    key most significant; ties keep row order): one stable torch sort per
+    key, least significant first."""
+    n = keys[0].shape[0]
+    perm = torch.arange(n, dtype=torch.int64, device=keys[0].device)
+    for k in reversed(keys):
+        perm = perm[torch.sort(_order_key(k)[perm], stable=True).indices]
+    return perm
+
+
+def _sort_perm(limbs: Sequence[torch.Tensor], valid: torch.Tensor) -> torch.Tensor:
+    """Stable sort permutation: valid rows first, then by the limbs, ties in
+    row order (the reference's iota operand)."""
+    return lexsort_perm([(~valid).to(torch.int32), *limbs])
+
+
+def _prefix_mask(valid: torch.Tensor):
+    n = valid.sum(dtype=torch.int32)
+    return torch.arange(valid.shape[0], device=valid.device) < n, n
+
+
+def sort_batch(batch: DeviceBatch, by: Sequence[str], descending=None) -> DeviceBatch:
+    perm = _sort_perm(sort_limbs(batch, by, descending), batch.valid)
+    out = batch.take(perm, batch.valid, batch.nrows)
+    # valid rows are now contiguous at the front: derive the mask on device
+    out.valid, n = _prefix_mask(batch.valid)
+    out.sorted_by = list(by)
+    return out.note_count(n)
+
+
+def head(batch: DeviceBatch, k: int) -> DeviceBatch:
+    b = compact(batch)
+    n = min(b.count_valid(), k)
+    padded = config.bucket_size(n)
+    idx = torch.arange(padded, device=b.device)
+    return b.take(idx, idx < n, n)
+
+
+def top_k(batch: DeviceBatch, by: Sequence[str], k: int, descending=None) -> DeviceBatch:
+    return head(sort_batch(batch, by, descending), k)
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,12 @@
 edges between them; ``Engine`` runs it to completion in one thread with the
 reference's scheduling discipline: input tasks run only when their stage is
 current, executor tasks consume contiguous runs of ready batches from one
-source actor at a time, and every produced batch is pushed through its
-edge's partition function into the in-memory batch cache.
+source actor at a time (the lowest stage first, so a join's build side is
+consumed before its probe side), and every produced batch is pushed through
+its edge's partition function into the in-memory batch cache: one channel
+(pass-through), every channel (broadcast) or a hash split (K4).  An exec
+actor may read several input streams; each stream's exhaustion reaches the
+executor as ``source_done(stream)``.
 
 Left for later slices, and raising where a plan would need them:
 checkpoints, spill, lineage replay and recovery, adaptation, the scan cache,
@@ -28,7 +32,12 @@ from quokka_tpu_torch.ops.batch import DeviceBatch
 from quokka_tpu_torch.runtime.dataset import ResultDataset
 from quokka_tpu_torch.runtime.tables import ControlStore
 from quokka_tpu_torch.runtime.task import ExecutorTask, TapedInputTask
-from quokka_tpu_torch.target_info import HashPartitioner, PassThroughPartitioner, TargetInfo
+from quokka_tpu_torch.target_info import (
+    BroadcastPartitioner,
+    HashPartitioner,
+    PassThroughPartitioner,
+    TargetInfo,
+)
 
 
 class ActorInfo:
@@ -205,12 +214,15 @@ class Engine:
         tinfo: TargetInfo = self.store.tget("PFT", key)
         n_tgt = self.g.actors[tgt_actor].channels
         part = tinfo.partitioner
-        if not isinstance(part, (PassThroughPartitioner, HashPartitioner)):
+        if not isinstance(part, (PassThroughPartitioner, BroadcastPartitioner,
+                                 HashPartitioner)):
             raise NotImplementedError(type(part))
 
         def fn(batch: DeviceBatch, src_ch: int) -> Dict[int, DeviceBatch]:
             if isinstance(part, PassThroughPartitioner):
                 return {src_ch % n_tgt: batch}
+            if isinstance(part, BroadcastPartitioner):
+                return {ch: batch for ch in range(n_tgt)}
             return dict(enumerate(kernels.hash_split(batch, part.keys, n_tgt)))
 
         self._partition_fns[key] = fn
@@ -290,14 +302,17 @@ class Engine:
         task.out_seq = out_seq
         if not task.input_reqs:
             out = executor.done(task.channel)
-            if out is not None:
-                self._emit(info, task.channel, out_seq, out)
-                out_seq += 1
+            # a fused stage's done() may emit a list of batches
+            for o in ([out] if out is None or isinstance(out, DeviceBatch) else out):
+                if o is not None:
+                    self._emit(info, task.channel, out_seq, o)
+                    out_seq += 1
             self.store.tset("LIT", (task.actor, task.channel), out_seq - 1)
             self.store.sadd("DST", (task.actor, task.channel), "done")
             return True
-        plan = self.cache.plan_get(task.actor, task.channel, task.input_reqs,
-                                   self._stages, self.max_batches)
+        # a fused stage drains a wider slice of the ready queue per task
+        plan = self.cache.plan_get(task.actor, task.channel, task.input_reqs, self._stages,
+                                   getattr(executor, "MAX_PIPELINE_BATCHES", self.max_batches))
         if plan is None:
             self.store.ntt_push(task.actor, task)
             return False

@@ -1,5 +1,5 @@
-"""Per-edge routing spec (port of ``quokka_tpu/target_info.py``, the
-PassThrough and Hash partitioners the Q1 slice uses).
+"""Per-edge routing spec (port of ``quokka_tpu/target_info.py``: the
+PassThrough, Broadcast and Hash partitioners).
 
 A TargetInfo hangs on every plan edge; the engine lowers it to a device
 partition function.  The reference's per-edge predicate, projection and
@@ -20,6 +20,11 @@ class Partitioner:
 @dataclasses.dataclass
 class PassThroughPartitioner(Partitioner):
     """Source channel i feeds target channel i % n."""
+
+
+@dataclasses.dataclass
+class BroadcastPartitioner(Partitioner):
+    """Every batch goes to every target channel."""
 
 
 @dataclasses.dataclass

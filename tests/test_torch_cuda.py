@@ -1,5 +1,5 @@
-"""The port's hand-written kernels (K1-K4) against their plain torch
-versions, on a card.  Every test is marked ``cuda`` and skips where
+"""The port's hand-written kernels (K1-K5, K11, K12) against their plain
+torch versions, on a card.  Every test is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False.
 
 This file imports neither JAX nor pyarrow/pandas, so it also runs on a
@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from quokka_tpu_torch import sqlparse
-from quokka_tpu_torch.ops import bridge, fuse, hashtable, kernels
+from quokka_tpu_torch.ops import bridge, fuse, hashtable, join, kernels
 from quokka_tpu_torch.ops.expr_compile import plan_aggregation
 
 pytestmark = pytest.mark.cuda
@@ -117,3 +117,90 @@ def test_k4_kernel_matches_plain(cuda_device):
         a = kernels.partition_split(limbs, None, b.valid, n_parts)
         c = kernels.partition_split_plain(limbs, None, b.valid, n_parts)
         assert all(torch.equal(x, y) for x, y in zip(a, c)), n_parts
+
+
+K5_AGGS = ("sum(g * (1 - f)) as sx, count(*) as n, count(g) as ng, min(i) as mi, "
+           "max(g) as mg, avg(f + i) as af")
+
+
+def test_k5_kernel_matches_plain(cuda_device):
+    b = bridge.host_to_device(host_table(5000, seed=8), cuda_device)
+    plan = plan_aggregation(sqlparse.parse_select_list(K5_AGGS))
+    call = fuse.FusedPartialAgg(["i", "d"], plan).prepare_general(b)
+    for a, c in zip(call.launch(), call.plain()):
+        assert a.dtype == c.dtype
+        if a.is_floating_point():
+            assert torch.allclose(a, c, rtol=1e-12, atol=0, equal_nan=True)
+        else:
+            assert torch.equal(a, c)
+
+
+def _unique_keys(kind, n, r):
+    """Unique build key limbs (numpy) of one kind."""
+    if kind == "int64":
+        return [r.permutation(4 * n)[:n].astype(np.int64) * (1 << 33) - (1 << 40)]
+    if kind == "composite":
+        flat = r.permutation(40 * n)[:n]
+        return [(flat // 40).astype(np.int64), (flat % 40).astype(np.int32) - 20]
+    v = r.permutation(np.arange(-2 * n, 2 * n))[:n].astype(np.float64) / 8
+    v[v == 0.0] = -0.0
+    v[r.random(n) < 0.05] = np.nan
+    return [v]
+
+
+def _probe_of(build, p, r):
+    other = _unique_keys("float64" if build[0].dtype == np.float64 else
+                         ("composite" if len(build) == 2 else "int64"), len(build[0]),
+                         np.random.default_rng(99))
+    pick = r.integers(0, len(build[0]), p)
+    hit = r.random(p) < 0.6
+    probe = [np.where(hit, b[pick], o[pick]).astype(b.dtype) for b, o in zip(build, other)]
+    if probe[0].dtype == np.float64:
+        probe[0] = np.where(probe[0] == 0.0, 0.0, probe[0])  # +0.0 meets -0.0
+    return probe
+
+
+@pytest.mark.parametrize("kind", ["int64", "composite", "float64"])
+def test_k11_kernel_matches_plain(cuda_device, kind):
+    """The kernel-built table probed by the kernel gives the plain-built
+    table's (build_idx, matched); keys that collide in the hash included."""
+    r = np.random.default_rng(len(kind))
+    nb, p = 1 << 15, 1 << 18
+    build = [torch.from_numpy(x).to(cuda_device) for x in _unique_keys(kind, nb, r)]
+    probe = [torch.from_numpy(x).to(cuda_device) for x in _probe_of(
+        [x.cpu().numpy() for x in build], p, r)]
+    ok = torch.from_numpy(r.random(nb) < 0.9).to(cuda_device)
+    pok = torch.from_numpy(r.random(p) < 0.95).to(cuda_device)
+    limbs = hashtable.canonical_limbs(build, nan_unique=False)
+    bok = ok & ~hashtable.nan_rows(build)
+    capbits = hashtable.capbits_for(nb)
+    t_kernel, conv_k = hashtable._build_insert(tuple(l.contiguous() for l in limbs), bok, capbits)
+    _, t_plain, conv_p = hashtable._insert_plain(limbs, bok, capbits)
+    assert conv_k and conv_p
+    coerced = [x.to(b.dtype) for x, b in zip(probe, build)]
+    climbs = hashtable.canonical_limbs(coerced, nan_unique=False)
+    qok = pok & ~hashtable.nan_rows(coerced)
+    ik, mk = hashtable._probe_cuda(t_kernel, limbs, climbs, qok, capbits)
+    ip, mp = hashtable._probe_plain(t_plain, limbs, climbs, qok, capbits)
+    assert torch.equal(mk, mp)
+    assert torch.equal(ik[mk], ip[mp])
+    assert 0 < int(mk.sum()) < p
+
+
+@pytest.mark.parametrize("kind", ["int64", "composite", "float64"])
+def test_k12_kernel_matches_plain(cuda_device, kind):
+    """The sorted probe kernel against its plain version: -0.0 against
+    +0.0, NaN (never matches), int64 and composite keys."""
+    r = np.random.default_rng(10 + len(kind))
+    nb, p = 1 << 15, 1 << 18
+    build = [torch.from_numpy(x).to(cuda_device) for x in _unique_keys(kind, nb, r)]
+    probe = [torch.from_numpy(x).to(cuda_device) for x in _probe_of(
+        [x.cpu().numpy() for x in build], p, r)]
+    ok = torch.from_numpy(r.random(nb) < 0.9).to(cuda_device)
+    pok = torch.from_numpy(r.random(p) < 0.95).to(cuda_device)
+    sorted_limbs, perm, nv = join._sort_build_keys(build, ok)
+    ik, mk = join._pk_probe_sorted_cuda(sorted_limbs, perm, nv, probe, pok)
+    ip, mp = join._pk_probe_sorted_plain(sorted_limbs, perm, nv, probe, pok)
+    assert torch.equal(mk, mp)
+    assert torch.equal(ik[mk], ip[mp])
+    assert 0 < int(mk.sum()) < p

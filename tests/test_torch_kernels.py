@@ -244,3 +244,108 @@ def test_k4_partition_ids_bit_identical(keys, n_parts, fresh_aot):
         for p, rp in zip(parts, ref_parts):
             np.testing.assert_array_equal(p.valid.numpy(), np.asarray(rp.valid))
             assert p.count_valid() == rp.count_valid()
+
+
+# ---------------------------------------------------------------------------
+# K5: general partial aggregate (pre-expressions, then K3)
+# ---------------------------------------------------------------------------
+
+K5_AGGS = ("sum(g * (1 - f)) as sx, count(*) as n, count(g) as ng, min(i) as mi, "
+           "max(g) as mg, avg(f + i) as af")
+
+
+@pytest.mark.parametrize("keys", [[], ["i"], ["i", "d"], ["i", "d", "s"]],
+                         ids=["no-key", "1-key", "2-keys", "3-keys"])
+@pytest.mark.parametrize("n", [0, 2500])
+def test_k5_general_partial_agg_matches_reference(keys, n, fresh_aot):
+    t = mixed_table(n, seed=31 + n + len(keys))
+    ref_b = ref_batch_of(t)
+    ref_out = ref_fuse.FusedPartialAgg(keys, ref_plan(ref_sqlparse.parse_select_list(K5_AGGS)))(
+        ref_b)
+    plan = plan_aggregation(sqlparse.parse_select_list(K5_AGGS))
+    agg = fuse.FusedPartialAgg(keys, plan)
+    b = port_batch(ref_b)
+    assert agg.prepare_small(b) is None, "int/date keys take the general path"
+    out = agg(b)
+    num = out.count_valid()
+    assert num == ref_out.count_valid()
+
+    def table(batch, cols):
+        rows = {}
+        for k in keys:
+            c = batch.columns[k]
+            rows[k] = (["<null>" if v is None else v for v in _decode(c, num)]
+                       if hasattr(c, "codes") else np.asarray(c.data)[:num])
+        for p, _op, _tmp in plan.partials:
+            rows[p] = np.asarray(cols[p].data)[:num]
+        df = pd.DataFrame(rows)
+        return df.sort_values(keys).reset_index(drop=True) if keys else df
+
+    got, ref = table(out, out.columns), table(ref_out, ref_out.columns)
+    for c in ref.columns:
+        if ref[c].dtype.kind == "f":
+            np.testing.assert_allclose(got[c].to_numpy(), ref[c].to_numpy(), rtol=1e-9,
+                                       atol=1e-12)
+        elif c in keys and isinstance(ref_b.columns[c], type(ref_b.columns["s"])):
+            assert list(got[c]) == list(ref[c])
+        else:
+            np.testing.assert_array_equal(got[c].to_numpy(), ref[c].to_numpy())
+
+
+def test_k5_kernel_source_is_wellformed():
+    t = mixed_table(300, seed=5)
+    b = port_batch(ref_batch_of(t))
+    plan = plan_aggregation(sqlparse.parse_select_list(K5_AGGS))
+    call = fuse.FusedPartialAgg(["i", "d"], plan).prepare_general(b)
+    tree = ast.parse(call.kern.src)
+    assert [f.name for f in tree.body] == ["qk_pre_agg"]
+    assert len(call.outs) == len({tmp for _, _, tmp in plan.partials if tmp is not None})
+    # the plain version's dtypes are the kernel's output dtypes
+    assert [x.dtype for x in call.plain()] == call.out_dtypes
+
+
+# ---------------------------------------------------------------------------
+# sort / top-k (rows 9 and 15: torch sorts)
+# ---------------------------------------------------------------------------
+
+
+def _ties_table(n, seed):
+    """Few distinct values per column: many ties, nulls, -0.0 and NaN."""
+    r = np.random.default_rng(seed)
+    f = r.integers(-3, 3, n).astype(np.float64)
+    f[r.random(n) < 0.1] = -0.0
+    f[r.random(n) < 0.08] = np.nan
+    s = np.array(["pear", "apple", "fig", "kiwi"], dtype=object)[r.integers(0, 4, n)]
+    s[r.random(n) < 0.08] = None
+    i = r.integers(-5, 5, n)
+    return pa.table({
+        "f": pa.array(f), "s": pa.array(s.tolist(), type=pa.string()),
+        "i": pa.array([None if m else v for v, m in zip(i.tolist(), r.random(n) < 0.08)],
+                      type=pa.int64()),
+        "d": pa.array(r.integers(9000, 9004, n).astype(np.int32)).cast(pa.date32()),
+        "row": pa.array(np.arange(n)),
+    })
+
+
+SORTS = [(["f"], [False]), (["f"], [True]), (["s", "i"], [False, True]),
+         (["i", "s", "f"], [True, False, False]), (["d", "f"], [False, True])]
+
+
+@pytest.mark.parametrize("by,desc", SORTS)
+def test_sort_batch_and_top_k_match_reference(by, desc, fresh_aot):
+    t = _ties_table(1500, seed=len(by) + sum(desc))
+    ref_b = ref_batch_of(t)
+    b = port_batch(ref_b)
+    ref_s = ref_kernels.sort_batch(ref_b, by, desc)
+    got_s = kernels.sort_batch(b, by, desc)
+    n = got_s.count_valid()
+    assert n == ref_s.count_valid() == 1500
+    # a stable sort: the row ids come out in the same order, ties included
+    np.testing.assert_array_equal(got_s.columns["row"].data.numpy()[:n],
+                                  np.asarray(ref_s.columns["row"].data)[:n])
+    ref_k = ref_kernels.top_k(ref_b, by, 37, desc)
+    got_k = kernels.top_k(b, by, 37, desc)
+    assert got_k.count_valid() == ref_k.count_valid() == 37
+    np.testing.assert_array_equal(got_k.columns["row"].data.numpy()[:37],
+                                  np.asarray(ref_k.columns["row"].data)[:37])
+    assert _decode(got_k.columns["s"], 37) == _decode(ref_k.columns["s"], 37)
