@@ -8,19 +8,22 @@ Phases, each fatal on failure:
   2. build the CUDA C++ kernels from the sources in this checkout
      (one nvcc per source, in parallel) and print the build seconds;
   3. make TPC-H tables at scale factor --sf with numpy from --seed (6.0M
-     lineitem, 1.5M orders, 150K customer, 10K supplier, 25 nation and 5
-     region rows at SF1; the domains of tests/tpch_data.py);
-  4. run TPC-H Q1, Q3 (join_build=hashtable, then join_build=sort) and Q5
-     through the port's own QuokkaContext on the card, with every kernel's
-     launch count set to 0 just before each path and read just after, and
-     check each result against a numpy oracle; run each again warm;
+     lineitem, 1.5M orders, 150K customer, 200K part, 10K supplier, 25
+     nation and 5 region rows at SF1; the domains of tests/tpch_data.py);
+  4. run TPC-H Q1, Q3 (join_build=hashtable, then join_build=sort), Q5,
+     Q4, Q13, Q19 and Q7 through the port's own QuokkaContext on the card,
+     with every kernel's launch count set to 0 just before each path and
+     read just after, and check each result against a numpy oracle; run
+     each again warm;
   5. where the time goes: a warm run of each query under the profiler
      (device busy, idle share of the warm wall, device time per kernel);
   6. hold each kernel against its plain torch version on the card, at the
      shapes the query runs gave it (K1, K2 at Q1's; K3, K4 at Q1's and
      Q3's; K5, K11, K12 at Q3's, K12 also on float64 keys with -0.0 and
-     NaN), and time kernel, plain version and bound with CUDA events; the
-     torch-primitive rows 7, 8, 14 and 15 are timed at Q3's shapes too;
+     NaN; K13 at Q13's and with one probe key matching 10^4 build rows;
+     K16 at Q7's, also with dates before 1970 and nulls), and time kernel,
+     plain version and bound with CUDA events; the torch-primitive rows 7,
+     8, 10, 14 and 15 are timed at Q3's and Q13's shapes too;
   7. print one JSON line of per-kernel numbers, the card line, and last the
      contract line {"ok": true, "device": {...}}.
 
@@ -33,6 +36,7 @@ a checkout that holds quokka_tpu_torch/.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -65,6 +69,20 @@ NATIONS = [
     ("UNITED STATES", 1),
 ]
 SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"]
+PRIORITIES = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]
+BRANDS = [f"Brand#{m}{n}" for m in range(1, 6) for n in range(1, 6)]
+# o_comment: "special requests" (code 0) with probability 0.05, else one of
+# this many distinct comments
+COMMENT_POOL = 10_000
+Q19_FILTER = (
+    "(p_brand = 'Brand#12' and l_quantity >= 1 and l_quantity <= 11 "
+    " and p_size between 1 and 5) "
+    "or (p_brand = 'Brand#23' and l_quantity >= 10 and l_quantity <= 20 "
+    " and p_size between 1 and 10) "
+    "or (p_brand = 'Brand#34' and l_quantity >= 20 and l_quantity <= 30 "
+    " and p_size between 1 and 15)")
+Q7_FILTER = ("(supp_nation = 'FRANCE' and cust_nation = 'GERMANY') or "
+             "(supp_nation = 'GERMANY' and cust_nation = 'FRANCE')")
 
 
 def fail(msg: str) -> None:
@@ -100,14 +118,17 @@ class Table:
 
 
 def make_tpch(sf: float, seed: int):
-    """The six tables Q1, Q3 and Q5 read: orders have keys 4, 8, 12, ...;
-    customers whose key is a multiple of 3 place no orders; 1-7 lines per
-    order; ship date = order date + 1..121 days."""
+    """The seven tables Q1, Q3, Q5, Q4, Q13, Q19 and Q7 read: orders have
+    keys 4, 8, 12, ...; customers whose key is a multiple of 3 place no
+    orders; 1-7 lines per order; ship date = order date + 1..121 days,
+    commit date = order date + 30..90, receipt date = ship date + 1..30;
+    brands Brand#MN (M, N in 1..5), part sizes 1..50."""
     import numpy as np
 
     r = np.random.default_rng(seed)
     n_orders = max(int(1_500_000 * sf), 50)
     n_cust = max(int(150_000 * sf), 20)
+    n_part = max(int(200_000 * sf), 25)
     n_supp = max(int(10_000 * sf), 10)
     i64 = np.int64
     region = Table({"r_regionkey": np.arange(5, dtype=i64),
@@ -126,15 +147,29 @@ def make_tpch(sf: float, seed: int):
     odate = r.integers(days("1992-01-01"), days("1998-08-02"), n_orders).astype(np.int32)
     with_orders = custkey[custkey % 3 != 0]
     okey = np.arange(1, n_orders + 1, dtype=i64) * 4
+    part = Table({"p_partkey": np.arange(1, n_part + 1, dtype=i64),
+                  "p_brand": r.integers(0, len(BRANDS), n_part).astype(np.int32),
+                  "p_size": r.integers(1, 51, n_part).astype(i64)}, {"p_brand": BRANDS})
+    comment = np.where(r.random(n_orders) < 0.05, 0,
+                       1 + r.integers(0, COMMENT_POOL, n_orders)).astype(np.int32)
     orders = Table({"o_orderkey": okey,
                     "o_custkey": with_orders[r.integers(0, len(with_orders), n_orders)],
                     "o_orderdate": odate,
-                    "o_shippriority": np.zeros(n_orders, dtype=i64)}, dates=["o_orderdate"])
+                    "o_orderpriority": r.integers(0, 5, n_orders).astype(np.int32),
+                    "o_shippriority": np.zeros(n_orders, dtype=i64),
+                    "o_comment": comment},
+                   {"o_orderpriority": PRIORITIES,
+                    "o_comment": ["special requests"]
+                    + [f"order comment {k}" for k in range(COMMENT_POOL)]},
+                   dates=["o_orderdate"])
     lines_per = r.integers(1, 8, n_orders)
     n = int(lines_per.sum())
     qty = r.integers(1, 51, n).astype(np.float64)
+    lodate = np.repeat(odate, lines_per)
+    ship = (lodate + r.integers(1, 122, n)).astype(np.int32)
     lineitem = Table({
         "l_orderkey": np.repeat(okey, lines_per),
+        "l_partkey": r.integers(1, n_part + 1, n).astype(i64),
         "l_suppkey": r.integers(1, n_supp + 1, n).astype(i64),
         "l_quantity": qty,
         "l_extendedprice": np.round(qty * (900 + r.uniform(0, 1200, n)) / 10, 2),
@@ -142,20 +177,25 @@ def make_tpch(sf: float, seed: int):
         "l_tax": np.round(r.uniform(0, 0.08, n), 2),
         "l_returnflag": r.integers(0, 3, n).astype(np.int32),
         "l_linestatus": r.integers(0, 2, n).astype(np.int32),
-        "l_shipdate": (np.repeat(odate, lines_per) + r.integers(1, 122, n)).astype(np.int32),
-    }, {"l_returnflag": RETURNFLAGS, "l_linestatus": LINESTATUS}, dates=["l_shipdate"])
-    return {"region": region, "nation": nation, "supplier": supplier,
+        "l_shipdate": ship,
+        "l_commitdate": (lodate + r.integers(30, 91, n)).astype(np.int32),
+        "l_receiptdate": (ship + r.integers(1, 31, n)).astype(np.int32),
+    }, {"l_returnflag": RETURNFLAGS, "l_linestatus": LINESTATUS},
+        dates=["l_shipdate", "l_commitdate", "l_receiptdate"])
+    return {"region": region, "nation": nation, "supplier": supplier, "part": part,
             "customer": customer, "orders": orders, "lineitem": lineitem}
 
 
 class TableReader:
     """Reader over a Table: 2^20-row slices dealt round-robin to the
-    channels, delivered as HostTables (no Arrow); ``num_rows`` and
-    ``sample`` feed the optimizer's catalog."""
+    channels, delivered as HostTables (no Arrow) of the plan's columns
+    (``columns``, which the source sets from its pushed-down projection);
+    ``num_rows`` and ``sample`` feed the optimizer's catalog."""
 
     def __init__(self, table: Table):
         self.table = table
         self.num_rows = table.num_rows
+        self.columns = None
 
     @property
     def schema(self):
@@ -172,10 +212,10 @@ class TableReader:
         start, length = lineage
         t = self.table
         cols = {}
-        for k, v in t.cols.items():
-            v = v[start:start + length]
+        for k in self.columns or list(t.cols):
+            v = t.cols[k][start:start + length]
             cols[k] = v.astype("datetime64[D]") if k in t.dates else v
-        return HostTable(cols, dictionaries=dict(t.dicts))
+        return HostTable(cols, dictionaries={k: v for k, v in t.dicts.items() if k in cols})
 
     def sample(self, rows):
         return self.execute(0, (0, min(rows, self.num_rows)))
@@ -311,6 +351,107 @@ def check_q5(got, exp) -> None:
     for name, rev in zip(names, got["revenue"]):
         if not np.isclose(rev, exp[name], rtol=1e-9, atol=0):
             fail(f"Q5 {name} revenue {rev} vs {exp[name]} beyond rtol 1e-9")
+
+
+def q4_oracle(t):
+    """{o_orderpriority: order_count} of Q3 1993's orders with a late line."""
+    import numpy as np
+
+    o, li = t["orders"].cols, t["lineitem"].cols
+    om = (o["o_orderdate"] >= days("1993-07-01")) & (o["o_orderdate"] < days("1993-10-01"))
+    late = np.unique(li["l_orderkey"][li["l_commitdate"] < li["l_receiptdate"]])
+    cnt = np.bincount(o["o_orderpriority"][om & np.isin(o["o_orderkey"], late)], minlength=5)
+    return {PRIORITIES[i]: int(c) for i, c in enumerate(cnt) if c}
+
+
+def q13_oracle(t):
+    """{c_count: custdist}: customers by their number of orders without
+    "special" in the comment (0 for customers without orders)."""
+    import numpy as np
+
+    c, o = t["customer"].cols, t["orders"].cols
+    plain = o["o_comment"] != 0
+    per = np.bincount(o["o_custkey"][plain], minlength=len(c["c_custkey"]) + 1)[c["c_custkey"]]
+    return {k: int(v) for k, v in enumerate(np.bincount(per)) if v}
+
+
+def q19_oracle(t):
+    """(revenue, n) of the lines whose part meets one of the three brand /
+    quantity / size conditions."""
+    li, p = t["lineitem"].cols, t["part"].cols
+    pi = li["l_partkey"] - 1
+    brand, size, q = p["p_brand"][pi], p["p_size"][pi], li["l_quantity"]
+    cond = False
+    for b, lo, hi, smax in (("Brand#12", 1, 11, 5), ("Brand#23", 10, 20, 10),
+                            ("Brand#34", 20, 30, 15)):
+        cond = cond | ((brand == BRANDS.index(b)) & (q >= lo) & (q <= hi)
+                       & (size >= 1) & (size <= smax))
+    rev = li["l_extendedprice"][cond] * (1 - li["l_discount"][cond])
+    return float(rev.sum()), int(cond.sum())
+
+
+def q7_oracle(t):
+    """{(supp_nation, cust_nation, l_year): revenue} of 1995-1996's lines
+    shipped between France and Germany."""
+    import numpy as np
+
+    li, s, o, c = (t[k].cols for k in ("lineitem", "supplier", "orders", "customer"))
+    names = [n for n, _ in NATIONS]
+    sd = li["l_shipdate"]
+    snat = s["s_nationkey"][li["l_suppkey"] - 1]
+    cnat = c["c_nationkey"][o["o_custkey"][li["l_orderkey"] // 4 - 1] - 1]
+    fr, de = names.index("FRANCE"), names.index("GERMANY")
+    sel = ((sd >= days("1995-01-01")) & (sd <= days("1996-12-31"))
+           & (((snat == fr) & (cnat == de)) | ((snat == de) & (cnat == fr))))
+    year = sd[sel].astype("datetime64[D]").astype("datetime64[Y]").astype(np.int64) + 1970
+    vol = li["l_extendedprice"][sel] * (1 - li["l_discount"][sel])
+    out = {}
+    for a, b, y, v in zip(snat[sel], cnat[sel], year, vol):
+        key = (names[a], names[b], int(y))
+        out[key] = out.get(key, 0.0) + float(v)
+    return out
+
+
+def check_groups(what, got, keys, value, exp, exact) -> None:
+    """Compare a grouped result with a {key tuple (or key): value} oracle:
+    the same groups, values exact or to rtol 1e-9."""
+    import numpy as np
+
+    cols = [got[k].tolist() for k in keys]
+    rows = list(zip(*cols))
+    if len(keys) == 1:
+        rows = [r[0] for r in rows]
+    if sorted(rows) != sorted(exp):
+        fail(f"{what} groups {sorted(rows)[:8]}... != oracle {sorted(exp)[:8]}...")
+    for row, have in zip(rows, got[value].tolist()):
+        want = exp[row]
+        if exact and have != want:
+            fail(f"{what} {row} {value}: {have} != {want} (exact)")
+        if not exact and not np.isclose(have, want, rtol=1e-9, atol=0):
+            fail(f"{what} {row} {value}: {have} vs {want} beyond rtol 1e-9")
+
+
+def check_q4(got, exp) -> None:
+    check_groups("Q4", got, ["o_orderpriority"], "order_count", exp, exact=True)
+
+
+def check_q13(got, exp) -> None:
+    check_groups("Q13", got, ["c_count"], "custdist", exp, exact=True)
+
+
+def check_q19(got, exp) -> None:
+    import numpy as np
+
+    rev, n = exp
+    if int(got["n"][0]) != n or n == 0:
+        fail(f"Q19 count {int(got['n'][0])} != oracle {n}")
+    if not np.isclose(got["revenue"][0], rev, rtol=1e-9, atol=0):
+        fail(f"Q19 revenue {got['revenue'][0]} vs {rev} beyond rtol 1e-9")
+
+
+def check_q7(got, exp) -> None:
+    check_groups("Q7", got, ["supp_nation", "cust_nation", "l_year"], "revenue", exp,
+                 exact=False)
 
 
 def collect_numpy(stream, what: str):
@@ -453,9 +594,9 @@ def smoke(dev, card: str, args) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from quokka_tpu_torch import QuokkaContext, col, date, sqlparse
+    from quokka_tpu_torch import QuokkaContext, col, config, date, sqlparse
     from quokka_tpu_torch.executors.sql_execs import PartialAggExecutor
-    from quokka_tpu_torch.ops import bridge, fuse, hashtable, join, kernels, native
+    from quokka_tpu_torch.ops import bridge, fuse, hashtable, join, kernels, native, stagefuse
     from quokka_tpu_torch.ops.batch import key_limbs
     from quokka_tpu_torch.ops.expr_compile import plan_aggregation
 
@@ -479,9 +620,10 @@ def smoke(dev, card: str, args) -> int:
     # -- phase 3: data ------------------------------------------------------------
     t0 = time.perf_counter()
     tables = make_tpch(args.sf, args.seed)
-    readers = {name: TableReader(t) for name, t in tables.items()}
     li = tables["lineitem"]
-    oracles = {"q1": q1_oracle(li), "q3": q3_oracle(tables), "q5": q5_oracle(tables)}
+    oracles = {"q1": q1_oracle(li), "q3": q3_oracle(tables), "q5": q5_oracle(tables),
+               "q4": q4_oracle(tables), "q13": q13_oracle(tables),
+               "q19": q19_oracle(tables), "q7": q7_oracle(tables)}
     report["datagen_s"] = time.perf_counter() - t0
     report["rows"] = {name: t.num_rows for name, t in tables.items()}
     print(f"data sf={args.sf}: {report['rows']} in {report['datagen_s']:.1f} s "
@@ -489,7 +631,9 @@ def smoke(dev, card: str, args) -> int:
     ctx = QuokkaContext(io_channels=2, exec_channels=2, device=dev)
 
     def src(name):
-        return ctx.read_dataset(readers[name], schema=readers[name].schema)
+        # a reader per source: it holds the source's pushed-down projection
+        reader = TableReader(tables[name])
+        return ctx.read_dataset(reader, schema=reader.schema)
 
     def q1_stream():
         return (src("lineitem").filter_sql(Q1_FILTER)
@@ -518,18 +662,72 @@ def smoke(dev, card: str, args) -> int:
                       left_on="n_regionkey", right_on="r_regionkey")
                 .groupby("n_name").agg_sql(REV))
 
+    def q4_stream():
+        return (src("orders")
+                .filter_sql("o_orderdate >= date '1993-07-01' and o_orderdate < date '1993-10-01'")
+                .join(src("lineitem").filter_sql("l_commitdate < l_receiptdate"),
+                      left_on="o_orderkey", right_on="l_orderkey", how="semi")
+                .groupby("o_orderpriority").agg_sql("count(*) as order_count"))
+
+    def q13_stream():
+        return (src("customer")
+                .join(src("orders").filter(~col("o_comment").str.contains("special")),
+                      left_on="c_custkey", right_on="o_custkey", how="left")
+                .groupby("c_custkey").agg_sql("count(o_orderkey) as c_count")
+                .groupby("c_count").agg_sql("count(*) as custdist"))
+
+    def q19_stream():
+        return (src("lineitem").join(src("part"), left_on="l_partkey", right_on="p_partkey")
+                .filter_sql(Q19_FILTER)
+                .agg_sql("sum(l_extendedprice * (1 - l_discount)) as revenue, count(*) as n"))
+
+    def q7_stream():
+        nation = src("nation")
+        n1 = nation.rename({"n_name": "supp_nation", "n_nationkey": "n1key"})
+        n2 = nation.rename({"n_name": "cust_nation", "n_nationkey": "n2key"})
+        return (src("lineitem")
+                .filter_sql("l_shipdate between date '1995-01-01' and date '1996-12-31'")
+                .join(src("supplier"), left_on="l_suppkey", right_on="s_suppkey")
+                .join(src("orders"), left_on="l_orderkey", right_on="o_orderkey")
+                .join(src("customer"), left_on="o_custkey", right_on="c_custkey")
+                .join(n1.select(["supp_nation", "n1key"]), left_on="s_nationkey",
+                      right_on="n1key")
+                .join(n2.select(["cust_nation", "n2key"]), left_on="c_nationkey",
+                      right_on="n2key")
+                .filter_sql(Q7_FILTER)
+                .with_columns_sql("extract(year from l_shipdate) as l_year, "
+                                  "l_extendedprice * (1 - l_discount) as volume")
+                .groupby(["supp_nation", "cust_nation", "l_year"])
+                .agg_sql("sum(volume) as revenue"))
+
     counters = {"K1": (fuse, "PREDICATE_LAUNCHES"), "K2": (fuse, "SMALL_AGG_LAUNCHES"),
                 "K3": (hashtable, "LAUNCHES"), "K4": (kernels, "PARTITION_LAUNCHES"),
                 "K5": (fuse, "PRE_AGG_LAUNCHES"),
                 "K11 build": (hashtable, "BUILD_LAUNCHES"),
                 "K11": (hashtable, "PROBE_LAUNCHES"),
-                "K12": (join, "SORTED_PROBE_LAUNCHES")}
+                "K12": (join, "SORTED_PROBE_LAUNCHES"),
+                "K13": (join, "EXPAND_LAUNCHES"),
+                "K16": (stagefuse, "ELEMWISE_LAUNCHES")}
+    # path: (stream, check, kernels it must launch, kernels it must not, and
+    # whether it must take the general join).  Q4's semi join takes the
+    # general join's plan but never expands, so it launches no K13.
     paths = {
-        "q1": (q1_stream, check_q1, ["K1", "K2", "K3", "K4"], ["K5", "K11", "K12"]),
-        "q3": (q3_stream, check_q3, ["K1", "K3", "K4", "K5", "K11 build", "K11"], ["K12"]),
+        "q1": (q1_stream, check_q1, ["K1", "K2", "K3", "K4"],
+               ["K5", "K11", "K12", "K13", "K16"], False),
+        "q3": (q3_stream, check_q3, ["K1", "K3", "K4", "K5", "K11 build", "K11"],
+               ["K12", "K13", "K16"], False),
         "q3 sort": (q3_stream, check_q3, ["K1", "K3", "K4", "K5", "K12"],
-                    ["K11 build", "K11"]),
-        "q5": (q5_stream, check_q5, ["K1", "K2", "K3", "K4", "K11 build", "K11"], ["K12"]),
+                    ["K11 build", "K11", "K13", "K16"], False),
+        "q5": (q5_stream, check_q5, ["K1", "K2", "K3", "K4", "K11 build", "K11"],
+               ["K12", "K13", "K16"], False),
+        "q4": (q4_stream, check_q4, ["K1", "K2", "K3", "K4", "K11 build"],
+               ["K11", "K12", "K13", "K16"], True),
+        "q13": (q13_stream, check_q13, ["K1", "K3", "K4", "K5", "K11 build", "K13"],
+                ["K11", "K12", "K16"], True),
+        "q19": (q19_stream, check_q19, ["K4", "K5", "K11 build", "K11", "K16"],
+                ["K12", "K13"], False),
+        "q7": (q7_stream, check_q7, ["K1", "K3", "K4", "K5", "K11 build", "K11", "K16"],
+               ["K12", "K13"], False),
     }
     plan_text = {}
     launches_by_path, walls = {}, {}
@@ -541,23 +739,37 @@ def smoke(dev, card: str, args) -> int:
             os.environ.pop("QK_KERNEL_STRATEGY", None)
 
     # -- phase 4: the query paths ------------------------------------------------
-    for path, (stream, check, must, must_not) in paths.items():
+    real_general = join.hash_join_general
+    general_calls = []
+
+    def counted_general(*a, **kw):
+        general_calls.append(kw.get("how", a[4] if len(a) > 4 else "inner"))
+        return real_general(*a, **kw)
+
+    for path, (stream, check, must, must_not, general) in paths.items():
         set_strategy(path)
         exp = oracles[path.split()[0]]
         plan_text[path] = stream().explain()
-        for mod, attr in list(counters.values()) + [(fuse, "FALLBACKS")]:
+        for mod, attr in list(counters.values()) + [(fuse, "FALLBACKS"),
+                                                     (stagefuse, "SEQUENTIAL")]:
             setattr(mod, attr, 0)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        got = collect_numpy(stream(), path)
-        torch.cuda.synchronize()
-        cold = time.perf_counter() - t0
+        general_calls.clear()
+        join.hash_join_general = counted_general
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = collect_numpy(stream(), path)
+            torch.cuda.synchronize()
+            cold = time.perf_counter() - t0
+        finally:
+            join.hash_join_general = real_general
         launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
-        fallbacks = fuse.FALLBACKS
+        fallbacks, sequential = fuse.FALLBACKS, stagefuse.SEQUENTIAL
         check(got, exp)
         launches_by_path[path] = launches
         print(f"{path} sf={args.sf}: cold {cold:.3f} s, launches {launches}, "
-              f"fallbacks {fallbacks}; matches the numpy oracle")
+              f"fallbacks {fallbacks}, per-step stage batches {sequential}, general joins "
+              f"{len(general_calls)} {sorted(set(general_calls))}; matches the numpy oracle")
         missing = [k for k in must if launches[k] == 0]
         if missing:
             fail(f"kernels not launched on the {path} run: {missing}")
@@ -566,6 +778,11 @@ def smoke(dev, card: str, args) -> int:
             fail(f"kernels launched on the {path} run that its strategy excludes: {stray}")
         if fallbacks:
             fail(f"{fallbacks} unfused fallbacks on {path}")
+        if sequential:
+            fail(f"{sequential} fused-stage batches took the per-step path on {path}")
+        if general != bool(general_calls):
+            fail(f"{path}: {len(general_calls)} general joins, expected "
+                 f"{'some' if general else 'none'}")
         warm = []
         for _ in range(3 if path != "q3 sort" else 1):
             t0 = time.perf_counter()
@@ -587,7 +804,7 @@ def smoke(dev, card: str, args) -> int:
     Engine = engine_mod.Engine
     real = (Engine._read_and_bridge, Engine.handle_input_task, Engine.handle_exec_task)
     host_steps = {}
-    for path, (stream, _, _, _) in paths.items():
+    for path, (stream, *_) in paths.items():
         set_strategy(path)
         spent = {}
 
@@ -633,6 +850,8 @@ def smoke(dev, card: str, args) -> int:
     os.environ.pop("QK_KERNEL_STRATEGY", None)
     report["host_steps"] = host_steps
     q1_reader = TableReader(li)
+    q1_reader.columns = ["l_quantity", "l_extendedprice", "l_discount", "l_tax",
+                         "l_returnflag", "l_linestatus", "l_shipdate"]
     state = q1_reader.get_own_state(1)[0]
     q1_cols = ["l_quantity", "l_extendedprice", "l_discount", "l_tax", "l_returnflag",
                "l_linestatus", "l_shipdate"]
@@ -651,9 +870,10 @@ def smoke(dev, card: str, args) -> int:
 
     prefixes = ("qk_predicate", "qk_small_agg", "qk_colreduce", "qk_pre_agg",
                 "qk_insert_kernel", "qk_segment_kernel", "qk_partition_kernel",
-                "qk_probe_kernel", "qk_sorted_probe_kernel")
+                "qk_probe_kernel", "qk_sorted_probe_kernel", "qk_mm_expand_kernel",
+                "qk_elemwise")
     profiles = {}
-    for path, (stream, _, _, _) in paths.items():
+    for path, (stream, *_) in paths.items():
         set_strategy(path)
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -723,6 +943,23 @@ def smoke(dev, card: str, args) -> int:
     os.environ.pop("QK_KERNEL_STRATEGY", None)
     report["q3_calls"] = {p: c.calls for p, c in caps.items()}
     hcap, scap = caps["q3"], caps["q3 sort"]
+
+    # the calls the slice-3 paths make: Q13's expands and plans, Q4's and
+    # Q13's dense ranks (row 10), Q7's in-stage elementwise calls (K16)
+    s3 = {}
+    rank_target = {"row 10 rank": (kernels, "dense_rank", lambda l, v: v.shape[0])}
+    for path, stream, tg in (
+            ("q13", q13_stream, {"K13": (join, "mm_expand", lambda *a: a[5]),
+                                 "row 13 plan": (join, "_mm_plan", lambda l, v, p: v.shape[0]),
+                                 **rank_target}),
+            ("q4", q4_stream, dict(rank_target)),
+            ("q7", q7_stream, {"K16": (stagefuse.ElemwiseCall, "__init__",
+                                       lambda self, *a: a[5].shape[0])})):
+        with Capture(tg) as cap:
+            collect_numpy(stream(), path)
+        s3[path] = cap
+        print(f"{path} calls per query: {cap.calls}")
+    report["slice3_calls"] = {p: c.calls for p, c in s3.items()}
 
     # -- phase 6: every kernel against its plain version -----------------------------
     out, t_rows = [], []
@@ -997,13 +1234,115 @@ def smoke(dev, card: str, args) -> int:
                                                                s_ok),
                             ("qk_sorted_probe_kernel",))))
 
+    # K13 at Q13's shape (its largest expand), and with one probe key that
+    # matches 10^4 build rows
+    def check_k13(label, a):
+        cum = torch.cumsum(a[0], 0)
+        k = join._mm_expand_cuda(cum, *a[1:])
+        q = join._mm_expand_plain(cum, *a[1:])
+        for name, x, y in zip(("probe_idx", "build_idx", "out_valid", "unmatched"), k, q):
+            if (x is None) != (y is None) or (x is not None and not torch.equal(x, y)):
+                fail(f"K13 {label}: {name} differs from the plain version")
+        print(f"K13 {label}: {a[5]} output rows ({int(a[4])} live) over {a[0].shape[0]} probe "
+              f"rows match the plain version row for row")
+        return cum
+
+    def k13_bytes(a, cum):
+        unm = a[6]
+        return (nbytes(cum, a[1], a[2], a[3]) + 8 + (0 if unm is None else nbytes(unm))
+                + a[5] * (4 + 4 + 1 + (0 if unm is None else 1)))
+
+    (k13_a, _) = s3["q13"].args["K13"]
+    k13_cum = check_k13("Q13", k13_a)
+    g13 = torch.Generator(device="cpu").manual_seed(args.seed + 13)
+    p_s, b_s = 1 << 16, 1 << 20
+    bk = torch.randint(0, 1 << 19, (b_s,), generator=g13)
+    pk = torch.randint(0, 1 << 19, (p_s,), generator=g13)
+    bk[:10_000] = -1
+    pk[:100] = -1
+    s_limbs = [torch.cat([pk, bk]).to(dev)]
+    s_valid = torch.ones(p_s + b_s, dtype=torch.bool, device=dev)
+    sk = join.mm_plan_for(s_limbs, s_valid, p_s, "left", s_valid[:p_s])
+    if int(sk[0][:100].min()) != 10_000:
+        fail("K13 skewed case: the hot probe key does not match 10^4 build rows")
+    sk_a = (sk[0], sk[2], sk[3], sk[4], sk[1], config.bucket_size(int(sk[1])), sk[5])
+    sk_cum = check_k13("one key x 10^4 build rows", sk_a)
+
+    def expand13(a, cum):
+        return lambda: join._mm_expand_cuda(cum, *a[1:])
+
+    def expand13_plain(a, cum):
+        return lambda: join._mm_expand_plain(cum, *a[1:])
+
+    out.append(dict(
+        name="K13 many-to-many expand", route="cuda", source="quokka_tpu_torch/csrc/join.cu",
+        replaces="quokka_tpu/ops/join.py:238", launches=launches_by_path["q13"]["K13"],
+        max_abs_err=0.0, ms=cuda_ms(expand13(k13_a, k13_cum)),
+        plain_ms=cuda_ms(expand13_plain(k13_a, k13_cum), iters=5),
+        bound_ms=bound_ms(k13_bytes(k13_a, k13_cum)), bound_by="bytes", library_ms=None,
+        shape=f"Q13: {k13_a[5]} output rows, {k13_a[0].shape[0]} probe rows, "
+              f"{k13_a[2].shape[0]} build rows, left",
+        device_us=device_us(expand13(k13_a, k13_cum), ("qk_mm_expand_kernel",)),
+        skew={"shape": f"{sk_a[5]} output rows, {p_s} probe rows, {b_s} build rows, one key "
+                       "x 10^4 build rows, left",
+              "launches": 0, "ms": cuda_ms(expand13(sk_a, sk_cum)),
+              "plain_ms": cuda_ms(expand13_plain(sk_a, sk_cum), iters=3, warmup=1),
+              "device_us": device_us(expand13(sk_a, sk_cum), ("qk_mm_expand_kernel",)),
+              "bound_ms": bound_ms(k13_bytes(sk_a, sk_cum))}))
+
+    # K16 at Q7's stage, and on the same call with dates from 0001 to 9999
+    # (before 1970 too) and 5% nulls in place of l_shipdate
+    (k16_call, *_), _ = s3["q7"].args["K16"]
+
+    def check_k16(label, call) -> float:
+        mk, ck, ok = call.launch()
+        mp, cp, op = call.plain()
+        if not (torch.equal(mk, mp) and int(ck) == int(cp)):
+            fail(f"K16 {label}: mask/count differ from the plain version")
+        err = 0.0
+        for a, b in zip(ok, op):
+            if a.dtype != b.dtype:
+                fail(f"K16 {label}: output dtype {a.dtype} != the plain version's {b.dtype}")
+            if a.is_floating_point():
+                if not torch.allclose(a, b, rtol=1e-12, atol=0, equal_nan=True):
+                    fail(f"K16 {label}: values beyond rtol 1e-12 of the plain version")
+                both = ~(torch.isnan(a) | torch.isnan(b))
+                err = max(err, float((a[both] - b[both]).abs().max()))
+            elif not torch.equal(a, b):
+                fail(f"K16 {label}: values differ from the plain version")
+        print(f"K16 {label}: mask ({int(ck)} live of {mk.shape[0]}) and {len(ok)} outputs "
+              f"match the plain version (max abs err {err})")
+        return err
+
+    err16 = check_k16("Q7", k16_call)
+    if "l_shipdate" not in k16_call.inputs:
+        fail("K16: Q7's stage does not read l_shipdate")
+    n16 = k16_call.valid.shape[0]
+    dd = torch.randint(-719162, 2932896, (n16,), generator=g13, dtype=torch.int64)
+    dd[torch.rand(n16, generator=g13) < 0.05] = -(2**31)
+    wide_dates = dict(k16_call.inputs)
+    wide_dates["l_shipdate"] = dd.to(torch.int32).to(dev)
+    err16 = max(err16, check_k16("Q7, dates 0001-9999 with nulls",
+                                 dataclasses.replace(k16_call, inputs=wide_dates)))
+    k16_in = list(k16_call.inputs.values()) + [k16_call.valid]
+    out.append(dict(
+        name="K16 in-stage elementwise", route="triton", source="quokka_tpu_torch/ops/stagefuse.py",
+        replaces="quokka_tpu/ops/stagefuse.py:113", launches=launches_by_path["q7"]["K16"],
+        max_abs_err=err16, ms=cuda_ms(k16_call.launch), plain_ms=cuda_ms(k16_call.plain),
+        bound_ms=bound_ms(nbytes(*k16_in) + n16 + 4 + sum(
+            n16 * torch.empty(0, dtype=dt).element_size() for dt in k16_call.out_dtypes)),
+        bound_by="bytes", library_ms=None,
+        shape=f"Q7: {n16} rows, {len(k16_in) - 1} inputs, {len(k16_call.outputs)} outputs",
+        device_us=device_us(k16_call.launch, ("qk_elemwise",))))
+
     # the torch-primitive rows at Q3's shapes: time, device time, bound
-    def t_row(row, what, fn, n_bytes, calls):
-        t_rows.append(dict(row=row, what=what, calls_per_q3=calls, ms=cuda_ms(fn, iters=10),
-                           device_us=device_us(fn), bound_ms=bound_ms(n_bytes)))
+    def t_row(row, what, fn, n_bytes, calls, query="q3"):
+        t_rows.append(dict(row=row, what=what, query=query, calls_per_query=calls,
+                           ms=cuda_ms(fn, iters=10), device_us=device_us(fn),
+                           bound_ms=bound_ms(n_bytes)))
         print(f"row {row} {what}: {t_rows[-1]['ms']:.4f} ms, "
               f"{t_rows[-1]['device_us']:.1f} device us, bound {t_rows[-1]['bound_ms']:.5f} ms, "
-              f"{calls} calls per Q3")
+              f"{calls} calls per {query}")
 
     (g_cols, g_idx), _ = hcap.args["row 7 gather"]
     g_out = join.gather_columns(g_cols, g_idx)
@@ -1032,13 +1371,25 @@ def smoke(dev, card: str, args) -> int:
     (ls_keys,), _ = scap.args["row 15 sort"]
     t_row(15, "stable lexicographic sort (build keys)", lambda: kernels.lexsort_perm(ls_keys),
           nbytes(*ls_keys) + ls_keys[0].shape[0] * 8, scap.calls["row 15 sort"])
+    for path in ("q13", "q4"):
+        (r_limbs, r_valid), _ = s3[path].args["row 10 rank"]
+        t_row(10, f"dense rank ({path}'s largest, {len(r_limbs)} limbs)",
+              lambda: kernels.dense_rank(r_limbs, r_valid),
+              nbytes(*r_limbs, r_valid) + r_valid.shape[0] * 8 + 4,
+              s3[path].calls["row 10 rank"], path)
+        t_rows[-1]["library_ms"] = cuda_ms(lambda: torch.sort(r_limbs[0], stable=True))
+    (p_limbs, p_valid, p_p), _ = s3["q13"].args["row 13 plan"]
+    t_row(13, "many-to-many plan (Q13's largest: rank, counts, build sort, offsets)",
+          lambda: join._mm_plan(p_limbs, p_valid, p_p),
+          nbytes(*p_limbs, p_valid) + 8 * (p_p + 1 + 2 * p_valid.shape[0]),
+          s3["q13"].calls["row 13 plan"], "q13")
     report["t_rows"] = t_rows
 
     for kk in out:
         print(f"{kk['name']}: {kk['launches']} launches on its path, {kk['ms']:.4f} ms per "
               f"call, {kk['device_us']:.1f} device us per call, bound {kk['bound_ms']:.5f} ms "
               f"({kk['shape']}); plain {kk['plain_ms']:.4f} ms")
-        for sub in ("q3", "build"):
+        for sub in ("q3", "build", "skew"):
             if sub in kk:
                 v = kk[sub]
                 print(f"  {sub}: {v['launches']} launches, {v['ms']:.4f} ms, "

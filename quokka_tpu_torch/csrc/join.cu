@@ -19,6 +19,29 @@
 // sorted by stable torch sorts with invalid rows last and the row id as
 // the implicit last key, so perm[pos] is the smallest build row of the key.
 
+//
+// Many-to-many expand for Hopper (sm_90a): kernel K13.  Replaces
+// quokka_tpu/ops/join.py:_mm_expand (a searchsorted of every output row
+// into the inclusive cumsum of per-probe match counts, then gathers) and
+// the gather half of :_is_unmatched_gather (a left join's per-output-row
+// "no real match" flag).
+//
+// What bounds it: bytes.  Each output row writes probe_idx and build_idx
+// (4 B each), out_valid and, for left joins, unmatched (1 B each), and
+// reads one offset, one probe rank and one sorted build position; the
+// search reads about log2(p) cumsum entries per output row, whose first
+// levels every row shares and whose last levels neighbouring rows share
+// (they stay in L1 and L2).
+//
+// Design: one thread per output row runs an upper-bound search over the
+// cumsum in registers.  Output rows are spread evenly over threads however
+// skewed the match counts are (one probe key matching 10^4 build rows
+// costs 10^4 threads, not one thread 10^4 iterations), and row j lands at
+// index j, so the output order is the reference's: probe row first, then
+// the key's build rows in ascending row order.  Out-of-range positions are
+// clipped exactly as the XLA program clips them, so padding rows agree
+// too.
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -85,6 +108,41 @@ __global__ void qk_sorted_probe_kernel(TypedLimbs S, TypedLimbs P,
   matched[i] = (ok[i] && eq && lo < n_valid) ? 1 : 0;
 }
 
+// cum: inclusive cumsum of per-probe match counts (p int64); offsets: run
+// start of each rank (int64, indexed by rank); build_pos_sorted: build rows
+// sorted by rank (b int64); rp: rank of each probe row (p int64); total:
+// one int64 on the device.  Outputs for j < out_n: probe_idx, build_idx
+// (int32), out_valid (j < total) and, when unmatched_in is given,
+// unmatched_out[j] = unmatched_in[probe_idx[j]].
+__global__ void qk_mm_expand_kernel(const long long* __restrict__ cum, int64_t p,
+                                    const long long* __restrict__ offsets,
+                                    const long long* __restrict__ build_pos_sorted,
+                                    int64_t b, const long long* __restrict__ rp,
+                                    const long long* __restrict__ total_p,
+                                    const uint8_t* __restrict__ unmatched_in,
+                                    int64_t out_n, int32_t* __restrict__ probe_idx,
+                                    int32_t* __restrict__ build_idx,
+                                    uint8_t* __restrict__ out_valid,
+                                    uint8_t* __restrict__ unmatched_out) {
+  int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= out_n) return;
+  // upper bound: the first probe row whose inclusive cumsum exceeds j
+  int64_t lo = 0, hi = p;
+  while (lo < hi) {
+    int64_t mid = (lo + hi) >> 1;
+    if (cum[mid] <= j) lo = mid + 1;
+    else hi = mid;
+  }
+  int64_t pi = lo > p - 1 ? p - 1 : lo;
+  int64_t start = pi > 0 ? cum[pi - 1] : 0;
+  int64_t bpos = offsets[rp[pi]] + (j - start);
+  bpos = bpos < 0 ? 0 : (bpos > b - 1 ? b - 1 : bpos);
+  probe_idx[j] = (int32_t)pi;
+  build_idx[j] = (int32_t)build_pos_sorted[bpos];
+  out_valid[j] = j < *total_p ? 1 : 0;
+  if (unmatched_out != nullptr) unmatched_out[j] = unmatched_in[pi];
+}
+
 extern "C" {
 
 // sorted (n_limbs arrays of nb rows, dtypes dts), probe (n_limbs arrays of
@@ -108,6 +166,25 @@ int qk_sorted_probe(const void* const* sorted, const void* const* probe,
   qk_sorted_probe_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       S, P, (const int32_t*)perm, (const long long*)n_valid, nb,
       (const uint8_t*)ok, p, (int32_t*)build_idx, (uint8_t*)matched);
+  return (int)cudaGetLastError();
+}
+
+int qk_mm_expand(const void* cum, long long p, const void* offsets,
+                 const void* build_pos_sorted, long long b, const void* rp,
+                 const void* total, const void* unmatched_in, long long out_n,
+                 void* probe_idx, void* build_idx, void* out_valid,
+                 void* unmatched_out, void* stream) {
+  if (p < 1 || b < 1 || (unmatched_in == nullptr) != (unmatched_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (out_n == 0) return (int)cudaSuccess;
+  int threads = 256;
+  unsigned int blocks = (unsigned int)((out_n + threads - 1) / threads);
+  qk_mm_expand_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const long long*)cum, p, (const long long*)offsets,
+      (const long long*)build_pos_sorted, b, (const long long*)rp,
+      (const long long*)total, (const uint8_t*)unmatched_in, out_n,
+      (int32_t*)probe_idx, (int32_t*)build_idx, (uint8_t*)out_valid,
+      (uint8_t*)unmatched_out);
   return (int)cudaGetLastError();
 }
 

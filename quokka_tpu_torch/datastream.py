@@ -1,5 +1,5 @@
 """DataStream: the lazy relational API (port of ``quokka_tpu/datastream.py``:
-filter, join, groupby + agg, top_k, collect).
+filter, select, rename, with_columns, join, groupby + agg, top_k, collect).
 
 Every method appends a logical Node to the context's plan and returns a new
 stream; nothing executes until collect() / compute().
@@ -16,8 +16,9 @@ from quokka_tpu_torch.ops.expr_compile import plan_aggregation
 
 def _not_in_slice(what: str):
     raise NotImplementedError(
-        f"{what} is not in quokka_tpu_torch yet (it carries filter, join, "
-        "groupby/agg, top_k and collect; see ROADMAP.md for the slice that adds it)")
+        f"{what} is not in quokka_tpu_torch yet (it carries filter, select, rename, "
+        "with_columns, join, groupby/agg, top_k and collect; see ROADMAP.md for the "
+        "slice that adds it)")
 
 
 class DataStream:
@@ -72,6 +73,38 @@ class DataStream:
     def filter_sql(self, sql: str) -> "DataStream":
         return self.filter(sqlparse.parse_expression(sql))
 
+    def select(self, columns: Union[str, Sequence[str]]) -> "DataStream":
+        columns = [columns] if isinstance(columns, str) else list(columns)
+        missing = set(columns) - set(self.schema)
+        if missing:
+            raise ValueError(f"select references unknown columns {missing}")
+        return self._child(logical.ProjectionNode([self.node_id], columns))
+
+    def rename(self, mapping: Dict[str, str]) -> "DataStream":
+        new_schema = [mapping.get(c, c) for c in self.schema]
+        return self._child(logical.MapNode([self.node_id], new_schema,
+                                           logical.RenameFn(dict(mapping)),
+                                           rename=dict(mapping)))
+
+    def with_columns(self, exprs: Dict[str, Union[Expr, str]]) -> "DataStream":
+        compiled = {k: sqlparse.parse_expression(v) if isinstance(v, str) else v
+                    for k, v in exprs.items()}
+        for k, e in compiled.items():
+            missing = e.required_columns() - set(self.schema)
+            if missing:
+                raise ValueError(f"with_columns {k} references unknown columns {missing}")
+        new_schema = self.schema + [k for k in compiled if k not in self.schema]
+        return self._child(logical.MapNode([self.node_id], new_schema,
+                                           logical.WithColumnsFn(compiled), exprs=compiled))
+
+    def with_columns_sql(self, sql: str) -> "DataStream":
+        named = {}
+        for e in sqlparse.parse_select_list(sql):
+            if not isinstance(e, Alias):
+                raise ValueError(f"with_columns_sql needs 'expr as name': {e.sql()}")
+            named[e.name] = e.expr
+        return self.with_columns(named)
+
     def groupby(self, keys: Union[str, Sequence[str]], orderby=None) -> "GroupedDataStream":
         if orderby is not None:
             _not_in_slice("groupby(orderby=...)")
@@ -94,9 +127,9 @@ class DataStream:
     def join(self, right: "DataStream", on: Optional[Union[str, Sequence[str]]] = None,
              left_on=None, right_on=None, how: str = "inner",
              suffix: str = "_2") -> "DataStream":
-        from quokka_tpu_torch.ops.join import require_pk_how
+        from quokka_tpu_torch.ops.join import require_join_how
 
-        require_pk_how(how)
+        require_join_how(how)
         if on is not None:
             left_on = right_on = [on] if isinstance(on, str) else list(on)
         else:
@@ -128,12 +161,6 @@ class DataStream:
 
     def sort(self, *args, **kwargs):
         _not_in_slice("sort")
-
-    def select(self, *args, **kwargs):
-        _not_in_slice("select")
-
-    def with_columns(self, *args, **kwargs):
-        _not_in_slice("with_columns")
 
     def distinct(self, *args, **kwargs):
         _not_in_slice("distinct")

@@ -2,10 +2,11 @@
 
 The UDF, Storage, SelectingStorage, PartialAgg, FinalAgg, BuildProbeJoin,
 BroadcastJoin and TopK executors.  Aggregation is decomposed partial -> hash
-shuffle -> final, as in the reference.  Joins take the PK path
-(``ops/join.hash_join_pk``) on unique builds; many-to-many and left joins,
-the join spill tier, join checkpoints, distinct and sort come with later
-slices (ROADMAP Queue 1 item 3).
+shuffle -> final, as in the reference.  Inner, semi and anti joins take the
+PK path (``ops/join.hash_join_pk``) on unique builds and the general path
+(``hash_join_general``) otherwise; every left join takes the general path,
+as in the reference.  The join spill tier, join checkpoints, distinct and
+sort come with later slices (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -264,12 +265,16 @@ class BuildProbeJoinExecutor(Executor):
 
     def __init__(self, left_on: Sequence[str], right_on: Sequence[str],
                  how: str = "inner", suffix: str = "_2",
-                 rename: Optional[Dict[str, str]] = None):
-        join_ops.require_pk_how(how)
+                 rename: Optional[Dict[str, str]] = None,
+                 out_schema: Optional[List[str]] = None):
+        join_ops.require_join_how(how)
         self.left_on = list(left_on)
         self.right_on = list(right_on)
         self.how = how
         self.suffix = suffix
+        # plan-time output schema: a left join emits all-null payloads from
+        # it when the build source emitted no batch at all
+        self.out_schema = list(out_schema) if out_schema else None
         # plan-time rename of clashing build columns; None -> detect at
         # runtime from the first probe batch
         self.planned_rename = rename
@@ -342,15 +347,31 @@ class BuildProbeJoinExecutor(Executor):
         # the dispatch's whole ready set flows through one join call
         live = _coalesce(live)
         if self.build is None:
-            # the build source emitted no batch at all
-            if self.how == "anti":
-                return bridge.concat_batches(live) if len(live) > 1 else live[0]
-            return None
+            # the build source emitted no batch at all, so the payload kinds
+            # are unknown: a left join's payloads become all-null float columns
+            if self.how in ("inner", "semi"):
+                return None
+            outs = live
+            if self.how == "left":
+                if self.out_schema is None:
+                    raise RuntimeError("left join: the build side produced no batches "
+                                       "and no plan schema was given (out_schema=)")
+                outs = []
+                for b in live:
+                    for c in self.out_schema:
+                        if c not in b.columns:
+                            b = b.with_column(c, NumCol(torch.full(
+                                (b.padded_len,), float("nan"), dtype=torch.float64,
+                                device=b.device), "f"))
+                    outs.append(b)
+            return bridge.concat_batches(outs) if len(outs) > 1 else outs[0]
         if self.build.count_valid() == 0 and self.how in ("inner", "semi"):
             return None
+        # an empty build with a schema falls through for anti and left joins:
+        # the general join finds every probe row unmatched
         outs = []
         for probe in live:
-            if self.build_unique:
+            if self.build_unique and self.how != "left":
                 out = join_ops.hash_join_pk(probe, self.build, self.left_on, self.right_on,
                                             self.how, self.payload)
             else:

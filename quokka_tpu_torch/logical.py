@@ -1,5 +1,5 @@
 """Logical plan nodes (port of ``quokka_tpu/logical.py``: Source, Filter,
-Join, Agg, FusedStage, TopK and Sink).
+Projection, Map, Join, Agg, FusedStage, TopK and Sink).
 
 The DataStream API builds a DAG of these; the optimizer rewrites it;
 ``lower()`` emits physical actors into the runtime TaskGraph.
@@ -7,11 +7,12 @@ The DataStream API builds a DAG of these; the optimizer rewrites it;
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Callable, Dict, List, Optional, Tuple
 
 from quokka_tpu_torch.expression import Expr
-from quokka_tpu_torch.ops.expr_compile import AggPlan
+from quokka_tpu_torch.ops.expr_compile import AggPlan, evaluate_to_column
 from quokka_tpu_torch.target_info import (
     BroadcastPartitioner,
     HashPartitioner,
@@ -80,6 +81,36 @@ class SourceNode(Node):
         return d + ")"
 
 
+@dataclasses.dataclass
+class SelectFn:
+    """Per-batch projection."""
+
+    cols: List[str]
+
+    def __call__(self, b):
+        return b.select(self.cols)
+
+
+@dataclasses.dataclass
+class RenameFn:
+    mapping: Dict[str, str]
+
+    def __call__(self, b):
+        return b.rename(self.mapping)
+
+
+@dataclasses.dataclass
+class WithColumnsFn:
+    """with_columns map: evaluates its expressions per batch."""
+
+    exprs: Dict[str, Expr]
+
+    def __call__(self, b):
+        for name, e in self.exprs.items():
+            b = b.with_column(name, evaluate_to_column(e, b))
+        return b
+
+
 class FilterNode(Node):
     def __init__(self, parents, schema, predicate: Expr):
         super().__init__(parents, schema)
@@ -100,6 +131,68 @@ class FilterNode(Node):
 
     def describe(self):
         return f"Filter({self.predicate.sql()})"
+
+
+class ProjectionNode(Node):
+    def derive_schema(self, parents):
+        _require(self.schema, parents[0], "projection")
+        return list(self.schema)
+
+    def lower(self, ctx, graph, actor_of, node_id):
+        from quokka_tpu_torch.executors.sql_execs import UDFExecutor
+
+        actor_of[node_id] = graph.new_exec_node(
+            functools.partial(UDFExecutor, SelectFn(list(self.schema))),
+            {0: (actor_of[self.parents[0]], _passthrough_edge())},
+            self.channels or ctx.exec_channels, self.stage)
+
+    def describe(self):
+        return f"Projection({self.schema})"
+
+
+class MapNode(Node):
+    """with_columns / rename: a per-batch function with explicit output
+    schema metadata, ``exprs`` (with_columns, foldable by the optimizer) or
+    ``rename`` (a column-rename map)."""
+
+    def __init__(self, parents, schema, fn: Callable,
+                 exprs: Optional[Dict[str, Expr]] = None,
+                 rename: Optional[Dict[str, str]] = None):
+        super().__init__(parents, schema)
+        self.fn = fn
+        self.exprs = exprs
+        self.rename = rename
+        self.folded = False  # set by optimizer.fold_maps: ride the parent's edges
+
+    def derive_schema(self, parents):
+        if self.exprs is not None:
+            for k, e in self.exprs.items():
+                _require(e.required_columns(), parents[0], f"map expr {k}")
+            # with_column replaces a present column in place and appends a new one
+            return list(parents[0]) + [k for k in self.exprs if k not in set(parents[0])]
+        # a mapping key absent from the input is a no-op, as in DeviceBatch.rename
+        return [self.rename.get(c, c) for c in parents[0]]
+
+    def lower(self, ctx, graph, actor_of, node_id):
+        from quokka_tpu_torch.executors.sql_execs import UDFExecutor
+
+        if self.folded:
+            # no actor: the map runs on every edge leaving the parent's actor
+            # (optimizer.fold_maps makes this node the parent's only consumer)
+            src = actor_of[self.parents[0]]
+            actor_of[node_id] = src
+            graph.add_pending_batch_fn(src, self.fn)
+            return
+        actor_of[node_id] = graph.new_exec_node(
+            functools.partial(UDFExecutor, self.fn),
+            {0: (actor_of[self.parents[0]], _passthrough_edge())},
+            self.channels or ctx.exec_channels, self.stage)
+
+    def describe(self):
+        label = "FoldedMap" if self.folded else "Map"
+        if self.exprs:
+            return f"{label}(" + ", ".join(f"{k}={v.sql()}" for k, v in self.exprs.items()) + ")"
+        return f"{label}(rename {self.rename})"
 
 
 class AggNode(Node):
@@ -192,7 +285,7 @@ class JoinNode(Node):
 
         cls = BroadcastJoinExecutor if self.broadcast else BuildProbeJoinExecutor
         return functools.partial(cls, self.left_on, self.right_on, self.how, self.suffix,
-                                 self.rename)
+                                 self.rename, out_schema=list(self.schema))
 
     def build_edge(self) -> TargetInfo:
         return TargetInfo(BroadcastPartitioner() if self.broadcast
@@ -248,32 +341,54 @@ class FusedStageNode(Node):
         return "FusedStage(\n" + inner + "\n)"
 
     def lower(self, ctx, graph, actor_of, node_id):
-        from quokka_tpu_torch.executors.sql_execs import PartialAggExecutor
-        from quokka_tpu_torch.ops.stagefuse import FusedStageExecutor, StageSpec
+        from quokka_tpu_torch.executors.sql_execs import PartialAggExecutor, UDFExecutor
+        from quokka_tpu_torch.ops.stagefuse import (
+            FusedElementwise,
+            FusedStageExecutor,
+            StageSpec,
+        )
 
         steps: List[Tuple[str, Callable]] = []
         routing: Dict[int, Tuple[int, int]] = {}
         builds = iter(self.parents[1:])
         agg: Optional[AggNode] = None
+        elem: List[Tuple] = []
+
+        def flush_elem():
+            # consecutive filter / projection / map members: one K16 step
+            if elem:
+                steps.append(("Elemwise", functools.partial(
+                    UDFExecutor, FusedElementwise(list(elem)))))
+                elem.clear()
+
         head = self.members[0]
         main_edge = head.probe_edge() if isinstance(head, JoinNode) else _passthrough_edge()
         sources = {0: (actor_of[self.parents[0]], main_edge)}
         for m in self.members:
-            if isinstance(m, JoinNode):
+            if isinstance(m, FilterNode):
+                elem.append(("filter", m.predicate))
+            elif isinstance(m, ProjectionNode):
+                elem.append(("project", list(m.schema)))
+            elif isinstance(m, MapNode) and m.exprs:
+                elem.append(("map", list(m.exprs.items())))
+            elif isinstance(m, MapNode):
+                flush_elem()
+                steps.append(("Map", functools.partial(UDFExecutor, m.fn)))
+            elif isinstance(m, JoinNode):
+                flush_elem()
                 stream = len(sources)
                 sources[stream] = (actor_of[next(builds)], m.build_edge())
                 routing[stream] = (len(steps), 1)
                 steps.append(("BroadcastJoin" if m.broadcast else "HashJoin",
                               m.executor_factory()))
             elif isinstance(m, AggNode):
+                flush_elem()
                 steps.append(("PartialAgg", functools.partial(
                     PartialAggExecutor, m.keys, m.plan)))
                 agg = m
             else:
-                raise NotImplementedError(
-                    f"a fused stage member {m.describe()} needs FusedElementwise "
-                    "(PERF.md kernel row 16), which is not in quokka_tpu_torch yet: "
-                    "ROADMAP Queue 2 row 16")
+                raise TypeError(f"unfusible member {type(m).__name__}")
+        flush_elem()
         fused = graph.new_exec_node(
             functools.partial(FusedStageExecutor, StageSpec(steps, routing)),
             sources, self.channels or ctx.exec_channels, self.stage)

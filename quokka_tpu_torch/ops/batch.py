@@ -184,6 +184,24 @@ def null_mask(col) -> torch.Tensor:
     return col.data == int_sentinel(col.data.dtype)
 
 
+def with_nulls(col, null_where: torch.Tensor):
+    """``col`` with the rows of ``null_where`` set to null: NaN for floats,
+    the int sentinel for ints and dates, code -1 for strings; bools have no
+    spare value and become int32 0/1 with the int32 sentinel."""
+    if isinstance(col, StrCol):
+        return StrCol(torch.where(null_where, torch.full_like(col.codes, -1), col.codes),
+                      col.dictionary)
+    data = col.data
+    if col.kind == "f":
+        return NumCol(torch.where(null_where, torch.full_like(data, float("nan")), data),
+                      "f", col.unit)
+    if col.kind == "b":
+        data = data.to(torch.int32)
+        return NumCol(torch.where(null_where, torch.full_like(data, NULL_I32), data), "i")
+    sent = torch.full_like(data, int_sentinel(data.dtype))
+    return NumCol(torch.where(null_where, sent, data), col.kind, col.unit)
+
+
 # ---------------------------------------------------------------------------
 # Batch
 # ---------------------------------------------------------------------------

@@ -7,10 +7,12 @@ Two lowerings of one semantics:
   tensor code, op by op, on whatever device the batch lives on.  It is the
   unfused path and the plain version of the fused kernels.
 - ``TritonExpr``: a Triton source generator for the fused kernels (K1's
-  predicate, K2's pre-expressions).  It turns the subset the fused programs
-  need -- columns, literals, date constants, ``+ - * /``, comparisons,
-  ``and/or/not``, ``is null``, ``in (...)``, ``case when``, the aggregate
-  null wrappers and prepass-bound masks -- into straight-line Triton code
+  predicate, K2's and K5's pre-expressions, K16's in-stage filters and
+  maps).  It turns the subset the fused programs need -- columns,
+  literals, date constants, ``+ - * /``, comparisons, ``and/or/not``,
+  ``is null``, ``in (...)``, ``case when``, ``extract(year|month|day)``
+  from a date, the aggregate null wrappers and prepass-bound masks -- into
+  straight-line Triton code
   with the same null (three-valued) semantics as ``evaluate``.  A node
   outside the subset raises ``CompileError`` and the caller takes the
   unfused path.
@@ -511,10 +513,14 @@ def _dt_field(e: DtField, batch: DeviceBatch):
     days = v.data.to(torch.int64)
     if e.field in ("year", "month", "day"):
         y, m, d = _civil_from_days(days)
-        return NumCol({"year": y, "month": m, "day": d}[e.field].to(torch.int32), "i")
-    if e.field == "weekday":
-        return NumCol(((days + 4) % 7).to(torch.int32), "i")
-    raise CompileError(f"extract({e.field}) from a date")
+        out = {"year": y, "month": m, "day": d}[e.field].to(torch.int32)
+    elif e.field == "weekday":
+        out = ((days + 4) % 7).to(torch.int32)
+    else:
+        raise CompileError(f"extract({e.field}) from a date")
+    # a null date gives a null field (the reference computes one from the
+    # sentinel's day number)
+    return NumCol(torch.where(null_mask(v), torch.full_like(out, NULL_I32), out), "i")
 
 
 # -- misc scalar funcs ------------------------------------------------------
@@ -742,12 +748,14 @@ def _promote(a: str, b: str) -> str:
 class TritonExpr:
     """Emit straight-line Triton code for expressions over loaded columns.
 
-    ``columns`` maps an input column name to (variable name, torch dtype);
-    the variables hold the block's loaded values.  Float literals are read
-    from a float64 constants array (``consts``) so they keep full precision:
-    Triton would otherwise type a Python float as float32."""
+    ``columns`` maps an input column name to (variable name, torch dtype)
+    or (variable name, torch dtype, kind); the variables hold the block's
+    loaded values.  Without a kind, the kind follows the dtype (a date reads
+    as an int, as inside the reference's fused programs).  Float literals
+    are read from a float64 constants array (``consts``) so they keep full
+    precision: Triton would otherwise type a Python float as float32."""
 
-    def __init__(self, columns: Dict[str, Tuple[str, torch.dtype]]):
+    def __init__(self, columns: Dict[str, Tuple]):
         self.columns = columns
         self.lines: List[str] = []
         self.consts: List[float] = []
@@ -792,9 +800,10 @@ class TritonExpr:
         if isinstance(e, ColRef):
             if e.name not in self.columns:
                 raise CompileError(f"column {e.name} is not an input of the fused kernel")
-            var, dt = self.columns[e.name]
-            kind = "b" if dt == torch.bool else "f" if dt.is_floating_point else "i"
-            return _V(var, kind, _TL_DTYPE[dt])
+            var, dt, *kind = self.columns[e.name]
+            if not kind:
+                kind = ["b" if dt == torch.bool else "f" if dt.is_floating_point else "i"]
+            return _V(var, kind[0], _TL_DTYPE[dt])
         if isinstance(e, Literal):
             return self._scalar(e.value)
         if isinstance(e, DateLit):
@@ -842,7 +851,42 @@ class TritonExpr:
             return self._case(e)
         if isinstance(e, Func) and e.name in ("__nn0", "__nnhigh", "__nnlow", "__nncount"):
             return self._nn(e)
+        if isinstance(e, DtField):
+            return self._dt_field(e)
         raise CompileError(f"{type(e).__name__} {e.sql()} is outside the fused subset")
+
+    def _floordiv(self, x: str, y: int) -> str:
+        """Floor division of an int64 block by a positive constant: Triton's
+        integer ``//`` truncates toward zero, which differs for negative x
+        (days before 1970)."""
+        q = self._tmp(f"{x} // {y}")
+        return self._tmp(f"tl.where({x} - {q} * {y} < 0, {q} - 1, {q})")
+
+    def _dt_field(self, e: DtField) -> _V:
+        """extract(year|month|day) from a date column: Hinnant's
+        civil-from-days in int64, as the evaluator's ``_civil_from_days``;
+        a null date gives a null field."""
+        v = self.value(e.expr)
+        if v.scalar or v.kind != "d" or e.field not in ("year", "month", "day"):
+            raise CompileError(f"extract({e.field}) outside the fused subset")
+        fd = self._floordiv
+        z = self._tmp(f"{v.code}.to(tl.int64) + 719468")
+        era = fd(z, 146097)
+        doe = self._tmp(f"{z} - {era} * 146097")
+        yoe = fd(self._tmp(f"{doe} - {fd(doe, 1460)} + {fd(doe, 36524)} - {fd(doe, 146096)}"),
+                 365)
+        doy = self._tmp(f"{doe} - (365 * {yoe} + {fd(yoe, 4)} - {fd(yoe, 100)})")
+        mp = fd(self._tmp(f"5 * {doy} + 2"), 153)
+        m = self._tmp(f"tl.where({mp} < 10, {mp} + 3, {mp} - 9)")
+        if e.field == "year":
+            out = self._tmp(f"{yoe} + {era} * 400 + ({m} <= 2).to(tl.int64)")
+        elif e.field == "month":
+            out = m
+        else:
+            out = self._tmp(f"{doy} - {fd(self._tmp(f'153 * {mp} + 2'), 5)} + 1")
+        res = self._tmp(f"tl.where({self.null(v)}, {_INT_MIN['tl.int32']}, "
+                        f"{out}.to(tl.int32))")
+        return _V(res, "i", "tl.int32")
 
     def _interval(self, e: BinOp) -> _V:
         a, iv = e.left, e.right

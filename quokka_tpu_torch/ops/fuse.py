@@ -160,10 +160,13 @@ class Prepass:
 
 class _ShimBatch:
     """Duck-typed DeviceBatch over plain tensors, kinds re-inferred from
-    dtypes as inside the reference's fused programs."""
+    dtypes as inside the reference's fused programs unless given."""
 
-    def __init__(self, columns: Dict[str, torch.Tensor], valid: torch.Tensor):
-        self.columns = {n: NumCol(t, _infer_kind(t)) for n, t in columns.items()}
+    def __init__(self, columns: Dict[str, torch.Tensor], valid: torch.Tensor,
+                 kinds: Optional[Dict[str, str]] = None):
+        kinds = kinds or {}
+        self.columns = {n: NumCol(t, kinds.get(n) or _infer_kind(t))
+                        for n, t in columns.items()}
         self.valid = valid
 
     @property

@@ -13,8 +13,11 @@ Contract (the reference's ``sorted_groupby`` contract): returns
 ``(outs, counts, rep, num)`` with every output indexed by group rank.  Group
 ranks follow table-slot order, so group order differs from the reference's
 (claim order); no consumer depends on it, and results compare after a sort
-on the keys.  A non-converged insert raises ``HashTableConvergenceError``:
-rows are never aliased to slot 0, and there is no quiet fallback.
+on the keys.  A non-converged insert never aliases rows to slot 0:
+``hash_groupby`` reads the flag on the host (one scalar read per call, the
+price of never answering wrong) and reruns the batch through the sort
+group-by (``kernels.sorted_groupby``), as the reference does; the plain
+insert and the PK build raise ``HashTableConvergenceError`` instead.
 
 Kernel K11, the PK-join build and probe: ``build_table`` inserts a build
 batch's key limbs once (K3's insert alone, through ``qk_hash_build``) and
@@ -35,7 +38,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from quokka_tpu_torch.ops import native
+from quokka_tpu_torch.ops import native, strategy
 
 EMPTY = 2**31 - 1
 
@@ -213,21 +216,29 @@ def segment_aggs_plain(ranks, valid, arrays, ops):
     return outs, counts, rep
 
 
-def hash_groupby_plain(limbs, arrays, ops, valid):
-    """Plain torch version of K3 (CPU tests; the card's reference)."""
+def _hash_groupby_plain(limbs, arrays, ops, valid):
+    """(outs, counts, rep, num), or None when the insert did not converge."""
     climbs = canonical_limbs(limbs)
     capbits = capbits_for(valid.shape[0])
     myslot, table, converged = _insert_plain(climbs, valid, capbits)
     if not converged:
-        raise HashTableConvergenceError(
-            f"hash-table insert did not place every row (capbits={capbits}, "
-            f"n={valid.shape[0]})")
+        return None
     flag = (table != EMPTY).to(torch.int64)
     rank_of_slot = torch.cumsum(flag, 0) - flag
     ranks = rank_of_slot[myslot]
     num = flag.sum().to(torch.int32)
     outs, counts, rep = segment_aggs_plain(ranks, valid, arrays, ops)
     return tuple(outs), counts, rep, num
+
+
+def hash_groupby_plain(limbs, arrays, ops, valid):
+    """Plain torch version of K3 (CPU tests; the card's reference).  Raises
+    ``HashTableConvergenceError`` when the insert did not converge."""
+    res = _hash_groupby_plain(limbs, arrays, ops, valid)
+    if res is None:
+        raise HashTableConvergenceError(
+            f"hash-table insert did not place every row (n={valid.shape[0]})")
+    return res
 
 
 def segment_aggs(ranks: torch.Tensor, valid: torch.Tensor,
@@ -246,11 +257,21 @@ def segment_aggs(ranks: torch.Tensor, valid: torch.Tensor,
 def hash_groupby(limbs: Sequence[torch.Tensor], arrays: Sequence[torch.Tensor],
                  ops: Sequence[str], valid: torch.Tensor):
     """Group by key limbs and aggregate: (outs, counts, rep, num).
-    CUDA tensors launch K3; CPU tensors take the plain version."""
+    CUDA tensors launch K3; CPU tensors take the plain version.  When the
+    insert did not converge, the batch is grouped by the sort group-by
+    instead (``groupby`` is then recorded as ``sort``)."""
+    from quokka_tpu_torch.ops import kernels  # kernels imports this module
+
     if valid.device.type == "cpu":
-        return hash_groupby_plain(limbs, arrays, ops, valid)
-    _require_cuda(valid, "hash_groupby")
-    return _hash_groupby_cuda(tuple(limbs), tuple(arrays), tuple(ops), valid)
+        res = _hash_groupby_plain(limbs, arrays, ops, valid)
+    else:
+        _require_cuda(valid, "hash_groupby")
+        res = _hash_groupby_cuda(tuple(limbs), tuple(arrays), tuple(ops), valid)
+    if res is None:
+        strategy.note_used("groupby", "sort")
+        return kernels.sorted_groupby(limbs, arrays, ops, valid)
+    strategy.note_used("groupby", "hashtable")
+    return res
 
 
 def _require_cuda(t: torch.Tensor, what: str) -> None:
@@ -299,9 +320,7 @@ def _hash_groupby_cuda(limbs, arrays, ops, valid):
     outs, counts, rep = _segment_cuda(myslot, rank_of_slot, valid, arrays, ops)
     LAUNCHES += 1
     if int(failed.item()):
-        raise HashTableConvergenceError(
-            f"hash-table insert did not place every row (capbits={capbits}, "
-            f"n={n}); the sort-based fallback comes with the sort-strategy slice")
+        return None
     return outs, counts, rep, num
 
 

@@ -14,8 +14,17 @@ the probe path.  Two strategies serve the probe (``ops/strategy`` op
   (``pk_probe_sorted``; ``_pk_probe_sorted_plain`` beside it).
 
 ``build_keys_unique`` answers, once per finalized build, whether the PK path
-applies, from the same cached structure the probe will use.  The
-many-to-many and left joins (``hash_join_general``) are not ported yet.
+applies, from the same cached structure the probe will use.
+
+``hash_join_general`` serves a build whose keys repeat, and every left
+join.  Its plan is torch primitives (PERF.md row 13's plan, T): the dense
+rank of the probe and build keys together (row 10), per-rank build counts,
+the build rows stably sorted by rank and an exclusive cumsum.  Semi and
+anti joins stop there (a probe row matches when its rank has a build row).
+Inner and left joins read the output total on the host once per probe
+batch to pick the output bucket, as the reference does, then kernel K13
+(``mm_expand``, ``csrc/join.cu``) writes one (probe row, build row) pair
+per output row; ``_mm_expand_plain`` is its plain version.
 """
 
 from __future__ import annotations
@@ -25,11 +34,20 @@ from typing import Sequence
 
 import torch
 
+from quokka_tpu_torch import config
 from quokka_tpu_torch.ops import hashtable, kernels, native, strategy
-from quokka_tpu_torch.ops.batch import DeviceBatch, gather_columns, key_limbs, null_mask
+from quokka_tpu_torch.ops.batch import (
+    DeviceBatch,
+    gather_columns,
+    key_limbs,
+    null_mask,
+    with_nulls,
+)
 
-# launches of the K12 CUDA kernel
+# launches of the K12 and K13 CUDA kernels
 SORTED_PROBE_LAUNCHES = 0
+EXPAND_LAUNCHES = 0
+JOIN_HOWS = ("inner", "left", "semi", "anti")
 
 _LIMB_DT = {torch.float64: 0, torch.float32: 1, torch.int64: 2, torch.int32: 3,
             torch.bool: 4}
@@ -95,6 +113,8 @@ def _join_lib():
         PP, PI = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
         lib.qk_sorted_probe.argtypes = [PP, PP, PI, I, P, P, L, P, L, P, P, P]
         lib.qk_sorted_probe.restype = I
+        lib.qk_mm_expand.argtypes = [P, L, P, P, L, P, P, P, L, P, P, P, P, P]
+        lib.qk_mm_expand.restype = I
         lib.qk_bound = True
     return lib
 
@@ -166,21 +186,22 @@ def _table_of(build: DeviceBatch, build_keys: Sequence[str]):
         return None
 
 
-def require_pk_how(how: str) -> None:
-    if how not in ("inner", "semi", "anti"):
-        raise NotImplementedError(
-            f"join how={how!r} needs hash_join_general (many-to-many and left "
-            "joins), which is not in quokka_tpu_torch yet: ROADMAP Queue 1 item 3")
+def require_join_how(how: str) -> None:
+    if how not in JOIN_HOWS:
+        raise ValueError(f"join how={how!r}: expected one of {JOIN_HOWS}")
 
 
 def hash_join_pk(probe: DeviceBatch, build: DeviceBatch, probe_keys: Sequence[str],
                  build_keys: Sequence[str], how: str = "inner",
                  build_payload: Sequence[str] = ()) -> DeviceBatch:
-    """Join where build keys are unique.  Probe-aligned; the probe path has
-    no host sync.  The cached build pays one scalar read per build batch
-    (the hash-table convergence check); a diverged build is remembered on
-    the batch and every probe takes the sorted path."""
-    require_pk_how(how)
+    """Join where build keys are unique (inner, semi or anti; the executor
+    sends every left join to ``hash_join_general``, as the reference does).
+    Probe-aligned; the probe path has no host sync.  The cached build pays
+    one scalar read per build batch (the hash-table convergence check); a
+    diverged build is remembered on the batch and every probe takes the
+    sorted path."""
+    if how not in ("inner", "semi", "anti"):
+        raise ValueError(f"hash_join_pk serves inner, semi and anti joins, not {how!r}")
     probe_limbs = key_limbs(probe, probe_keys)
     probe_ok = _nonnull_valid(probe, probe_keys)
     table = None
@@ -207,12 +228,156 @@ def hash_join_pk(probe: DeviceBatch, build: DeviceBatch, probe_keys: Sequence[st
     return DeviceBatch(cols, matched, None, probe.sorted_by).note_count(_count_true(matched))
 
 
-def hash_join_general(probe, build, probe_keys, build_keys, how="inner",
-                      build_payload=()):
-    """Many-to-many and left joins: not ported yet."""
-    raise NotImplementedError(
-        "hash_join_general (many-to-many and left joins) is not in quokka_tpu_torch "
-        "yet: ROADMAP Queue 1 item 3")
+# ---------------------------------------------------------------------------
+# many-to-many and left joins: the plan (T) and the expand, kernel K13
+# ---------------------------------------------------------------------------
+
+
+def _concat_limbs(probe: DeviceBatch, build: DeviceBatch, probe_keys, build_keys):
+    """Probe then build key limbs in one column each (build limbs cast to
+    the probe's dtypes), and the rows that may match."""
+    lp = key_limbs(probe, probe_keys)
+    lb = key_limbs(build, build_keys)
+    if len(lp) != len(lb):
+        raise ValueError("join key column types must match")
+    limbs = [torch.cat([a, b.to(a.dtype)]) for a, b in zip(lp, lb)]
+    valid = torch.cat([_nonnull_valid(probe, probe_keys), _nonnull_valid(build, build_keys)])
+    return limbs, valid
+
+
+def _mm_counts(limbs, valid, p: int):
+    """Dense ranks of probe+build keys: (build rows per probe row, build
+    rows per rank, probe ranks, build ranks)."""
+    n = valid.shape[0]
+    ranks, _ = kernels.dense_rank(limbs, valid)
+    rp, rb = ranks[:p], ranks[p:]
+    cnt = torch.zeros(n, dtype=torch.int64, device=valid.device).index_add_(
+        0, rb, valid[p:].to(torch.int64))
+    match_count = torch.where(valid[:p], cnt[rp], torch.zeros_like(rp))
+    return match_count, cnt, rp, rb
+
+
+def _mm_plan(limbs, valid, p: int):
+    """The reference's ``_mm_plan``: (match_count, total, offsets,
+    build_pos_sorted, rp).  Build rows are stably sorted by rank with
+    invalid rows last; ``offsets[r]`` is where rank r's run starts."""
+    match_count, cnt, rp, rb = _mm_counts(limbs, valid, p)
+    build_pos_sorted = kernels.lexsort_perm([(~valid[p:]).to(torch.int32), rb])
+    offsets = torch.cumsum(cnt, 0) - cnt
+    return match_count, match_count.sum(), offsets, build_pos_sorted, rp
+
+
+def mm_plan_for(limbs, valid, p: int, how: str, probe_valid: torch.Tensor):
+    """Many-to-many planning: (match_count, total, offsets,
+    build_pos_sorted, rp, unmatched).  A left join gives every live probe
+    row without a match one synthetic output row; ``unmatched`` flags, per
+    probe row, that its one output row is such a row (the reference's
+    ``mm_unmatched`` / ``_is_unmatched_gather``, before the gather), and is
+    None for other joins."""
+    match_count, total, offsets, build_pos_sorted, rp = _mm_plan(limbs, valid, p)
+    unmatched = None
+    if how == "left":
+        none = match_count == 0
+        match_count = torch.where(probe_valid & none, torch.ones_like(match_count),
+                                  match_count)
+        unmatched = none & (match_count == 1)
+        total = match_count.sum()
+    return match_count, total, offsets, build_pos_sorted, rp, unmatched
+
+
+def _mm_expand_plain(cum, offsets, build_pos_sorted, rp, total, out_padded: int,
+                     unmatched=None):
+    """Plain version of K13, the reference's ``_mm_expand`` arithmetic:
+    output row j belongs to the probe row whose inclusive cumsum first
+    passes j, and takes that probe row's (j - start)-th build row of its
+    rank.  (probe_idx int32, build_idx int32, out_valid, unmatched[probe_idx]
+    or None)."""
+    p = cum.shape[0]
+    b = build_pos_sorted.shape[0]
+    j = torch.arange(out_padded, dtype=torch.int64, device=cum.device)
+    probe_idx = torch.clamp(torch.searchsorted(cum, j, right=True), 0, p - 1)
+    start = torch.where(probe_idx > 0, cum[torch.clamp(probe_idx - 1, min=0)],
+                        torch.zeros_like(probe_idx))
+    bpos = torch.clamp(offsets[rp[probe_idx]] + (j - start), 0, b - 1)
+    build_idx = build_pos_sorted[bpos]
+    out_valid = j < total
+    unm = None if unmatched is None else unmatched[probe_idx]
+    return probe_idx.to(torch.int32), build_idx.to(torch.int32), out_valid, unm
+
+
+def _mm_expand_cuda(cum, offsets, build_pos_sorted, rp, total, out_padded: int,
+                    unmatched=None):
+    global EXPAND_LAUNCHES
+    lib = _join_lib()
+    dev = cum.device
+    p, b = cum.shape[0], build_pos_sorted.shape[0]
+    ins = [cum, offsets, build_pos_sorted, rp]
+    for t in ins:
+        if t.device != dev or t.dtype != torch.int64 or not t.is_contiguous():
+            raise TypeError(f"mm_expand: inputs must be contiguous int64 on {dev}, got "
+                            f"{t.dtype} on {t.device}")
+    if rp.shape[0] != p or p < 1 or b < 1:
+        raise ValueError(f"mm_expand: {p} probe rows, {rp.shape[0]} ranks, {b} build rows")
+    total = total.to(device=dev, dtype=torch.int64).reshape(1)
+    probe_idx = torch.empty(out_padded, dtype=torch.int32, device=dev)
+    build_idx = torch.empty(out_padded, dtype=torch.int32, device=dev)
+    out_valid = torch.empty(out_padded, dtype=torch.bool, device=dev)
+    unm_in = unm_out = None
+    if unmatched is not None:
+        if unmatched.device != dev or unmatched.shape[0] != p:
+            raise TypeError("mm_expand: unmatched flags must be one per probe row")
+        unm_in = unmatched.contiguous().view(torch.uint8)
+        unm_out = torch.empty(out_padded, dtype=torch.bool, device=dev)
+    native.check(lib.qk_mm_expand(
+        cum.data_ptr(), p, offsets.data_ptr(), build_pos_sorted.data_ptr(), b,
+        rp.data_ptr(), total.data_ptr(), None if unm_in is None else unm_in.data_ptr(),
+        out_padded, probe_idx.data_ptr(), build_idx.data_ptr(),
+        out_valid.view(torch.uint8).data_ptr(),
+        None if unm_out is None else unm_out.view(torch.uint8).data_ptr(),
+        native.stream_ptr(dev)), "qk_mm_expand")
+    EXPAND_LAUNCHES += 1
+    return probe_idx, build_idx, out_valid, unm_out
+
+
+def mm_expand(match_count, offsets, build_pos_sorted, rp, total, out_padded: int,
+              unmatched=None):
+    """K13: (probe_idx, build_idx, out_valid, unmatched per output row or
+    None) for ``out_padded`` output rows.  The inclusive cumsum of
+    ``match_count`` is a torch primitive; CUDA tensors then launch the
+    kernel, CPU tensors take the plain version."""
+    cum = torch.cumsum(match_count, 0)
+    args = (cum, offsets, build_pos_sorted, rp, total, out_padded, unmatched)
+    if cum.device.type == "cpu":
+        return _mm_expand_plain(*args)
+    if cum.device.type != "cuda":
+        raise RuntimeError(f"mm_expand: unsupported device {cum.device}")
+    return _mm_expand_cuda(*args)
+
+
+def hash_join_general(probe: DeviceBatch, build: DeviceBatch, probe_keys: Sequence[str],
+                      build_keys: Sequence[str], how: str = "inner",
+                      build_payload: Sequence[str] = ()) -> DeviceBatch:
+    """Many-to-many (and every left) join.  Semi and anti joins stay
+    probe-aligned with no host sync; inner and left joins read the output
+    total once per probe batch to pick the output bucket.  A left join's
+    unmatched rows carry null build payloads (``with_nulls``)."""
+    require_join_how(how)
+    p = probe.padded_len
+    limbs, valid = _concat_limbs(probe, build, probe_keys, build_keys)
+    if how in ("semi", "anti"):
+        matched = _mm_counts(limbs, valid, p)[0] > 0
+        return kernels.apply_mask(probe, matched if how == "semi" else probe.valid & ~matched)
+    match_count, total, offsets, build_pos_sorted, rp, unmatched = mm_plan_for(
+        limbs, valid, p, how, probe.valid)
+    ntotal = int(total)
+    probe_idx, build_idx, out_valid, unm = mm_expand(
+        match_count, offsets, build_pos_sorted, rp, total, config.bucket_size(ntotal),
+        unmatched)
+    cols = gather_columns(probe.columns, probe_idx)
+    for name, taken in gather_columns(
+            {n: build.columns[n] for n in build_payload}, build_idx).items():
+        cols[name] = taken if unm is None else with_nulls(taken, unm)
+    return DeviceBatch(cols, out_valid, ntotal, None)
 
 
 def _distinct_from_table(tbl: torch.Tensor, ok: torch.Tensor):

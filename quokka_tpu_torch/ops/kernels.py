@@ -6,6 +6,12 @@ launch.  Masking, compaction, sorting and the group-by wrappers are single
 torch primitives (nonzero, gather, stable sort) around the hand-written
 kernels; group-by goes to the hash table (K3), the GPU row of the
 reference's strategy matrix (``ops/strategy``).
+
+PERF.md row 10, ``dense_rank`` and ``sorted_groupby``, is torch primitives
+(T): stable sorts on integer order keys, a run test, a cumsum and a
+scatter back, then K3's segment aggregates over the ranks.  The
+many-to-many join plan (``ops/join``) ranks with it, and K3 falls back to
+it when its insert does not converge.
 """
 
 from __future__ import annotations
@@ -62,20 +68,64 @@ def compact_if_large(batch: DeviceBatch, threshold: int = 1 << 16) -> DeviceBatc
 # ---------------------------------------------------------------------------
 
 def require_hash_groupby() -> None:
-    """The port carries the hash-table group-by only; the sort strategy
-    (``sorted_groupby``, Queue 2 row 10) is not ported yet."""
+    """A forced ``groupby=sort`` strategy is refused: its small-key variant,
+    the one-hot matmul partial aggregate (Queue 2 row 6), is not ported.
+    The sort group-by itself runs as K3's non-convergence fallback."""
     if strategy.choice("groupby") != "hashtable":
         raise NotImplementedError(
-            "groupby=sort (sorted_groupby and the one-hot small-key variant) is "
-            "not in quokka_tpu_torch yet: ROADMAP Queue 2 rows 6 and 10")
+            "groupby=sort (the one-hot small-key partial aggregate) is not in "
+            "quokka_tpu_torch yet: ROADMAP Queue 2 row 6")
 
 
 def groupby_limbs(limbs: Sequence[torch.Tensor], arrays: Sequence[torch.Tensor],
                   ops: Sequence[str], valid: torch.Tensor):
-    """Group rows by key limbs through the hash table (K3)."""
+    """Group rows by key limbs through the hash table (K3), which records
+    the sort group-by when it falls back to it."""
     require_hash_groupby()
-    strategy.note_used("groupby", "hashtable")
     return hashtable.hash_groupby(tuple(limbs), tuple(arrays), tuple(ops), valid)
+
+
+# ---------------------------------------------------------------------------
+# dense rank and the sort group-by (PERF.md row 10, T)
+# ---------------------------------------------------------------------------
+
+
+def dense_rank(limbs: Sequence[torch.Tensor], valid: torch.Tensor):
+    """Dense 0..k-1 ids (int64) such that two valid rows share an id iff
+    their key limbs are equal, and the number of ids (int32 device scalar).
+    Invalid rows get an arbitrary id; callers must mask.
+
+    The reference's ``_dense_rank_impl``: one stable sort with invalid rows
+    last and the row id as the last key, run starts where any limb differs
+    from the row before, a cumsum, and a scatter back to row order.  The
+    sort runs on integer order keys (``lexsort_perm``) and the run test on
+    the raw limbs with ``!=``, so -0.0 and +0.0 share a rank and every NaN
+    starts a run of its own, as in the reference."""
+    n = valid.shape[0]
+    dev = valid.device
+    perm = _sort_perm(limbs, valid)
+    valid_s = valid[perm]
+    iota = torch.arange(n, device=dev)
+    changed = iota == 0
+    for limb in limbs:
+        ls = limb[perm]
+        changed = changed | (ls != torch.roll(ls, 1))
+    starts = valid_s & changed
+    ranks_s = torch.clamp(torch.cumsum(starts, 0) - 1, min=0)
+    num = starts.sum(dtype=torch.int32)
+    ranks = torch.empty(n, dtype=torch.int64, device=dev)
+    ranks[perm] = ranks_s
+    return ranks, num
+
+
+def sorted_groupby(limbs: Sequence[torch.Tensor], arrays: Sequence[torch.Tensor],
+                   ops: Sequence[str], valid: torch.Tensor):
+    """Group-by-aggregate by dense rank: (outs, counts, rep, num) with every
+    output indexed by rank, which is key order (the reference's contract).
+    ``rep`` is each group's smallest row id; ranks with no row hold n - 1."""
+    ranks, num = dense_rank(limbs, valid)
+    outs, counts, rep = hashtable.segment_aggs(ranks, valid, tuple(arrays), tuple(ops))
+    return tuple(outs), counts, rep, num
 
 
 def groupby_aggregate(

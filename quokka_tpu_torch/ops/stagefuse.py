@@ -1,28 +1,272 @@
 """Whole-stage fusion: run a maximal linear operator chain as one exec actor
-(port of ``quokka_tpu/ops/stagefuse.py``: ``StageSpec`` and
-``FusedStageExecutor``).
+(port of ``quokka_tpu/ops/stagefuse.py``: ``FusedElementwise``,
+``StageSpec`` and ``FusedStageExecutor``).
 
 The optimizer's ``fuse_stages`` pass rewrites single-consumer, non-blocking
-chains (a hash join at the head, broadcast joins inside, a partial
-aggregate at the tail) into one ``FusedStageNode``, which lowers to one
-actor running a ``FusedStageExecutor``: a member's output feeds the next
-member in-process, with no store round trip and no extra task dispatch
-between them.  Stream 0 cascades through the members; each build stream
-routes to its join member.
+chains (a hash join at the head, broadcast joins, filters, projections and
+maps inside, a partial aggregate at the tail) into one ``FusedStageNode``,
+which lowers to one actor running a ``FusedStageExecutor``: a member's
+output feeds the next member in-process, with no store round trip and no
+extra task dispatch between them.  Stream 0 cascades through the members;
+each build stream routes to its join member.
 
-The reference's ``FusedElementwise`` (filter / projection / expression-map
-members collapsed into one jitted program, PERF.md row 16) is not ported
-yet: on TPC-H Q3 and Q5 ``push_filters`` and ``early_projection`` leave no
-such member inside a stage, and a stage that would need one raises at
-lowering (``logical.FusedStageNode``).
+Kernel K16, ``FusedElementwise``: consecutive filter / projection / map
+members collapse into one generated Triton kernel per stage signature
+(the reference's ``stage_elemwise`` key: input columns and dtypes, the
+prepass-bound arrays, every conjunct and every map output).  Map and
+filter expressions are inlined at plan time, so one pass over the
+original columns evaluates every conjunct and every map output; it writes
+the row mask (``valid`` and every conjunct), its count (each program adds
+its block's count to one int32, an order-free integer sum) and one array
+per map output, in the plain evaluator's dtypes.  String predicates are
+bound to code masks by the host prepass first, so the kernel sees numbers
+only.  Bound: bytes (every input column read once, the mask and each
+output written once); Triton serves for the reason it serves K1 and K5: a
+fused elementwise pass over a few columns, known only at query time, with
+no reuse across rows for shared memory or tensor cores to exploit.
+``elementwise_plain`` is its plain version, taken only when the batch lies
+on the CPU.  The reference's per-step path (``_sequential``) is kept for
+what the kernel does not take (an expression outside the generator's
+subset, string material left after the prepass, string inputs) and
+counted in ``SEQUENTIAL``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import torch
+
 from quokka_tpu_torch.executors.base import Executor
-from quokka_tpu_torch.ops.batch import DeviceBatch
+from quokka_tpu_torch.expression import Expr, substitute_columns
+from quokka_tpu_torch.ops import expr_compile, kernels
+from quokka_tpu_torch.ops.batch import DeviceBatch, NumCol
+from quokka_tpu_torch.ops.fuse import (
+    Prepass,
+    _check_inputs,
+    _consts_on,
+    _infer_kind,
+    _kernel_arg,
+    _load_generated,
+    _load_lines,
+    _refs_string,
+    _ShimBatch,
+    triton_cdiv,
+)
+
+# launches of K16, and runs of the per-step path; the smoke runs require
+# the latter to stay at 0 on their queries
+ELEMWISE_LAUNCHES = 0
+SEQUENTIAL = 0
+
+
+class _ElemwiseKernel:
+    """Generated source of one stage signature: the mask, its count and
+    every map output in one pass."""
+
+    def __init__(self, conjuncts: List[Expr], outputs: List[Tuple[str, Expr]], cols):
+        gen = expr_compile.TritonExpr(
+            {n: (f"c{i}", dt, kind) for i, (n, dt, kind) in enumerate(cols)})
+        conds = [gen.bool_of(gen.value(e)) for e in conjuncts]
+        stores = []
+        for j, (_, e) in enumerate(outputs):
+            v = gen.value(e)
+            code = f"(tl.zeros(valid.shape, {v.dt}) + {v.code})" if v.scalar else v.code
+            stores.append(f"    tl.store(o{j}_ptr + offs, {code}, mask=m)")
+        self.consts = gen.consts
+        args = ", ".join([f"c{i}_ptr" for i in range(len(cols))]
+                         + ["valid_ptr", "consts_ptr", "mask_ptr", "count_ptr"]
+                         + [f"o{j}_ptr" for j in range(len(outputs))]
+                         + ["n", "BLOCK: tl.constexpr"])
+        body = [
+            "    pid = tl.program_id(0)",
+            "    offs = pid * BLOCK + tl.arange(0, BLOCK)",
+            "    m = offs < n",
+            "    valid = tl.load(valid_ptr + offs, mask=m, other=0) != 0",
+            *_load_lines([(n, dt) for n, dt, _ in cols], "    "),
+            *[f"    {l}" for l in gen.lines],
+            "    res = valid" + "".join(f" & ({c})" for c in conds),
+            "    tl.store(mask_ptr + offs, res.to(tl.uint8), mask=m)",
+            "    tl.atomic_add(count_ptr, tl.sum(res.to(tl.int32), axis=0))",
+            *stores,
+        ]
+        self.src = f"@triton.jit\ndef qk_elemwise({args}):\n" + "\n".join(body) + "\n"
+
+
+def elementwise_plain(conjuncts: List[Expr], outputs: List[Tuple[str, Expr]],
+                      columns: Dict[str, torch.Tensor], kinds: Dict[str, str],
+                      valid: torch.Tensor):
+    """Plain version of K16: (mask, live count, [output columns])."""
+    shim = _ShimBatch(columns, valid, kinds)
+    m = valid
+    for e in conjuncts:
+        m = m & expr_compile.evaluate_predicate(e, shim)
+    outs = [expr_compile.evaluate_to_column(e, shim) for _, e in outputs]
+    return m, m.sum(dtype=torch.int32), outs
+
+
+def elementwise_launch(kern: _ElemwiseKernel, inputs: List[torch.Tensor],
+                       valid: torch.Tensor, out_dtypes: List[torch.dtype]):
+    """Launch K16 on CUDA tensors: (mask, live count, [output arrays])."""
+    global ELEMWISE_LAUNCHES
+    dev = valid.device
+    n = valid.shape[0]
+    _check_inputs(inputs + [valid], dev, n)
+    mod = _load_generated(kern.src)
+    mask = torch.empty(n, dtype=torch.uint8, device=dev)
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    outs = [torch.empty(n, dtype=dt, device=dev) for dt in out_dtypes]
+    if n:
+        block = 1024
+        mod.qk_elemwise[(triton_cdiv(n, block),)](
+            *[_kernel_arg(t) for t in inputs], valid.view(torch.uint8),
+            _consts_on(kern, dev), mask, count, *[_kernel_arg(o) for o in outs], n,
+            BLOCK=block, num_warps=4)
+    ELEMWISE_LAUNCHES += 1
+    return mask.view(torch.bool), count[0], outs
+
+
+@dataclasses.dataclass
+class ElemwiseCall:
+    """Everything one K16 call needs, for the kernel and its plain version."""
+
+    kern: _ElemwiseKernel
+    conjuncts: List[Expr]
+    outputs: List[Tuple[str, Expr]]
+    inputs: Dict[str, torch.Tensor]
+    kinds: Dict[str, str]
+    valid: torch.Tensor
+    out_dtypes: List[torch.dtype]
+
+    def plain(self):
+        m, num, outs = elementwise_plain(self.conjuncts, self.outputs, self.inputs,
+                                         self.kinds, self.valid)
+        return m, num, [c.data for c in outs]
+
+    def launch(self):
+        return elementwise_launch(self.kern, list(self.inputs.values()), self.valid,
+                                  self.out_dtypes)
+
+
+class FusedElementwise:
+    """Fused filter / project / map pipeline: one K16 launch per batch
+    computes the combined row mask and every derived column.
+
+    ``steps`` is the chain segment in execution order:
+      ("filter", Expr) | ("project", [cols]) | ("map", [(name, Expr), ...])
+    Later steps see earlier map definitions inlined, so the kernel
+    evaluates everything against the original input columns: filters and
+    maps commute because masks only narrow ``valid`` and expressions are
+    evaluated over every padded row anyway."""
+
+    def __init__(self, steps: Sequence[Tuple]):
+        self.steps = [tuple(s) for s in steps]
+        env: Dict[str, Expr] = {}
+        conjuncts: List[Expr] = []
+        visible: Optional[List[str]] = None  # None: every input column passes
+        for kind, payload in self.steps:
+            if kind == "filter":
+                conjuncts.append(substitute_columns(payload, env))
+            elif kind == "map":
+                for name, e in payload:
+                    env[name] = substitute_columns(e, env)
+                if visible is not None:
+                    visible += [n for n, _ in payload if n not in visible]
+            elif kind == "project":
+                visible = list(payload)
+            else:
+                raise ValueError(f"unknown stagefuse step {kind!r}")
+        self._conjuncts = conjuncts
+        self._visible = visible
+        # the computed outputs the kernel must produce (a projection may drop some)
+        names = visible if visible is not None else list(env)
+        self._outputs = [(n, env[n]) for n in names if n in env]
+        self._kernels: Dict[Tuple, Tuple[_ElemwiseKernel, List[torch.dtype], List[str]]] = {}
+
+    def _sequential(self, batch: DeviceBatch) -> DeviceBatch:
+        """The reference's per-step path: one evaluation per step."""
+        global SEQUENTIAL
+        SEQUENTIAL += 1
+        b = batch
+        for kind, payload in self.steps:
+            if kind == "filter":
+                b = kernels.apply_mask(b, expr_compile.evaluate_predicate(payload, b))
+            elif kind == "map":
+                for name, e in payload:
+                    b = b.with_column(name, expr_compile.evaluate_to_column(e, b))
+            else:
+                b = b.select([c for c in payload if c in b.columns])
+        return b
+
+    def prepare(self, batch: DeviceBatch) -> Optional[Tuple[ElemwiseCall, List[str]]]:
+        """The K16 call of this batch and its output kinds, or None when the
+        batch must take the per-step path."""
+        pre = Prepass(batch)
+        try:
+            conjuncts = [pre.rewrite(e) for e in self._conjuncts]
+            outputs = [(n, pre.rewrite(e)) for n, e in self._outputs]
+        except expr_compile.CompileError:
+            return None
+        exprs = conjuncts + [e for _, e in outputs]
+        if any(_refs_string(e, batch) for e in exprs):
+            return None
+        needed = set()
+        for e in exprs:
+            needed |= e.required_columns()
+        inputs: Dict[str, torch.Tensor] = {}
+        kinds: Dict[str, str] = {}
+        for n in sorted(needed):
+            c = batch.columns.get(n)
+            if c is None:
+                continue  # a prepass-bound array
+            if not isinstance(c, NumCol):
+                return None
+            inputs[n] = c.data.contiguous()
+            kinds[n] = c.kind
+        for n, t in pre.bound.items():
+            inputs[n] = t.contiguous()
+            kinds[n] = _infer_kind(t)
+        cols = [(n, t.dtype, kinds[n]) for n, t in inputs.items()]
+        sig = (tuple(e.sql() for e in conjuncts), tuple((n, e.sql()) for n, e in outputs),
+               tuple(cols))
+        hit = self._kernels.get(sig)
+        if hit is None:
+            try:
+                kern = _ElemwiseKernel(conjuncts, outputs, cols)
+                # output dtypes and kinds are the plain evaluator's, read off a
+                # 0-row evaluation once per signature
+                _, _, zero = elementwise_plain(conjuncts, outputs,
+                                               {n: t[:0] for n, t in inputs.items()},
+                                               kinds, batch.valid[:0])
+            except expr_compile.CompileError:
+                return None
+            hit = self._kernels[sig] = (kern, [c.data.dtype for c in zero],
+                                        [c.kind for c in zero])
+        kern, dts, out_kinds = hit
+        return ElemwiseCall(kern, conjuncts, outputs, inputs, kinds, batch.valid, dts), out_kinds
+
+    def __call__(self, batch: DeviceBatch) -> DeviceBatch:
+        if not self._conjuncts and not self._outputs:
+            return batch.select(self._visible)  # a projection alone
+        prep = self.prepare(batch)
+        if prep is None:
+            return self._sequential(batch)
+        call, out_kinds = prep
+        mask, num, arrays = call.plain() if batch.device.type == "cpu" else call.launch()
+        computed = {name: NumCol(arr, kind)
+                    for (name, _), arr, kind in zip(call.outputs, arrays, out_kinds)}
+        if self._visible is None:
+            # a recomputed column keeps its position, new names append in
+            # definition order (DeviceBatch.with_column's order)
+            names = list(batch.columns) + [n for n in computed if n not in batch.columns]
+        else:
+            names = self._visible
+        cols = {n: computed[n] if n in computed else batch.columns[n] for n in names}
+        sorted_by = batch.sorted_by
+        if sorted_by is not None and not all(c in cols for c in sorted_by):
+            sorted_by = None
+        return DeviceBatch(cols, mask, None, sorted_by).note_count(num)
 
 
 class StageSpec:

@@ -6,7 +6,10 @@
                         each source actually reads.
 3. choose_broadcast  -- a build side the catalog estimates at no more than
                         BROADCAST_THRESHOLD rows becomes a broadcast join.
-4. fuse_stages       -- whole-stage fusion of single-consumer chains
+4. fold_maps         -- an expression map whose parent has no other
+                        consumer rides its parent's edges instead of
+                        running as an actor of its own.
+5. fuse_stages       -- whole-stage fusion of single-consumer chains
                         (QK_STAGE_FUSE=0 disables it).
 
 The reference's pass line runs its cost-fed passes from
@@ -29,7 +32,7 @@ BROADCAST_THRESHOLD = 65_536  # build rows at or below this skip the probe-side 
 
 
 def optimize(sub: Dict[int, logical.Node], sink_id: int) -> int:
-    for fn in (push_filters, early_projection, choose_broadcast, fuse_stages):
+    for fn in (push_filters, early_projection, choose_broadcast, fold_maps, fuse_stages):
         fn(sub, sink_id)
         live = _reachable(sub, sink_id)
         for nid in set(sub) - set(live):
@@ -148,6 +151,13 @@ def early_projection(sub: Dict[int, logical.Node], sink_id: int) -> None:
     for nid in reversed(order):
         node = sub[nid]
         need = set(node.schema) if isinstance(node, logical.SinkNode) else req[nid]
+        # a with_columns output nobody consumes is pruned, not just skipped:
+        # the map evaluates every expression it carries, so its inputs would
+        # otherwise have to survive source pruning
+        if isinstance(node, logical.MapNode) and node.exprs is not None \
+                and any(k not in need for k in node.exprs):
+            node.exprs = {k: e for k, e in node.exprs.items() if k in need}
+            node.fn = logical.WithColumnsFn(node.exprs)
         for i, pid in enumerate(node.parents):
             req[pid] |= _needed_from_parent(sub, node, i, need)
     for nid in order:
@@ -180,6 +190,15 @@ def _needed_from_parent(sub, node: logical.Node, i: int, need: Set[str]) -> Set[
     parent_schema = set(sub[node.parents[i]].schema)
     if isinstance(node, logical.FilterNode):
         return (need | node.predicate.required_columns()) & parent_schema
+    if isinstance(node, logical.ProjectionNode):
+        return set(node.schema) & parent_schema
+    if isinstance(node, logical.MapNode):
+        if node.exprs is None:
+            return parent_schema  # a rename: keep everything
+        out = set()
+        for c in need:
+            out |= node.exprs[c].required_columns() if c in node.exprs else {c}
+        return out & parent_schema
     if isinstance(node, logical.AggNode):
         out = set(node.keys)
         for _, e in node.plan.pre:
@@ -216,8 +235,8 @@ def _get_catalog():
 
 
 def _estimate_subtree(sub, nid: int, cat) -> Optional[float]:
-    """Estimated rows flowing out of a Filter chain over one source; None
-    when the shape is more complex."""
+    """Estimated rows flowing out of a Filter/Projection/Map chain over one
+    source; None when the shape is more complex."""
     node = sub[nid]
     preds: List[Expr] = []
     for _ in range(64):
@@ -226,6 +245,9 @@ def _estimate_subtree(sub, nid: int, cat) -> Optional[float]:
             return cat.estimate_source(node.reader, pred)
         if isinstance(node, logical.FilterNode):
             preds.append(node.predicate)
+            node = sub[node.parents[0]]
+            continue
+        if isinstance(node, (logical.ProjectionNode, logical.MapNode)):
             node = sub[node.parents[0]]
             continue
         return None
@@ -245,6 +267,22 @@ def choose_broadcast(sub: Dict[int, logical.Node], sink_id: int) -> None:
             node.broadcast = True
 
 
+def fold_maps(sub: Dict[int, logical.Node], sink_id: int) -> None:
+    """Fold expression maps into their parent's edges: the map runs as a
+    batch function inside the parent's partition function instead of as an
+    actor hop.  Only when the parent has no other consumer (the map rides
+    every edge leaving the parent's actor), and never over a source (the
+    source predicate path already fuses; readers stay lean)."""
+    cons = _consumers(sub, sink_id)
+    for nid in _reachable(sub, sink_id):
+        node = sub.get(nid)
+        if not isinstance(node, logical.MapNode) or node.exprs is None or node.folded:
+            continue
+        pid = node.parents[0]
+        if len(cons.get(pid, [])) == 1 and not isinstance(sub[pid], logical.SourceNode):
+            node.folded = True
+
+
 # ---------------------------------------------------------------------------
 # whole-stage fusion
 # ---------------------------------------------------------------------------
@@ -260,7 +298,8 @@ def _fusible_member(node: logical.Node) -> bool:
     unordered operators only."""
     if node.sorted_by is not None:
         return False
-    return isinstance(node, (logical.FilterNode, logical.JoinNode, logical.AggNode))
+    return isinstance(node, (logical.FilterNode, logical.ProjectionNode, logical.MapNode,
+                             logical.JoinNode, logical.AggNode))
 
 
 def fuse_stages(sub: Dict[int, logical.Node], sink_id: int) -> None:
@@ -273,6 +312,8 @@ def fuse_stages(sub: Dict[int, logical.Node], sink_id: int) -> None:
       edge partitions the stage's stream 0); interior joins are broadcast;
     - an AggNode ends the chain (its partial half fuses in-stage, the final
       half stays a separate key-partitioned actor);
+    - filters, projections and expression maps inside a chain run as one
+      in-stage elementwise kernel (K16);
     - blocking operators (top-k, sinks) never fuse; 1-member chains stay.
     """
     if not stage_fuse_enabled():

@@ -1,4 +1,4 @@
-"""The port's hand-written kernels (K1-K5, K11, K12) against their plain
+"""The port's hand-written kernels (K1-K5, K11-K13, K16) against their plain
 torch versions, on a card.  Every test is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False.
 
@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from quokka_tpu_torch import sqlparse
-from quokka_tpu_torch.ops import bridge, fuse, hashtable, join, kernels
+from quokka_tpu_torch.ops import bridge, fuse, hashtable, join, kernels, stagefuse
 from quokka_tpu_torch.ops.expr_compile import plan_aggregation
 
 pytestmark = pytest.mark.cuda
@@ -204,3 +204,87 @@ def test_k12_kernel_matches_plain(cuda_device, kind):
     assert torch.equal(mk, mp)
     assert torch.equal(ik[mk], ip[mp])
     assert 0 < int(mk.sum()) < p
+
+
+@pytest.mark.parametrize("how", ["inner", "left"])
+@pytest.mark.parametrize("skew", [False, True], ids=["spread", "hot_key"])
+def test_k13_kernel_matches_plain(cuda_device, how, skew):
+    """The many-to-many expand against its plain version at every output
+    row, the padding rows included; with one probe key that matches 10^4
+    build rows."""
+    r = np.random.default_rng(40 + skew)
+    p, b = 1 << 16, 1 << 18
+    bk = r.integers(0, 1 << 15, b).astype(np.int64)
+    pk = r.integers(0, 1 << 16, p).astype(np.int64)
+    if skew:
+        bk[:10_000] = 12345
+        pk[:50] = 12345
+    limbs = [torch.from_numpy(np.concatenate([pk, bk])).to(cuda_device)]
+    valid = torch.from_numpy(np.concatenate([r.random(p) < 0.95, r.random(b) < 0.95]))
+    valid = valid.to(cuda_device)
+    pv = torch.ones(p, dtype=torch.bool, device=cuda_device)
+    mc, total, off, bps, rp, unm = join.mm_plan_for(limbs, valid, p, how, pv)
+    out = 1 << int(np.ceil(np.log2(int(total) + 1000)))
+    cum = torch.cumsum(mc, 0)
+    k = join._mm_expand_cuda(cum, off, bps, rp, total, out, unm)
+    q = join._mm_expand_plain(cum, off, bps, rp, total, out, unm)
+    for a, c in zip(k[:3], q[:3]):
+        assert torch.equal(a, c)
+    if how == "left":
+        assert torch.equal(k[3], q[3]) and 0 < int(k[3][k[2]].sum())
+    assert int(k[2].sum()) == int(total)
+
+
+STAGES = [
+    [("filter", "g > 2 and s = 'ab'"),
+     ("map", [("h", "g * (1 - f)"), ("y", "extract(year from d)")])],
+    [("map", [("g", "g + i"), ("m", "extract(month from d)")]),
+     ("filter", "g < 20 or t = 'x'"), ("project", ["g", "m", "s"])],
+    [("filter", "not (f > 0.5) or i is null"),
+     ("map", [("day", "extract(day from d)"), ("c", "case when b then 1 else 0 end")])],
+]
+
+
+@pytest.mark.parametrize("stage", range(len(STAGES)))
+def test_k16_kernel_matches_plain(cuda_device, stage):
+    """The in-stage elementwise kernel against its plain version, on dates
+    from 0001 to 9999 (before 1970 too) with nulls."""
+    t = host_table(1 << 16, seed=50 + stage)
+    r = np.random.default_rng(stage)
+    d = r.integers(-719162, 2932896, 1 << 16).astype("datetime64[D]")
+    d[r.random(1 << 16) < 0.05] = np.datetime64("NaT")
+    t.columns["d"] = d
+    b = bridge.host_to_device(t, cuda_device)
+    steps = []
+    for kind, payload in STAGES[stage]:
+        if kind == "filter":
+            steps.append((kind, sqlparse.parse_expression(payload)))
+        elif kind == "map":
+            steps.append((kind, [(n, sqlparse.parse_expression(e)) for n, e in payload]))
+        else:
+            steps.append((kind, payload))
+    call, _ = stagefuse.FusedElementwise(steps).prepare(b)
+    mk, ck, ok = call.launch()
+    mp, cp, op = call.plain()
+    assert torch.equal(mk, mp) and int(ck) == int(cp)
+    for a, c in zip(ok, op):
+        assert a.dtype == c.dtype
+        assert torch.equal(a, c) or torch.allclose(a, c, rtol=0, atol=0, equal_nan=True)
+
+
+def test_k3_nonconvergence_falls_back_on_the_card(cuda_device, monkeypatch):
+    """K3's insert on a 4-slot table cannot converge: the group-by reruns
+    through the sort group-by and matches it."""
+    r = np.random.default_rng(3)
+    n = 4096
+    lb = [torch.from_numpy(r.integers(0, 300, n)).to(cuda_device)]
+    ar = [torch.from_numpy(r.normal(size=n)).to(cuda_device) for _ in OPS]
+    va = torch.from_numpy(r.random(n) < 0.9).to(cuda_device)
+    want = kernels.sorted_groupby(lb, ar, OPS, va)
+    monkeypatch.setattr(hashtable, "capbits_for", lambda n: 2)
+    got = hashtable.hash_groupby(lb, ar, OPS, va)
+    g = int(want[3])
+    assert int(got[3]) == g
+    assert torch.equal(got[1][:g], want[1][:g]) and torch.equal(got[2][:g], want[2][:g])
+    for a, c in zip(got[0], want[0]):
+        assert torch.allclose(a[:g], c[:g], rtol=1e-9, atol=1e-12, equal_nan=True)

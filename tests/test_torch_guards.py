@@ -110,17 +110,20 @@ def test_unknown_strategy_override_raises(value, monkeypatch):
         strategy.choice("join_build")
 
 
-def test_unported_join_paths_raise_naming_the_roadmap():
-    from quokka_tpu_torch import QuokkaContext
-    from quokka_tpu_torch.ops import join
+def test_unported_join_paths_raise_naming_the_roadmap(monkeypatch):
+    """Left and many-to-many joins run now (tests/test_torch_q4q13q19q7.py);
+    what stays unported on the join path is the spill tier: a left join
+    whose build passes SPILL_JOIN_BUILD_ROWS on a channel raises naming the
+    roadmap item instead of truncating."""
+    import pandas as pd
+    from quokka_tpu_torch import QuokkaContext, config
 
+    monkeypatch.setattr(config, "SPILL_JOIN_BUILD_ROWS", 300)
+    ctx = QuokkaContext(io_channels=1, exec_channels=1, device="cpu")
+    a = ctx.from_pandas(pd.DataFrame({"k": [1, 2], "v": [0.5, 1.5]}))
+    b = ctx.from_pandas(pd.DataFrame({"k": list(range(400)) * 2, "w": [2.0] * 800}))
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        join.hash_join_general(None, None, ["k"], ["k"])
-    ctx = QuokkaContext(device="cpu")
-    a = ctx.from_pandas(__import__("pandas").DataFrame({"k": [1, 2], "v": [0.5, 1.5]}))
-    b = ctx.from_pandas(__import__("pandas").DataFrame({"k": [1], "w": [2.0]}))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        a.join(b, on="k", how="left")
+        a.join(b, on="k", how="left").collect()
 
 
 def test_join_build_past_the_spill_threshold_raises(monkeypatch):
@@ -137,9 +140,11 @@ def test_join_build_past_the_spill_threshold_raises(monkeypatch):
         ex.execute([part], 1, 0)
 
 
-def test_stage_needing_fused_elementwise_raises():
+def test_stage_needing_fused_elementwise_raises(monkeypatch):
     """A filter the optimizer cannot push below a join stays inside the
-    fused stage, which would need FusedElementwise (row 16)."""
+    fused stage, which runs it through FusedElementwise (row 16, ported);
+    the same stage under a forced groupby=sort still raises, naming row 6
+    (the one-hot small-key partial aggregate, not ported)."""
     import pandas as pd
     from quokka_tpu_torch import QuokkaContext, col
 
@@ -147,8 +152,12 @@ def test_stage_needing_fused_elementwise_raises():
     a = ctx.from_pandas(pd.DataFrame({"k": [1, 2, 3], "v": [0.5, 1.5, 2.5]}))
     b = ctx.from_pandas(pd.DataFrame({"k": [1, 2], "w": [2.0, 1.0]}))
     q = a.join(b, on="k").filter(col("v") > col("w")).agg_sql("sum(v) as s")
-    with pytest.raises(NotImplementedError, match="row 16"):
-        q.collect()
+    assert "FusedStage" in q.explain()
+    assert q.collect().s[0] == 1.5
+    monkeypatch.setenv("QK_KERNEL_STRATEGY", "groupby=sort")
+    with pytest.raises(NotImplementedError, match="row 6"):
+        a.join(b, on="k").filter(col("v") > col("w")).groupby("k").agg_sql(
+            "sum(v) as s").collect()
 
 
 def test_new_kernel_wrappers_refuse_other_devices():

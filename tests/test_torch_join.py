@@ -301,3 +301,143 @@ def test_join_executor_with_an_empty_build(how, build, fresh_aot):
         _same(ref, got)
     else:
         assert ref is None and got is None
+
+
+# ---------------------------------------------------------------------------
+# the general join: many-to-many and left (plan T, expand K13)
+# ---------------------------------------------------------------------------
+
+
+def _mm_tables(kind, seed, n_build=400, n_probe=1500, empty_build=False):
+    """A build whose keys repeat (a few hot keys), and a probe table whose
+    keys are drawn from the build keys, unmatched keys and nulls (NaN for
+    float64, with -0.0 build keys met by +0.0 probes)."""
+    r = np.random.default_rng(seed)
+    pool = _key_columns(kind, 60, r)
+    keys = list(pool)
+    hot = np.where(r.random(n_build) < 0.3, r.integers(0, 3, n_build),
+                   r.integers(0, 60, n_build))
+    build = {k: pa.array(np.array(pool[k].to_pylist(), dtype=object)[hot].tolist(),
+                         type=pool[k].type) for k in keys}
+    build["pay_f"] = pa.array(r.normal(size=n_build))
+    build["pay_i"] = pa.array(r.integers(-9, 9, n_build))
+    build["pay_d"] = pa.array(r.integers(9000, 9100, n_build).astype(np.int32)).cast(pa.date32())
+    build["pay_b"] = pa.array(r.random(n_build) < 0.5)
+    build["pay_s"] = pa.array(np.array(["x", "y", "z"], dtype=object)[
+        r.integers(0, 3, n_build)].tolist(), type=pa.string())
+    m = r.random(n_build) < 0.05
+    k0 = build[keys[0]].to_pylist()
+    build[keys[0]] = pa.array([None if x else v for v, x in zip(k0, m)], type=pool[keys[0]].type)
+    other = _key_columns(kind, 60, np.random.default_rng(seed + 100))
+    pick = r.integers(0, 60, n_probe)
+    from_build = r.random(n_probe) < 0.7
+    probe = {}
+    for k in keys:
+        bv = np.array(pool[k].to_pylist(), dtype=object)
+        ov = np.array(other[k].to_pylist(), dtype=object)
+        v = np.where(from_build, bv[pick], ov[pick])
+        if kind == "float64":
+            v = np.where(v == 0.0, 0.0, v)
+            v[r.random(n_probe) < 0.03] = np.nan
+        if k == keys[0]:
+            v[r.random(n_probe) < 0.05] = None
+        probe["p" + k] = pa.array(v.tolist(), type=pool[k].type)
+    probe["val"] = pa.array(r.integers(0, 1000, n_probe))
+    bt = pa.table(build)
+    return (bt.slice(0, 0) if empty_build else bt), pa.table(probe), keys
+
+
+MM_PAYLOAD = ["pay_f", "pay_i", "pay_d", "pay_b", "pay_s"]
+
+
+@pytest.mark.parametrize("how", ["inner", "left", "semi", "anti"])
+@pytest.mark.parametrize("kind", KEY_KINDS)
+def test_hash_join_general_matches_reference(kind, how, fresh_aot):
+    """Output rows index for index (probe row first, then the key's build
+    rows in row order), left-join null payloads included."""
+    bt, pt, keys = _mm_tables(kind, seed=len(kind) + len(how))
+    rb, rp = ref_batch_of(bt), ref_batch_of(pt)
+    pkeys = ["p" + k for k in keys]
+    ref = ref_join.hash_join_general(rp, rb, pkeys, keys, how, MM_PAYLOAD)
+    got = join.hash_join_general(port_batch(rp), port_batch(rb), pkeys, keys, how, MM_PAYLOAD)
+    assert got.padded_len == ref.padded_len
+    assert 0 < got.count_valid()
+    _same(ref, got)
+    if how == "left":
+        # unmatched probe rows carry nulls: NaN, the int sentinels, code -1
+        # and bools upcast to int32
+        assert got.columns["pay_b"].data.dtype == torch.int32
+        nulls = got.valid & (got.columns["pay_s"].codes < 0)
+        assert 0 < int(nulls.sum()) < got.count_valid()
+        assert bool(torch.isnan(got.columns["pay_f"].data[nulls]).all())
+        assert bool((got.columns["pay_i"].data[nulls] == -(2**63)).all())
+        assert bool((got.columns["pay_d"].data[nulls] == -(2**31)).all())
+
+
+@pytest.mark.parametrize("how", ["inner", "left", "semi", "anti"])
+def test_hash_join_general_empty_build(how, fresh_aot):
+    bt, pt, keys = _mm_tables("int64", seed=8, empty_build=True)
+    rb, rp = ref_batch_of(bt), ref_batch_of(pt)
+    ref = ref_join.hash_join_general(rp, rb, ["pk"], keys, how, MM_PAYLOAD)
+    got = join.hash_join_general(port_batch(rp), port_batch(rb), ["pk"], keys, how,
+                                 MM_PAYLOAD)
+    assert got.count_valid() == (0 if how in ("inner", "semi") else pt.num_rows)
+    _same(ref, got)
+
+
+@pytest.mark.parametrize("how", ["inner", "left"])
+@pytest.mark.parametrize("skew", [False, True], ids=["spread", "one_hot_key"])
+def test_k13_plain_matches_reference_index_for_index(how, skew, fresh_aot):
+    """K13's plain version against the reference's _mm_expand and
+    mm_unmatched at every output row, the padding rows past the total
+    included."""
+    r = np.random.default_rng(31 + skew)
+    p, b = 700, 3000
+    bk = r.integers(0, 40, b).astype(np.int64)
+    if skew:
+        bk[: b // 2] = 7  # one probe key matches 1500 build rows
+    pk = r.integers(0, 60, p).astype(np.int64)
+    lv = [np.concatenate([pk, bk])]
+    valid = np.concatenate([r.random(p) < 0.9, r.random(b) < 0.95])
+    probe_valid = np.ones(p, dtype=bool)
+    r_mc, r_total, r_off, r_bps, r_rp = ref_join.mm_plan_for(
+        [jnp.asarray(lv[0])], jnp.asarray(valid), p, how, probe_valid=jnp.asarray(probe_valid))
+    mc, total, off, bps, rp_, unm = join.mm_plan_for(
+        [torch.from_numpy(lv[0])], torch.from_numpy(valid), p, how, torch.from_numpy(probe_valid))
+    assert int(total) == int(r_total) > 0
+    np.testing.assert_array_equal(mc.numpy(), np.asarray(r_mc))
+    out_padded = int(2 ** np.ceil(np.log2(int(total) + 100)))
+    r_pi, r_bi, r_ov = ref_join._mm_expand(r_mc, r_off, r_bps, r_rp, r_total, out_padded)
+    pi, bi, ov, u = join.mm_expand(mc, off, bps, rp_, total, out_padded, unm)
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(r_pi))
+    np.testing.assert_array_equal(bi.numpy(), np.asarray(r_bi))
+    np.testing.assert_array_equal(ov.numpy(), np.asarray(r_ov))
+    if how == "left":
+        r_u = ref_join.mm_unmatched([jnp.asarray(lv[0])], jnp.asarray(valid), p, r_pi, r_mc)
+        np.testing.assert_array_equal(u.numpy(), np.asarray(r_u))
+        assert 0 < int(u[ov].sum())
+    else:
+        assert u is None
+
+
+def test_left_join_over_a_build_source_with_no_batch(fresh_aot):
+    """A left join whose build source emitted no batch at all keeps every
+    probe row with all-null (float) payloads from the plan's schema; the
+    reference's executor fails on this path (its output list is only bound
+    after a raise), so pandas is the oracle."""
+    import pandas as pd
+    from quokka_tpu_torch.executors.sql_execs import BuildProbeJoinExecutor
+
+    _bt, pt, keys = _mm_tables("int64", seed=4, empty_build=True)
+    probe = port_batch(ref_batch_of(pt))
+    ex = BuildProbeJoinExecutor(["pk"], keys, "left",
+                                out_schema=list(pt.column_names) + MM_PAYLOAD)
+    assert ex.source_done(1, 0) is None
+    out = ex.execute([probe], 0, 0)
+    assert out.count_valid() == pt.num_rows
+    assert list(out.columns) == list(pt.column_names) + MM_PAYLOAD
+    for c in MM_PAYLOAD:
+        assert bool(torch.isnan(out.columns[c].data[out.valid]).all())
+    df = pt.to_pandas()
+    np.testing.assert_array_equal(out.columns["val"].data.numpy()[out.valid.numpy()],
+                                  pd.Series(df.val).to_numpy())

@@ -211,11 +211,21 @@ def test_k3_hash_groupby_matches_reference(key_kind, value, fresh_aot):
 
 def test_k3_nonconvergence_raises(monkeypatch):
     """An insert whose probe walk cannot place every row raises; it never
-    aliases rows to slot 0."""
+    aliases rows to slot 0.  The group-by itself now falls back to the sort
+    group-by (test_k3_nonconvergence_falls_back_to_the_sort_groupby); the
+    inserts that raise are K3's plain version and the PK build's insert,
+    on which the join relies to take the sorted probe."""
     monkeypatch.setattr(hashtable, "capbits_for", lambda n: 1)  # 2 slots
     limbs = [torch.arange(8, dtype=torch.int64)]
+    ok = torch.ones(8, dtype=torch.bool)
     with pytest.raises(hashtable.HashTableConvergenceError):
-        hashtable.hash_groupby(limbs, [torch.ones(8)], ["sum"], torch.ones(8, dtype=torch.bool))
+        hashtable.hash_groupby_plain(limbs, [torch.ones(8)], ["sum"], ok)
+
+    class _B:
+        padded_len = 8
+
+    with pytest.raises(hashtable.HashTableConvergenceError):
+        hashtable.build_table(_B(), ["k"], lambda b, k: limbs, lambda: ok)
 
 
 # ---------------------------------------------------------------------------
@@ -349,3 +359,177 @@ def test_sort_batch_and_top_k_match_reference(by, desc, fresh_aot):
     np.testing.assert_array_equal(got_k.columns["row"].data.numpy()[:37],
                                   np.asarray(ref_k.columns["row"].data)[:37])
     assert _decode(got_k.columns["s"], 37) == _decode(ref_k.columns["s"], 37)
+
+
+# ---------------------------------------------------------------------------
+# row 10: dense rank and the sort group-by; K3's fallback to it
+# ---------------------------------------------------------------------------
+
+
+def _rank_limbs(kind, n, r):
+    """Key limbs (numpy) with many repeats, of one kind."""
+    if kind == "int64":
+        return [r.integers(-(2**40), 2**40, 50)[r.integers(0, 50, n)]]
+    if kind == "composite":
+        return [r.integers(-3, 3, n).astype(np.int64), r.integers(0, 4, n).astype(np.int32)]
+    if kind == "date":
+        return [r.integers(-400, 400, n).astype(np.int32)]
+    k = r.integers(-4, 4, n).astype(np.float64)
+    k[r.random(n) < 0.1] = -0.0  # one rank with +0.0
+    k[r.random(n) < 0.05] = np.nan  # every NaN row a rank of its own
+    return [k]
+
+
+@pytest.mark.parametrize("kind", ["int64", "composite", "date", "float64"])
+def test_dense_rank_matches_reference(kind, fresh_aot):
+    """Ranks row for row and the rank count, invalid rows included."""
+    r = np.random.default_rng(len(kind))
+    n = 3000
+    limbs = _rank_limbs(kind, n, r)
+    valid = r.random(n) < 0.9
+    r_ranks, r_num = ref_kernels.dense_rank([jnp.asarray(x) for x in limbs], jnp.asarray(valid))
+    ranks, num = kernels.dense_rank([torch.from_numpy(x) for x in limbs],
+                                    torch.from_numpy(valid))
+    assert int(num) == int(r_num) > 1
+    np.testing.assert_array_equal(ranks.numpy(), np.asarray(r_ranks))
+
+
+@pytest.mark.parametrize("kind", ["int64", "composite", "float64"])
+def test_sorted_groupby_matches_reference(kind, fresh_aot):
+    """Outputs indexed by rank, which is key order in both packages."""
+    r = np.random.default_rng(20 + len(kind))
+    n = 2500
+    limbs = _rank_limbs(kind, n, r)
+    valid = r.random(n) < 0.9
+    fv = r.normal(size=n)
+    fv[r.random(n) < 0.03] = np.nan
+    iv = r.integers(-1000, 1000, n)
+    arrays = (fv, iv, fv, iv, fv, fv)
+    ops = ("sum", "sum", "count", "min", "max", "mean")
+    r_outs, r_counts, r_rep, r_num = ref_kernels.sorted_groupby(
+        tuple(jnp.asarray(x) for x in limbs), tuple(jnp.asarray(a) for a in arrays), ops,
+        jnp.asarray(valid))
+    outs, counts, rep, num = kernels.sorted_groupby(
+        [torch.from_numpy(x) for x in limbs], [torch.from_numpy(a) for a in arrays], ops,
+        torch.from_numpy(valid))
+    g = int(r_num)
+    assert int(num) == g > 1
+    np.testing.assert_array_equal(counts.numpy()[:g], np.asarray(r_counts)[:g])
+    np.testing.assert_array_equal(rep.numpy()[:g], np.asarray(r_rep)[:g])
+    for op, a, b in zip(ops, outs, r_outs):
+        a, b = a.numpy()[:g], np.asarray(b)[:g]
+        if a.dtype.kind == "f":
+            np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12, err_msg=op)
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=op)
+
+
+def test_k3_nonconvergence_falls_back_to_the_sort_groupby(monkeypatch, fresh_aot):
+    """A non-converged insert reruns the batch through the sort group-by and
+    records it, as the reference's hash_groupby does: the reference's
+    result under the same 2-slot table."""
+    from quokka_tpu.ops import strategy as ref_strategy
+    from quokka_tpu_torch.ops import strategy
+
+    keys, vals, valid = _k3_inputs(600, seed=3, key_kind="int64")
+    ops = ("sum", "count", "min", "first")
+    monkeypatch.setattr(hashtable, "capbits_for", lambda n: 1)
+    monkeypatch.setattr(ref_hashtable, "capbits_for", lambda n: 1)
+    ref_strategy.reset_used()
+    strategy.reset_used()
+    r_outs, r_counts, r_rep, r_num = ref_hashtable.hash_groupby(
+        tuple(jnp.asarray(k) for k in keys), tuple(jnp.asarray(vals[0]) for _ in ops), ops,
+        jnp.asarray(valid))
+    outs, counts, rep, num = hashtable.hash_groupby(
+        [torch.from_numpy(k) for k in keys], [torch.from_numpy(vals[0]) for _ in ops], ops,
+        torch.from_numpy(valid))
+    assert strategy.used_snapshot()["groupby"] == "sort"
+    assert ref_strategy.used_snapshot()["groupby"] == "sort"
+    g = int(r_num)
+    assert int(num) == g > 1
+    np.testing.assert_array_equal(rep.numpy()[:g], np.asarray(r_rep)[:g])
+    np.testing.assert_array_equal(counts.numpy()[:g], np.asarray(r_counts)[:g])
+    for a, b in zip(outs, r_outs):
+        np.testing.assert_allclose(a.numpy()[:g], np.asarray(b)[:g], rtol=1e-9, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# K16: in-stage filter / projection / map
+# ---------------------------------------------------------------------------
+
+STAGES = [
+    [("filter", "g > 2 and s = 'ab'"), ("map", [("h", "g * (1 - f)"), ("y", "extract(year from d)")])],
+    [("map", [("g", "g + i"), ("m", "extract(month from d)")]), ("filter", "g < 20 or t = 'x'"),
+     ("project", ["g", "m", "s"])],
+    [("filter", "not (f > 0.5) or i is null"), ("map", [("day", "extract(day from d)"),
+                                                         ("c", "case when b then 1 else 0 end")])],
+]
+
+
+def _steps(pkg_sqlparse, stage):
+    out = []
+    for kind, payload in stage:
+        if kind == "filter":
+            out.append(("filter", pkg_sqlparse.parse_expression(payload)))
+        elif kind == "map":
+            out.append(("map", [(n, pkg_sqlparse.parse_expression(e)) for n, e in payload]))
+        else:
+            out.append((kind, payload))
+    return out
+
+
+@pytest.mark.parametrize("stage", range(len(STAGES)))
+@pytest.mark.parametrize("n", [0, 2000])
+def test_k16_fused_elementwise_matches_reference(stage, n, fresh_aot):
+    """The port's FusedElementwise (K16's plain version here) against the
+    reference's, on a table without null dates (the reference extracts a
+    field from the null sentinel's day number; the port gives null)."""
+    from quokka_tpu.ops.stagefuse import FusedElementwise as RefElemwise
+    from quokka_tpu_torch.ops import stagefuse
+
+    t = mixed_table(n, seed=stage, nulls=False)
+    ref_b = ref_batch_of(t)
+    b = port_batch(ref_b)
+    seq = stagefuse.SEQUENTIAL
+    got = stagefuse.FusedElementwise(_steps(sqlparse, STAGES[stage]))(b)
+    assert stagefuse.SEQUENTIAL == seq, "the stage took the per-step path"
+    ref = RefElemwise(_steps(ref_sqlparse, STAGES[stage]))(ref_b)
+    valid = np.asarray(ref.valid)
+    np.testing.assert_array_equal(got.valid.numpy(), valid)
+    assert got.count_valid() == ref.count_valid()
+    assert list(got.columns) == list(ref.columns)
+    for name, c in ref.columns.items():
+        if hasattr(c, "codes"):
+            np.testing.assert_array_equal(got.columns[name].codes.numpy()[valid],
+                                          np.asarray(c.codes)[valid])
+        else:
+            np.testing.assert_array_equal(got.columns[name].data.numpy()[valid],
+                                          np.asarray(c.data)[valid], err_msg=name)
+
+
+def test_k16_kernel_source_and_extract_before_1970():
+    """K16's generated source parses and names one kernel; its plain version
+    gives numpy's civil dates for days before and after 1970, and null for
+    a null date."""
+    from quokka_tpu_torch.ops import stagefuse
+
+    days = np.array([-719468, -25567, -366, -365, -1, 0, 59, 60, 10957, 11016, 2932896],
+                    dtype=np.int32)
+    t = pa.table({"d": pa.array(days.tolist() + [None], type=pa.int32()).cast(pa.date32())})
+    b = port_batch(ref_batch_of(t))
+    steps = [("map", [(f, sqlparse.parse_expression(f"extract({f} from d)"))
+                      for f in ("year", "month", "day")])]
+    fe = stagefuse.FusedElementwise(steps)
+    call, kinds = fe.prepare(b)
+    tree = ast.parse(call.kern.src)
+    assert [f.name for f in tree.body] == ["qk_elemwise"]
+    assert kinds == ["i", "i", "i"] and call.out_dtypes == [torch.int32] * 3
+    out = fe(b)
+    dt = days.astype("datetime64[D]")
+    want = {"year": dt.astype("datetime64[Y]").astype(int) + 1970,
+            "month": dt.astype("datetime64[M]").astype(int) % 12 + 1,
+            "day": (dt - dt.astype("datetime64[M]")).astype(int) + 1}
+    for f, w in want.items():
+        got = out.columns[f].data.numpy()
+        np.testing.assert_array_equal(got[:len(days)], w, err_msg=f)
+        assert got[len(days)] == -(2**31), f"null date must give a null {f}"

@@ -115,7 +115,7 @@ def test_global_aggregate_and_empty_input():
 def test_unported_surface_raises():
     ctx = QuokkaContext(device="cpu")
     s = ctx.from_pandas(pd.DataFrame({"x": [1, 2]}))
-    for call in (lambda: s.join(s, on="x", how="left"), lambda: s.sort(["x"]),
+    for call in (lambda: s.distinct(["x"]), lambda: s.sort(["x"]),
                  lambda: QuokkaContext(device="cpu", exec_config={"fault_tolerance": True}),
                  lambda: QuokkaContext(device="cpu", mesh=object())):
         with pytest.raises(NotImplementedError):
