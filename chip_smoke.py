@@ -1023,7 +1023,10 @@ def smoke(dev, card: str, args) -> int:
 
     def check_k3(label, lb, ar, op, va) -> float:
         ko, kc, kr, kn = hashtable.hash_groupby(lb, ar, op, va)
-        po, pc, pr, pn = hashtable.hash_groupby_plain(lb, ar, op, va)
+        plain = hashtable.hash_groupby_plain(lb, ar, op, va)
+        if plain is None:
+            fail(f"K3 {label}: the plain version's insert did not converge")
+        po, pc, pr, pn = plain
         if int(kn) != int(pn):
             fail(f"K3 {label}: {int(kn)} groups vs {int(pn)} in the plain version")
         g_n = int(kn)
@@ -1248,9 +1251,21 @@ def smoke(dev, card: str, args) -> int:
         return cum
 
     def k13_bytes(a, cum):
-        unm = a[6]
-        return (nbytes(cum, a[1], a[2], a[3]) + 8 + (0 if unm is None else nbytes(unm))
-                + a[5] * (4 + 4 + 1 + (0 if unm is None else 1)))
+        """Bytes K13 must move on this run's data: the cumsum, rank and
+        unmatched flag of each probe row with an output row, the offset of
+        each rank a matched probe row holds, the build positions of those
+        ranks, the total, and every output row written once."""
+        count, offsets, build_pos, rp, _, out_padded, unm = a
+        live = count > 0
+        matched = live if unm is None else live & ~unm
+        ranks, inv = torch.unique(rp[matched], return_inverse=True)
+        per_rank = torch.zeros(ranks.shape[0], dtype=count.dtype, device=count.device)
+        per_rank.scatter_reduce_(0, inv, count[matched], "amax")
+        flag = 0 if unm is None else 1
+        return (int(live.sum()) * (cum.element_size() + rp.element_size() + flag)
+                + ranks.shape[0] * offsets.element_size()
+                + int(per_rank.sum()) * build_pos.element_size() + 8
+                + out_padded * (4 + 4 + 1 + flag))
 
     (k13_a, _) = s3["q13"].args["K13"]
     k13_cum = check_k13("Q13", k13_a)

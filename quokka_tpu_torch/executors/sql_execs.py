@@ -105,7 +105,7 @@ class PartialAggExecutor(Executor):
         try:
             g = self._fused(batch)
         except CompileError:
-            fuse.note_fallback()
+            fuse.note_fallback(batch)
             b = batch
             for name, e in self.plan.pre:
                 b = b.with_column(name, evaluate_to_column(e, b))
@@ -139,7 +139,7 @@ class PartialAggExecutor(Executor):
             pre = dict(zip(call.outs, call.plain() if batch.device.type == "cpu"
                            else call.launch()))
         except CompileError:
-            fuse.note_fallback()
+            fuse.note_fallback(batch)
             pre = {name: evaluate_to_column(e, batch).data for name, e in self.plan.pre}
         cols = {k: batch.columns[k] for k in self.keys}
         for pname, op, tmp in self.plan.partials:
@@ -371,7 +371,7 @@ class BuildProbeJoinExecutor(Executor):
         # the general join finds every probe row unmatched
         outs = []
         for probe in live:
-            if self.build_unique and self.how != "left":
+            if self.build_unique and self.how in join_ops.PK_HOWS:
                 out = join_ops.hash_join_pk(probe, self.build, self.left_on, self.right_on,
                                             self.how, self.payload)
             else:

@@ -152,8 +152,8 @@ class ProjectionNode(Node):
 
 class MapNode(Node):
     """with_columns / rename: a per-batch function with explicit output
-    schema metadata, ``exprs`` (with_columns, foldable by the optimizer) or
-    ``rename`` (a column-rename map)."""
+    schema metadata, ``exprs`` (with_columns) or ``rename`` (a column-rename
+    map)."""
 
     def __init__(self, parents, schema, fn: Callable,
                  exprs: Optional[Dict[str, Expr]] = None,
@@ -162,7 +162,6 @@ class MapNode(Node):
         self.fn = fn
         self.exprs = exprs
         self.rename = rename
-        self.folded = False  # set by optimizer.fold_maps: ride the parent's edges
 
     def derive_schema(self, parents):
         if self.exprs is not None:
@@ -176,23 +175,15 @@ class MapNode(Node):
     def lower(self, ctx, graph, actor_of, node_id):
         from quokka_tpu_torch.executors.sql_execs import UDFExecutor
 
-        if self.folded:
-            # no actor: the map runs on every edge leaving the parent's actor
-            # (optimizer.fold_maps makes this node the parent's only consumer)
-            src = actor_of[self.parents[0]]
-            actor_of[node_id] = src
-            graph.add_pending_batch_fn(src, self.fn)
-            return
         actor_of[node_id] = graph.new_exec_node(
             functools.partial(UDFExecutor, self.fn),
             {0: (actor_of[self.parents[0]], _passthrough_edge())},
             self.channels or ctx.exec_channels, self.stage)
 
     def describe(self):
-        label = "FoldedMap" if self.folded else "Map"
         if self.exprs:
-            return f"{label}(" + ", ".join(f"{k}={v.sql()}" for k, v in self.exprs.items()) + ")"
-        return f"{label}(rename {self.rename})"
+            return "Map(" + ", ".join(f"{k}={v.sql()}" for k, v in self.exprs.items()) + ")"
+        return f"Map(rename {self.rename})"
 
 
 class AggNode(Node):

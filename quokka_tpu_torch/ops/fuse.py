@@ -41,9 +41,9 @@ memory or tensor cores to exploit.
 Each kernel has a plain torch version beside it (``predicate_plain``,
 ``small_agg_plain``, ``pre_exprs_plain``), taken only when the batch lies
 on the CPU.  Both the CPU and the CUDA route generate the kernel source
-first, so an expression outside the generator's subset takes the unfused
-path on either device, as the reference falls back when its prepass raises
-``CompileError``.
+first, so an expression outside the generator's subset is found on either
+device: a CPU batch then takes the unfused path, as the reference falls
+back when its prepass raises ``CompileError``, and a CUDA batch raises.
 """
 
 from __future__ import annotations
@@ -85,8 +85,14 @@ PRE_AGG_LAUNCHES = 0
 FALLBACKS = 0
 
 
-def note_fallback() -> None:
+def note_fallback(batch: DeviceBatch) -> None:
+    """Count a batch taking the unfused path, which runs on CPU batches only:
+    on the card an expression outside the generator's subset raises."""
     global FALLBACKS
+    if batch.device.type != "cpu":
+        raise NotImplementedError(
+            "an expression outside the generated kernels' subset is not ported "
+            "to quokka_tpu_torch yet: ROADMAP Queue 1 item 3")
     FALLBACKS += 1
 
 
@@ -344,7 +350,7 @@ class FusedPredicate:
         self._kernels: Dict[Tuple, _PredicateKernel] = {}
 
     def _unfused(self, batch: DeviceBatch) -> DeviceBatch:
-        note_fallback()
+        note_fallback(batch)
         mask = expr_compile.evaluate_predicate(self.expr, batch)
         return kernels.apply_mask(batch, mask)
 

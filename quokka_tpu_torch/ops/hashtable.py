@@ -17,7 +17,8 @@ on the keys.  A non-converged insert never aliases rows to slot 0:
 ``hash_groupby`` reads the flag on the host (one scalar read per call, the
 price of never answering wrong) and reruns the batch through the sort
 group-by (``kernels.sorted_groupby``), as the reference does; the plain
-insert and the PK build raise ``HashTableConvergenceError`` instead.
+version returns None for such a batch, and the PK build raises
+``HashTableConvergenceError``.
 
 Kernel K11, the PK-join build and probe: ``build_table`` inserts a build
 batch's key limbs once (K3's insert alone, through ``qk_hash_build``) and
@@ -216,8 +217,9 @@ def segment_aggs_plain(ranks, valid, arrays, ops):
     return outs, counts, rep
 
 
-def _hash_groupby_plain(limbs, arrays, ops, valid):
-    """(outs, counts, rep, num), or None when the insert did not converge."""
+def hash_groupby_plain(limbs, arrays, ops, valid):
+    """Plain torch version of K3 (CPU batches; the card's reference):
+    (outs, counts, rep, num), or None when the insert did not converge."""
     climbs = canonical_limbs(limbs)
     capbits = capbits_for(valid.shape[0])
     myslot, table, converged = _insert_plain(climbs, valid, capbits)
@@ -229,16 +231,6 @@ def _hash_groupby_plain(limbs, arrays, ops, valid):
     num = flag.sum().to(torch.int32)
     outs, counts, rep = segment_aggs_plain(ranks, valid, arrays, ops)
     return tuple(outs), counts, rep, num
-
-
-def hash_groupby_plain(limbs, arrays, ops, valid):
-    """Plain torch version of K3 (CPU tests; the card's reference).  Raises
-    ``HashTableConvergenceError`` when the insert did not converge."""
-    res = _hash_groupby_plain(limbs, arrays, ops, valid)
-    if res is None:
-        raise HashTableConvergenceError(
-            f"hash-table insert did not place every row (n={valid.shape[0]})")
-    return res
 
 
 def segment_aggs(ranks: torch.Tensor, valid: torch.Tensor,
@@ -263,7 +255,7 @@ def hash_groupby(limbs: Sequence[torch.Tensor], arrays: Sequence[torch.Tensor],
     from quokka_tpu_torch.ops import kernels  # kernels imports this module
 
     if valid.device.type == "cpu":
-        res = _hash_groupby_plain(limbs, arrays, ops, valid)
+        res = hash_groupby_plain(limbs, arrays, ops, valid)
     else:
         _require_cuda(valid, "hash_groupby")
         res = _hash_groupby_cuda(tuple(limbs), tuple(arrays), tuple(ops), valid)

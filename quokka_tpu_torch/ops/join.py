@@ -48,6 +48,7 @@ from quokka_tpu_torch.ops.batch import (
 SORTED_PROBE_LAUNCHES = 0
 EXPAND_LAUNCHES = 0
 JOIN_HOWS = ("inner", "left", "semi", "anti")
+PK_HOWS = ("inner", "semi", "anti")  # the executor sends every left join to the general path
 
 _LIMB_DT = {torch.float64: 0, torch.float32: 1, torch.int64: 2, torch.int32: 3,
             torch.bool: 4}
@@ -186,9 +187,9 @@ def _table_of(build: DeviceBatch, build_keys: Sequence[str]):
         return None
 
 
-def require_join_how(how: str) -> None:
-    if how not in JOIN_HOWS:
-        raise ValueError(f"join how={how!r}: expected one of {JOIN_HOWS}")
+def require_join_how(how: str, hows: Sequence[str] = JOIN_HOWS) -> None:
+    if how not in hows:
+        raise ValueError(f"join how={how!r}: expected one of {tuple(hows)}")
 
 
 def hash_join_pk(probe: DeviceBatch, build: DeviceBatch, probe_keys: Sequence[str],
@@ -200,8 +201,7 @@ def hash_join_pk(probe: DeviceBatch, build: DeviceBatch, probe_keys: Sequence[st
     one scalar read per build batch (the hash-table convergence check); a
     diverged build is remembered on the batch and every probe takes the
     sorted path."""
-    if how not in ("inner", "semi", "anti"):
-        raise ValueError(f"hash_join_pk serves inner, semi and anti joins, not {how!r}")
+    require_join_how(how, PK_HOWS)
     probe_limbs = key_limbs(probe, probe_keys)
     probe_ok = _nonnull_valid(probe, probe_keys)
     table = None

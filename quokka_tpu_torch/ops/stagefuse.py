@@ -25,10 +25,11 @@ output written once); Triton serves for the reason it serves K1 and K5: a
 fused elementwise pass over a few columns, known only at query time, with
 no reuse across rows for shared memory or tensor cores to exploit.
 ``elementwise_plain`` is its plain version, taken only when the batch lies
-on the CPU.  The reference's per-step path (``_sequential``) is kept for
-what the kernel does not take (an expression outside the generator's
-subset, string material left after the prepass, string inputs) and
-counted in ``SEQUENTIAL``.
+on the CPU.  The reference's per-step path (``_sequential``) is kept, for
+CPU batches only, for what the kernel does not take (an expression outside
+the generator's subset, string material left after the prepass, string
+inputs) and counted in ``SEQUENTIAL``; on the card such a stage raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -55,8 +56,7 @@ from quokka_tpu_torch.ops.fuse import (
     triton_cdiv,
 )
 
-# launches of K16, and runs of the per-step path; the smoke runs require
-# the latter to stay at 0 on their queries
+# launches of K16, and runs of the per-step path (CPU batches only)
 ELEMWISE_LAUNCHES = 0
 SEQUENTIAL = 0
 
@@ -182,7 +182,7 @@ class FusedElementwise:
         # the computed outputs the kernel must produce (a projection may drop some)
         names = visible if visible is not None else list(env)
         self._outputs = [(n, env[n]) for n in names if n in env]
-        self._kernels: Dict[Tuple, Tuple[_ElemwiseKernel, List[torch.dtype], List[str]]] = {}
+        self._kernels: Dict[Tuple, Optional[Tuple[_ElemwiseKernel, List[torch.dtype], List[str]]]] = {}
 
     def _sequential(self, batch: DeviceBatch) -> DeviceBatch:
         """The reference's per-step path: one evaluation per step."""
@@ -230,8 +230,8 @@ class FusedElementwise:
         cols = [(n, t.dtype, kinds[n]) for n, t in inputs.items()]
         sig = (tuple(e.sql() for e in conjuncts), tuple((n, e.sql()) for n, e in outputs),
                tuple(cols))
-        hit = self._kernels.get(sig)
-        if hit is None:
+        if sig not in self._kernels:
+            # a signature outside the generator's subset is remembered as None
             try:
                 kern = _ElemwiseKernel(conjuncts, outputs, cols)
                 # output dtypes and kinds are the plain evaluator's, read off a
@@ -239,10 +239,13 @@ class FusedElementwise:
                 _, _, zero = elementwise_plain(conjuncts, outputs,
                                                {n: t[:0] for n, t in inputs.items()},
                                                kinds, batch.valid[:0])
+                self._kernels[sig] = (kern, [c.data.dtype for c in zero],
+                                      [c.kind for c in zero])
             except expr_compile.CompileError:
-                return None
-            hit = self._kernels[sig] = (kern, [c.data.dtype for c in zero],
-                                        [c.kind for c in zero])
+                self._kernels[sig] = None
+        hit = self._kernels[sig]
+        if hit is None:
+            return None
         kern, dts, out_kinds = hit
         return ElemwiseCall(kern, conjuncts, outputs, inputs, kinds, batch.valid, dts), out_kinds
 
@@ -251,6 +254,12 @@ class FusedElementwise:
             return batch.select(self._visible)  # a projection alone
         prep = self.prepare(batch)
         if prep is None:
+            if batch.device.type != "cpu":
+                raise NotImplementedError(
+                    "a fused stage outside K16's subset (an expression the generator "
+                    "does not take, string material left after the prepass, a "
+                    "non-numeric input) is not ported to quokka_tpu_torch yet: "
+                    "ROADMAP Queue 1 item 3")
             return self._sequential(batch)
         call, out_kinds = prep
         mask, num, arrays = call.plain() if batch.device.type == "cpu" else call.launch()

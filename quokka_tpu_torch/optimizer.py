@@ -6,10 +6,7 @@
                         each source actually reads.
 3. choose_broadcast  -- a build side the catalog estimates at no more than
                         BROADCAST_THRESHOLD rows becomes a broadcast join.
-4. fold_maps         -- an expression map whose parent has no other
-                        consumer rides its parent's edges instead of
-                        running as an actor of its own.
-5. fuse_stages       -- whole-stage fusion of single-consumer chains
+4. fuse_stages       -- whole-stage fusion of single-consumer chains
                         (QK_STAGE_FUSE=0 disables it).
 
 The reference's pass line runs its cost-fed passes from
@@ -32,7 +29,7 @@ BROADCAST_THRESHOLD = 65_536  # build rows at or below this skip the probe-side 
 
 
 def optimize(sub: Dict[int, logical.Node], sink_id: int) -> int:
-    for fn in (push_filters, early_projection, choose_broadcast, fold_maps, fuse_stages):
+    for fn in (push_filters, early_projection, choose_broadcast, fuse_stages):
         fn(sub, sink_id)
         live = _reachable(sub, sink_id)
         for nid in set(sub) - set(live):
@@ -265,22 +262,6 @@ def choose_broadcast(sub: Dict[int, logical.Node], sink_id: int) -> None:
         est = _estimate_subtree(sub, node.parents[1], cat)
         if est is not None and est <= BROADCAST_THRESHOLD:
             node.broadcast = True
-
-
-def fold_maps(sub: Dict[int, logical.Node], sink_id: int) -> None:
-    """Fold expression maps into their parent's edges: the map runs as a
-    batch function inside the parent's partition function instead of as an
-    actor hop.  Only when the parent has no other consumer (the map rides
-    every edge leaving the parent's actor), and never over a source (the
-    source predicate path already fuses; readers stay lean)."""
-    cons = _consumers(sub, sink_id)
-    for nid in _reachable(sub, sink_id):
-        node = sub.get(nid)
-        if not isinstance(node, logical.MapNode) or node.exprs is None or node.folded:
-            continue
-        pid = node.parents[0]
-        if len(cons.get(pid, [])) == 1 and not isinstance(sub[pid], logical.SourceNode):
-            node.folded = True
 
 
 # ---------------------------------------------------------------------------

@@ -129,12 +129,6 @@ class TaskGraph:
             self.exec_config.update(exec_config)
         self.actors: Dict[int, ActorInfo] = {}
         self._next_actor = 0
-        # folded maps (optimizer.fold_maps): batch functions to prepend on
-        # every edge whose source is this actor
-        self._pending_batch_fns: Dict[int, List[Callable]] = {}
-
-    def add_pending_batch_fn(self, src_actor: int, fn: Callable) -> None:
-        self._pending_batch_fns.setdefault(src_actor, []).append(fn)
 
     def _new_actor(self, kind, channels, stage) -> ActorInfo:
         info = ActorInfo(self._next_actor, kind, channels, stage)
@@ -176,10 +170,6 @@ class TaskGraph:
         if blocking:
             info.blocking_dataset = ResultDataset(f"ds-{info.id}")
         for stream_id, (src_actor, tinfo) in sources.items():
-            pending = self._pending_batch_fns.get(src_actor)
-            if pending:
-                tinfo = copy.copy(tinfo)
-                tinfo.batch_funcs = list(pending) + list(tinfo.batch_funcs)
             self.actors[src_actor].targets[info.id] = tinfo
             info.source_streams[src_actor] = stream_id
             self.store.tset("PFT", (src_actor, info.id), tinfo)
@@ -229,8 +219,6 @@ class Engine:
             raise NotImplementedError(type(part))
 
         def fn(batch: DeviceBatch, src_ch: int) -> Dict[int, DeviceBatch]:
-            for f in tinfo.batch_funcs:
-                batch = f(batch)
             if isinstance(part, PassThroughPartitioner):
                 return {src_ch % n_tgt: batch}
             if isinstance(part, BroadcastPartitioner):

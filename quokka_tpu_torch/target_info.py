@@ -2,16 +2,15 @@
 PassThrough, Broadcast and Hash partitioners).
 
 A TargetInfo hangs on every plan edge; the engine lowers it to a device
-partition function, which first runs the edge's batch functions (the maps
-``optimizer.fold_maps`` folds into their parent's edges).  The reference's
-per-edge predicate and projection are not folded by any pass the port
-carries.
+partition function.  The reference's per-edge predicate, projection and
+batch functions come with the optimizer passes that fold them in
+(``fold_maps``), which the port does not carry.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List
+from typing import List
 
 
 class Partitioner:
@@ -36,4 +35,3 @@ class HashPartitioner(Partitioner):
 @dataclasses.dataclass
 class TargetInfo:
     partitioner: Partitioner
-    batch_funcs: List[Callable] = dataclasses.field(default_factory=list)

@@ -160,6 +160,43 @@ def test_stage_needing_fused_elementwise_raises(monkeypatch):
             "sum(v) as s").collect()
 
 
+def _batch(device):
+    from quokka_tpu_torch.ops.batch import DeviceBatch, NumCol
+
+    return DeviceBatch({"v": NumCol(torch.tensor([-1.5, 2.0], device=device), "f"),
+                        "d": NumCol(torch.tensor([-400, 9000], dtype=torch.int32,
+                                                 device=device), "d")},
+                       torch.ones(2, dtype=torch.bool, device=device))
+
+
+@pytest.mark.parametrize("expr", ["abs(v)", "d + interval '1' month"])
+def test_stage_outside_k16_subset_raises_off_the_cpu(expr):
+    """A fused-stage map the K16 generator does not take runs step by step
+    on a CPU batch (the reference's per-step path) and raises on any other
+    device, naming its ROADMAP item: the card never runs the plain version."""
+    from quokka_tpu_torch import sqlparse
+    from quokka_tpu_torch.ops import stagefuse
+
+    stage = stagefuse.FusedElementwise([("map", [("u", sqlparse.parse_expression(expr))])])
+    before = stagefuse.SEQUENTIAL
+    assert stage(_batch("cpu")).columns["u"].data.shape == (2,)
+    assert stagefuse.SEQUENTIAL == before + 1
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
+        stage(_batch("meta"))
+    assert stagefuse.SEQUENTIAL == before + 1
+
+
+def test_predicate_outside_k1_subset_raises_off_the_cpu():
+    from quokka_tpu_torch import sqlparse
+    from quokka_tpu_torch.ops import fuse
+
+    pred = fuse.FusedPredicate(sqlparse.parse_expression("extract(year from d) = 1995"))
+    before = fuse.FALLBACKS
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
+        pred(_batch("meta"))
+    assert fuse.FALLBACKS == before
+
+
 def test_new_kernel_wrappers_refuse_other_devices():
     from quokka_tpu_torch import sqlparse
     from quokka_tpu_torch.ops import fuse, hashtable, join

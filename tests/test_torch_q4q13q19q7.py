@@ -330,12 +330,12 @@ def test_q19_and_q7_keep_their_filter_and_map_in_a_stage(env, monkeypatch):
 
 
 def test_stage_fusion_off_gives_the_same_result(env, monkeypatch, fresh_aot):
-    """Without stage fusion Q7's filter runs as its own actor and its map is
-    folded into the filter actor's edges."""
+    """Without stage fusion Q7's filter and its map run as actors of their
+    own."""
     paths, dfs = env
     _setup(monkeypatch, "hashtable", THRESHOLDS["partitioned"])
     monkeypatch.setenv("QK_STAGE_FUSE", "0")
     ctx = quokka_tpu_torch.QuokkaContext(io_channels=2, exec_channels=2, device="cpu")
     plan = q7(quokka_tpu_torch, ctx, paths).explain()
-    assert "FusedStage" not in plan and "FoldedMap" in plan
+    assert "FusedStage" not in plan and "Filter" in plan and "Map(" in plan
     QUERIES["q7"][2](q7(quokka_tpu_torch, ctx, paths).collect(), pandas_q7(dfs))
