@@ -9,21 +9,28 @@ Phases, each fatal on failure:
      (one nvcc per source, in parallel) and print the build seconds;
   3. make TPC-H tables at scale factor --sf with numpy from --seed (6.0M
      lineitem, 1.5M orders, 150K customer, 200K part, 10K supplier, 25
-     nation and 5 region rows at SF1; the domains of tests/tpch_data.py);
+     nation and 5 region rows at SF1; the domains of tests/tpch_data.py)
+     and bench.py's ticks (1.15M trades, 6M quotes, 100 symbols);
   4. run TPC-H Q1, Q3 (join_build=hashtable, then join_build=sort), Q5,
-     Q4, Q13, Q19 and Q7 through the port's own QuokkaContext on the card,
-     with every kernel's launch count set to 0 just before each path and
-     read just after, and check each result against a numpy oracle; run
-     each again warm;
-  5. where the time goes: a warm run of each query under the profiler
-     (device busy, idle share of the warm wall, device time per kernel);
+     Q4, Q13, Q19 and Q7, then the time-series tier over the ticks (the
+     backward asof backtest under asof=searchsorted, then asof=sort, the
+     forward asof, tumbling, hopping, session and sliding windows, shift)
+     through the port's own QuokkaContext on the card, with every kernel's
+     launch count set to 0 just before each path and read just after, and
+     check each result against a numpy oracle; run each again warm;
+  5. where the time goes: a warm run of each query with the engine's host
+     steps timed, and one under the profiler (device busy, idle share of
+     the warm wall, device time per kernel);
   6. hold each kernel against its plain torch version on the card, at the
      shapes the query runs gave it (K1, K2 at Q1's; K3, K4 at Q1's and
      Q3's; K5, K11, K12 at Q3's, K12 also on float64 keys with -0.0 and
      NaN; K13 at Q13's and with one probe key matching 10^4 build rows;
-     K16 at Q7's, also with dates before 1970 and nulls), and time kernel,
-     plain version and bound with CUDA events; the torch-primitive rows 7,
-     8, 10, 14 and 15 are timed at Q3's and Q13's shapes too;
+     K16 at Q7's, also with dates before 1970 and nulls; K18 at the
+     asof's, K19 at the sort strategy's, sliding's and shift's, K20a and
+     K20b at sliding's, each also on one symbol holding every quote,
+     whole-second timestamps, 2^23 rows and empty or all-invalid sides),
+     and time kernel, plain version and bound with CUDA events; the
+     torch-primitive rows 7, 8, 9, 10, 14, 15 and 20 are timed too;
   7. print one JSON line of per-kernel numbers, the card line, and last the
      contract line {"ok": true, "device": {...}}.
 
@@ -454,6 +461,247 @@ def check_q7(got, exp) -> None:
                  exact=False)
 
 
+# ---------------------------------------------------------------------------
+# the time-series tier: bench.py's tick backtest (bench.py:61-104, 253)
+# ---------------------------------------------------------------------------
+
+TS_SYMBOLS = 100
+TS_SPAN = 86_400_000  # one trading day in ms
+TS_SYMS = [f"S{i:03d}" for i in range(TS_SYMBOLS)]
+TS_TUMBLE, TS_HOP, TS_GAP, TS_SLIDE = 60_000, 15_000, 5_000, 10_000
+
+
+def make_ticks(sf: float, seed: int):
+    """bench.py's trades (1.15M at SF1) and quotes (6M), from seeds 7 and 8
+    (plus --seed): int64 ms times sorted over one day, 100 symbols S000-S099
+    (int32 codes), trade sizes 1-499, bids 10-500 rounded to 3 places."""
+    import numpy as np
+
+    out = {}
+    for name, n, s in (("trades", int(1_150_000 * sf), 7), ("quotes", int(6_000_000 * sf), 8)):
+        r = np.random.default_rng(s + seed)
+        cols = {"time": np.sort(r.integers(0, TS_SPAN, n)).astype(np.int64),
+                "symbol": r.integers(0, TS_SYMBOLS, n).astype(np.int32)}
+        if name == "trades":
+            cols["size"] = r.integers(1, 500, n).astype(np.int64)
+        else:
+            cols["bid"] = r.uniform(10, 500, n).round(3)
+        out[name] = cols
+    return out
+
+
+def _sym_key(sym, t):
+    """One int64 that orders rows by (symbol, time)."""
+    import numpy as np
+
+    return (sym.astype(np.int64) << 40) | t
+
+
+def _by_symbol(cols):
+    """The rows' order by (symbol, time), ties in row order (stable)."""
+    import numpy as np
+
+    return np.lexsort((cols["time"], cols["symbol"]))
+
+
+def asof_oracle(ticks, direction):
+    """{symbol: (sum of bid * size, matched trades)} of the as-of backtest,
+    by a per-symbol np.searchsorted: backward takes the last quote with time
+    <= t (the last of tied quotes), forward the first with time >= t."""
+    import numpy as np
+
+    tr, qu = ticks["trades"], ticks["quotes"]
+    qo = _by_symbol(qu)
+    qsym, qkey = qu["symbol"][qo], _sym_key(qu["symbol"][qo], qu["time"][qo])
+    tkey = _sym_key(tr["symbol"], tr["time"])
+    if direction == "backward":
+        pos = np.searchsorted(qkey, tkey, side="right") - 1
+    else:
+        pos = np.searchsorted(qkey, tkey, side="left")
+    ok = (pos >= 0) & (pos < len(qkey))
+    posc = np.clip(pos, 0, max(len(qkey) - 1, 0))
+    ok &= qsym[posc] == tr["symbol"]
+    notional = qu["bid"][qo][posc] * tr["size"]
+    total = np.bincount(tr["symbol"][ok], notional[ok], TS_SYMBOLS)
+    n = np.bincount(tr["symbol"][ok], minlength=TS_SYMBOLS)
+    return {TS_SYMS[k]: (float(total[k]), int(n[k])) for k in range(TS_SYMBOLS) if n[k]}
+
+
+def check_asof(got, exp) -> None:
+    import numpy as np
+
+    syms = list(got["symbol"])
+    if sorted(syms) != sorted(exp):
+        fail(f"asof symbols {sorted(syms)[:5]}... != oracle {sorted(exp)[:5]}...")
+    for s, total, n in zip(syms, got["total"], got["n"]):
+        if int(n) != exp[s][1]:
+            fail(f"asof {s}: {int(n)} matched trades != {exp[s][1]} (exact)")
+        if not np.isclose(total, exp[s][0], rtol=1e-9, atol=0):
+            fail(f"asof {s}: total {total} vs {exp[s][0]} beyond rtol 1e-9")
+
+
+def _codes(symbols):
+    import numpy as np
+
+    return np.searchsorted(np.array(TS_SYMS), np.asarray(symbols).astype("U4")).astype(np.int64)
+
+
+def window_oracles(ticks):
+    """Numpy oracles of the window and shift phases over the quotes: each
+    symbol's rows sorted by time (ties in row order), then direct sums,
+    counts, min / max and lags."""
+    import numpy as np
+
+    qu = ticks["quotes"]
+    qo = _by_symbol(qu)
+    sym, t, bid = qu["symbol"][qo].astype(np.int64), qu["time"][qo], qu["bid"][qo]
+    out = {}
+    # tumbling: sum, count, avg per (symbol, minute)
+    key = sym * (TS_SPAN // TS_TUMBLE + 1) + t // TS_TUMBLE
+    uk, inv = np.unique(key, return_inverse=True)
+    s, n = np.bincount(inv, bid), np.bincount(inv)
+    out["tumbling"] = {"key": uk, "s": s, "n": n, "a": s / n}
+    # hopping: every row counts in size / hop windows
+    wids = [t // TS_HOP - j for j in range(TS_TUMBLE // TS_HOP)]
+    hk = np.concatenate([sym[w >= 0] * (TS_SPAN // TS_HOP + 1) + w[w >= 0] for w in wids])
+    uk, cnt = np.unique(hk, return_counts=True)
+    out["hopping"] = {"key": uk, "n": cnt}
+    # session: a gap of more than TS_GAP ms opens a new session
+    first = np.r_[True, (sym[1:] != sym[:-1]) | (t[1:] - t[:-1] > TS_GAP)]
+    sid = np.cumsum(first) - 1
+    last = np.r_[first[1:], True]
+    out["session"] = {"sym": sym[first], "start": t[first], "end": t[last],
+                      "s": np.bincount(sid, bid), "n": np.bincount(sid)}
+    # sliding: rows of the symbol with time in [t - TS_SLIDE, t], summed
+    # directly row by row (no prefix sums)
+    k = _sym_key(sym, t)
+    left = np.searchsorted(k, _sym_key(sym, np.maximum(t - TS_SLIDE, 0)), side="left")
+    right = np.searchsorted(k, k, side="right") - 1
+    w = right - left + 1
+    tot = np.zeros(len(t))
+    lo, hi = bid.copy(), bid.copy()
+    for j in range(int(w.max()) if len(w) else 0):
+        v = bid[np.minimum(left + j, right)]
+        tot += np.where(j < w, v, 0.0)
+        lo, hi = np.minimum(lo, v), np.maximum(hi, v)
+    out["sliding"] = {"sym": sym, "t": t, "bid": bid, "n": w, "a": tot / w, "lo": lo,
+                      "hi": hi, "bid_total": float(bid.sum())}
+    # shift: the previous row of the symbol, null (NaN) on its first row
+    prev = np.r_[np.nan, bid[:-1]]
+    out["shift"] = {"sym": sym, "t": t, "bid": bid,
+                    "lag": np.where(np.r_[True, sym[1:] != sym[:-1]], np.nan, prev)}
+    return out
+
+
+def _grouped(what, got_key, exp_key):
+    import numpy as np
+
+    order = np.argsort(got_key, kind="stable")
+    if not np.array_equal(got_key[order], exp_key):
+        fail(f"{what}: {len(got_key)} groups differ from the oracle's {len(exp_key)}")
+    return order
+
+
+def check_tumbling(got, exp) -> None:
+    import numpy as np
+
+    ws = got["window_start"]
+    order = _grouped("tumbling", _codes(got["symbol"]) * (TS_SPAN // TS_TUMBLE + 1)
+                     + ws // TS_TUMBLE, exp["key"])
+    if not np.array_equal(got["window_end"] - ws, np.full(len(ws), TS_TUMBLE)):
+        fail("tumbling: window_end != window_start + size")
+    if not np.array_equal(got["n"][order], exp["n"]):
+        fail("tumbling: counts differ from the oracle (exact)")
+    for c in ("s", "a"):
+        if not np.allclose(got[c][order], exp[c], rtol=1e-9, atol=0):
+            fail(f"tumbling: {c} beyond rtol 1e-9 of the oracle")
+
+
+def check_hopping(got, exp) -> None:
+    import numpy as np
+
+    order = _grouped("hopping", _codes(got["symbol"]) * (TS_SPAN // TS_HOP + 1)
+                     + got["window_start"] // TS_HOP, exp["key"])
+    if not np.array_equal(got["n"][order], exp["n"]):
+        fail("hopping: counts differ from the oracle (exact)")
+
+
+def check_session(got, exp) -> None:
+    import numpy as np
+
+    codes = _codes(got["symbol"])
+    order = np.lexsort((got["session_start"], codes))
+    if not (np.array_equal(codes[order], exp["sym"])
+            and np.array_equal(got["session_start"][order], exp["start"])
+            and np.array_equal(got["session_end"][order], exp["end"])
+            and np.array_equal(got["n"][order], exp["n"])):
+        fail(f"session: {len(codes)} sessions' keys, bounds or counts differ from the "
+             f"oracle's {len(exp['sym'])} (exact)")
+    if not np.allclose(got["s"][order], exp["s"], rtol=1e-9, atol=0):
+        fail("session: sums beyond rtol 1e-9 of the oracle")
+
+
+def _rows(what, got, exp, extra):
+    """Align a per-row result with the oracle's rows by (symbol, time, bid,
+    extra) and check those columns exactly."""
+    import numpy as np
+
+    codes = _codes(got["symbol"])
+    go = np.lexsort((got[extra[0]], got["bid"], got["time"], codes))
+    eo = np.lexsort((exp[extra[1]], exp["bid"], exp["t"], exp["sym"]))
+    if not (len(go) == len(eo) and np.array_equal(codes[go], exp["sym"][eo])
+            and np.array_equal(got["time"][go], exp["t"][eo])
+            and np.array_equal(got["bid"][go], exp["bid"][eo])):
+        fail(f"{what}: {len(go)} rows differ from the oracle's {len(eo)} rows")
+    return go, eo
+
+
+def sliding_atol(exp):
+    """Per-row absolute tolerance of the sliding average.  Its sum is
+    c[r] - c[l-1], two prefixes of one `torch.cumsum` over a channel's merged
+    batch (n <= 2^21 rows, every prefix at most M, the batch's total).  A
+    parallel scan computes each prefix by its own tree of adds; with at most
+    D roundings on any path, a prefix of nonnegative terms is within
+    D * u * M of the true one (u = 2^-53), and the difference adds one more
+    rounding, so |sum error| <= (2D + 1) * u * M, with D = ceil(log2 n) = 21
+    for a tree scan.  M is not known here: the check uses P, the sum of
+    every bid, which bounds it (P = 1.5e9 at SF1, about 5.7 M for 2^20-row
+    batches); torch's CUDA scan (a single-pass look-back) can chain more
+    roundings across its tiles than a tree does, and that slack covers
+    prefixes up to about 120 roundings deep.  The average's atol is the
+    sum's over w: about 7e-6 for a one-row window against bids of 10-500."""
+    import numpy as np
+
+    depth = 21  # ceil(log2(2^21)), the largest merged batch
+    return (2 * depth + 1) * 2.0 ** -53 * exp["bid_total"] / exp["n"]
+
+
+def check_sliding(got, exp) -> None:
+    import numpy as np
+
+    go, eo = _rows("sliding", got, exp, ("n", "n"))
+    if not np.array_equal(got["n"][go], exp["n"][eo]):
+        fail("sliding: window counts differ from the oracle (exact)")
+    for c in ("lo", "hi"):
+        if not np.array_equal(got[c][go], exp[c][eo]):
+            fail(f"sliding: {c} differs from the oracle (exact)")
+    a, b = got["a"][go], exp["a"][eo]
+    bad = np.abs(a - b) > sliding_atol(exp)[eo] + 1e-9 * np.abs(b)
+    if bad.any():
+        i = int(np.nonzero(bad)[0][0])
+        fail(f"sliding: {int(bad.sum())} averages beyond rtol 1e-9 + the derived atol, "
+             f"first {a[i]} vs {b[i]}")
+
+
+def check_shift(got, exp) -> None:
+    import numpy as np
+
+    lag = got["bid_shifted_1"]
+    go, eo = _rows("shift", got, exp, ("bid_shifted_1", "lag"))
+    if not np.array_equal(lag[go], exp["lag"][eo], equal_nan=True):
+        fail("shift: lagged bids differ from the oracle (exact, null where no history)")
+
+
 def collect_numpy(stream, what: str):
     cols = stream.compute().to_numpy()
     if cols is None:
@@ -482,7 +730,10 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def device_events(prof):
-    """{kernel name: (device us, count)} of a profile, device-side events only."""
+    """{kernel name: (device us, count)} of a profile, device-side events only.
+    A template kernel's demangled name starts with its return type ("void
+    qk_minmax_level_kernel<double>(...)"): that prefix is dropped, so every
+    kernel is found by the start of its own name."""
     import torch
 
     out = {}
@@ -493,7 +744,8 @@ def device_events(prof):
         if t is None:
             t = getattr(ev, "self_cuda_time_total", 0)
         if t:
-            out[ev.key] = (float(t), int(ev.count))
+            key = ev.key[5:] if ev.key.startswith("void qk_") else ev.key
+            out[key] = (float(t), int(ev.count))
     return out
 
 
@@ -594,9 +846,12 @@ def smoke(dev, card: str, args) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from quokka_tpu_torch import QuokkaContext, col, config, date, sqlparse
+    from quokka_tpu_torch import QuokkaContext, col, config, date, sqlparse, windows
+    from quokka_tpu_torch.dataset.ordered import InputSortedHostDataset
+    from quokka_tpu_torch.executors import ts_execs
     from quokka_tpu_torch.executors.sql_execs import PartialAggExecutor
-    from quokka_tpu_torch.ops import bridge, fuse, hashtable, join, kernels, native, stagefuse
+    from quokka_tpu_torch.ops import asof, bridge, fuse, hashtable, join, kernels, native
+    from quokka_tpu_torch.ops import stagefuse, strategy
     from quokka_tpu_torch.ops.batch import key_limbs
     from quokka_tpu_torch.ops.expr_compile import plan_aggregation
 
@@ -624,8 +879,12 @@ def smoke(dev, card: str, args) -> int:
     oracles = {"q1": q1_oracle(li), "q3": q3_oracle(tables), "q5": q5_oracle(tables),
                "q4": q4_oracle(tables), "q13": q13_oracle(tables),
                "q19": q19_oracle(tables), "q7": q7_oracle(tables)}
+    ticks = make_ticks(args.sf, args.seed)
+    oracles.update(asof=asof_oracle(ticks, "backward"),
+                   **{"asof forward": asof_oracle(ticks, "forward")}, **window_oracles(ticks))
     report["datagen_s"] = time.perf_counter() - t0
     report["rows"] = {name: t.num_rows for name, t in tables.items()}
+    report["rows"].update({name: len(c["time"]) for name, c in ticks.items()})
     print(f"data sf={args.sf}: {report['rows']} in {report['datagen_s']:.1f} s "
           "(with the oracles)")
     ctx = QuokkaContext(io_channels=2, exec_channels=2, device=dev)
@@ -681,6 +940,43 @@ def smoke(dev, card: str, args) -> int:
                 .filter_sql(Q19_FILTER)
                 .agg_sql("sum(l_extendedprice * (1 - l_discount)) as revenue, count(*) as n"))
 
+    def tick_src(name):
+        # sorted by time, 2^20-row slices dealt to the channels in stride order
+        cols = ticks[name]
+        table = bridge.HostTable(dict(cols), dictionaries={
+            "symbol": np.array(TS_SYMS, dtype=object)})
+        return ctx.read_dataset(InputSortedHostDataset(table, "time", BATCH_ROWS),
+                                sorted_by="time")
+
+    def asof_stream(direction="backward"):
+        # bench.py:253, the tick backtest
+        return (tick_src("trades").join_asof(tick_src("quotes"), on="time", by="symbol",
+                                             direction=direction)
+                .with_columns_sql("bid * size as notional")
+                .groupby("symbol").agg_sql("sum(notional) as total, count(*) as n"))
+
+    def tumbling_stream():
+        return tick_src("quotes").window_agg(windows.TumblingWindow(TS_TUMBLE),
+                                             "sum(bid) as s, count(*) as n, avg(bid) as a",
+                                             by="symbol")
+
+    def hopping_stream():
+        return tick_src("quotes").window_agg(windows.HoppingWindow(TS_TUMBLE, TS_HOP),
+                                             "count(*) as n", by="symbol")
+
+    def session_stream():
+        return tick_src("quotes").window_agg(windows.SessionWindow(TS_GAP),
+                                             "sum(bid) as s, count(*) as n", by="symbol")
+
+    sliding_aggs = "avg(bid) as a, min(bid) as lo, max(bid) as hi, count(*) as n"
+
+    def sliding_stream():
+        return tick_src("quotes").window_agg(windows.SlidingWindow(TS_SLIDE), sliding_aggs,
+                                             by="symbol")
+
+    def shift_stream():
+        return tick_src("quotes").shift("bid", n=1, by="symbol")
+
     def q7_stream():
         nation = src("nation")
         n1 = nation.rename({"n_name": "supp_nation", "n_nationkey": "n1key"})
@@ -707,7 +1003,11 @@ def smoke(dev, card: str, args) -> int:
                 "K11": (hashtable, "PROBE_LAUNCHES"),
                 "K12": (join, "SORTED_PROBE_LAUNCHES"),
                 "K13": (join, "EXPAND_LAUNCHES"),
-                "K16": (stagefuse, "ELEMWISE_LAUNCHES")}
+                "K16": (stagefuse, "ELEMWISE_LAUNCHES"),
+                "K18": (asof, "ASOF_PROBE_LAUNCHES"), "K19": (asof, "FILL_FORWARD_LAUNCHES"),
+                "K20a": (ts_execs, "WINDOW_BOUNDS_LAUNCHES"),
+                "K20b": (ts_execs, "RANGE_MINMAX_LAUNCHES")}
+    ts_kernels = ["K18", "K19", "K20a", "K20b"]
     # path: (stream, check, kernels it must launch, kernels it must not, and
     # whether it must take the general join).  Q4's semi join takes the
     # general join's plan but never expands, so it launches no K13.
@@ -728,13 +1028,31 @@ def smoke(dev, card: str, args) -> int:
                 ["K12", "K13"], False),
         "q7": (q7_stream, check_q7, ["K1", "K3", "K4", "K5", "K11 build", "K11", "K16"],
                ["K12", "K13"], False),
+        # the time-series tier over bench.py's ticks
+        "asof": (asof_stream, check_asof, ["K18", "K4"], ["K19", "K20a", "K20b"], False),
+        "asof sort": (asof_stream, check_asof, ["K19", "K4"], ["K18", "K20a", "K20b"], False),
+        "asof forward": (lambda: asof_stream("forward"), check_asof, ["K18", "K4"],
+                         ["K19", "K20a", "K20b"], False),
+        "tumbling": (tumbling_stream, check_tumbling, ["K3", "K4"], ts_kernels, False),
+        "hopping": (hopping_stream, check_hopping, ["K3", "K4"], ts_kernels, False),
+        "session": (session_stream, check_session, ["K3", "K4"], ts_kernels, False),
+        "sliding": (sliding_stream, check_sliding, ["K19", "K20a", "K20b", "K4"],
+                    ["K18"], False),
+        "shift": (shift_stream, check_shift, ["K19", "K4"], ["K18", "K20a", "K20b"], False),
     }
+    ts_paths = ["asof", "asof sort", "asof forward", "tumbling", "hopping", "session",
+                "sliding", "shift"]
+    forced = {"q3 sort": "join_build=sort", "asof sort": "asof=sort"}
+    # one warm run where the check is cheap; the per-row outputs (6M rows)
+    # are held against the oracle on the cold run and counted on the warm ones
+    warm_runs = {"q3 sort": 1, "asof sort": 1, **{p: 2 for p in ts_paths if p != "asof sort"}}
+    per_row = {"sliding", "shift"}
     plan_text = {}
     launches_by_path, walls = {}, {}
 
     def set_strategy(path):
-        if path == "q3 sort":
-            os.environ["QK_KERNEL_STRATEGY"] = "join_build=sort"
+        if path in forced:
+            os.environ["QK_KERNEL_STRATEGY"] = forced[path]
         else:
             os.environ.pop("QK_KERNEL_STRATEGY", None)
 
@@ -748,11 +1066,12 @@ def smoke(dev, card: str, args) -> int:
 
     for path, (stream, check, must, must_not, general) in paths.items():
         set_strategy(path)
-        exp = oracles[path.split()[0]]
+        exp = oracles[{"q3 sort": "q3", "asof sort": "asof"}.get(path, path)]
         plan_text[path] = stream().explain()
         for mod, attr in list(counters.values()) + [(fuse, "FALLBACKS"),
                                                      (stagefuse, "SEQUENTIAL")]:
             setattr(mod, attr, 0)
+        strategy.reset_used()
         general_calls.clear()
         join.hash_join_general = counted_general
         try:
@@ -765,7 +1084,9 @@ def smoke(dev, card: str, args) -> int:
             join.hash_join_general = real_general
         launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
         fallbacks, sequential = fuse.FALLBACKS, stagefuse.SEQUENTIAL
+        used = strategy.used_snapshot()
         check(got, exp)
+        rows_out = len(next(iter(got.values())))
         launches_by_path[path] = launches
         print(f"{path} sf={args.sf}: cold {cold:.3f} s, launches {launches}, "
               f"fallbacks {fallbacks}, per-step stage batches {sequential}, general joins "
@@ -783,12 +1104,20 @@ def smoke(dev, card: str, args) -> int:
         if general != bool(general_calls):
             fail(f"{path}: {len(general_calls)} general joins, expected "
                  f"{'some' if general else 'none'}")
+        if path.startswith("asof"):
+            want = "sort" if path == "asof sort" else "searchsorted"
+            if used.get("asof") != want:
+                fail(f"{path}: the asof strategy recorded is {used.get('asof')}, not {want}")
         warm = []
-        for _ in range(3 if path != "q3 sort" else 1):
+        for _ in range(warm_runs.get(path, 3)):
             t0 = time.perf_counter()
-            check(collect_numpy(stream(), path), exp)
+            again = collect_numpy(stream(), path)
             torch.cuda.synchronize()
             warm.append(time.perf_counter() - t0)
+            if path not in per_row:
+                check(again, exp)
+            elif len(next(iter(again.values()))) != rows_out:
+                fail(f"{path}: a warm run returned another number of rows")
         walls[path] = {"cold_s": cold, "warm_s": warm}
         print(f"{path} warm: {[round(w, 4) for w in warm]} s")
     os.environ.pop("QK_KERNEL_STRATEGY", None)
@@ -871,7 +1200,8 @@ def smoke(dev, card: str, args) -> int:
     prefixes = ("qk_predicate", "qk_small_agg", "qk_colreduce", "qk_pre_agg",
                 "qk_insert_kernel", "qk_segment_kernel", "qk_partition_kernel",
                 "qk_probe_kernel", "qk_sorted_probe_kernel", "qk_mm_expand_kernel",
-                "qk_elemwise")
+                "qk_elemwise", "qk_asof_probe_kernel", "qk_fill_", "qk_window_bounds_kernel",
+                "qk_minmax_")
     profiles = {}
     for path, (stream, *_) in paths.items():
         set_strategy(path)
@@ -960,6 +1290,29 @@ def smoke(dev, card: str, args) -> int:
         s3[path] = cap
         print(f"{path} calls per query: {cap.calls}")
     report["slice3_calls"] = {p: c.calls for p, c in s3.items()}
+
+    # the calls the time-series paths make: the largest of each kernel's
+    ts_targets = {
+        "asof": {"K18": (asof, "asof_probe", lambda so, pm, nv, po, pv, up, nk: pv.shape[0])},
+        "asof forward": {"K18": (asof, "asof_probe",
+                                 lambda so, pm, nv, po, pv, up, nk: pv.shape[0])},
+        "asof sort": {"K19": (asof, "seg_fill_forward", lambda v, st: v.shape[0])},
+        "sliding": {"K19": (asof, "seg_fill_forward", lambda v, st: v.shape[0]),
+                    "K20a": (ts_execs, "window_bounds", lambda t, a, b, sz: t.shape[0]),
+                    "K20b": (ts_execs, "range_minmax", lambda x, lf, rt, op: x.shape[0]),
+                    "row 9 reduce": (kernels, "reduce_array", lambda a, v, op: a.shape[0]),
+                    "row 20 segment ends": (ts_execs, "_rows_from_segment_end",
+                                            lambda io, fl, n: n)},
+        "shift": {"K19": (asof, "seg_fill_forward", lambda v, st: v.shape[0])}}
+    s4 = {}
+    for path, tg in ts_targets.items():
+        set_strategy(path)
+        with Capture(tg, keep_every=["K20b"] if path == "sliding" else ()) as cap:
+            collect_numpy(paths[path][0](), path)
+        s4[path] = cap
+        print(f"{path} calls per query: {cap.calls}")
+    os.environ.pop("QK_KERNEL_STRATEGY", None)
+    report["slice4_calls"] = {p: c.calls for p, c in s4.items()}
 
     # -- phase 6: every kernel against its plain version -----------------------------
     out, t_rows = [], []
@@ -1350,6 +1703,187 @@ def smoke(dev, card: str, args) -> int:
         shape=f"Q7: {n16} rows, {len(k16_in) - 1} inputs, {len(k16_call.outputs)} outputs",
         device_us=device_us(k16_call.launch, ("qk_elemwise",))))
 
+    # -- the time-series kernels: K18, K19, K20a, K20b ---------------------------
+    def same(label, a, b) -> None:
+        for x, y in zip(a, b):
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                if not (x.is_floating_point() and torch.equal(torch.isnan(x), torch.isnan(y))
+                        and torch.equal(x[~torch.isnan(x)], y[~torch.isnan(y)])):
+                    fail(f"{label}: differs from the plain version")
+
+    def dev_t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    qu, tr = ticks["quotes"], ticks["trades"]
+    nq_pad = config.bucket_size(len(qu["time"]))
+
+    def tick_ops(cols, sym=None, coarse=False):
+        """(hash limbs of the symbol, time) as the asof join builds them."""
+        table = bridge.HostTable({"symbol": cols["symbol"] if sym is None else sym,
+                                  "time": cols["time"] // 1000 * 1000 if coarse
+                                  else cols["time"]},
+                                 dictionaries={"symbol": np.array(TS_SYMS, dtype=object)})
+        b = bridge.host_to_device(table, dev)
+        return key_limbs(b, ["symbol"]) + [b.columns["time"].data], b.valid
+
+    def k18_case(label, q_ops, q_valid, t_ops, t_valid, pad=None):
+        if pad is not None:
+            q_ops = [bridge.pad_tail(o, pad) for o in q_ops]
+            q_valid = bridge.pad_tail(q_valid, pad)
+        so, pm, nv = asof._ss_sort_quotes(q_ops, q_valid)
+        for upper in (True, False):
+            a = asof._asof_probe_cuda(so, pm, nv, t_ops, t_valid, upper, len(so) - 1)
+            b = asof._asof_probe_plain(so, pm, nv, t_ops, t_valid, upper, len(so) - 1)
+            same(f"K18 {label}, {'backward' if upper else 'forward'}", a, b)
+        print(f"K18 {label}: {t_valid.shape[0]} probe rows over {pm.shape[0]} sorted quotes "
+              f"({int(nv)} live, {int(a[1].sum())} matched forward): match the plain version")
+
+    (k18_a, _) = s4["asof"].args["K18"]
+    (k18_f, _) = s4["asof forward"].args["K18"]
+    for label, a in (("backward query shape", k18_a), ("forward query shape", k18_f)):
+        same(f"K18 {label}", asof._asof_probe_cuda(*a), asof._asof_probe_plain(*a))
+    print(f"K18 query shapes: {k18_a[4].shape[0]} probe rows over {k18_a[1].shape[0]} "
+          "sorted quotes, both directions: match the plain version")
+    q_ops, q_valid = tick_ops(qu)
+    t_ops, t_valid = tick_ops(tr)
+    one = np.zeros(len(qu["time"]), dtype=np.int32)
+    k18_case("one symbol holding every quote", *tick_ops(qu, sym=one),
+             *tick_ops(tr, sym=np.zeros(len(tr["time"]), dtype=np.int32)))
+    k18_case("runs of equal timestamps (whole seconds)", *tick_ops(qu, coarse=True),
+             *tick_ops(tr, coarse=True))
+    k18_case("a 2^23-row quote buffer", q_ops, q_valid, t_ops, t_valid, pad=1 << 23)
+    k18_case("all-invalid probe side", q_ops, q_valid, t_ops, torch.zeros_like(t_valid))
+    k18_case("empty quote side", q_ops, torch.zeros_like(q_valid), t_ops, t_valid)
+    so, pm, nv, po, pv, up, nk = k18_a
+    n_live, n_sorted = int(pv.sum()), int(nv)
+    steps = max(1, n_sorted).bit_length() + 1
+    n_match = int(asof._asof_probe_cuda(*k18_a)[1].sum())
+    # the bytes this call's data needs: the live probe rows' limbs and
+    # outputs, every row's validity byte, the valid sorted quotes (or fewer,
+    # if the live rows' searches touch fewer rows) and one perm entry per match
+    quote_row_b = sum(o.element_size() for o in so)
+    k18_bytes = (n_live * (sum(o.element_size() for o in po) + 4 + 1) + pv.shape[0]
+                 + min(n_sorted * quote_row_b, n_live * steps * quote_row_b) + n_match * 4)
+    # the library yardstick: torch.searchsorted over one int64 limb,
+    # (rank of the key limbs) << 40 | time, built from this call's valid
+    # sorted quotes and live probe rows
+    live = pv.bool()
+    _, rank = torch.unique(torch.cat([torch.stack([o[:n_sorted].long() for o in so[:nk]], 1),
+                                      torch.stack([o[live].long() for o in po[:nk]], 1)]),
+                           dim=0, return_inverse=True)
+    tq, tp = so[nk][:n_sorted].long(), po[nk][live].long()
+    t0 = torch.cat([tq, tp]).min()
+    if int(torch.cat([tq, tp]).max() - t0) >= 1 << 40:
+        fail("K18's library yardstick: the time span does not fit 40 bits")
+    qk_sorted = torch.sort((rank[:n_sorted] << 40) | (tq - t0)).values
+    tk = (rank[n_sorted:] << 40) | (tp - t0)
+    print(f"K18 backward query shape: {n_live} live of {pv.shape[0]} probe rows, "
+          f"{n_sorted} valid of {pm.shape[0]} sorted quotes, {n_match} matched")
+    out.append(dict(
+        name="K18 as-of sorted-quote probe", route="cuda",
+        source="quokka_tpu_torch/csrc/asof.cu", replaces="quokka_tpu/ops/asof.py:130",
+        launches=launches_by_path["asof"]["K18"], max_abs_err=0.0,
+        ms=cuda_ms(lambda: asof._asof_probe_cuda(*k18_a)),
+        plain_ms=cuda_ms(lambda: asof._asof_probe_plain(*k18_a), iters=3, warmup=1),
+        bound_ms=bound_ms(k18_bytes), bound_by="bytes",
+        library_ms=cuda_ms(lambda: torch.searchsorted(qk_sorted, tk, right=True)),
+        shape=f"probe {pv.shape[0]} rows x {len(po)} limbs, {pm.shape[0]} sorted quotes",
+        device_us=device_us(lambda: asof._asof_probe_cuda(*k18_a), ("qk_asof_probe_kernel",)),
+        per_query={p: launches_by_path[p]["K18"] for p in ts_paths}))
+
+    # K19 at the sort strategy's, the sliding window's and shift's shapes, and
+    # on one segment, every row a segment, no quote at all, 2^23 and 0 rows
+    g19 = torch.Generator(device="cpu").manual_seed(args.seed + 19)
+    k19_cases = {f"{p} query shape": s4[p].args["K19"][0] for p in ("asof sort", "sliding",
+                                                                    "shift")}
+    n23 = 1 << 23
+    iota23 = torch.arange(n23, dtype=torch.int32)
+    k19_cases.update({
+        "one segment, 2^23 rows": (iota23.to(dev), (iota23 == 0).to(dev)),
+        "every row a segment": (iota23.to(dev), torch.ones(n23, dtype=torch.bool, device=dev)),
+        "no quote (all -1), random starts": (torch.full((n23,), -1, dtype=torch.int32,
+                                                        device=dev),
+                                             (torch.rand(n23, generator=g19) < 1e-3).to(dev)),
+        "empty": (torch.zeros(0, dtype=torch.int32, device=dev),
+                  torch.zeros(0, dtype=torch.bool, device=dev)),
+    })
+    for label, (v, st) in k19_cases.items():
+        same(f"K19 {label}", [asof._seg_fill_forward_cuda(v, st)],
+             [asof._seg_fill_forward_plain(v, st)])
+    print(f"K19: {', '.join(k19_cases)}: match the plain version")
+    k19_a = s4["asof sort"].args["K19"][0]
+    out.append(dict(
+        name="K19 segmented fill-forward", route="cuda",
+        source="quokka_tpu_torch/csrc/asof.cu", replaces="quokka_tpu/ops/asof.py:42",
+        launches=launches_by_path["asof sort"]["K19"], max_abs_err=0.0,
+        ms=cuda_ms(lambda: asof._seg_fill_forward_cuda(*k19_a)),
+        plain_ms=cuda_ms(lambda: asof._seg_fill_forward_plain(*k19_a)),
+        bound_ms=bound_ms(k19_a[0].shape[0] * (4 + 1 + 4)), bound_by="bytes",
+        library_ms=None, shape=f"asof sort: {k19_a[0].shape[0]} rows",
+        device_us=device_us(lambda: asof._seg_fill_forward_cuda(*k19_a), ("qk_fill_",)),
+        per_query={p: launches_by_path[p]["K19"] for p in ts_paths}))
+
+    # K20a and K20b at the sliding window's shape, and on one symbol holding
+    # every quote (windows of about 700 rows), equal timestamps, 2^23 rows
+    (k20a_a, _) = s4["sliding"].args["K20a"]
+    k20b_calls = [a for a, _ in s4["sliding"].every["K20b"]]
+    k20b_big = max(k20b_calls, key=lambda a: a[0].shape[0])
+
+    def segs(sym, t, pad):
+        o = np.lexsort((t, sym))
+        t_s = bridge.pad_tail(dev_t(t[o]), pad)
+        key = bridge.pad_tail(dev_t(sym[o].astype(np.int64)), pad)
+        n_ = t_s.shape[0]
+        io = torch.arange(n_, dtype=torch.int32, device=dev)
+        fl = (key != torch.roll(key, 1)) | (io == 0)
+        ss = asof._seg_fill_forward_plain(torch.where(fl, io, torch.full_like(io, -1)), fl)
+        se = io + ts_execs._rows_from_segment_end(io, fl, n_)
+        return t_s, ss, se, bridge.pad_tail(dev_t(qu["bid"][o]), pad), len(o)
+
+    k20_cases = {"sliding query shape": (*k20a_a[:3], k20b_big[0], k20a_a[0].shape[0])}
+    k20_cases["one symbol holding every quote"] = segs(one, qu["time"], nq_pad)
+    k20_cases["runs of equal timestamps"] = segs(qu["symbol"], qu["time"] // 1000 * 1000,
+                                                  nq_pad)
+    k20_cases["2^23 rows"] = segs(qu["symbol"], qu["time"], n23)
+    k20_cases["empty"] = segs(one[:0], qu["time"][:0], 0)
+    for label, (t_s, ss, se, x, n_live) in k20_cases.items():
+        lr = ts_execs._window_bounds_cuda(t_s, ss, se, TS_SLIDE)
+        same(f"K20a {label}", lr, ts_execs._window_bounds_plain(t_s, ss, se, TS_SLIDE))
+        for op in ("min", "max"):
+            same(f"K20b {label} {op}", [ts_execs._range_minmax_cuda(x, *lr, op)],
+                 [ts_execs._range_minmax_plain(x, *lr, op)])
+        wmax = int((lr[1] - lr[0])[:n_live].max()) + 1 if n_live else 0
+        print(f"K20a/K20b {label}: {t_s.shape[0]} rows ({n_live} live, widest live window "
+              f"{wmax} rows): match the plain version")
+    for a in k20b_calls:
+        same("K20b sliding query call", [ts_execs._range_minmax_cuda(*a)],
+             [ts_execs._range_minmax_plain(*a)])
+    n20 = k20a_a[0].shape[0]
+    out.append(dict(
+        name="K20a sliding-window bounds", route="cuda",
+        source="quokka_tpu_torch/csrc/window.cu",
+        replaces="quokka_tpu/executors/ts_execs.py:941",
+        launches=launches_by_path["sliding"]["K20a"], max_abs_err=0.0,
+        ms=cuda_ms(lambda: ts_execs._window_bounds_cuda(*k20a_a)),
+        plain_ms=cuda_ms(lambda: ts_execs._window_bounds_plain(*k20a_a), iters=5),
+        bound_ms=bound_ms(n20 * (8 + 4 + 4 + 4 + 4)), bound_by="bytes", library_ms=None,
+        shape=f"sliding: {n20} rows", per_query={p: launches_by_path[p]["K20a"]
+                                                  for p in ts_paths},
+        device_us=device_us(lambda: ts_execs._window_bounds_cuda(*k20a_a),
+                            ("qk_window_bounds_kernel",))))
+    nb20 = k20b_big[0].shape[0]
+    out.append(dict(
+        name="K20b sliding-window range min/max", route="cuda",
+        source="quokka_tpu_torch/csrc/window.cu",
+        replaces="quokka_tpu/executors/ts_execs.py:902",
+        launches=launches_by_path["sliding"]["K20b"], max_abs_err=0.0,
+        ms=cuda_ms(lambda: ts_execs._range_minmax_cuda(*k20b_big)),
+        plain_ms=cuda_ms(lambda: ts_execs._range_minmax_plain(*k20b_big), iters=5),
+        bound_ms=bound_ms(nb20 * (8 + 4 + 4 + 8)), bound_by="bytes", library_ms=None,
+        shape=f"sliding: {nb20} rows, {ts_execs._levels(nb20)} table levels, "
+              f"{k20b_big[3]}", per_query={p: launches_by_path[p]["K20b"] for p in ts_paths},
+        device_us=device_us(lambda: ts_execs._range_minmax_cuda(*k20b_big), ("qk_minmax_",))))
+
     # the torch-primitive rows at Q3's shapes: time, device time, bound
     def t_row(row, what, fn, n_bytes, calls, query="q3"):
         t_rows.append(dict(row=row, what=what, query=query, calls_per_query=calls,
@@ -1398,6 +1932,29 @@ def smoke(dev, card: str, args) -> int:
           lambda: join._mm_plan(p_limbs, p_valid, p_p),
           nbytes(*p_limbs, p_valid) + 8 * (p_p + 1 + 2 * p_valid.shape[0]),
           s3["q13"].calls["row 13 plan"], "q13")
+    (r9_a, r9_v, r9_op), _ = s4["sliding"].args["row 9 reduce"]
+    t_row(9, f"reduce_array ({r9_op}, the sliding watermark)",
+          lambda: kernels.reduce_array(r9_a, r9_v, r9_op), nbytes(r9_a, r9_v) + 8,
+          s4["sliding"].calls["row 9 reduce"], "sliding")
+    (r20_io, r20_fl, r20_n), _ = s4["sliding"].args["row 20 segment ends"]
+    t_row(20, "rows to the segment end (flip + cummin)",
+          lambda: ts_execs._rows_from_segment_end(r20_io, r20_fl, r20_n),
+          nbytes(r20_io, r20_fl) + r20_n * 4, s4["sliding"].calls["row 20 segment ends"],
+          "sliding")
+    k20b_x, k20b_l, k20b_r, _ = k20b_big
+
+    def prefix_window_sums():
+        cs = torch.cumsum(k20b_x, 0)
+        lft = k20b_l.long()
+        before = torch.where(lft > 0, cs[torch.clamp(lft - 1, min=0)],
+                             torch.zeros((), dtype=cs.dtype, device=cs.device))
+        return cs[k20b_r.long()] - before
+
+    t_row(20, "rolling sum as a difference of prefix sums (cumsum + 2 gathers)",
+          prefix_window_sums, nbytes(k20b_x, k20b_l, k20b_r) + k20b_x.shape[0] * 8,
+          s4["sliding"].calls["K20a"] * sum(
+              op in ("sum", "count") for _, op, _ in
+              plan_aggregation(sqlparse.parse_select_list(sliding_aggs)).partials), "sliding")
     report["t_rows"] = t_rows
 
     for kk in out:
@@ -1415,8 +1972,8 @@ def smoke(dev, card: str, args) -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     keep = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: kk[k] for k in keep} for kk in out]}))
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "device_us", "per_query")
+    print(json.dumps({"kernels": [{k: kk[k] for k in keep if k in kk} for kk in out]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(dev),

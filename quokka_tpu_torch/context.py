@@ -13,7 +13,8 @@ import datetime
 from typing import Dict, List, Optional
 
 from quokka_tpu_torch import config, logical
-from quokka_tpu_torch.datastream import DataStream
+from quokka_tpu_torch.datastream import DataStream, OrderedStream
+from quokka_tpu_torch.dataset.ordered import InputSortedParquetDataset
 from quokka_tpu_torch.dataset.readers import (
     InputArrowDataset,
     InputHostDataset,
@@ -56,8 +57,9 @@ class QuokkaContext:
         self._next_node += 1
         return nid
 
-    def new_stream(self, node: logical.Node) -> DataStream:
-        return DataStream(self, self.add_node(node))
+    def new_stream(self, node: logical.Node, ordered: bool = False) -> DataStream:
+        cls = OrderedStream if ordered else DataStream
+        return cls(self, self.add_node(node))
 
     # -- readers ---------------------------------------------------------------
     def read_parquet(self, path, columns=None) -> DataStream:
@@ -66,11 +68,35 @@ class QuokkaContext:
         return self.new_stream(logical.SourceNode(reader, schema))
 
     def read_dataset(self, reader, schema=None, sorted_by=None) -> DataStream:
-        """Any reader with get_own_state / execute (see dataset/readers.py)."""
-        if sorted_by is not None:
-            raise NotImplementedError("ordered streams come with the time-series "
-                                      "slice of quokka_tpu_torch")
-        return self.new_stream(logical.SourceNode(reader, list(schema or _reader_schema(reader))))
+        """Any reader with get_own_state / execute (see dataset/readers.py).
+        With ``sorted_by`` (a column or a list) the reader promises its
+        channels' lineages in global time order (dataset/ordered.py deals
+        them out so) and the result is an OrderedStream."""
+        if isinstance(sorted_by, str):
+            sorted_by = [sorted_by]
+        schema = list(schema or _reader_schema(reader))
+        return self.new_stream(logical.SourceNode(reader, schema, sorted_by=sorted_by),
+                               ordered=sorted_by is not None)
+
+    def read_sorted_parquet(self, path, sorted_by: str, columns=None,
+                            mode: str = "stride") -> OrderedStream:
+        """Time-ordered Parquet scan: row groups ordered by their min/max
+        statistics on ``sorted_by``, non-overlap asserted, dealt to channels
+        in ``mode`` ("stride" or "range")."""
+        reader = InputSortedParquetDataset(path, sorted_by, columns=columns, mode=mode)
+        schema = list(columns) if columns else _reader_schema(reader)
+        return self.new_stream(logical.SourceNode(reader, schema, sorted_by=[sorted_by]),
+                               ordered=True)
+
+    def read_sorted_csv(self, *args, **kwargs):
+        raise NotImplementedError(
+            "read_sorted_csv waits for the CSV reader: ROADMAP Queue 1, \"The rest of the "
+            "time-series tier\"")
+
+    def from_arrow_sorted(self, table, sorted_by: str) -> OrderedStream:
+        return self.new_stream(logical.SourceNode(InputArrowDataset(table),
+                                                  list(table.column_names),
+                                                  sorted_by=[sorted_by]), ordered=True)
 
     def from_arrow(self, table) -> DataStream:
         return self.new_stream(logical.SourceNode(InputArrowDataset(table),

@@ -1,5 +1,6 @@
 """DataStream: the lazy relational API (port of ``quokka_tpu/datastream.py``:
-filter, select, rename, with_columns, join, groupby + agg, top_k, collect).
+filter, select, rename, with_columns, join, groupby + agg, top_k, collect,
+and OrderedStream's time-series verbs: join_asof, window_agg and shift).
 
 Every method appends a logical Node to the context's plan and returns a new
 stream; nothing executes until collect() / compute().
@@ -7,11 +8,13 @@ stream; nothing executes until collect() / compute().
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Sequence, Union
 
 from quokka_tpu_torch import logical, sqlparse
 from quokka_tpu_torch.expression import Agg, Alias, ColRef, Expr
 from quokka_tpu_torch.ops.expr_compile import plan_aggregation
+from quokka_tpu_torch.target_info import HashPartitioner, PassThroughPartitioner
 
 
 def _not_in_slice(what: str):
@@ -211,3 +214,159 @@ def _has_distinct(e: Expr) -> bool:
     if isinstance(e, Agg) and e.distinct:
         return True
     return any(_has_distinct(c) for c in e.children())
+
+
+def _time_series_rest(what: str):
+    raise NotImplementedError(
+        f"{what} is not in quokka_tpu_torch yet: ROADMAP Queue 1, \"The rest of the "
+        "time-series tier\"")
+
+
+def _key_partitioner(by: List[str]):
+    return HashPartitioner(list(by)) if by else PassThroughPartitioner()
+
+
+class OrderedStream(DataStream):
+    """A stream with time-order metadata (the reference's OrderedStream,
+    ``datastream.py:609``).  Order-preserving verbs keep it ordered; the
+    time-series verbs (as-of join, window aggregation, shift) attach here."""
+
+    @property
+    def sorted_by(self):
+        return self._node.sorted_by
+
+    @property
+    def time_col(self) -> str:
+        if not self.sorted_by:
+            raise ValueError("ordered stream has no sort column metadata")
+        return self.sorted_by[0]
+
+    def _ordered(self, node: logical.Node) -> "OrderedStream":
+        node.sorted_by = self.sorted_by
+        return OrderedStream(self.ctx, self.ctx.add_node(node))
+
+    def _rewrap(self, ds: DataStream) -> DataStream:
+        """Keep a DataStream verb's result ordered unless it dropped a sort
+        column."""
+        node = ds._node
+        if self.sorted_by and all(c in node.schema for c in self.sorted_by):
+            node.sorted_by = self.sorted_by
+            return OrderedStream(self.ctx, ds.node_id)
+        return ds
+
+    # order-preserving relational verbs stay ordered
+    def filter(self, predicate):
+        return self._rewrap(DataStream.filter(self, predicate))
+
+    def filter_sql(self, sql):
+        return self.filter(sql)
+
+    def select(self, columns):
+        return self._rewrap(DataStream.select(self, columns))
+
+    def with_columns(self, exprs):
+        return self._rewrap(DataStream.with_columns(self, exprs))
+
+    # -- as-of join ---------------------------------------------------------
+    def join_asof(self, right: "OrderedStream", on: Optional[str] = None,
+                  left_on: Optional[str] = None, right_on: Optional[str] = None, by=None,
+                  left_by=None, right_by=None, suffix: str = "_2",
+                  direction: str = "backward") -> "OrderedStream":
+        from quokka_tpu_torch.executors.ts_execs import SortedAsofExecutor
+
+        if direction not in ("backward", "forward"):
+            raise NotImplementedError(f"join_asof direction {direction!r}")
+        left_on = left_on or on or self.time_col
+        right_on = right_on or on or right.time_col
+        if by is not None:
+            left_by = right_by = [by] if isinstance(by, str) else list(by)
+        left_by = [left_by] if isinstance(left_by, str) else list(left_by or [])
+        right_by = [right_by] if isinstance(right_by, str) else list(right_by or [])
+        if len(left_by) != len(right_by):
+            raise ValueError(f"join_asof by-keys differ in number: {left_by} vs {right_by}")
+        for c in [left_on] + left_by:
+            if c not in self.schema:
+                raise ValueError(f"join_asof left column {c} not in {self.schema}")
+        for c in [right_on] + right_by:
+            if c not in right.schema:
+                raise ValueError(f"join_asof right column {c} not in {right.schema}")
+        rpayload = [c for c in right.schema if c not in set(right_by) and c != right_on]
+        out_schema = self.schema + [c + suffix if c in set(self.schema) else c
+                                    for c in rpayload]
+        node = logical.AsofJoinNode(
+            [self.node_id, right.node_id], out_schema,
+            functools.partial(SortedAsofExecutor, left_on, right_on, left_by, right_by,
+                              suffix, direction=direction),
+            {0: _key_partitioner(left_by), 1: _key_partitioner(right_by)}, [left_on],
+            left_on=left_on, right_on=right_on, left_by=left_by, right_by=right_by,
+            suffix=suffix, direction=direction)
+        return OrderedStream(self.ctx, self.ctx.add_node(node))
+
+    # -- window aggregation -------------------------------------------------
+    def window_agg(self, window, aggs_sql: str, by=None, trigger=None) -> "OrderedStream":
+        from quokka_tpu_torch import windows as W
+        from quokka_tpu_torch.executors.ts_execs import (
+            HoppingWindowExecutor,
+            SessionWindowExecutor,
+            SlidingWindowExecutor,
+        )
+
+        by = [by] if isinstance(by, str) else list(by or [])
+        for c in by:
+            if c not in self.schema:
+                raise ValueError(f"window_agg key {c} not in {self.schema}")
+        time_col = self.time_col
+        exprs = sqlparse.parse_select_list(aggs_sql)
+        plan = plan_aggregation([e if isinstance(e, Alias) else Alias(e, f"col{i}")
+                                 for i, e in enumerate(exprs)])
+        if isinstance(window, (W.TumblingWindow, W.HoppingWindow)):
+            factory = functools.partial(HoppingWindowExecutor, time_col, by, window, plan,
+                                        trigger)
+            extra = ["window_start", "window_end"]
+        elif isinstance(window, W.SessionWindow):
+            factory = functools.partial(SessionWindowExecutor, time_col, by, window, plan)
+            extra = ["session_start", "session_end"]
+        elif isinstance(window, W.SlidingWindow):
+            factory = functools.partial(SlidingWindowExecutor, time_col, by, window, plan)
+            extra = []
+        else:
+            raise TypeError(f"unknown window type {type(window)}")
+        if isinstance(window, W.SlidingWindow):
+            out_schema = self.schema + [n for n, _ in plan.finals]
+            out_sorted = [time_col]  # per-event output keeps the time column
+        else:
+            out_schema = by + extra + [n for n, _ in plan.finals]
+            out_sorted = [extra[0]]  # windows come out ordered by their start
+        node = logical.WindowAggNode(
+            [self.node_id], out_schema, factory, {0: _key_partitioner(by)}, out_sorted,
+            time_col=time_col, by=by, window=window, plan=plan, trigger=trigger)
+        return OrderedStream(self.ctx, self.ctx.add_node(node))
+
+    def windowed_transform(self, window, aggs_sql: str, by=None, trigger=None):
+        return self.window_agg(window, aggs_sql, by=by, trigger=trigger)
+
+    # -- shift --------------------------------------------------------------
+    def shift(self, columns, n: int = 1, by=None, fill_value=None) -> "OrderedStream":
+        from quokka_tpu_torch.executors.ts_execs import ShiftExecutor
+
+        if fill_value is not None:
+            raise NotImplementedError("shift(fill_value=...): rows without history are null")
+        columns = [columns] if isinstance(columns, str) else list(columns)
+        by = [by] if isinstance(by, str) else list(by or [])
+        for c in columns + by:
+            if c not in self.schema:
+                raise ValueError(f"shift column {c} not in {self.schema}")
+        time_col = self.time_col
+        node = logical.ShiftNode(
+            [self.node_id], self.schema + [f"{c}_shifted_{n}" for c in columns],
+            functools.partial(ShiftExecutor, time_col, by, columns, n),
+            {0: _key_partitioner(by)}, [time_col],
+            time_col=time_col, by=by, columns=columns, n=n)
+        return self._ordered(node)
+
+    # -- not ported yet -----------------------------------------------------
+    def pattern_recognize(self, events, within, by=None):
+        _time_series_rest("pattern_recognize (CEP, the reference's executors/cep.py)")
+
+    def stateful_transform_sorted(self, executor, new_schema, by=None):
+        _time_series_rest("stateful_transform_sorted")

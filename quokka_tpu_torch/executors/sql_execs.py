@@ -6,7 +6,8 @@ shuffle -> final, as in the reference.  Inner, semi and anti joins take the
 PK path (``ops/join.hash_join_pk``) on unique builds and the general path
 (``hash_join_general``) otherwise; every left join takes the general path,
 as in the reference.  The join spill tier, join checkpoints, distinct and
-sort come with later slices (ROADMAP Queue 1 item 3).
+sort come with later slices (ROADMAP Queue 1, "The rest of the DataStream/SQL
+surface").
 """
 
 from __future__ import annotations
@@ -324,7 +325,7 @@ class BuildProbeJoinExecutor(Executor):
                         f"join build of {rows} rows on one channel passes "
                         f"SPILL_JOIN_BUILD_ROWS ({config.SPILL_JOIN_BUILD_ROWS}); the "
                         "grace-join spill tier is not in quokka_tpu_torch yet: "
-                        "ROADMAP Queue 1 item 3")
+                        "ROADMAP Queue 1, \"The rest of the DataStream/SQL surface\"")
                 self._build_rows = rows
             return None
         if not self.build_done:

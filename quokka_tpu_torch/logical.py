@@ -1,5 +1,9 @@
 """Logical plan nodes (port of ``quokka_tpu/logical.py``: Source, Filter,
-Projection, Map, Join, Agg, FusedStage, TopK and Sink).
+Projection, Map, Join, Agg, FusedStage, TopK, Sink, and the time-series
+nodes AsofJoin, WindowAgg and Shift).
+
+A node whose ``sorted_by`` is set lowers to a sorted actor: its consumers
+take its batches in global (seq, channel) order (``runtime/engine.py``).
 
 The DataStream API builds a DAG of these; the optimizer rewrites it;
 ``lower()`` emits physical actors into the runtime TaskGraph.
@@ -127,7 +131,8 @@ class FilterNode(Node):
         actor_of[node_id] = graph.new_exec_node(
             functools.partial(UDFExecutor, FusedPredicate(self.predicate)),
             {0: (actor_of[self.parents[0]], _passthrough_edge())},
-            self.channels or ctx.exec_channels, self.stage)
+            self.channels or ctx.exec_channels, self.stage,
+            sorted_actor=self.sorted_by is not None)
 
     def describe(self):
         return f"Filter({self.predicate.sql()})"
@@ -144,7 +149,8 @@ class ProjectionNode(Node):
         actor_of[node_id] = graph.new_exec_node(
             functools.partial(UDFExecutor, SelectFn(list(self.schema))),
             {0: (actor_of[self.parents[0]], _passthrough_edge())},
-            self.channels or ctx.exec_channels, self.stage)
+            self.channels or ctx.exec_channels, self.stage,
+            sorted_actor=self.sorted_by is not None)
 
     def describe(self):
         return f"Projection({self.schema})"
@@ -178,7 +184,8 @@ class MapNode(Node):
         actor_of[node_id] = graph.new_exec_node(
             functools.partial(UDFExecutor, self.fn),
             {0: (actor_of[self.parents[0]], _passthrough_edge())},
-            self.channels or ctx.exec_channels, self.stage)
+            self.channels or ctx.exec_channels, self.stage,
+            sorted_actor=self.sorted_by is not None)
 
     def describe(self):
         if self.exprs:
@@ -231,7 +238,8 @@ class AggNode(Node):
         if (self.order_by or self.limit is not None) and n_final > 1:
             if self.limit is None:
                 raise NotImplementedError("a global ORDER BY without LIMIT needs the "
-                                          "sort executor: ROADMAP Queue 1 item 3")
+                                          "sort executor: ROADMAP Queue 1, \"The rest of "
+                                          "the DataStream/SQL surface\"")
             names = [n for n, _ in (self.order_by or [])]
             desc = [d for _, d in (self.order_by or [])]
             final = graph.new_exec_node(
@@ -241,6 +249,102 @@ class AggNode(Node):
 
     def describe(self):
         return f"Agg(keys={self.keys}, out={[n for n, _ in self.plan.finals]})"
+
+
+class StatefulNode(Node):
+    """An operator with its own executor and per-input partitioners; the
+    base of the time-series nodes."""
+
+    def __init__(self, parents, schema, executor_factory, partitioners=None,
+                 sorted_output=None):
+        super().__init__(parents, schema)
+        self.executor_factory = executor_factory
+        self.partitioners = partitioners or {}
+        self.sorted_by = sorted_output
+
+    def lower(self, ctx, graph, actor_of, node_id):
+        sources = {i: (actor_of[p], TargetInfo(self.partitioners.get(
+            i, PassThroughPartitioner()))) for i, p in enumerate(self.parents)}
+        actor_of[node_id] = graph.new_exec_node(
+            self.executor_factory, sources, self.channels or ctx.exec_channels, self.stage,
+            sorted_actor=self.sorted_by is not None)
+
+    def describe(self):
+        return "Stateful"
+
+
+class AsofJoinNode(StatefulNode):
+    """As-of join (OrderedStream.join_asof): the streaming SortedAsofExecutor,
+    both inputs hash-partitioned by their by-keys."""
+
+    def __init__(self, parents, schema, executor_factory, partitioners, sorted_output, *,
+                 left_on, right_on, left_by, right_by, suffix, direction):
+        super().__init__(parents, schema, executor_factory, partitioners, sorted_output)
+        self.left_on = left_on
+        self.right_on = right_on
+        self.left_by = list(left_by)
+        self.right_by = list(right_by)
+        self.suffix = suffix
+        self.direction = direction
+
+    def derive_schema(self, parents):
+        _require([self.left_on] + self.left_by, parents[0], "asof left keys")
+        _require([self.right_on] + self.right_by, parents[1], "asof right keys")
+        rpayload = [c for c in parents[1] if c not in set(self.right_by) and c != self.right_on]
+        return list(parents[0]) + [c + self.suffix if c in set(parents[0]) else c
+                                   for c in rpayload]
+
+    def describe(self):
+        return f"AsofJoin({self.direction} on {self.left_on}, by {self.left_by})"
+
+
+class WindowAggNode(StatefulNode):
+    """Window aggregation (OrderedStream.window_agg): tumbling, hopping,
+    session or sliding windows per key."""
+
+    def __init__(self, parents, schema, executor_factory, partitioners, sorted_output, *,
+                 time_col, by, window, plan, trigger):
+        super().__init__(parents, schema, executor_factory, partitioners, sorted_output)
+        self.time_col = time_col
+        self.by = list(by)
+        self.window = window
+        self.plan = plan
+        self.trigger = trigger
+
+    def derive_schema(self, parents):
+        from quokka_tpu_torch import windows as W
+
+        _require([self.time_col] + self.by, parents[0], "window keys")
+        for name, e in self.plan.pre:
+            _require(e.required_columns(), parents[0], f"window agg input {name}")
+        finals = [n for n, _ in self.plan.finals]
+        if isinstance(self.window, W.SlidingWindow):
+            return list(parents[0]) + finals
+        if isinstance(self.window, W.SessionWindow):
+            return list(self.by) + ["session_start", "session_end"] + finals
+        return list(self.by) + ["window_start", "window_end"] + finals
+
+    def describe(self):
+        return f"WindowAgg({type(self.window).__name__}, by {self.by})"
+
+
+class ShiftNode(StatefulNode):
+    """Per-key lag (OrderedStream.shift)."""
+
+    def __init__(self, parents, schema, executor_factory, partitioners, sorted_output, *,
+                 time_col, by, columns, n):
+        super().__init__(parents, schema, executor_factory, partitioners, sorted_output)
+        self.time_col = time_col
+        self.by = list(by)
+        self.columns = list(columns)
+        self.n = n
+
+    def derive_schema(self, parents):
+        _require([self.time_col] + self.by + self.columns, parents[0], "shift")
+        return list(parents[0]) + [f"{c}_shifted_{self.n}" for c in self.columns]
+
+    def describe(self):
+        return f"Shift(n={self.n}, by {self.by})"
 
 
 class JoinNode(Node):

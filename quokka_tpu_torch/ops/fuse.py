@@ -92,7 +92,8 @@ def note_fallback(batch: DeviceBatch) -> None:
     if batch.device.type != "cpu":
         raise NotImplementedError(
             "an expression outside the generated kernels' subset is not ported "
-            "to quokka_tpu_torch yet: ROADMAP Queue 1 item 3")
+            "to quokka_tpu_torch yet: ROADMAP Queue 1, \"The rest of the DataStream/SQL "
+            "surface\"")
     FALLBACKS += 1
 
 

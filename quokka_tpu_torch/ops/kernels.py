@@ -26,6 +26,8 @@ import numpy as np
 from quokka_tpu_torch import config
 from quokka_tpu_torch.ops import hashtable, native, strategy
 from quokka_tpu_torch.ops.batch import DeviceBatch, NumCol, StrCol, gather_columns, key_limbs
+from quokka_tpu_torch.ops.hashtable import _max_sentinel as max_sentinel
+from quokka_tpu_torch.ops.hashtable import _min_sentinel as min_sentinel
 
 # launches of the K4 CUDA kernel
 PARTITION_LAUNCHES = 0
@@ -246,6 +248,29 @@ def head(batch: DeviceBatch, k: int) -> DeviceBatch:
 
 def top_k(batch: DeviceBatch, by: Sequence[str], k: int, descending=None) -> DeviceBatch:
     return head(sort_batch(batch, by, descending), k)
+
+
+# ---------------------------------------------------------------------------
+# whole-batch reductions (PERF.md row 9, T)
+# ---------------------------------------------------------------------------
+
+
+def reduce_array(arr: torch.Tensor, valid: torch.Tensor, op: str) -> torch.Tensor:
+    """Masked sum / count / min / max of one array, a 0-d device tensor (the
+    reference's ``reduce_array``): invalid rows count as the op's identity,
+    so min and max over no live row give the dtype's largest and smallest
+    value (``max_sentinel`` / ``min_sentinel``)."""
+    if op == "sum":
+        return torch.where(valid, arr, torch.zeros((), dtype=arr.dtype, device=arr.device)).sum()
+    if op == "count":
+        return valid.sum(dtype=torch.int64)
+    if op == "min":
+        fill = torch.full((), max_sentinel(arr.dtype), dtype=arr.dtype, device=arr.device)
+        return torch.where(valid, arr, fill).min()
+    if op == "max":
+        fill = torch.full((), min_sentinel(arr.dtype), dtype=arr.dtype, device=arr.device)
+        return torch.where(valid, arr, fill).max()
+    raise ValueError(op)
 
 
 # ---------------------------------------------------------------------------

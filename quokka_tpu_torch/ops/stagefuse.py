@@ -259,7 +259,7 @@ class FusedElementwise:
                     "a fused stage outside K16's subset (an expression the generator "
                     "does not take, string material left after the prepass, a "
                     "non-numeric input) is not ported to quokka_tpu_torch yet: "
-                    "ROADMAP Queue 1 item 3")
+                    "ROADMAP Queue 1, \"The rest of the DataStream/SQL surface\"")
             return self._sequential(batch)
         call, out_kinds = prep
         mask, num, arrays = call.plain() if batch.device.type == "cpu" else call.launch()

@@ -9,8 +9,11 @@ override and the record of what ran).
   2. the static per-platform default row (``gpu`` when a CUDA device is
      present, else ``cpu``).
 
-The reference's calibration profile (micro-timing every candidate on live
-arrays) is not ported yet; the defaults are its pre-calibration rows.
+The CPU row takes ``asof=searchsorted``: the reference's ``host`` asof
+(its native merge) is not ported, and forcing it raises
+(``ops/asof.asof_join``).  The reference's calibration profile
+(micro-timing every candidate on live arrays) is not ported yet; the
+defaults are its pre-calibration rows.
 ``note_used(op, choice)`` records what actually ran: a diverged hash build
 reports the sorted probe that served it, not the hashtable the matrix asked
 for.
@@ -34,7 +37,7 @@ OPS: Dict[str, Tuple[str, ...]] = {
 
 _PLATFORM_DEFAULTS: Dict[str, Dict[str, str]] = {
     "cpu": {"groupby": "hashtable", "join_build": "hashtable",
-            "asof": "host", "asof_probe": "coalesced", "shuffle": "masked"},
+            "asof": "searchsorted", "asof_probe": "coalesced", "shuffle": "masked"},
     "gpu": {"groupby": "hashtable", "join_build": "hashtable",
             "asof": "searchsorted", "asof_probe": "coalesced",
             "shuffle": "masked"},

@@ -12,9 +12,9 @@
 The reference's pass line runs its cost-fed passes from
 ``planner/decide.py`` instead of 3 (``choose_broadcast_cost``, which falls
 back to this same sampled-rows threshold without a measurement) and adds
-``reorder_joins``; those come later (ROADMAP Queue 1 item 8), so the port
-keeps the join order the user wrote.  Channel counts are the context's
-``exec_channels``.
+``reorder_joins``; those come later (ROADMAP Queue 1, the planner item),
+so the port keeps the join order the user wrote.  Channel counts are the
+context's ``exec_channels``.
 """
 
 from __future__ import annotations
@@ -212,6 +212,9 @@ def _needed_from_parent(sub, node: logical.Node, i: int, need: Set[str]) -> Set[
         return out & parent_schema
     if isinstance(node, logical.TopKNode):
         return (need | set(node.by)) & parent_schema
+    if isinstance(node, logical.StatefulNode):
+        # an executor's own state: the time-series nodes read their whole input
+        return parent_schema
     return need & parent_schema if need else parent_schema
 
 
@@ -276,7 +279,8 @@ def stage_fuse_enabled() -> bool:
 
 def _fusible_member(node: logical.Node) -> bool:
     """May this node live inside a fused stage?  Non-blocking, streaming,
-    unordered operators only."""
+    unordered operators only: an ordered node (and every as-of, window and
+    shift node, which are stateful) keeps an actor of its own."""
     if node.sorted_by is not None:
         return False
     return isinstance(node, (logical.FilterNode, logical.ProjectionNode, logical.MapNode,

@@ -8,7 +8,10 @@ current, executor tasks consume contiguous runs of ready batches from one
 source actor at a time (the lowest stage first, so a join's build side is
 consumed before its probe side), and every produced batch is pushed through
 its edge's partition function into the in-memory batch cache: one channel
-(pass-through), every channel (broadcast) or a hash split (K4).  An exec
+(pass-through), every channel (broadcast) or a hash split (K4).  The
+consumers of a sorted actor (a source read with ``sorted_by``, or an
+ordered operator) take its batches in global (seq, channel) order and stop
+at the first one not yet produced, as the reference's cache does.  An exec
 actor may read several input streams; each stream's exhaustion reaches the
 executor as ``source_done(stream)``.
 
@@ -74,23 +77,19 @@ class BatchCache:
         return self._data[name]
 
     def plan_get(self, tgt_actor: int, tgt_ch: int, input_reqs: Dict[int, Dict[int, int]],
-                 actor_stages: Dict[int, int], max_batches: int):
+                 actor_stages: Dict[int, int], max_batches: int,
+                 sorted_actors: Set[int] = frozenset()):
         """(source actor, [names]) to consume next, or None: among sources at
-        the lowest stage, the one with the most contiguous ready batches."""
+        the lowest stage, the one with the most ready batches in its order
+        (contiguous per channel; global (seq, channel) order for a sorted
+        source)."""
         idx = self._index.get((tgt_actor, tgt_ch))
         if not idx:
             return None
         candidates = []
         for src_actor, chans in input_reqs.items():
-            names = []
-            for src_ch, next_seq in chans.items():
-                have = idx.get((src_actor, src_ch), ())
-                s = next_seq
-                while s in have and len(names) < max_batches:
-                    names.append((src_actor, src_ch, s, tgt_actor, src_actor, tgt_ch))
-                    s += 1
-                if len(names) >= max_batches:
-                    break
+            plan = self._plan_sorted if src_actor in sorted_actors else self._plan_contiguous
+            names = plan(idx, src_actor, tgt_actor, tgt_ch, chans, max_batches)
             if names:
                 candidates.append((actor_stages.get(src_actor, 0), -len(names),
                                    src_actor, names))
@@ -99,6 +98,47 @@ class BatchCache:
         candidates.sort()
         _, _, src_actor, names = candidates[0]
         return src_actor, names
+
+    @staticmethod
+    def _plan_contiguous(idx, src_actor, tgt_actor, tgt_ch, chans, max_batches):
+        names = []
+        for src_ch, next_seq in chans.items():
+            have = idx.get((src_actor, src_ch), ())
+            s = next_seq
+            while s in have and len(names) < max_batches:
+                names.append((src_actor, src_ch, s, tgt_actor, src_actor, tgt_ch))
+                s += 1
+            if len(names) >= max_batches:
+                break
+        return names
+
+    @staticmethod
+    def _plan_sorted(idx, src_actor, tgt_actor, tgt_ch, chans, max_batches):
+        """Global (seq, channel) order across the source's channels, stopping
+        at the first batch not yet there, so the order is never broken.
+        Exhausted channels are already pruned from ``chans`` by the engine,
+        so every frontier seq here will exist."""
+        names = []
+        frontier = dict(chans)  # channel -> next needed seq
+        channels = sorted(frontier)
+        if not channels:
+            return names
+        seq = min(frontier.values())
+        while len(names) < max_batches:
+            for ch in channels:
+                if frontier[ch] != seq:
+                    continue
+                if seq not in idx.get((src_actor, ch), ()):
+                    return names  # a hole: stop to keep the order
+                names.append((src_actor, ch, seq, tgt_actor, src_actor, tgt_ch))
+                frontier[ch] = seq + 1
+                if len(names) >= max_batches:
+                    return names
+            later = [f for f in frontier.values() if f > seq]
+            if not later:
+                break
+            seq = min(later)
+        return names
 
     def gc(self, names) -> None:
         for name in names:
@@ -129,6 +169,8 @@ class TaskGraph:
             self.exec_config.update(exec_config)
         self.actors: Dict[int, ActorInfo] = {}
         self._next_actor = 0
+        # actors whose consumers read them in global (seq, channel) order
+        self.sorted_actors: Set[int] = set()
 
     def _new_actor(self, kind, channels, stage) -> ActorInfo:
         info = ActorInfo(self._next_actor, kind, channels, stage)
@@ -147,6 +189,8 @@ class TaskGraph:
 
             info.predicate = FusedPredicate(predicate)
         info.projection = projection
+        if sorted_by is not None:
+            self.sorted_actors.add(info.id)
         tapes = reader.get_own_state(channels)
         for ch in range(channels):
             lineages = tapes.get(ch, [])
@@ -159,13 +203,16 @@ class TaskGraph:
 
     def new_exec_node(self, executor_factory: Callable[[], object],
                       sources: Dict[int, Tuple[int, TargetInfo]], channels: int,
-                      stage: int = 0, blocking: bool = False) -> int:
+                      stage: int = 0, blocking: bool = False,
+                      sorted_actor: bool = False) -> int:
         if len({a for a, _ in sources.values()}) != len(sources):
             raise NotImplementedError(
                 "two streams from one actor (self-join / self-union) need relay "
                 "actors, which quokka_tpu_torch does not carry yet")
         info = self._new_actor("exec", channels, stage)
         info.executor_factory = executor_factory
+        if sorted_actor:
+            self.sorted_actors.add(info.id)
         self.store.tset("AST", info.id, stage)
         if blocking:
             info.blocking_dataset = ResultDataset(f"ds-{info.id}")
@@ -312,7 +359,8 @@ class Engine:
             return True
         # a fused stage drains a wider slice of the ready queue per task
         plan = self.cache.plan_get(task.actor, task.channel, task.input_reqs, self._stages,
-                                   getattr(executor, "MAX_PIPELINE_BATCHES", self.max_batches))
+                                   getattr(executor, "MAX_PIPELINE_BATCHES", self.max_batches),
+                                   self.g.sorted_actors)
         if plan is None:
             self.store.ntt_push(task.actor, task)
             return False

@@ -1,5 +1,5 @@
-"""The port's hand-written kernels (K1-K5, K11-K13, K16) against their plain
-torch versions, on a card.  Every test is marked ``cuda`` and skips where
+"""The port's hand-written kernels (K1-K5, K11-K13, K16, K18, K19, K20a,
+K20b) against their plain torch versions, on a card.  Every test is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False.
 
 This file imports neither JAX nor pyarrow/pandas, so it also runs on a
@@ -10,7 +10,8 @@ machine with only torch and a card (tests/conftest.py imports JAX, hence
 
 Tolerances: masks, ids, counts and integer sums exact; float sums rtol
 1e-9 (atomics and block partials sum in another order); K3 compares after
-a sort on the keys.
+a sort on the keys.  The time-series kernels (indices, flags, min / max)
+compare bit for bit.
 """
 
 import numpy as np
@@ -18,7 +19,8 @@ import pytest
 import torch
 
 from quokka_tpu_torch import sqlparse
-from quokka_tpu_torch.ops import bridge, fuse, hashtable, join, kernels, stagefuse
+from quokka_tpu_torch.executors import ts_execs
+from quokka_tpu_torch.ops import asof, bridge, fuse, hashtable, join, kernels, stagefuse
 from quokka_tpu_torch.ops.expr_compile import plan_aggregation
 
 pytestmark = pytest.mark.cuda
@@ -288,3 +290,62 @@ def test_k3_nonconvergence_falls_back_on_the_card(cuda_device, monkeypatch):
     assert torch.equal(got[1][:g], want[1][:g]) and torch.equal(got[2][:g], want[2][:g])
     for a, c in zip(got[0], want[0]):
         assert torch.allclose(a[:g], c[:g], rtol=1e-9, atol=1e-12, equal_nan=True)
+
+
+def _equal(a, b):
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+@pytest.mark.parametrize("case", ["spread", "one_key", "ties", "empty_quotes"])
+@pytest.mark.parametrize("upper", [True, False], ids=["backward", "forward"])
+def test_k18_kernel_matches_plain(cuda_device, case, upper):
+    r = np.random.default_rng(18)
+    nq, p = 1 << 18, 1 << 16
+    n_keys = 1 if case == "one_key" else 50
+    t_hi = 1000 if case == "ties" else 10**8
+
+    def ops(n):
+        k = r.integers(0, n_keys, n).astype(np.int32)
+        return [torch.from_numpy(k).to(cuda_device),
+                torch.from_numpy(k * 31 - 7).to(cuda_device),
+                torch.from_numpy(np.sort(r.integers(0, t_hi, n))).to(cuda_device)]
+
+    qvalid = torch.from_numpy(r.random(nq) < (0.0 if case == "empty_quotes" else 0.9))
+    so, perm, nv = asof._ss_sort_quotes(ops(nq), qvalid.to(cuda_device))
+    po = ops(p)
+    pv = torch.from_numpy(r.random(p) < 0.9).to(cuda_device)
+    _equal(asof._asof_probe_cuda(so, perm, nv, po, pv, upper, 2),
+           asof._asof_probe_plain(so, perm, nv, po, pv, upper, 2))
+
+
+@pytest.mark.parametrize("n", [0, 1000, 1 << 20, (1 << 22) + 3])
+@pytest.mark.parametrize("density", [0.0, 1e-3, 1.0])
+def test_k19_kernel_matches_plain(cuda_device, n, density):
+    r = np.random.default_rng(n)
+    v = torch.from_numpy(r.integers(-(2**31), 2**31 - 1, n).astype(np.int32)).to(cuda_device)
+    st = torch.from_numpy(r.random(n) < density).to(cuda_device)
+    _equal([asof._seg_fill_forward_cuda(v, st)], [asof._seg_fill_forward_plain(v, st)])
+
+
+@pytest.mark.parametrize("n_keys", [1, 100])
+@pytest.mark.parametrize("size", [0, 10_000, 10**9])
+@pytest.mark.parametrize("dtype", [torch.int64, torch.float64])
+def test_k20_kernels_match_plain(cuda_device, n_keys, size, dtype):
+    r = np.random.default_rng(n_keys + size)
+    n = 1 << 19
+    key = np.sort(r.integers(0, n_keys, n))
+    t = r.integers(0, 10**7, n)
+    o = np.lexsort((t, key))
+    t = torch.from_numpy(t[o]).to(cuda_device).to(dtype)
+    key = torch.from_numpy(key[o]).to(cuda_device)
+    io = torch.arange(n, dtype=torch.int32, device=cuda_device)
+    fl = (key != torch.roll(key, 1)) | (io == 0)
+    ss = asof._seg_fill_forward_cuda(torch.where(fl, io, torch.full_like(io, -1)), fl)
+    se = io + ts_execs._rows_from_segment_end(io, fl, n)
+    lr = ts_execs._window_bounds_cuda(t, ss, se, size)
+    _equal(lr, ts_execs._window_bounds_plain(t, ss, se, size))
+    x = torch.from_numpy(r.uniform(10, 500, n).round(3)).to(cuda_device)
+    for op in ("min", "max"):
+        _equal([ts_execs._range_minmax_cuda(x, *lr, op)],
+               [ts_execs._range_minmax_plain(x, *lr, op)])

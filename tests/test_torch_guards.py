@@ -122,7 +122,7 @@ def test_unported_join_paths_raise_naming_the_roadmap(monkeypatch):
     ctx = QuokkaContext(io_channels=1, exec_channels=1, device="cpu")
     a = ctx.from_pandas(pd.DataFrame({"k": [1, 2], "v": [0.5, 1.5]}))
     b = ctx.from_pandas(pd.DataFrame({"k": list(range(400)) * 2, "w": [2.0] * 800}))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="The rest of the DataStream/SQL surface"):
         a.join(b, on="k", how="left").collect()
 
 
@@ -136,7 +136,7 @@ def test_join_build_past_the_spill_threshold_raises(monkeypatch):
     ex = BuildProbeJoinExecutor(["k"], ["k"])
     part = bridge.host_to_device(bridge.HostTable({"k": np.arange(200)}), "cpu")
     ex.execute([part], 1, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="The rest of the DataStream/SQL surface"):
         ex.execute([part], 1, 0)
 
 
@@ -181,7 +181,7 @@ def test_stage_outside_k16_subset_raises_off_the_cpu(expr):
     before = stagefuse.SEQUENTIAL
     assert stage(_batch("cpu")).columns["u"].data.shape == (2,)
     assert stagefuse.SEQUENTIAL == before + 1
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="The rest of the DataStream/SQL surface"):
         stage(_batch("meta"))
     assert stagefuse.SEQUENTIAL == before + 1
 
@@ -192,7 +192,7 @@ def test_predicate_outside_k1_subset_raises_off_the_cpu():
 
     pred = fuse.FusedPredicate(sqlparse.parse_expression("extract(year from d) = 1995"))
     before = fuse.FALLBACKS
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="The rest of the DataStream/SQL surface"):
         pred(_batch("meta"))
     assert fuse.FALLBACKS == before
 
@@ -217,3 +217,22 @@ def test_new_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="does not match the batch"):
         fuse.pre_exprs_launch(kern, [cpu], torch.zeros(4, dtype=torch.bool, device="meta"),
                               [torch.float64])
+
+
+def test_time_series_modules_import_with_jax_and_reference_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['quokka_tpu'] = None\n"
+        "from quokka_tpu_torch import windows\n"
+        "from quokka_tpu_torch.ops import asof\n"
+        "from quokka_tpu_torch.executors import ts_execs\n"
+        "from quokka_tpu_torch.dataset import ordered\n"
+        "from quokka_tpu_torch.datastream import OrderedStream\n"
+        "assert 'triton' not in sys.modules, 'triton imported at module import'\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
