@@ -9,13 +9,21 @@ Phases, each fatal on failure:
      (one nvcc per source, in parallel) and print the build seconds;
   3. make TPC-H tables at scale factor --sf with numpy from --seed (6.0M
      lineitem, 1.5M orders, 150K customer, 200K part, 10K supplier, 25
-     nation and 5 region rows at SF1; the domains of tests/tpch_data.py)
-     and bench.py's ticks (1.15M trades, 6M quotes, 100 symbols);
+     nation and 5 region rows at SF1; the domains of tests/tpch_data.py),
+     bench.py's ticks (1.15M trades, 6M quotes, 100 symbols), and clustered
+     embeddings at ann-benchmarks glove-100-angular's shape (1,183,514 x
+     100 float32 at SF1, 0.1% null, 10,000 queries) as an Arrow table, a
+     2^18-row Parquet file of the same distribution in 16 row groups with
+     its IVF sidecar (built on the card), and their float64 oracles;
   4. run TPC-H Q1, Q3 (join_build=hashtable, then join_build=sort), Q5,
      Q4, Q13, Q19 and Q7, then the time-series tier over the ticks (the
      backward asof backtest under asof=searchsorted, then asof=sort, the
      forward asof, tumbling, hopping, session and sliding windows, shift)
-     through the port's own QuokkaContext on the card, with every kernel's
+     through the port's own QuokkaContext on the card, then the vector tier
+     (exact nearest_neighbors, k = 10, over the corpus in 2^20-row
+     batches; the approximate search over the Parquet file, nprobe 4; the
+     gramian and covariance of four lineitem columns and approximate
+     quantiles of l_extendedprice), with every kernel's
      launch count set to 0 just before each path and read just after, and
      check each result against a numpy oracle; run each again warm;
   5. where the time goes: a warm run of each query with the engine's host
@@ -28,14 +36,19 @@ Phases, each fatal on failure:
      K16 at Q7's, also with dates before 1970 and nulls; K18 at the
      asof's, K19 at the sort strategy's, sliding's and shift's, K20a and
      K20b at sliding's, each also on one symbol holding every quote,
-     whole-second timestamps, 2^23 rows and empty or all-invalid sides),
-     and time kernel, plain version and bound with CUDA events; the
+     whole-second timestamps, 2^23 rows and empty or all-invalid sides;
+     K21 at the vector query's shape and at 256 queries, k = 1, 10, 100,
+     d = 1, 7, 100, 768 with invalid and null rows, merged again into its
+     own result, and 50 rows at k = 100; K22 at the gramian's shape and at
+     d = 1, 4, 17, 64), and time kernel, plain version and bound with CUDA
+     events; the
      torch-primitive rows 7, 8, 9, 10, 14, 15 and 20 are timed too;
   7. print one JSON line of per-kernel numbers, the card line, and last the
      contract line {"ok": true, "device": {...}}.
 
 Details of the run go to chiprun_out/chip_smoke.json.  The script imports
-neither JAX, nor quokka_tpu, nor pyarrow/pandas.  It exits non-zero without
+neither JAX nor quokka_tpu; pyarrow only for the vector tier, whose inputs
+are an Arrow table and a Parquet file.  It exits non-zero without
 printing a result when no CUDA device is available or when it runs outside
 a checkout that holds quokka_tpu_torch/.
 """
@@ -702,6 +715,179 @@ def check_shift(got, exp) -> None:
         fail("shift: lagged bids differ from the oracle (exact, null where no history)")
 
 
+# ---------------------------------------------------------------------------
+# the vector, linear-algebra and quantile tier
+# ---------------------------------------------------------------------------
+
+# ann-benchmarks glove-100-angular's shape (cosine, 1,183,514 x 100, 10,000
+# queries, k = 10); the vectors are made from --seed, not downloaded
+VEC_ROWS, VEC_DIM, VEC_QUERIES, VEC_K = 1_183_514, 100, 10_000, 10
+VEC_CENTRES, VEC_TOPICS, VEC_NULL_SHARE = 1000, 16, 1e-3
+ANN_ROWS, ANN_ROW_GROUPS, ANN_CELLS, ANN_NPROBE, ANN_QUERIES = 1 << 18, 16, 32, 4, 4
+LINALG_COLS = ["l_quantity", "l_extendedprice", "l_discount", "l_tax"]
+QUANTILES = [0.01, 0.25, 0.5, 0.75, 0.99]
+FP32_FLOP_PER_S = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
+VEC_SCORE_TOL, VEC_TIE_TOL = 2e-5, 4e-5
+
+
+def make_vectors(sf: float, seed: int):
+    """Clustered embeddings in numpy from --seed: 1,000 random centres, each
+    a perturbed one of 16 topic directions, every vector a centre plus noise
+    (cosine about 0.93 to its centre); 0.1% null rows; queries drawn the
+    same way.  The ANN file's rows are ordered by topic, so that its row
+    groups, like a real corpus appended over time, hold few topics each."""
+    import numpy as np
+
+    r = np.random.default_rng(seed + 100)
+    topics = r.standard_normal((VEC_TOPICS, VEC_DIM), dtype=np.float32)
+    topic_of = r.integers(0, VEC_TOPICS, VEC_CENTRES)
+    centres = topics[topic_of] + 0.5 * r.standard_normal((VEC_CENTRES, VEC_DIM),
+                                                         dtype=np.float32)
+
+    def draw(n, by_topic=False):
+        c = r.integers(0, VEC_CENTRES, n)
+        if by_topic:
+            c = c[np.argsort(topic_of[c], kind="stable")]
+        v = centres[c] + 0.3 * r.standard_normal((n, VEC_DIM), dtype=np.float32)
+        null = r.random(n) < VEC_NULL_SHARE
+        v[null] = 0.0  # what a null row becomes on the device
+        return v, null
+
+    vecs, null = draw(max(int(VEC_ROWS * sf), 4096))
+    ann, ann_null = draw(max(int(ANN_ROWS * sf) // ANN_ROW_GROUPS * ANN_ROW_GROUPS, 4096),
+                         by_topic=True)
+    queries = centres[r.integers(0, VEC_CENTRES, VEC_QUERIES)] + 0.3 * r.standard_normal(
+        (VEC_QUERIES, VEC_DIM), dtype=np.float32)
+    return {"vecs": vecs, "null": null, "ann": ann, "ann_null": ann_null, "queries": queries}
+
+
+def vector_table(vecs, null):
+    """The corpus as Arrow: id int64, emb fixed_size_list<float32, d>."""
+    import numpy as np
+    import pyarrow as pa
+
+    emb = pa.FixedSizeListArray.from_arrays(pa.array(vecs.reshape(-1)), vecs.shape[1],
+                                            mask=pa.array(null))
+    return pa.table({"id": np.arange(len(vecs), dtype=np.int64), "emb": emb})
+
+
+def _unit_f32(q):
+    """The reference's query normalisation, in float32 on the host."""
+    import numpy as np
+
+    q = np.asarray(q, dtype=np.float32)
+    return q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+
+
+def topk_oracle(dev, vecs, queries, k, chunk=1 << 15):
+    """Exact top-(k + 1) cosine scores and row ids per query, float64 on the
+    card (oracle only): [Q, k + 1] scores and ids."""
+    import torch
+
+    q = torch.from_numpy(_unit_f32(queries)).to(dev, torch.float64)
+    best_s = best_i = None
+    for r0 in range(0, len(vecs), chunk):
+        v = torch.from_numpy(vecs[r0:r0 + chunk]).to(dev, torch.float64)
+        v = v / torch.clamp(torch.linalg.vector_norm(v, dim=1, keepdim=True), min=1e-12)
+        s, i = torch.topk(q @ v.T, min(k + 1, v.shape[0]), dim=1)
+        i = i + r0
+        if best_s is not None:
+            s, at = torch.topk(torch.cat([best_s, s], 1), k + 1, dim=1)
+            i = torch.gather(torch.cat([best_i, i], 1), 1, at)
+        best_s, best_i = s, i
+    return best_s.cpu().numpy(), best_i.cpu().numpy()
+
+
+def topk_numpy(vecs, queries, k):
+    """The same oracle in numpy float64, for a few queries."""
+    import numpy as np
+
+    v = vecs.astype(np.float64)
+    v /= np.maximum(np.linalg.norm(v, axis=1, keepdims=True), 1e-12)
+    s = _unit_f32(queries).astype(np.float64) @ v.T
+    i = np.argsort(-s, axis=1, kind="stable")[:, :k + 1]
+    return np.take_along_axis(s, i, 1), i
+
+
+def check_topk(what, got, exp_s, exp_i, k):
+    """Every query has k results; their scores are within VEC_SCORE_TOL of
+    the oracle's (float32 dot products of unit vectors at d = 100), and
+    their ids are the oracle's but where its k-th and (k + 1)-th scores lie
+    within VEC_TIE_TOL.  Returns (max score error, queries whose ids
+    differ)."""
+    import numpy as np
+
+    nq = exp_s.shape[0]
+    qi, sc, ids = got["query_idx"], got["score"], got["id"]
+    if len(qi) != nq * k:
+        fail(f"{what}: {len(qi)} rows, expected {nq} queries x {k}")
+    order = np.lexsort((-sc, qi))
+    qi, sc, ids = qi[order].reshape(nq, k), sc[order].reshape(nq, k), ids[order].reshape(nq, k)
+    if not (qi == np.arange(nq)[:, None]).all():
+        fail(f"{what}: queries without exactly {k} results")
+    err = float(np.abs(sc - exp_s[:, :k]).max())
+    if err > VEC_SCORE_TOL:
+        fail(f"{what}: scores {err:.3g} from the oracle's (tolerance {VEC_SCORE_TOL})")
+    differ = ~(np.sort(ids, 1) == np.sort(exp_i[:, :k], 1)).all(1)
+    near = exp_s[:, k - 1] - exp_s[:, k] <= VEC_TIE_TOL
+    if (differ & ~near).any():
+        fail(f"{what}: ids differ from the oracle's on {int((differ & ~near).sum())} queries "
+             "whose k-th and (k + 1)-th scores are apart")
+    return err, int(differ.sum())
+
+
+def prune_numpy(sidecar, queries, nprobe):
+    """Row groups holding one of each query's nprobe closest cells, from the
+    sidecar's arrays, in numpy float32 as the index computes them (the
+    oracle of the pruning)."""
+    import numpy as np
+
+    idx = np.load(sidecar)
+    cents, rg_cells = idx["centroids"], idx["rg_cells"]
+    q = np.asarray(queries, dtype=np.float32)
+    s = (q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-9)) @ (
+        cents / np.maximum(np.linalg.norm(cents, axis=1, keepdims=True), 1e-9)).T
+    probed = np.unique(np.argsort(-s, axis=1, kind="stable")[:, :nprobe])
+    return np.flatnonzero(rg_cells[:, probed].any(axis=1))
+
+
+def gram_oracle(li, covariance):
+    """Gramian or covariance of LINALG_COLS in numpy float64 over the
+    float32-cast columns."""
+    import numpy as np
+
+    x = np.stack([li.cols[c].astype(np.float32) for c in LINALG_COLS], 1).astype(np.float64)
+    g = x.T @ x
+    if covariance:
+        mu = x.sum(0) / len(x)
+        g = g / len(x) - np.outer(mu, mu)
+    return g
+
+
+def check_gram(what, got, exp):
+    import numpy as np
+
+    rows = {str(c): i for i, c in enumerate(got["column"])}
+    if sorted(rows) != sorted(LINALG_COLS):
+        fail(f"{what}: rows {sorted(rows)}")
+    g = np.stack([got[c][[rows[r] for r in LINALG_COLS]] for c in LINALG_COLS], 1)
+    if not np.allclose(g, exp, rtol=1e-9, atol=0):
+        fail(f"{what}: beyond rtol 1e-9 of the float64 oracle "
+             f"(max rel {np.max(np.abs(g - exp) / np.abs(exp)):.3g})")
+
+
+def check_quantiles(got, exp):
+    import numpy as np
+
+    order = np.argsort(got["quantile"])
+    if not np.allclose(got["quantile"][order], QUANTILES):
+        fail(f"quantile: quantiles {got['quantile']}")
+    est = got["l_extendedprice"][order]
+    rel = np.abs(est - exp) / np.maximum(np.abs(exp), 0.1)
+    if (rel >= 0.02).any():
+        fail(f"quantile: t-digest {est} against np.quantile {exp} (relative {rel})")
+
+
 def collect_numpy(stream, what: str):
     cols = stream.compute().to_numpy()
     if cols is None:
@@ -847,11 +1033,15 @@ def smoke(dev, card: str, args) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from quokka_tpu_torch import QuokkaContext, col, config, date, sqlparse, windows
+    from quokka_tpu_torch.dataset import vector as dvec
     from quokka_tpu_torch.dataset.ordered import InputSortedHostDataset
+    from quokka_tpu_torch.dataset.readers import InputArrowDataset
     from quokka_tpu_torch.executors import ts_execs
     from quokka_tpu_torch.executors.sql_execs import PartialAggExecutor
     from quokka_tpu_torch.ops import asof, bridge, fuse, hashtable, join, kernels, native
+    from quokka_tpu_torch.ops import linalg as lops
     from quokka_tpu_torch.ops import stagefuse, strategy
+    from quokka_tpu_torch.ops import vector as vops
     from quokka_tpu_torch.ops.batch import key_limbs
     from quokka_tpu_torch.ops.expr_compile import plan_aggregation
 
@@ -887,6 +1077,59 @@ def smoke(dev, card: str, args) -> int:
     report["rows"].update({name: len(c["time"]) for name, c in ticks.items()})
     print(f"data sf={args.sf}: {report['rows']} in {report['datagen_s']:.1f} s "
           "(with the oracles)")
+
+    # the vector tier's data: the corpus as Arrow, the ANN file as Parquet
+    # with its IVF sidecar (built on the card), and the float64 oracles
+    import pyarrow.parquet as pq
+
+    t0 = time.perf_counter()
+    vd = make_vectors(args.sf, args.seed)
+    corpus = vector_table(vd["vecs"], vd["null"])
+    ann_dir = ROOT / "build" / "chip_smoke"
+    ann_dir.mkdir(parents=True, exist_ok=True)
+    ann_path = str(ann_dir / "ann.parquet")
+    rg_rows = len(vd["ann"]) // ANN_ROW_GROUPS
+    # the file's null rows are written as the zero vectors they become on the
+    # device: pyarrow reads no Parquet fixed_size_list column with nulls back
+    # ("Expected all lists to be of size=100 but index 90 had size=0")
+    pq.write_table(vector_table(vd["ann"], np.zeros(len(vd["ann"]), dtype=bool)), ann_path,
+                   row_group_size=rg_rows)
+    report["vector_datagen_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dvec.build_vector_index(ann_path, "emb", n_cells=ANN_CELLS, device=dev)
+    torch.cuda.synchronize()
+    report["ann_index_s"] = time.perf_counter() - t0
+    ann_q = vd["queries"][:ANN_QUERIES]
+    ann_keep = prune_numpy(dvec.sidecar_path(ann_path), ann_q, ANN_NPROBE)
+    ann_rows = np.concatenate([np.arange(g * rg_rows, (g + 1) * rg_rows) for g in ann_keep])
+    t0 = time.perf_counter()
+    oracles["vector"] = topk_oracle(dev, vd["vecs"], vd["queries"], VEC_K)
+    a_s, a_i = topk_oracle(dev, vd["ann"][ann_rows], ann_q, VEC_K)
+    oracles["ann"] = (a_s, ann_rows[a_i])
+    # the card's float64 oracle against numpy's on 32 sampled queries
+    pick = np.random.default_rng(args.seed).choice(VEC_QUERIES, 32, replace=False)
+    n_s, n_i = topk_numpy(vd["vecs"], vd["queries"][pick], VEC_K)
+    o_s, o_i = oracles["vector"][0][pick], oracles["vector"][1][pick]
+    tie = n_s[:, VEC_K - 1] - n_s[:, VEC_K] <= 1e-12
+    if np.abs(n_s[:, :VEC_K] - o_s[:, :VEC_K]).max() > 1e-12 or (
+            ~tie & ~(np.sort(n_i[:, :VEC_K], 1) == np.sort(o_i[:, :VEC_K], 1)).all(1)).any():
+        fail("the card's float64 top-k oracle differs from numpy's on sampled queries")
+    oracles["gramian"] = gram_oracle(li, False)
+    oracles["covariance"] = gram_oracle(li, True)
+    oracles["quantile"] = np.quantile(li.cols["l_extendedprice"], QUANTILES)
+    report["vector_oracles_s"] = time.perf_counter() - t0
+    near = oracles["vector"][0][:, VEC_K - 1] - oracles["vector"][0][:, VEC_K] <= VEC_TIE_TOL
+    report["vector_data"] = {"rows": len(vd["vecs"]), "dim": VEC_DIM,
+                             "queries": VEC_QUERIES, "k": VEC_K,
+                             "null_rows": int(vd["null"].sum()),
+                             "queries_with_near_tie": int(near.sum()),
+                             "ann_rows": len(vd["ann"]), "ann_row_groups_kept": ann_keep.tolist()}
+    print(f"vector data: {len(vd['vecs'])} x {VEC_DIM} ({int(vd['null'].sum())} null), "
+          f"{VEC_QUERIES} queries, in {report['vector_datagen_s']:.1f} s; ANN file "
+          f"{len(vd['ann'])} rows in {ANN_ROW_GROUPS} row groups, IVF index "
+          f"{report['ann_index_s']:.2f} s, {len(ann_keep)} row groups kept for "
+          f"{ANN_QUERIES} queries at nprobe {ANN_NPROBE}; oracles "
+          f"{report['vector_oracles_s']:.1f} s ({int(near.sum())} queries with a near tie)")
     ctx = QuokkaContext(io_channels=2, exec_channels=2, device=dev)
 
     def src(name):
@@ -996,6 +1239,40 @@ def smoke(dev, card: str, args) -> int:
                 .groupby(["supp_nation", "cust_nation", "l_year"])
                 .agg_sql("sum(volume) as revenue"))
 
+    def vector_stream():
+        # glove-100-angular's shape: 2^20-row batches of an Arrow corpus
+        return ctx.read_dataset(InputArrowDataset(corpus, batch_rows=BATCH_ROWS)) \
+            .nearest_neighbors(vd["queries"], "emb", VEC_K)
+
+    def ann_stream():
+        return ctx.read_parquet(ann_path).nearest_neighbors(
+            ann_q, "emb", VEC_K, approximate=True, nprobe=ANN_NPROBE)
+
+    def gramian_stream():
+        return src("lineitem").select(LINALG_COLS).gramian(LINALG_COLS)
+
+    def covariance_stream():
+        return src("lineitem").select(LINALG_COLS).covariance(LINALG_COLS)
+
+    def quantile_stream():
+        return src("lineitem").select(["l_extendedprice"]).approximate_quantile(
+            "l_extendedprice", QUANTILES)
+
+    vec_stats = {}
+
+    def check_vector(got, exp):
+        vec_stats["vector"] = check_topk("vector", got, *exp, VEC_K)
+
+    def check_ann(got, exp):
+        g = ctx.latest_graph
+        kept = sorted(
+            g.store.tget("LT", (a.id, ch, seq))[1]
+            for a in g.actors.values() if a.kind == "input" for ch in range(a.channels)
+            for seq in range(g.store.tget("LIT", (a.id, ch), -1) + 1))
+        if kept != ann_keep.tolist():
+            fail(f"ann: the scan kept row groups {kept}, numpy's pruning {ann_keep.tolist()}")
+        vec_stats["ann"] = check_topk("ann", got, *exp, VEC_K)
+
     counters = {"K1": (fuse, "PREDICATE_LAUNCHES"), "K2": (fuse, "SMALL_AGG_LAUNCHES"),
                 "K3": (hashtable, "LAUNCHES"), "K4": (kernels, "PARTITION_LAUNCHES"),
                 "K5": (fuse, "PRE_AGG_LAUNCHES"),
@@ -1006,7 +1283,8 @@ def smoke(dev, card: str, args) -> int:
                 "K16": (stagefuse, "ELEMWISE_LAUNCHES"),
                 "K18": (asof, "ASOF_PROBE_LAUNCHES"), "K19": (asof, "FILL_FORWARD_LAUNCHES"),
                 "K20a": (ts_execs, "WINDOW_BOUNDS_LAUNCHES"),
-                "K20b": (ts_execs, "RANGE_MINMAX_LAUNCHES")}
+                "K20b": (ts_execs, "RANGE_MINMAX_LAUNCHES"),
+                "K21": (vops, "LAUNCHES"), "K22": (lops, "LAUNCHES")}
     ts_kernels = ["K18", "K19", "K20a", "K20b"]
     # path: (stream, check, kernels it must launch, kernels it must not, and
     # whether it must take the general join).  Q4's semi join takes the
@@ -1040,12 +1318,30 @@ def smoke(dev, card: str, args) -> int:
                     ["K18"], False),
         "shift": (shift_stream, check_shift, ["K19", "K4"], ["K18", "K20a", "K20b"], False),
     }
+    for p in paths.values():
+        p[3].extend(["K21", "K22"])  # no earlier path runs the vector tier's kernels
+
+    def all_but(*keep):
+        return [k for k in counters if k not in keep]
+
+    # the vector, linear-algebra and quantile tier: pass-through exchanges
+    # only, so no kernel but its own (the quantiles' t-digest runs on the host)
+    paths.update({
+        "vector": (vector_stream, check_vector, ["K21"], all_but("K21"), False),
+        "ann": (ann_stream, check_ann, ["K21"], all_but("K21"), False),
+        "gramian": (gramian_stream, lambda g, e: check_gram("gramian", g, e), ["K22"],
+                    all_but("K22"), False),
+        "covariance": (covariance_stream, lambda g, e: check_gram("covariance", g, e),
+                       ["K22"], all_but("K22"), False),
+        "quantile": (quantile_stream, check_quantiles, [], all_but(), False),
+    })
     ts_paths = ["asof", "asof sort", "asof forward", "tumbling", "hopping", "session",
                 "sliding", "shift"]
     forced = {"q3 sort": "join_build=sort", "asof sort": "asof=sort"}
     # one warm run where the check is cheap; the per-row outputs (6M rows)
     # are held against the oracle on the cold run and counted on the warm ones
-    warm_runs = {"q3 sort": 1, "asof sort": 1, **{p: 2 for p in ts_paths if p != "asof sort"}}
+    warm_runs = {"q3 sort": 1, "asof sort": 1, "vector": 2, "ann": 2,
+                 **{p: 2 for p in ts_paths if p != "asof sort"}}
     per_row = {"sliding", "shift"}
     plan_text = {}
     launches_by_path, walls = {}, {}
@@ -1121,7 +1417,9 @@ def smoke(dev, card: str, args) -> int:
         walls[path] = {"cold_s": cold, "warm_s": warm}
         print(f"{path} warm: {[round(w, 4) for w in warm]} s")
     os.environ.pop("QK_KERNEL_STRATEGY", None)
-    report.update(walls=walls, launches=launches_by_path, plans=plan_text)
+    report.update(walls=walls, launches=launches_by_path, plans=plan_text,
+                  vector_checks={p: {"max_score_err": e, "queries_ids_differ": d}
+                                 for p, (e, d) in vec_stats.items()})
 
     # -- phase 5: where the time goes ----------------------------------------------
     # a warm run of each path with the engine's host steps timed: the read +
@@ -1201,7 +1499,7 @@ def smoke(dev, card: str, args) -> int:
                 "qk_insert_kernel", "qk_segment_kernel", "qk_partition_kernel",
                 "qk_probe_kernel", "qk_sorted_probe_kernel", "qk_mm_expand_kernel",
                 "qk_elemwise", "qk_asof_probe_kernel", "qk_fill_", "qk_window_bounds_kernel",
-                "qk_minmax_")
+                "qk_minmax_", "qk_sims_topk_kernel", "qk_topk_merge_kernel", "qk_gram_")
     profiles = {}
     for path, (stream, *_) in paths.items():
         set_strategy(path)
@@ -1313,6 +1611,18 @@ def smoke(dev, card: str, args) -> int:
         print(f"{path} calls per query: {cap.calls}")
     os.environ.pop("QK_KERNEL_STRATEGY", None)
     report["slice4_calls"] = {p: c.calls for p, c in s4.items()}
+
+    # the calls the vector tier makes: the largest K21 and K22 calls
+    s5 = {}
+    for path, tg in (
+            ("vector", {"K21": (vops, "sims_topk",
+                                lambda q, v, va, k, ss, sh, b: q.shape[0] * v.shape[0])}),
+            ("gramian", {"K22": (lops, "gramian", lambda cols, va: va.shape[0])})):
+        with Capture(tg) as cap:
+            collect_numpy(paths[path][0](), path)
+        s5[path] = cap
+        print(f"{path} calls per query: {cap.calls}")
+    report["slice5_calls"] = {p: c.calls for p, c in s5.items()}
 
     # -- phase 6: every kernel against its plain version -----------------------------
     out, t_rows = [], []
@@ -1883,6 +2193,175 @@ def smoke(dev, card: str, args) -> int:
         shape=f"sliding: {nb20} rows, {ts_execs._levels(nb20)} table levels, "
               f"{k20b_big[3]}", per_query={p: launches_by_path[p]["K20b"] for p in ts_paths},
         device_us=device_us(lambda: ts_execs._range_minmax_cuda(*k20b_big), ("qk_minmax_",))))
+
+    # -- the vector tier's kernels: K21 and K22 ----------------------------------
+    def k21_agree(label, got, exp, tol):
+        """Scores within tol slot by slot (NaN where NaN, -inf where -inf);
+        a handle on one side only scores within 2 tol of that side's k-th."""
+        gs, gh = (t.cpu().numpy() for t in got)
+        es, eh = (t.cpu().numpy() for t in exp)
+        if not np.array_equal(np.isnan(gs), np.isnan(es)):
+            fail(f"K21 {label}: NaN slots differ from the plain version")
+        with np.errstate(invalid="ignore"):  # -inf - -inf where both are -inf
+            diff = np.where((gs == es) | np.isnan(gs), 0.0, np.abs(gs - es))
+        err = float(diff.max()) if diff.size else 0.0
+        if not err <= tol:
+            fail(f"K21 {label}: scores {err:.3g} from the plain version's (tolerance {tol})")
+        differ = np.flatnonzero(~(np.sort(gh, 1) == np.sort(eh, 1)).all(1))
+        for qi in differ:
+            for s_, h_, other in ((gs, gh, eh), (es, eh, gh)):
+                for j in np.flatnonzero(~np.isin(h_[qi], other[qi])):
+                    if not abs(float(s_[qi, j]) - float(s_[qi, -1])) <= 2 * tol:
+                        fail(f"K21 {label}: query {qi} takes row handle {h_[qi, j]} "
+                             "away from the k-th score")
+        return err, len(differ)
+
+    (k21_a, _) = s5["vector"].args["K21"]
+    k21_q, k21_v, k21_valid, k21_k = k21_a[:4]
+    k21_err, k21_differ = k21_agree("vector query shape", vops.sims_topk_cuda(*k21_a),
+                                    vops.sims_topk_plain(*k21_a), 1e-5)
+    print(f"K21 vector query shape: {k21_q.shape[0]} queries x {k21_v.shape[0]} rows x "
+          f"{k21_v.shape[1]}, k {k21_k}: within {k21_err:.3g} of the plain version "
+          f"({k21_differ} queries swap a near-tied row)")
+    # Q = 256 over one 2^20-row batch of the corpus, and over made batches of
+    # d = 1, 7 and 768 with invalid and null rows, at k = 1, 10 and 100; each
+    # case also merges the same batch again into its own result (every
+    # candidate ties a state entry, which must win); and fewer rows than k
+    g21 = torch.Generator(device=dev).manual_seed(args.seed + 21)
+    q256 = torch.from_numpy(_unit_f32(vd["queries"][:256])).to(dev)
+
+    def made_batch(d, n=1 << 20):
+        v = torch.randn((n, d), generator=g21, device=dev, dtype=torch.float64)
+        v[torch.rand(n, generator=g21, device=dev) < 0.01] = 0.0  # null rows
+        v[7] = v[33]  # an exact tie
+        v[20, 0] = float("nan")
+        return v, torch.rand(n, generator=g21, device=dev) < 0.95
+
+    def q_of(d):
+        x = torch.randn((256, d), generator=g21, device=dev)
+        return x / torch.clamp(torch.linalg.vector_norm(x, dim=1, keepdim=True), min=1e-12)
+
+    k21_cases = {"corpus batch, d = 100": (q256, k21_v, k21_valid, 1e-5)}
+    for d, tol in ((1, 0.0), (7, 1e-6), (768, 1e-5)):
+        k21_cases[f"made batch, d = {d}"] = (q_of(d), *made_batch(d), tol)
+    for label, (q_, v_, valid_, tol) in k21_cases.items():
+        for k in (1, 10, 100):
+            st = vops.empty_state(q_.shape[0], k, dev)
+            a = vops.sims_topk_cuda(q_, v_, valid_, k, *st, 0)
+            k21_agree(f"{label}, k = {k}", a, vops.sims_topk_plain(q_, v_, valid_, k, *st, 0),
+                      tol)
+            again = vops.sims_topk_cuda(q_, v_, valid_, k, *a, 1)
+            k21_agree(f"{label}, k = {k}, merged again", again,
+                      vops.sims_topk_plain(q_, v_, valid_, k, *a, 1), tol)
+            # each row of the second batch ties its own row in the state,
+            # which the stable merge keeps ahead of it
+            for hq in again[1].cpu().numpy():
+                kept = set(hq[(hq >> 32) == 0].tolist())
+                first = {int(x): j for j, x in reversed(list(enumerate(hq)))}
+                for j, x in enumerate(hq):
+                    if x >> 32 == 1 and not (int(x & 0xFFFFFFFF) in kept
+                                              and first[int(x & 0xFFFFFFFF)] < j):
+                        fail(f"K21 {label}, k = {k}: a row of the second batch went ahead "
+                             "of its tie in the running state")
+        del v_
+    q9, (v50, valid50) = q_of(9), made_batch(9, 50)
+    st = vops.empty_state(256, 100, dev)
+    few = vops.sims_topk_cuda(q9, v50, valid50, 100, *st, 0)
+    k21_agree("50 rows, k = 100", few, vops.sims_topk_plain(q9, v50, valid50, 100, *st, 0),
+              1e-6)
+    if int((few[1] >= 0).sum(1).min()) != 50:
+        fail("K21 50 rows, k = 100: not every row filled a slot")
+    print(f"K21: {', '.join(k21_cases)} at k = 1, 10, 100 (and merged again), and 50 rows "
+          "at k = 100: match the plain version")
+    del k21_cases
+    n21 = int(k21_valid.sum())
+    nq21, d21 = k21_q.shape
+    v_unit = k21_v.to(torch.float32)
+    v_unit = v_unit / torch.clamp(torch.linalg.vector_norm(v_unit, dim=1, keepdim=True),
+                                  min=1e-12)
+
+    def k21_library():
+        # the yardstick: chunked torch.topk(q @ v_norm.T, k); the port never calls it
+        best = None
+        for r0 in range(0, v_unit.shape[0], 1 << 16):
+            top = torch.topk(k21_q @ v_unit[r0:r0 + (1 << 16)].T, k21_k, dim=1)
+            best = top if best is None else torch.topk(
+                torch.cat([best.values, top.values], 1), k21_k, dim=1)
+        return best
+
+    k21_ops = 2 * nq21 * n21 * d21
+    k21_bytes = (n21 * d21 * k21_v.element_size() + k21_v.shape[0] + nq21 * d21 * 4
+                 + 2 * nq21 * k21_k * 12)
+    out.append(dict(
+        name="K21 fused cosine top-k", route="cuda", source="quokka_tpu_torch/csrc/vector.cu",
+        replaces="quokka_tpu/executors/vector.py:49", launches=launches_by_path["vector"]["K21"],
+        max_abs_err=k21_err,
+        ms=cuda_ms(lambda: vops.sims_topk_cuda(*k21_a), iters=5, warmup=1),
+        plain_ms=cuda_ms(lambda: vops.sims_topk_plain(*k21_a), iters=2, warmup=1),
+        bound_ms=max(k21_ops / FP32_FLOP_PER_S, k21_bytes / HBM_BYTES_PER_S) * 1e3,
+        bound_by="operations" if k21_ops / FP32_FLOP_PER_S > k21_bytes / HBM_BYTES_PER_S
+        else "bytes",
+        library_ms=cuda_ms(k21_library, iters=3, warmup=1),
+        shape=f"vector: {nq21} queries x {k21_v.shape[0]} rows ({n21} live) x {d21}, "
+              f"k {k21_k}",
+        device_us=device_us(lambda: vops.sims_topk_cuda(*k21_a),
+                            ("qk_sims_topk_kernel", "qk_topk_merge_kernel"), iters=3),
+        per_query={p: launches_by_path[p]["K21"] for p in ("vector", "ann")}))
+    del v_unit
+
+    # K22 at the Gramian's shape (lineitem's four columns), and over made
+    # columns of every type at d = 1, 4, 17 and 64 with invalid rows and NaN
+    (k22_a, _) = s5["gramian"].args["K22"]
+
+    def k22_same(label, cols, valid_):
+        g, s_ = lops.gramian_cuda(cols, valid_)
+        gp, sp = lops.gramian_plain(cols, valid_)
+        for x, y in ((g, gp), (s_, sp)):
+            if not (torch.equal(torch.isnan(x), torch.isnan(y))
+                    and torch.allclose(x, y, rtol=1e-9, atol=0, equal_nan=True)):
+                fail(f"K22 {label}: beyond rtol 1e-9 of the plain version")
+        fin = ~torch.isnan(g)
+        return float(((g - gp).abs() / gp.abs().clamp(min=1e-300))[fin].max())
+
+    k22_rel = k22_same("gramian query shape", *k22_a)
+    g22 = torch.Generator(device=dev).manual_seed(args.seed + 22)
+    for d in (1, 4, 17, 64):
+        n = 1 << 20
+        cols = []
+        for j in range(d):
+            x = torch.randn(n, generator=g22, device=dev, dtype=torch.float64) * 100
+            if j % 3 == 1:
+                x = x.round().to(torch.int64)
+            elif j % 3 == 2:
+                x[torch.rand(n, generator=g22, device=dev) < 1e-3] = float("nan")
+            cols.append(x)
+        k22_same(f"d = {d}", cols, torch.rand(n, generator=g22, device=dev) < 0.9)
+    print(f"K22: gramian query shape ({k22_a[1].shape[0]} rows x {len(k22_a[0])}, max rel "
+          f"{k22_rel:.3g}) and d = 1, 4, 17, 64 with invalid rows: match the plain version")
+    n22 = k22_a[1].shape[0]
+    d22 = len(k22_a[0])
+    # the yardstick: one torch.mm(a.T, a) over a = [masked float32-cast
+    # columns | valid] in float64, built outside the timing, gives m^T m and
+    # the column sums (the last column); the port never calls it
+    a22 = torch.cat([lops._masked_f32(*k22_a).to(torch.float64),
+                     k22_a[1][:, None].to(torch.float64)], 1)
+    lib22 = torch.mm(a22.T, a22)
+    for x, y in zip((lib22[:d22, :d22], lib22[:d22, d22]), lops.gramian_plain(*k22_a)):
+        if not torch.allclose(x, y, rtol=1e-9, atol=0, equal_nan=True):
+            fail("K22's yardstick torch.mm(a.T, a) is not the plain version's function")
+    out.append(dict(
+        name="K22 masked Gramian", route="cuda", source="quokka_tpu_torch/csrc/linalg.cu",
+        replaces="quokka_tpu/executors/linalg.py:37",
+        launches=launches_by_path["gramian"]["K22"], max_abs_err=float(
+            (lops.gramian_cuda(*k22_a)[0] - lops.gramian_plain(*k22_a)[0]).abs().max()),
+        ms=cuda_ms(lambda: lops.gramian_cuda(*k22_a)),
+        plain_ms=cuda_ms(lambda: lops.gramian_plain(*k22_a)),
+        bound_ms=bound_ms(nbytes(*k22_a[0], k22_a[1]) + 8 * (d22 * (d22 + 1) // 2 + d22)),
+        bound_by="bytes", library_ms=cuda_ms(lambda: torch.mm(a22.T, a22)),
+        shape=f"gramian: {n22} rows x {d22} columns",
+        device_us=device_us(lambda: lops.gramian_cuda(*k22_a), ("qk_gram_",)),
+        per_query={p: launches_by_path[p]["K22"] for p in ("gramian", "covariance")}))
+    del a22, lib22
 
     # the torch-primitive rows at Q3's shapes: time, device time, bound
     def t_row(row, what, fn, n_bytes, calls, query="q3"):

@@ -95,6 +95,10 @@ class InputParquetDataset:
         self.path = path
         self.columns = list(columns) if columns else None
         self.predicate = predicate
+        # ANN pushdown (optimizer.push_ann): (queries, nprobe) restricts the
+        # scan to the row groups owning the queries' closest IVF cells when
+        # a sidecar index exists (dataset/vector.py)
+        self.ann_prune = None
 
     @property
     def schema(self):
@@ -107,8 +111,16 @@ class InputParquetDataset:
 
         pieces = []
         for f in _expand_paths(self.path):
+            keep = None
+            if self.ann_prune is not None:
+                from quokka_tpu_torch.dataset.vector import prune_row_groups
+
+                keep = prune_row_groups(f, *self.ann_prune)
+                keep = None if keep is None else {int(i) for i in keep}
             meta = pq.ParquetFile(f).metadata
             for rg in range(meta.num_row_groups):
+                if keep is not None and rg not in keep:
+                    continue
                 if self.predicate is not None and _rowgroup_prunable(
                         meta.row_group(rg), self.predicate):
                     continue

@@ -1,6 +1,7 @@
 """DataStream: the lazy relational API (port of ``quokka_tpu/datastream.py``:
 filter, select, rename, with_columns, join, groupby + agg, top_k, collect,
-and OrderedStream's time-series verbs: join_asof, window_agg and shift).
+nearest_neighbors, gramian, covariance, approximate_quantile, and
+OrderedStream's time-series verbs: join_asof, window_agg and shift).
 
 Every method appends a logical Node to the context's plan and returns a new
 stream; nothing executes until collect() / compute().
@@ -20,7 +21,8 @@ from quokka_tpu_torch.target_info import HashPartitioner, PassThroughPartitioner
 def _not_in_slice(what: str):
     raise NotImplementedError(
         f"{what} is not in quokka_tpu_torch yet (it carries filter, select, rename, "
-        "with_columns, join, groupby/agg, top_k and collect; see ROADMAP.md for the "
+        "with_columns, join, groupby/agg, top_k, nearest_neighbors, gramian, "
+        "covariance, approximate_quantile and collect; see ROADMAP.md for the "
         "slice that adds it)")
 
 
@@ -153,6 +155,85 @@ class DataStream:
             out_schema = self.schema + [rename.get(c, c) for c in rpayload]
         return self._child(logical.JoinNode([self.node_id, right.node_id], out_schema,
                                             left_on, right_on, how, suffix, rename=rename))
+
+    # -- vectors (reference datastream.py:324) ---------------------------------
+    def nearest_neighbors(self, queries, vec_col: str, k: int, payload=None,
+                          approximate: bool = False, nprobe: int = 4) -> "DataStream":
+        """Top-k cosine matches of each query vector against this stream's
+        ``vec_col`` vectors (exact, kernel K21).  ``approximate=True`` lets
+        the optimizer push the search into an IVF sidecar index when the
+        source has one (``dataset/vector.build_vector_index``): only the row
+        groups owning the queries' ``nprobe`` closest cells are scanned."""
+        import numpy as np
+
+        from quokka_tpu_torch.executors.vector import (
+            GlobalTopKReduceExecutor,
+            NearestNeighborExecutor,
+        )
+
+        if vec_col not in self.schema:
+            raise ValueError(f"nearest_neighbors column {vec_col} not in {self.schema}")
+        queries = np.asarray(queries)
+        payload_cols = list(payload) if payload else [c for c in self.schema if c != vec_col]
+        out_schema = ["query_idx", "score"] + payload_cols
+        local = logical.StatefulNode(
+            [self.node_id], out_schema,
+            functools.partial(NearestNeighborExecutor, queries, vec_col, k, payload_cols))
+        if approximate:
+            local.ann_info = {"queries": queries, "nprobe": int(nprobe)}
+        local_id = self.ctx.add_node(local)
+        reduce_node = logical.StatefulNode(
+            [local_id], out_schema, functools.partial(GlobalTopKReduceExecutor, k))
+        reduce_node.channels = 1
+        return DataStream(self.ctx, self.ctx.add_node(reduce_node))
+
+    vector_nn_join = nearest_neighbors
+
+    # -- numeric extras (reference datastream.py:362-405) ----------------------
+    def gramian(self, columns) -> "DataStream":
+        return self._gramian(columns, covariance=False)
+
+    def covariance(self, columns) -> "DataStream":
+        return self._gramian(columns, covariance=True)
+
+    def _gramian(self, columns, covariance: bool) -> "DataStream":
+        from quokka_tpu_torch.executors.linalg import (
+            CombineGramianExecutor,
+            GramianExecutor,
+        )
+
+        columns = [columns] if isinstance(columns, str) else list(columns)
+        missing = set(columns) - set(self.schema)
+        if missing:
+            raise ValueError(f"gramian references unknown columns {missing}")
+        local = logical.StatefulNode(
+            [self.node_id], ["__row"] + columns,
+            functools.partial(GramianExecutor, columns, covariance))
+        local_id = self.ctx.add_node(local)
+        combine = logical.StatefulNode(
+            [local_id], ["column"] + columns,
+            functools.partial(CombineGramianExecutor, columns, covariance))
+        combine.channels = 1
+        return DataStream(self.ctx, self.ctx.add_node(combine))
+
+    def approximate_quantile(self, column: str, quantiles) -> "DataStream":
+        from quokka_tpu_torch.executors.linalg import (
+            CombineQuantileExecutor,
+            ReservoirQuantileExecutor,
+        )
+
+        if column not in self.schema:
+            raise ValueError(f"approximate_quantile column {column} not in {self.schema}")
+        quantiles = [quantiles] if isinstance(quantiles, (int, float)) else list(quantiles)
+        local = logical.StatefulNode(
+            [self.node_id], ["__td_mean", "__td_weight"],  # serialised t-digest centroids
+            functools.partial(ReservoirQuantileExecutor, column, quantiles))
+        local_id = self.ctx.add_node(local)
+        combine = logical.StatefulNode(
+            [local_id], ["quantile", column],
+            functools.partial(CombineQuantileExecutor, column, quantiles))
+        combine.channels = 1
+        return DataStream(self.ctx, self.ctx.add_node(combine))
 
     # -- ordering ----------------------------------------------------------------
     def top_k(self, by, k: int, descending=None) -> "DataStream":

@@ -158,7 +158,28 @@ class StrCol:
         return StrCol(self.codes[idx], self.dictionary)
 
 
-Column = object  # NumCol | StrCol
+@dataclasses.dataclass
+class VecCol:
+    """Fixed-width vector (embedding) column: a ``[padded_rows, dim]``
+    tensor, float64 in the x64 regime.  The bridge's target for Arrow
+    ``fixed_size_list<float>`` columns and the input of vector search
+    (K21, ``ops/vector.py``).  A null row is a zero vector."""
+
+    data: torch.Tensor  # [padded_rows, dim]
+
+    @property
+    def padded_len(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.data.shape[1]
+
+    def take(self, idx: torch.Tensor) -> "VecCol":
+        return VecCol(self.data[idx])
+
+
+Column = object  # NumCol | StrCol | VecCol
 
 NULL_I32 = -(2**31)
 NULL_I64 = -(2**63)
@@ -177,20 +198,23 @@ def null_mask(col) -> torch.Tensor:
             table = col.dictionary.on_device("none", col.codes.device)
             isnull = isnull | table[torch.clamp(col.codes, min=0).long()]
         return isnull
+    if isinstance(col, VecCol) or col.kind == "b":
+        return torch.zeros(col.padded_len, dtype=torch.bool, device=col.data.device)
     if col.kind == "f":
         return torch.isnan(col.data)
-    if col.kind == "b":
-        return torch.zeros(col.padded_len, dtype=torch.bool, device=col.data.device)
     return col.data == int_sentinel(col.data.dtype)
 
 
 def with_nulls(col, null_where: torch.Tensor):
     """``col`` with the rows of ``null_where`` set to null: NaN for floats,
     the int sentinel for ints and dates, code -1 for strings; bools have no
-    spare value and become int32 0/1 with the int32 sentinel."""
+    spare value and become int32 0/1 with the int32 sentinel; a null vector
+    is a zero vector."""
     if isinstance(col, StrCol):
         return StrCol(torch.where(null_where, torch.full_like(col.codes, -1), col.codes),
                       col.dictionary)
+    if isinstance(col, VecCol):
+        return VecCol(torch.where(null_where[:, None], torch.zeros_like(col.data), col.data))
     data = col.data
     if col.kind == "f":
         return NumCol(torch.where(null_where, torch.full_like(data, float("nan")), data),
@@ -272,6 +296,8 @@ def gather_columns(columns: Dict[str, Column], idx: torch.Tensor) -> Dict[str, C
     for n, c in columns.items():
         if isinstance(c, StrCol):
             out[n] = StrCol(c.codes.index_select(0, idx), c.dictionary)
+        elif isinstance(c, VecCol):
+            out[n] = VecCol(c.data.index_select(0, idx))
         else:
             out[n] = NumCol(c.data.index_select(0, idx), c.kind, c.unit)
     return out

@@ -31,6 +31,7 @@ from quokka_tpu_torch.ops.batch import (
     NumCol,
     StrCol,
     StringDict,
+    VecCol,
 )
 
 _EPOCH = np.datetime64("1970-01-01", "D")
@@ -41,8 +42,9 @@ class HostTable:
     """A batch on the host in numpy.
 
     ``columns``: name -> 1-D array.  Object arrays are strings (None =
-    null); ``datetime64[D]`` arrays are dates; other dtypes map to ints,
-    floats, bools.  ``validity``: name -> bool array, True where non-null.
+    null); ``datetime64[D]`` arrays are dates; a 2-D float array
+    ``[rows, dim]`` is a vector column; other dtypes map to ints, floats,
+    bools.  ``validity``: name -> bool array, True where non-null.
     ``dictionaries``: name -> values array for a column whose array holds
     int32 codes into it (code -1 = null)."""
 
@@ -92,6 +94,13 @@ def _host_column(name: str, arr: np.ndarray, nullm: Optional[np.ndarray],
             codes = np.where(nullm, np.int32(-1), codes)
         return codes, "s", StringDict(np.asarray(dictionary, dtype=object))
     arr = np.asarray(arr)
+    if arr.ndim == 2:
+        if arr.dtype.kind != "f":
+            raise NotImplementedError(f"column {name}: vectors of {arr.dtype}")
+        out = arr.astype(np.float64, copy=False)
+        if nullm is not None:
+            out = np.where(nullm[:, None], 0.0, out)
+        return out, "v", None
     if arr.dtype == object or arr.dtype.kind in ("U", "S"):
         codes, values = _encode_strings(arr.astype(object), nullm)
         return codes, "s", StringDict(values)
@@ -118,28 +127,30 @@ def _host_column(name: str, arr: np.ndarray, nullm: Optional[np.ndarray],
 
 
 def _land(arrays: List[np.ndarray], padded: int, device: torch.device) -> List[torch.Tensor]:
-    """Pad each array to ``padded`` rows and move them all to ``device`` in
-    one copy: staged in one pinned buffer for CUDA, plain tensors on CPU."""
+    """Pad each array to ``padded`` rows (a 2-D array keeps its width) and
+    move them all to ``device`` in one copy: staged in one pinned buffer for
+    CUDA, plain tensors on CPU."""
     if device.type == "cpu":
         outs = []
         for a in arrays:
-            t = torch.zeros(padded, dtype=_torch_dtype(a.dtype))
+            t = torch.zeros((padded,) + a.shape[1:], dtype=_torch_dtype(a.dtype))
             t[: len(a)] = torch.from_numpy(np.ascontiguousarray(a))
             outs.append(t)
         return outs
     offs, total = [], 0
-    for a in arrays:
+    row_bytes = [a.dtype.itemsize * int(np.prod(a.shape[1:], dtype=np.int64)) for a in arrays]
+    for rb in row_bytes:
         offs.append(total)
-        total += (padded * a.dtype.itemsize + 255) // 256 * 256
+        total += (padded * rb + 255) // 256 * 256
     staging = torch.empty(max(total, 1), dtype=torch.uint8, pin_memory=True)
     host = staging.numpy()
-    for a, off in zip(arrays, offs):
-        nb = len(a) * a.dtype.itemsize
-        host[off: off + nb] = np.ascontiguousarray(a).view(np.uint8)
-        host[off + nb: off + padded * a.dtype.itemsize] = 0
+    for a, off, rb in zip(arrays, offs, row_bytes):
+        nb = len(a) * rb
+        host[off: off + nb] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+        host[off + nb: off + padded * rb] = 0
     dev = staging.to(device, non_blocking=True)
-    return [dev[off: off + padded * a.dtype.itemsize].view(_torch_dtype(a.dtype))
-            for a, off in zip(arrays, offs)]
+    return [dev[off: off + padded * rb].view(_torch_dtype(a.dtype)).view((padded,) + a.shape[1:])
+            for a, off, rb in zip(arrays, offs, row_bytes)]
 
 
 def _torch_dtype(dt: np.dtype) -> torch.dtype:
@@ -163,7 +174,8 @@ def host_to_device(table: HostTable, device, sorted_by: Optional[List[str]] = No
     landed = _land([valid] + [a for _, a, _, _ in specs], padded, device)
     cols = {}
     for (name, _, kind, d), t in zip(specs, landed[1:]):
-        cols[name] = StrCol(t, d) if kind == "s" else NumCol(t, kind)
+        cols[name] = (StrCol(t, d) if kind == "s" else VecCol(t) if kind == "v"
+                      else NumCol(t, kind))
     return DeviceBatch(cols, landed[0], nrows=n, sorted_by=sorted_by)
 
 
@@ -174,7 +186,8 @@ def batch_from_numpy(columns: Dict[str, np.ndarray], valid: np.ndarray,
     """A DeviceBatch from arrays already in device form: padded column data
     (null sentinels in place, int32 codes for columns in ``dictionaries``),
     the validity mask, and the dictionaries.  ``kinds`` overrides the kind
-    inferred from the dtype (e.g. 'd' for int32 date columns)."""
+    inferred from the dtype (e.g. 'd' for int32 date columns).  A 2-D
+    array is a vector column."""
     device = torch.device(device)
     dictionaries = dictionaries or {}
     kinds = kinds or {}
@@ -184,6 +197,9 @@ def batch_from_numpy(columns: Dict[str, np.ndarray], valid: np.ndarray,
         if name in dictionaries:
             cols[name] = StrCol(t.to(torch.int32),
                                 StringDict(np.asarray(dictionaries[name], dtype=object)))
+            continue
+        if t.dim() == 2:
+            cols[name] = VecCol(t)
             continue
         kind = kinds.get(name)
         if kind is None:
@@ -202,7 +218,8 @@ def batch_from_numpy(columns: Dict[str, np.ndarray], valid: np.ndarray,
 def device_to_host(batch: DeviceBatch) -> Dict[str, np.ndarray]:
     """Live rows as numpy: strings object (None = null), dates
     datetime64[D] (NaT = null), ints int64 (float64 with NaN where a column
-    has nulls, as pandas shows them), floats float64, bools bool."""
+    has nulls, as pandas shows them), floats float64, bools bool, vectors
+    2-D float64 ``[rows, dim]``."""
     mask = batch.valid.cpu().numpy()
     out: Dict[str, np.ndarray] = {}
     for name, col in batch.columns.items():
@@ -215,7 +232,9 @@ def device_to_host(batch: DeviceBatch) -> Dict[str, np.ndarray]:
             out[name] = res
             continue
         data = col.data.cpu().numpy()[mask]
-        if col.kind == "d":
+        if isinstance(col, VecCol):
+            out[name] = data
+        elif col.kind == "d":
             nullm = data == NULL_I32
             days = data.astype(np.int64).astype("datetime64[D]")
             days[nullm] = np.datetime64("NaT")
@@ -242,6 +261,8 @@ def to_pandas(batch_or_columns):
         if arr.dtype.kind == "M":
             conv[name] = np.array([None if np.isnat(d) else d.astype(datetime.date)
                                    for d in arr], dtype=object)
+        elif arr.ndim == 2:
+            conv[name] = list(arr)  # one array per row, as Arrow's list conversion
         else:
             conv[name] = arr
     return pd.DataFrame(conv)
@@ -256,6 +277,19 @@ def arrow_to_host(table) -> HostTable:
     for name in table.column_names:
         arr = table.column(name).combine_chunks()
         t = arr.type
+        if pa.types.is_fixed_size_list(t):
+            # before fill_null, which lists do not take; flatten() drops the
+            # null slots, so the live vectors go back to their own rows and
+            # a null row stays a zero vector
+            flat = arr.flatten().to_numpy(zero_copy_only=False).astype(np.float64)
+            if arr.null_count == 0:
+                cols[name] = flat.reshape(len(arr), t.list_size)
+                continue
+            live = np.nonzero(arr.is_valid().to_numpy(zero_copy_only=False))[0]
+            mat = np.zeros((len(arr), t.list_size), dtype=np.float64)
+            mat[live] = flat.reshape(-1, t.list_size)
+            cols[name] = mat
+            continue
         if pa.types.is_string(t) or pa.types.is_large_string(t):
             arr = pc.dictionary_encode(arr)
             t = arr.type
@@ -293,6 +327,9 @@ def device_to_arrow(batch: DeviceBatch):
         col = batch.columns[name]
         if isinstance(col, NumCol) and col.kind == "d":
             arrays.append(pa.array(arr.astype("datetime64[D]"), type=pa.date32()))
+        elif isinstance(col, VecCol):
+            arrays.append(pa.FixedSizeListArray.from_arrays(pa.array(arr.reshape(-1)),
+                                                            col.dim))
         else:
             arrays.append(pa.array(arr, from_pandas=True))
     return pa.table(arrays, names=list(batch.columns))
@@ -345,6 +382,8 @@ def _concat_parts(batches: Sequence[DeviceBatch]):
             merged, remaps = merge_dicts([c.dictionary for c in cols])
             per_col[name] = [_remap_codes(c.codes, r) for c, r in zip(cols, remaps)]
             dicts[name] = merged
+        elif isinstance(cols[0], VecCol) and len({c.dim for c in cols}) != 1:
+            raise ValueError(f"concat of vector column {name}: widths differ")
         else:
             per_col[name] = [c.data for c in cols]
     return per_col, dicts
@@ -356,13 +395,16 @@ def _assemble(batches, per_col, dicts, idx, valid, nrows) -> DeviceBatch:
         data = torch.cat(parts)
         if idx is not None:
             data = data[idx]
-            data = torch.where(valid, data, torch.zeros((), dtype=data.dtype,
-                                                         device=data.device))
+            live = valid if data.dim() == 1 else valid[:, None]
+            data = torch.where(live, data, torch.zeros((), dtype=data.dtype,
+                                                        device=data.device))
         elif data.shape[0] < valid.shape[0]:
-            data = torch.cat([data, torch.zeros(valid.shape[0] - data.shape[0],
+            data = torch.cat([data, torch.zeros((valid.shape[0] - data.shape[0],)
+                                                + data.shape[1:],
                                                 dtype=data.dtype, device=data.device)])
         src = batches[0].columns[name]
         out[name] = (StrCol(data, dicts[name]) if isinstance(src, StrCol)
+                     else VecCol(data) if isinstance(src, VecCol)
                      else NumCol(data, src.kind, src.unit))
     return DeviceBatch(out, valid, nrows, batches[0].sorted_by)
 

@@ -6,7 +6,9 @@
                         each source actually reads.
 3. choose_broadcast  -- a build side the catalog estimates at no more than
                         BROADCAST_THRESHOLD rows becomes a broadcast join.
-4. fuse_stages       -- whole-stage fusion of single-consumer chains
+4. push_ann          -- an opted-in approximate nearest_neighbors over an
+                        IVF-indexed Parquet source prunes its row groups.
+5. fuse_stages       -- whole-stage fusion of single-consumer chains
                         (QK_STAGE_FUSE=0 disables it).
 
 The reference's pass line runs its cost-fed passes from
@@ -29,7 +31,7 @@ BROADCAST_THRESHOLD = 65_536  # build rows at or below this skip the probe-side 
 
 
 def optimize(sub: Dict[int, logical.Node], sink_id: int) -> int:
-    for fn in (push_filters, early_projection, choose_broadcast, fuse_stages):
+    for fn in (push_filters, early_projection, choose_broadcast, push_ann, fuse_stages):
         fn(sub, sink_id)
         live = _reachable(sub, sink_id)
         for nid in set(sub) - set(live):
@@ -265,6 +267,44 @@ def choose_broadcast(sub: Dict[int, logical.Node], sink_id: int) -> None:
         est = _estimate_subtree(sub, node.parents[1], cat)
         if est is not None and est <= BROADCAST_THRESHOLD:
             node.broadcast = True
+
+
+# ---------------------------------------------------------------------------
+# approximate nearest-neighbour pushdown
+# ---------------------------------------------------------------------------
+
+
+def push_ann(sub: Dict[int, logical.Node], sink_id: int) -> None:
+    """An opted-in ``nearest_neighbors(..., approximate=True)`` over an
+    IVF-indexed Parquet source prunes the scan to the row groups owning the
+    queries' closest cells (the reference's ``push_ann``)."""
+    # readers are shared with the user's plan: reset first, so that an
+    # earlier approximate query cannot leak pruning into a later exact one
+    for nid in _reachable(sub, sink_id):
+        node = sub[nid]
+        if isinstance(node, logical.SourceNode) and hasattr(node.reader, "ann_prune"):
+            node.reader.ann_prune = None
+    cons = _consumers(sub, sink_id)
+    for nid in _reachable(sub, sink_id):
+        info = getattr(sub[nid], "ann_info", None)
+        if info is None:
+            continue
+        # the chain down to the source must feed only this search: pruning a
+        # shared source would drop rows from the other branches
+        cur_id = sub[nid].parents[0]
+        shared = False
+        for _ in range(16):
+            if len(cons.get(cur_id, [])) > 1:
+                shared = True
+                break
+            cur = sub[cur_id]
+            if not isinstance(cur, (logical.ProjectionNode, logical.FilterNode)):
+                break
+            cur_id = cur.parents[0]
+        cur = sub[cur_id]
+        if not shared and isinstance(cur, logical.SourceNode) \
+                and hasattr(cur.reader, "ann_prune"):
+            cur.reader.ann_prune = (info["queries"], info["nprobe"])
 
 
 # ---------------------------------------------------------------------------

@@ -53,4 +53,6 @@ class ResultDataset:
         cols = self.to_numpy()
         if cols is None:
             return None
-        return pa.table({n: pa.array(a, from_pandas=True) for n, a in cols.items()})
+        return pa.table({n: pa.FixedSizeListArray.from_arrays(pa.array(a.reshape(-1)), a.shape[1])
+                         if a.ndim == 2 else pa.array(a, from_pandas=True)
+                         for n, a in cols.items()})

@@ -1,5 +1,5 @@
 """The port's hand-written kernels (K1-K5, K11-K13, K16, K18, K19, K20a,
-K20b) against their plain torch versions, on a card.  Every test is marked ``cuda`` and skips where
+K20b, K21, K22) against their plain torch versions, on a card.  Every test is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False.
 
 This file imports neither JAX nor pyarrow/pandas, so it also runs on a
@@ -11,7 +11,10 @@ machine with only torch and a card (tests/conftest.py imports JAX, hence
 Tolerances: masks, ids, counts and integer sums exact; float sums rtol
 1e-9 (atomics and block partials sum in another order); K3 compares after
 a sort on the keys.  The time-series kernels (indices, flags, min / max)
-compare bit for bit.
+compare bit for bit.  K21's scores agree within 1e-5 at d = 768 (float32
+dot products summed in another order; 1e-6 at d <= 7, exact at d = 1),
+and its row handles are equal but where a score lies within twice that of
+the query's k-th; K22's float64 sums agree within rtol 1e-9.
 """
 
 import numpy as np
@@ -20,7 +23,8 @@ import torch
 
 from quokka_tpu_torch import sqlparse
 from quokka_tpu_torch.executors import ts_execs
-from quokka_tpu_torch.ops import asof, bridge, fuse, hashtable, join, kernels, stagefuse
+from quokka_tpu_torch.ops import asof, bridge, fuse, hashtable, join, kernels, linalg, stagefuse
+from quokka_tpu_torch.ops import vector
 from quokka_tpu_torch.ops.expr_compile import plan_aggregation
 
 pytestmark = pytest.mark.cuda
@@ -349,3 +353,102 @@ def test_k20_kernels_match_plain(cuda_device, n_keys, size, dtype):
     for op in ("min", "max"):
         _equal([ts_execs._range_minmax_cuda(x, *lr, op)],
                [ts_execs._range_minmax_plain(x, *lr, op)])
+
+
+def _topk_agree(got, exp, tol):
+    """K21 results agree: scores within ``tol`` slot by slot (NaN where NaN),
+    and a handle on one side only scores within 2 ``tol`` of its side's k-th."""
+    gs, gh = (t.cpu() for t in got)
+    es, eh = (t.cpu() for t in exp)
+    assert torch.equal(torch.isnan(gs), torch.isnan(es))
+    live = ~torch.isnan(gs)
+    assert torch.allclose(gs[live], es[live], rtol=0, atol=tol)
+    for qi in range(gs.shape[0]):
+        a, b = set(gh[qi].tolist()), set(eh[qi].tolist())
+        for h in a ^ b:
+            s_, h_ = (gs, gh) if h in a else (es, eh)
+            j = int((h_[qi] == h).nonzero()[0, 0])
+            assert abs(float(s_[qi, j]) - float(s_[qi, -1])) <= 2 * tol, (qi, h)
+
+
+def _k21_inputs(device, n, d, nq, seed):
+    r = np.random.default_rng(seed)
+    v = r.normal(size=(n, d))
+    v[r.random(n) < 0.01] = 0.0  # null rows: zero vectors
+    if n > 40:
+        v[7] = v[33]  # an exact tie
+        v[20, 0] = np.nan
+    q = vector.normalize_queries(r.normal(size=(nq, d)))
+    valid = r.random(n) < 0.95
+    return (torch.from_numpy(q).to(device), torch.from_numpy(v).to(device),
+            torch.from_numpy(valid).to(device))
+
+
+@pytest.mark.parametrize("k", [1, 10, 100])
+@pytest.mark.parametrize("d", [1, 7, 768])
+def test_k21_kernel_matches_plain(cuda_device, k, d):
+    nq = 256
+    state = vector.empty_state(nq, k, cuda_device)
+    plain = state
+    tol = 1e-5 if d > 7 else 1e-6
+    for b, n in enumerate([1 << 16, 3000]):
+        q, v, valid = _k21_inputs(cuda_device, n, d, nq, seed=k * 1000 + d + b)
+        state = vector.sims_topk_cuda(q, v, valid, k, *state, b)
+        plain = vector.sims_topk_plain(q, v, valid, k, *plain, b)
+        torch.cuda.synchronize()
+        if d == 1:  # one product per score: bit for bit (NaN slots included)
+            assert torch.equal(state[0].view(torch.int32), plain[0].view(torch.int32))
+            assert torch.equal(state[1], plain[1])
+        else:
+            _topk_agree(state, plain, tol)
+        plain = state  # the next batch merges into the same state on both sides
+
+
+def test_k21_kernel_fewer_rows_than_k(cuda_device):
+    q, v, valid = _k21_inputs(cuda_device, 50, 9, 70, seed=5)
+    state = vector.empty_state(70, 100, cuda_device)
+    got = vector.sims_topk_cuda(q, v, valid, 100, *state, 3)
+    exp = vector.sims_topk_plain(q, v, valid, 100, *state, 3)
+    _topk_agree(got, exp, 1e-6)
+    assert int((got[1][0] >= 0).sum()) == 50  # 50 rows fill 50 of the 100 slots
+
+
+def test_k21_raises_above_its_k_cap(cuda_device):
+    q, v, valid = _k21_inputs(cuda_device, 300, 4, 2, seed=6)
+    k = vector.MAX_K + 1
+    with pytest.raises(NotImplementedError, match="The rest of the vector tier"):
+        vector.sims_topk(q, v, valid, k, *vector.empty_state(2, k, cuda_device), 0)
+
+
+def test_k21_takes_float64_vectors_only(cuda_device):
+    q, v, valid = _k21_inputs(cuda_device, 300, 4, 2, seed=7)
+    with pytest.raises(TypeError, match="float64 vectors"):
+        vector.sims_topk(q, v.to(torch.float32), valid, 3, *vector.empty_state(2, 3, cuda_device),
+                         0)
+
+
+@pytest.mark.parametrize("d", [1, 4, 17, 64, 100])
+def test_k22_kernel_matches_plain(cuda_device, d):
+    r = np.random.default_rng(d)
+    n = (1 << 18) + 5
+    cols = []
+    for j in range(d):
+        kind = j % 4
+        if kind == 0:
+            x = r.normal(size=n) * 100
+            x[r.random(n) < 0.001] = np.nan
+            cols.append(torch.from_numpy(x))
+        elif kind == 1:
+            cols.append(torch.from_numpy(r.integers(-10**6, 10**6, n)))
+        elif kind == 2:
+            cols.append(torch.from_numpy(r.integers(0, 50, n).astype(np.int32)))
+        else:
+            cols.append(torch.from_numpy(r.random(n) < 0.3))
+    cols = [c.to(cuda_device) for c in cols]
+    valid = torch.from_numpy(r.random(n) < 0.9).to(cuda_device)
+    g, s = linalg.gramian_cuda(cols, valid)
+    gp, sp = linalg.gramian_plain(cols, valid)
+    torch.cuda.synchronize()
+    assert torch.allclose(g, gp, rtol=1e-9, atol=0, equal_nan=True)
+    assert torch.allclose(s, sp, rtol=1e-9, atol=0, equal_nan=True)
+    assert torch.equal(torch.isnan(g), torch.isnan(gp))

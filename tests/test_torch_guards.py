@@ -236,3 +236,53 @@ def test_time_series_modules_import_with_jax_and_reference_blocked():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_vector_tier_modules_import_with_jax_and_reference_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['quokka_tpu'] = None\n"
+        "from quokka_tpu_torch.ops import vector, linalg, tdigest\n"
+        "from quokka_tpu_torch.executors import vector as ev, linalg as el\n"
+        "from quokka_tpu_torch.dataset import vector as dv\n"
+        "assert 'triton' not in sys.modules, 'triton imported at module import'\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_vector_tier_kernels_refuse_other_devices():
+    from quokka_tpu_torch.ops import linalg, vector
+
+    meta = torch.zeros(4, device="meta")
+    state = vector.empty_state(2, 3, "meta")
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        vector.sims_topk(torch.zeros((2, 3), device="meta"), torch.zeros((4, 3), device="meta"),
+                         meta.bool(), 3, *state, 0)
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        linalg.gramian([meta, meta], meta.bool())
+
+
+def test_build_vector_index_defaults_to_cuda(tmp_path):
+    """The index build is an entry point: without a card it raises unless
+    the caller asks for the CPU."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from quokka_tpu_torch.dataset.vector import build_vector_index, sidecar_path
+
+    vecs = np.random.default_rng(0).normal(size=(64, 4)).astype(np.float32)
+    path = str(tmp_path / "v.parquet")
+    pq.write_table(pa.table({"v": pa.FixedSizeListArray.from_arrays(
+        pa.array(vecs.reshape(-1)), 4)}), path)
+    if torch.cuda.is_available():
+        build_vector_index(path, "v", n_cells=4)
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            build_vector_index(path, "v", n_cells=4)
+        build_vector_index(path, "v", n_cells=4, device="cpu")
+    assert np.load(sidecar_path(path))["centroids"].shape == (4, 4)

@@ -48,8 +48,9 @@ def fresh_aot(tmp_path, monkeypatch):
 
 def port_batch(ref_batch):
     """The port's DeviceBatch (CPU) holding a reference DeviceBatch's
-    arrays, read back with np.asarray."""
+    arrays, read back with np.asarray (vector columns included)."""
     from quokka_tpu.ops.batch import StrCol as RefStrCol
+    from quokka_tpu.ops.batch import VecCol as RefVecCol
     from quokka_tpu_torch.ops import bridge
 
     cols, dicts, kinds = {}, {}, {}
@@ -57,6 +58,8 @@ def port_batch(ref_batch):
         if isinstance(c, RefStrCol):
             cols[name] = np.asarray(c.codes)
             dicts[name] = c.dictionary.values
+        elif isinstance(c, RefVecCol):
+            cols[name] = np.asarray(c.data)  # [padded, dim]: the port's VecCol
         else:
             assert c.hi is None, "x64 reference batches carry no wide limbs"
             cols[name] = np.asarray(c.data)
