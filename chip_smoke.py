@@ -23,9 +23,18 @@ Phases, each fatal on failure:
      (exact nearest_neighbors, k = 10, over the corpus in 2^20-row
      batches; the approximate search over the Parquet file, nprobe 4; the
      gramian and covariance of four lineitem columns and approximate
-     quantiles of l_extendedprice), with every kernel's
-     launch count set to 0 just before each path and read just after, and
-     check each result against a numpy oracle; run each again warm;
+     quantiles of l_extendedprice), then the exchange and strategy rows:
+     Q3, Q5 and Q7 under QK_KERNEL_STRATEGY=shuffle=compacted and Q3 under
+     a masked-split cap of 2^20 (the compacted split, K17; one counts read
+     per compacted split, none on any other path), bench.py's skew join
+     (300,000 build rows, 90% on one key, 8,192-row batches, QK_SKEW_RATIO
+     1.5, QK_ADAPT_MIN_ROWS 20000) adaptive (the trigger fires once: K26
+     salts the build, replicates the probe) and with QK_ADAPT=0, and Q1, Q4
+     and Q5 under groupby=sort (the one-hot partial aggregate K6 where its
+     512 MiB gate admits a batch, the sort group-by elsewhere), with every
+     kernel's launch count set to 0 just before each path and read just
+     after, and check each result against a numpy oracle; run each again
+     warm;
   5. where the time goes: a warm run of each query with the engine's host
      steps timed, and one under the profiler (device busy, idle share of
      the warm wall, device time per kernel);
@@ -40,8 +49,10 @@ Phases, each fatal on failure:
      K21 at the vector query's shape and at 256 queries, k = 1, 10, 100,
      d = 1, 7, 100, 768 with invalid and null rows, merged again into its
      own result, and 50 rows at k = 100; K22 at the gramian's shape and at
-     d = 1, 4, 17, 64), and time kernel, plain version and bound with CUDA
-     events; the
+     d = 1, 4, 17, 64; K17 at Q3 compacted's largest split, also at 64
+     parts, with empty parts and all rows invalid; K26 at the skew join's
+     and Q3's largest splits in both modes; K6 at Q1 sort's largest call),
+     and time kernel, plain version and bound with CUDA events; the
      torch-primitive rows 7, 8, 9, 10, 14, 15 and 20 are timed too;
   7. print one JSON line of per-kernel numbers, the card line, and last the
      contract line {"ok": true, "device": {...}}.
@@ -207,15 +218,16 @@ def make_tpch(sf: float, seed: int):
 
 
 class TableReader:
-    """Reader over a Table: 2^20-row slices dealt round-robin to the
+    """Reader over a Table: 2^20-row slices (``batch_rows``) dealt round-robin to the
     channels, delivered as HostTables (no Arrow) of the plan's columns
     (``columns``, which the source sets from its pushed-down projection);
     ``num_rows`` and ``sample`` feed the optimizer's catalog."""
 
-    def __init__(self, table: Table):
+    def __init__(self, table: Table, batch_rows: int = 0):
         self.table = table
         self.num_rows = table.num_rows
         self.columns = None
+        self.batch_rows = batch_rows or BATCH_ROWS
 
     @property
     def schema(self):
@@ -223,7 +235,8 @@ class TableReader:
 
     def get_own_state(self, num_channels):
         n = self.num_rows
-        slices = [(s, min(BATCH_ROWS, n - s)) for s in range(0, n, BATCH_ROWS)] or [(0, 0)]
+        step = self.batch_rows
+        slices = [(s, min(step, n - s)) for s in range(0, n, step)] or [(0, 0)]
         return {ch: slices[ch::num_channels] for ch in range(num_channels)}
 
     def execute(self, channel, lineage):
@@ -716,6 +729,51 @@ def check_shift(got, exp) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the exchange tier: bench.py's skew join (bench.py:281-300, not cut)
+# ---------------------------------------------------------------------------
+
+SKEW_KEYS = 1_000
+SKEW_FAT = 0.9
+SKEW_BATCH = 1 << 13
+# bench.py's settings for its adaptive-exchange scenario
+SKEW_ENV = {"QK_SKEW_RATIO": "1.5", "QK_ADAPT_MIN_ROWS": "20000"}
+
+
+def make_skewjoin(sf: float, seed: int):
+    """bench.py's ``_skewjoin_paths`` data: a build side (k, v) of 300,000
+    rows at SF1 whose keys are 1..999 but for 90% of rows on key 0, and a
+    probe side (pk, g = pk % 50) of the 1,000 keys."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    n = int(300_000 * max(sf, 0.1))
+    keys = r.integers(1, SKEW_KEYS, n).astype(np.int64)
+    keys[r.random(n) < SKEW_FAT] = 0
+    return {"build": Table({"k": keys, "v": r.integers(0, 1000, n).astype(np.int64)}),
+            "probe": Table({"pk": np.arange(SKEW_KEYS, dtype=np.int64),
+                            "g": np.arange(SKEW_KEYS, dtype=np.int64) % 50})}
+
+
+def skewjoin_oracle(t):
+    """{g: (sum(v), count)}: every build key has exactly one probe row."""
+    import numpy as np
+
+    k, v = t["build"].cols["k"], t["build"].cols["v"]
+    g = k % 50
+    sv = np.zeros(50, dtype=np.int64)
+    np.add.at(sv, g, v)
+    n = np.bincount(g, minlength=50)
+    return {int(i): (int(sv[i]), int(n[i])) for i in range(50) if n[i]}
+
+
+def check_skewjoin(got, exp) -> None:
+    check_groups("skewjoin", got, ["g"], "sv", {g: s for g, (s, _) in exp.items()},
+                 exact=True)
+    check_groups("skewjoin", got, ["g"], "n", {g: c for g, (_, c) in exp.items()},
+                 exact=True)
+
+
+# ---------------------------------------------------------------------------
 # the vector, linear-algebra and quantile tier
 # ---------------------------------------------------------------------------
 
@@ -1044,6 +1102,7 @@ def smoke(dev, card: str, args) -> int:
     from quokka_tpu_torch.ops import vector as vops
     from quokka_tpu_torch.ops.batch import key_limbs
     from quokka_tpu_torch.ops.expr_compile import plan_aggregation
+    from quokka_tpu_torch.runtime import engine as engine_mod
 
     for mod in ("jax", "quokka_tpu", "pyarrow", "pandas"):
         if mod in sys.modules:
@@ -1072,9 +1131,12 @@ def smoke(dev, card: str, args) -> int:
     ticks = make_ticks(args.sf, args.seed)
     oracles.update(asof=asof_oracle(ticks, "backward"),
                    **{"asof forward": asof_oracle(ticks, "forward")}, **window_oracles(ticks))
+    skew = make_skewjoin(args.sf, args.seed)
+    oracles["skewjoin"] = skewjoin_oracle(skew)
     report["datagen_s"] = time.perf_counter() - t0
     report["rows"] = {name: t.num_rows for name, t in tables.items()}
     report["rows"].update({name: len(c["time"]) for name, c in ticks.items()})
+    report["rows"].update({f"skew {name}": t.num_rows for name, t in skew.items()})
     print(f"data sf={args.sf}: {report['rows']} in {report['datagen_s']:.1f} s "
           "(with the oracles)")
 
@@ -1258,6 +1320,15 @@ def smoke(dev, card: str, args) -> int:
         return src("lineitem").select(["l_extendedprice"]).approximate_quantile(
             "l_extendedprice", QUANTILES)
 
+    def skewjoin_stream():
+        # bench.py's build_skewjoin, in its 8,192-row batches
+        def side(name):
+            reader = TableReader(skew[name], batch_rows=SKEW_BATCH)
+            return ctx.read_dataset(reader, schema=reader.schema)
+
+        return (side("probe").join(side("build"), left_on="pk", right_on="k")
+                .groupby("g").agg_sql("sum(v) as sv, count(*) as n"))
+
     vec_stats = {}
 
     def check_vector(got, exp):
@@ -1284,7 +1355,9 @@ def smoke(dev, card: str, args) -> int:
                 "K18": (asof, "ASOF_PROBE_LAUNCHES"), "K19": (asof, "FILL_FORWARD_LAUNCHES"),
                 "K20a": (ts_execs, "WINDOW_BOUNDS_LAUNCHES"),
                 "K20b": (ts_execs, "RANGE_MINMAX_LAUNCHES"),
-                "K21": (vops, "LAUNCHES"), "K22": (lops, "LAUNCHES")}
+                "K21": (vops, "LAUNCHES"), "K22": (lops, "LAUNCHES"),
+                "K6": (fuse, "ONEHOT_LAUNCHES"), "K17": (kernels, "PLAN_LAUNCHES"),
+                "K26": (kernels, "ADAPT_LAUNCHES")}
     ts_kernels = ["K18", "K19", "K20a", "K20b"]
     # path: (stream, check, kernels it must launch, kernels it must not, and
     # whether it must take the general join).  Q4's semi join takes the
@@ -1319,7 +1392,9 @@ def smoke(dev, card: str, args) -> int:
         "shift": (shift_stream, check_shift, ["K19", "K4"], ["K18", "K20a", "K20b"], False),
     }
     for p in paths.values():
-        p[3].extend(["K21", "K22"])  # no earlier path runs the vector tier's kernels
+        # no earlier path runs the vector tier's kernels, nor slice 6's: the
+        # adaptive exchange, on by default, must not fire on them
+        p[3].extend(["K21", "K22", "K6", "K17", "K26"])
 
     def all_but(*keep):
         return [k for k in counters if k not in keep]
@@ -1335,22 +1410,69 @@ def smoke(dev, card: str, args) -> int:
                        ["K22"], all_but("K22"), False),
         "quantile": (quantile_stream, check_quantiles, [], all_but(), False),
     })
+    # the exchange and strategy rows: the compacted shuffle (K17), forced
+    # and past a lowered masked-split cap; bench.py's skew join, adaptive
+    # (K26) and static; groupby=sort's one-hot partial aggregate (K6)
+    ts_only = ["K18", "K19", "K20a", "K20b"]
+    sort_must_not = ["K2", "K17", "K26", "K12", "K21", "K22"] + ts_only
+    paths.update({
+        "q3 compacted": (q3_stream, check_q3, ["K1", "K3", "K4", "K5", "K11 build", "K11",
+                                               "K17"], [k for k in paths["q3"][3] if k != "K17"],
+                         False),
+        "q5 compacted": (q5_stream, check_q5, ["K1", "K2", "K3", "K4", "K11 build", "K11",
+                                               "K17"], [k for k in paths["q5"][3] if k != "K17"],
+                         False),
+        "q7 compacted": (q7_stream, check_q7, ["K1", "K3", "K4", "K5", "K11 build", "K11",
+                                               "K16", "K17"],
+                         [k for k in paths["q7"][3] if k != "K17"], False),
+        "q3 cap": (q3_stream, check_q3, ["K1", "K3", "K4", "K5", "K11 build", "K11", "K17"],
+                   [k for k in paths["q3"][3] if k != "K17"], False),
+        "skewjoin": (skewjoin_stream, check_skewjoin, ["K4", "K26", "K13"],
+                     ["K6", "K17", "K12", "K21", "K22"] + ts_only, True),
+        "skewjoin static": (skewjoin_stream, check_skewjoin, ["K4", "K13"],
+                            ["K6", "K17", "K26", "K12", "K21", "K22"] + ts_only, True),
+        "q1 sort": (q1_stream, check_q1, ["K1", "K4", "K5", "K6"], sort_must_not, False),
+        "q4 sort": (q4_stream, check_q4, ["K1", "K4", "K5", "K6", "K11 build"],
+                    sort_must_not, True),
+        "q5 sort": (q5_stream, check_q5, ["K1", "K4", "K5", "K11 build", "K11"],
+                    sort_must_not, False),
+    })
+    compacted_paths = {"q3 compacted", "q5 compacted", "q7 compacted", "q3 cap"}
+    sort_paths = {"q1 sort", "q4 sort", "q5 sort"}
     ts_paths = ["asof", "asof sort", "asof forward", "tumbling", "hopping", "session",
                 "sliding", "shift"]
-    forced = {"q3 sort": "join_build=sort", "asof sort": "asof=sort"}
+    # each path's knobs: the strategy rows it forces, the skew join's trigger
+    # settings (bench.py's), and the masked-split cap (set on config, which
+    # reads QUOKKA_SHUFFLE_MASKED_CAP at import, as bench.py sets its knobs)
+    path_env = {"q3 sort": {"QK_KERNEL_STRATEGY": "join_build=sort"},
+                "asof sort": {"QK_KERNEL_STRATEGY": "asof=sort"},
+                **{p: {"QK_KERNEL_STRATEGY": "shuffle=compacted"}
+                   for p in compacted_paths if p != "q3 cap"},
+                "skewjoin": dict(SKEW_ENV), "skewjoin static": {**SKEW_ENV, "QK_ADAPT": "0"},
+                **{p: {"QK_KERNEL_STRATEGY": "groupby=sort"} for p in sort_paths}}
+    env_keys = ("QK_KERNEL_STRATEGY", "QK_ADAPT", "QK_SKEW_RATIO", "QK_ADAPT_MIN_ROWS")
+    default_cap = config.SHUFFLE_MASKED_CAP
+    masked_cap = {"q3 cap": 1 << 20}
+    oracle_of = {"q3 sort": "q3", "asof sort": "asof", "q3 compacted": "q3",
+                 "q5 compacted": "q5", "q7 compacted": "q7", "q3 cap": "q3",
+                 "skewjoin static": "skewjoin", "q1 sort": "q1", "q4 sort": "q4",
+                 "q5 sort": "q5"}
     # one warm run where the check is cheap; the per-row outputs (6M rows)
     # are held against the oracle on the cold run and counted on the warm ones
     warm_runs = {"q3 sort": 1, "asof sort": 1, "vector": 2, "ann": 2,
-                 **{p: 2 for p in ts_paths if p != "asof sort"}}
+                 **{p: 2 for p in ts_paths if p != "asof sort"},
+                 **{p: 2 for p in compacted_paths | sort_paths},
+                 "skewjoin": 3, "skewjoin static": 3}
     per_row = {"sliding", "shift"}
     plan_text = {}
     launches_by_path, walls = {}, {}
+    slice6 = {}  # what the slice-6 paths showed: syncs, ADT records, one-hot batches
 
-    def set_strategy(path):
-        if path in forced:
-            os.environ["QK_KERNEL_STRATEGY"] = forced[path]
-        else:
-            os.environ.pop("QK_KERNEL_STRATEGY", None)
+    def set_strategy(path=None):
+        for k in env_keys:
+            os.environ.pop(k, None)
+        os.environ.update(path_env.get(path, {}))
+        config.SHUFFLE_MASKED_CAP = masked_cap.get(path, default_cap)
 
     # -- phase 4: the query paths ------------------------------------------------
     real_general = join.hash_join_general
@@ -1360,16 +1482,41 @@ def smoke(dev, card: str, args) -> int:
         general_calls.append(kw.get("how", a[4] if len(a) > 4 else "inner"))
         return real_general(*a, **kw)
 
+    real_put, real_dims = engine_mod.BatchCache.put, fuse.FusedPartialAgg._small_dims
+    delivered, onehot_batches = {}, []
+
+    def counted_put(self, name, batch):
+        # rows each (edge, target channel) received: the skew join's spread
+        src_a, _sch, _seq, tgt_a, _, tgt_ch = name
+        key = (src_a, tgt_a, tgt_ch)
+        delivered[key] = delivered.get(key, 0) + batch.count_valid()
+        return real_put(self, name, batch)
+
+    def recorded_dims(self, batch, use_tables=True):
+        # which path each groupby=sort partial aggregate took, and why
+        dims = real_dims(self, batch, use_tables)
+        if not use_tables:
+            onehot_batches.append((batch.padded_len, None if dims is None
+                                   else int(np.prod(dims)) + 1))
+        return dims
+
     for path, (stream, check, must, must_not, general) in paths.items():
         set_strategy(path)
-        exp = oracles[{"q3 sort": "q3", "asof sort": "asof"}.get(path, path)]
+        exp = oracles[oracle_of.get(path, path)]
         plan_text[path] = stream().explain()
         for mod, attr in list(counters.values()) + [(fuse, "FALLBACKS"),
-                                                     (stagefuse, "SEQUENTIAL")]:
+                                                     (stagefuse, "SEQUENTIAL"),
+                                                     (kernels, "SHUFFLE_HOST_SYNCS")]:
             setattr(mod, attr, 0)
         strategy.reset_used()
         general_calls.clear()
+        delivered.clear()
+        onehot_batches.clear()
         join.hash_join_general = counted_general
+        if path.startswith("skewjoin"):
+            engine_mod.BatchCache.put = counted_put
+        if path in sort_paths:
+            fuse.FusedPartialAgg._small_dims = recorded_dims
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1378,6 +1525,9 @@ def smoke(dev, card: str, args) -> int:
             cold = time.perf_counter() - t0
         finally:
             join.hash_join_general = real_general
+            engine_mod.BatchCache.put = real_put
+            fuse.FusedPartialAgg._small_dims = real_dims
+        syncs = kernels.SHUFFLE_HOST_SYNCS
         launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
         fallbacks, sequential = fuse.FALLBACKS, stagefuse.SEQUENTIAL
         used = strategy.used_snapshot()
@@ -1404,6 +1554,46 @@ def smoke(dev, card: str, args) -> int:
             want = "sort" if path == "asof sort" else "searchsorted"
             if used.get("asof") != want:
                 fail(f"{path}: the asof strategy recorded is {used.get('asof')}, not {want}")
+        # the shuffle's blocking reads: one per compacted split, none else
+        if path in compacted_paths:
+            if syncs != launches["K17"] or "compacted" not in used.get("shuffle", ""):
+                fail(f"{path}: {syncs} shuffle host syncs for {launches['K17']} compacted "
+                     f"splits (shuffle recorded {used.get('shuffle')})")
+        elif syncs:
+            fail(f"{path}: {syncs} shuffle host syncs on a masked-split run")
+        if path in sort_paths:
+            if used.get("groupby") != "sort":
+                fail(f"{path}: the groupby strategy recorded is {used.get('groupby')}")
+            taken = {}
+            for padded, buckets in onehot_batches:
+                what = f"K6 ({buckets} buckets)" if buckets else "general (row 10)"
+                taken[f"{padded} rows: {what}"] = taken.get(f"{padded} rows: {what}", 0) + 1
+            slice6[path] = {"partial_agg_batches": taken}
+            print(f"{path}: partial aggregates by batch {taken}")
+        if path.startswith("skewjoin"):
+            adt = dict(ctx.latest_graph.store.titems("ADT"))
+            edges = {}
+            for (src_a, tgt_a, ch), rows in delivered.items():
+                edges.setdefault((src_a, tgt_a), {})[ch] = rows
+            build = [e for e, per in edges.items()
+                     if sum(per.values()) == skew["build"].num_rows]
+            if len(build) != 1:
+                fail(f"{path}: no single edge delivered the {skew['build'].num_rows} build rows")
+            per = edges[build[0]]
+            spread = max(per.values()) / (sum(per.values()) / len(per))
+            slice6[path] = {"adt": {str(k): v for k, v in adt.items()},
+                            "build_rows_per_channel": per, "max_over_mean": spread}
+            print(f"{path}: ADT {adt}; build rows per channel {per} (max / mean {spread:.3f})")
+            if path == "skewjoin":
+                modes = sorted(r["mode"] for r in adt.values())
+                fats = {r["fat"] for r in adt.values()}
+                salted = [e for e, r in adt.items() if r["mode"] == "salt"]
+                if modes != ["replicate", "salt"] or len(fats) != 1 or salted != build:
+                    fail(f"skewjoin: the trigger did not fire once on the build edge: {adt}")
+                if spread >= float(SKEW_ENV["QK_SKEW_RATIO"]):
+                    fail(f"skewjoin: after salting a channel holds {spread:.3f} x the mean")
+            elif adt:
+                fail(f"skewjoin static: the trigger fired with QK_ADAPT=0: {adt}")
         warm = []
         for _ in range(warm_runs.get(path, 3)):
             t0 = time.perf_counter()
@@ -1416,7 +1606,8 @@ def smoke(dev, card: str, args) -> int:
                 fail(f"{path}: a warm run returned another number of rows")
         walls[path] = {"cold_s": cold, "warm_s": warm}
         print(f"{path} warm: {[round(w, 4) for w in warm]} s")
-    os.environ.pop("QK_KERNEL_STRATEGY", None)
+    set_strategy()
+    report["slice6"] = slice6
     report.update(walls=walls, launches=launches_by_path, plans=plan_text,
                   vector_checks={p: {"max_score_err": e, "queries_ids_differ": d}
                                  for p, (e, d) in vec_stats.items()})
@@ -1426,8 +1617,6 @@ def smoke(dev, card: str, args) -> int:
     # bridge of every input batch, the rest of the input tasks (K1, the
     # partition split K4, the batch cache), and each executor kind's tasks
     # (joins, aggregates, top-k, the result's copy to the host)
-    from quokka_tpu_torch.runtime import engine as engine_mod
-
     Engine = engine_mod.Engine
     real = (Engine._read_and_bridge, Engine.handle_input_task, Engine.handle_exec_task)
     host_steps = {}
@@ -1474,7 +1663,7 @@ def smoke(dev, card: str, args) -> int:
         host_steps[path] = {"wall_s": wall, **spent}
         print(f"where ({path} timed warm run, host seconds): wall {wall:.4f}; " + ", ".join(
             f"{k} {v:.4f}" for k, v in sorted(spent.items(), key=lambda kv: -kv[1])))
-    os.environ.pop("QK_KERNEL_STRATEGY", None)
+    set_strategy()
     report["host_steps"] = host_steps
     q1_reader = TableReader(li)
     q1_reader.columns = ["l_quantity", "l_extendedprice", "l_discount", "l_tax",
@@ -1499,7 +1688,8 @@ def smoke(dev, card: str, args) -> int:
                 "qk_insert_kernel", "qk_segment_kernel", "qk_partition_kernel",
                 "qk_probe_kernel", "qk_sorted_probe_kernel", "qk_mm_expand_kernel",
                 "qk_elemwise", "qk_asof_probe_kernel", "qk_fill_", "qk_window_bounds_kernel",
-                "qk_minmax_", "qk_sims_topk_kernel", "qk_topk_merge_kernel", "qk_gram_")
+                "qk_minmax_", "qk_sims_topk_kernel", "qk_topk_merge_kernel", "qk_gram_",
+                "qk_plan_", "qk_adapt_kernel", "qk_onehot_")
     profiles = {}
     for path, (stream, *_) in paths.items():
         set_strategy(path)
@@ -1524,7 +1714,7 @@ def smoke(dev, card: str, args) -> int:
         print(f"where ({path}): profiled run {wall:.3f} s wall, device busy {busy:.4f} s, "
               f"idle share of the warm median {med:.3f} s: "
               f"{'not measured' if busy == 0 else round(1 - busy / med, 4)}")
-    os.environ.pop("QK_KERNEL_STRATEGY", None)
+    set_strategy()
     report["profiles"] = profiles
 
     # the calls the Q3 paths make: counts per query and the largest arguments
@@ -1545,7 +1735,7 @@ def smoke(dev, card: str, args) -> int:
 
     def targets(sorted_path):
         t = {"K3": (hashtable, "hash_groupby", lambda l, a, o, v: v.shape[0]),
-             "K4": (kernels, "partition_split", lambda l, p, v, n: v.shape[0]),
+             "K4": (kernels, "partition_split", lambda l, p, v, n, masks=True: v.shape[0]),
              "K5": (fuse.PreAggCall, "__init__", lambda self, *a: a[4].shape[0]),
              "row 7 gather": (join, "gather_columns", gather_rows),
              "row 8 concat": (bridge, "concat_batches", rows_of),
@@ -1568,7 +1758,7 @@ def smoke(dev, card: str, args) -> int:
             collect_numpy(q3_stream(), path)
         caps[path] = cap
         print(f"{path} calls per query: {cap.calls}")
-    os.environ.pop("QK_KERNEL_STRATEGY", None)
+    set_strategy()
     report["q3_calls"] = {p: c.calls for p, c in caps.items()}
     hcap, scap = caps["q3"], caps["q3 sort"]
 
@@ -1609,7 +1799,7 @@ def smoke(dev, card: str, args) -> int:
             collect_numpy(paths[path][0](), path)
         s4[path] = cap
         print(f"{path} calls per query: {cap.calls}")
-    os.environ.pop("QK_KERNEL_STRATEGY", None)
+    set_strategy()
     report["slice4_calls"] = {p: c.calls for p, c in s4.items()}
 
     # the calls the vector tier makes: the largest K21 and K22 calls
@@ -1623,6 +1813,23 @@ def smoke(dev, card: str, args) -> int:
         s5[path] = cap
         print(f"{path} calls per query: {cap.calls}")
     report["slice5_calls"] = {p: c.calls for p, c in s5.items()}
+
+    # the calls the slice-6 paths make: K17's largest plan on Q3 compacted,
+    # K26's largest split on the skew join, K6's largest call on Q1 sort
+    s6 = {}
+    for path, tg in (
+            ("q3 compacted", {"K17": (kernels, "partition_plan", lambda p, v, n: v.shape[0])}),
+            ("skewjoin", {"K26": (kernels, "adapt_split",
+                                  lambda l, p, v, n, f, m, masks=True:
+                                  (l[0] if l else p).shape[0])}),
+            ("q1 sort", {"K6": (fuse, "onehot_agg", lambda fc, ic, co, st, g, v: v.shape[0])})):
+        set_strategy(path)
+        with Capture(tg) as cap:
+            collect_numpy(paths[path][0](), path)
+        s6[path] = cap
+        print(f"{path} calls per query: {cap.calls}")
+    set_strategy()
+    report["slice6_calls"] = {p: c.calls for p, c in s6.items()}
 
     # -- phase 6: every kernel against its plain version -----------------------------
     out, t_rows = [], []
@@ -2362,6 +2569,127 @@ def smoke(dev, card: str, args) -> int:
         device_us=device_us(lambda: lops.gramian_cuda(*k22_a), ("qk_gram_",)),
         per_query={p: launches_by_path[p]["K22"] for p in ("gramian", "covariance")}))
     del a22, lib22
+
+    # K17 at Q3 compacted's largest split; also at 64 parts, with empty parts
+    # and all rows invalid, at the same length
+    (k17_p, k17_v, k17_n), _ = s6["q3 compacted"].args["K17"]
+    k17_cases = (("query shape", k17_p, k17_v, k17_n),
+                 ("64 parts", k17_p * 31 % 64, k17_v, 64),
+                 ("empty parts", torch.where(k17_p == 0, 0, k17_n - 1).to(torch.int32), k17_v,
+                  max(k17_n, 3)),
+                 ("all invalid", k17_p, torch.zeros_like(k17_v), k17_n))
+    for label, p_, v_, n_ in k17_cases:
+        got, want = kernels.partition_plan(p_, v_, n_), kernels.partition_plan_plain(p_, v_, n_)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"K17 {label}: perm / counts / offsets differ from the plain version")
+    n17 = k17_v.shape[0]
+
+    def k17_library():
+        # the yardstick: one stable torch.sort; the port never calls it
+        return torch.sort(torch.where(k17_v, k17_p, k17_n), stable=True).indices
+
+    if not torch.equal(k17_library().to(torch.int32),
+                       kernels.partition_plan(k17_p, k17_v, k17_n)[0]):
+        fail("K17's yardstick torch.sort is not the plan's permutation")
+    print(f"K17: {', '.join(c[0] for c in k17_cases)} ({n17} rows) match the plain version")
+    out.append(dict(
+        name="K17 stable radix partition plan", route="cuda",
+        source="quokka_tpu_torch/csrc/partition.cu", replaces="quokka_tpu/ops/kernels.py:417",
+        launches=launches_by_path["q3 compacted"]["K17"], max_abs_err=0.0,
+        ms=cuda_ms(lambda: kernels.partition_plan(k17_p, k17_v, k17_n)),
+        plain_ms=cuda_ms(lambda: kernels.partition_plan_plain(k17_p, k17_v, k17_n), iters=5),
+        bound_ms=bound_ms(9 * n17 + 8 * k17_n), bound_by="bytes",
+        library_ms=cuda_ms(k17_library), shape=f"q3 compacted: {n17} rows, {k17_n} parts",
+        device_us=device_us(lambda: kernels.partition_plan(k17_p, k17_v, k17_n),
+                            ("qk_plan_",)),
+        per_query={p: launches_by_path[p]["K17"] for p in sorted(compacted_paths)}))
+
+    # K26 at the skew join's largest split (both modes, with and without
+    # masks), and at Q3's largest split shape
+    (k26_l, k26_p, k26_v, k26_n, k26_f, _), _ = s6["skewjoin"].args["K26"]
+
+    def k26_check(label, limbs_, pids_, valid_, n_, fat_):
+        for mode in ("salt", "replicate"):
+            for masks in (True, False):
+                a = kernels.adapt_split(limbs_, pids_, valid_, n_, fat_, mode, masks)
+                b = kernels.adapt_split_plain(limbs_, pids_, valid_, n_, fat_, mode, masks)
+                if not all((x is None and y is None) or torch.equal(x, y) for x, y in zip(a, b)):
+                    fail(f"K26 {label}, {mode}: ids / masks / counts differ from the plain "
+                         "version")
+
+    k26_check("skew join", k26_l, k26_p, k26_v, k26_n, k26_f)
+    k26_check("Q3 largest split", q3_l4, None, q3_v4, q3_n4, q3_n4 - 1)
+    k26_check("Q3 largest split, 7 parts", q3_l4, None, q3_v4, 7, 3)
+    print("K26: the skew join's and Q3's largest splits, salt and replicate, match the "
+          "plain version")
+
+    def k26_bytes(limbs_, valid_, n_):
+        m = valid_.shape[0]
+        return nbytes(*limbs_, valid_) + m * (4 + n_) + 4 * n_
+
+    def k26_call(limbs_, pids_, valid_, n_, fat_, mode="salt"):
+        return lambda: kernels.adapt_split(limbs_, pids_, valid_, n_, fat_, mode)
+
+    out.append(dict(
+        name="K26 adaptive split (salt / replicate)", route="cuda",
+        source="quokka_tpu_torch/csrc/partition.cu", replaces="quokka_tpu/planner/adapt.py:57",
+        launches=launches_by_path["skewjoin"]["K26"], max_abs_err=0.0,
+        ms=cuda_ms(k26_call(k26_l, k26_p, k26_v, k26_n, k26_f)),
+        plain_ms=cuda_ms(lambda: kernels.adapt_split_plain(k26_l, k26_p, k26_v, k26_n, k26_f,
+                                                           "salt")),
+        bound_ms=bound_ms(k26_bytes(k26_l, k26_v, k26_n)), bound_by="bytes", library_ms=None,
+        shape=f"skewjoin: {k26_v.shape[0]} rows, {len(k26_l)} limbs, {k26_n} parts, salt",
+        device_us=device_us(k26_call(k26_l, k26_p, k26_v, k26_n, k26_f), ("qk_adapt_kernel",)),
+        per_query={p: launches_by_path[p]["K26"] for p in ("skewjoin", "skewjoin static")},
+        q3={"shape": f"{q3_v4.shape[0]} rows, {len(q3_l4)} limbs, {q3_n4} parts, replicate",
+            "launches": launches_by_path["q3"]["K26"],
+            "ms": cuda_ms(k26_call(q3_l4, None, q3_v4, q3_n4, q3_n4 - 1, "replicate")),
+            "plain_ms": cuda_ms(lambda: kernels.adapt_split_plain(
+                q3_l4, None, q3_v4, q3_n4, q3_n4 - 1, "replicate")),
+            "device_us": device_us(k26_call(q3_l4, None, q3_v4, q3_n4, q3_n4 - 1, "replicate"),
+                                   ("qk_adapt_kernel",)),
+            "bound_ms": bound_ms(k26_bytes(q3_l4, q3_v4, q3_n4))}))
+
+    # K6 at Q1 sort's largest call (the Q1 batch after K1 and K5)
+    (k6_a, _) = s6["q1 sort"].args["K6"]
+    k6_fc, k6_ic, k6_co, k6_st, k6_g, k6_v = k6_a
+    got6, want6 = fuse.onehot_agg_cuda(*k6_a), fuse.onehot_agg_plain(*k6_a)
+    if not (torch.equal(got6[1], want6[1]) and torch.equal(got6[2], want6[2])
+            and torch.equal(got6[3], want6[3])):
+        fail("K6 counts / integer sums / smallest rows differ from the plain version")
+    if not (torch.equal(torch.isnan(got6[0]), torch.isnan(want6[0]))
+            and torch.allclose(got6[0], want6[0], rtol=1e-9, atol=0, equal_nan=True)):
+        fail("K6 float sums beyond rtol 1e-9 of the plain version")
+    fin6 = ~torch.isnan(want6[0])
+    err6 = float((got6[0] - want6[0])[fin6].abs().max()) if bool(fin6.any()) else 0.0
+    # the yardstick: one float64 torch.mm(onehot.T, stacked) over the
+    # [n, G + 1] one-hot and the masked columns with validity last, built
+    # outside the timing (the reference's matmul); the port never calls it
+    gid6 = fuse._bucket_ids(k6_co, k6_st, k6_v, k6_g)
+    onehot6 = (gid6[:, None] == torch.arange(k6_g + 1, device=dev)[None, :]).to(torch.float64)
+    stacked6 = torch.stack([torch.where(k6_v, c, torch.zeros((), dtype=c.dtype, device=dev))
+                            for c in k6_fc] + [k6_v.to(torch.float64)], 1)
+    lib6 = torch.mm(onehot6.T, stacked6)[:k6_g]
+    if not (torch.allclose(lib6[:, :-1].T, want6[0], rtol=1e-9, atol=0, equal_nan=True)
+            and torch.equal(lib6[:, -1].to(torch.int32), want6[2])):
+        fail("K6's yardstick torch.mm(onehot.T, stacked) is not the plain version's function")
+    n6 = k6_v.shape[0]
+    print(f"K6 Q1 sort: {n6} rows, {k6_g + 1} buckets, {len(k6_fc)} float and {len(k6_ic)} "
+          f"integer columns: match the plain version (max abs err {err6})")
+    out.append(dict(
+        name="K6 one-hot small-key partial aggregate", route="cuda",
+        source="quokka_tpu_torch/csrc/onehot.cu", replaces="quokka_tpu/ops/fuse.py:367",
+        launches=launches_by_path["q1 sort"]["K6"], max_abs_err=err6,
+        ms=cuda_ms(lambda: fuse.onehot_agg_cuda(*k6_a)),
+        plain_ms=cuda_ms(lambda: fuse.onehot_agg_plain(*k6_a)),
+        bound_ms=bound_ms(nbytes(*k6_fc, *k6_ic, *k6_co, k6_v)
+                          + k6_g * (8 * (len(k6_fc) + len(k6_ic)) + 12)),
+        bound_by="bytes", library_ms=cuda_ms(lambda: torch.mm(onehot6.T, stacked6)),
+        shape=f"q1 sort: {n6} rows, {k6_g + 1} buckets, {len(k6_fc)} float + {len(k6_ic)} "
+              "integer columns",
+        device_us=device_us(lambda: fuse.onehot_agg_cuda(*k6_a), ("qk_onehot_",)),
+        per_query={p: launches_by_path[p]["K6"] for p in sorted(sort_paths)}))
+    del onehot6, stacked6
 
     # the torch-primitive rows at Q3's shapes: time, device time, bound
     def t_row(row, what, fn, n_bytes, calls, query="q3"):

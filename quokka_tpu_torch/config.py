@@ -9,6 +9,7 @@ torch runs eagerly and the hand-written kernels build on first use
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
@@ -21,6 +22,12 @@ MAX_BUCKET = sigkey.MAX_BUCKET
 # a join channel's build past this many rows would enter the reference's
 # grace-join spill tier, which the port does not carry yet
 SPILL_JOIN_BUILD_ROWS = 1 << 22
+
+# Masked-split cap: a partition split stays in masked-view mode (no host
+# sync, shared column buffers) while n_parts * padded_len is at or below
+# this; past it the compacted split (K17) runs instead.  Read at import, as
+# the reference does: set ``config.SHUFFLE_MASKED_CAP`` to change it later.
+SHUFFLE_MASKED_CAP = int(os.environ.get("QUOKKA_SHUFFLE_MASKED_CAP", 1 << 25))
 
 DEFAULT_EXEC_CONFIG = {
     # batches an executor may consume in one dispatch
@@ -66,3 +73,29 @@ def check_exec_config(exec_config: Optional[dict]) -> None:
             raise NotImplementedError(
                 f"exec_config[{key!r}] needs the fault-tolerance slice, "
                 "which quokka_tpu_torch does not carry yet")
+
+
+def adapt_enabled() -> bool:
+    """``QK_ADAPT=0`` turns the adaptive exchange off: no join is marked
+    eligible (``planner/decide.py``) and the engine's skew trigger never
+    fires.  Read on every call, so one process can run both variants."""
+    return os.environ.get("QK_ADAPT", "1") not in ("0", "false", "no")
+
+
+def adapt_min_rows() -> int:
+    """Rows a join's build edge must have delivered before the skew trigger
+    may fire (``QK_ADAPT_MIN_ROWS``, default 32768)."""
+    try:
+        return int(os.environ.get("QK_ADAPT_MIN_ROWS", 1 << 15))
+    except ValueError:
+        return 1 << 15
+
+
+def skew_ratio_threshold() -> float:
+    """``QK_SKEW_RATIO``: the max / mean ratio of rows per channel at which an
+    exchange counts as skewed (default 2.0, at least 1.0); the reference
+    keeps it in ``obs/opstats.py``."""
+    try:
+        return max(1.0, float(os.environ.get("QK_SKEW_RATIO", 2.0)))
+    except ValueError:
+        return 2.0

@@ -362,6 +362,10 @@ class JoinNode(Node):
         # when the optimizer prunes the clashing probe column)
         self.rename = rename
         self.build_parents = [1]
+        # planner/decide.plan_adaptive_exchanges: this join's build edge may
+        # be salted mid-query when the engine observes partition skew
+        # (inner, non-broadcast, unordered joins only)
+        self.adapt_salt = False
 
     def derive_schema(self, parents):
         _require(self.left_on, parents[0], "join left keys")
@@ -396,6 +400,9 @@ class JoinNode(Node):
             {0: (actor_of[self.parents[0]], self.probe_edge()),
              1: (actor_of[self.parents[1]], self.build_edge())},
             self.channels or ctx.exec_channels, self.stage)
+        if not self.broadcast and self.adapt_salt:
+            graph.adapt_edges[(actor_of[self.parents[1]], actor_of[node_id])] = {
+                "probe_src": actor_of[self.parents[0]]}
 
     def describe(self):
         k = "BroadcastJoin" if self.broadcast else "HashJoin"
@@ -487,6 +494,12 @@ class FusedStageNode(Node):
         fused = graph.new_exec_node(
             functools.partial(FusedStageExecutor, StageSpec(steps, routing)),
             sources, self.channels or ctx.exec_channels, self.stage)
+        # fuse_stages admits a non-broadcast hash join only at the chain head;
+        # its build is the fused actor's stream 1, so the adaptive-exchange
+        # mark survives fusion as an edge of the fused actor
+        if (isinstance(head, JoinNode) and not head.broadcast and head.adapt_salt
+                and 1 in sources):
+            graph.adapt_edges[(sources[1][0], fused)] = {"probe_src": sources[0][0]}
         actor_of[node_id] = fused if agg is None else agg.lower_final(
             ctx, graph, fused, self.channels, self.stage)
 

@@ -38,16 +38,29 @@ serves here for the reason it serves K1: a fused elementwise pass over a
 few columns, known only at query time, with no reuse across rows for shared
 memory or tensor cores to exploit.
 
+Kernel K6, the one-hot small-key partial aggregate (``csrc/onehot.cu``):
+under ``groupby=sort`` the small-key path is the reference's matmul
+strategy (``_build_small``, ``use_tables=False``) instead of K2.  K5
+evaluates the pre-expressions; K6 then reduces the columns by bucket
+(a stable counting sort of each 256-row chunk in shared memory, then each
+bucket's rows in row order, block partials reduced in block order): float64
+sums, exact integer sums, int32 counts and the smallest row of each bucket.  It takes a batch only where the
+reference's gate admits the one-hot: at most 256 buckets and
+``padded_len * buckets * 8`` bytes at most 512 MiB; other batches take the
+general path, whose group-by is then the sort group-by (row 10).
+
 Each kernel has a plain torch version beside it (``predicate_plain``,
-``small_agg_plain``, ``pre_exprs_plain``), taken only when the batch lies
-on the CPU.  Both the CPU and the CUDA route generate the kernel source
-first, so an expression outside the generator's subset is found on either
-device: a CPU batch then takes the unfused path, as the reference falls
-back when its prepass raises ``CompileError``, and a CUDA batch raises.
+``small_agg_plain``, ``pre_exprs_plain``, ``onehot_agg_plain``), taken
+only when the batch lies on the CPU.  Both the CPU and the CUDA route
+generate the kernel source first, so an expression outside the
+generator's subset is found on either device: a CPU batch then takes the
+unfused path, as the reference falls back when its prepass raises
+``CompileError``, and a CUDA batch raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import hashlib
 import importlib.util
@@ -72,16 +85,17 @@ from quokka_tpu_torch.expression import (
     UnaryOp,
     _rebuild,
 )
-from quokka_tpu_torch.ops import expr_compile, kernels, native, sigkey
+from quokka_tpu_torch.ops import expr_compile, kernels, native, sigkey, strategy
 from quokka_tpu_torch.ops.batch import DeviceBatch, NumCol, StrCol, gather_columns
 from quokka_tpu_torch.ops.bridge import pad_tail
 
-# launch counters of the three Triton kernels, and of the unfused fallbacks
-# (a predicate or partial aggregate whose expression left the generator's
-# subset); the smoke runs require the fallbacks to stay at 0
+# launch counters of the three Triton kernels and of K6, and of the unfused
+# fallbacks (a predicate or partial aggregate whose expression left the
+# generator's subset); the smoke runs require the fallbacks to stay at 0
 PREDICATE_LAUNCHES = 0
 SMALL_AGG_LAUNCHES = 0
 PRE_AGG_LAUNCHES = 0
+ONEHOT_LAUNCHES = 0
 FALLBACKS = 0
 
 
@@ -620,15 +634,127 @@ class PreAggCall:
                                 self.out_dtypes)
 
 
+# ---------------------------------------------------------------------------
+# K6: the one-hot small-key partial aggregate (groupby=sort)
+# ---------------------------------------------------------------------------
+
+# the reference's one-hot gate: the n x buckets operand in float64
+_SMALL_GROUPBY_MAX_BYTES = 512 << 20
+_ONEHOT_MAX_COLUMNS = 32
+_ONEHOT_MAX_KEYS = 8
+
+
+def _bucket_ids(codes: List[torch.Tensor], strides: Tuple[int, ...], valid: torch.Tensor,
+                n_groups: int) -> torch.Tensor:
+    gid = torch.zeros(valid.shape[0], dtype=torch.int64, device=valid.device)
+    for c, st in zip(codes, strides):
+        gid = gid + (c.to(torch.int64) + 1) * st
+    return torch.where(valid, gid, torch.full_like(gid, n_groups))
+
+
+def onehot_agg_plain(fcols: List[torch.Tensor], icols: List[torch.Tensor],
+                     codes: List[torch.Tensor], strides: Tuple[int, ...], n_groups: int,
+                     valid: torch.Tensor):
+    """Plain version of K6: (float64 sums [nf, G], int64 sums [ni, G], counts
+    [G] int32, smallest row [G] int64, n where empty).  Invalid rows go to a
+    dump bucket that no output reads."""
+    n = valid.shape[0]
+    dev = valid.device
+    gid = _bucket_ids(codes, strides, valid, n_groups)
+    iota = torch.arange(n, dtype=torch.int64, device=dev)
+    rep = torch.full((n_groups + 1,), n, dtype=torch.int64, device=dev).scatter_reduce(
+        0, gid, iota, reduce="amin")[:n_groups]
+
+    def sums(x):
+        return torch.zeros(n_groups + 1, dtype=x.dtype, device=dev).index_add_(0, gid, x)[:n_groups]
+
+    zf = torch.zeros((), dtype=torch.float64, device=dev)
+    fs = torch.stack([sums(torch.where(valid, c, zf)) for c in fcols]) if fcols else \
+        torch.zeros((0, n_groups), dtype=torch.float64, device=dev)
+    zi = torch.zeros((), dtype=torch.int64, device=dev)
+    is_ = torch.stack([sums(torch.where(valid, c, zi)) for c in icols]) if icols else \
+        torch.zeros((0, n_groups), dtype=torch.int64, device=dev)
+    counts = sums(valid.to(torch.int64)).to(torch.int32)
+    return fs, is_, counts, rep
+
+
+def _onehot_lib():
+    lib = native.library("onehot")
+    if not getattr(lib, "qk_bound", False):
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.qk_onehot_agg.argtypes = [ctypes.POINTER(P), I, ctypes.POINTER(P), I,
+                                      ctypes.POINTER(P), ctypes.POINTER(I), I, P, L, I, I,
+                                      P, P, P, P, P, P]
+        lib.qk_onehot_agg.restype = I
+        lib.qk_bound = True
+    return lib
+
+
+def onehot_agg_cuda(fcols: List[torch.Tensor], icols: List[torch.Tensor],
+                    codes: List[torch.Tensor], strides: Tuple[int, ...], n_groups: int,
+                    valid: torch.Tensor):
+    """Launch K6 (both passes) on CUDA tensors; the plain version's outputs."""
+    global ONEHOT_LAUNCHES
+    dev = valid.device
+    n = valid.shape[0]
+    if dev.type != "cuda":
+        raise RuntimeError(f"onehot_agg: unsupported device {dev}")
+    fcols = [c.contiguous() for c in fcols]
+    icols = [c.contiguous() for c in icols]
+    codes = [c.contiguous() for c in codes]
+    for c, dt in [(c, torch.float64) for c in fcols] + [(c, torch.int64) for c in icols] + \
+            [(c, torch.int32) for c in codes]:
+        if c.dtype != dt or c.shape != (n,) or c.device != dev:
+            raise TypeError(f"onehot_agg: column {c.dtype} {tuple(c.shape)} on {c.device}, "
+                            f"expected {dt} [{n}] on {dev}")
+    if len(fcols) + len(icols) > _ONEHOT_MAX_COLUMNS or not 1 <= len(codes) <= _ONEHOT_MAX_KEYS:
+        raise ValueError(f"onehot_agg: {len(fcols) + len(icols)} columns and {len(codes)} keys;"
+                         f" K6 takes at most {_ONEHOT_MAX_COLUMNS} and 1 to {_ONEHOT_MAX_KEYS}")
+    if not 1 <= n_groups < _SMALL_GROUPBY_MAX_BUCKETS or n < 1:
+        raise ValueError(f"onehot_agg: {n_groups} groups over {n} rows")
+    nf, ni = len(fcols), len(icols)
+    entries = n_groups * (nf + ni + 2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # eight blocks an SM keep the chunks' loads in flight
+    blocks = max(1, min(8 * sms, -(-n // 256)))
+    partial = torch.empty((blocks, entries), dtype=torch.float64, device=dev)
+    fs = torch.empty((nf, n_groups), dtype=torch.float64, device=dev)
+    is_ = torch.empty((ni, n_groups), dtype=torch.int64, device=dev)
+    counts = torch.empty(n_groups, dtype=torch.int32, device=dev)
+    rep = torch.empty(n_groups, dtype=torch.int64, device=dev)
+    native.check(_onehot_lib().qk_onehot_agg(
+        native.ptr_array([c.data_ptr() for c in fcols]), nf,
+        native.ptr_array([c.data_ptr() for c in icols]), ni,
+        native.ptr_array([c.data_ptr() for c in codes]), native.int_array(list(strides)),
+        len(codes), valid.contiguous().view(torch.uint8).data_ptr(), n, n_groups, blocks,
+        partial.data_ptr(), fs.data_ptr(), is_.data_ptr(), counts.data_ptr(), rep.data_ptr(),
+        native.stream_ptr(dev)), "qk_onehot_agg")
+    ONEHOT_LAUNCHES += 1
+    return fs, is_, counts, rep
+
+
+def onehot_agg(fcols: List[torch.Tensor], icols: List[torch.Tensor], codes: List[torch.Tensor],
+               strides: Tuple[int, ...], n_groups: int, valid: torch.Tensor):
+    """K6: per-bucket float64 sums, exact int64 sums, int32 counts and the
+    smallest row id.  CUDA tensors launch the kernel; CPU tensors take the
+    plain version."""
+    if valid.device.type == "cpu":
+        return onehot_agg_plain(fcols, icols, codes, strides, n_groups, valid)
+    return onehot_agg_cuda(fcols, icols, codes, strides, n_groups, valid)
+
+
 class FusedPartialAgg:
     """Per-batch partial group-by aggregate.
 
-    Small-key path (K2): every key is a dictionary string, the plan has only
+    Small-key path: every key is a dictionary string, the plan has only
     sum/count partials and the product of dictionary sizes is small (TPC-H
-    Q1: returnflag x linestatus).  The output is a 256-row bucket.  Other
-    shapes take the general path: the pre-expressions in one kernel (K5),
-    then the hash group-by (K3), as the reference's general fused program
-    does."""
+    Q1: returnflag x linestatus).  Under the default ``groupby=hashtable`` it
+    is K2 (the reference's scatter strategy); under ``groupby=sort`` it is
+    K5 then K6 (its one-hot matmul), where the one-hot fits the reference's
+    512 MiB gate.  The output is a 256-row bucket.  Other shapes take the
+    general path: the pre-expressions in one kernel (K5), then the group-by
+    the strategy picks (K3, or row 10's sort group-by), as the reference's
+    general fused program does."""
 
     def __init__(self, keys: List[str], plan):
         self.keys = keys
@@ -636,7 +762,12 @@ class FusedPartialAgg:
         self._kernels: Dict[Tuple, _SmallAggKernel] = {}
         self._pre_kernels: Dict[Tuple, Tuple[_PreAggKernel, List[torch.dtype]]] = {}
 
-    def _small_dims(self, batch: DeviceBatch) -> Optional[Tuple[int, ...]]:
+    def _small_dims(self, batch: DeviceBatch,
+                    use_tables: bool = True) -> Optional[Tuple[int, ...]]:
+        """Per-key bucket counts (dictionary size + a null slot, to the next
+        power of two) when the small-key path applies, else None.  The
+        one-hot (``use_tables`` False) also needs its n x buckets float64
+        operand within 512 MiB, as in the reference."""
         if not self.keys:
             return None
         if not all(isinstance(batch.columns[k], StrCol) for k in self.keys):
@@ -645,9 +776,20 @@ class FusedPartialAgg:
             return None
         dims = tuple(sigkey.pow2_dim(len(batch.columns[k].dictionary.values) + 1)
                      for k in self.keys)
-        if int(np.prod(dims)) + 1 > _SMALL_GROUPBY_MAX_BUCKETS:
+        n_buckets = int(np.prod(dims)) + 1
+        if n_buckets > _SMALL_GROUPBY_MAX_BUCKETS:
+            return None
+        if not use_tables and batch.padded_len * n_buckets * 8 > _SMALL_GROUPBY_MAX_BYTES:
             return None
         return dims
+
+    @staticmethod
+    def _strides(dims: Tuple[int, ...]) -> Tuple[int, ...]:
+        strides, s = [], 1
+        for d in reversed(dims):
+            strides.append(s)
+            s *= d
+        return tuple(reversed(strides))
 
     def _pre_inputs(self, batch: DeviceBatch):
         pre = Prepass(batch)
@@ -674,11 +816,7 @@ class FusedPartialAgg:
             return None
         pre_exprs, inputs = self._pre_inputs(batch)
         n_groups = int(np.prod(dims))
-        strides, s = [], 1
-        for d in reversed(dims):
-            strides.append(s)
-            s *= d
-        strides = tuple(reversed(strides))
+        strides = self._strides(dims)
         cols = [(n, t.dtype) for n, t in inputs.items()]
         sig = (tuple((k, e.sql()) for k, e in pre_exprs.items()), tuple(cols), dims)
         kern = self._kernels.get(sig)
@@ -691,14 +829,23 @@ class FusedPartialAgg:
                          batch.valid, strides, n_groups)
 
     def __call__(self, batch: DeviceBatch) -> DeviceBatch:
-        if self.keys:
-            kernels.require_hash_groupby()  # K2 is the hashtable row's variant
-        call = self.prepare_small(batch)
-        if call is None:
-            return self._general(batch)
-        sums, rep_b = call.plain() if batch.device.type == "cpu" else call.launch()
+        pick = strategy.choice("groupby")
+        if pick == "sort":
+            dims = self._small_dims(batch, use_tables=False)
+            if dims is None:
+                return self._general(batch)
+            strategy.note_used("groupby", "sort")
+            sums, rep_b = self._onehot(batch, dims)
+            n_groups = int(np.prod(dims))
+        else:
+            call = self.prepare_small(batch)
+            if call is None:
+                return self._general(batch)
+            strategy.note_used("groupby", "hashtable")
+            sums, rep_b = call.plain() if batch.device.type == "cpu" else call.launch()
+            n_groups = call.n_groups
+        # live buckets first, in bucket order, padded to a 256-row bucket
         n = batch.padded_len
-        n_groups = call.n_groups
         live = rep_b < n
         num = live.sum(dtype=torch.int32)
         bidx = torch.arange(n_groups, device=batch.device)
@@ -707,6 +854,31 @@ class FusedPartialAgg:
         outs = [pad_tail(x[order], out_pad) for x in sums]
         rep = pad_tail(torch.clamp(rep_b[order], max=n - 1), out_pad)
         return self._assemble(batch, outs, rep, num, out_pad)
+
+    def _onehot(self, batch: DeviceBatch, dims: Tuple[int, ...]):
+        """The one-hot small-key aggregate (K5's pre-expressions, then K6):
+        per-partial bucket arrays [G] and the smallest row of each bucket."""
+        call = self.prepare_general(batch)
+        pre = call.plain() if batch.device.type == "cpu" else call.launch()
+        by_tmp = dict(zip(call.outs, pre))
+        fcols, icols, slots = [], [], []
+        for _pname, op, tmp in self.plan.partials:
+            if op == "count":
+                slots.append(("c", 0))
+            elif by_tmp[tmp].is_floating_point():
+                slots.append(("f", len(fcols)))
+                fcols.append(by_tmp[tmp].to(torch.float64))
+            else:
+                # summed exactly in int64, returned in the column's own type
+                # (an int32 sum wraps as the reference's segment sum does)
+                slots.append(("i", len(icols), by_tmp[tmp].dtype))
+                icols.append(by_tmp[tmp].to(torch.int64))
+        codes = [batch.columns[k].codes for k in self.keys]
+        fs, is_, counts, rep_b = onehot_agg(fcols, icols, codes, self._strides(dims),
+                                            int(np.prod(dims)), batch.valid)
+        sums = [counts if slot[0] == "c" else fs[slot[1]] if slot[0] == "f"
+                else is_[slot[1]].to(slot[2]) for slot in slots]
+        return sums, rep_b
 
     def prepare_general(self, batch: DeviceBatch) -> PreAggCall:
         """The K5 call of this batch (general path)."""

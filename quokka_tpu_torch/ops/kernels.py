@@ -1,11 +1,18 @@
 """Relational kernels over DeviceBatch (PyTorch port of ``quokka_tpu/ops/kernels.py``).
 
-Kernel K4 lives here: hash partition + split (``csrc/partition.cu``), which
-replaces the reference's ``_partition_ids`` and ``_split_masks`` with one
+Kernels K4, K17 and K26 live here (``csrc/partition.cu``).  K4, hash
+partition + split, replaces the reference's ``_partition_ids`` and
+``_split_masks`` with one launch.  K17, the compacted split's plan,
+replaces ``_partition_plan``: a stable permutation grouping rows by part,
+with each part's count and offset; every part is then a window of it
+(``_part_window``, a slice and an ``arange < count`` mask, torch ops) and
+one row gather.  K26 routes an adapted exchange (``planner/adapt.py``):
+hash, then salt or replicate the fat partition, masks and counts, in one
 launch.  Masking, compaction, sorting and the group-by wrappers are single
 torch primitives (nonzero, gather, stable sort) around the hand-written
-kernels; group-by goes to the hash table (K3), the GPU row of the
-reference's strategy matrix (``ops/strategy``).
+kernels; group-by goes to the hash table (K3), the default of the
+reference's strategy matrix (``ops/strategy``), or to the sort group-by
+under ``groupby=sort``.
 
 PERF.md row 10, ``dense_rank`` and ``sorted_groupby``, is torch primitives
 (T): stable sorts on integer order keys, a run test, a cumsum and a
@@ -29,9 +36,17 @@ from quokka_tpu_torch.ops.batch import DeviceBatch, NumCol, StrCol, gather_colum
 from quokka_tpu_torch.ops.hashtable import _max_sentinel as max_sentinel
 from quokka_tpu_torch.ops.hashtable import _min_sentinel as min_sentinel
 
-# launches of the K4 CUDA kernel
+# launches of the K4, K17 and K26 CUDA kernels
 PARTITION_LAUNCHES = 0
+PLAN_LAUNCHES = 0
+ADAPT_LAUNCHES = 0
+# blocking host reads of split counts on the shuffle path (one per
+# compacted split; the masked split reads none), the reference's
+# ``shuffle.host_syncs``
+SHUFFLE_HOST_SYNCS = 0
 MAX_PARTS = 64
+# rows each block of K17 owns (csrc/partition.cu QK_PLAN_TILE)
+_PLAN_TILE = 4096
 
 # ---------------------------------------------------------------------------
 # masking / compaction
@@ -69,22 +84,15 @@ def compact_if_large(batch: DeviceBatch, threshold: int = 1 << 16) -> DeviceBatc
 # group-by aggregate
 # ---------------------------------------------------------------------------
 
-def require_hash_groupby() -> None:
-    """A forced ``groupby=sort`` strategy is refused: its small-key variant,
-    the one-hot matmul partial aggregate (Queue 2 row 6), is not ported.
-    The sort group-by itself runs as K3's non-convergence fallback."""
-    if strategy.choice("groupby") != "hashtable":
-        raise NotImplementedError(
-            "groupby=sort (the one-hot small-key partial aggregate) is not in "
-            "quokka_tpu_torch yet: ROADMAP Queue 2 row 6")
-
-
 def groupby_limbs(limbs: Sequence[torch.Tensor], arrays: Sequence[torch.Tensor],
                   ops: Sequence[str], valid: torch.Tensor):
-    """Group rows by key limbs through the hash table (K3), which records
-    the sort group-by when it falls back to it."""
-    require_hash_groupby()
-    return hashtable.hash_groupby(tuple(limbs), tuple(arrays), tuple(ops), valid)
+    """Group rows by key limbs: the strategy matrix picks the hash table
+    (K3, which records the sort group-by when it falls back to it) or the
+    sort group-by (row 10)."""
+    if strategy.choice("groupby") == "hashtable":
+        return hashtable.hash_groupby(tuple(limbs), tuple(arrays), tuple(ops), valid)
+    strategy.note_used("groupby", "sort")
+    return sorted_groupby(limbs, arrays, ops, valid)
 
 
 # ---------------------------------------------------------------------------
@@ -274,11 +282,12 @@ def reduce_array(arr: torch.Tensor, valid: torch.Tensor, op: str) -> torch.Tenso
 
 
 # ---------------------------------------------------------------------------
-# hash partition (shuffle): kernel K4
+# hash partition (shuffle): kernels K4, K17 and K26
 # ---------------------------------------------------------------------------
 
 _LIMB_DT = {torch.float64: 0, torch.float32: 1, torch.int64: 2, torch.int32: 3,
             torch.bool: 4}
+_ADAPT_MODES = {"salt": 1, "replicate": 2}
 
 
 def _to_i32_like_xla(limb: torch.Tensor) -> torch.Tensor:
@@ -287,24 +296,32 @@ def _to_i32_like_xla(limb: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, -(2**31), 2**31 - 1).to(torch.int32)
 
 
-def partition_split_plain(limbs: Sequence[torch.Tensor], pids: Optional[torch.Tensor],
-                          valid: torch.Tensor, n_parts: int):
-    """Plain version of K4: (part ids, masks [n_parts, n], counts [n_parts]).
+def _hash_pids_plain(limbs: Sequence[torch.Tensor], n_parts: int) -> torch.Tensor:
+    """The reference's multiply-xorshift hash of the key limbs, mod n_parts;
     uint32 arithmetic is emulated in int64, masked after every multiply."""
+    h = torch.zeros(limbs[0].shape[0], dtype=torch.int64, device=limbs[0].device)
+    for limb in limbs:
+        if limb.is_floating_point():
+            limb = _to_i32_like_xla(limb)
+        u = limb.to(torch.int64) & 0xFFFFFFFF
+        h = (h * 0x9E3779B1 + u) & 0xFFFFFFFF
+        h = h ^ (h >> 16)
+        h = (h * 0x85EBCA6B) & 0xFFFFFFFF
+        h = h ^ (h >> 13)
+    return (h % n_parts).to(torch.int32)
+
+
+def partition_split_plain(limbs: Sequence[torch.Tensor], pids: Optional[torch.Tensor],
+                          valid: torch.Tensor, n_parts: int, masks: bool = True):
+    """Plain version of K4: (part ids, masks [n_parts, n], counts [n_parts]),
+    the last two None when ``masks`` is False."""
     if limbs:
-        h = torch.zeros(valid.shape[0], dtype=torch.int64, device=valid.device)
-        for limb in limbs:
-            if limb.is_floating_point():
-                limb = _to_i32_like_xla(limb)
-            u = limb.to(torch.int64) & 0xFFFFFFFF
-            h = (h * 0x9E3779B1 + u) & 0xFFFFFFFF
-            h = h ^ (h >> 16)
-            h = (h * 0x85EBCA6B) & 0xFFFFFFFF
-            h = h ^ (h >> 13)
-        pids = (h % n_parts).to(torch.int32)
+        pids = _hash_pids_plain(limbs, n_parts)
+    if not masks:
+        return pids, None, None
     parts = torch.arange(n_parts, dtype=torch.int32, device=valid.device)
-    masks = (pids[None, :] == parts[:, None]) & valid[None, :]
-    return pids, masks, masks.sum(dim=1, dtype=torch.int32)
+    m = (pids[None, :] == parts[:, None]) & valid[None, :]
+    return pids, m, m.sum(dim=1, dtype=torch.int32)
 
 
 def _partition_lib():
@@ -314,84 +331,255 @@ def _partition_lib():
         lib.qk_partition_split.argtypes = [
             ctypes.POINTER(P), ctypes.POINTER(I), I, P, P, L, I, P, P, P, P]
         lib.qk_partition_split.restype = I
+        lib.qk_adapt_split.argtypes = [
+            ctypes.POINTER(P), ctypes.POINTER(I), I, P, P, L, I, I, I, P, P, P, P]
+        lib.qk_adapt_split.restype = I
+        lib.qk_partition_plan.argtypes = [P, P, L, I, I, P, P, P, P, P]
+        lib.qk_partition_plan.restype = I
         lib.qk_bound = True
     return lib
 
 
-def partition_split(limbs: Sequence[torch.Tensor], pids: Optional[torch.Tensor],
-                    valid: torch.Tensor, n_parts: int):
-    """K4: route rows by the hash of ``limbs`` (or by given ``pids`` when
-    ``limbs`` is empty) and return (part ids, masks [n_parts, n] bool,
-    counts [n_parts] int32).  CUDA tensors launch the kernel; CPU tensors
-    take the plain version."""
+def _split_args(what: str, limbs, pids, dev, n: int, n_parts: int):
+    """Checked kernel arguments of K4 / K26: (limbs, the given ids or None)."""
     if not 1 <= n_parts <= MAX_PARTS:
         raise ValueError(f"n_parts must be in [1, {MAX_PARTS}], got {n_parts}")
-    if valid.device.type == "cpu":
-        return partition_split_plain(limbs, pids, valid, n_parts)
-    if valid.device.type != "cuda":
-        raise RuntimeError(f"partition_split: unsupported device {valid.device}")
-    global PARTITION_LAUNCHES
-    lib = _partition_lib()
-    dev = valid.device
-    n = valid.shape[0]
+    if dev.type != "cuda":
+        raise RuntimeError(f"{what}: unsupported device {dev}")
     limbs = [l.contiguous() for l in limbs]
     for l in limbs:
         if l.dtype not in _LIMB_DT or l.device != dev or l.shape[0] != n:
-            raise TypeError(f"partition_split: unsupported limb {l.dtype} "
+            raise TypeError(f"{what}: unsupported limb {l.dtype} "
                             f"{tuple(l.shape)} on {l.device}")
     if len(limbs) > 16:
-        raise ValueError("partition_split: at most 16 key limbs")
-    if not limbs:
-        if pids is None:
-            raise ValueError("partition_split needs limbs or part ids")
-        pids_in = pids.to(torch.int32).contiguous()
-        pids_out = pids_in
-        out_ptr = None
-    else:
-        pids_in = None
-        pids_out = torch.empty(n, dtype=torch.int32, device=dev)
-        out_ptr = pids_out.data_ptr()
-    masks = torch.empty((n_parts, n), dtype=torch.bool, device=dev)
-    counts = torch.zeros(n_parts, dtype=torch.int32, device=dev)
-    native.check(lib.qk_partition_split(
+        raise ValueError(f"{what}: at most 16 key limbs")
+    if limbs:
+        return limbs, None
+    if pids is None:
+        raise ValueError(f"{what} needs limbs or part ids")
+    if pids.device != dev or pids.shape != (n,):
+        raise TypeError(f"{what}: part ids {tuple(pids.shape)} on {pids.device}")
+    return limbs, pids.to(torch.int32).contiguous()
+
+
+def partition_split(limbs: Sequence[torch.Tensor], pids: Optional[torch.Tensor],
+                    valid: torch.Tensor, n_parts: int, masks: bool = True):
+    """K4: route rows by the hash of ``limbs`` (or by given ``pids`` when
+    ``limbs`` is empty) and return (part ids, masks [n_parts, n] bool,
+    counts [n_parts] int32); with ``masks`` False only the ids are written.
+    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    if not 1 <= n_parts <= MAX_PARTS:
+        raise ValueError(f"n_parts must be in [1, {MAX_PARTS}], got {n_parts}")
+    if valid.device.type == "cpu":
+        return partition_split_plain(limbs, pids, valid, n_parts, masks)
+    global PARTITION_LAUNCHES
+    dev = valid.device
+    n = valid.shape[0]
+    limbs, pids_in = _split_args("partition_split", limbs, pids, dev, n, n_parts)
+    pids_out = pids_in if pids_in is not None else torch.empty(n, dtype=torch.int32, device=dev)
+    m = torch.empty((n_parts, n), dtype=torch.bool, device=dev) if masks else None
+    counts = torch.zeros(n_parts, dtype=torch.int32, device=dev) if masks else None
+    native.check(_partition_lib().qk_partition_split(
         native.ptr_array([l.data_ptr() for l in limbs]),
         native.int_array([_LIMB_DT[l.dtype] for l in limbs]), len(limbs),
         None if pids_in is None else pids_in.data_ptr(),
-        valid.contiguous().view(torch.uint8).data_ptr(), n, n_parts, out_ptr,
-        masks.data_ptr(), counts.data_ptr(), native.stream_ptr(dev)),
-        "qk_partition_split")
+        valid.contiguous().view(torch.uint8).data_ptr(), n, n_parts,
+        None if pids_in is not None else pids_out.data_ptr(),
+        None if m is None else m.data_ptr(), None if counts is None else counts.data_ptr(),
+        native.stream_ptr(dev)), "qk_partition_split")
     PARTITION_LAUNCHES += 1
-    return pids_out, masks, counts
+    return pids_out, m, counts
+
+
+def adapt_split_plain(limbs: Sequence[torch.Tensor], pids: Optional[torch.Tensor],
+                      valid: Optional[torch.Tensor], n_parts: int, fat: int, mode: str,
+                      masks: bool = True):
+    """Plain version of K26.  ``salt``: the fat partition's rows re-dealt by
+    row position, ``arange(n) % n_parts`` (the reference's ``_salt_pids``),
+    and the masks of the salted ids; ``replicate``: part c's mask is
+    ``(pid == c | pid == fat) & valid`` (``_replicate_masks``).  Returns
+    (ids: salted, or as hashed; masks; counts)."""
+    if limbs:
+        pids = _hash_pids_plain(limbs, n_parts)
+    pids = pids.to(torch.int32)
+    n = pids.shape[0]
+    parts = torch.arange(n_parts, dtype=torch.int32, device=pids.device)
+    if mode == "salt":
+        deal = (torch.arange(n, dtype=torch.int64, device=pids.device) % n_parts).to(torch.int32)
+        pids = torch.where(pids == fat, deal, pids)
+        hit = pids[None, :] == parts[:, None]
+    elif mode == "replicate":
+        hit = (pids[None, :] == parts[:, None]) | (pids == fat)[None, :]
+    else:
+        raise ValueError(f"adapt_split: unknown mode {mode!r}")
+    if not masks:
+        return pids, None, None
+    m = hit & valid[None, :]
+    return pids, m, m.sum(dim=1, dtype=torch.int32)
+
+
+def adapt_split(limbs: Sequence[torch.Tensor], pids: Optional[torch.Tensor],
+                valid: Optional[torch.Tensor], n_parts: int, fat: int, mode: str,
+                masks: bool = True):
+    """K26: K4's routing with the fat partition salted or replicated (see
+    ``adapt_split_plain``), in one launch.  ``valid`` may be None when
+    ``masks`` is False.  CUDA tensors launch the kernel; CPU tensors take
+    the plain version."""
+    if mode not in _ADAPT_MODES:
+        raise ValueError(f"adapt_split: unknown mode {mode!r}")
+    if not 0 <= fat < n_parts:
+        raise ValueError(f"adapt_split: fat partition {fat} outside [0, {n_parts})")
+    ref = limbs[0] if limbs else pids
+    if ref.device.type == "cpu":
+        return adapt_split_plain(limbs, pids, valid, n_parts, fat, mode, masks)
+    if masks and valid is None:
+        raise ValueError("adapt_split: masks need the validity mask")
+    global ADAPT_LAUNCHES
+    dev = ref.device
+    n = ref.shape[0]
+    limbs, pids_in = _split_args("adapt_split", limbs, pids, dev, n, n_parts)
+    if valid is not None and (valid.device != dev or valid.shape != (n,)):
+        raise TypeError(f"adapt_split: validity {tuple(valid.shape)} on {valid.device}")
+    pids_out = torch.empty(n, dtype=torch.int32, device=dev)
+    m = torch.empty((n_parts, n), dtype=torch.bool, device=dev) if masks else None
+    counts = torch.zeros(n_parts, dtype=torch.int32, device=dev) if masks else None
+    native.check(_partition_lib().qk_adapt_split(
+        native.ptr_array([l.data_ptr() for l in limbs]),
+        native.int_array([_LIMB_DT[l.dtype] for l in limbs]), len(limbs),
+        None if pids_in is None else pids_in.data_ptr(),
+        None if valid is None else valid.contiguous().view(torch.uint8).data_ptr(), n,
+        n_parts, fat, _ADAPT_MODES[mode], pids_out.data_ptr(),
+        None if m is None else m.data_ptr(), None if counts is None else counts.data_ptr(),
+        native.stream_ptr(dev)), "qk_adapt_split")
+    ADAPT_LAUNCHES += 1
+    return pids_out, m, counts
+
+
+def partition_plan_plain(pids: torch.Tensor, valid: torch.Tensor, n_parts: int):
+    """Plain version of K17: (perm [n] int32, counts [n_parts] int32, offsets
+    [n_parts] int32).  perm lists each part's valid rows in row order, part
+    by part, then the invalid rows in row order (the reference's
+    ``_partition_plan``); an id outside [0, n_parts) counts as invalid, as
+    in the kernel."""
+    bucket = torch.where(valid & (pids >= 0) & (pids < n_parts), pids.to(torch.int64),
+                         torch.full((), n_parts, dtype=torch.int64, device=pids.device))
+    perm = torch.cat([torch.nonzero(bucket == b).flatten() for b in range(n_parts + 1)])
+    counts = torch.bincount(bucket, minlength=n_parts + 1)[:n_parts].to(torch.int32)
+    return perm.to(torch.int32), counts, (torch.cumsum(counts, 0) - counts).to(torch.int32)
+
+
+def partition_plan(pids: torch.Tensor, valid: torch.Tensor, n_parts: int):
+    """K17: the compacted split's plan (see ``partition_plan_plain``).  CUDA
+    tensors launch the kernel; CPU tensors take the plain version."""
+    if not 1 <= n_parts <= MAX_PARTS:
+        raise ValueError(f"n_parts must be in [1, {MAX_PARTS}], got {n_parts}")
+    if valid.device.type == "cpu":
+        return partition_plan_plain(pids, valid, n_parts)
+    global PLAN_LAUNCHES
+    dev = valid.device
+    n = valid.shape[0]
+    if dev.type != "cuda" or pids.device != dev or pids.shape != (n,):
+        raise RuntimeError(f"partition_plan: ids {tuple(pids.shape)} on {pids.device}, "
+                           f"validity {tuple(valid.shape)} on {dev}")
+    nblocks = -(-n // _PLAN_TILE)
+    hist = torch.empty((n_parts + 1) * max(nblocks, 1), dtype=torch.int32, device=dev)
+    perm = torch.empty(n, dtype=torch.int32, device=dev)
+    counts = torch.empty(n_parts, dtype=torch.int32, device=dev)
+    offsets = torch.empty(n_parts, dtype=torch.int32, device=dev)
+    native.check(_partition_lib().qk_partition_plan(
+        pids.to(torch.int32).contiguous().data_ptr(),
+        valid.contiguous().view(torch.uint8).data_ptr(), n, n_parts, nblocks,
+        hist.data_ptr(), perm.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
+        native.stream_ptr(dev)), "qk_partition_plan")
+    PLAN_LAUNCHES += 1
+    return perm, counts, offsets
+
+
+def part_window(perm: torch.Tensor, offset: int, count: int, out_size: int):
+    """Row indices and validity of one part's window of the plan's perm (the
+    reference's ``_part_window``): ``out_size`` entries from ``offset``,
+    clipped to the last row, the first ``count`` of them valid."""
+    pos = torch.arange(out_size, dtype=torch.int64, device=perm.device)
+    idx = perm[torch.clamp(pos + offset, max=perm.shape[0] - 1)]
+    return idx, pos < count
 
 
 def partition_ids(batch: DeviceBatch, keys: Sequence[str], n_parts: int) -> torch.Tensor:
     """Partition id of every row: the reference's multiply-xorshift hash of
     the key limbs, mod n_parts (bit-identical)."""
-    pids, _, _ = partition_split(key_limbs(batch, keys), None, batch.valid, n_parts)
+    pids, _, _ = partition_split(key_limbs(batch, keys), None, batch.valid, n_parts,
+                                 masks=False)
     return pids
 
 
-def _masked_parts(batch: DeviceBatch, masks, counts) -> List[DeviceBatch]:
+def compact_choice(batch: DeviceBatch, n_parts: int) -> bool:
+    """Does this split take the compacted mode?  Forced ``shuffle=compacted``:
+    past 2^16 padded rows (below that the counts readback costs more than
+    it saves); else when n_parts * padded_len also passes
+    ``config.SHUFFLE_MASKED_CAP``.  The choice is recorded as having run."""
+    big = batch.padded_len > (1 << 16)
+    if strategy.choice("shuffle") == "compacted":
+        compact = big
+    else:
+        compact = big and n_parts * batch.padded_len > config.SHUFFLE_MASKED_CAP
+    strategy.note_used("shuffle", "compacted" if compact else "masked")
+    return compact
+
+
+def masked_parts(batch: DeviceBatch, masks, counts) -> List[DeviceBatch]:
     return [
         DeviceBatch(batch.columns, masks[p], None, batch.sorted_by).note_count(counts[p])
         for p in range(masks.shape[0])
     ]
 
 
-def split_by_partition(batch: DeviceBatch, part_ids: torch.Tensor,
-                       n_parts: int) -> List[DeviceBatch]:
-    """Masked split: every part is a view over the parent's columns with its
-    own validity mask and a device live count; no copies, no host sync."""
+def compacted_parts(batch: DeviceBatch, part_ids: torch.Tensor,
+                    n_parts: int) -> List[DeviceBatch]:
+    """The compacted split: K17's plan, one blocking read of its counts,
+    then each part a gather of its window, at one uniform bucket when the
+    split is balanced enough (n_parts * uniform <= 2 * bucket(total)), else
+    at a bucket of its own (the reference's padded lengths)."""
+    global SHUFFLE_HOST_SYNCS
+    perm, counts, _offsets = partition_plan(part_ids, batch.valid, n_parts)
+    SHUFFLE_HOST_SYNCS += 1
+    host_counts = counts.tolist()
+    uniform = config.bucket_size(max(host_counts))
+    use_uniform = n_parts * uniform <= 2 * config.bucket_size(max(sum(host_counts), 1))
+    out, offset = [], 0
+    for cnt in host_counts:
+        padded = uniform if use_uniform else config.bucket_size(cnt)
+        idx, valid = part_window(perm, offset, cnt, padded)
+        out.append(batch.take(idx, valid, cnt))
+        offset += cnt
+    return out
+
+
+def split_by_partition(batch: DeviceBatch, part_ids: torch.Tensor, n_parts: int,
+                       compact: Optional[bool] = None) -> List[DeviceBatch]:
+    """Split a batch into n per-partition batches.  Masked (the default):
+    every part is a view over the parent's columns with its own validity
+    mask and a device live count; no copies, no host sync.  Compacted
+    (``compact=True``, or as ``compact_choice`` decides): see
+    ``compacted_parts``."""
     if n_parts == 1:
         return [batch]
+    if compact is None:
+        compact = compact_choice(batch, n_parts)
+    if compact:
+        return compacted_parts(batch, part_ids, n_parts)
     _, masks, counts = partition_split([], part_ids, batch.valid, n_parts)
-    return _masked_parts(batch, masks, counts)
+    return masked_parts(batch, masks, counts)
 
 
 def hash_split(batch: DeviceBatch, keys: Sequence[str], n_parts: int) -> List[DeviceBatch]:
-    """``split_by_partition(batch, partition_ids(batch, keys, n), n)`` in one
-    K4 launch: the engine's hash-exchange path."""
+    """``split_by_partition(batch, partition_ids(batch, keys, n), n)``: the
+    engine's hash-exchange path.  Masked, it is one K4 launch; compacted,
+    K4 writes the ids alone and K17 plans the split."""
     if n_parts == 1:
         return [batch]
-    _, masks, counts = partition_split(key_limbs(batch, keys), None, batch.valid, n_parts)
-    return _masked_parts(batch, masks, counts)
+    limbs = key_limbs(batch, keys)
+    if compact_choice(batch, n_parts):
+        pids, _, _ = partition_split(limbs, None, batch.valid, n_parts, masks=False)
+        return compacted_parts(batch, pids, n_parts)
+    _, masks, counts = partition_split(limbs, None, batch.valid, n_parts)
+    return masked_parts(batch, masks, counts)

@@ -27,7 +27,7 @@ from typing import Dict, List
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "quokka_tpu_torch"
-SOURCES = ("hashtable", "partition", "join", "asof", "window", "vector", "linalg")
+SOURCES = ("hashtable", "partition", "join", "asof", "window", "vector", "linalg", "onehot")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]

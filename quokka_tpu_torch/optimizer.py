@@ -6,9 +6,12 @@
                         each source actually reads.
 3. choose_broadcast  -- a build side the catalog estimates at no more than
                         BROADCAST_THRESHOLD rows becomes a broadcast join.
-4. push_ann          -- an opted-in approximate nearest_neighbors over an
+4. plan_adaptive_exchanges -- marks the inner hash joins whose build
+                        exchange the engine may salt mid-query
+                        (planner/decide.py; QK_ADAPT=0 disables it).
+5. push_ann          -- an opted-in approximate nearest_neighbors over an
                         IVF-indexed Parquet source prunes its row groups.
-5. fuse_stages       -- whole-stage fusion of single-consumer chains
+6. fuse_stages       -- whole-stage fusion of single-consumer chains
                         (QK_STAGE_FUSE=0 disables it).
 
 The reference's pass line runs its cost-fed passes from
@@ -26,12 +29,14 @@ from typing import Dict, List, Optional, Set
 
 from quokka_tpu_torch import logical
 from quokka_tpu_torch.expression import Expr, conjoin, rename_columns, split_conjuncts
+from quokka_tpu_torch.planner import decide
 
 BROADCAST_THRESHOLD = 65_536  # build rows at or below this skip the probe-side shuffle
 
 
 def optimize(sub: Dict[int, logical.Node], sink_id: int) -> int:
-    for fn in (push_filters, early_projection, choose_broadcast, push_ann, fuse_stages):
+    for fn in (push_filters, early_projection, choose_broadcast,
+               decide.plan_adaptive_exchanges, push_ann, fuse_stages):
         fn(sub, sink_id)
         live = _reachable(sub, sink_id)
         for nid in set(sub) - set(live):

@@ -1,0 +1,33 @@
+"""Plan-time decisions of the planner (port of ``quokka_tpu/planner/decide.py``,
+its adaptive-exchange pass only; the cost model and the cost-fed passes come
+with a later slice)."""
+
+from __future__ import annotations
+
+from typing import Dict
+
+from quokka_tpu_torch import config, logical
+
+# a column of this name would collide with a salted exchange's routing
+SALT_COLUMN = "__qk_salt"
+
+
+def plan_adaptive_exchanges(sub: Dict[int, logical.Node], sink_id: int) -> None:
+    """Mark joins whose build exchange may be salted mid-query.
+
+    Eligibility is decided here, over the logical plan, so the runtime
+    trigger (``planner/adapt.py``) only ever fires on edges proven safe:
+    inner hash joins only (salting keeps inner matches exactly-once but
+    breaks the per-channel completeness that left / semi / anti joins
+    need), not broadcast (a broadcast build has no partition to salt), and
+    with no claimed output order (replicated probe slices interleave)."""
+    from quokka_tpu_torch import optimizer
+
+    if not config.adapt_enabled():
+        return
+    for nid in optimizer._reachable(sub, sink_id):
+        node = sub[nid]
+        if not isinstance(node, logical.JoinNode) or SALT_COLUMN in node.schema:
+            continue
+        if node.how == "inner" and not node.broadcast and not node.sorted_by:
+            node.adapt_salt = True

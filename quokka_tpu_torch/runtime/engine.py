@@ -8,16 +8,24 @@ current, executor tasks consume contiguous runs of ready batches from one
 source actor at a time (the lowest stage first, so a join's build side is
 consumed before its probe side), and every produced batch is pushed through
 its edge's partition function into the in-memory batch cache: one channel
-(pass-through), every channel (broadcast) or a hash split (K4).  The
+(pass-through), every channel (broadcast) or a hash split (K4; K17 when the
+split is compacted; K26 on an adapted exchange).  The
 consumers of a sorted actor (a source read with ``sorted_by``, or an
 ordered operator) take its batches in global (seq, channel) order and stop
 at the first one not yet produced, as the reference's cache does.  An exec
 actor may read several input streams; each stream's exhaustion reaches the
 executor as ``source_done(stream)``.
 
+The adaptive exchange (``planner/adapt.py``): while an eligible join-build
+edge (``TaskGraph.adapt_edges``) is unadapted, the engine counts the rows
+each of its target channels received; when one channel reaches the skew
+ratio, it writes the build edge's salt record and the probe edge's
+replicate record to the ADT table before the next build batch ships, and
+the partition functions read them on every call.
+
 Left for later slices, and raising where a plan would need them:
-checkpoints, spill, lineage replay and recovery, adaptation, the scan cache,
-the compile plane, observability, and the prefetch / emitter threads.
+checkpoints, spill, lineage replay and recovery, the scan cache, the
+compile plane, observability, and the prefetch / emitter threads.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import torch
 from quokka_tpu_torch import config
 from quokka_tpu_torch.ops import bridge, kernels
 from quokka_tpu_torch.ops.batch import DeviceBatch
+from quokka_tpu_torch.planner import adapt as adapt_mod
 from quokka_tpu_torch.runtime.dataset import ResultDataset
 from quokka_tpu_torch.runtime.tables import ControlStore
 from quokka_tpu_torch.runtime.task import ExecutorTask, TapedInputTask
@@ -171,6 +180,10 @@ class TaskGraph:
         self._next_actor = 0
         # actors whose consumers read them in global (seq, channel) order
         self.sorted_actors: Set[int] = set()
+        # adaptive-exchange eligibility (planner/decide.py, registered by
+        # JoinNode.lower / FusedStageNode.lower): (build source actor, join
+        # actor) -> {"probe_src": actor}; the skew trigger fires on these only
+        self.adapt_edges: Dict[Tuple[int, int], dict] = {}
 
     def _new_actor(self, kind, channels, stage) -> ActorInfo:
         info = ActorInfo(self._next_actor, kind, channels, stage)
@@ -251,6 +264,11 @@ class Engine:
                 for ch in range(info.channels):
                     self.execs[(info.id, ch)] = info.executor_factory()
         self._stages = {a.id: a.stage for a in graph.actors.values()}
+        # adaptive-exchange state: the edge -> record map mirrors the ADT
+        # table; the row histograms and last-pushed sequences feed the trigger
+        self._adapt: Dict[Tuple[int, int], dict] = dict(self.store.titems("ADT"))
+        self._adapt_rows: Dict[Tuple[int, int], Dict[int, int]] = {}
+        self._push_seqs: Dict[Tuple[int, int], int] = {}
 
     # -- partition function lowering ----------------------------------------
     def _partition_fn(self, src_actor: int, tgt_actor: int) -> Callable:
@@ -265,11 +283,22 @@ class Engine:
                                  HashPartitioner)):
             raise NotImplementedError(type(part))
 
-        def fn(batch: DeviceBatch, src_ch: int) -> Dict[int, DeviceBatch]:
+        def fn(batch: DeviceBatch, src_ch: int, seq: int) -> Dict[int, DeviceBatch]:
             if isinstance(part, PassThroughPartitioner):
                 return {src_ch % n_tgt: batch}
             if isinstance(part, BroadcastPartitioner):
                 return {ch: batch for ch in range(n_tgt)}
+            # an ADT record rewrites this edge's routing: salt the fat build
+            # partition from its recorded sequence on, or replicate the fat
+            # probe partition to every channel.  Looked up on every call:
+            # the record can appear mid-run.
+            ad = self._adapt.get(key)
+            if ad is not None and ad["mode"] == "replicate":
+                return dict(enumerate(adapt_mod.replicate_split(batch, part.keys, ad["fat"],
+                                                                n_tgt)))
+            if (ad is not None and ad["mode"] == "salt"
+                    and seq >= ad["from_seq"].get(src_ch, 0)):
+                return dict(enumerate(adapt_mod.salt_split(batch, part.keys, ad["fat"], n_tgt)))
             return dict(enumerate(kernels.hash_split(batch, part.keys, n_tgt)))
 
         self._partition_fns[key] = fn
@@ -278,9 +307,52 @@ class Engine:
     def push(self, actor: int, channel: int, seq: int, batch: DeviceBatch) -> None:
         info = self.g.actors[actor]
         for tgt_actor in info.targets:
-            parts = self._partition_fn(actor, tgt_actor)(batch, channel)
+            parts = self._partition_fn(actor, tgt_actor)(batch, channel, seq)
+            # the skew histogram, only while an eligible build edge is
+            # unadapted: the rows each target channel received (a read of
+            # each part's device count, a wait on an already queued sum)
+            edge = (actor, tgt_actor)
+            track = None
+            if (edge in self.g.adapt_edges and config.adapt_enabled()
+                    and edge not in self._adapt):
+                track = self._adapt_rows.setdefault(edge, {})
             for tgt_ch, part in parts.items():
+                if track is not None:
+                    n = part.nrows if part.nrows is not None else int(
+                        part.nrows_dev if part.nrows_dev is not None else part.valid.sum())
+                    track[tgt_ch] = track.get(tgt_ch, 0) + n
                 self.cache.put((actor, channel, seq, tgt_actor, actor, tgt_ch), part)
+            if track is not None:
+                self._push_seqs[(actor, channel)] = seq
+                self._adapt_consider(edge, info.channels, self.g.actors[tgt_actor].channels)
+        self._push_seqs[(actor, channel)] = seq
+
+    def _adapt_consider(self, edge: Tuple[int, int], src_channels: int, n_tgt: int) -> None:
+        """Evaluate the skew trigger for one eligible build edge; on fire,
+        write the (build, probe) ADT records before any batch ships under
+        the new routing, then install them."""
+        fat = adapt_mod.skewed_channel(self._adapt_rows.get(edge, {}), n_tgt,
+                                       config.skew_ratio_threshold())
+        if fat is None:
+            return
+        src, tgt = edge
+        probe = self.g.adapt_edges[edge]["probe_src"]
+        probe_edge = (probe, tgt)
+        # replicating the fat probe partition is exactly-once only if no
+        # probe batch shipped under the old routing (stage gating keeps the
+        # probe side unread while its join's build runs; this guards it)
+        tinfo = self.store.tget("PFT", probe_edge)
+        if (any(a == probe for (a, _ch) in self._push_seqs) or tinfo is None
+                or not isinstance(tinfo.partitioner, HashPartitioner)):
+            del self.g.adapt_edges[edge]  # too late, or not a hash exchange
+            return
+        from_seq = {ch: self._push_seqs.get((src, ch), -1) + 1 for ch in range(src_channels)}
+        build_rec, probe_rec = adapt_mod.build_records(fat, from_seq)
+        with self.store.transaction():
+            self.store.tset("ADT", edge, build_rec)
+            self.store.tset("ADT", probe_edge, probe_rec)
+        self._adapt[edge] = build_rec
+        self._adapt[probe_edge] = probe_rec
 
     # -- input ----------------------------------------------------------------
     def _read_and_bridge(self, info: ActorInfo, channel: int, lineage) -> DeviceBatch:

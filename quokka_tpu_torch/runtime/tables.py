@@ -5,8 +5,11 @@ The reference keeps scheduler state in prefix-namespaced tables behind a
 ControlStore interface.  This slice keeps the tables the happy path reads
 and writes -- NTT (task queues), LT (lineage), LIT (last seq), DST (done
 channels), GIT (generated inputs), PFT (partition specs), AST (stages),
-EWT (consumption watermarks) -- in one process, under one lock.  Namespaces,
-the served store and the recovery tables come with later slices.
+EWT (consumption watermarks) -- and ADT, the adaptive-exchange records
+(``planner/adapt.py``): (src actor, tgt actor) -> {mode, fat, from_seq}, a
+routing rewrite written before the first rerouted batch ships, read by the
+partition functions.  All in one process, under one lock.  Namespaces, the
+served store and the recovery tables come with later slices.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from contextlib import contextmanager
 from typing import Any, Dict
 
 _SET_TABLES = ("DST", "GIT")
-TABLE_NAMES = ("NTT", "LT", "LIT", "DST", "GIT", "PFT", "AST", "EWT")
+TABLE_NAMES = ("NTT", "LT", "LIT", "DST", "GIT", "PFT", "AST", "EWT", "ADT")
 
 
 class ControlStore:
@@ -53,6 +56,10 @@ class ControlStore:
     def tget(self, table: str, key, default=None):
         with self._lock:
             return self.tables[table].get(key, default)
+
+    def titems(self, table: str):
+        with self._lock:
+            return list(self.tables[table].items())
 
     def sadd(self, table: str, key, value=None) -> None:
         with self._lock:

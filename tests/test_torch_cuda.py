@@ -1,5 +1,5 @@
-"""The port's hand-written kernels (K1-K5, K11-K13, K16, K18, K19, K20a,
-K20b, K21, K22) against their plain torch versions, on a card.  Every test is marked ``cuda`` and skips where
+"""The port's hand-written kernels (K1-K6, K11-K13, K16-K22, K26) against
+their plain torch versions, on a card.  Every test is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False.
 
 This file imports neither JAX nor pyarrow/pandas, so it also runs on a
@@ -14,7 +14,9 @@ a sort on the keys.  The time-series kernels (indices, flags, min / max)
 compare bit for bit.  K21's scores agree within 1e-5 at d = 768 (float32
 dot products summed in another order; 1e-6 at d <= 7, exact at d = 1),
 and its row handles are equal but where a score lies within twice that of
-the query's k-th; K22's float64 sums agree within rtol 1e-9.
+the query's k-th; K22's float64 sums agree within rtol 1e-9.  K17's plan
+and K26's routing are exact index for index; K6's counts, integer sums and
+smallest rows are exact and its float64 sums within rtol 1e-9.
 """
 
 import numpy as np
@@ -452,3 +454,53 @@ def test_k22_kernel_matches_plain(cuda_device, d):
     assert torch.allclose(g, gp, rtol=1e-9, atol=0, equal_nan=True)
     assert torch.allclose(s, sp, rtol=1e-9, atol=0, equal_nan=True)
     assert torch.equal(torch.isnan(g), torch.isnan(gp))
+
+
+@pytest.mark.parametrize("case", ["mixed", "empty_parts", "all_invalid", "wide"])
+@pytest.mark.parametrize("n_parts", [2, 3, 7, 64])
+def test_k17_kernel_matches_plain(cuda_device, n_parts, case):
+    r = np.random.default_rng(n_parts)
+    n = (1 << 21) + 77 if case == "wide" else 70_001
+    pids = r.integers(0, n_parts, n).astype(np.int32)
+    if case == "empty_parts":
+        pids = np.where(r.random(n) < 0.5, 0, n_parts - 1).astype(np.int32)
+    valid = np.zeros(n, dtype=bool) if case == "all_invalid" else r.random(n) < 0.8
+    p, v = torch.from_numpy(pids).to(cuda_device), torch.from_numpy(valid).to(cuda_device)
+    got = kernels.partition_plan(p, v, n_parts)
+    exp = kernels.partition_plan_plain(p, v, n_parts)
+    torch.cuda.synchronize()
+    for a, b in zip(got, exp):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["salt", "replicate"])
+@pytest.mark.parametrize("n_parts", [2, 3, 7, 64])
+def test_k26_kernel_matches_plain(cuda_device, n_parts, mode):
+    b = bridge.host_to_device(host_table(50_000, seed=26), cuda_device)
+    limbs = [b.columns["i"].data, b.columns["f"].data, *b.columns["s"].hash_limbs()]
+    fat = n_parts - 1
+    for args in ((limbs, None), ([], kernels.partition_ids(b, ["i"], n_parts))):
+        for masks in (True, False):
+            got = kernels.adapt_split(*args, b.valid, n_parts, fat, mode, masks)
+            exp = kernels.adapt_split_plain(*args, b.valid, n_parts, fat, mode, masks)
+            torch.cuda.synchronize()
+            for x, y in zip(got, exp):
+                assert (x is None and y is None) or torch.equal(x, y), (n_parts, mode, masks)
+
+
+@pytest.mark.parametrize("keys,n", [(["s", "t"], 5000), (["s"], (1 << 20) + 3),
+                                    (["t", "s"], 300)])
+def test_k6_kernel_matches_plain(cuda_device, keys, n):
+    b = bridge.host_to_device(host_table(n, seed=6 + n), cuda_device)
+    dims = [1 << int(np.ceil(np.log2(len(b.columns[k].dictionary.values) + 1))) for k in keys]
+    strides = tuple(int(np.prod(dims[i + 1:])) for i in range(len(keys)))
+    codes = [b.columns[k].codes for k in keys]
+    fcols = [b.columns["f"].data, b.columns["g"].data, b.columns["f"].data * 3]
+    icols = [b.columns["i"].data, b.columns["d"].data.to(torch.int64)]
+    g_n = int(np.prod(dims))
+    fs, is_, cnt, rep = fuse.onehot_agg_cuda(fcols, icols, codes, strides, g_n, b.valid)
+    pf, pi, pc, pr = fuse.onehot_agg_plain(fcols, icols, codes, strides, g_n, b.valid)
+    torch.cuda.synchronize()
+    assert torch.equal(cnt, pc) and torch.equal(rep, pr) and torch.equal(is_, pi)
+    assert torch.allclose(fs, pf, rtol=1e-9, atol=1e-9, equal_nan=True)
+    assert torch.equal(torch.isnan(fs), torch.isnan(pf))

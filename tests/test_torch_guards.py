@@ -48,6 +48,26 @@ def test_import_with_jax_and_reference_blocked():
     assert out.stdout.strip() == "ok"
 
 
+def test_planner_imports_with_jax_and_reference_blocked():
+    """The adaptive exchange's modules (planner/, and the engine and
+    optimizer that use them) import without JAX or quokka_tpu."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['quokka_tpu'] = None\n"
+        "from quokka_tpu_torch.planner import adapt, decide\n"
+        "from quokka_tpu_torch import optimizer\n"
+        "from quokka_tpu_torch.runtime import engine\n"
+        "assert optimizer.decide is decide and engine.adapt_mod is adapt\n"
+        "assert 'triton' not in sys.modules, 'triton imported at module import'\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_context_defaults_to_cuda_and_raises_without_it():
     from quokka_tpu_torch import QuokkaContext
 
@@ -143,10 +163,11 @@ def test_join_build_past_the_spill_threshold_raises(monkeypatch):
 def test_stage_needing_fused_elementwise_raises(monkeypatch):
     """A filter the optimizer cannot push below a join stays inside the
     fused stage, which runs it through FusedElementwise (row 16, ported);
-    the same stage under a forced groupby=sort still raises, naming row 6
-    (the one-hot small-key partial aggregate, not ported)."""
+    the same stage under a forced groupby=sort (row 6 and the sort group-by,
+    ported) gives the hashtable strategy's result."""
     import pandas as pd
     from quokka_tpu_torch import QuokkaContext, col
+    from quokka_tpu_torch.ops import strategy
 
     ctx = QuokkaContext(device="cpu")
     a = ctx.from_pandas(pd.DataFrame({"k": [1, 2, 3], "v": [0.5, 1.5, 2.5]}))
@@ -154,10 +175,17 @@ def test_stage_needing_fused_elementwise_raises(monkeypatch):
     q = a.join(b, on="k").filter(col("v") > col("w")).agg_sql("sum(v) as s")
     assert "FusedStage" in q.explain()
     assert q.collect().s[0] == 1.5
+
+    def grouped():
+        return a.join(b, on="k").filter(col("v") > col("w")).groupby("k").agg_sql(
+            "sum(v) as s").collect().sort_values("k").reset_index(drop=True)
+
+    hashed = grouped()
     monkeypatch.setenv("QK_KERNEL_STRATEGY", "groupby=sort")
-    with pytest.raises(NotImplementedError, match="row 6"):
-        a.join(b, on="k").filter(col("v") > col("w")).groupby("k").agg_sql(
-            "sum(v) as s").collect()
+    strategy.reset_used()
+    by_sort = grouped()
+    assert strategy.used_snapshot()["groupby"] == "sort"
+    pd.testing.assert_frame_equal(by_sort, hashed)
 
 
 def _batch(device):
