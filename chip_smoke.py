@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (quokka_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--sf 1.0]
+    python3 chip_smoke.py [--seed N] [--sf 1.0] [--parent DIR]
 
 Phases, each fatal on failure:
   1. print the card (nvidia-smi name, power.limit) and torch/CUDA versions;
@@ -34,10 +34,24 @@ Phases, each fatal on failure:
      512 MiB gate admits a batch, the sort group-by elsewhere), with every
      kernel's launch count set to 0 just before each path and read just
      after, and check each result against a numpy oracle; run each again
-     warm;
+     warm.  Every batch of every path lands through the narrowed wire and
+     one K23 decode: it fails unless K23 launched once per landed batch,
+     unless every kernel's devprof dispatches on the path equal its
+     launches, or when Q1's wire bytes exceed half its logical bytes; it
+     prints each path's landed batches, wire and logical bytes and host
+     encode seconds per batch;
   5. where the time goes: a warm run of each query with the engine's host
      steps timed, and one under the profiler (device busy, idle share of
-     the warm wall, device time per kernel);
+     the warm wall, device time per kernel, D2H copies and
+     cudaStreamSynchronize calls).  With --parent DIR (another checkout's
+     root, e.g. the parent commit unpacked with git archive), Q1, Q3 and Q5
+     run through that tree and this one in turns (parent, change, change,
+     parent; ``--walls-only`` subprocesses): warm walls, read + bridge,
+     idle share, and the D2H copies and stream syncs, which must equal the
+     parent's once the ledger's own batched count reads are taken off.
+     Then devprof's calibration (row 25: the reference's 256^3 float32
+     matmul and 2^21-element add) beside the data sheet, and EXPLAIN
+     ANALYZE of Q1 and Q5 with its device-efficiency section;
   6. hold each kernel against its plain torch version on the card, at the
      shapes the query runs gave it (K1, K2 at Q1's; K3, K4 at Q1's and
      Q3's; K5, K11, K12 at Q3's, K12 also on float64 keys with -0.0 and
@@ -51,7 +65,10 @@ Phases, each fatal on failure:
      own result, and 50 rows at k = 100; K22 at the gramian's shape and at
      d = 1, 4, 17, 64; K17 at Q3 compacted's largest split, also at 64
      parts, with empty parts and all rows invalid; K26 at the skew join's
-     and Q3's largest splits in both modes; K6 at Q1 sort's largest call),
+     and Q3's largest splits in both modes; K6 at Q1 sort's largest call;
+     K23 at Q1's and Q3's largest landed batches and on NaN / -0.0
+     dictionaries, uint16 codes, a plan that widens then degrades, an
+     all-pass layout and a 0-row batch, bit for bit),
      and time kernel, plain version and bound with CUDA events; the
      torch-primitive rows 7, 8, 9, 10, 14, 15 and 20 are timed too;
   7. print one JSON line of per-kernel numbers, the card line, and last the
@@ -785,6 +802,8 @@ ANN_ROWS, ANN_ROW_GROUPS, ANN_CELLS, ANN_NPROBE, ANN_QUERIES = 1 << 18, 16, 32, 
 LINALG_COLS = ["l_quantity", "l_extendedprice", "l_discount", "l_tax"]
 QUANTILES = [0.01, 0.25, 0.5, 0.75, 0.99]
 FP32_FLOP_PER_S = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
+MATMUL_N_NOTE = ("the reference's 256^3 matmul and 2^21-element add are launch-sized on "
+                 "this card")
 VEC_SCORE_TOL, VEC_TIE_TOL = 2e-5, 4e-5
 
 
@@ -946,6 +965,41 @@ def check_quantiles(got, exp):
         fail(f"quantile: t-digest {est} against np.quantile {exp} (relative {rel})")
 
 
+def tpch_stream(name: str, ctx, tables):
+    """TPC-H Q1, Q3 or Q5 over the made tables through the port's API (a
+    reader per source: it holds the source's pushed-down projection).  The
+    walls-only run uses it against another checkout's package too."""
+    from quokka_tpu_torch import col, date
+
+    def src(t):
+        reader = TableReader(tables[t])
+        return ctx.read_dataset(reader, schema=reader.schema)
+
+    if name == "q1":
+        return (src("lineitem").filter_sql(Q1_FILTER)
+                .groupby(["l_returnflag", "l_linestatus"]).agg_sql(Q1_AGGS))
+    if name == "q3":
+        d = date(Q3_DATE)
+        return (src("lineitem").filter(col("l_shipdate") > d)
+                .join(src("orders").filter(col("o_orderdate") < d),
+                      left_on="l_orderkey", right_on="o_orderkey")
+                .join(src("customer").filter(col("c_mktsegment") == "BUILDING"),
+                      left_on="o_custkey", right_on="c_custkey")
+                .groupby(["l_orderkey", "o_orderdate", "o_shippriority"])
+                .agg_sql(REV).top_k(["revenue"], 10, [True]))
+    return (src("lineitem")
+            .join(src("orders").filter_sql(
+                "o_orderdate >= date '1994-01-01' and o_orderdate < date '1995-01-01'"),
+                left_on="l_orderkey", right_on="o_orderkey")
+            .join(src("customer"), left_on="o_custkey", right_on="c_custkey")
+            .join(src("supplier"), left_on=["l_suppkey", "c_nationkey"],
+                  right_on=["s_suppkey", "s_nationkey"])
+            .join(src("nation"), left_on="c_nationkey", right_on="n_nationkey")
+            .join(src("region").filter(col("r_name") == "ASIA"),
+                  left_on="n_regionkey", right_on="r_regionkey")
+            .groupby("n_name").agg_sql(REV))
+
+
 def collect_numpy(stream, what: str):
     cols = stream.compute().to_numpy()
     if cols is None:
@@ -1001,13 +1055,176 @@ def device_us(fn, prefixes=None, iters: int = 10) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    ev = device_events(prof)
-    return sum(t for k, (t, _) in ev.items()
-               if prefixes is None or k.startswith(prefixes)) / iters
+    # the profiler now and then returns a window without the kernel's
+    # device events: such a window is taken again, up to three times
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ev = device_events(prof)
+        us = sum(t for k, (t, _) in ev.items()
+                 if prefixes is None or k.startswith(prefixes)) / iters
+        if us > 0:
+            break
+    return us
+
+
+def profile_counts(prof):
+    """(device busy seconds, device-to-host copies, cudaStreamSynchronize
+    calls) of a profile."""
+    import torch
+
+    busy, d2h, syncs = 0.0, 0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            t = getattr(ev, "self_device_time_total", None)
+            busy += float(t if t is not None else getattr(ev, "self_cuda_time_total", 0))
+            if ev.key.startswith("Memcpy DtoH"):
+                d2h += int(ev.count)
+        elif ev.key == "cudaStreamSynchronize":
+            syncs += int(ev.count)
+    return busy / 1e6, d2h, syncs
+
+
+COMPARED = ("q1", "q3", "q5")
+
+
+def query_walls(dev, tables) -> dict:
+    """Q1, Q3 and Q5 through the package on sys.path: the cold wall, three
+    warm walls, the read + bridge seconds of a timed warm run, and one
+    profiled run's device busy time, idle share of the warm median, D2H
+    copies and cudaStreamSynchronize calls, with the count reads the
+    operator-statistics ledger made in it (0 where the package has none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from quokka_tpu_torch import QuokkaContext
+    from quokka_tpu_torch.runtime import engine as engine_mod
+
+    try:
+        from quokka_tpu_torch import obs
+    except ImportError:  # a checkout from before the ledger
+        obs = None
+
+    def ledger_reads() -> int:
+        return 0 if obs is None else obs.REGISTRY.counter("opstats.count_reads").value
+
+    ctx = QuokkaContext(io_channels=2, exec_channels=2, device=dev)
+    Engine = engine_mod.Engine
+    real = Engine._read_and_bridge
+    out = {}
+    for q in COMPARED:
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            collect_numpy(tpch_stream(q, ctx, tables), q)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        cold = run()
+        warm = [run() for _ in range(3)]
+        spent = [0.0]
+
+        def read_and_bridge(self, *a):
+            t = time.perf_counter()
+            try:
+                return real(self, *a)
+            finally:
+                spent[0] += time.perf_counter() - t
+
+        Engine._read_and_bridge = read_and_bridge
+        try:
+            timed = run()
+        finally:
+            Engine._read_and_bridge = real
+        reads0 = ledger_reads()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+        busy, d2h, syncs = profile_counts(prof)
+        med = sorted(warm)[1]
+        out[q] = {"cold_s": cold, "warm_s": warm, "timed_wall_s": timed,
+                  "read_bridge_s": spent[0], "device_busy_s": busy,
+                  "idle_share_of_warm": 1 - busy / med, "d2h": d2h, "syncs": syncs,
+                  "ledger_count_reads": ledger_reads() - reads0}
+    return out
+
+
+def walls_only(args) -> int:
+    """``--walls-only``: Q1, Q3, Q5 walls and copy / sync counts of the
+    package in ``--package`` (a checkout's root), as one JSON line."""
+    import torch
+
+    pkg = Path(args.package).resolve()
+    if not (pkg / "quokka_tpu_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: no quokka_tpu_torch package in {pkg}", file=sys.stderr)
+        return 2
+    os.environ["TRITON_CACHE_DIR"] = str(pkg / "build" / "quokka_tpu_torch" / "triton")
+    sys.path.insert(0, str(pkg))
+    from quokka_tpu_torch.ops import native
+
+    native.build_all()
+    walls = query_walls(torch.device("cuda", 0), make_tpch(args.sf, args.seed))
+    print(json.dumps({"walls": walls, "package": str(pkg)}))
+    return 0
+
+
+def k23_cases(seed: int):
+    """Wire layouts beyond the query batches': (label, [leaf lists under
+    one signature]).  NaN / -0.0 dictionaries, uint16 codes, a plan that
+    widens then degrades, an all-pass layout and a 0-row batch."""
+    import numpy as np
+    from quokka_tpu_torch.ops import pack
+
+    r = np.random.default_rng(seed)
+    n = 1 << 20
+    specials = np.array([0.0, -0.0, np.nan, 0.01, 0.02, 0.05, 0.07, 0.1])
+    wide = np.round(r.uniform(0, 1000, 300), 3)
+    return [
+        ("NaN and -0.0 dictionaries", [[pack.ValidCount(n, n - 5), r.choice(specials, n),
+                                        r.choice(specials, n).astype(np.float32)]]),
+        ("uint16 codes", [[pack.ValidCount(n, n), r.choice(wide[:150], n)],
+                          [pack.ValidCount(n, n), r.choice(wide, n)]]),
+        ("widen then degrade", [
+            [pack.ValidCount(n, n), r.integers(0, 200, n), r.choice(specials, n)],
+            [pack.ValidCount(n, n), r.integers(-5000, 5000, n), r.choice(wide[:180], n)],
+            [pack.ValidCount(n, n), r.integers(-2**40, 2**40, n), r.normal(size=n)],
+            [pack.ValidCount(n, n), r.integers(0, 200, n), r.choice(specials, n)]]),
+        ("all pass", [[pack.ValidCount(n, n), r.integers(-2**40, 2**40, n),
+                       r.normal(size=n), r.normal(size=(4096, 8))]]),
+        ("0-row batch", [[pack.ValidCount(256, 0), np.zeros(256, dtype=np.int64),
+                          np.zeros(256), np.zeros(256, dtype=bool)]]),
+    ]
+
+
+def check_k23(dev, label: str, leaves) -> dict:
+    """K23 against its plain version and the shipped input, bit for bit, on
+    one batch; returns the staged batch and its byte counts."""
+    import numpy as np
+    import torch
+    from quokka_tpu_torch.ops import pack
+
+    wires, layout = pack._encode(leaves)
+    st = pack.stage(layout, wires, dev)
+    got = [t.clone() for t in pack.decode_launch(st)]
+    exp = pack.decode_plain(layout, st.wires)
+    torch.cuda.synchronize()
+
+    def bits(t):
+        t = t.to(torch.uint8) if t.dtype == torch.bool else t
+        return t.view(torch.int64 if t.element_size() == 8 else torch.int32) \
+            if t.is_floating_point() else t
+
+    for i, (leaf, g, e) in enumerate(zip(leaves, got, exp)):
+        want = (torch.arange(leaf.padded) < leaf.nrows if isinstance(leaf, pack.ValidCount)
+                else torch.from_numpy(np.ascontiguousarray(leaf)))
+        if not (g.dtype == e.dtype and g.shape == e.shape and torch.equal(bits(g), bits(e))
+                and torch.equal(bits(g.cpu()), bits(want))):
+            fail(f"K23 {label}: leaf {i} ({layout[i]}) differs from the plain version "
+                 "or the input")
+    read, write = pack._cost(layout, wires)
+    return {"st": st, "layout": layout, "wires": wires, "read": read, "write": write,
+            "kinds": [spec[0] for spec in layout]}
 
 
 def nbytes(*tensors) -> int:
@@ -1063,6 +1280,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sf", type=float, default=1.0)
+    ap.add_argument("--parent", default=None,
+                    help="root of another checkout (the parent commit): Q1, Q3 and Q5 are "
+                         "run through it and through this one in turns, in subprocesses")
+    ap.add_argument("--walls-only", action="store_true",
+                    help="only time Q1, Q3 and Q5 through the package in --package and "
+                         "print one JSON line (what --parent runs)")
+    ap.add_argument("--package", default=str(ROOT))
     args = ap.parse_args()
 
     import torch
@@ -1074,6 +1298,8 @@ def main() -> int:
     if not (ROOT / "quokka_tpu_torch" / "__init__.py").is_file():
         print(f"chip_smoke: no quokka_tpu_torch package beside {__file__}", file=sys.stderr)
         return 2
+    if args.walls_only:
+        return walls_only(args)
     os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "quokka_tpu_torch" / "triton"))
     sys.path.insert(0, str(ROOT))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1090,7 +1316,7 @@ def smoke(dev, card: str, args) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from quokka_tpu_torch import QuokkaContext, col, config, date, sqlparse, windows
+    from quokka_tpu_torch import QuokkaContext, col, config, date, obs, sqlparse, windows
     from quokka_tpu_torch.dataset import vector as dvec
     from quokka_tpu_torch.dataset.ordered import InputSortedHostDataset
     from quokka_tpu_torch.dataset.readers import InputArrowDataset
@@ -1098,7 +1324,8 @@ def smoke(dev, card: str, args) -> int:
     from quokka_tpu_torch.executors.sql_execs import PartialAggExecutor
     from quokka_tpu_torch.ops import asof, bridge, fuse, hashtable, join, kernels, native
     from quokka_tpu_torch.ops import linalg as lops
-    from quokka_tpu_torch.ops import stagefuse, strategy
+    from quokka_tpu_torch.obs import devprof, explain
+    from quokka_tpu_torch.ops import pack, stagefuse, strategy
     from quokka_tpu_torch.ops import vector as vops
     from quokka_tpu_torch.ops.batch import key_limbs
     from quokka_tpu_torch.ops.expr_compile import plan_aggregation
@@ -1200,31 +1427,13 @@ def smoke(dev, card: str, args) -> int:
         return ctx.read_dataset(reader, schema=reader.schema)
 
     def q1_stream():
-        return (src("lineitem").filter_sql(Q1_FILTER)
-                .groupby(["l_returnflag", "l_linestatus"]).agg_sql(Q1_AGGS))
+        return tpch_stream("q1", ctx, tables)
 
     def q3_stream():
-        d = date(Q3_DATE)
-        return (src("lineitem").filter(col("l_shipdate") > d)
-                .join(src("orders").filter(col("o_orderdate") < d),
-                      left_on="l_orderkey", right_on="o_orderkey")
-                .join(src("customer").filter(col("c_mktsegment") == "BUILDING"),
-                      left_on="o_custkey", right_on="c_custkey")
-                .groupby(["l_orderkey", "o_orderdate", "o_shippriority"])
-                .agg_sql(REV).top_k(["revenue"], 10, [True]))
+        return tpch_stream("q3", ctx, tables)
 
     def q5_stream():
-        return (src("lineitem")
-                .join(src("orders").filter_sql(
-                    "o_orderdate >= date '1994-01-01' and o_orderdate < date '1995-01-01'"),
-                    left_on="l_orderkey", right_on="o_orderkey")
-                .join(src("customer"), left_on="o_custkey", right_on="c_custkey")
-                .join(src("supplier"), left_on=["l_suppkey", "c_nationkey"],
-                      right_on=["s_suppkey", "s_nationkey"])
-                .join(src("nation"), left_on="c_nationkey", right_on="n_nationkey")
-                .join(src("region").filter(col("r_name") == "ASIA"),
-                      left_on="n_regionkey", right_on="r_regionkey")
-                .groupby("n_name").agg_sql(REV))
+        return tpch_stream("q5", ctx, tables)
 
     def q4_stream():
         return (src("orders")
@@ -1357,7 +1566,7 @@ def smoke(dev, card: str, args) -> int:
                 "K20b": (ts_execs, "RANGE_MINMAX_LAUNCHES"),
                 "K21": (vops, "LAUNCHES"), "K22": (lops, "LAUNCHES"),
                 "K6": (fuse, "ONEHOT_LAUNCHES"), "K17": (kernels, "PLAN_LAUNCHES"),
-                "K26": (kernels, "ADAPT_LAUNCHES")}
+                "K26": (kernels, "ADAPT_LAUNCHES"), "K23": (pack, "LAUNCHES")}
     ts_kernels = ["K18", "K19", "K20a", "K20b"]
     # path: (stream, check, kernels it must launch, kernels it must not, and
     # whether it must take the general join).  Q4's semi join takes the
@@ -1397,7 +1606,7 @@ def smoke(dev, card: str, args) -> int:
         p[3].extend(["K21", "K22", "K6", "K17", "K26"])
 
     def all_but(*keep):
-        return [k for k in counters if k not in keep]
+        return [k for k in counters if k not in keep and k != "K23"]
 
     # the vector, linear-algebra and quantile tier: pass-through exchanges
     # only, so no kernel but its own (the quantiles' t-digest runs on the host)
@@ -1437,6 +1646,8 @@ def smoke(dev, card: str, args) -> int:
         "q5 sort": (q5_stream, check_q5, ["K1", "K4", "K5", "K11 build", "K11"],
                     sort_must_not, False),
     })
+    # every batch of every path lands through the wire decode (K23)
+    paths = {k: (st, ch, must + ["K23"], mn, g) for k, (st, ch, must, mn, g) in paths.items()}
     compacted_paths = {"q3 compacted", "q5 compacted", "q7 compacted", "q3 cap"}
     sort_paths = {"q1 sort", "q4 sort", "q5 sort"}
     ts_paths = ["asof", "asof sort", "asof forward", "tumbling", "hopping", "session",
@@ -1500,8 +1711,43 @@ def smoke(dev, card: str, args) -> int:
                                    else int(np.prod(dims)) + 1))
         return dims
 
+    real_h2d, real_encode, real_stage = bridge.host_to_device, pack._encode, pack.stage
+    landing = {}  # path -> landed batches, host encode / stage seconds, wire / logical bytes
+
+    def charged():
+        """devprof's dispatches on the card so far, by kernel (the plain
+        versions' charges, e.g. the catalog's CPU sample landing, apart)."""
+        by = {}
+        for row in devprof.costs_snapshot():
+            if row["device"] == "cuda":
+                by[row["kernel"]] = by.get(row["kernel"], 0) + row["dispatches"]
+        return by
+
     for path, (stream, check, must, must_not, general) in paths.items():
         set_strategy(path)
+        land = landing[path] = {"batches": 0, "encode_s": 0.0, "stage_s": 0.0,
+                                "wire_bytes": 0, "logical_bytes": 0}
+
+        def counted_h2d(table, device, *a, _land=land, **kw):
+            # the batches the query lands on the card (the optimizer's
+            # catalog lands its samples on the CPU)
+            _land["batches"] += torch.device(device).type == "cuda"
+            return real_h2d(table, device, *a, **kw)
+
+        def timed_encode(*a, _land=land, **kw):
+            t = time.perf_counter()
+            try:
+                return real_encode(*a, **kw)
+            finally:
+                _land["encode_s"] += time.perf_counter() - t
+
+        def timed_stage(*a, _land=land, **kw):
+            t = time.perf_counter()
+            st = real_stage(*a, **kw)
+            _land["stage_s"] += time.perf_counter() - t
+            _land["wire_bytes"] += st.buf.numel()
+            _land["logical_bytes"] += sum(o.numel() * o.element_size() for o in st.outs)
+            return st
         exp = oracles[oracle_of.get(path, path)]
         plan_text[path] = stream().explain()
         for mod, attr in list(counters.values()) + [(fuse, "FALLBACKS"),
@@ -1513,6 +1759,8 @@ def smoke(dev, card: str, args) -> int:
         delivered.clear()
         onehot_batches.clear()
         join.hash_join_general = counted_general
+        bridge.host_to_device, pack._encode, pack.stage = counted_h2d, timed_encode, timed_stage
+        charged0 = charged()
         if path.startswith("skewjoin"):
             engine_mod.BatchCache.put = counted_put
         if path in sort_paths:
@@ -1527,8 +1775,18 @@ def smoke(dev, card: str, args) -> int:
             join.hash_join_general = real_general
             engine_mod.BatchCache.put = real_put
             fuse.FusedPartialAgg._small_dims = real_dims
+            bridge.host_to_device, pack._encode, pack.stage = real_h2d, real_encode, real_stage
         syncs = kernels.SHUFFLE_HOST_SYNCS
         launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        # the cost gate: each kernel's devprof dispatches on this run equal
+        # its launches, and K23 ran once per landed batch
+        charged1 = charged()
+        miscounted = {k: (n, charged1.get(k, 0) - charged0.get(k, 0))
+                      for k, n in launches.items() if charged1.get(k, 0) - charged0.get(k, 0) != n}
+        if miscounted:
+            fail(f"{path}: launches vs devprof dispatches differ: {miscounted}")
+        if launches["K23"] != land["batches"]:
+            fail(f"{path}: {launches['K23']} K23 launches for {land['batches']} landed batches")
         fallbacks, sequential = fuse.FALLBACKS, stagefuse.SEQUENTIAL
         used = strategy.used_snapshot()
         check(got, exp)
@@ -1537,6 +1795,11 @@ def smoke(dev, card: str, args) -> int:
         print(f"{path} sf={args.sf}: cold {cold:.3f} s, launches {launches}, "
               f"fallbacks {fallbacks}, per-step stage batches {sequential}, general joins "
               f"{len(general_calls)} {sorted(set(general_calls))}; matches the numpy oracle")
+        print(f"{path} landing: {land['batches']} batches, wire {land['wire_bytes']} B of "
+              f"{land['logical_bytes']} B logical "
+              f"({land['wire_bytes'] / max(land['logical_bytes'], 1):.3f}), host encode "
+              f"{land['encode_s'] / max(land['batches'], 1):.5f} s and stage "
+              f"{land['stage_s'] / max(land['batches'], 1):.5f} s per batch")
         missing = [k for k in must if launches[k] == 0]
         if missing:
             fail(f"kernels not launched on the {path} run: {missing}")
@@ -1607,6 +1870,11 @@ def smoke(dev, card: str, args) -> int:
         walls[path] = {"cold_s": cold, "warm_s": warm}
         print(f"{path} warm: {[round(w, 4) for w in warm]} s")
     set_strategy()
+    report["landing"] = landing
+    q1_land = landing["q1"]
+    if q1_land["wire_bytes"] * 2 > q1_land["logical_bytes"]:
+        fail(f"q1: wire bytes {q1_land['wire_bytes']} are more than half the logical "
+             f"{q1_land['logical_bytes']}")
     report["slice6"] = slice6
     report.update(walls=walls, launches=launches_by_path, plans=plan_text,
                   vector_checks={p: {"max_score_err": e, "queries_ids_differ": d}
@@ -1689,7 +1957,7 @@ def smoke(dev, card: str, args) -> int:
                 "qk_probe_kernel", "qk_sorted_probe_kernel", "qk_mm_expand_kernel",
                 "qk_elemwise", "qk_asof_probe_kernel", "qk_fill_", "qk_window_bounds_kernel",
                 "qk_minmax_", "qk_sims_topk_kernel", "qk_topk_merge_kernel", "qk_gram_",
-                "qk_plan_", "qk_adapt_kernel", "qk_onehot_")
+                "qk_plan_", "qk_adapt_kernel", "qk_onehot_", "qk_decode")
     profiles = {}
     for path, (stream, *_) in paths.items():
         set_strategy(path)
@@ -1707,15 +1975,64 @@ def smoke(dev, card: str, args) -> int:
                 t, c = sum(h[0] for h in hits), sum(h[1] for h in hits)
                 per_kernel[prefix] = {"us_total": t, "launches": c, "us_per_launch": t / c}
         med = sorted(walls[path]["warm_s"])[len(walls[path]["warm_s"]) // 2]
+        _, d2h, stream_syncs = profile_counts(prof)
         profiles[path] = {"wall_s": wall, "device_busy_s": busy, "warm_median_s": med,
                           "idle_share_of_warm": None if busy == 0 else 1 - busy / med,
-                          "kernels_device_us": per_kernel,
+                          "kernels_device_us": per_kernel, "d2h": d2h, "syncs": stream_syncs,
                           "top": sorted(ev.items(), key=lambda kv: -kv[1][0])[:15]}
         print(f"where ({path}): profiled run {wall:.3f} s wall, device busy {busy:.4f} s, "
               f"idle share of the warm median {med:.3f} s: "
-              f"{'not measured' if busy == 0 else round(1 - busy / med, 4)}")
+              f"{'not measured' if busy == 0 else round(1 - busy / med, 4)}; {d2h} D2H "
+              f"copies, {stream_syncs} cudaStreamSynchronize")
     set_strategy()
     report["profiles"] = profiles
+
+    # -- phase 5b: Q1, Q3, Q5 beside the parent's tree, in turns ------------------
+    if args.parent:
+        runs = []
+        for label, pkg in (("parent", args.parent), ("change", str(ROOT)),
+                           ("change", str(ROOT)), ("parent", args.parent)):
+            r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--walls-only",
+                                "--package", pkg, "--sf", str(args.sf), "--seed",
+                                str(args.seed)], capture_output=True, text=True, timeout=600)
+            lines = [l for l in r.stdout.splitlines() if l.startswith('{"walls"')]
+            if r.returncode or not lines:
+                fail(f"walls-only run of {pkg} failed ({r.returncode}): {r.stderr[-2000:]}")
+            runs.append((label, json.loads(lines[-1])["walls"]))
+        report["parent_compare"] = runs
+        for q in COMPARED:
+            for label, w in runs:
+                v = w[q]
+                print(f"compare {q} {label}: warm {[round(x, 4) for x in v['warm_s']]} s, "
+                      f"read+bridge {v['read_bridge_s']:.4f} s of a {v['timed_wall_s']:.4f} s "
+                      f"run, idle share {v['idle_share_of_warm']:.4f}, {v['d2h']} D2H copies, "
+                      f"{v['syncs']} cudaStreamSynchronize, {v['ledger_count_reads']} ledger "
+                      "count reads")
+            parent = {(w[q]["d2h"], w[q]["syncs"]) for label, w in runs if label == "parent"}
+            change = {(w[q]["d2h"] - w[q]["ledger_count_reads"],
+                       w[q]["syncs"] - w[q]["ledger_count_reads"])
+                      for label, w in runs if label == "change"}
+            if len(parent) != 1 or change != parent:
+                fail(f"{q}: D2H copies and stream syncs (less the ledger's count reads) "
+                     f"{sorted(change)} differ from the parent's {sorted(parent)}")
+
+    # -- phase 5c: the calibrated peaks (row 25) and EXPLAIN ANALYZE ------------------
+    prof25 = devprof.ensure_calibrated()
+    report["calibration"] = prof25
+    print(f"devprof calibration on {prof25['device']}: peak_flops_s "
+          f"{prof25['peak_flops_s']:.6g} (data sheet {FP32_FLOP_PER_S:.6g} float32), "
+          f"peak_bw_bytes_s {prof25['peak_bw_bytes_s']:.6g} (data sheet "
+          f"{HBM_BYTES_PER_S:.6g}); {MATMUL_N_NOTE}; allow_tf32 "
+          f"{prof25['matmul_allow_tf32']}; timings {prof25['timings_s']}")
+    explained = {}
+    for q in ("q1", "q5"):
+        collect_numpy(tpch_stream(q, ctx, tables), q)
+        text = explain.render(obs.OPSTATS.last_finished())
+        if "device efficiency (peaks:" not in text or "EXPLAIN ANALYZE" not in text:
+            fail(f"{q}: EXPLAIN ANALYZE has no calibrated efficiency section:\n{text}")
+        explained[q] = text
+        print(f"EXPLAIN ANALYZE of {q}:\n{text}")
+    report["explain_analyze"] = explained
 
     # the calls the Q3 paths make: counts per query and the largest arguments
     def rows_of(*a, **kw):
@@ -2690,6 +3007,43 @@ def smoke(dev, card: str, args) -> int:
         device_us=device_us(lambda: fuse.onehot_agg_cuda(*k6_a), ("qk_onehot_",)),
         per_query={p: launches_by_path[p]["K6"] for p in sorted(sort_paths)}))
     del onehot6, stacked6
+
+    # K23 at Q1's and Q3's largest landed batches, then the layouts beyond
+    # them: NaN / -0.0 dictionaries, uint16 codes, a plan that widens then
+    # degrades, an all-pass layout and a 0-row batch, each bit for bit
+    k23_caps = {}
+    for q in ("q1", "q3"):
+        with Capture({"K23": (pack, "pack_put", lambda leaves, device: leaves[0].padded)}) \
+                as cap:
+            collect_numpy(tpch_stream(q, ctx, tables), q)
+        k23_caps[q] = cap.args["K23"][0][0]
+    pack._PLANS.clear()
+    k23 = {q: check_k23(dev, f"{q}'s largest batch", leaves) for q, leaves in k23_caps.items()}
+    k23_layouts = {q: c["kinds"] for q, c in k23.items()}
+    for label, seq in k23_cases(args.seed):
+        pack._PLANS.clear()
+        k23_layouts[label] = [check_k23(dev, f"{label}, batch {i}", leaves)["kinds"]
+                              for i, leaves in enumerate(seq)]
+    print(f"K23: the layouts {k23_layouts} match the plain version and the input bit for bit")
+
+    def k23_row(c):
+        st = c["st"]
+        return dict(ms=cuda_ms(lambda: pack.decode_launch(st)),
+                    plain_ms=cuda_ms(lambda: pack.decode_plain(c["layout"], st.wires)),
+                    bound_ms=bound_ms(c["read"] + c["write"]),
+                    device_us=device_us(lambda: pack.decode_launch(st), ("qk_decode",)),
+                    shape=f"{st.outs[0].shape[0]} rows, layout {c['kinds']}, "
+                          f"{c['read']} B read, {c['write']} B written")
+
+    row1, row3 = k23_row(k23["q1"]), k23_row(k23["q3"])
+    out.append(dict(
+        name="K23 wire decode", route="cuda", source="quokka_tpu_torch/csrc/pack.cu",
+        replaces="quokka_tpu/ops/pack.py:128", launches=launches_by_path["q1"]["K23"],
+        max_abs_err=0.0, bound_by="bytes", library_ms=None, **row1,
+        per_query={p: launches_by_path[p]["K23"] for p in paths},
+        q3={"launches": launches_by_path["q3"]["K23"], **row3}))
+    report["k23_layouts"] = k23_layouts
+    del k23, k23_caps
 
     # the torch-primitive rows at Q3's shapes: time, device time, bound
     def t_row(row, what, fn, n_bytes, calls, query="q3"):

@@ -10,11 +10,17 @@ torch runs eagerly and the hand-written kernels build on first use
 from __future__ import annotations
 
 import os
+from pathlib import Path
 from typing import Optional, Union
 
 import torch
 
 from quokka_tpu_torch.ops import sigkey
+
+# where the port keeps what it builds and measures at run time (the CUDA
+# libraries, Triton's cache, the devprof and cardinality profiles): inside
+# the checkout, in a directory git ignores
+CACHE_ROOT = str(Path(__file__).resolve().parent.parent / "build" / "quokka_tpu_torch")
 
 MIN_BUCKET = sigkey.MIN_BUCKET
 MAX_BUCKET = sigkey.MAX_BUCKET
@@ -91,11 +97,5 @@ def adapt_min_rows() -> int:
         return 1 << 15
 
 
-def skew_ratio_threshold() -> float:
-    """``QK_SKEW_RATIO``: the max / mean ratio of rows per channel at which an
-    exchange counts as skewed (default 2.0, at least 1.0); the reference
-    keeps it in ``obs/opstats.py``."""
-    try:
-        return max(1.0, float(os.environ.get("QK_SKEW_RATIO", 2.0)))
-    except ValueError:
-        return 2.0
+# one definition of the skew threshold, in the ledger that reports skew
+from quokka_tpu_torch.obs.opstats import skew_ratio_threshold  # noqa: E402,F401

@@ -137,19 +137,35 @@ class QuokkaContext:
             sink_id = sub_sink_id
         if self.optimize_plans:
             from quokka_tpu_torch.optimizer import optimize
+            from quokka_tpu_torch.planner import decide
 
+            # the optimizer's decision log for this plan (taken at lowering)
+            decide.begin_decisions()
             sink_id = optimize(sub, sink_id)
         return sub, sink_id
 
     def execute_node(self, node_id: int):
+        """Run a plan to completion.  The query's operator statistics are
+        on the ledger afterwards: EXPLAIN ANALYZE is
+        ``obs.explain.render(obs.OPSTATS.last_finished())``."""
+        from quokka_tpu_torch.planner import decide
+        from quokka_tpu_torch.runtime.engine import plan_fingerprint
+
         sub, sink_id = self._prepare_plan(node_id)
         self._assign_stages(sub, sink_id)
         graph = TaskGraph(self.device, self.exec_config)
         actor_of: Dict[int, int] = {}
         for nid in self._toposort(sub, sink_id):
             sub[nid].lower(self, graph, actor_of, nid)
+        # the decision log and the plan's fingerprint ride the graph to the
+        # ledger (register_plan), which keys measured cardinalities by it
+        graph.planner_decisions = decide.take_decisions()
+        graph.plan_fp = plan_fingerprint(graph)
         self.latest_graph = graph
-        graph.run()
+        try:
+            graph.run()
+        finally:
+            graph.cleanup()
         ds = graph.result(actor_of[sink_id])
         ds.schema = list(sub[sink_id].schema)
         return ds

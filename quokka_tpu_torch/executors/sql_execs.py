@@ -18,6 +18,7 @@ import torch
 
 from quokka_tpu_torch import config
 from quokka_tpu_torch.executors.base import Executor
+from quokka_tpu_torch.obs import opstats
 from quokka_tpu_torch.ops import bridge, fuse, kernels
 from quokka_tpu_torch.ops import join as join_ops
 from quokka_tpu_torch.ops.batch import DeviceBatch, NumCol
@@ -137,8 +138,7 @@ class PartialAggExecutor(Executor):
         pre-expression kernel (K5) as on the grouped path."""
         try:
             call = self._fused.prepare_general(batch)
-            pre = dict(zip(call.outs, call.plain() if batch.device.type == "cpu"
-                           else call.launch()))
+            pre = dict(zip(call.outs, call.run()))
         except CompileError:
             fuse.note_fallback(batch)
             pre = {name: evaluate_to_column(e, batch).data for name, e in self.plan.pre}
@@ -307,6 +307,8 @@ class BuildProbeJoinExecutor(Executor):
         self.payload = payload
         self.build = b
         self.build_unique = join_ops.build_keys_unique(b, self.right_on)
+        # EXPLAIN ANALYZE: the build's padded length (host-known, no read)
+        opstats.note(join_build_rows=b.padded_len)
 
     def execute(self, batches, stream_id, channel):
         live = [b for b in batches if b is not None]
@@ -345,6 +347,8 @@ class BuildProbeJoinExecutor(Executor):
     def _probe(self, live: List[DeviceBatch]) -> Optional[DeviceBatch]:
         if self.build is None and self.build_parts:
             self._finalize_build(live[0].names)
+        opstats.note(join_probe_rows=sum(
+            b.nrows if b.nrows is not None else b.padded_len for b in live))
         # the dispatch's whole ready set flows through one join call
         live = _coalesce(live)
         if self.build is None:

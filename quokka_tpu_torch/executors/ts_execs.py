@@ -38,6 +38,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from quokka_tpu_torch.executors.base import Executor
+from quokka_tpu_torch.obs import devprof, opstats
 from quokka_tpu_torch.ops import asof as asof_ops
 from quokka_tpu_torch.ops import bridge, kernels, native
 from quokka_tpu_torch.ops import strategy as kstrategy
@@ -195,6 +196,8 @@ class SortedAsofExecutor(Executor):
                 wm = _time_max(b, self.right_on)
                 if self.q_watermark is None or wm > self.q_watermark:
                     self.q_watermark = wm
+            # the quote side is the as-of's build (counts already host-known)
+            opstats.note(join_build_rows=sum(b.nrows for b in live))
             return self._flush()
         for b in live:
             self._t_parts.append(b)
@@ -202,6 +205,8 @@ class SortedAsofExecutor(Executor):
             wm = _time_max(b, self.left_on)
             if self.t_watermark is None or wm > self.t_watermark:
                 self.t_watermark = wm
+        opstats.note(join_probe_rows=sum(
+            b.nrows if b.nrows is not None else b.padded_len for b in live))
         return self._flush()
 
     def source_done(self, stream_id, channel):
@@ -835,6 +840,9 @@ def window_bounds(t: torch.Tensor, seg_start: torch.Tensor, seg_end: torch.Tenso
     end, the first row of the segment with time >= t - size and the last
     with time <= t (int32 each).  CUDA tensors launch the kernel; CPU
     tensors take the plain version."""
+    n = t.shape[0]
+    devprof.on_dispatch(("K20a", t.device.type, n, str(t.dtype)),
+                        lambda: (0.0, float(n * (8 + 4 + 4 + 4 + 4)), float(8 * n)))
     if t.device.type == "cpu":
         return _window_bounds_plain(t, seg_start, seg_end, size)
     return _window_bounds_cuda(t, seg_start, seg_end, size)
@@ -902,6 +910,10 @@ def range_minmax(x: torch.Tensor, left: torch.Tensor, right: torch.Tensor,
     CUDA tensors launch the kernel; CPU tensors take the plain version."""
     if op not in ("min", "max"):
         raise ValueError(op)
+    n = x.shape[0]
+    devprof.on_dispatch(("K20b", x.device.type, n, str(x.dtype), op),
+                        lambda: (0.0, float(devprof.nbytes(x, left, right)
+                                            + n * x.element_size()), float(n * x.element_size())))
     if x.device.type == "cpu":
         return _range_minmax_plain(x, left, right, op)
     return _range_minmax_cuda(x, left, right, op)

@@ -34,6 +34,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from quokka_tpu_torch.obs import devprof
 from quokka_tpu_torch.ops import kernels, native
 from quokka_tpu_torch.ops import strategy as kstrategy
 from quokka_tpu_torch.ops.batch import DeviceBatch, NumCol, key_limbs, with_nulls
@@ -111,6 +112,8 @@ def seg_fill_forward(values: torch.Tensor, seg_start: torch.Tensor) -> torch.Ten
     """K19: segmented running max of int32 ``values`` (the reference's
     ``_seg_fill_forward``).  CUDA tensors launch the kernel; CPU tensors
     take the plain version."""
+    n = values.shape[0]
+    devprof.on_dispatch(("K19", values.device.type, n), lambda: (0.0, float(9 * n), float(4 * n)))
     if values.device.type == "cpu":
         return _seg_fill_forward_plain(values, seg_start)
     return _seg_fill_forward_cuda(values, seg_start)
@@ -213,6 +216,11 @@ def asof_probe(sorted_ops, perm, n_valid, probe_ops, probe_valid, upper: bool, n
     first ``nkey`` limbs are keys, the last is time; probe limbs carry the
     sorted limbs' dtypes.  Returns (original quote row int32, matched).
     CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    p = probe_valid.shape[0]
+    devprof.on_dispatch(
+        ("K18", probe_valid.device.type, p, perm.shape[0], tuple(str(o.dtype) for o in probe_ops), upper, nkey),
+        lambda: (0.0, float(devprof.nbytes(*sorted_ops, perm, *probe_ops, probe_valid) + 5 * p),
+                 float(5 * p)))
     if probe_valid.device.type == "cpu":
         return _asof_probe_plain(sorted_ops, perm, n_valid, probe_ops, probe_valid, upper,
                                  nkey)

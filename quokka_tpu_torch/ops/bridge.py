@@ -4,8 +4,10 @@ The port's core host format is numpy: a ``HostTable`` is a dict of column
 arrays plus optional per-column validity and optional dictionaries for
 columns that arrive already dictionary-encoded.  ``host_to_device`` pads
 every column to the bucket ladder, writes null sentinels, dictionary-encodes
-strings on the host, and lands the whole batch on the device in ONE copy
-through a pinned staging buffer.  Arrow and pandas are optional: only
+strings on the host, and lands the whole batch on the device through
+``ops/pack.py``: narrowed integer and dictionary-coded float wires, the
+validity mask as one count, ONE copy through a pinned staging buffer and
+one wire decode (K23 on CUDA).  Arrow and pandas are optional: only
 ``arrow_to_device`` / ``device_to_arrow`` / ``to_pandas`` import them, and
 only when called.
 
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from quokka_tpu_torch import config
+from quokka_tpu_torch.ops import pack
 from quokka_tpu_torch.ops.batch import (
     NULL_I32,
     NULL_I64,
@@ -114,53 +117,32 @@ def _host_column(name: str, arr: np.ndarray, nullm: Optional[np.ndarray],
         out = arr if nullm is None else np.where(nullm, False, arr)
         return out, "b", None
     if arr.dtype.kind in ("i", "u"):
-        out = arr.astype(np.int64)
+        out = arr.astype(np.int64, copy=False)
         if nullm is not None:
             out = np.where(nullm, np.int64(NULL_I64), out)
         return out, "i", None
     if arr.dtype.kind == "f":
-        out = arr.astype(np.float64)
+        out = arr.astype(np.float64, copy=False)
         if nullm is not None:
             out = np.where(nullm, np.nan, out)
         return out, "f", None
     raise NotImplementedError(f"column {name}: numpy dtype {arr.dtype} not supported")
 
 
-def _land(arrays: List[np.ndarray], padded: int, device: torch.device) -> List[torch.Tensor]:
-    """Pad each array to ``padded`` rows (a 2-D array keeps its width) and
-    move them all to ``device`` in one copy: staged in one pinned buffer for
-    CUDA, plain tensors on CPU."""
-    if device.type == "cpu":
-        outs = []
-        for a in arrays:
-            t = torch.zeros((padded,) + a.shape[1:], dtype=_torch_dtype(a.dtype))
-            t[: len(a)] = torch.from_numpy(np.ascontiguousarray(a))
-            outs.append(t)
-        return outs
-    offs, total = [], 0
-    row_bytes = [a.dtype.itemsize * int(np.prod(a.shape[1:], dtype=np.int64)) for a in arrays]
-    for rb in row_bytes:
-        offs.append(total)
-        total += (padded * rb + 255) // 256 * 256
-    staging = torch.empty(max(total, 1), dtype=torch.uint8, pin_memory=True)
-    host = staging.numpy()
-    for a, off, rb in zip(arrays, offs, row_bytes):
-        nb = len(a) * rb
-        host[off: off + nb] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
-        host[off + nb: off + padded * rb] = 0
-    dev = staging.to(device, non_blocking=True)
-    return [dev[off: off + padded * rb].view(_torch_dtype(a.dtype)).view((padded,) + a.shape[1:])
-            for a, off, rb in zip(arrays, offs, row_bytes)]
-
-
-def _torch_dtype(dt: np.dtype) -> torch.dtype:
-    return {np.dtype(np.bool_): torch.bool, np.dtype(np.int32): torch.int32,
-            np.dtype(np.int64): torch.int64, np.dtype(np.float64): torch.float64,
-            np.dtype(np.float32): torch.float32}[np.dtype(dt)]
+def _pad(arr: np.ndarray, padded: int) -> np.ndarray:
+    """``arr`` 0-filled to ``padded`` rows (a 2-D array keeps its width),
+    before narrowing, as the reference pads: min / max and the wire layouts
+    see the same values."""
+    if len(arr) == padded:
+        return arr
+    out = np.zeros((padded,) + arr.shape[1:], dtype=arr.dtype)
+    out[: len(arr)] = arr
+    return out
 
 
 def host_to_device(table: HostTable, device, sorted_by: Optional[List[str]] = None) -> DeviceBatch:
-    """Land a host table on ``device`` as a padded DeviceBatch."""
+    """Land a host table on ``device`` as a padded DeviceBatch: one narrowed
+    transfer and one wire decode (``ops/pack.py``, K23 on CUDA)."""
     device = torch.device(device)
     n = table.num_rows
     padded = config.bucket_size(n)
@@ -170,8 +152,8 @@ def host_to_device(table: HostTable, device, sorted_by: Optional[List[str]] = No
         nullm = None if v is None else ~np.asarray(v, dtype=bool)
         specs.append((name, *_host_column(name, arr, nullm,
                                           table.dictionaries.get(name))))
-    valid = np.ones(n, dtype=np.bool_)
-    landed = _land([valid] + [a for _, a, _, _ in specs], padded, device)
+    landed = pack.pack_put([pack.ValidCount(padded, n)]
+                           + [_pad(a, padded) for _, a, _, _ in specs], device)
     cols = {}
     for (name, _, kind, d), t in zip(specs, landed[1:]):
         cols[name] = (StrCol(t, d) if kind == "s" else VecCol(t) if kind == "v"
@@ -220,18 +202,20 @@ def device_to_host(batch: DeviceBatch) -> Dict[str, np.ndarray]:
     datetime64[D] (NaT = null), ints int64 (float64 with NaN where a column
     has nulls, as pandas shows them), floats float64, bools bool, vectors
     2-D float64 ``[rows, dim]``."""
-    mask = batch.valid.cpu().numpy()
+    host = pack.get_packed([batch.valid] + [c.codes if isinstance(c, StrCol) else c.data
+                                            for c in batch.columns.values()])
+    mask = host[0]
     out: Dict[str, np.ndarray] = {}
-    for name, col in batch.columns.items():
+    for (name, col), arr in zip(batch.columns.items(), host[1:]):
         if isinstance(col, StrCol):
-            codes = col.codes.cpu().numpy()[mask]
+            codes = arr[mask]
             vals = col.dictionary.values
             ok = (codes >= 0) & (codes < len(vals))
             res = np.full(len(codes), None, dtype=object)
             res[ok] = vals[codes[ok]]
             out[name] = res
             continue
-        data = col.data.cpu().numpy()[mask]
+        data = arr[mask]
         if isinstance(col, VecCol):
             out[name] = data
         elif col.kind == "d":

@@ -85,6 +85,7 @@ from quokka_tpu_torch.expression import (
     UnaryOp,
     _rebuild,
 )
+from quokka_tpu_torch.obs import devprof
 from quokka_tpu_torch.ops import expr_compile, kernels, native, sigkey, strategy
 from quokka_tpu_torch.ops.batch import DeviceBatch, NumCol, StrCol, gather_columns
 from quokka_tpu_torch.ops.bridge import pad_tail
@@ -398,6 +399,10 @@ class FusedPredicate:
         if prep is None:
             return self._unfused(batch)
         e, kern, inputs = prep
+        n = batch.padded_len
+        devprof.on_dispatch(("K1", batch.device.type, n, tuple(str(t.dtype) for t in inputs.values())),
+                            lambda: (0.0, float(devprof.nbytes(*inputs.values()) + 2 * n + 4),
+                                     float(n + 4)))
         if batch.device.type == "cpu":
             mask, num = predicate_plain(e, inputs, batch.valid)
         else:
@@ -554,6 +559,18 @@ class SmallCall:
         return small_agg_launch(self.kern, self.partials, list(self.inputs.values()),
                                 self.codes, self.valid, self.n_groups)
 
+    def run(self):
+        """K2 on CUDA tensors, the plain version on CPU ones, charged to
+        devprof: inputs, codes and mask read, each bucket's sums and
+        smallest row written."""
+        out = 8 * self.n_groups * (len(self.partials) + 1)
+        devprof.on_dispatch(
+            ("K2", self.valid.device.type, self.valid.shape[0], tuple(str(t.dtype) for t in self.inputs.values()),
+             len(self.codes), len(self.partials), self.n_groups),
+            lambda: (0.0, float(devprof.nbytes(*self.inputs.values(), *self.codes,
+                                               self.valid) + out), float(out)))
+        return self.plain() if self.valid.device.type == "cpu" else self.launch()
+
 
 # ---------------------------------------------------------------------------
 # K5: pre-expressions of the general partial aggregate
@@ -632,6 +649,18 @@ class PreAggCall:
     def launch(self) -> List[torch.Tensor]:
         return pre_exprs_launch(self.kern, list(self.inputs.values()), self.valid,
                                 self.out_dtypes)
+
+    def run(self) -> List[torch.Tensor]:
+        """K5 on CUDA tensors, the plain version on CPU ones, charged to
+        devprof: inputs and mask read, one array per pre-expression written."""
+        n = self.valid.shape[0]
+        out = n * sum(torch.empty((), dtype=dt).element_size() for dt in self.out_dtypes)
+        devprof.on_dispatch(
+            ("K5", self.valid.device.type, n, tuple(str(t.dtype) for t in self.inputs.values()),
+             tuple(str(dt) for dt in self.out_dtypes)),
+            lambda: (0.0, float(devprof.nbytes(*self.inputs.values(), self.valid) + out),
+                     float(out)))
+        return self.plain() if self.valid.device.type == "cpu" else self.launch()
 
 
 # ---------------------------------------------------------------------------
@@ -738,6 +767,10 @@ def onehot_agg(fcols: List[torch.Tensor], icols: List[torch.Tensor], codes: List
     """K6: per-bucket float64 sums, exact int64 sums, int32 counts and the
     smallest row id.  CUDA tensors launch the kernel; CPU tensors take the
     plain version."""
+    out = n_groups * (8 * (len(fcols) + len(icols)) + 12)
+    devprof.on_dispatch(
+        ("K6", valid.device.type, valid.shape[0], len(fcols), len(icols), len(codes), n_groups),
+        lambda: (0.0, float(devprof.nbytes(*fcols, *icols, *codes, valid) + out), float(out)))
     if valid.device.type == "cpu":
         return onehot_agg_plain(fcols, icols, codes, strides, n_groups, valid)
     return onehot_agg_cuda(fcols, icols, codes, strides, n_groups, valid)
@@ -842,7 +875,7 @@ class FusedPartialAgg:
             if call is None:
                 return self._general(batch)
             strategy.note_used("groupby", "hashtable")
-            sums, rep_b = call.plain() if batch.device.type == "cpu" else call.launch()
+            sums, rep_b = call.run()
             n_groups = call.n_groups
         # live buckets first, in bucket order, padded to a 256-row bucket
         n = batch.padded_len
@@ -859,7 +892,7 @@ class FusedPartialAgg:
         """The one-hot small-key aggregate (K5's pre-expressions, then K6):
         per-partial bucket arrays [G] and the smallest row of each bucket."""
         call = self.prepare_general(batch)
-        pre = call.plain() if batch.device.type == "cpu" else call.launch()
+        pre = call.run()
         by_tmp = dict(zip(call.outs, pre))
         fcols, icols, slots = [], [], []
         for _pname, op, tmp in self.plan.partials:
@@ -898,7 +931,7 @@ class FusedPartialAgg:
 
     def _general(self, batch: DeviceBatch) -> DeviceBatch:
         call = self.prepare_general(batch)
-        pre = call.plain() if batch.device.type == "cpu" else call.launch()
+        pre = call.run()
         by_tmp = dict(zip(call.outs, pre))
         n = batch.padded_len
         arrays = tuple(

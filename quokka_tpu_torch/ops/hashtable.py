@@ -39,6 +39,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from quokka_tpu_torch.obs import devprof
 from quokka_tpu_torch.ops import native, strategy
 
 EMPTY = 2**31 - 1
@@ -254,6 +255,12 @@ def hash_groupby(limbs: Sequence[torch.Tensor], arrays: Sequence[torch.Tensor],
     instead (``groupby`` is then recorded as ``sort``)."""
     from quokka_tpu_torch.ops import kernels  # kernels imports this module
 
+    n = valid.shape[0]
+    devprof.on_dispatch(
+        ("K3", valid.device.type, n, tuple(str(l.dtype) for l in limbs), tuple(str(a.dtype) for a in arrays)),
+        lambda: (0.0, float(devprof.nbytes(*limbs, *arrays, valid) + n * (8 + sum(
+            a.element_size() for a in arrays))), float(n * (8 + sum(a.element_size()
+                                                                   for a in arrays)))))
     if valid.device.type == "cpu":
         res = hash_groupby_plain(limbs, arrays, ops, valid)
     else:
@@ -394,6 +401,10 @@ _DIVERGED = object()
 def _build_insert(limbs: Tuple[torch.Tensor, ...], ok: torch.Tensor, capbits: int):
     """Insert-only pass of K3: (table, converged).  The CUDA route reads the
     device flag once: the one host read a build pays."""
+    n = ok.shape[0]
+    devprof.on_dispatch(("K11 build", ok.device.type, n, len(limbs), capbits),
+                        lambda: (0.0, float(devprof.nbytes(*limbs, ok) + 4 * (1 << capbits)
+                                            + 4 * n), float(4 * (1 << capbits))))
     if ok.device.type == "cpu":
         _, table, converged = _insert_plain(limbs, ok, capbits)
         return table, converged
@@ -495,6 +506,10 @@ def _probe_cuda(table, build_limbs, probe_limbs, probe_ok, capbits: int):
 def probe(table, build_limbs, probe_limbs, probe_ok, capbits: int):
     """K11's probe over canonical limbs: CUDA tensors launch the kernel, CPU
     tensors take the plain version."""
+    p, nl = probe_ok.shape[0], len(probe_limbs)
+    devprof.on_dispatch(("K11", probe_ok.device.type, p, nl, capbits),
+                        lambda: (0.0, float(p * (4 * nl + 1 + 5) + p * 4 + p * 4 * nl),
+                                 float(5 * p)))
     if probe_ok.device.type == "cpu":
         return _probe_plain(table, build_limbs, probe_limbs, probe_ok, capbits)
     _require_cuda(probe_ok, "pk_probe")

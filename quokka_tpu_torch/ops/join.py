@@ -35,6 +35,7 @@ from typing import Sequence
 import torch
 
 from quokka_tpu_torch import config
+from quokka_tpu_torch.obs import devprof
 from quokka_tpu_torch.ops import hashtable, kernels, native, strategy
 from quokka_tpu_torch.ops.batch import (
     DeviceBatch,
@@ -156,6 +157,11 @@ def pk_probe_sorted(sorted_limbs, perm, n_valid, probe_limbs, probe_ok):
     """K12: probe a presorted build.  Probe limbs must already carry the
     sorted limbs' dtypes.  CUDA tensors launch the kernel; CPU tensors take
     the plain version."""
+    p = probe_ok.shape[0]
+    devprof.on_dispatch(
+        ("K12", probe_ok.device.type, p, perm.shape[0], tuple(str(l.dtype) for l in probe_limbs)),
+        lambda: (0.0, float(devprof.nbytes(*probe_limbs, probe_ok, *sorted_limbs) + 9 * p),
+                 float(5 * p)))
     if probe_ok.device.type == "cpu":
         return _pk_probe_sorted_plain(sorted_limbs, perm, n_valid, probe_limbs, probe_ok)
     if probe_ok.device.type != "cuda":
@@ -347,6 +353,12 @@ def mm_expand(match_count, offsets, build_pos_sorted, rp, total, out_padded: int
     kernel, CPU tensors take the plain version."""
     cum = torch.cumsum(match_count, 0)
     args = (cum, offsets, build_pos_sorted, rp, total, out_padded, unmatched)
+    out = out_padded * (9 + (1 if unmatched is not None else 0))
+    devprof.on_dispatch(
+        ("K13", cum.device.type, cum.shape[0], offsets.shape[0], build_pos_sorted.shape[0], out_padded,
+         unmatched is not None),
+        lambda: (0.0, float(devprof.nbytes(cum, offsets, build_pos_sorted, rp, unmatched) + out),
+                 float(out)))
     if cum.device.type == "cpu":
         return _mm_expand_plain(*args)
     if cum.device.type != "cuda":

@@ -31,6 +31,7 @@ import torch
 import numpy as np
 
 from quokka_tpu_torch import config
+from quokka_tpu_torch.obs import devprof
 from quokka_tpu_torch.ops import hashtable, native, strategy
 from quokka_tpu_torch.ops.batch import DeviceBatch, NumCol, StrCol, gather_columns, key_limbs
 from quokka_tpu_torch.ops.hashtable import _max_sentinel as max_sentinel
@@ -370,6 +371,7 @@ def partition_split(limbs: Sequence[torch.Tensor], pids: Optional[torch.Tensor],
     CUDA tensors launch the kernel; CPU tensors take the plain version."""
     if not 1 <= n_parts <= MAX_PARTS:
         raise ValueError(f"n_parts must be in [1, {MAX_PARTS}], got {n_parts}")
+    _charge_split("K4", limbs, pids, valid, n_parts, masks)
     if valid.device.type == "cpu":
         return partition_split_plain(limbs, pids, valid, n_parts, masks)
     global PARTITION_LAUNCHES
@@ -389,6 +391,18 @@ def partition_split(limbs: Sequence[torch.Tensor], pids: Optional[torch.Tensor],
         native.stream_ptr(dev)), "qk_partition_split")
     PARTITION_LAUNCHES += 1
     return pids_out, m, counts
+
+
+def _charge_split(name: str, limbs, pids, valid, n_parts: int, masks: bool) -> None:
+    """devprof's charge of one K4 / K26 split: the limbs (or given ids) and
+    the mask read, the ids written (K4 keeps given ids), and with ``masks``
+    the per-part masks and counts."""
+    ref = limbs[0] if limbs else pids
+    n = ref.shape[0]
+    out = (4 * n if limbs or name == "K26" else 0) + (n * n_parts + 4 * n_parts if masks else 0)
+    devprof.on_dispatch(
+        (name, ref.device.type, n, tuple(str(l.dtype) for l in limbs), pids is not None, n_parts, masks),
+        lambda: (0.0, float(devprof.nbytes(*limbs, pids, valid) + out), float(out)))
 
 
 def adapt_split_plain(limbs: Sequence[torch.Tensor], pids: Optional[torch.Tensor],
@@ -430,6 +444,7 @@ def adapt_split(limbs: Sequence[torch.Tensor], pids: Optional[torch.Tensor],
     if not 0 <= fat < n_parts:
         raise ValueError(f"adapt_split: fat partition {fat} outside [0, {n_parts})")
     ref = limbs[0] if limbs else pids
+    _charge_split("K26", limbs, pids, valid, n_parts, masks)
     if ref.device.type == "cpu":
         return adapt_split_plain(limbs, pids, valid, n_parts, fat, mode, masks)
     if masks and valid is None:
@@ -473,6 +488,9 @@ def partition_plan(pids: torch.Tensor, valid: torch.Tensor, n_parts: int):
     tensors launch the kernel; CPU tensors take the plain version."""
     if not 1 <= n_parts <= MAX_PARTS:
         raise ValueError(f"n_parts must be in [1, {MAX_PARTS}], got {n_parts}")
+    n = valid.shape[0]
+    devprof.on_dispatch(("K17", valid.device.type, n, n_parts),
+                        lambda: (0.0, float(9 * n + 8 * n_parts), float(4 * n + 8 * n_parts)))
     if valid.device.type == "cpu":
         return partition_plan_plain(pids, valid, n_parts)
     global PLAN_LAUNCHES

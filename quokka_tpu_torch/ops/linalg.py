@@ -18,6 +18,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from quokka_tpu_torch.obs import devprof
 from quokka_tpu_torch.ops import native
 
 # launches of K22
@@ -97,6 +98,10 @@ def gramian(cols: Sequence[torch.Tensor],
     """K22: (``m^T m``, column sums) in float64 of the columns cast to
     float32 with invalid rows zeroed.  CUDA tensors launch the kernel; CPU
     tensors take the plain version."""
+    d = len(cols)
+    out = 8 * (d * (d + 1) // 2 + d)
+    devprof.on_dispatch(("K22", valid.device.type, valid.shape[0], tuple(str(c.dtype) for c in cols)),
+                        lambda: (0.0, float(devprof.nbytes(*cols, valid) + out), float(out)))
     if valid.device.type == "cpu":
         return gramian_plain(cols, valid)
     return gramian_cuda(cols, valid)

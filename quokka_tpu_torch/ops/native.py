@@ -24,10 +24,13 @@ import threading
 from pathlib import Path
 from typing import Dict, List
 
+from quokka_tpu_torch import config
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
-BUILD_DIR = PKG_DIR.parent / "build" / "quokka_tpu_torch"
-SOURCES = ("hashtable", "partition", "join", "asof", "window", "vector", "linalg", "onehot")
+BUILD_DIR = Path(config.CACHE_ROOT)
+SOURCES = ("hashtable", "partition", "join", "asof", "window", "vector", "linalg", "onehot",
+           "pack")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]

@@ -41,6 +41,7 @@ import torch
 
 from quokka_tpu_torch.executors.base import Executor
 from quokka_tpu_torch.expression import Expr, substitute_columns
+from quokka_tpu_torch.obs import devprof, opstats
 from quokka_tpu_torch.ops import expr_compile, kernels
 from quokka_tpu_torch.ops.batch import DeviceBatch, NumCol
 from quokka_tpu_torch.ops.fuse import (
@@ -147,6 +148,20 @@ class ElemwiseCall:
     def launch(self):
         return elementwise_launch(self.kern, list(self.inputs.values()), self.valid,
                                   self.out_dtypes)
+
+    def run(self):
+        """K16 on CUDA tensors, the plain version on CPU ones, charged to
+        devprof: inputs and mask read, the mask, its count and every output
+        written."""
+        n = self.valid.shape[0]
+        out = n + 4 + n * sum(torch.empty((), dtype=dt).element_size()
+                              for dt in self.out_dtypes)
+        devprof.on_dispatch(
+            ("K16", self.valid.device.type, n, tuple(str(t.dtype) for t in self.inputs.values()),
+             tuple(str(dt) for dt in self.out_dtypes)),
+            lambda: (0.0, float(devprof.nbytes(*self.inputs.values(), self.valid) + out),
+                     float(out)))
+        return self.plain() if self.valid.device.type == "cpu" else self.launch()
 
 
 class FusedElementwise:
@@ -262,7 +277,7 @@ class FusedElementwise:
                     "ROADMAP Queue 1, \"The rest of the DataStream/SQL surface\"")
             return self._sequential(batch)
         call, out_kinds = prep
-        mask, num, arrays = call.plain() if batch.device.type == "cpu" else call.launch()
+        mask, num, arrays = call.run()
         computed = {name: NumCol(arr, kind)
                     for (name, _), arr, kind in zip(call.outputs, arrays, out_kinds)}
         if self._visible is None:
@@ -299,6 +314,16 @@ class FusedStageExecutor(Executor):
         self.steps = [factory() for _, factory in spec.steps]
         self.labels = [label for label, _ in spec.steps]
         self.routing = spec.routing
+        # the ledger's operator label: the member chain
+        self.OP_NAME = "FusedStage[" + ">".join(self.labels) + "]"
+
+    def _note_rows(self, idx: int, out: Optional[DeviceBatch]) -> None:
+        """Per-member rows on the fused actor's ledger record (host-known
+        rows, else the padded length: never a device read)."""
+        if out is None:
+            return
+        rows = out.nrows if out.nrows is not None else out.padded_len
+        opstats.note(**{f"fused{idx}_{self.labels[idx]}_rows": rows})
 
     def _cascade(self, start: int, out: Optional[DeviceBatch],
                  channel: int) -> Optional[DeviceBatch]:
@@ -306,16 +331,19 @@ class FusedStageExecutor(Executor):
             if out is None:
                 return None
             out = self.steps[i].execute([out], 0, channel)
+            self._note_rows(i, out)
         return out
 
     def execute(self, batches, stream_id, channel):
         idx, sub_stream = self.routing.get(stream_id, (0, 0))
         out = self.steps[idx].execute(batches, sub_stream, channel)
+        self._note_rows(idx, out)
         return self._cascade(idx + 1, out, channel)
 
     def source_done(self, stream_id, channel):
         idx, sub_stream = self.routing.get(stream_id, (0, 0))
         out = self.steps[idx].source_done(sub_stream, channel)
+        self._note_rows(idx, out)
         return self._cascade(idx + 1, out, channel)
 
     def done(self, channel) -> Optional[List[DeviceBatch]]:
@@ -323,15 +351,18 @@ class FusedStageExecutor(Executor):
         # done() output feeds the rest of the chain before the next member
         # finalizes, the order the unfused actors would deliver it in
         pending: List[DeviceBatch] = []
-        for m in self.steps:
+        for i, m in enumerate(self.steps):
             outs: List[DeviceBatch] = []
             for b in pending:
                 o = m.execute([b], 0, channel)
+                self._note_rows(i, o)
                 if o is not None:
                     outs.append(o)
             d = m.done(channel)
             if d is not None:
-                outs.extend(o for o in ([d] if isinstance(d, DeviceBatch) else d)
-                            if o is not None)
+                for o in ([d] if isinstance(d, DeviceBatch) else d):
+                    if o is not None:
+                        self._note_rows(i, o)
+                        outs.append(o)
             pending = outs
         return pending or None

@@ -28,6 +28,7 @@ import math
 import numpy as np
 import torch
 
+from quokka_tpu_torch.obs import devprof
 from quokka_tpu_torch.ops import native
 
 # launches of K21
@@ -196,6 +197,12 @@ def sims_topk(q: torch.Tensor, vecs: torch.Tensor, valid: torch.Tensor, k: int,
     against the normalised float32 queries ``q`` [Q, d] into the running
     state.  CUDA tensors launch the kernel; CPU tensors take the plain
     version."""
+    nq, (n, d) = q.shape[0], vecs.shape
+    devprof.on_dispatch(
+        ("K21", vecs.device.type, nq, n, d, str(vecs.dtype), k),
+        lambda: (float(2 * nq * n * d),
+                 float(n * d * vecs.element_size() + n + nq * d * 4 + 2 * nq * k * 12),
+                 float(nq * k * 12)))
     if vecs.device.type == "cpu":
         return sims_topk_plain(q, vecs, valid, k, state_s, state_h, batch)
     return sims_topk_cuda(q, vecs, valid, k, state_s, state_h, batch)

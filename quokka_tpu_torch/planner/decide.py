@@ -4,12 +4,37 @@ with a later slice)."""
 
 from __future__ import annotations
 
-from typing import Dict
+import threading
+from typing import Dict, List
 
 from quokka_tpu_torch import config, logical
 
 # a column of this name would collide with a salted exchange's routing
 SALT_COLUMN = "__qk_salt"
+
+# the decision log of the plan being optimized (thread-local: optimize()
+# runs on the submitting thread); it rides the graph to the ledger, whose
+# snapshot explain() renders under "planner decisions"
+_TL = threading.local()
+
+
+def begin_decisions() -> None:
+    """Start collecting decisions for the plan being optimized."""
+    _TL.log = []
+
+
+def record(kind: str, **fields) -> None:
+    log = getattr(_TL, "log", None)
+    if log is not None:
+        log.append({"kind": kind, **fields})
+
+
+def take_decisions() -> List[dict]:
+    """Return and clear the collected decisions (empty when collection was
+    never begun)."""
+    log = getattr(_TL, "log", None)
+    _TL.log = None
+    return list(log or [])
 
 
 def plan_adaptive_exchanges(sub: Dict[int, logical.Node], sink_id: int) -> None:
@@ -25,9 +50,13 @@ def plan_adaptive_exchanges(sub: Dict[int, logical.Node], sink_id: int) -> None:
 
     if not config.adapt_enabled():
         return
+    eligible = []
     for nid in optimizer._reachable(sub, sink_id):
         node = sub[nid]
         if not isinstance(node, logical.JoinNode) or SALT_COLUMN in node.schema:
             continue
         if node.how == "inner" and not node.broadcast and not node.sorted_by:
             node.adapt_salt = True
+            eligible.append(node.describe())
+    if eligible:
+        record("adapt_mark", joins=eligible, skew_ratio=config.skew_ratio_threshold())

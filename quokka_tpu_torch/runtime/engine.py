@@ -23,21 +23,33 @@ ratio, it writes the build edge's salt record and the probe edge's
 replicate record to the ADT table before the next build batch ships, and
 the partition functions read them on every call.
 
+Observability (``obs/``): every graph carries a query id; the engine feeds
+the operator-statistics ledger at the reference's choke points (the plan at
+start, scan batches, executor inputs and outputs with the current operator
+marked on the thread, exchange edges on push, dispatch seconds, runtime
+adaptations), resolves its deferred device counts at the flush cadence, and
+``TaskGraph.cleanup`` hands the finished query to ``OPSTATS.on_query_gc``.
+The input tasks run under the input actor's mark too, so the wire decode
+(K23) and the source predicate (K1) are charged to the scan.
+
 Left for later slices, and raising where a plan would need them:
 checkpoints, spill, lineage replay and recovery, the scan cache, the
-compile plane, observability, and the prefetch / emitter threads.
+compile plane, and the prefetch / emitter threads.
 """
 
 from __future__ import annotations
 
 import copy
+import hashlib
 import time
+import uuid
 from collections import defaultdict
 from typing import Callable, Dict, List, Optional, Set, Tuple
 
 import torch
 
 from quokka_tpu_torch import config
+from quokka_tpu_torch.obs import opstats
 from quokka_tpu_torch.ops import bridge, kernels
 from quokka_tpu_torch.ops.batch import DeviceBatch
 from quokka_tpu_torch.planner import adapt as adapt_mod
@@ -50,6 +62,42 @@ from quokka_tpu_torch.target_info import (
     PassThroughPartitioner,
     TargetInfo,
 )
+
+
+def new_query_id() -> str:
+    """A fresh query id: short and unique for the process's lifetime."""
+    return "q" + uuid.uuid4().hex[:10]
+
+
+def _describe(obj) -> str:
+    """A structural label of an executor factory or expression: its type
+    and public fields, never an object address."""
+    f = getattr(obj, "func", obj)
+    name = getattr(f, "__qualname__", type(obj).__name__)
+    state = getattr(obj, "keywords", None) or getattr(obj, "__dict__", {})
+    return name + "(" + ",".join(f"{k}={v!r}" for k, v in sorted(state.items())
+                                 if not k.startswith("_") and "object at" not in repr(v)) + ")"
+
+
+def plan_fingerprint(graph) -> str:
+    """Structural fingerprint of a lowered TaskGraph (actor kinds, channels,
+    readers, executors, predicates, projections): the key the measured
+    cardinalities persist under, stable across runs of the same plan."""
+    parts = []
+    for aid in sorted(graph.actors):
+        info = graph.actors[aid]
+        desc = [str(aid), info.kind, str(info.channels), str(info.stage)]
+        if info.reader is not None:
+            desc.append(type(info.reader).__name__)
+        if info.executor_factory is not None:
+            desc.append(_describe(info.executor_factory))
+        if info.predicate is not None:
+            desc.append(repr(getattr(info.predicate, "expr", None)))
+        if info.projection:
+            desc.append(",".join(info.projection))
+        desc.append(",".join(str(t) for t in sorted(info.targets)))
+        parts.append("|".join(desc))
+    return hashlib.sha256(";".join(parts).encode()).hexdigest()[:16]
 
 
 class ActorInfo:
@@ -168,9 +216,15 @@ class TaskGraph:
     """Physical plan builder.  ``device`` is where every batch of the query
     lives."""
 
-    def __init__(self, device, exec_config: Optional[dict] = None):
+    def __init__(self, device, exec_config: Optional[dict] = None,
+                 query_id: Optional[str] = None):
         config.check_exec_config(exec_config)
         self.device = torch.device(device)
+        # the ledger's key for this query; plan_fp and planner_decisions are
+        # set by the context once the plan is lowered
+        self.query_id = query_id or new_query_id()
+        self.plan_fp: Optional[str] = None
+        self.planner_decisions: List[dict] = []
         self.store = ControlStore()
         self.cache = BatchCache()
         self.exec_config = dict(config.DEFAULT_EXEC_CONFIG)
@@ -245,6 +299,11 @@ class TaskGraph:
     def run(self, timeout: float = 3600.0) -> None:
         Engine(self).run(timeout=timeout)
 
+    def cleanup(self) -> None:
+        """The query is over: the ledger's final snapshot (deferred counts
+        resolved), the cardinality profile, and devprof's per-query GC."""
+        opstats.OPSTATS.on_query_gc(self.query_id, plan_fp=self.plan_fp)
+
     def result(self, actor_id: int) -> ResultDataset:
         return self.actors[actor_id].blocking_dataset
 
@@ -269,6 +328,27 @@ class Engine:
         self._adapt: Dict[Tuple[int, int], dict] = dict(self.store.titems("ADT"))
         self._adapt_rows: Dict[Tuple[int, int], Dict[int, int]] = {}
         self._push_seqs: Dict[Tuple[int, int], int] = {}
+        self.qid = graph.query_id
+        self._dispatches = 0
+        # the plan's topology on the ledger, exec actors labelled with their
+        # executor (a fused stage with its member chain)
+        opstats.OPSTATS.register_plan(
+            graph, op_names={aid: getattr(ex, "OP_NAME", type(ex).__name__)
+                             for (aid, ch), ex in self.execs.items()})
+
+    # the ledger's deferred device counts resolve every this many completed
+    # dispatches (and at the query's final snapshot), in one batched read
+    _FLUSH_EVERY = 1024
+
+    @staticmethod
+    def _rows_of(batch):
+        """Host count if known, else the batch's device count (resolved at
+        the flush), else None (unknown: never read for a statistic)."""
+        if batch is None:
+            return 0
+        if batch.nrows is not None:
+            return batch.nrows
+        return batch.nrows_dev
 
     # -- partition function lowering ----------------------------------------
     def _partition_fn(self, src_actor: int, tgt_actor: int) -> Callable:
@@ -317,6 +397,8 @@ class Engine:
                     and edge not in self._adapt):
                 track = self._adapt_rows.setdefault(edge, {})
             for tgt_ch, part in parts.items():
+                # delivered rows per (edge, target channel): the skew report
+                opstats.OPSTATS.edge(self.qid, actor, tgt_actor, tgt_ch, self._rows_of(part))
                 if track is not None:
                     n = part.nrows if part.nrows is not None else int(
                         part.nrows_dev if part.nrows_dev is not None else part.valid.sum())
@@ -353,6 +435,17 @@ class Engine:
             self.store.tset("ADT", probe_edge, probe_rec)
         self._adapt[edge] = build_rec
         self._adapt[probe_edge] = probe_rec
+        hist = self._adapt_rows.get(edge, {})
+        total = sum(hist.values())
+        mean = total / max(n_tgt, 1)
+        opstats.OPSTATS.note_adaptation(
+            self.qid,
+            {"kind": "adapt_runtime", "edge": f"a{src}->a{tgt}",
+             "fat_channel": int(fat), "fat_rows": int(hist.get(fat, 0)),
+             "mean_rows": round(mean), "total_rows": int(total),
+             "ratio": round(hist.get(fat, 0) / mean, 2) if mean else None,
+             "action": f"salt build partition {fat} across {n_tgt} "
+                       f"channels, replicate probe partition {fat}"})
 
     # -- input ----------------------------------------------------------------
     def _read_and_bridge(self, info: ActorInfo, channel: int, lineage) -> DeviceBatch:
@@ -389,10 +482,15 @@ class Engine:
             self.store.ntt_push(task.actor, task)
             return False
         lineage = self.store.tget("LT", (task.actor, task.channel, seq))
-        batch = self._read_and_bridge(info, task.channel, lineage)
-        if info.predicate is not None:
-            batch = info.predicate(batch)
+        with opstats.OPSTATS.current_op(self.qid, task.actor, task.channel):
+            batch = self._read_and_bridge(info, task.channel, lineage)
+            rows_raw = self._rows_of(batch)  # what the reader read
+            if info.predicate is not None:
+                batch = info.predicate(batch)
         self.push(task.actor, task.channel, seq, batch)
+        opstats.OPSTATS.scan(self.qid, task.actor, task.channel, rows_raw,
+                             self._rows_of(batch), opstats.batch_nbytes(batch),
+                             batch.padded_len)
         self.store.sadd("GIT", (task.actor, task.channel), seq)
         nxt = task.advance()
         if nxt.tape:
@@ -414,17 +512,23 @@ class Engine:
                         del chans[ch]
             if not chans:
                 del task.input_reqs[src]
-                extra = executor.source_done(info.source_streams[src], task.channel)
+                with opstats.OPSTATS.current_op(self.qid, task.actor, task.channel):
+                    extra = executor.source_done(info.source_streams[src], task.channel)
                 if extra is not None:
                     self._emit(info, task.channel, out_seq, extra)
+                    opstats.OPSTATS.exec_out(self.qid, task.actor, task.channel,
+                                             self._rows_of(extra))
                     out_seq += 1
         task.out_seq = out_seq
         if not task.input_reqs:
-            out = executor.done(task.channel)
+            with opstats.OPSTATS.current_op(self.qid, task.actor, task.channel):
+                out = executor.done(task.channel)
             # a fused stage's done() may emit a list of batches
             for o in ([out] if out is None or isinstance(out, DeviceBatch) else out):
                 if o is not None:
                     self._emit(info, task.channel, out_seq, o)
+                    opstats.OPSTATS.exec_out(self.qid, task.actor, task.channel,
+                                             self._rows_of(o))
                     out_seq += 1
             self.store.tset("LIT", (task.actor, task.channel), out_seq - 1)
             self.store.sadd("DST", (task.actor, task.channel), "done")
@@ -438,10 +542,13 @@ class Engine:
             return False
         src_actor, names = plan
         batches = [self.cache.get(n) for n in names]
-        out = executor.execute(batches, info.source_streams[src_actor], task.channel)
+        opstats.OPSTATS.exec_in(self.qid, task.actor, task.channel, batches)
+        with opstats.OPSTATS.current_op(self.qid, task.actor, task.channel):
+            out = executor.execute(batches, info.source_streams[src_actor], task.channel)
         if out is not None:
             self._emit(info, task.channel, out_seq, out)
             out_seq += 1
+        opstats.OPSTATS.exec_out(self.qid, task.actor, task.channel, self._rows_of(out))
         consumed: Dict[int, Dict[int, int]] = {src_actor: {}}
         for (sa, sch, seq, *_rest) in names:
             consumed[sa][sch] = max(consumed[sa].get(sch, 0), seq + 1)
@@ -475,10 +582,7 @@ class Engine:
                 task = self.store.ntt_pop(info.id)
                 if task is None:
                     continue
-                if task.name == "input":
-                    progress |= self.handle_input_task(task)
-                else:
-                    progress |= self.handle_exec_task(task)
+                progress |= self.dispatch_task(task)
             if self._all_done(actors):
                 return
             while stage_idx < len(stages) - 1 and not self._stage_undone(
@@ -489,6 +593,23 @@ class Engine:
                 raise RuntimeError(
                     "engine stalled: no task progressed and the stage cannot advance "
                     f"(stage={stages[stage_idx]}, pending={self.store.ntt_total()})")
+
+    def dispatch_task(self, task) -> bool:
+        """Run one popped task; a completed dispatch's seconds go to the
+        ledger, and every ``_FLUSH_EVERY`` of them its deferred counts
+        resolve."""
+        t0 = time.perf_counter()
+        if task.name == "input":
+            ok = self.handle_input_task(task)
+        else:
+            ok = self.handle_exec_task(task)
+        if ok:
+            opstats.OPSTATS.dispatch_time(self.qid, task.actor, task.channel,
+                                          time.perf_counter() - t0)
+            self._dispatches += 1
+            if self._dispatches % self._FLUSH_EVERY == 0:
+                opstats.OPSTATS.resolve_pending()
+        return ok
 
     def _stage_undone(self, actors, stage) -> bool:
         return any(not self.store.scontains("DST", (info.id, ch), "done")

@@ -1,4 +1,4 @@
-"""The port's hand-written kernels (K1-K6, K11-K13, K16-K22, K26) against
+"""The port's hand-written kernels (K1-K6, K11-K13, K16-K23, K26) against
 their plain torch versions, on a card.  Every test is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False.
 
@@ -16,7 +16,8 @@ dot products summed in another order; 1e-6 at d <= 7, exact at d = 1),
 and its row handles are equal but where a score lies within twice that of
 the query's k-th; K22's float64 sums agree within rtol 1e-9.  K17's plan
 and K26's routing are exact index for index; K6's counts, integer sums and
-smallest rows are exact and its float64 sums within rtol 1e-9.
+smallest rows are exact and its float64 sums within rtol 1e-9.  K23's
+decoded leaves equal the plain version's and the shipped input bit for bit.
 """
 
 import numpy as np
@@ -26,7 +27,7 @@ import torch
 from quokka_tpu_torch import sqlparse
 from quokka_tpu_torch.executors import ts_execs
 from quokka_tpu_torch.ops import asof, bridge, fuse, hashtable, join, kernels, linalg, stagefuse
-from quokka_tpu_torch.ops import vector
+from quokka_tpu_torch.ops import pack, vector
 from quokka_tpu_torch.ops.expr_compile import plan_aggregation
 
 pytestmark = pytest.mark.cuda
@@ -504,3 +505,86 @@ def test_k6_kernel_matches_plain(cuda_device, keys, n):
     assert torch.equal(cnt, pc) and torch.equal(rep, pr) and torch.equal(is_, pi)
     assert torch.allclose(fs, pf, rtol=1e-9, atol=1e-9, equal_nan=True)
     assert torch.equal(torch.isnan(fs), torch.isnan(pf))
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bit pattern (floats as same-width integers)."""
+    if t.dtype == torch.bool:
+        return t.to(torch.uint8)
+    if t.is_floating_point():
+        return t.view(torch.int64 if t.element_size() == 8 else torch.int32)
+    return t
+
+
+def _k23_batches(case: str, n: int, seed: int):
+    """Sequences of leaf lists under one signature (padded to n rows)."""
+    r = np.random.default_rng(seed)
+    pool = np.array([0.0, -0.0, np.nan, 0.01, 0.02, 0.05, 0.07, 0.1])
+
+    def q1(k):
+        return [pack.ValidCount(n, n - k), r.integers(1, 51, n), r.choice(pool, n),
+                r.choice(pool, n).astype(np.float32), r.integers(0, 3, n).astype(np.int32),
+                r.integers(8000, 10600, n).astype(np.int32), r.random(n) < 0.5,
+                r.normal(size=n)]
+
+    if case == "q1":
+        return [q1(0), q1(7)]
+    if case == "uint16 codes":
+        # the first batch's sample decides for a dictionary (at most 200
+        # distinct values); the second grows its table past 256 entries
+        wide = np.round(r.uniform(0, 1000, 257), 2)
+        return [[pack.ValidCount(n, n), r.choice(wide[:150], n),
+                 r.choice(wide[:150], n).astype(np.float32)],
+                [pack.ValidCount(n, n), r.choice(wide, n), r.choice(wide, n).astype(np.float32)]]
+    if case == "widen then degrade":
+        few = r.choice(pool, n)
+        mid = r.choice(np.round(r.uniform(0, 1, 300), 3), n)
+        return [[pack.ValidCount(n, n), r.integers(0, 200, n), few],
+                [pack.ValidCount(n, n), r.integers(-5000, 5000, n), mid],
+                [pack.ValidCount(n, n), r.integers(-2**40, 2**40, n), r.normal(size=n)],
+                [pack.ValidCount(n, n), r.integers(0, 200, n), few]]
+    if case == "all pass":
+        return [[pack.ValidCount(n, n - 1), r.integers(-2**40, 2**40, n), r.normal(size=n),
+                 r.integers(0, 9, 100), r.normal(size=(n, 3))]]
+    if case == "empty":
+        return [[pack.ValidCount(n, 0), np.zeros(n, dtype=np.int64), np.zeros(n),
+                 np.zeros(n, dtype=bool)]]
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case,n", [("q1", 1 << 20), ("uint16 codes", 1 << 16),
+                                    ("widen then degrade", 1 << 14), ("all pass", 1 << 13),
+                                    ("empty", 256), ("q1", 4096)])
+def test_k23_kernel_matches_plain(cuda_device, case, n):
+    pack._PLANS.clear()
+    for leaves in _k23_batches(case, n, seed=23):
+        wires, layout = pack._encode(leaves)
+        st = pack.stage(layout, wires, cuda_device)
+        got = [t.clone() for t in pack.decode_launch(st)]
+        exp = pack.decode_plain(layout, st.wires)
+        torch.cuda.synchronize()
+        for leaf, g, e in zip(leaves, got, exp):
+            assert g.dtype == e.dtype and g.shape == e.shape, (case, layout)
+            assert torch.equal(_bits(g), _bits(e)), (case, layout)
+            if isinstance(leaf, pack.ValidCount):
+                want = torch.arange(leaf.padded) < leaf.nrows
+            else:
+                want = torch.from_numpy(np.ascontiguousarray(leaf))
+            assert torch.equal(_bits(g.cpu()), _bits(want)), (case, layout)
+
+
+def test_k23_lands_batches_as_the_cpu_does(cuda_device):
+    pack._PLANS.clear()
+    before = pack.LAUNCHES
+    for n in (5000, 70_000):
+        t = host_table(n, seed=n)
+        cuda_cols = bridge.device_to_host(bridge.host_to_device(t, cuda_device))
+        cpu_cols = bridge.device_to_host(bridge.host_to_device(t, "cpu"))
+        for name, a in cpu_cols.items():
+            b = cuda_cols[name]
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            if a.dtype.kind in "fM":  # bit for bit: NaN and NaT too
+                assert (a.view(np.int64) == b.view(np.int64)).all(), name
+            else:
+                assert (a == b).all(), name
+    assert pack.LAUNCHES == before + 2

@@ -314,3 +314,55 @@ def test_build_vector_index_defaults_to_cuda(tmp_path):
             build_vector_index(path, "v", n_cells=4)
         build_vector_index(path, "v", n_cells=4, device="cpu")
     assert np.load(sidecar_path(path))["centroids"].shape == (4, 4)
+
+
+def test_pack_and_obs_import_with_jax_and_reference_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['quokka_tpu'] = None\n"
+        "from quokka_tpu_torch.ops import pack\n"
+        "from quokka_tpu_torch import obs\n"
+        "from quokka_tpu_torch.obs import devprof, explain, metrics, opstats\n"
+        "assert 'triton' not in sys.modules, 'triton imported at module import'\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_wire_decode_refuses_other_devices():
+    """K23's wrapper launches on CUDA tensors only; pack_put lands on the
+    CPU (the plain decode) or CUDA, nowhere else."""
+    import numpy as np
+    from quokka_tpu_torch.ops import pack
+
+    buf = torch.zeros(512, dtype=torch.uint8)
+    staged = pack.Staged([("valid", 256)], buf, [buf[:4].view(torch.int32)],
+                         [torch.zeros(256, dtype=torch.bool)], 256, 1, 256)
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        pack.decode_launch(staged)
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        pack.pack_put([pack.ValidCount(256, 3), np.zeros(256)], "meta")
+
+
+def test_calibration_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
+    """devprof.calibrate() measures the card; without one it raises rather
+    than timing the CPU, which it does only when asked."""
+    from quokka_tpu_torch.obs import devprof
+
+    monkeypatch.setenv("QK_DEVPROF_DIR", "")
+    devprof.reset()
+    try:
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="cuda"):
+                devprof.calibrate()
+            with pytest.raises(RuntimeError, match="cuda"):
+                devprof.ensure_calibrated()
+            assert devprof.peaks() is None
+        prof = devprof.calibrate(device="cpu", force=True)
+        assert prof["fingerprint"].startswith("cpu-") and prof["peak_flops_s"] > 0
+    finally:
+        devprof.reset()
