@@ -40,6 +40,19 @@ Phases, each fatal on failure:
      launches, or when Q1's wire bytes exceed half its logical bytes; it
      prints each path's landed batches, wire and logical bytes and host
      encode seconds per batch;
+  4b. the mesh plane: Q1, Q3, Q5, dryrun_multichip's two shapes
+     (scan -> filter -> join -> join -> group-by over the TPC-H tables; the
+     as-of join by symbol then a group-by over the ticks) and the seven
+     tick paths (both as-of directions, tumbling, hopping, session and
+     sliding windows, shift) through QuokkaContext(mesh=make_mesh(8)),
+     eight shards on the card, each against its numpy oracle; it fails on
+     a fallback to the engine, a per-step batch, K24 not launched, K14 not
+     launched on a path with a PK join, a kernel the mesh does not run, or
+     launches that differ from devprof's dispatches or (K23) from the
+     landed batches; it prints cold and warm walls beside the engine's for
+     the same query, peak device memory, device busy time, idle share, D2H
+     copies, cudaStreamSynchronize calls and the device time of the top
+     kernels;
   5. where the time goes: a warm run of each query with the engine's host
      steps timed, and one under the profiler (device busy, idle share of
      the warm wall, device time per kernel, D2H copies and
@@ -68,7 +81,11 @@ Phases, each fatal on failure:
      and Q3's largest splits in both modes; K6 at Q1 sort's largest call;
      K23 at Q1's and Q3's largest landed batches and on NaN / -0.0
      dictionaries, uint16 codes, a plan that widens then degrades, an
-     all-pass layout and a 0-row batch, bit for bit),
+     all-pass layout and a 0-row batch, bit for bit; K24 at the mesh Q3's
+     largest shuffle and at 1, 2, 8 and 64 shards, with every leaf width,
+     no valid row, one bucket holding every row and float key limbs
+     holding NaN and -0.0, bit for bit; K14 at the mesh Q3's largest call,
+     with duplicate build keys, no matches and no valid row),
      and time kernel, plain version and bound with CUDA events; the
      torch-primitive rows 7, 8, 9, 10, 14, 15 and 20 are timed too;
   7. print one JSON line of per-kernel numbers, the card line, and last the
@@ -547,10 +564,12 @@ def _by_symbol(cols):
     return np.lexsort((cols["time"], cols["symbol"]))
 
 
-def asof_oracle(ticks, direction):
+def asof_oracle(ticks, direction, value="notional"):
     """{symbol: (sum of bid * size, matched trades)} of the as-of backtest,
     by a per-symbol np.searchsorted: backward takes the last quote with time
-    <= t (the last of tied quotes), forward the first with time >= t."""
+    <= t (the last of tied quotes), forward the first with time >= t.  With
+    ``value="size"`` the sums are of the trade sizes (dryrun_multichip's
+    as-of shape)."""
     import numpy as np
 
     tr, qu = ticks["trades"], ticks["quotes"]
@@ -564,8 +583,8 @@ def asof_oracle(ticks, direction):
     ok = (pos >= 0) & (pos < len(qkey))
     posc = np.clip(pos, 0, max(len(qkey) - 1, 0))
     ok &= qsym[posc] == tr["symbol"]
-    notional = qu["bid"][qo][posc] * tr["size"]
-    total = np.bincount(tr["symbol"][ok], notional[ok], TS_SYMBOLS)
+    v = qu["bid"][qo][posc] * tr["size"] if value == "notional" else tr["size"]
+    total = np.bincount(tr["symbol"][ok], v[ok], TS_SYMBOLS)
     n = np.bincount(tr["symbol"][ok], minlength=TS_SYMBOLS)
     return {TS_SYMS[k]: (float(total[k]), int(n[k])) for k in range(TS_SYMBOLS) if n[k]}
 
@@ -743,6 +762,53 @@ def check_shift(got, exp) -> None:
     go, eo = _rows("shift", got, exp, ("bid_shifted_1", "lag"))
     if not np.array_equal(lag[go], exp["lag"][eo], equal_nan=True):
         fail("shift: lagged bids differ from the oracle (exact, null where no history)")
+
+
+SLIDING_AGGS = "avg(bid) as a, min(bid) as lo, max(bid) as hi, count(*) as n"
+
+
+def tick_stream(name: str, ctx, ticks):
+    """The time-series paths over the ticks through ``ctx``: the as-of
+    backtest (bench.py:253; "asof forward" looks forward), the tumbling,
+    hopping, session and sliding windows and the shift of the quotes, and
+    dryrun_multichip's as-of shape ("asof shape").  Each source is sorted by
+    time, in 2^20-row slices dealt to the channels in stride order."""
+    import numpy as np
+
+    from quokka_tpu_torch import windows
+    from quokka_tpu_torch.dataset.ordered import InputSortedHostDataset
+    from quokka_tpu_torch.ops import bridge
+
+    def src(t):
+        table = bridge.HostTable(dict(ticks[t]), dictionaries={
+            "symbol": np.array(TS_SYMS, dtype=object)})
+        return ctx.read_dataset(InputSortedHostDataset(table, "time", BATCH_ROWS),
+                                sorted_by="time")
+
+    if name in ("asof", "asof forward"):
+        direction = "forward" if name == "asof forward" else "backward"
+        return (src("trades").join_asof(src("quotes"), on="time", by="symbol",
+                                        direction=direction)
+                .with_columns_sql("bid * size as notional")
+                .groupby("symbol").agg_sql("sum(notional) as total, count(*) as n"))
+    if name == "asof shape":
+        return (src("trades").join_asof(src("quotes"), on="time", by="symbol")
+                .groupby("symbol").agg_sql("sum(size) as total, count(*) as n"))
+    quotes = src("quotes")
+    if name == "tumbling":
+        return quotes.window_agg(windows.TumblingWindow(TS_TUMBLE),
+                                 "sum(bid) as s, count(*) as n, avg(bid) as a", by="symbol")
+    if name == "hopping":
+        return quotes.window_agg(windows.HoppingWindow(TS_TUMBLE, TS_HOP), "count(*) as n",
+                                 by="symbol")
+    if name == "session":
+        return quotes.window_agg(windows.SessionWindow(TS_GAP), "sum(bid) as s, count(*) as n",
+                                 by="symbol")
+    if name == "sliding":
+        return quotes.window_agg(windows.SlidingWindow(TS_SLIDE), SLIDING_AGGS, by="symbol")
+    if name == "shift":
+        return quotes.shift("bid", n=1, by="symbol")
+    raise ValueError(name)
 
 
 # ---------------------------------------------------------------------------
@@ -1005,6 +1071,51 @@ def collect_numpy(stream, what: str):
     if cols is None:
         fail(f"{what} returned no rows")
     return cols
+
+
+def dryrun_q3_stream(ctx, tables):
+    """dryrun_multichip's scan -> filter -> join -> join -> group-by
+    (__graft_entry__.py:127-143) over the made TPC-H tables."""
+    from quokka_tpu_torch import col
+
+    def src(t):
+        reader = TableReader(tables[t])
+        return ctx.read_dataset(reader, schema=reader.schema)
+
+    return (src("lineitem").filter(col("l_quantity") < 45)
+            .join(src("orders"), left_on="l_orderkey", right_on="o_orderkey")
+            .join(src("customer").filter(col("c_mktsegment") == "BUILDING"),
+                  left_on="o_custkey", right_on="c_custkey")
+            .groupby("l_orderkey")
+            .agg_sql("sum(l_extendedprice * (1 - l_discount)) as revenue, count(*) as n"))
+
+
+def dryrun_q3_oracle(t):
+    """Per l_orderkey of the shape: revenue and line count."""
+    import numpy as np
+
+    li, o, c = t["lineitem"].cols, t["orders"].cols, t["customer"].cols
+    oi, hit = _pk_lookup(o["o_orderkey"], li["l_orderkey"])
+    sel = (li["l_quantity"] < 45) & hit
+    cm = c["c_mktsegment"] == SEGMENTS.index("BUILDING")
+    _, chit = _pk_lookup(c["c_custkey"][cm], o["o_custkey"][oi[sel]])
+    rows = np.nonzero(sel)[0][chit]
+    rev = li["l_extendedprice"][rows] * (1 - li["l_discount"][rows])
+    keys, inv = np.unique(li["l_orderkey"][rows], return_inverse=True)
+    return {"keys": keys, "revenue": np.bincount(inv, rev, len(keys)),
+            "n": np.bincount(inv, minlength=len(keys))}
+
+
+def check_dryrun_q3(got, exp) -> None:
+    import numpy as np
+
+    order = np.argsort(got["l_orderkey"], kind="stable")
+    if not np.array_equal(got["l_orderkey"][order], exp["keys"]):
+        fail(f"dryrun q3 shape: {len(order)} groups differ from the oracle's {len(exp['keys'])}")
+    if not np.array_equal(got["n"][order], exp["n"]):
+        fail("dryrun q3 shape: line counts differ from the oracle (exact)")
+    if not np.allclose(got["revenue"][order], exp["revenue"], rtol=1e-9, atol=0):
+        fail("dryrun q3 shape: revenue beyond rtol 1e-9 of the oracle")
 
 
 # ---------------------------------------------------------------------------
@@ -1272,6 +1383,287 @@ class Capture:
 
 
 # ---------------------------------------------------------------------------
+# the mesh plane: QuokkaContext(mesh=make_mesh(8)), eight shards on one card
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 8
+K24_CASE_ROWS = 1 << 21  # input rows of K24's checks beyond Q3's (64 shards: 2^16)
+# what no mesh path may launch: the mesh hashes itself (no K4 / K17 / K26),
+# groups by the sort group-by (no K2 / K5 / K6), joins by rank (no K11 /
+# K12; K13 only for a many-to-many join, which no path here has) and takes
+# the sort as-of (no K18)
+MESH_MUST_NOT = ["K2", "K4", "K5", "K6", "K11 build", "K11", "K12", "K13", "K17", "K18",
+                 "K21", "K22", "K26"]
+
+
+def mesh_paths(tables, ticks):
+    """path -> (stream over a context, check, oracle key, kernels it must
+    launch besides K23 and K24)."""
+    def tp(q):
+        return lambda c: tpch_stream(q, c, tables)
+
+    def tk(q):
+        return lambda c: tick_stream(q, c, ticks)
+
+    return {
+        "mesh q1": (tp("q1"), check_q1, "q1", ["K1", "K16"]),
+        "mesh q3": (tp("q3"), check_q3, "q3", ["K1", "K16", "K14"]),
+        "mesh q5": (tp("q5"), check_q5, "q5", ["K1", "K16", "K14"]),
+        "mesh dryrun q3 shape": (lambda c: dryrun_q3_stream(c, tables), check_dryrun_q3,
+                                 "dryrun q3 shape", ["K1", "K16", "K14"]),
+        "mesh dryrun asof shape": (tk("asof shape"), check_asof, "dryrun asof shape", ["K19"]),
+        "mesh asof": (tk("asof"), check_asof, "asof", ["K16", "K19"]),
+        "mesh asof forward": (tk("asof forward"), check_asof, "asof forward", ["K16", "K19"]),
+        "mesh tumbling": (tk("tumbling"), check_tumbling, "tumbling", ["K16"]),
+        "mesh hopping": (tk("hopping"), check_hopping, "hopping", []),
+        "mesh session": (tk("session"), check_session, "session", []),
+        "mesh sliding": (tk("sliding"), check_sliding, "sliding", ["K16", "K19", "K20a", "K20b"]),
+        "mesh shift": (tk("shift"), check_shift, "shift", ["K19"]),
+    }
+
+
+def mesh_phase(dev, tables, ticks, oracles, engine_walls, counters):
+    """Phase 4b: every mesh path through QuokkaContext(mesh=make_mesh(8)) on
+    the card, each against its numpy oracle, with each kernel's launch
+    count set to 0 just before the cold run and read just after.  Fails
+    on a fallback to the engine, a per-step batch, a kernel of the path not
+    launched (K24 on every path, K14 on every path with a PK join) or one
+    the mesh does not run, devprof dispatches that differ from launches, or
+    K23 launches that differ from the landed batches (sources and
+    ``_materialize``'s round trips).  Times the cold and warm walls beside
+    the engine's for the same query, the peak device memory of the cold
+    run, and one profiled warm run's device busy time, idle share, D2H
+    copies and cudaStreamSynchronize calls.  Returns (report, launches per
+    path, the arguments of Q3's largest K24 and K14 calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from quokka_tpu_torch import QuokkaContext
+    from quokka_tpu_torch.obs import devprof
+    from quokka_tpu_torch.ops import fuse, join, kernels, pack, stagefuse
+    from quokka_tpu_torch.parallel import make_mesh
+
+    torch.empty(1, device=dev)  # the allocator's peak counters exist once it has run
+    mesh = make_mesh(MESH_SHARDS, device=dev)
+    mctx = QuokkaContext(io_channels=2, exec_channels=2, device=dev, mesh=mesh)
+    ectx = QuokkaContext(io_channels=2, exec_channels=2, device=dev)
+    real_put = pack.pack_put
+    landed = [0]
+
+    def counted_put(leaves, device):
+        landed[0] += torch.device(device).type == dev.type
+        return real_put(leaves, device)
+
+    def charged():
+        by = {}
+        for row in devprof.costs_snapshot():
+            if row["device"] == dev.type:
+                by[row["kernel"]] = by.get(row["kernel"], 0) + row["dispatches"]
+        return by
+
+    def run(build, ctx, what):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = collect_numpy(build(ctx), what)
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0
+
+    per_row = {"mesh sliding", "mesh shift"}
+    report, launches_by = {}, {}
+    for path, (build, check, okey, must) in mesh_paths(tables, ticks).items():
+        exp = oracles[okey]
+        for mod, attr in list(counters.values()) + [(fuse, "FALLBACKS"),
+                                                     (stagefuse, "SEQUENTIAL")]:
+            setattr(mod, attr, 0)
+        landed[0] = 0
+        charged0 = charged()
+        torch.cuda.reset_peak_memory_stats(dev)
+        pack.pack_put = counted_put
+        try:
+            got, cold = run(build, mctx, path)
+        finally:
+            pack.pack_put = real_put
+        peak = torch.cuda.max_memory_allocated(dev)
+        launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        charged1 = charged()
+        miscounted = {k: (n, charged1.get(k, 0) - charged0.get(k, 0))
+                      for k, n in launches.items() if charged1.get(k, 0) - charged0.get(k, 0) != n}
+        if mctx.last_mesh_fallback is not None:
+            fail(f"{path}: fell back to the engine: {mctx.last_mesh_fallback}")
+        if fuse.FALLBACKS or stagefuse.SEQUENTIAL:
+            fail(f"{path}: {fuse.FALLBACKS} unfused fallbacks, {stagefuse.SEQUENTIAL} per-step "
+                 "stage batches")
+        if miscounted:
+            fail(f"{path}: launches vs devprof dispatches differ: {miscounted}")
+        if launches["K23"] != landed[0]:
+            fail(f"{path}: {launches['K23']} K23 launches for {landed[0]} landed batches")
+        missing = [k for k in ["K23", "K24"] + must if launches[k] == 0]
+        if missing:
+            fail(f"kernels not launched on the {path} run: {missing}")
+        stray = [k for k in MESH_MUST_NOT if launches[k] != 0]
+        if stray:
+            fail(f"kernels launched on the {path} run that the mesh does not run: {stray}")
+        check(got, exp)
+        rows_out = len(next(iter(got.values())))
+        warm = []
+        for _ in range(2):
+            again, wall = run(build, mctx, path)
+            warm.append(wall)
+            if path not in per_row:
+                check(again, exp)
+            elif len(next(iter(again.values()))) != rows_out:
+                fail(f"{path}: a warm run returned another number of rows")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(build, mctx, path)
+        busy, d2h, syncs = profile_counts(prof)
+        top = sorted(device_events(prof).items(), key=lambda kv: -kv[1][0])[:8]
+        med = sorted(warm)[len(warm) // 2]
+        eng = engine_walls.get(okey)
+        if eng is None:
+            # a shape no engine path ran: the engine's walls now, on its oracle
+            got_e, cold_e = run(build, ectx, okey)
+            check(got_e, exp)
+            eng = {"cold_s": cold_e, "warm_s": [run(build, ectx, okey)[1] for _ in range(2)]}
+        launches_by[path] = launches
+        report[path] = {"cold_s": cold, "warm_s": warm, "engine_cold_s": eng["cold_s"],
+                        "engine_warm_s": eng["warm_s"], "peak_bytes": peak,
+                        "device_busy_s": busy, "warm_median_s": med,
+                        "idle_share_of_warm": None if busy == 0 else 1 - busy / med,
+                        "d2h": d2h, "syncs": syncs, "landed_batches": landed[0],
+                        "rows_out": rows_out, "launches": launches, "top": top}
+        print(f"{path} sf: cold {cold:.3f} s, warm {[round(w, 4) for w in warm]} s; engine "
+              f"cold {eng['cold_s']:.3f} s, warm {[round(w, 4) for w in eng['warm_s']]} s; "
+              f"peak {peak / 2**30:.2f} GiB; device busy {busy:.4f} s, idle share "
+              f"{'not measured' if busy == 0 else round(1 - busy / med, 4)}; {d2h} D2H copies, "
+              f"{syncs} cudaStreamSynchronize; {landed[0]} landed batches; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; matches the numpy oracle")
+        print(f"{path} device time by kernel (us, calls): "
+              + "; ".join(f"{k[:60]} {t:.0f} ({c})" for k, (t, c) in top[:4]))
+    # Q3's largest K24 and K14 calls, for phase 6
+    with Capture({"K24": (kernels, "mesh_bucketize",
+                          lambda cols, valid, key_idx, n: valid.shape[0] * len(cols)),
+                  "K14": (join, "pk_match_ranks", lambda r, v, p: v.shape[0])}) as cap:
+        run(mesh_paths(tables, ticks)["mesh q3"][0], mctx, "mesh q3")
+    print(f"mesh q3 calls per query: {cap.calls}")
+    return report, launches_by, cap
+
+
+def _k24_cases(dev, seed: int):
+    """K24 inputs beyond Q3's: (label, cols, valid, key_idx, n_parts) at 1,
+    2, 8 and 64 shards, with every leaf width (bool, uint8, int32, float32,
+    int64, float64), all rows invalid, one bucket holding every row, and
+    float key limbs holding NaN and -0.0."""
+    import numpy as np
+    import torch
+
+    r = np.random.default_rng(seed + 24)
+
+    def make(n_parts, n, case="mixed"):
+        total = n_parts * n
+        k0 = r.integers(-5, 1 << 20, total).astype(np.int32)
+        k1 = r.integers(-2**40, 2**40, total)
+        f = r.normal(size=total)
+        if case == "one bucket":
+            k0[:], k1[:] = 3, 11
+        if case == "float limbs":
+            f = r.choice(np.array([0.0, -0.0, np.nan, 2.5, -3.7, 1e12, -1e12]), total)
+        valid = np.zeros(total, bool) if case == "all invalid" else r.random(total) < 0.8
+        cols = [k0, k1, f, f.astype(np.float32), r.random(total) < 0.5,
+                r.integers(0, 255, total).astype(np.uint8), r.integers(0, 9, total).astype(np.int32)]
+        key_idx = (0, 2) if case == "float limbs" else (0, 1)
+        return ([torch.from_numpy(c).to(dev) for c in cols], torch.from_numpy(valid).to(dev),
+                key_idx, n_parts)
+
+    out = [(f"{p} shards", *make(p, K24_CASE_ROWS // p)) for p in (1, 2, 8)]
+    out.append(("64 shards", *make(64, 1 << 10)))
+    out += [(f"8 shards, {c}", *make(8, K24_CASE_ROWS // 8, c))
+            for c in ("all invalid", "one bucket", "float limbs")]
+    return out
+
+
+def mesh_kernel_rows(dev, cap, launches_by, seed: int):
+    """K24 and K14 against their plain versions on the card, bit for bit:
+    K24 at Q3's largest shuffle and the ``_k24_cases``; K14 at Q3's largest
+    call and, at its shape, with duplicate build keys, no matches and every
+    row invalid.  Each timed with CUDA events beside its bound, its plain
+    version and (K24) one stable torch.sort of its part ids."""
+    import numpy as np
+    import torch
+
+    from quokka_tpu_torch.ops import join, kernels
+
+    def bits(t):
+        if t.dtype == torch.bool:
+            return t.view(torch.uint8)
+        return t.view(torch.int64 if t.element_size() == 8 else torch.int32) \
+            if t.is_floating_point() else t
+
+    def check_k24(label, cols, valid, key_idx, n_parts):
+        got, gv = kernels.mesh_bucketize(cols, valid, key_idx, n_parts)
+        exp, ev = kernels.mesh_bucketize_plain(cols, valid, key_idx, n_parts)
+        torch.cuda.synchronize()
+        if not (torch.equal(gv, ev) and all(a.dtype == b.dtype and torch.equal(bits(a), bits(b))
+                                             for a, b in zip(got, exp))):
+            fail(f"K24 {label}: exchanged columns or validity differ from the plain version")
+        print(f"K24 {label}: {valid.shape[0]} rows, {len(cols)} leaves, {n_parts} shards: "
+              "matches the plain version bit for bit")
+
+    (k24_cols, k24_valid, k24_keys, k24_p), _ = cap.args["K24"]
+    check_k24("Q3's largest shuffle", k24_cols, k24_valid, k24_keys, k24_p)
+    for case in _k24_cases(dev, seed):
+        check_k24(*case)
+    pids = kernels._hash_pids_plain([k24_cols[i] for i in k24_keys], k24_p)
+    widths = sum(c.element_size() for c in k24_cols) + 1
+    n24 = k24_valid.shape[0]
+    k24 = dict(
+        name="K24 mesh bucketize + exchange", route="cuda",
+        source="quokka_tpu_torch/csrc/partition.cu", replaces="quokka_tpu/parallel/mesh.py:72",
+        launches=launches_by["mesh q3"]["K24"], max_abs_err=0.0,
+        ms=cuda_ms(lambda: kernels.mesh_bucketize(k24_cols, k24_valid, k24_keys, k24_p), iters=10),
+        plain_ms=cuda_ms(lambda: kernels.mesh_bucketize_plain(k24_cols, k24_valid, k24_keys,
+                                                              k24_p), iters=3, warmup=1),
+        bound_ms=bound_ms(nbytes(*k24_cols, k24_valid) + k24_p * n24 * widths),
+        bound_by="bytes", library_ms=cuda_ms(lambda: torch.sort(pids, stable=True)),
+        shape=f"mesh q3: {n24} rows in, {k24_p * n24} out, {len(k24_cols)} leaves "
+              f"({widths - 1} B a row), {len(k24_keys)} key limbs, {k24_p} shards",
+        # every device event of the call: its frames' zeroing memsets too
+        device_us=device_us(lambda: kernels.mesh_bucketize(k24_cols, k24_valid, k24_keys, k24_p),
+                            iters=5),
+        per_query={p: v["K24"] for p, v in launches_by.items()})
+    del pids
+
+    (ranks, valid, p), _ = cap.args["K14"]
+    n = valid.shape[0]
+    r = np.random.default_rng(seed + 14)
+    cases = [("Q3's largest call", ranks, valid)]
+    for label in ("duplicate build keys", "no matches", "all invalid"):
+        keys = r.integers(0, n // 4, n)
+        if label == "no matches":
+            keys[p:] = r.integers(n, 2 * n, n - p)
+        v = torch.from_numpy(np.zeros(n, bool) if label == "all invalid"
+                             else r.random(n) < 0.9).to(dev)
+        cases.append((label, kernels.dense_rank([torch.from_numpy(keys).to(dev)], v)[0], v))
+    for label, rk, v in cases:
+        got = join.pk_match_ranks(rk, v, p)
+        exp = join._pk_match_plain(rk, v, p)
+        torch.cuda.synchronize()
+        if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, exp)):
+            fail(f"K14 {label}: build rows or matches differ from the plain version")
+        print(f"K14 {label}: {p} probe + {n - p} build rows, {int(got[1].sum())} matched: "
+              "matches the plain version")
+    k14 = dict(
+        name="K14 rank PK match", route="cuda", source="quokka_tpu_torch/csrc/join.cu",
+        replaces="quokka_tpu/ops/join.py:129", launches=launches_by["mesh q3"]["K14"],
+        max_abs_err=0.0, ms=cuda_ms(lambda: join.pk_match_ranks(ranks, valid, p)),
+        plain_ms=cuda_ms(lambda: join._pk_match_plain(ranks, valid, p)),
+        bound_ms=bound_ms(nbytes(ranks, valid) + 5 * p), bound_by="bytes", library_ms=None,
+        shape=f"mesh q3: {p} probe + {n - p} build rows (one shard)",
+        device_us=device_us(lambda: join.pk_match_ranks(ranks, valid, p)),  # memsets too
+        per_query={q: v["K14"] for q, v in launches_by.items()})
+    return [k24, k14]
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1316,9 +1708,8 @@ def smoke(dev, card: str, args) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from quokka_tpu_torch import QuokkaContext, col, config, date, obs, sqlparse, windows
+    from quokka_tpu_torch import QuokkaContext, col, config, date, obs, sqlparse
     from quokka_tpu_torch.dataset import vector as dvec
-    from quokka_tpu_torch.dataset.ordered import InputSortedHostDataset
     from quokka_tpu_torch.dataset.readers import InputArrowDataset
     from quokka_tpu_torch.executors import ts_execs
     from quokka_tpu_torch.executors.sql_execs import PartialAggExecutor
@@ -1358,6 +1749,8 @@ def smoke(dev, card: str, args) -> int:
     ticks = make_ticks(args.sf, args.seed)
     oracles.update(asof=asof_oracle(ticks, "backward"),
                    **{"asof forward": asof_oracle(ticks, "forward")}, **window_oracles(ticks))
+    oracles["dryrun q3 shape"] = dryrun_q3_oracle(tables)
+    oracles["dryrun asof shape"] = asof_oracle(ticks, "backward", value="size")
     skew = make_skewjoin(args.sf, args.seed)
     oracles["skewjoin"] = skewjoin_oracle(skew)
     report["datagen_s"] = time.perf_counter() - t0
@@ -1454,42 +1847,25 @@ def smoke(dev, card: str, args) -> int:
                 .filter_sql(Q19_FILTER)
                 .agg_sql("sum(l_extendedprice * (1 - l_discount)) as revenue, count(*) as n"))
 
-    def tick_src(name):
-        # sorted by time, 2^20-row slices dealt to the channels in stride order
-        cols = ticks[name]
-        table = bridge.HostTable(dict(cols), dictionaries={
-            "symbol": np.array(TS_SYMS, dtype=object)})
-        return ctx.read_dataset(InputSortedHostDataset(table, "time", BATCH_ROWS),
-                                sorted_by="time")
-
     def asof_stream(direction="backward"):
-        # bench.py:253, the tick backtest
-        return (tick_src("trades").join_asof(tick_src("quotes"), on="time", by="symbol",
-                                             direction=direction)
-                .with_columns_sql("bid * size as notional")
-                .groupby("symbol").agg_sql("sum(notional) as total, count(*) as n"))
+        return tick_stream("asof forward" if direction == "forward" else "asof", ctx, ticks)
 
     def tumbling_stream():
-        return tick_src("quotes").window_agg(windows.TumblingWindow(TS_TUMBLE),
-                                             "sum(bid) as s, count(*) as n, avg(bid) as a",
-                                             by="symbol")
+        return tick_stream("tumbling", ctx, ticks)
 
     def hopping_stream():
-        return tick_src("quotes").window_agg(windows.HoppingWindow(TS_TUMBLE, TS_HOP),
-                                             "count(*) as n", by="symbol")
+        return tick_stream("hopping", ctx, ticks)
 
     def session_stream():
-        return tick_src("quotes").window_agg(windows.SessionWindow(TS_GAP),
-                                             "sum(bid) as s, count(*) as n", by="symbol")
+        return tick_stream("session", ctx, ticks)
 
-    sliding_aggs = "avg(bid) as a, min(bid) as lo, max(bid) as hi, count(*) as n"
+    sliding_aggs = SLIDING_AGGS
 
     def sliding_stream():
-        return tick_src("quotes").window_agg(windows.SlidingWindow(TS_SLIDE), sliding_aggs,
-                                             by="symbol")
+        return tick_stream("sliding", ctx, ticks)
 
     def shift_stream():
-        return tick_src("quotes").shift("bid", n=1, by="symbol")
+        return tick_stream("shift", ctx, ticks)
 
     def q7_stream():
         nation = src("nation")
@@ -1566,7 +1942,8 @@ def smoke(dev, card: str, args) -> int:
                 "K20b": (ts_execs, "RANGE_MINMAX_LAUNCHES"),
                 "K21": (vops, "LAUNCHES"), "K22": (lops, "LAUNCHES"),
                 "K6": (fuse, "ONEHOT_LAUNCHES"), "K17": (kernels, "PLAN_LAUNCHES"),
-                "K26": (kernels, "ADAPT_LAUNCHES"), "K23": (pack, "LAUNCHES")}
+                "K26": (kernels, "ADAPT_LAUNCHES"), "K23": (pack, "LAUNCHES"),
+                "K24": (kernels, "MESH_LAUNCHES"), "K14": (join, "PK_MATCH_LAUNCHES")}
     ts_kernels = ["K18", "K19", "K20a", "K20b"]
     # path: (stream, check, kernels it must launch, kernels it must not, and
     # whether it must take the general join).  Q4's semi join takes the
@@ -1602,8 +1979,9 @@ def smoke(dev, card: str, args) -> int:
     }
     for p in paths.values():
         # no earlier path runs the vector tier's kernels, nor slice 6's: the
-        # adaptive exchange, on by default, must not fire on them
-        p[3].extend(["K21", "K22", "K6", "K17", "K26"])
+        # adaptive exchange, on by default, must not fire on them; the
+        # engine never runs the mesh's K24 and K14
+        p[3].extend(["K21", "K22", "K6", "K17", "K26", "K24", "K14"])
 
     def all_but(*keep):
         return [k for k in counters if k not in keep and k != "K23"]
@@ -1622,7 +2000,8 @@ def smoke(dev, card: str, args) -> int:
     # the exchange and strategy rows: the compacted shuffle (K17), forced
     # and past a lowered masked-split cap; bench.py's skew join, adaptive
     # (K26) and static; groupby=sort's one-hot partial aggregate (K6)
-    ts_only = ["K18", "K19", "K20a", "K20b"]
+    # kernels of the time-series tier and of the mesh
+    ts_only = ["K18", "K19", "K20a", "K20b", "K24", "K14"]
     sort_must_not = ["K2", "K17", "K26", "K12", "K21", "K22"] + ts_only
     paths.update({
         "q3 compacted": (q3_stream, check_q3, ["K1", "K3", "K4", "K5", "K11 build", "K11",
@@ -1880,6 +2259,10 @@ def smoke(dev, card: str, args) -> int:
                   vector_checks={p: {"max_score_err": e, "queries_ids_differ": d}
                                  for p, (e, d) in vec_stats.items()})
 
+    # -- phase 4b: the mesh plane, eight shards on the card ------------------------
+    report["mesh"], mesh_launches, mesh_cap = mesh_phase(dev, tables, ticks, oracles, walls,
+                                                         counters)
+
     # -- phase 5: where the time goes ----------------------------------------------
     # a warm run of each path with the engine's host steps timed: the read +
     # bridge of every input batch, the rest of the input tasks (K1, the
@@ -1957,7 +2340,7 @@ def smoke(dev, card: str, args) -> int:
                 "qk_probe_kernel", "qk_sorted_probe_kernel", "qk_mm_expand_kernel",
                 "qk_elemwise", "qk_asof_probe_kernel", "qk_fill_", "qk_window_bounds_kernel",
                 "qk_minmax_", "qk_sims_topk_kernel", "qk_topk_merge_kernel", "qk_gram_",
-                "qk_plan_", "qk_adapt_kernel", "qk_onehot_", "qk_decode")
+                "qk_plan_", "qk_adapt_kernel", "qk_onehot_", "qk_decode", "qk_mesh_", "qk_pk_")
     profiles = {}
     for path, (stream, *_) in paths.items():
         set_strategy(path)
@@ -3044,6 +3427,11 @@ def smoke(dev, card: str, args) -> int:
         q3={"launches": launches_by_path["q3"]["K23"], **row3}))
     report["k23_layouts"] = k23_layouts
     del k23, k23_caps
+
+    # K24 at Q3's largest shuffle and at 1, 2, 8 and 64 shards; K14 at Q3's
+    # largest call, with duplicate build keys, no matches and no valid row
+    out.extend(mesh_kernel_rows(dev, mesh_cap, mesh_launches, args.seed))
+    del mesh_cap
 
     # the torch-primitive rows at Q3's shapes: time, device time, bound
     def t_row(row, what, fn, n_bytes, calls, query="q3"):

@@ -4,12 +4,18 @@ Owns the logical-plan registry, the read_* entry points, the optimizer
 driver and the lowering into the runtime.  ``device=None`` means CUDA: the
 port runs on the card unless the caller asks for the CPU, and without a
 card anything but ``device="cpu"`` raises at construction.
+
+``mesh=`` (``parallel.make_mesh``) runs each collect over the shards of a
+one-device mesh (``parallel/mesh_exec.py``); a plan shape the mesh does not
+cover falls back to the engine with a logged warning, and the reason stays
+in ``last_mesh_fallback`` (None after a collect that ran on the mesh).
 """
 
 from __future__ import annotations
 
 import copy
 import datetime
+import logging
 from typing import Dict, List, Optional
 
 from quokka_tpu_torch import config, logical
@@ -21,6 +27,8 @@ from quokka_tpu_torch.dataset.readers import (
     InputParquetDataset,
 )
 from quokka_tpu_torch.runtime.engine import TaskGraph
+
+_log = logging.getLogger("quokka_tpu_torch.mesh")
 
 
 def _reader_schema(reader) -> List[str]:
@@ -35,11 +43,19 @@ class QuokkaContext:
         if cluster is not None:
             raise NotImplementedError("multi-process clusters come with the "
                                       "distributed-runtime slice of quokka_tpu_torch")
-        if mesh is not None:
-            raise NotImplementedError("mesh= comes with the multi-GPU slice of "
-                                      "quokka_tpu_torch")
         config.check_exec_config(exec_config)
+        if mesh is not None:
+            from quokka_tpu_torch.parallel.mesh import Mesh
+
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh= takes a parallel.mesh.Mesh, got {type(mesh).__name__}")
+            if device is None:
+                device = mesh.device
         self.device = config.resolve_device(device)
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"the mesh lies on {mesh.device}, the context on {self.device}")
+        self.mesh = mesh
+        self.last_mesh_fallback: Optional[str] = None
         self.io_channels = io_channels
         self.exec_channels = exec_channels
         self.exec_config = dict(config.DEFAULT_EXEC_CONFIG)
@@ -152,6 +168,10 @@ class QuokkaContext:
         from quokka_tpu_torch.runtime.engine import plan_fingerprint
 
         sub, sink_id = self._prepare_plan(node_id)
+        if self.mesh is not None:
+            ds = self._execute_on_mesh(sub, sink_id)
+            if ds is not None:
+                return ds
         self._assign_stages(sub, sink_id)
         graph = TaskGraph(self.device, self.exec_config)
         actor_of: Dict[int, int] = {}
@@ -168,6 +188,28 @@ class QuokkaContext:
             graph.cleanup()
         ds = graph.result(actor_of[sink_id])
         ds.schema = list(sub[sink_id].schema)
+        return ds
+
+    def _execute_on_mesh(self, sub, sink_id: int):
+        """The plan over the mesh, or None after a logged fallback: only a
+        plan shape the mesh does not cover (``MeshUnsupported``) falls back;
+        anything else, a kernel that does not build or launch among it,
+        propagates."""
+        from quokka_tpu_torch.parallel.mesh_exec import MeshExecutor, MeshUnsupported
+        from quokka_tpu_torch.runtime.dataset import ResultDataset
+
+        try:
+            cols = MeshExecutor(self.mesh).run(sub, sink_id)
+        except MeshUnsupported as e:
+            # the mesh is an explicit request: a quiet single-device run
+            # would misreport what ran
+            self.last_mesh_fallback = str(e)
+            _log.warning("mesh execution fell back to the engine: %s", e)
+            return None
+        self.last_mesh_fallback = None
+        ds = ResultDataset(schema=list(sub[sink_id].schema))
+        if cols is not None:  # None: a legitimately empty result
+            ds.append(0, cols)
         return ds
 
     def _copy_subgraph(self, node_id: int):

@@ -42,6 +42,26 @@
 // clipped exactly as the XLA program clips them, so padding rows agree
 // too.
 
+//
+// Rank PK match for Hopper (sm_90a): kernel K14.  Replaces
+// quokka_tpu/ops/join.py:129 `_pk_match` after its dense rank (row 10,
+// torch): over the ranks of p probe rows and b build rows, the least valid
+// build row of every rank (a scatter-min), the valid build rows per rank (a
+// segment sum), both gathered back by probe rank:
+// build_idx = clip(first[rp], 0, b - 1), matched = vp & (count[rp] > 0).
+//
+// What bounds it: bytes.  The build pass reads each build row's rank (8 B)
+// and validity (1 B) once and updates two int32 counters of its rank; the
+// probe pass reads each probe row's rank and validity once, gathers the two
+// counters of its rank and writes build_idx (4 B) and matched (1 B).
+//
+// Design: two launches, a build pass and a probe pass.  Min and an integer
+// count are order-free, so atomicMin and atomicAdd on int32 give an exact
+// result that is the same every run.  The minimum is kept as (row - b),
+// which is negative for every build row, so a zeroed array (cudaMemsetAsync)
+// is the "no build row" state and first = stored + b reads b there, as the
+// reference's jnp.full(n, b) does; both arrays start from one memset each.
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -143,6 +163,35 @@ __global__ void qk_mm_expand_kernel(const long long* __restrict__ cum, int64_t p
   if (unmatched_out != nullptr) unmatched_out[j] = unmatched_in[pi];
 }
 
+// K14 build pass: rank r's least valid build row (kept as row - b) and count
+__global__ void qk_pk_first_kernel(const long long* __restrict__ rb,
+                                   const uint8_t* __restrict__ vb, int64_t b, int64_t n,
+                                   int32_t* first_minus_b, int32_t* count) {
+  int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= b || !vb[j]) return;
+  long long r = rb[j];
+  if (r < 0 || r >= n) return;
+  atomicMin(&first_minus_b[r], (int32_t)(j - b));
+  atomicAdd(&count[r], 1);
+}
+
+// K14 probe pass: gather by probe rank
+__global__ void qk_pk_match_kernel(const long long* __restrict__ rp,
+                                   const uint8_t* __restrict__ vp, int64_t p, int64_t n,
+                                   int64_t b, const int32_t* __restrict__ first_minus_b,
+                                   const int32_t* __restrict__ count,
+                                   int32_t* __restrict__ build_idx,
+                                   uint8_t* __restrict__ matched) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p) return;
+  long long r = rp[i];
+  bool in = r >= 0 && r < n;
+  int64_t f = in ? (int64_t)first_minus_b[r] + b : b;
+  int32_t c = in ? count[r] : 0;
+  build_idx[i] = (int32_t)(f < 0 ? 0 : (f > b - 1 ? b - 1 : f));
+  matched[i] = (vp[i] && c > 0) ? 1 : 0;
+}
+
 extern "C" {
 
 // sorted (n_limbs arrays of nb rows, dtypes dts), probe (n_limbs arrays of
@@ -185,6 +234,28 @@ int qk_mm_expand(const void* cum, long long p, const void* offsets,
       (const long long*)total, (const uint8_t*)unmatched_in, out_n,
       (int32_t*)probe_idx, (int32_t*)build_idx, (uint8_t*)out_valid,
       (uint8_t*)unmatched_out);
+  return (int)cudaGetLastError();
+}
+
+// K14.  rp (p int64) / vp (p uint8): the probe rows' ranks and validity; rb
+// (b int64) / vb (b uint8): the build rows'; ranks lie in [0, n), n = p + b.
+// first and count are n int32 each of scratch; build_idx (p int32) and
+// matched (p uint8) are the outputs.
+int qk_pk_match(const void* rp, const void* vp, long long p, const void* rb,
+                const void* vb, long long b, long long n, void* first, void* count,
+                void* build_idx, void* matched, void* stream) {
+  if (p < 0 || b < 1 || n != p + b || n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaMemsetAsync(first, 0, sizeof(int32_t) * n, st);
+  cudaMemsetAsync(count, 0, sizeof(int32_t) * n, st);
+  int threads = 256;
+  qk_pk_first_kernel<<<(unsigned int)((b + threads - 1) / threads), threads, 0, st>>>(
+      (const long long*)rb, (const uint8_t*)vb, b, n, (int32_t*)first, (int32_t*)count);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || p == 0) return (int)err;
+  qk_pk_match_kernel<<<(unsigned int)((p + threads - 1) / threads), threads, 0, st>>>(
+      (const long long*)rp, (const uint8_t*)vp, p, n, b, (const int32_t*)first,
+      (const int32_t*)count, (int32_t*)build_idx, (uint8_t*)matched);
   return (int)cudaGetLastError();
 }
 

@@ -319,6 +319,28 @@ def device_to_arrow(batch: DeviceBatch):
     return pa.table(arrays, names=list(batch.columns))
 
 
+def reland(batch: DeviceBatch) -> DeviceBatch:
+    """The live rows of a batch read back to the host and landed again as
+    one compact batch through the narrowed wire (K23 on CUDA): the
+    reference mesh's host gather (``device_to_arrow`` then
+    ``arrow_to_device``) without Arrow.  The live rows are gathered on the
+    device first (``nonzero`` reads their count), so only they cross to
+    the host, not a shuffle's P-fold padding.  Every column keeps its
+    dtype, kind, unit and dictionary; null sentinels travel as values."""
+    idx = torch.nonzero(batch.valid).flatten()
+    n = idx.shape[0]
+    host = pack.get_packed([(c.codes if isinstance(c, StrCol) else c.data).index_select(0, idx)
+                            for c in batch.columns.values()])
+    padded = config.bucket_size(n)
+    landed = pack.pack_put([pack.ValidCount(padded, n)] + [_pad(a, padded) for a in host],
+                           batch.device)
+    cols = {}
+    for (name, c), t in zip(batch.columns.items(), landed[1:]):
+        cols[name] = (StrCol(t, c.dictionary) if isinstance(c, StrCol) else VecCol(t)
+                      if isinstance(c, VecCol) else NumCol(t, c.kind, c.unit))
+    return DeviceBatch(cols, landed[0], nrows=n, sorted_by=batch.sorted_by)
+
+
 # ---------------------------------------------------------------------------
 # concat
 # ---------------------------------------------------------------------------

@@ -25,6 +25,12 @@ Inner and left joins read the output total on the host once per probe
 batch to pick the output bucket, as the reference does, then kernel K13
 (``mm_expand``, ``csrc/join.cu``) writes one (probe row, build row) pair
 per output row; ``_mm_expand_plain`` is its plain version.
+
+The mesh joins (``parallel/mesh_exec.py``) match by rank within each shard:
+``_pk_match`` is the dense rank of the probe and build keys together (row
+10) followed by kernel K14 (``pk_match_ranks``, ``csrc/join.cu``): each
+rank's least valid build row and build count, gathered by probe rank, in a
+build pass and a probe pass; ``_pk_match_plain`` is its plain version.
 """
 
 from __future__ import annotations
@@ -45,9 +51,10 @@ from quokka_tpu_torch.ops.batch import (
     with_nulls,
 )
 
-# launches of the K12 and K13 CUDA kernels
+# launches of the K12, K13 and K14 CUDA kernels
 SORTED_PROBE_LAUNCHES = 0
 EXPAND_LAUNCHES = 0
+PK_MATCH_LAUNCHES = 0
 JOIN_HOWS = ("inner", "left", "semi", "anti")
 PK_HOWS = ("inner", "semi", "anti")  # the executor sends every left join to the general path
 
@@ -117,6 +124,8 @@ def _join_lib():
         lib.qk_sorted_probe.restype = I
         lib.qk_mm_expand.argtypes = [P, L, P, P, L, P, P, P, L, P, P, P, P, P]
         lib.qk_mm_expand.restype = I
+        lib.qk_pk_match.argtypes = [P, P, L, P, P, L, L, P, P, P, P, P]
+        lib.qk_pk_match.restype = I
         lib.qk_bound = True
     return lib
 
@@ -167,6 +176,75 @@ def pk_probe_sorted(sorted_limbs, perm, n_valid, probe_limbs, probe_ok):
     if probe_ok.device.type != "cuda":
         raise RuntimeError(f"pk_probe_sorted: unsupported device {probe_ok.device}")
     return _pk_probe_sorted_cuda(sorted_limbs, perm, n_valid, probe_limbs, probe_ok)
+
+
+# ---------------------------------------------------------------------------
+# the mesh's rank PK match: kernel K14
+# ---------------------------------------------------------------------------
+
+
+def _pk_match_plain(ranks: torch.Tensor, valid: torch.Tensor, p: int):
+    """Plain version of K14, the reference's ``_pk_match`` arithmetic after
+    its dense rank: over ``ranks`` / ``valid`` of [probe (p rows) | build],
+    each rank's least valid build row (a scatter-min, b where it has none)
+    and its valid build rows (a bincount), gathered by probe rank.
+    (build_idx int32 clipped to [0, b - 1], matched bool)."""
+    n = valid.shape[0]
+    b = n - p
+    dev = valid.device
+    rp, rb = ranks[:p], ranks[p:]
+    vp, vb = valid[:p], valid[p:]
+    iota_b = torch.arange(b, dtype=torch.int32, device=dev)
+    first = torch.full((n,), b, dtype=torch.int32, device=dev).scatter_reduce_(
+        0, rb, torch.where(vb, iota_b, torch.full_like(iota_b, b)), "amin")
+    cnt = torch.bincount(rb[vb], minlength=n)
+    build_idx = torch.clamp(first[rp], 0, b - 1).to(torch.int32)
+    return build_idx, vp & (cnt[rp] > 0)
+
+
+def _pk_match_cuda(ranks: torch.Tensor, valid: torch.Tensor, p: int):
+    global PK_MATCH_LAUNCHES
+    dev = valid.device
+    n = valid.shape[0]
+    if ranks.device != dev or ranks.shape != (n,):
+        raise TypeError(f"pk_match: ranks {tuple(ranks.shape)} on {ranks.device}, "
+                        f"validity of {n} rows on {dev}")
+    ranks = ranks.to(torch.int64).contiguous()
+    v8 = valid.contiguous().view(torch.uint8)
+    first = torch.empty(n, dtype=torch.int32, device=dev)
+    count = torch.empty(n, dtype=torch.int32, device=dev)
+    build_idx = torch.empty(p, dtype=torch.int32, device=dev)
+    matched = torch.empty(p, dtype=torch.bool, device=dev)
+    native.check(_join_lib().qk_pk_match(
+        ranks.data_ptr(), v8.data_ptr(), p, ranks[p:].data_ptr(), v8[p:].data_ptr(),
+        n - p, n, first.data_ptr(), count.data_ptr(), build_idx.data_ptr(),
+        matched.view(torch.uint8).data_ptr(), native.stream_ptr(dev)), "qk_pk_match")
+    PK_MATCH_LAUNCHES += 1
+    return build_idx, matched
+
+
+def pk_match_ranks(ranks: torch.Tensor, valid: torch.Tensor, p: int):
+    """K14: (build_idx int32 [p], matched bool [p]) of the first ``p`` rows
+    (the probe) against the rest (the build), given every row's dense rank.
+    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    n = valid.shape[0]
+    if not 0 <= p < n:
+        raise ValueError(f"pk_match: {p} probe rows of {n} leave no build row")
+    devprof.on_dispatch(("K14", valid.device.type, p, n - p),
+                        lambda: (0.0, float(9 * n + 5 * p), float(5 * p)))
+    if valid.device.type == "cpu":
+        return _pk_match_plain(ranks, valid, p)
+    if valid.device.type != "cuda":
+        raise RuntimeError(f"pk_match: unsupported device {valid.device}")
+    return _pk_match_cuda(ranks, valid, p)
+
+
+def _pk_match(limbs: Sequence[torch.Tensor], valid: torch.Tensor, p: int):
+    """The reference's ``_pk_match``: dense ranks of the concatenated probe
+    and build key limbs (row 10), then K14.  A probe row matches when its
+    key has a valid build row; build_idx is the least such row."""
+    ranks, _ = kernels.dense_rank(limbs, valid)
+    return pk_match_ranks(ranks, valid, p)
 
 
 def _build_sorted_cached(build: DeviceBatch, build_keys: Sequence[str]):
@@ -414,15 +492,22 @@ def build_keys_unique(build: DeviceBatch, build_keys: Sequence[str]) -> bool:
     rows in the hash table, or no adjacent equal pair in the build sort.
     All null keys collapse into one key for this check, so uniqueness also
     requires at most one null/NaN-key row."""
-    nvalid = build.count_valid()
     if strategy.choice("join_build") == "hashtable":
         table = _table_of(build, build_keys)
         if table is not None:
+            nvalid = build.count_valid()
             raw = key_limbs(build, build_keys)
             ok = _nonnull_valid(build, build_keys) & ~hashtable.nan_rows(raw)
             distinct, n_ok = _distinct_from_table(table.tbl, ok)
             distinct, n_ok = int(distinct), int(n_ok)
             return distinct == n_ok and nvalid - n_ok <= 1
+    return _sorted_build_unique(build, build_keys)
+
+
+def _sorted_build_unique(build: DeviceBatch, build_keys: Sequence[str]) -> bool:
+    """``build_keys_unique``'s sorted answer, which the mesh's rank-based
+    joins call directly (they build no hash table): no adjacent equal pair
+    in the build's key sort, and at most one null/NaN-key row."""
     sorted_limbs, _perm, n_ok_dev = _build_sorted_cached(build, build_keys)
     dup, n_ok = _sorted_has_dup(sorted_limbs, n_ok_dev)
-    return (not bool(dup)) and nvalid - int(n_ok) <= 1
+    return (not bool(dup)) and build.count_valid() - int(n_ok) <= 1

@@ -1,6 +1,6 @@
 """Relational kernels over DeviceBatch (PyTorch port of ``quokka_tpu/ops/kernels.py``).
 
-Kernels K4, K17 and K26 live here (``csrc/partition.cu``).  K4, hash
+Kernels K4, K17, K24 and K26 live here (``csrc/partition.cu``).  K4, hash
 partition + split, replaces the reference's ``_partition_ids`` and
 ``_split_masks`` with one launch.  K17, the compacted split's plan,
 replaces ``_partition_plan``: a stable permutation grouping rows by part,
@@ -8,7 +8,9 @@ with each part's count and offset; every part is then a window of it
 (``_part_window``, a slice and an ``arange < count`` mask, torch ops) and
 one row gather.  K26 routes an adapted exchange (``planner/adapt.py``):
 hash, then salt or replicate the fat partition, masks and counts, in one
-launch.  Masking, compaction, sorting and the group-by wrappers are single
+launch.  K24, the mesh's bucketize and exchange (``mesh_bucketize``),
+replaces ``quokka_tpu/parallel/mesh.py``'s ``_local_bucketize`` and its
+all_to_all for every shard of a one-card mesh at once.  Masking, compaction, sorting and the group-by wrappers are single
 torch primitives (nonzero, gather, stable sort) around the hand-written
 kernels; group-by goes to the hash table (K3), the default of the
 reference's strategy matrix (``ops/strategy``), or to the sort group-by
@@ -37,17 +39,21 @@ from quokka_tpu_torch.ops.batch import DeviceBatch, NumCol, StrCol, gather_colum
 from quokka_tpu_torch.ops.hashtable import _max_sentinel as max_sentinel
 from quokka_tpu_torch.ops.hashtable import _min_sentinel as min_sentinel
 
-# launches of the K4, K17 and K26 CUDA kernels
+# launches of the K4, K17, K24 and K26 CUDA kernels
 PARTITION_LAUNCHES = 0
 PLAN_LAUNCHES = 0
 ADAPT_LAUNCHES = 0
+MESH_LAUNCHES = 0
 # blocking host reads of split counts on the shuffle path (one per
 # compacted split; the masked split reads none), the reference's
 # ``shuffle.host_syncs``
 SHUFFLE_HOST_SYNCS = 0
 MAX_PARTS = 64
-# rows each block of K17 owns (csrc/partition.cu QK_PLAN_TILE)
+# rows each block of K17 owns (csrc/partition.cu QK_PLAN_TILE), and rows of
+# one shard each block of K24 owns (QK_MESH_TILE)
 _PLAN_TILE = 4096
+_MESH_TILE = 4096
+MAX_MESH_LEAVES = 64
 
 # ---------------------------------------------------------------------------
 # masking / compaction
@@ -337,6 +343,10 @@ def _partition_lib():
         lib.qk_adapt_split.restype = I
         lib.qk_partition_plan.argtypes = [P, P, L, I, I, P, P, P, P, P]
         lib.qk_partition_plan.restype = I
+        PP = ctypes.POINTER(P)
+        lib.qk_mesh_bucketize.argtypes = [PP, ctypes.POINTER(I), I, P, I, L, PP, PP,
+                                          ctypes.POINTER(I), I, P, P, P, I, P]
+        lib.qk_mesh_bucketize.restype = I
         lib.qk_bound = True
     return lib
 
@@ -601,3 +611,111 @@ def hash_split(batch: DeviceBatch, keys: Sequence[str], n_parts: int) -> List[De
         return compacted_parts(batch, pids, n_parts)
     _, masks, counts = partition_split(limbs, None, batch.valid, n_parts)
     return masked_parts(batch, masks, counts)
+
+
+# ---------------------------------------------------------------------------
+# the mesh's bucketize and exchange: kernel K24
+# ---------------------------------------------------------------------------
+
+
+def mesh_bucketize_plain(cols: Sequence[torch.Tensor], valid: torch.Tensor,
+                         key_idx: Sequence[int], n_parts: int):
+    """Plain version of K24: (exchanged columns, exchanged validity).
+
+    ``cols`` and ``valid`` hold a global batch of ``n_parts`` shards of N
+    rows each.  A valid row of shard s whose key limbs (``cols[i]`` for i in
+    ``key_idx``) hash to d (K4's hash, mod n_parts) lands at row
+    ``d * n_parts * N + s * N + pos``, pos its rank among the valid rows of
+    shard s bound for d in row order; every other output row is zero.  The
+    hash, one stable sort of (shard, bucket) and an index put."""
+    total = valid.shape[0]
+    n = total // n_parts
+    dev = valid.device
+    pid = _hash_pids_plain([cols[i] for i in key_idx], n_parts).to(torch.int64)
+    bucket = torch.where(valid, pid, torch.full((), n_parts, dtype=torch.int64, device=dev))
+    iota = torch.arange(total, dtype=torch.int64, device=dev)
+    key = (iota // n) * (n_parts + 1) + bucket
+    perm = torch.sort(key, stable=True).indices
+    ks = key[perm]
+    counts = torch.bincount(key, minlength=n_parts * (n_parts + 1))
+    pos = iota - (torch.cumsum(counts, 0) - counts)[ks]
+    dst = ks % (n_parts + 1)
+    live = dst < n_parts
+    out_idx = dst[live] * (n_parts * n) + (ks[live] // (n_parts + 1)) * n + pos[live]
+    rows = perm[live]
+    out_rows = n_parts * total
+    out_valid = torch.zeros(out_rows, dtype=torch.bool, device=dev)
+    out_valid[out_idx] = True
+    outs = []
+    for c in cols:
+        o = torch.zeros(out_rows, dtype=c.dtype, device=dev)
+        o[out_idx] = c[rows]
+        outs.append(o)
+    return outs, out_valid
+
+
+def _mesh_args(cols, valid, key_idx, n_parts: int) -> None:
+    """Check K24's arguments (on any device: the plain version takes the
+    same ones)."""
+    if not 1 <= n_parts <= MAX_PARTS:
+        raise ValueError(f"mesh_bucketize: n_parts must be in [1, {MAX_PARTS}], got {n_parts}")
+    total = valid.shape[0]
+    if valid.dtype != torch.bool or valid.dim() != 1 or total % n_parts or total == 0:
+        raise ValueError(f"mesh_bucketize: validity of {total} rows is not {n_parts} shards")
+    if not key_idx or len(key_idx) > 16 or len(cols) > MAX_MESH_LEAVES:
+        raise ValueError(f"mesh_bucketize: {len(key_idx)} key limbs (1 to 16), {len(cols)} "
+                         f"columns (at most {MAX_MESH_LEAVES})")
+    for c in cols:
+        if c.dim() != 1 or c.shape[0] != total or c.device != valid.device \
+                or c.element_size() not in (1, 4, 8):
+            raise TypeError(f"mesh_bucketize: unsupported column {c.dtype} "
+                            f"{tuple(c.shape)} on {c.device}")
+    for i in key_idx:
+        if cols[i].dtype not in _LIMB_DT:
+            raise TypeError(f"mesh_bucketize: key limb of {cols[i].dtype}")
+
+
+def mesh_bucketize(cols: Sequence[torch.Tensor], valid: torch.Tensor,
+                   key_idx: Sequence[int], n_parts: int):
+    """K24: the exchanged layout of ``mesh_bucketize_plain`` in one call
+    (three launches: ids and counts, the scan, the stable scatter of every
+    column).  CUDA tensors launch the kernel; CPU tensors take the plain
+    version."""
+    _mesh_args(cols, valid, key_idx, n_parts)
+    total = valid.shape[0]
+    limbs = [cols[i] for i in key_idx]
+    out_w = sum(c.element_size() for c in cols) + 1
+    devprof.on_dispatch(
+        ("K24", valid.device.type, total, tuple(key_idx), tuple(str(c.dtype) for c in cols),
+         n_parts),
+        lambda: (0.0, float(devprof.nbytes(*limbs, valid, *cols) + 8 * total
+                            + n_parts * total * out_w), float(n_parts * total * out_w)))
+    if valid.device.type == "cpu":
+        return mesh_bucketize_plain(cols, valid, key_idx, n_parts)
+    if valid.device.type != "cuda":
+        raise RuntimeError(f"mesh_bucketize: unsupported device {valid.device}")
+    global MESH_LAUNCHES
+    dev = valid.device
+    n = total // n_parts
+    cols = [c.contiguous() for c in cols]
+    limbs = [cols[i] for i in key_idx]
+
+    def raw(t):
+        return t.view(torch.uint8) if t.dtype == torch.bool else t
+
+    outs = [torch.empty(n_parts * total, dtype=c.dtype, device=dev) for c in cols]
+    out_valid = torch.empty(n_parts * total, dtype=torch.bool, device=dev)
+    tiles = -(-n // _MESH_TILE)
+    bucket = torch.empty(total, dtype=torch.int32, device=dev)
+    hist = torch.empty(n_parts * (n_parts + 1) * tiles, dtype=torch.int32, device=dev)
+    native.check(_partition_lib().qk_mesh_bucketize(
+        native.ptr_array([raw(l).data_ptr() for l in limbs]),
+        native.int_array([_LIMB_DT[l.dtype] for l in limbs]), len(limbs),
+        valid.contiguous().view(torch.uint8).data_ptr(), n_parts, n,
+        native.ptr_array([raw(c).data_ptr() for c in cols]),
+        native.ptr_array([raw(o).data_ptr() for o in outs]),
+        native.int_array([c.element_size() for c in cols]), len(cols),
+        out_valid.view(torch.uint8).data_ptr(), bucket.data_ptr(), hist.data_ptr(), tiles,
+        native.stream_ptr(dev)), "qk_mesh_bucketize")
+    MESH_LAUNCHES += 1
+    return outs, out_valid

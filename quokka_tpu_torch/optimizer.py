@@ -390,3 +390,20 @@ def fuse_stages(sub: Dict[int, logical.Node], sink_id: int) -> None:
             del sub[i]
         absorbed.update(ids)
         cons = _consumers(sub, sink_id)
+
+
+def unfuse_stages(sub: Dict[int, logical.Node]) -> Dict[int, logical.Node]:
+    """Inverse of ``fuse_stages``, for executors that lower logical nodes
+    themselves (the mesh, ``parallel/mesh_exec.py``): every FusedStageNode
+    expands back into its member chain.  Fusion never rewrote the members'
+    own parent links (member i's parents[0] still names member i-1's id and
+    the tail kept its id), so the original graph comes back exactly.
+    Returns a new dict; the caller's fused plan is untouched."""
+    out = dict(sub)
+    for nid, node in sub.items():
+        if not isinstance(node, logical.FusedStageNode):
+            continue
+        ids = [m.parents[0] for m in node.members[1:]] + [nid]
+        for mid, m in zip(ids, node.members):
+            out[mid] = m
+    return out

@@ -1,4 +1,4 @@
-"""The port's hand-written kernels (K1-K6, K11-K13, K16-K23, K26) against
+"""The port's hand-written kernels (K1-K6, K11-K14, K16-K24, K26) against
 their plain torch versions, on a card.  Every test is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False.
 
@@ -18,6 +18,8 @@ the query's k-th; K22's float64 sums agree within rtol 1e-9.  K17's plan
 and K26's routing are exact index for index; K6's counts, integer sums and
 smallest rows are exact and its float64 sums within rtol 1e-9.  K23's
 decoded leaves equal the plain version's and the shipped input bit for bit.
+K24's exchanged columns and validity, and K14's build rows and matches,
+are exact.
 """
 
 import numpy as np
@@ -588,3 +590,59 @@ def test_k23_lands_batches_as_the_cpu_does(cuda_device):
             else:
                 assert (a == b).all(), name
     assert pack.LAUNCHES == before + 2
+
+
+def _bits(t):
+    """A tensor's raw bits, so NaN and -0.0 compare."""
+    if t.dtype == torch.bool:
+        return t.view(torch.uint8)
+    return t.view(torch.int64 if t.element_size() == 8 else torch.int32) \
+        if t.is_floating_point() else t
+
+
+@pytest.mark.parametrize("case", ["mixed", "all_invalid", "one_bucket", "float_limbs",
+                                  "wide"])
+@pytest.mark.parametrize("n_parts", [1, 2, 8, 64])
+def test_k24_kernel_matches_plain(cuda_device, n_parts, case):
+    r = np.random.default_rng(24 + n_parts)
+    n = (1 << 17) if case == "wide" else 4096 + 512
+    total = n_parts * n
+    k0 = r.integers(-5, 1000, total).astype(np.int32)
+    k1 = r.integers(-2**40, 2**40, total)
+    valid = np.zeros(total, dtype=bool) if case == "all_invalid" else r.random(total) < 0.8
+    if case == "one_bucket":
+        k0[:] = 3
+        k1[:] = 11
+    cols = [k0, k1, r.normal(size=total), r.normal(size=total).astype(np.float32),
+            r.random(total) < 0.5, r.integers(0, 255, total).astype(np.uint8)]
+    if case == "float_limbs":
+        cols[2] = r.choice(np.array([0.0, -0.0, np.nan, 2.5, -3.7, 1e12, -1e12]), total)
+    key_idx = (0, 2) if case == "float_limbs" else (0, 1)
+    t = [torch.from_numpy(c).to(cuda_device) for c in cols]
+    v = torch.from_numpy(valid).to(cuda_device)
+    got, gv = kernels.mesh_bucketize(t, v, key_idx, n_parts)
+    exp, ev = kernels.mesh_bucketize_plain(t, v, key_idx, n_parts)
+    torch.cuda.synchronize()
+    assert torch.equal(gv, ev)
+    for a, b in zip(got, exp):
+        assert a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("case", ["unique", "duplicates", "no_matches", "all_invalid"])
+def test_k14_kernel_matches_plain(cuda_device, case):
+    r = np.random.default_rng(14)
+    p, b = 70_001, 30_017
+    keys = r.integers(0, 50_000, p + b)
+    if case == "unique":
+        keys[p:] = r.permutation(60_000)[:b]
+    elif case == "no_matches":
+        keys[p:] = r.integers(100_000, 200_000, b)
+    valid = np.zeros(p + b, dtype=bool) if case == "all_invalid" else r.random(p + b) < 0.9
+    limbs = [torch.from_numpy(keys).to(cuda_device)]
+    v = torch.from_numpy(valid).to(cuda_device)
+    ranks, _ = kernels.dense_rank(limbs, v)
+    got = join.pk_match_ranks(ranks, v, p)
+    exp = join._pk_match_plain(ranks, v, p)
+    torch.cuda.synchronize()
+    for a, e in zip(got, exp):
+        assert a.dtype == e.dtype and torch.equal(a, e)

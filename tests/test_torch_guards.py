@@ -39,6 +39,7 @@ def test_import_with_jax_and_reference_blocked():
         "from quokka_tpu_torch.ops import fuse, hashtable, kernels, bridge, native\n"
         "from quokka_tpu_torch.executors import sql_execs, output\n"
         "from quokka_tpu_torch.runtime import engine\n"
+        "from quokka_tpu_torch.parallel import mesh, mesh_exec\n"
         "assert 'triton' not in sys.modules, 'triton imported at module import'\n"
         "print('ok')\n"
     )
@@ -366,3 +367,33 @@ def test_calibration_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
         assert prof["fingerprint"].startswith("cpu-") and prof["peak_flops_s"] > 0
     finally:
         devprof.reset()
+
+
+def test_make_mesh_defaults_to_cuda_and_raises_without_it():
+    """make_mesh() is an entry point: its shards lie on the card unless the
+    caller asks for the CPU."""
+    from quokka_tpu_torch import QuokkaContext
+    from quokka_tpu_torch.parallel import make_mesh
+
+    if torch.cuda.is_available():
+        m = make_mesh()
+        assert m.device.type == "cuda" and m.n_shards == 8
+        assert QuokkaContext(mesh=m).device == m.device
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_mesh()
+    m = make_mesh(device="cpu")
+    assert m.device.type == "cpu" and QuokkaContext(mesh=m).device.type == "cpu"
+    with pytest.raises(ValueError, match="mesh lies on"):
+        QuokkaContext(device="cpu:1", mesh=m)
+
+
+def test_mesh_kernel_wrappers_refuse_other_devices():
+    from quokka_tpu_torch.ops import join, kernels
+
+    meta = torch.zeros(16, device="meta", dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        kernels.mesh_bucketize([meta], torch.zeros(16, device="meta", dtype=torch.bool),
+                               (0,), 2)
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        join.pk_match_ranks(meta.long(), torch.zeros(16, device="meta", dtype=torch.bool), 8)

@@ -17,6 +17,7 @@ import tpch_data
 from quokka_tpu import QuokkaContext as RefContext
 from quokka_tpu_torch import QuokkaContext, col
 from quokka_tpu_torch.ops import bridge, fuse
+from quokka_tpu_torch.parallel.mesh import Mesh
 
 from torch_port_util import fresh_aot, mixed_table, port_batch, ref_batch_of  # noqa: F401
 
@@ -117,7 +118,8 @@ def test_unported_surface_raises():
     s = ctx.from_pandas(pd.DataFrame({"x": [1, 2]}))
     for call in (lambda: s.distinct(["x"]), lambda: s.sort(["x"]),
                  lambda: QuokkaContext(device="cpu", exec_config={"fault_tolerance": True}),
-                 lambda: QuokkaContext(device="cpu", mesh=object())):
+                 lambda: QuokkaContext(device="cpu",
+                                       mesh=Mesh(8, devices=["cuda:0", "cuda:1"]))):
         with pytest.raises(NotImplementedError):
             call()
 
