@@ -72,7 +72,12 @@ Phases, each fatal on failure:
      K16 at Q7's, also with dates before 1970 and nulls; K18 at the
      asof's, K19 at the sort strategy's, sliding's and shift's, K20a and
      K20b at sliding's, each also on one symbol holding every quote,
-     whole-second timestamps, 2^23 rows and empty or all-invalid sides;
+     whole-second timestamps, 2^23 rows and empty or all-invalid sides,
+     K18 also with every quote its own key, 20,000 keys (past its
+     shared-memory stage of the run table), no key limb, float64 times
+     with NaN and -0.0, int32 and float32 times, and on every path K18's
+     and K12's launches must take the typed search, not the
+     runtime-dispatch kernel;
      K21 at the vector query's shape and at 256 queries, k = 1, 10, 100,
      d = 1, 7, 100, 768 with invalid and null rows, merged again into its
      own result, and 50 rows at k = 100; K22 at the gramian's shape and at
@@ -1944,6 +1949,10 @@ def smoke(dev, card: str, args) -> int:
                 "K6": (fuse, "ONEHOT_LAUNCHES"), "K17": (kernels, "PLAN_LAUNCHES"),
                 "K26": (kernels, "ADAPT_LAUNCHES"), "K23": (pack, "LAUNCHES"),
                 "K24": (kernels, "MESH_LAUNCHES"), "K14": (join, "PK_MATCH_LAUNCHES")}
+    # K18's and K12's launches that took the runtime-dispatch kernel: none on
+    # any path (the main paths' signatures are compiled typed)
+    dispatch_counters = {"K18": (asof, "ASOF_PROBE_DISPATCH_LAUNCHES"),
+                         "K12": (join, "SORTED_PROBE_DISPATCH_LAUNCHES")}
     ts_kernels = ["K18", "K19", "K20a", "K20b"]
     # path: (stream, check, kernels it must launch, kernels it must not, and
     # whether it must take the general join).  Q4's semi join takes the
@@ -2131,7 +2140,8 @@ def smoke(dev, card: str, args) -> int:
         plan_text[path] = stream().explain()
         for mod, attr in list(counters.values()) + [(fuse, "FALLBACKS"),
                                                      (stagefuse, "SEQUENTIAL"),
-                                                     (kernels, "SHUFFLE_HOST_SYNCS")]:
+                                                     (kernels, "SHUFFLE_HOST_SYNCS")] \
+                + list(dispatch_counters.values()):
             setattr(mod, attr, 0)
         strategy.reset_used()
         general_calls.clear()
@@ -2157,6 +2167,7 @@ def smoke(dev, card: str, args) -> int:
             bridge.host_to_device, pack._encode, pack.stage = real_h2d, real_encode, real_stage
         syncs = kernels.SHUFFLE_HOST_SYNCS
         launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        dispatched = {k: getattr(mod, attr) for k, (mod, attr) in dispatch_counters.items()}
         # the cost gate: each kernel's devprof dispatches on this run equal
         # its launches, and K23 ran once per landed batch
         charged1 = charged()
@@ -2185,6 +2196,9 @@ def smoke(dev, card: str, args) -> int:
         stray = [k for k in must_not if launches[k] != 0]
         if stray:
             fail(f"kernels launched on the {path} run that its strategy excludes: {stray}")
+        if any(dispatched.values()):
+            fail(f"{path}: sorted searches took the runtime-dispatch kernel, not the typed "
+                 f"one: {dispatched}")
         if fallbacks:
             fail(f"{fallbacks} unfused fallbacks on {path}")
         if sequential:
@@ -2338,7 +2352,7 @@ def smoke(dev, card: str, args) -> int:
     prefixes = ("qk_predicate", "qk_small_agg", "qk_colreduce", "qk_pre_agg",
                 "qk_insert_kernel", "qk_segment_kernel", "qk_partition_kernel",
                 "qk_probe_kernel", "qk_sorted_probe_kernel", "qk_mm_expand_kernel",
-                "qk_elemwise", "qk_asof_probe_kernel", "qk_fill_", "qk_window_bounds_kernel",
+                "qk_elemwise", "qk_asof_probe", "qk_fill_", "qk_window_bounds_kernel",
                 "qk_minmax_", "qk_sims_topk_kernel", "qk_topk_merge_kernel", "qk_gram_",
                 "qk_plan_", "qk_adapt_kernel", "qk_onehot_", "qk_decode", "qk_mesh_", "qk_pk_")
     profiles = {}
@@ -2481,9 +2495,10 @@ def smoke(dev, card: str, args) -> int:
 
     # the calls the time-series paths make: the largest of each kernel's
     ts_targets = {
-        "asof": {"K18": (asof, "asof_probe", lambda so, pm, nv, po, pv, up, nk: pv.shape[0])},
+        "asof": {"K18": (asof, "asof_probe",
+                         lambda so, pm, nv, po, pv, up, nk, runs=None: pv.shape[0])},
         "asof forward": {"K18": (asof, "asof_probe",
-                                 lambda so, pm, nv, po, pv, up, nk: pv.shape[0])},
+                                 lambda so, pm, nv, po, pv, up, nk, runs=None: pv.shape[0])},
         "asof sort": {"K19": (asof, "seg_fill_forward", lambda v, st: v.shape[0])},
         "sliding": {"K19": (asof, "seg_fill_forward", lambda v, st: v.shape[0]),
                     "K20a": (ts_execs, "window_bounds", lambda t, a, b, sz: t.shape[0]),
@@ -2788,6 +2803,8 @@ def smoke(dev, card: str, args) -> int:
     s_valid0 = s_limbs[0][:nv].contiguous()
     lib_ms = (cuda_ms(lambda: torch.searchsorted(s_valid0, s_pl[0])) if len(s_limbs) == 1
               else None)
+    lib_us = (device_us(lambda: torch.searchsorted(s_valid0, s_pl[0])) if len(s_limbs) == 1
+              else None)
     steps = max(1, nv).bit_length() + 1
     n_sok = int(s_ok.sum())
     out.append(dict(
@@ -2805,7 +2822,8 @@ def smoke(dev, card: str, args) -> int:
               f"{len(s_limbs)} limbs",
         device_us=device_us(lambda: join._pk_probe_sorted_cuda(s_limbs, s_perm, s_nv, s_pl,
                                                                s_ok),
-                            ("qk_sorted_probe_kernel",))))
+                            ("qk_sorted_probe_kernel",)),
+        library_device_us=lib_us))
 
     # K13 at Q13's shape (its largest expand), and with one probe key that
     # matches 10^4 build rows
@@ -2948,19 +2966,26 @@ def smoke(dev, card: str, args) -> int:
             q_ops = [bridge.pad_tail(o, pad) for o in q_ops]
             q_valid = bridge.pad_tail(q_valid, pad)
         so, pm, nv = asof._ss_sort_quotes(q_ops, q_valid)
+        nk = len(so) - 1
+        runs = asof._ss_key_runs(so, nv, nk)
+        dispatched = asof.ASOF_PROBE_DISPATCH_LAUNCHES
         for upper in (True, False):
-            a = asof._asof_probe_cuda(so, pm, nv, t_ops, t_valid, upper, len(so) - 1)
-            b = asof._asof_probe_plain(so, pm, nv, t_ops, t_valid, upper, len(so) - 1)
+            a = asof._asof_probe_cuda(so, pm, nv, t_ops, t_valid, upper, nk, runs)
+            b = asof._asof_probe_plain(so, pm, nv, t_ops, t_valid, upper, nk)
             same(f"K18 {label}, {'backward' if upper else 'forward'}", a, b)
+        if asof.ASOF_PROBE_DISPATCH_LAUNCHES != dispatched:
+            fail(f"K18 {label}: took the runtime-dispatch kernel")
         print(f"K18 {label}: {t_valid.shape[0]} probe rows over {pm.shape[0]} sorted quotes "
-              f"({int(nv)} live, {int(a[1].sum())} matched forward): match the plain version")
+              f"({int(nv)} live, {runs.bounds.shape[0] - 1} key runs, {int(a[1].sum())} "
+              "matched forward): match the plain version")
 
     (k18_a, _) = s4["asof"].args["K18"]
     (k18_f, _) = s4["asof forward"].args["K18"]
     for label, a in (("backward query shape", k18_a), ("forward query shape", k18_f)):
-        same(f"K18 {label}", asof._asof_probe_cuda(*a), asof._asof_probe_plain(*a))
+        same(f"K18 {label}", asof._asof_probe_cuda(*a), asof._asof_probe_plain(*a[:7]))
     print(f"K18 query shapes: {k18_a[4].shape[0]} probe rows over {k18_a[1].shape[0]} "
-          "sorted quotes, both directions: match the plain version")
+          f"sorted quotes ({k18_a[7].bounds.shape[0] - 1} key runs), both directions: match "
+          "the plain version")
     q_ops, q_valid = tick_ops(qu)
     t_ops, t_valid = tick_ops(tr)
     one = np.zeros(len(qu["time"]), dtype=np.int32)
@@ -2971,7 +2996,36 @@ def smoke(dev, card: str, args) -> int:
     k18_case("a 2^23-row quote buffer", q_ops, q_valid, t_ops, t_valid, pad=1 << 23)
     k18_case("all-invalid probe side", q_ops, q_valid, t_ops, torch.zeros_like(t_valid))
     k18_case("empty quote side", q_ops, torch.zeros_like(q_valid), t_ops, t_valid)
-    so, pm, nv, po, pv, up, nk = k18_a
+    # the run table's extremes and the time types: one key per quote, more
+    # runs than the 16 KiB shared-memory stage holds, no key limb, float64
+    # times with NaN and -0.0, int32 and float32 times
+    g18 = np.random.default_rng(args.seed + 18)
+    nq18, nt18 = q_valid.shape[0], t_valid.shape[0]  # the padded lengths
+
+    def own(codes):
+        return [dev_t(codes.astype(np.int32)), dev_t((codes * 31 - 7).astype(np.int32))]
+
+    k18_case("every quote its own key", own(np.arange(nq18)) + [q_ops[-1]], q_valid,
+             own(g18.integers(0, nq18, nt18)) + [t_ops[-1]], t_valid)
+    k18_case("20,000 keys, past the shared-memory stage",
+             own(g18.integers(0, 20_000, nq18)) + [q_ops[-1]], q_valid,
+             own(g18.integers(0, 20_000, nt18)) + [t_ops[-1]], t_valid)
+    k18_case("no key limb", q_ops[-1:], q_valid, t_ops[-1:], t_valid)
+
+    def f64_times(t):
+        # whole minutes from midday: ties, and thousands of zeros, half -0.0
+        x = torch.round((t.double() - TS_SPAN // 2) / 60_000)
+        u = torch.from_numpy(g18.random(t.shape[0])).to(dev)
+        x = torch.where(u < 0.03, torch.full_like(x, float("nan")), x)
+        return torch.where((u > 0.5) & (x == 0), torch.full_like(x, -0.0), x)
+
+    k18_case("float64 times with NaN and -0.0", q_ops[:-1] + [f64_times(q_ops[-1])], q_valid,
+             t_ops[:-1] + [f64_times(t_ops[-1])], t_valid)
+    k18_case("int32 times", q_ops[:-1] + [q_ops[-1].to(torch.int32)], q_valid,
+             t_ops[:-1] + [t_ops[-1].to(torch.int32)], t_valid)
+    k18_case("float32 times", q_ops[:-1] + [(q_ops[-1] / 1000).float()], q_valid,
+             t_ops[:-1] + [(t_ops[-1] / 1000).float()], t_valid)
+    so, pm, nv, po, pv, up, nk = k18_a[:7]
     n_live, n_sorted = int(pv.sum()), int(nv)
     steps = max(1, n_sorted).bit_length() + 1
     n_match = int(asof._asof_probe_cuda(*k18_a)[1].sum())
@@ -3001,11 +3055,12 @@ def smoke(dev, card: str, args) -> int:
         source="quokka_tpu_torch/csrc/asof.cu", replaces="quokka_tpu/ops/asof.py:130",
         launches=launches_by_path["asof"]["K18"], max_abs_err=0.0,
         ms=cuda_ms(lambda: asof._asof_probe_cuda(*k18_a)),
-        plain_ms=cuda_ms(lambda: asof._asof_probe_plain(*k18_a), iters=3, warmup=1),
+        plain_ms=cuda_ms(lambda: asof._asof_probe_plain(*k18_a[:7]), iters=3, warmup=1),
         bound_ms=bound_ms(k18_bytes), bound_by="bytes",
         library_ms=cuda_ms(lambda: torch.searchsorted(qk_sorted, tk, right=True)),
         shape=f"probe {pv.shape[0]} rows x {len(po)} limbs, {pm.shape[0]} sorted quotes",
-        device_us=device_us(lambda: asof._asof_probe_cuda(*k18_a), ("qk_asof_probe_kernel",)),
+        device_us=device_us(lambda: asof._asof_probe_cuda(*k18_a), ("qk_asof_probe",)),
+        library_device_us=device_us(lambda: torch.searchsorted(qk_sorted, tk, right=True)),
         per_query={p: launches_by_path[p]["K18"] for p in ts_paths}))
 
     # K19 at the sort strategy's, the sliding window's and shift's shapes, and
@@ -3510,6 +3565,9 @@ def smoke(dev, card: str, args) -> int:
         print(f"{kk['name']}: {kk['launches']} launches on its path, {kk['ms']:.4f} ms per "
               f"call, {kk['device_us']:.1f} device us per call, bound {kk['bound_ms']:.5f} ms "
               f"({kk['shape']}); plain {kk['plain_ms']:.4f} ms")
+        if kk.get("library_device_us") is not None:
+            print(f"  library: {kk['library_ms']:.4f} ms, {kk['library_device_us']:.1f} "
+                  "device us per call")
         for sub in ("q3", "build", "skew"):
             if sub in kk:
                 v = kk[sub]

@@ -11,15 +11,35 @@
 // quote with key == k and time >= t.  Then the key-equality check and the
 // gather of the quote's original row through `perm`.
 //
-// What bounds K18: bytes, and the latency of the dependent random reads.
-// Each trade row reads its limbs and validity once and writes a quote index
-// (4 B) and a flag (1 B); the search reads about log2(n_valid) sorted quote
-// positions per row, whose first levels every row shares (L1 and L2).
-// Design: one thread per trade row runs the whole search in registers
-// (the XLA program walks all rows in lockstep, one gathered level per
-// step).  Limbs keep their dtypes (int32 hash limbs, int64 or float64
-// times, ...), and every comparison is IEEE `<` / `==` per limb,
-// lexicographic across limbs, as the reference's _lex_lt_eq.
+// What bounds K18: the throughput of the search's scattered reads.  Each
+// trade row reads its limbs and validity once and writes a quote index
+// (4 B) and a flag (1 B); its search reads about log2(valid quotes) sorted
+// positions.  At the tick shape (2^22 sorted quotes, about 100 symbols) a
+// full-range search walks 22 levels over three limb arrays (49 MB, the
+// edge of the 50 MB L2), and all but about 7 of those levels compare key
+// limbs that are already decided.
+//
+// Design: two levels on search.cuh's typed bound.  The quotes sorted by
+// (validity, keys, time) form one run per distinct key tuple inside the
+// valid prefix; ops/asof.py:_ss_key_runs builds the run table once per
+// quote buffer (each run's key limbs, and bounds[r] = its first row,
+// bounds[R] = the valid quotes).  One thread per trade row: (1) a
+// lexicographic lower bound of its key over the R run keys, staged in
+// shared memory when the table takes at most QK_RUN_STAGE_BYTES (16 KiB:
+// 1,364 runs of two int32 limbs), read from device memory otherwise; (2) if
+// that run's key equals the row's, a one-limb bound of the time inside the
+// run [bounds[r], bounds[r + 1]) (about 15 levels over one contiguous time
+// array, 24.5 MB at the tick shape), else the position is the run's first
+// row; (3) the tail: the position, its match (already known from (1) and
+// the run's ends, so no row is read again), the `perm` gather, the clamps.
+// Every row searches, padding included, so quote_idx is the full search's
+// on every row (search.cuh's note says why the two levels give it).  On
+// the card the time search takes about four fifths of the kernel; an
+// interpolated start and a 4-ary search were no faster (PERF.md §6).  Key
+// signatures none, int32, int64, float64 and two int32 limbs, with int64,
+// float64, int32 or float32 times, are compiled typed; any other takes
+// the runtime-dispatch kernel (QkDyn over the run keys), which the wrapper
+// counts apart.
 //
 // K19 replaces quokka_tpu/ops/asof.py:_seg_fill_forward (a
 // lax.associative_scan of the segmented running max): out[i] is the max of
@@ -36,83 +56,163 @@
 #include <limits.h>
 #include <stdint.h>
 
-#define QK_MAX_LIMBS 16
-#define QK_SCAN_THREADS 1024
+#include "search.cuh"
 
-struct TypedLimbs {
-  const void* p[QK_MAX_LIMBS];
-  int dt[QK_MAX_LIMBS];  // 0 f64, 1 f32, 2 i64, 3 i32, 4 bool (u8)
-  int n;
+#define QK_SCAN_THREADS 1024
+#define QK_PROBE_THREADS 256
+#define QK_RUN_STAGE_BYTES 16384
+
+// -- K18: the sorted-quote probe ----------------------------------------------
+
+template <class Row>
+__host__ __device__ __forceinline__ size_t qk_rows_bytes(uint32_t n) {
+  return ((size_t)n * sizeof(Row) + 15) & ~(size_t)15;
+}
+
+// steps (2) and (3) for trade row i, whose key search ended at run bounds
+// [lo, hi) with key equality keq
+template <bool kUpper, typename T>
+__device__ __forceinline__ void qk_asof_finish(const QkCols<T>& times, const QkRow<T>& t,
+                                               uint32_t lo, uint32_t hi, bool keq,
+                                               uint32_t i, const int32_t* __restrict__ perm,
+                                               uint32_t nq, const uint8_t* __restrict__ valid,
+                                               int32_t* __restrict__ quote_idx,
+                                               uint8_t* __restrict__ matched) {
+  uint32_t pos = lo;
+  bool hit = false;
+  if (keq) {
+    bool e;
+    pos = qk_bound<kUpper>(times, lo, hi - lo, t, &e);
+    hit = kUpper ? pos > lo : pos < hi;
+  }
+  // backward: the last row <= t; forward: the first row >= t
+  const int64_t at = kUpper ? (int64_t)pos - 1 : (int64_t)pos;
+  const int64_t cpos = at < 0 ? 0 : (at > (int64_t)nq - 1 ? (int64_t)nq - 1 : at);
+  const int32_t q = perm[cpos];
+  quote_idx[i] = q < 0 ? 0 : (q > (int32_t)(nq - 1) ? (int32_t)(nq - 1) : q);
+  matched[i] = (valid[i] && hit) ? 1 : 0;
+}
+
+template <class Keys, typename T>
+__global__ void __launch_bounds__(QK_PROBE_THREADS)
+    qk_asof_probe_kernel(Keys runs, Keys probe, QkCols<T> times, QkCols<T> probe_time,
+                         const int32_t* __restrict__ bounds, uint32_t n_runs, int staged,
+                         int upper, const int32_t* __restrict__ perm, uint32_t nq,
+                         const uint8_t* __restrict__ valid, uint32_t p,
+                         int32_t* __restrict__ quote_idx, uint8_t* __restrict__ matched) {
+  typedef typename Keys::Row Row;
+  extern __shared__ __align__(16) unsigned char qk_smem[];
+  Row* s_rows = (Row*)qk_smem;
+  int32_t* s_bounds = (int32_t*)(qk_smem + qk_rows_bytes<Row>(n_runs));
+  if (staged) {
+    for (uint32_t j = threadIdx.x; j < n_runs; j += blockDim.x) s_rows[j] = runs.load(j);
+    for (uint32_t j = threadIdx.x; j <= n_runs; j += blockDim.x) s_bounds[j] = bounds[j];
+    __syncthreads();
+  }
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p) return;
+  const Row key = probe.load(i);
+  const QkRow<T> t = probe_time.load(i);
+  bool keq;
+  const uint32_t r = staged ? qk_bound<false>(QkStaged<Row>{s_rows}, 0, n_runs, key, &keq)
+                            : qk_bound<false>(runs, 0, n_runs, key, &keq);
+  const int32_t* b = staged ? s_bounds : bounds;
+  const uint32_t lo = (uint32_t)b[r];
+  const uint32_t hi = keq ? (uint32_t)b[r + 1] : lo;
+  if (upper) qk_asof_finish<true>(times, t, lo, hi, keq, i, perm, nq, valid, quote_idx, matched);
+  else qk_asof_finish<false>(times, t, lo, hi, keq, i, perm, nq, valid, quote_idx, matched);
+}
+
+// the runtime-dispatch twin: run keys and probe keys of any dtypes
+template <typename T>
+__global__ void __launch_bounds__(QK_PROBE_THREADS)
+    qk_asof_probe_dyn_kernel(QkDyn keys, QkCols<T> times, QkCols<T> probe_time,
+                             const int32_t* __restrict__ bounds, uint32_t n_runs, int upper,
+                             const int32_t* __restrict__ perm, uint32_t nq,
+                             const uint8_t* __restrict__ valid, uint32_t p,
+                             int32_t* __restrict__ quote_idx, uint8_t* __restrict__ matched) {
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p) return;
+  const QkRow<T> t = probe_time.load(i);
+  bool keq;
+  const uint32_t r = qk_bound<false>(keys, 0, n_runs, keys.load(i), &keq);
+  const uint32_t lo = (uint32_t)bounds[r];
+  const uint32_t hi = keq ? (uint32_t)bounds[r + 1] : lo;
+  if (upper) qk_asof_finish<true>(times, t, lo, hi, keq, i, perm, nq, valid, quote_idx, matched);
+  else qk_asof_finish<false>(times, t, lo, hi, keq, i, perm, nq, valid, quote_idx, matched);
+}
+
+struct QkAsofArgs {
+  const void* const* run_keys;  // nkey arrays of n_runs rows
+  const void* const* probe;     // nkey key arrays, then the time, of p rows
+  const int* dts;               // nkey + 1 dtypes
+  int nkey;
+  const void* times;            // the sorted time limb, nq rows
+  const int32_t* bounds;        // n_runs + 1
+  uint32_t n_runs;
+  int upper;
+  const int32_t* perm;
+  uint32_t nq;
+  const uint8_t* valid;
+  uint32_t p;
+  int32_t* quote_idx;
+  uint8_t* matched;
+  cudaStream_t stream;
 };
 
+static unsigned int qk_blocks(uint32_t n) {
+  return (unsigned int)((n + QK_PROBE_THREADS - 1) / QK_PROBE_THREADS);
+}
+
+template <class Keys, typename T>
+static int qk_asof_typed(const QkAsofArgs& a) {
+  typedef typename Keys::Row Row;
+  const size_t stage = qk_rows_bytes<Row>(a.n_runs) + sizeof(int32_t) * ((size_t)a.n_runs + 1);
+  const int staged = stage <= QK_RUN_STAGE_BYTES;
+  qk_asof_probe_kernel<Keys, T><<<qk_blocks(a.p), QK_PROBE_THREADS, staged ? stage : 0,
+                                   a.stream>>>(
+      Keys::at(a.run_keys), Keys::at(a.probe), QkCols<T>::at(&a.times),
+      QkCols<T>::at(a.probe + a.nkey), a.bounds, a.n_runs, staged, a.upper, a.perm, a.nq,
+      a.valid, a.p, a.quote_idx, a.matched);
+  return (int)cudaGetLastError();
+}
+
+template <class Keys>
+static int qk_asof_time(const QkAsofArgs& a) {
+  switch (a.dts[a.nkey]) {
+    case QK_F64: return qk_asof_typed<Keys, double>(a);
+    case QK_F32: return qk_asof_typed<Keys, float>(a);
+    case QK_I64: return qk_asof_typed<Keys, long long>(a);
+    case QK_I32: return qk_asof_typed<Keys, int32_t>(a);
+    default: return -1;
+  }
+}
+
+// the typed instantiations; -1 when the signature has none
+static int qk_asof_keys(const QkAsofArgs& a) {
+  const int* d = a.dts;
+  if (a.nkey == 0) return qk_asof_time<QkCols<> >(a);
+  if (a.nkey == 1 && d[0] == QK_I32) return qk_asof_time<QkCols<int32_t> >(a);
+  if (a.nkey == 1 && d[0] == QK_I64) return qk_asof_time<QkCols<long long> >(a);
+  if (a.nkey == 1 && d[0] == QK_F64) return qk_asof_time<QkCols<double> >(a);
+  if (a.nkey == 2 && d[0] == QK_I32 && d[1] == QK_I32)
+    return qk_asof_time<QkCols<int32_t, int32_t> >(a);
+  return -1;
+}
+
 template <typename T>
-__device__ __forceinline__ void qk_cmp(const void* a, int64_t ia, const void* b,
-                                       int64_t ib, bool* lt, bool* eq) {
-  T x = ((const T*)a)[ia];
-  T y = ((const T*)b)[ib];
-  *lt = x < y;
-  *eq = x == y;
-}
-
-__device__ __forceinline__ void qk_cmp_limb(int dt, const void* a, int64_t ia,
-                                            const void* b, int64_t ib, bool* l,
-                                            bool* e) {
-  switch (dt) {
-    case 0: qk_cmp<double>(a, ia, b, ib, l, e); break;
-    case 1: qk_cmp<float>(a, ia, b, ib, l, e); break;
-    case 2: qk_cmp<long long>(a, ia, b, ib, l, e); break;
-    case 3: qk_cmp<int32_t>(a, ia, b, ib, l, e); break;
-    default: qk_cmp<uint8_t>(a, ia, b, ib, l, e); break;
+static int qk_asof_dyn(const QkAsofArgs& a) {
+  QkDyn k;
+  k.S.n = k.P.n = a.nkey;
+  for (int j = 0; j < a.nkey; ++j) {
+    k.S.p[j] = a.run_keys[j];
+    k.P.p[j] = a.probe[j];
+    k.S.dt[j] = k.P.dt[j] = a.dts[j];
   }
-}
-
-// lexicographic (sorted[ia] < probe[ib], sorted[ia] == probe[ib]) over the
-// first n limbs
-__device__ __forceinline__ void qk_lex(const TypedLimbs& S, int64_t ia,
-                                       const TypedLimbs& P, int64_t ib, int n,
-                                       bool* out_lt, bool* out_eq) {
-  bool lt = false, eq = true;
-  for (int j = 0; j < n; ++j) {
-    bool l, e;
-    qk_cmp_limb(S.dt[j], S.p[j], ia, P.p[j], ib, &l, &e);
-    lt = lt || (eq && l);
-    eq = eq && e;
-  }
-  *out_lt = lt;
-  *out_eq = eq;
-}
-
-__global__ void qk_asof_probe_kernel(TypedLimbs S, TypedLimbs P, int nkey, int upper,
-                                     const int32_t* __restrict__ perm,
-                                     const long long* __restrict__ n_valid_p,
-                                     int64_t nq, const uint8_t* __restrict__ valid,
-                                     int64_t p, int32_t* __restrict__ quote_idx,
-                                     uint8_t* __restrict__ matched) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p) return;
-  int64_t n_valid = *n_valid_p;
-  int64_t lo = 0, hi = n_valid;
-  while (lo < hi) {
-    int64_t mid = (lo + hi) >> 1;
-    bool lt, eq;
-    qk_lex(S, mid, P, i, S.n, &lt, &eq);
-    // backward: quote[mid] <= probe goes right; forward: quote[mid] < probe
-    bool right = upper ? (lt || eq) : lt;
-    if (right) lo = mid + 1;
-    else hi = mid;
-  }
-  int64_t pos = upper ? lo - 1 : lo;
-  bool in_range = pos >= 0 && pos < n_valid;
-  int64_t cpos = pos < 0 ? 0 : (pos > nq - 1 ? nq - 1 : pos);
-  bool keq = true;
-  for (int j = 0; j < nkey; ++j) {
-    bool l, e;
-    qk_cmp_limb(S.dt[j], S.p[j], cpos, P.p[j], i, &l, &e);
-    keq = keq && e;
-  }
-  int32_t q = perm[cpos];
-  quote_idx[i] = q < 0 ? 0 : (q > nq - 1 ? (int32_t)(nq - 1) : q);
-  matched[i] = (valid[i] && in_range && keq) ? 1 : 0;
+  qk_asof_probe_dyn_kernel<T><<<qk_blocks(a.p), QK_PROBE_THREADS, 0, a.stream>>>(
+      k, QkCols<T>::at(&a.times), QkCols<T>::at(a.probe + a.nkey), a.bounds, a.n_runs,
+      a.upper, a.perm, a.nq, a.valid, a.p, a.quote_idx, a.matched);
+  return (int)cudaGetLastError();
 }
 
 // -- K19: segmented fill-forward (running max) ------------------------------
@@ -221,30 +321,50 @@ __global__ void qk_fill_scan_kernel(const int32_t* __restrict__ values,
 
 extern "C" {
 
-// sorted (n_limbs arrays of nq rows: nkey key limbs then the time limb),
-// probe (n_limbs arrays of p rows, same dtypes dts), perm (nq int32),
-// n_valid (one int64 on the device), valid (p uint8).  upper != 0 is the
-// backward search.  quote_idx (p int32) and matched (p uint8) are outputs.
-int qk_asof_probe(const void* const* sorted, const void* const* probe, const int* dts,
-                  int n_limbs, int nkey, int upper, const void* perm,
-                  const void* n_valid, long long nq, const void* valid, long long p,
-                  void* quote_idx, void* matched, void* stream) {
-  if (n_limbs < 1 || n_limbs > QK_MAX_LIMBS || nkey < 0 || nkey >= n_limbs || nq < 1)
+// run_keys (nkey arrays of n_runs rows) and bounds (n_runs + 1 int32):
+// the quotes' run table (ops/asof.py:_ss_key_runs); times: the sorted time
+// limb (nq rows); probe (nkey key arrays, then the time, of p rows; dts:
+// their nkey + 1 dtypes, the run keys and times alike), perm (nq int32),
+// valid (p uint8).  upper != 0 is the backward search.  quote_idx (p int32)
+// and matched (p uint8) are outputs; *typed is 1 when a typed kernel ran,
+// 0 when the runtime-dispatch one did.
+int qk_asof_probe(const void* const* run_keys, const void* const* probe, const int* dts,
+                  int nkey, int upper, const void* bounds, long long n_runs,
+                  const void* times, const void* perm, long long nq, const void* valid,
+                  long long p, void* quote_idx, void* matched, int* typed, void* stream) {
+  *typed = 0;
+  if (nkey < 0 || nkey >= QK_MAX_LIMBS || nq < 1 || nq > INT_MAX || p < 0 || p > INT_MAX ||
+      n_runs < 0 || n_runs > nq || (nkey == 0 && n_runs != 1))
     return (int)cudaErrorInvalidValue;
   if (p == 0) return (int)cudaSuccess;
-  TypedLimbs S, P;
-  S.n = P.n = n_limbs;
-  for (int j = 0; j < n_limbs; ++j) {
-    S.p[j] = sorted[j];
-    P.p[j] = probe[j];
-    S.dt[j] = P.dt[j] = dts[j];
+  QkAsofArgs a;
+  a.run_keys = run_keys;
+  a.probe = probe;
+  a.dts = dts;
+  a.nkey = nkey;
+  a.times = times;
+  a.bounds = (const int32_t*)bounds;
+  a.n_runs = (uint32_t)n_runs;
+  a.upper = upper;
+  a.perm = (const int32_t*)perm;
+  a.nq = (uint32_t)nq;
+  a.valid = (const uint8_t*)valid;
+  a.p = (uint32_t)p;
+  a.quote_idx = (int32_t*)quote_idx;
+  a.matched = (uint8_t*)matched;
+  a.stream = (cudaStream_t)stream;
+  const int rc = qk_asof_keys(a);
+  if (rc >= 0) {
+    *typed = 1;
+    return rc;
   }
-  int threads = 256;
-  unsigned int blocks = (unsigned int)((p + threads - 1) / threads);
-  qk_asof_probe_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      S, P, nkey, upper, (const int32_t*)perm, (const long long*)n_valid, nq,
-      (const uint8_t*)valid, p, (int32_t*)quote_idx, (uint8_t*)matched);
-  return (int)cudaGetLastError();
+  switch (dts[nkey]) {
+    case QK_F64: return qk_asof_dyn<double>(a);
+    case QK_F32: return qk_asof_dyn<float>(a);
+    case QK_I64: return qk_asof_dyn<long long>(a);
+    case QK_I32: return qk_asof_dyn<int32_t>(a);
+    default: return qk_asof_dyn<uint8_t>(a);
+  }
 }
 
 // values (n int32), starts (n uint8); scratch: agg_v, carry_v (nb int32),

@@ -3,22 +3,28 @@
 // lower bound over the sorted build limbs, `steps` unrolled halvings with
 // one gather per limb per step).
 //
-// What bounds it: bytes, and the latency of the dependent random reads.
-// Each probe row reads its limbs and ok flag once and writes build_idx
-// (4 B) and matched (1 B); the search reads about log2(n_valid) build
-// positions per row, whose first levels every row shares (they stay in L1
-// and L2).  At Q3 SF1 the sorted build (2^19 rows x 8 B) fits in the 50 MB
-// L2.
+// What bounds it: the throughput of the search's scattered reads.  Each
+// probe row reads its limbs and ok flag once and writes build_idx (4 B) and
+// matched (1 B); the search reads about log2(n_valid) build positions per
+// row, whose first levels every row shares (they stay in L1 and L2).  At
+// Q3 SF1 the sorted build (2^19 rows x 8 B) fits in the 50 MB L2.  On the
+// card a 4-ary search (half the dependent reads, 1.5x the reads) and pivots
+// staged in shared memory were both slower than this one (PERF.md §6).
 //
-// Design: one thread per probe row runs the whole lower bound in registers
-// (the XLA program walks all rows in lockstep, one gathered level per
-// step).  Limbs keep the build's raw dtypes (int32, int64, float32,
-// float64, bool), so the comparisons are the reference's: IEEE `<` and
-// `==` per limb, lexicographic across limbs (a NaN limb is neither less
-// nor equal, so -0.0 equals +0.0 and NaN matches nothing).  The build was
-// sorted by stable torch sorts with invalid rows last and the row id as
-// the implicit last key, so perm[pos] is the smallest build row of the key.
-
+// Design: one thread per probe row runs search.cuh's typed lower bound in
+// registers (the XLA program walks all rows in lockstep, one gathered
+// level per step): the limbs' dtypes are template arguments (no `switch`
+// per level), positions are 32-bit, every limb of a level is loaded before
+// the comparison, and the equality seen at the last failed test is the
+// equality at the result, so the build is read once per level and never
+// again at `pos`.  Signatures int64, float64, int32 and two int32 limbs
+// are compiled typed; any other takes the runtime-dispatch kernel (QkDyn),
+// which the wrapper counts apart.  Comparisons are the reference's: IEEE
+// `<` and `==` per limb, lexicographic across limbs (a NaN limb is neither
+// less nor equal, so -0.0 equals +0.0 and NaN matches nothing).  The build
+// was sorted by stable torch sorts with invalid rows last and the row id
+// as the implicit last key, so perm[pos] is the smallest build row of the
+// key.
 //
 // Many-to-many expand for Hopper (sm_90a): kernel K13.  Replaces
 // quokka_tpu/ops/join.py:_mm_expand (a searchsorted of every output row
@@ -63,69 +69,59 @@
 // reference's jnp.full(n, b) does; both arrays start from one memset each.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
-#define QK_MAX_LIMBS 16
+#include "search.cuh"
 
-struct TypedLimbs {
-  const void* p[QK_MAX_LIMBS];
-  int dt[QK_MAX_LIMBS];  // 0 f64, 1 f32, 2 i64, 3 i32, 4 bool (u8)
-  int n;
+#define QK_PROBE_THREADS 256
+
+// -- K12 ------------------------------------------------------------------------
+
+template <class Src, class Probe>
+__global__ void __launch_bounds__(QK_PROBE_THREADS)
+    qk_sorted_probe_kernel(Src build, Probe probe, const int32_t* __restrict__ perm,
+                           const long long* __restrict__ n_valid_p, uint32_t nb,
+                           const uint8_t* __restrict__ ok, uint32_t p,
+                           int32_t* __restrict__ build_idx, uint8_t* __restrict__ matched) {
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p) return;
+  const uint32_t n_valid = (uint32_t)*n_valid_p;
+  bool eq;
+  const uint32_t lo = qk_bound<false>(build, 0, n_valid, probe.load(i), &eq);
+  const uint32_t pos = lo > nb - 1 ? nb - 1 : lo;
+  const int32_t b = perm[pos];
+  build_idx[i] = b < 0 ? 0 : (b > (int32_t)(nb - 1) ? (int32_t)(nb - 1) : b);
+  matched[i] = (ok[i] && eq) ? 1 : 0;
+}
+
+struct QkProbeArgs {
+  const void* const* sorted;
+  const void* const* probe;
+  const int32_t* perm;
+  const long long* n_valid;
+  uint32_t nb;
+  const uint8_t* ok;
+  uint32_t p;
+  int32_t* build_idx;
+  uint8_t* matched;
+  cudaStream_t stream;
 };
 
-template <typename T>
-__device__ __forceinline__ void qk_cmp(const void* a, int64_t ia, const void* b,
-                                       int64_t ib, bool* lt, bool* eq) {
-  T x = ((const T*)a)[ia];
-  T y = ((const T*)b)[ib];
-  *lt = x < y;
-  *eq = x == y;
+static unsigned int qk_probe_blocks(uint32_t n) {
+  return (unsigned int)((n + QK_PROBE_THREADS - 1) / QK_PROBE_THREADS);
 }
 
-// lexicographic (build[ia] < probe[ib], build[ia] == probe[ib])
-__device__ __forceinline__ void qk_lex(const TypedLimbs& S, int64_t ia,
-                                       const TypedLimbs& P, int64_t ib,
-                                       bool* out_lt, bool* out_eq) {
-  bool lt = false, eq = true;
-  for (int j = 0; j < S.n; ++j) {
-    bool l, e;
-    switch (S.dt[j]) {
-      case 0: qk_cmp<double>(S.p[j], ia, P.p[j], ib, &l, &e); break;
-      case 1: qk_cmp<float>(S.p[j], ia, P.p[j], ib, &l, &e); break;
-      case 2: qk_cmp<long long>(S.p[j], ia, P.p[j], ib, &l, &e); break;
-      case 3: qk_cmp<int32_t>(S.p[j], ia, P.p[j], ib, &l, &e); break;
-      default: qk_cmp<uint8_t>(S.p[j], ia, P.p[j], ib, &l, &e); break;
-    }
-    lt = lt || (eq && l);
-    eq = eq && e;
-  }
-  *out_lt = lt;
-  *out_eq = eq;
+template <class Src, class Probe>
+static int qk_sorted_probe_launch(const QkProbeArgs& a, const Src& build, const Probe& probe) {
+  qk_sorted_probe_kernel<Src, Probe><<<qk_probe_blocks(a.p), QK_PROBE_THREADS, 0, a.stream>>>(
+      build, probe, a.perm, a.n_valid, a.nb, a.ok, a.p, a.build_idx, a.matched);
+  return (int)cudaGetLastError();
 }
 
-__global__ void qk_sorted_probe_kernel(TypedLimbs S, TypedLimbs P,
-                                       const int32_t* __restrict__ perm,
-                                       const long long* __restrict__ n_valid_p,
-                                       int64_t nb, const uint8_t* __restrict__ ok,
-                                       int64_t p, int32_t* __restrict__ build_idx,
-                                       uint8_t* __restrict__ matched) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p) return;
-  int64_t n_valid = *n_valid_p;
-  int64_t lo = 0, hi = n_valid;
-  while (lo < hi) {
-    int64_t mid = (lo + hi) >> 1;
-    bool lt, eq;
-    qk_lex(S, mid, P, i, &lt, &eq);
-    if (lt) lo = mid + 1;
-    else hi = mid;
-  }
-  int64_t pos = lo < 0 ? 0 : (lo > nb - 1 ? nb - 1 : lo);
-  bool lt, eq;
-  qk_lex(S, pos, P, i, &lt, &eq);
-  int32_t b = perm[pos];
-  build_idx[i] = b < 0 ? 0 : (b > nb - 1 ? (int32_t)(nb - 1) : b);
-  matched[i] = (ok[i] && eq && lo < n_valid) ? 1 : 0;
+template <class Cols>
+static int qk_sorted_probe_typed(const QkProbeArgs& a) {
+  return qk_sorted_probe_launch(a, Cols::at(a.sorted), Cols::at(a.probe));
 }
 
 // cum: inclusive cumsum of per-probe match counts (p int64); offsets: run
@@ -196,26 +192,42 @@ extern "C" {
 
 // sorted (n_limbs arrays of nb rows, dtypes dts), probe (n_limbs arrays of
 // p rows, same dtypes), perm (nb int32), n_valid (one int64 on the device),
-// ok (p uint8).  build_idx (p int32) and matched (p uint8) are outputs.
+// ok (p uint8).  build_idx (p int32) and matched (p uint8) are outputs;
+// *typed is 1 when a typed kernel ran, 0 when the runtime-dispatch one did.
 int qk_sorted_probe(const void* const* sorted, const void* const* probe,
                     const int* dts, int n_limbs, const void* perm,
                     const void* n_valid, long long nb, const void* ok,
-                    long long p, void* build_idx, void* matched, void* stream) {
-  if (n_limbs < 1 || n_limbs > QK_MAX_LIMBS || nb < 1) return (int)cudaErrorInvalidValue;
+                    long long p, void* build_idx, void* matched, int* typed, void* stream) {
+  *typed = 0;
+  if (n_limbs < 1 || n_limbs > QK_MAX_LIMBS || nb < 1 || nb > INT_MAX || p < 0 || p > INT_MAX)
+    return (int)cudaErrorInvalidValue;
   if (p == 0) return (int)cudaSuccess;
-  TypedLimbs S, P;
-  S.n = P.n = n_limbs;
+  QkProbeArgs a;
+  a.sorted = sorted;
+  a.probe = probe;
+  a.perm = (const int32_t*)perm;
+  a.n_valid = (const long long*)n_valid;
+  a.nb = (uint32_t)nb;
+  a.ok = (const uint8_t*)ok;
+  a.p = (uint32_t)p;
+  a.build_idx = (int32_t*)build_idx;
+  a.matched = (uint8_t*)matched;
+  a.stream = (cudaStream_t)stream;
+  *typed = 1;
+  if (n_limbs == 1 && dts[0] == QK_I64) return qk_sorted_probe_typed<QkCols<long long> >(a);
+  if (n_limbs == 1 && dts[0] == QK_F64) return qk_sorted_probe_typed<QkCols<double> >(a);
+  if (n_limbs == 1 && dts[0] == QK_I32) return qk_sorted_probe_typed<QkCols<int32_t> >(a);
+  if (n_limbs == 2 && dts[0] == QK_I32 && dts[1] == QK_I32)
+    return qk_sorted_probe_typed<QkCols<int32_t, int32_t> >(a);
+  *typed = 0;
+  QkDyn k;
+  k.S.n = k.P.n = n_limbs;
   for (int j = 0; j < n_limbs; ++j) {
-    S.p[j] = sorted[j];
-    P.p[j] = probe[j];
-    S.dt[j] = P.dt[j] = dts[j];
+    k.S.p[j] = sorted[j];
+    k.P.p[j] = probe[j];
+    k.S.dt[j] = k.P.dt[j] = dts[j];
   }
-  int threads = 256;
-  unsigned int blocks = (unsigned int)((p + threads - 1) / threads);
-  qk_sorted_probe_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      S, P, (const int32_t*)perm, (const long long*)n_valid, nb,
-      (const uint8_t*)ok, p, (int32_t*)build_idx, (uint8_t*)matched);
-  return (int)cudaGetLastError();
+  return qk_sorted_probe_launch(a, k, k);
 }
 
 int qk_mm_expand(const void* cum, long long p, const void* offsets,

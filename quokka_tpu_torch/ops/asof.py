@@ -5,10 +5,12 @@ Two strategies (``ops/strategy`` op ``asof``), each recorded as it runs:
 - ``searchsorted``, the default on both rows of the port's matrix: the
   quotes are sorted once by (key limbs, time) with stable torch sorts
   (Queue 2 row 18's sort, T), cached on the quote batch so repeated
-  flushes against an unchanged buffer pay it once, and kernel K18
-  (``asof_probe``, ``csrc/asof.cu``) resolves every trade row with a
-  lexicographic binary search: the upper bound minus one for backward
-  asof, the lower bound for forward.
+  flushes against an unchanged buffer pay it once, with the run table of
+  its keys (``_ss_key_runs``: one run per distinct key, built once per
+  buffer), and kernel K18 (``asof_probe``, ``csrc/asof.cu``) resolves
+  every trade row with a search of the runs, then of the time inside its
+  key's run: the upper bound minus one for backward asof, the lower bound
+  for forward.
 - ``sort``: both sides concatenated, dense-ranked by key (row 10), one
   stable sort by (validity, rank, time, side, tie), then kernel K19
   (``seg_fill_forward``, ``csrc/asof.cu``), a segmented running max that
@@ -30,7 +32,7 @@ Each kernel has its plain torch version beside it (``_asof_probe_plain``,
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,8 +41,11 @@ from quokka_tpu_torch.ops import kernels, native
 from quokka_tpu_torch.ops import strategy as kstrategy
 from quokka_tpu_torch.ops.batch import DeviceBatch, NumCol, key_limbs, with_nulls
 
-# launches of the K18 and K19 CUDA kernels
+# launches of the K18 and K19 CUDA kernels; K18's launches that took the
+# runtime-dispatch kernel (a key or time signature csrc/asof.cu does not
+# compile typed) are also counted apart
 ASOF_PROBE_LAUNCHES = 0
+ASOF_PROBE_DISPATCH_LAUNCHES = 0
 FILL_FORWARD_LAUNCHES = 0
 
 _LIMB_DT = {torch.float64: 0, torch.float32: 1, torch.int64: 2, torch.int32: 3,
@@ -53,7 +58,7 @@ def _lib():
     if not getattr(lib, "qk_bound", False):
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         PP, PI = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
-        lib.qk_asof_probe.argtypes = [PP, PP, PI, I, I, I, P, P, L, P, L, P, P, P]
+        lib.qk_asof_probe.argtypes = [PP, PP, PI, I, I, P, L, P, P, L, P, L, P, P, PI, P]
         lib.qk_asof_probe.restype = I
         lib.qk_seg_fill_forward.argtypes = [P, P, L, P, P, P, P, P, P]
         lib.qk_seg_fill_forward.restype = I
@@ -145,6 +150,50 @@ def _ss_sort_quotes(ops: Sequence[torch.Tensor], valid: torch.Tensor):
     return sorted_ops, perm.to(torch.int32), valid.sum(dtype=torch.int64)
 
 
+class KeyRuns(NamedTuple):
+    """The run table of quotes sorted by ``_ss_sort_quotes``: one run per
+    distinct key tuple inside the valid prefix.  ``keys`` holds each run's
+    key limbs (R rows each); run r is the sorted rows [bounds[r],
+    bounds[r + 1]) of ``bounds`` (int32, R + 1 entries), and bounds[R] is
+    the number of valid quotes."""
+
+    keys: Tuple[torch.Tensor, ...]
+    bounds: torch.Tensor
+
+    @property
+    def starts(self) -> torch.Tensor:
+        return self.bounds[:-1]
+
+    @property
+    def ends(self) -> torch.Tensor:
+        return self.bounds[1:]
+
+
+def _ss_key_runs(sorted_ops: Sequence[torch.Tensor], n_valid: torch.Tensor,
+                 nkey: int) -> KeyRuns:
+    """K18's run table over the first ``nkey`` limbs of quotes sorted by
+    ``_ss_sort_quotes`` (T: a compare of neighbours, one ``nonzero``,
+    gathers).  A run starts at row 0 and wherever a key limb differs from
+    the row before under ``!=`` (a NaN limb starts a run of its own, -0.0
+    continues a run of +0.0), inside the valid prefix.  With no key limb
+    the valid prefix is one run.  The ``nonzero`` reads the run count to
+    the host: one read per quote buffer (``_ss_quote_sorted`` caches the
+    table beside the sort), never one per flush."""
+    n_valid = n_valid.reshape(1).to(torch.int32)
+    dev = n_valid.device
+    if nkey == 0:
+        return KeyRuns((), torch.cat([torch.zeros(1, dtype=torch.int32, device=dev), n_valid]))
+    keys = tuple(sorted_ops[:nkey])
+    nq = keys[0].shape[0]
+    start = torch.zeros(nq, dtype=torch.bool, device=dev)
+    start[0] = True
+    for k in keys:
+        start[1:] |= k[1:] != k[:-1]
+    start &= torch.arange(nq, device=dev) < n_valid
+    rows = torch.nonzero(start).flatten()
+    return KeyRuns(tuple(k[rows] for k in keys), torch.cat([rows.to(torch.int32), n_valid]))
+
+
 def _asof_probe_plain(sorted_ops, perm, n_valid, probe_ops, probe_valid, upper: bool,
                       nkey: int):
     """Plain version of K18: a vectorised lexicographic binary search, one
@@ -175,47 +224,67 @@ def _asof_probe_plain(sorted_ops, perm, n_valid, probe_ops, probe_valid, upper: 
 
 
 def _asof_probe_cuda(sorted_ops, perm, n_valid, probe_ops, probe_valid, upper: bool,
-                     nkey: int):
-    global ASOF_PROBE_LAUNCHES
+                     nkey: int, runs: Optional[KeyRuns]):
+    global ASOF_PROBE_LAUNCHES, ASOF_PROBE_DISPATCH_LAUNCHES
     _require_cuda(probe_valid, "asof_probe")
+    if runs is None:
+        raise ValueError("asof_probe: the CUDA route takes the quotes' run table "
+                         "(_ss_key_runs)")
     lib = _lib()
     dev = probe_valid.device
     p = probe_valid.shape[0]
     nq = perm.shape[0]
     if not 1 <= len(sorted_ops) <= 16 or len(probe_ops) != len(sorted_ops) \
-            or not 0 <= nkey < len(sorted_ops):
-        raise ValueError("asof_probe: 1 to 16 limbs, the time limb last")
+            or nkey != len(sorted_ops) - 1 or len(runs.keys) != nkey:
+        raise ValueError("asof_probe: 1 to 16 limbs, the key limbs then the time limb, and "
+                         "the run table of the key limbs")
+    if nq >= 1 << 31 or p >= 1 << 31:
+        raise ValueError("asof_probe: 32-bit positions take fewer than 2^31 quotes and "
+                         "probe rows")
     probe_ops = [l.contiguous() for l in probe_ops]
+    run_keys = [k.contiguous() for k in runs.keys]
     for s, l in zip(sorted_ops, probe_ops):
         if (s.dtype not in _LIMB_DT or l.dtype != s.dtype or s.device != dev
                 or l.device != dev or l.shape[0] != p or s.shape[0] != nq):
             raise TypeError(f"asof_probe: unsupported limbs {s.dtype}/{l.dtype} "
                             f"on {s.device}/{l.device}")
-    n_valid = n_valid.to(device=dev, dtype=torch.int64).reshape(1)
+    bounds = runs.bounds
+    if (bounds.dtype != torch.int32 or bounds.device != dev
+            or any(k.dtype != s.dtype or k.device != dev or k.shape[0] != bounds.shape[0] - 1
+                   for k, s in zip(run_keys, sorted_ops))):
+        raise TypeError("asof_probe: the run table does not match the sorted limbs")
     quote_idx = torch.empty(p, dtype=torch.int32, device=dev)
     matched = torch.empty(p, dtype=torch.bool, device=dev)
+    typed = ctypes.c_int(0)
 
     def arg(t):
         return t.view(torch.uint8) if t.dtype == torch.bool else t
 
     native.check(lib.qk_asof_probe(
-        native.ptr_array([arg(s).contiguous().data_ptr() for s in sorted_ops]),
+        native.ptr_array([arg(k).data_ptr() for k in run_keys]),
         native.ptr_array([arg(l).data_ptr() for l in probe_ops]),
-        native.int_array([_LIMB_DT[s.dtype] for s in sorted_ops]), len(sorted_ops), nkey,
-        1 if upper else 0, perm.contiguous().data_ptr(), n_valid.data_ptr(), nq,
+        native.int_array([_LIMB_DT[s.dtype] for s in sorted_ops]), nkey, 1 if upper else 0,
+        bounds.contiguous().data_ptr(), bounds.shape[0] - 1,
+        arg(sorted_ops[nkey]).contiguous().data_ptr(), perm.contiguous().data_ptr(), nq,
         probe_valid.contiguous().view(torch.uint8).data_ptr(), p, quote_idx.data_ptr(),
-        matched.view(torch.uint8).data_ptr(), native.stream_ptr(dev)), "qk_asof_probe")
+        matched.view(torch.uint8).data_ptr(), ctypes.byref(typed), native.stream_ptr(dev)),
+        "qk_asof_probe")
     ASOF_PROBE_LAUNCHES += 1
+    if not typed.value:
+        ASOF_PROBE_DISPATCH_LAUNCHES += 1
     return quote_idx, matched
 
 
-def asof_probe(sorted_ops, perm, n_valid, probe_ops, probe_valid, upper: bool, nkey: int):
+def asof_probe(sorted_ops, perm, n_valid, probe_ops, probe_valid, upper: bool, nkey: int,
+               runs: Optional[KeyRuns] = None):
     """K18: per probe row, the quote the as-of join takes from quotes sorted
     by ``_ss_sort_quotes``: ``upper`` (backward) the last with key == k and
     time <= t, else (forward) the first with key == k and time >= t.  The
     first ``nkey`` limbs are keys, the last is time; probe limbs carry the
     sorted limbs' dtypes.  Returns (original quote row int32, matched).
-    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    CUDA tensors launch the kernel, which takes the quotes' run table
+    ``runs`` (``_ss_key_runs``); CPU tensors take the plain version, which
+    does not need it."""
     p = probe_valid.shape[0]
     devprof.on_dispatch(
         ("K18", probe_valid.device.type, p, perm.shape[0], tuple(str(o.dtype) for o in probe_ops), upper, nkey),
@@ -224,15 +293,17 @@ def asof_probe(sorted_ops, perm, n_valid, probe_ops, probe_valid, upper: bool, n
     if probe_valid.device.type == "cpu":
         return _asof_probe_plain(sorted_ops, perm, n_valid, probe_ops, probe_valid, upper,
                                  nkey)
-    return _asof_probe_cuda(sorted_ops, perm, n_valid, probe_ops, probe_valid, upper, nkey)
+    return _asof_probe_cuda(sorted_ops, perm, n_valid, probe_ops, probe_valid, upper, nkey,
+                            runs)
 
 
 def _ss_quote_sorted(quotes: DeviceBatch, right_on: str, right_by: Sequence[str],
                      time_dtype: torch.dtype):
-    """(sorted ops, perm, n_valid, nkey) for a quote batch, cached on the
-    batch: the streaming executor probes the same buffer on every flush
-    until new quotes concatenate into a fresh batch.  Both directions share
-    the entry.  The quote time is cast to the trade side's dtype before the
+    """(sorted ops, perm, n_valid, nkey, run table) for a quote batch,
+    cached on the batch: the streaming executor probes the same buffer on
+    every flush until new quotes concatenate into a fresh batch, so the
+    sort and the run table's one host read are paid once per buffer.  Both
+    directions share the entry.  The quote time is cast to the trade side's dtype before the
     sort, so mixed-dtype comparisons and the order within ties are those of
     the sort strategy."""
     cache = getattr(quotes, "_asof_ss_cache", None)
@@ -244,7 +315,8 @@ def _ss_quote_sorted(quotes: DeviceBatch, right_on: str, right_by: Sequence[str]
         ql = key_limbs(quotes, list(right_by)) if right_by else []
         ops = tuple(ql) + (quotes.columns[right_on].data.to(time_dtype),)
         sorted_ops, perm, n_valid = _ss_sort_quotes(ops, quotes.valid)
-        hit = cache[key] = (sorted_ops, perm, n_valid, len(ql))
+        runs = _ss_key_runs(sorted_ops, n_valid, len(ql))
+        hit = cache[key] = (sorted_ops, perm, n_valid, len(ql), runs)
     return hit
 
 
@@ -253,14 +325,14 @@ def _asof_match_searchsorted(trades: DeviceBatch, quotes: DeviceBatch, left_on: 
                              right_by: Sequence[str], direction: str):
     """(quote row, matched) aligned to trade rows, on the batches' device."""
     tt = trades.columns[left_on].data
-    sorted_ops, perm, n_valid, nkey = _ss_quote_sorted(quotes, right_on, list(right_by),
-                                                       tt.dtype)
+    sorted_ops, perm, n_valid, nkey, runs = _ss_quote_sorted(quotes, right_on,
+                                                             list(right_by), tt.dtype)
     lt = key_limbs(trades, list(left_by)) if left_by else []
     if len(lt) != nkey:
         raise ValueError("asof by-key column types must match")
     probe_ops = [l.to(s.dtype) for l, s in zip(list(lt) + [tt], sorted_ops)]
     return asof_probe(sorted_ops, perm, n_valid, probe_ops, trades.valid,
-                      direction == "backward", nkey)
+                      direction == "backward", nkey, runs)
 
 
 # ---------------------------------------------------------------------------

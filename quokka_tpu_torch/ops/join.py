@@ -11,7 +11,8 @@ the probe path.  Two strategies serve the probe (``ops/strategy`` op
 - ``sort``: kernel K12.  The build's key limbs are sorted once per build
   batch by stable torch sorts (invalid rows last, the row id as the last
   key), and ``csrc/join.cu`` runs a lexicographic lower bound per probe row
-  (``pk_probe_sorted``; ``_pk_probe_sorted_plain`` beside it).
+  on ``csrc/search.cuh``'s typed search (``pk_probe_sorted``;
+  ``_pk_probe_sorted_plain`` beside it).
 
 ``build_keys_unique`` answers, once per finalized build, whether the PK path
 applies, from the same cached structure the probe will use.
@@ -51,8 +52,11 @@ from quokka_tpu_torch.ops.batch import (
     with_nulls,
 )
 
-# launches of the K12, K13 and K14 CUDA kernels
+# launches of the K12, K13 and K14 CUDA kernels; K12's launches that took
+# the runtime-dispatch kernel (a limb signature csrc/join.cu does not
+# compile typed) are also counted apart
 SORTED_PROBE_LAUNCHES = 0
+SORTED_PROBE_DISPATCH_LAUNCHES = 0
 EXPAND_LAUNCHES = 0
 PK_MATCH_LAUNCHES = 0
 JOIN_HOWS = ("inner", "left", "semi", "anti")
@@ -120,7 +124,7 @@ def _join_lib():
     if not getattr(lib, "qk_bound", False):
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         PP, PI = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
-        lib.qk_sorted_probe.argtypes = [PP, PP, PI, I, P, P, L, P, L, P, P, P]
+        lib.qk_sorted_probe.argtypes = [PP, PP, PI, I, P, P, L, P, L, P, P, PI, P]
         lib.qk_sorted_probe.restype = I
         lib.qk_mm_expand.argtypes = [P, L, P, P, L, P, P, P, L, P, P, P, P, P]
         lib.qk_mm_expand.restype = I
@@ -131,13 +135,16 @@ def _join_lib():
 
 
 def _pk_probe_sorted_cuda(sorted_limbs, perm, n_valid, probe_limbs, probe_ok):
-    global SORTED_PROBE_LAUNCHES
+    global SORTED_PROBE_LAUNCHES, SORTED_PROBE_DISPATCH_LAUNCHES
     lib = _join_lib()
     dev = probe_ok.device
     p = probe_ok.shape[0]
     nb = perm.shape[0]
     if not 1 <= len(sorted_limbs) <= 16:
         raise ValueError("pk_probe_sorted: 1 to 16 key limbs")
+    if nb >= 1 << 31 or p >= 1 << 31:
+        raise ValueError("pk_probe_sorted: 32-bit positions take fewer than 2^31 build and "
+                         "probe rows")
     probe_limbs = [l.contiguous() for l in probe_limbs]
     for s, l in zip(sorted_limbs, probe_limbs):
         if (s.dtype not in _LIMB_DT or l.dtype != s.dtype or s.device != dev
@@ -147,6 +154,7 @@ def _pk_probe_sorted_cuda(sorted_limbs, perm, n_valid, probe_limbs, probe_ok):
     n_valid = n_valid.to(device=dev, dtype=torch.int64).reshape(1)
     build_idx = torch.empty(p, dtype=torch.int32, device=dev)
     matched = torch.empty(p, dtype=torch.bool, device=dev)
+    typed = ctypes.c_int(0)
 
     def arg(t):
         return t.view(torch.uint8) if t.dtype == torch.bool else t
@@ -157,8 +165,11 @@ def _pk_probe_sorted_cuda(sorted_limbs, perm, n_valid, probe_limbs, probe_ok):
         native.int_array([_LIMB_DT[s.dtype] for s in sorted_limbs]), len(sorted_limbs),
         perm.contiguous().data_ptr(), n_valid.data_ptr(), nb,
         probe_ok.contiguous().view(torch.uint8).data_ptr(), p, build_idx.data_ptr(),
-        matched.view(torch.uint8).data_ptr(), native.stream_ptr(dev)), "qk_sorted_probe")
+        matched.view(torch.uint8).data_ptr(), ctypes.byref(typed), native.stream_ptr(dev)),
+        "qk_sorted_probe")
     SORTED_PROBE_LAUNCHES += 1
+    if not typed.value:
+        SORTED_PROBE_DISPATCH_LAUNCHES += 1
     return build_idx, matched
 
 

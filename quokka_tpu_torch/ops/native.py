@@ -3,9 +3,11 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 -fPIC`` into ``build/quokka_tpu_torch/lib<name>-<hash>.so`` beside the
-package (the hash is of the source, so an edited source rebuilds), then
-loaded with ctypes.  Pointers and the stream are passed as ``c_void_p``;
-every entry point returns ``cudaGetLastError()``, which ``check`` raises on.
+package (the hash is of the source, of every header ``csrc/*.cuh`` and of
+the flags, so an edited source or shared header such as ``csrc/search.cuh``
+rebuilds), then loaded with ctypes.  Pointers and the stream are passed as
+``c_void_p``; every entry point returns ``cudaGetLastError()``, which
+``check`` raises on.
 
 ``build_all()`` starts one ``nvcc`` per source at once and waits for all of
 them, so a cold process pays for the slowest build, not the sum.  Triton
@@ -55,9 +57,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

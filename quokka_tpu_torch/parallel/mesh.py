@@ -20,7 +20,8 @@ port runs the same layout with ``n_shards`` logical shards on one device:
 - ``psum`` is a sum over the shard axis.
 
 A mesh whose shards span several devices is a different exchange (NCCL
-collectives around K24) and is refused: ROADMAP Queue 1 item 5.
+collectives around K24) and is refused: ROADMAP Queue 1, "Multi-GPU,
+remaining".
 """
 
 from __future__ import annotations
@@ -41,8 +42,8 @@ class Mesh:
         if len({str(d) for d in devices}) > 1:
             raise NotImplementedError(
                 "a mesh whose shards span several devices needs NCCL collectives around "
-                "K24, which quokka_tpu_torch does not carry yet: ROADMAP Queue 1 item 5 "
-                "(multi-GPU)")
+                "K24, which quokka_tpu_torch does not carry yet: ROADMAP Queue 1, "
+                "\"Multi-GPU, remaining\"")
         if n_shards < 1 or n_shards > kernels.MAX_PARTS:
             raise ValueError(f"a mesh has 1 to {kernels.MAX_PARTS} shards, got {n_shards}")
         self.n_shards = int(n_shards)

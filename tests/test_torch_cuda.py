@@ -150,23 +150,28 @@ def _unique_keys(kind, n, r):
     """Unique build key limbs (numpy) of one kind."""
     if kind == "int64":
         return [r.permutation(4 * n)[:n].astype(np.int64) * (1 << 33) - (1 << 40)]
+    if kind == "int32":
+        return [r.permutation(4 * n)[:n].astype(np.int32) * 3 - (1 << 20)]
     if kind == "composite":
         flat = r.permutation(40 * n)[:n]
         return [(flat // 40).astype(np.int64), (flat % 40).astype(np.int32) - 20]
+    if kind == "int32x2":  # a string key's two hash limbs
+        flat = r.permutation(40 * n)[:n]
+        return [(flat % 7 * 1000003 - 5).astype(np.int32), (flat // 7 - 9).astype(np.int32)]
     v = r.permutation(np.arange(-2 * n, 2 * n))[:n].astype(np.float64) / 8
     v[v == 0.0] = -0.0
     v[r.random(n) < 0.05] = np.nan
-    return [v]
+    return [v.astype(np.float32)] if kind == "float32" else [v]
 
 
-def _probe_of(build, p, r):
-    other = _unique_keys("float64" if build[0].dtype == np.float64 else
-                         ("composite" if len(build) == 2 else "int64"), len(build[0]),
-                         np.random.default_rng(99))
+def _probe_of(build, p, r, kind=None):
+    other = _unique_keys(kind or ("float64" if build[0].dtype == np.float64 else
+                                  ("composite" if len(build) == 2 else "int64")),
+                         len(build[0]), np.random.default_rng(99))
     pick = r.integers(0, len(build[0]), p)
     hit = r.random(p) < 0.6
     probe = [np.where(hit, b[pick], o[pick]).astype(b.dtype) for b, o in zip(build, other)]
-    if probe[0].dtype == np.float64:
+    if probe[0].dtype.kind == "f":
         probe[0] = np.where(probe[0] == 0.0, 0.0, probe[0])  # +0.0 meets -0.0
     return probe
 
@@ -198,19 +203,30 @@ def test_k11_kernel_matches_plain(cuda_device, kind):
     assert 0 < int(mk.sum()) < p
 
 
-@pytest.mark.parametrize("kind", ["int64", "composite", "float64"])
+# K12's limb signatures: csrc/join.cu compiles int64, float64, int32 and two
+# int32 limbs typed; (int64, int32) and float32 take the dispatch kernel
+K12_TYPED = {"int64": True, "composite": False, "float64": True, "int32": True,
+             "int32x2": True, "float32": False}
+
+
+@pytest.mark.parametrize("kind", list(K12_TYPED))
 def test_k12_kernel_matches_plain(cuda_device, kind):
     """The sorted probe kernel against its plain version: -0.0 against
-    +0.0, NaN (never matches), int64 and composite keys."""
+    +0.0, NaN (never matches), int64, int32, two int32 and composite keys,
+    and float32 keys through the runtime-dispatch kernel, whose launches
+    are counted apart."""
     r = np.random.default_rng(10 + len(kind))
     nb, p = 1 << 15, 1 << 18
     build = [torch.from_numpy(x).to(cuda_device) for x in _unique_keys(kind, nb, r)]
     probe = [torch.from_numpy(x).to(cuda_device) for x in _probe_of(
-        [x.cpu().numpy() for x in build], p, r)]
+        [x.cpu().numpy() for x in build], p, r, kind)]
     ok = torch.from_numpy(r.random(nb) < 0.9).to(cuda_device)
     pok = torch.from_numpy(r.random(p) < 0.95).to(cuda_device)
     sorted_limbs, perm, nv = join._sort_build_keys(build, ok)
+    launches, dispatched = join.SORTED_PROBE_LAUNCHES, join.SORTED_PROBE_DISPATCH_LAUNCHES
     ik, mk = join._pk_probe_sorted_cuda(sorted_limbs, perm, nv, probe, pok)
+    assert join.SORTED_PROBE_LAUNCHES == launches + 1
+    assert join.SORTED_PROBE_DISPATCH_LAUNCHES == dispatched + (0 if K12_TYPED[kind] else 1)
     ip, mp = join._pk_probe_sorted_plain(sorted_limbs, perm, nv, probe, pok)
     assert torch.equal(mk, mp)
     assert torch.equal(ik[mk], ip[mp])
@@ -306,26 +322,59 @@ def _equal(a, b):
         assert x.dtype == y.dtype and torch.equal(x, y)
 
 
-@pytest.mark.parametrize("case", ["spread", "one_key", "ties", "empty_quotes"])
+K18_CASES = ["spread", "one_key", "ties", "empty_quotes", "own_key", "unstaged_runs",
+             "no_key", "float64_times", "int32_times", "float32_times", "dispatch"]
+
+
+@pytest.mark.parametrize("case", K18_CASES)
 @pytest.mark.parametrize("upper", [True, False], ids=["backward", "forward"])
 def test_k18_kernel_matches_plain(cuda_device, case, upper):
+    """The two-level probe against the full-range plain search, both outputs
+    on every row: every quote its own key, a run table past the 16 KiB
+    shared-memory stage, no key limb, float64 times with NaN and -0.0,
+    int32 and float32 times, and a float32 key through the runtime-dispatch
+    kernel, whose launches are counted apart."""
     r = np.random.default_rng(18)
     nq, p = 1 << 18, 1 << 16
-    n_keys = 1 if case == "one_key" else 50
+    n_keys = {"one_key": 1, "own_key": nq, "unstaged_runs": 20_000}.get(case, 50)
     t_hi = 1000 if case == "ties" else 10**8
 
-    def ops(n):
-        k = r.integers(0, n_keys, n).astype(np.int32)
-        return [torch.from_numpy(k).to(cuda_device),
-                torch.from_numpy(k * 31 - 7).to(cuda_device),
-                torch.from_numpy(np.sort(r.integers(0, t_hi, n))).to(cuda_device)]
+    def ops(n, quotes):
+        if case == "own_key" and quotes:
+            k = r.permutation(n).astype(np.int32)
+        else:
+            k = r.integers(0, n_keys, n).astype(np.int32)
+        keys = [k.astype(np.float32) / 4] if case == "dispatch" else [k, k * 31 - 7]
+        t = np.sort(r.integers(0, t_hi, n))
+        if case == "float64_times":
+            t = (t - t_hi // 2) / 1e6
+            t[r.random(n) < 0.05] = np.nan
+            t[r.random(n) < 0.05] = 0.0
+            t[t == 0] = np.where(r.random(int((t == 0).sum())) < 0.5, -0.0, 0.0)
+        elif case == "int32_times":
+            t = (t - t_hi // 2).astype(np.int32)
+        elif case == "float32_times":
+            t = (t / 1e3).astype(np.float32)
+        return [torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device)
+                for x in ([] if case == "no_key" else keys) + [t]]
 
     qvalid = torch.from_numpy(r.random(nq) < (0.0 if case == "empty_quotes" else 0.9))
-    so, perm, nv = asof._ss_sort_quotes(ops(nq), qvalid.to(cuda_device))
-    po = ops(p)
+    so, perm, nv = asof._ss_sort_quotes(ops(nq, True), qvalid.to(cuda_device))
+    nkey = len(so) - 1
+    runs = asof._ss_key_runs(so, nv, nkey)
+    n_runs = runs.bounds.shape[0] - 1
+    if case == "unstaged_runs":
+        assert n_runs * 8 + (n_runs + 1) * 4 > 16384  # past the shared-memory stage
+    po = ops(p, False)
     pv = torch.from_numpy(r.random(p) < 0.9).to(cuda_device)
-    _equal(asof._asof_probe_cuda(so, perm, nv, po, pv, upper, 2),
-           asof._asof_probe_plain(so, perm, nv, po, pv, upper, 2))
+    launches, dispatched = asof.ASOF_PROBE_LAUNCHES, asof.ASOF_PROBE_DISPATCH_LAUNCHES
+    got = asof._asof_probe_cuda(so, perm, nv, po, pv, upper, nkey, runs)
+    assert asof.ASOF_PROBE_LAUNCHES == launches + 1
+    assert asof.ASOF_PROBE_DISPATCH_LAUNCHES == dispatched + (case == "dispatch")
+    want = asof._asof_probe_plain(so, perm, nv, po, pv, upper, nkey)
+    _equal(got, want)
+    if case != "empty_quotes":
+        assert int(want[1].sum()) > 0
 
 
 @pytest.mark.parametrize("n", [0, 1000, 1 << 20, (1 << 22) + 3])

@@ -61,7 +61,7 @@ def test_make_mesh_shards_one_device(port_mesh):
 
 
 def test_mesh_over_several_devices_is_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Multi-GPU, remaining"):
         mesh.Mesh(8, devices=["cuda:0", "cuda:1"])
 
 

@@ -417,6 +417,25 @@ class TestShift:
         np.testing.assert_array_equal(got.px_shifted_1.to_numpy(), df.px_shifted_1.to_numpy())
         _same(got, reference("shift", q), ["time"], exact=["px_shifted_1"])
 
+    def test_shift_fill_value_raises(self):
+        """The reference's OrderedStream.shift takes fill_value and never
+        passes it on (its rows without history stay null); the port raises
+        instead of ignoring it."""
+        t = pa.table({"time": np.arange(6, dtype=np.int64), "sym": ["A", "B"] * 3,
+                      "px": np.arange(6, dtype=np.float64)})
+
+        def q(ctx, **kw):
+            return ctx.from_arrow_sorted(t, sorted_by="time").shift(
+                "px", n=1, by="sym", **kw).collect()
+
+        with pytest.raises(NotImplementedError, match="fill_value"):
+            q(ctx_of(1), fill_value=0.0)
+        ignored = q(quokka_tpu.QuokkaContext(), fill_value=0.0).sort_values("time")
+        plain = reference("shift fill", q).sort_values("time")
+        assert ignored.px_shifted_1.isna().sum() == 2
+        np.testing.assert_array_equal(ignored.px_shifted_1.to_numpy(),
+                                      plain.px_shifted_1.to_numpy())
+
 
 def test_keyless_shift_and_sliding_across_batches():
     """Without by-keys every row is one segment; across 700-row batches the
