@@ -1163,27 +1163,48 @@ def device_events(prof):
     return out
 
 
-def device_us(fn, prefixes=None, iters: int = 10) -> float:
-    """Device time per call of fn (profiler, device-side events only; only
-    the kernels whose names start with ``prefixes`` when given)."""
+def kernel_us(fn, prefixes=None, iters: int = 10):
+    """({kernel: device us per call of fn}, the profile) over a window of
+    ``iters`` calls (device-side events only; only the kernels whose names
+    start with ``prefixes`` when given).  The profiler drops kernel records
+    in a long process, so a kernel's time is its mean over the launches
+    recorded, times its launches per call: the recorded launches over the
+    calls, rounded up.  A window in which some kernel's launches are not a
+    whole multiple of the calls, or that recorded none, is taken again, up
+    to three times, and the one that recorded the most launches is kept
+    (``per_call_us``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    # the profiler now and then returns a window without the kernel's
-    # device events: such a window is taken again, up to three times
+    best = None
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        ev = device_events(prof)
-        us = sum(t for k, (t, _) in ev.items()
-                 if prefixes is None or k.startswith(prefixes)) / iters
-        if us > 0:
+        ev = {k: tc for k, tc in device_events(prof).items()
+              if prefixes is None or k.startswith(prefixes)}
+        recorded = sum(c for _, c in ev.values())
+        if best is None or recorded > best[0]:
+            best = (recorded, ev, prof)
+        if ev and all(c % iters == 0 for _, c in ev.values()):
             break
-    return us
+    return per_call_us(best[1], iters), best[2]
+
+
+def per_call_us(ev, iters: int) -> dict:
+    """{kernel: device us per call} of a window's {kernel: (us, recorded
+    launches)} over ``iters`` calls: each kernel's mean per recorded launch
+    times its launches per call, the recorded ones over the calls rounded
+    up (right while the profiler drops fewer than ``iters`` of them)."""
+    return {k: t / c * -(-c // iters) for k, (t, c) in ev.items()}
+
+
+def device_us(fn, prefixes=None, iters: int = 10) -> float:
+    """Device time per call of fn: the sum of ``kernel_us``."""
+    return sum(kernel_us(fn, prefixes, iters)[0].values())
 
 
 def profile_counts(prof):
@@ -1206,10 +1227,10 @@ def profile_counts(prof):
 COMPARED = ("q1", "q3", "q5")
 
 
-def query_walls(dev, tables) -> dict:
-    """Q1, Q3 and Q5 through the package on sys.path: the cold wall, three
-    warm walls, the read + bridge seconds of a timed warm run, and one
-    profiled run's device busy time, idle share of the warm median, D2H
+def query_walls(dev, streams) -> dict:
+    """Each of ``streams`` ({path: stream of a context}) through the package
+    on sys.path: the cold wall, three warm walls, the read + bridge seconds
+    of a timed warm run, and one profiled run's device busy time, idle share of the warm median, D2H
     copies and cudaStreamSynchronize calls, with the count reads the
     operator-statistics ledger made in it (0 where the package has none)."""
     import torch
@@ -1230,11 +1251,11 @@ def query_walls(dev, tables) -> dict:
     Engine = engine_mod.Engine
     real = Engine._read_and_bridge
     out = {}
-    for q in COMPARED:
+    for q, stream in streams.items():
         def run():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            collect_numpy(tpch_stream(q, ctx, tables), q)
+            collect_numpy(stream(ctx), q)
             torch.cuda.synchronize()
             return time.perf_counter() - t0
 
@@ -1266,9 +1287,37 @@ def query_walls(dev, tables) -> dict:
     return out
 
 
+def vector_streams(dev, pkg: Path, args) -> dict:
+    """The vector and ann paths' streams, as the smoke drives them, over the
+    data it makes from the seed (the ANN file and its index under pkg's
+    build/)."""
+    import numpy as np
+    import pyarrow.parquet as pq
+    from quokka_tpu_torch.dataset import vector as dvec
+    from quokka_tpu_torch.dataset.readers import InputArrowDataset
+
+    vd = make_vectors(args.sf, args.seed)
+    corpus = vector_table(vd["vecs"], vd["null"])
+    ann_dir = pkg / "build" / "chip_smoke"
+    ann_dir.mkdir(parents=True, exist_ok=True)
+    ann_path = str(ann_dir / "ann.parquet")
+    pq.write_table(vector_table(vd["ann"], np.zeros(len(vd["ann"]), dtype=bool)), ann_path,
+                   row_group_size=len(vd["ann"]) // ANN_ROW_GROUPS)
+    dvec.build_vector_index(ann_path, "emb", n_cells=ANN_CELLS, device=dev)
+    ann_q = vd["queries"][:ANN_QUERIES]
+    return {
+        "vector": lambda ctx: ctx.read_dataset(
+            InputArrowDataset(corpus, batch_rows=BATCH_ROWS)).nearest_neighbors(
+            vd["queries"], "emb", VEC_K),
+        "ann": lambda ctx: ctx.read_parquet(ann_path).nearest_neighbors(
+            ann_q, "emb", VEC_K, approximate=True, nprobe=ANN_NPROBE)}
+
+
 def walls_only(args) -> int:
-    """``--walls-only``: Q1, Q3, Q5 walls and copy / sync counts of the
-    package in ``--package`` (a checkout's root), as one JSON line."""
+    """``--walls-only``: the walls and copy / sync counts of the paths in
+    ``--walls-paths`` (Q1, Q3 and Q5 by default; also the vector and ann
+    paths, over the data the smoke makes for them) through the package in
+    ``--package`` (a checkout's root), as one JSON line."""
     import torch
 
     pkg = Path(args.package).resolve()
@@ -1280,7 +1329,20 @@ def walls_only(args) -> int:
     from quokka_tpu_torch.ops import native
 
     native.build_all()
-    walls = query_walls(torch.device("cuda", 0), make_tpch(args.sf, args.seed))
+    dev = torch.device("cuda", 0)
+    paths = args.walls_paths.split(",")
+    unknown = sorted(set(paths) - set(COMPARED) - {"vector", "ann"})
+    if unknown:
+        print(f"chip_smoke: --walls-paths: no path {unknown}", file=sys.stderr)
+        return 2
+    streams = {}
+    if set(paths) & set(COMPARED):
+        tables = make_tpch(args.sf, args.seed)
+        streams.update({q: (lambda ctx, q=q: tpch_stream(q, ctx, tables))
+                        for q in paths if q in COMPARED})
+    if {"vector", "ann"} & set(paths):
+        streams.update(vector_streams(dev, pkg, args))
+    walls = query_walls(dev, {p: streams[p] for p in paths})
     print(json.dumps({"walls": walls, "package": str(pkg)}))
     return 0
 
@@ -1683,6 +1745,9 @@ def main() -> int:
     ap.add_argument("--walls-only", action="store_true",
                     help="only time Q1, Q3 and Q5 through the package in --package and "
                          "print one JSON line (what --parent runs)")
+    ap.add_argument("--walls-paths", default=",".join(COMPARED),
+                    help="with --walls-only: the paths to time, comma-separated, of q1, q3, "
+                         "q5, vector and ann")
     ap.add_argument("--package", default=str(ROOT))
     args = ap.parse_args()
 
@@ -2353,7 +2418,7 @@ def smoke(dev, card: str, args) -> int:
                 "qk_insert_kernel", "qk_segment_kernel", "qk_partition_kernel",
                 "qk_probe_kernel", "qk_sorted_probe_kernel", "qk_mm_expand_kernel",
                 "qk_elemwise", "qk_asof_probe", "qk_fill_", "qk_window_bounds_kernel",
-                "qk_minmax_", "qk_sims_topk_kernel", "qk_topk_merge_kernel", "qk_gram_",
+                "qk_minmax_", "qk_sims_", "qk_topk_merge_kernel", "qk_gram_",
                 "qk_plan_", "qk_adapt_kernel", "qk_onehot_", "qk_decode", "qk_mesh_", "qk_pk_")
     profiles = {}
     for path, (stream, *_) in paths.items():
@@ -3267,7 +3332,8 @@ def smoke(dev, card: str, args) -> int:
         shape=f"vector: {nq21} queries x {k21_v.shape[0]} rows ({n21} live) x {d21}, "
               f"k {k21_k}",
         device_us=device_us(lambda: vops.sims_topk_cuda(*k21_a),
-                            ("qk_sims_topk_kernel", "qk_topk_merge_kernel"), iters=3),
+                            ("qk_sims_stage_kernel", "qk_sims_topk_kernel",
+                             "qk_topk_merge_kernel"), iters=3),
         per_query={p: launches_by_path[p]["K21"] for p in ("vector", "ann")}))
     del v_unit
 
@@ -3321,7 +3387,8 @@ def smoke(dev, card: str, args) -> int:
         bound_ms=bound_ms(nbytes(*k22_a[0], k22_a[1]) + 8 * (d22 * (d22 + 1) // 2 + d22)),
         bound_by="bytes", library_ms=cuda_ms(lambda: torch.mm(a22.T, a22)),
         shape=f"gramian: {n22} rows x {d22} columns",
-        device_us=device_us(lambda: lops.gramian_cuda(*k22_a), ("qk_gram_",)),
+        device_us=device_us(lambda: lops.gramian_cuda(*k22_a),
+                            ("qk_gram_small_kernel", "qk_gram_wide_kernel")),
         per_query={p: launches_by_path[p]["K22"] for p in ("gramian", "covariance")}))
     del a22, lib22
 

@@ -6,9 +6,11 @@ batch's columns stacked and cast to float32 (``:46``), invalid rows zeroed
 column sums.  The port forms each product of two float32 values exactly in
 float64 and sums in float64, where the reference sums in float32: the
 result is the exact sum of the reference's products up to float64
-rounding.  CUDA tensors launch the kernel (``csrc/linalg.cu``: block
-partials, then a second pass in block order, so the result is the same
-every run); CPU tensors take ``gramian_plain``.
+rounding.  CUDA tensors launch the kernel (``csrc/linalg.cu``: one pass
+with the sums in registers for up to 8 columns, shared-memory staging past
+8; block partials, then the last block adds them in block order and writes
+the symmetric [d, d] and the sums, so the result is the same every run);
+CPU tensors take ``gramian_plain``.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ from quokka_tpu_torch.ops import native
 # launches of K22
 LAUNCHES = 0
 MAX_COLUMNS = 128
+_SMALL_D = 8  # up to this many columns the kernel keeps its sums in registers
+_THREADS = 256
 _DT = {torch.float64: 0, torch.float32: 1, torch.int64: 2, torch.int32: 3, torch.bool: 4}
 
 
@@ -32,8 +36,10 @@ def _lib():
     if not getattr(lib, "qk_bound", False):
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.qk_gramian.argtypes = [ctypes.POINTER(ctypes.c_void_p),
-                                   ctypes.POINTER(ctypes.c_int), I, L, P, I, P, P, P]
+                                   ctypes.POINTER(ctypes.c_int), I, L, P, I, P, P, P, P]
         lib.qk_gramian.restype = I
+        lib.qk_gram_blocks_per_sm.argtypes = [I]
+        lib.qk_gram_blocks_per_sm.restype = I
         lib.qk_bound = True
     return lib
 
@@ -50,15 +56,32 @@ def gramian_plain(cols: Sequence[torch.Tensor],
     return m.T @ m, m.sum(0)
 
 
-def _unpack(flat: torch.Tensor, d: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's output (upper triangle row by row, then the sums) as a
-    symmetric [d, d] and [d]."""
-    iu = torch.triu_indices(d, d, device=flat.device)
-    g = torch.zeros((d, d), dtype=flat.dtype, device=flat.device)
-    tri = flat[: iu.shape[1]]
-    g[iu[0], iu[1]] = tri
-    g[iu[1], iu[0]] = tri
-    return g, flat[iu.shape[1]:]
+_PER_SM = {}  # (device index, d) -> blocks of the d <= 8 kernel an SM holds
+_TICKETS = {}  # (device index, stream) -> the launches' zeroed uint32 ticket
+
+
+def _blocks(dev, d: int, n: int) -> int:
+    """The launch's blocks: the card full at the kernel's occupancy (d <=
+    8), or two an SM (d > 8)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if d > _SMALL_D:
+        return 2 * sms
+    key = (dev.index, d)
+    if key not in _PER_SM:
+        got = _lib().qk_gram_blocks_per_sm(d)
+        if got <= 0:
+            raise RuntimeError(f"qk_gram_blocks_per_sm: CUDA error {-got}" if got else
+                               f"qk_gram_blocks_per_sm: no block of d = {d} fits an SM")
+        _PER_SM[key] = got
+    return max(1, min(sms * _PER_SM[key], -(-n // _THREADS)))
+
+
+def _ticket(dev, stream: int) -> torch.Tensor:
+    """The stream's ticket: zeroed once; every launch leaves it at 0."""
+    key = (dev.index, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _TICKETS[key]
 
 
 def gramian_cuda(cols: Sequence[torch.Tensor],
@@ -78,19 +101,19 @@ def gramian_cuda(cols: Sequence[torch.Tensor],
         raise TypeError("gramian: needs 1-D float64 / float32 / int64 / int32 / bool "
                         "columns of the mask's length on its device")
     entries = d * (d + 1) // 2 + d
-    chunk = max(1, min(256, 11776 // d - 1))
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, min(2 * sms, -(-n // chunk)))
-    partial = torch.empty((blocks, entries), dtype=torch.float64, device=dev)
-    out = torch.empty(entries, dtype=torch.float64, device=dev)
+    blocks = _blocks(dev, d, n)
+    stream = native.stream_ptr(dev)
+    # the Gramian [d, d], the sums [d], then the block partials [blocks, entries]
+    out = torch.empty(d * d + d + blocks * entries, dtype=torch.float64, device=dev)
+    base = out.data_ptr()
     native.check(_lib().qk_gramian(
         native.ptr_array([c.view(torch.uint8).data_ptr() if c.dtype == torch.bool
                           else c.data_ptr() for c in cols]),
         native.int_array([_DT[c.dtype] for c in cols]), d, n,
-        valid.contiguous().view(torch.uint8).data_ptr(), blocks, partial.data_ptr(),
-        out.data_ptr(), native.stream_ptr(dev)), "qk_gramian")
+        valid.contiguous().view(torch.uint8).data_ptr(), blocks, base + 8 * (d * d + d),
+        _ticket(dev, stream).data_ptr(), base, stream), "qk_gramian")
     LAUNCHES += 1
-    return _unpack(out, d)
+    return out[:d * d].view(d, d), out[d * d:d * d + d]
 
 
 def gramian(cols: Sequence[torch.Tensor],

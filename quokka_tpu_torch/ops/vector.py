@@ -17,13 +17,14 @@ A row of batch ``b`` gets the handle ``(b << 32) | row``.  The scores are
 ``(q . v) / max(|v|, 1e-12)`` in float32, the vectors converted to float32
 first: a null (zero) row scores 0 and an invalid row -inf.  CUDA tensors
 launch the kernel (``csrc/vector.cu``, k up to ``MAX_K``; beyond it a CUDA
-batch raises); CPU tensors take ``sims_topk_plain``.
+batch raises): a prologue that converts the batch to float32 tiles with
+each row's scale, a register-tiled float32 product with a threshold-filtered
+top-k per row split, and the merge; CPU tensors take ``sims_topk_plain``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
 
 import numpy as np
 import torch
@@ -34,9 +35,10 @@ from quokka_tpu_torch.ops import native
 # launches of K21
 LAUNCHES = 0
 MAX_K = 128
-_TN = 128  # rows per step of pass 1 (csrc/vector.cu QK_TN)
-_TQ = 64  # queries per block of pass 1
-_MAX_SPLIT = 64
+_TN = 128  # rows per tile of the main kernel (csrc/vector.cu QK_TN)
+_TQ = 128  # queries per block (QK_TQ)
+_PAD = 16  # the float32 scratch's depth stride: d rounded up to it (QK_PAD)
+_MAX_SPLIT = 64  # row splits the merge takes (QK_MAX_S)
 _NAN = float("nan")
 _PLAIN_ROWS = 1 << 16  # rows per chunk of the plain version's score matrix
 
@@ -60,8 +62,11 @@ def _lib():
     lib = native.library("vector")
     if not getattr(lib, "qk_bound", False):
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.qk_sims_topk.argtypes = [P, I, I, P, L, P, I, I, I, L, P, P, P, L, P, P, P]
+        lib.qk_sims_topk.argtypes = [P, I, I, P, L, P, I, I, I, L, P, P, P, P, P, P, L, P, P,
+                                     P]
         lib.qk_sims_topk.restype = I
+        lib.qk_sims_slots.argtypes = [I]
+        lib.qk_sims_slots.restype = I
         lib.qk_bound = True
     return lib
 
@@ -143,14 +148,37 @@ def sims_topk_plain(q: torch.Tensor, vecs: torch.Tensor, valid: torch.Tensor, k:
 # ---------------------------------------------------------------------------
 
 
-def _splits(nq: int, n: int, device) -> tuple:
-    """(row splits, rows per split): enough blocks to fill the card."""
-    steps = max(1, math.ceil(n / _TN))
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = max(1, math.ceil(4 * sms / max(1, math.ceil(nq / _TQ))))
-    n_split = max(1, min(_MAX_SPLIT, steps, want))
-    per = math.ceil(steps / n_split) * _TN
-    return max(1, math.ceil(n / per)), per
+def _plan(nq: int, n: int, slots: int) -> tuple:
+    """(row splits, rows per split) of a launch over ``n`` rows for ``nq``
+    queries on a card that holds ``slots`` main-kernel blocks at once.
+    Splits are whole 128-row tiles, every one holds rows, and together they
+    cover [0, n) once.  Of 1 to ``_MAX_SPLIT`` splits it takes the fewest
+    that least loads the busiest slot: whole waves of query tiles x splits,
+    times the tiles per split."""
+    q_tiles = max(1, -(-nq // _TQ))
+    tiles = max(1, -(-n // _TN))
+    best = None
+    for s in range(1, min(_MAX_SPLIT, tiles) + 1):
+        per = -(-tiles // s)
+        used = -(-tiles // per)
+        cost = -(-q_tiles * used // max(1, slots)) * per
+        if best is None or cost < best[0]:
+            best = (cost, used, per)
+    return best[1], best[2] * _TN
+
+
+_SLOTS = {}  # (device index, k) -> main-kernel blocks the card holds at once
+
+
+def _slots(dev, k: int) -> int:
+    key = (dev.index, k)
+    if key not in _SLOTS:
+        got = _lib().qk_sims_slots(k)
+        if got <= 0:
+            raise RuntimeError(f"qk_sims_slots: CUDA error {-got}" if got else
+                               f"qk_sims_slots: the main kernel does not fit an SM at k = {k}")
+        _SLOTS[key] = got
+    return _SLOTS[key]
 
 
 def sims_topk_cuda(q: torch.Tensor, vecs: torch.Tensor, valid: torch.Tensor, k: int,
@@ -178,15 +206,22 @@ def sims_topk_cuda(q: torch.Tensor, vecs: torch.Tensor, valid: torch.Tensor, k: 
         raise ValueError("sims_topk: vectors of width 0")
     q, vecs = q.contiguous(), vecs.contiguous()
     state_s, state_h = state_s.contiguous(), state_h.contiguous()
-    n_split, per = _splits(nq, n, dev)
+    n_split, per = _plan(nq, n, _slots(dev, k))
+    d_pad = -(-d // _PAD) * _PAD
+    q_len = -(-nq // _TQ) * _TQ * d_pad
+    n_rows = -(-n // _TN) * _TN
+    # float32 scratch: the query tiles, the vector tiles, the rows' scales
+    scratch = torch.empty(q_len + n_rows * (d_pad + 1), dtype=torch.float32, device=dev)
     cand = torch.empty((nq, n_split, k), dtype=torch.int64, device=dev)
     out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_h = torch.empty((nq, k), dtype=torch.int64, device=dev)
+    base = scratch.data_ptr()
     native.check(_lib().qk_sims_topk(
         q.data_ptr(), nq, d, vecs.data_ptr(), n,
         valid.contiguous().view(torch.uint8).data_ptr(), k, min(k, n), n_split, per,
-        cand.data_ptr(), state_s.data_ptr(), state_h.data_ptr(), batch << 32,
-        out_s.data_ptr(), out_h.data_ptr(), native.stream_ptr(dev)), "qk_sims_topk")
+        base, base + 4 * q_len, base + 4 * (q_len + n_rows * d_pad), cand.data_ptr(),
+        state_s.data_ptr(), state_h.data_ptr(), batch << 32, out_s.data_ptr(),
+        out_h.data_ptr(), native.stream_ptr(dev)), "qk_sims_topk")
     LAUNCHES += 1
     return out_s, out_h
 

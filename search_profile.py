@@ -372,25 +372,20 @@ def kernel_attrs(prof, prefixes):
     return out
 
 
-def measure(name, fn, prefixes):
-    """Event-timed ms, device us and the kernels' launch attributes of fn."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+def measure(name, fn, prefixes, iters: int = 20, profiled: int = 10):
+    """Event-timed ms of fn over ``iters`` calls, and from a profiled window
+    of ``profiled`` calls its kernels' device us per call (chip_smoke's
+    kernel_us), in all and by kernel, with their launch attributes."""
     import chip_smoke
 
-    ms = chip_smoke.cuda_ms(fn)
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            fn()
-        torch.cuda.synchronize()
-    ev = chip_smoke.device_events(prof)
-    us = sum(t for k, (t, _) in ev.items() if prefixes is None or k.startswith(prefixes)) / 10
+    ms = chip_smoke.cuda_ms(fn, iters=iters)
+    per_kernel, prof = chip_smoke.kernel_us(fn, prefixes, profiled)
+    us = sum(per_kernel.values())
     row = {"ms": ms, "device_us": us,
+           "device_us_by_kernel": {k.split("(")[0]: t for k, t in per_kernel.items()},
            "kernels": kernel_attrs(prof, prefixes) if prefixes else {}}
-    print(f"{name}: {ms:.4f} ms, {us:.1f} device us, {row['kernels']}", flush=True)
+    print(f"{name}: {ms:.4f} ms, {us:.1f} device us, {row['device_us_by_kernel']}, "
+          f"{row['kernels']}", flush=True)
     return row
 
 

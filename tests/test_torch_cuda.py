@@ -14,7 +14,8 @@ a sort on the keys.  The time-series kernels (indices, flags, min / max)
 compare bit for bit.  K21's scores agree within 1e-5 at d = 768 (float32
 dot products summed in another order; 1e-6 at d <= 7, exact at d = 1),
 and its row handles are equal but where a score lies within twice that of
-the query's k-th; K22's float64 sums agree within rtol 1e-9.  K17's plan
+the query's k-th (all rows invalid: bit for bit); K22's float64 sums agree
+within rtol 1e-9, and two runs give the same bits.  K17's plan
 and K26's routing are exact index for index; K6's counts, integer sums and
 smallest rows are exact and its float64 sums within rtol 1e-9.  K23's
 decoded leaves equal the plain version's and the shipped input bit for bit.
@@ -479,6 +480,93 @@ def test_k21_takes_float64_vectors_only(cuda_device):
     with pytest.raises(TypeError, match="float64 vectors"):
         vector.sims_topk(q, v.to(torch.float32), valid, 3, *vector.empty_state(2, 3, cuda_device),
                          0)
+
+
+@pytest.mark.parametrize("nq", [1, 4, 130])
+def test_k21_query_counts(cuda_device, nq):
+    # one query, the ann path's four, and a count that is not a multiple of
+    # the kernel's 128-query tile
+    q, v, valid = _k21_inputs(cuda_device, 20000, 100, nq, seed=nq)
+    state = vector.empty_state(nq, 10, cuda_device)
+    got = vector.sims_topk_cuda(q, v, valid, 10, *state, 0)
+    exp = vector.sims_topk_plain(q, v, valid, 10, *state, 0)
+    torch.cuda.synchronize()
+    _topk_agree(got, exp, 1e-5)
+
+
+@pytest.mark.parametrize("d", [100, 17])
+def test_k21_at_its_k_cap(cuda_device, d):
+    # k = MAX_K (the lists fill most of shared memory), at depths that are
+    # not multiples of the 16-deep padding; two batches merged
+    k, nq = vector.MAX_K, 130
+    state = plain = vector.empty_state(nq, k, cuda_device)
+    for b, n in enumerate([20000, 300]):
+        q, v, valid = _k21_inputs(cuda_device, n, d, nq, seed=d + b)
+        state = vector.sims_topk_cuda(q, v, valid, k, *state, b)
+        plain = vector.sims_topk_plain(q, v, valid, k, *plain, b)
+        torch.cuda.synchronize()
+        _topk_agree(state, plain, 1e-5)
+        plain = state
+
+
+def test_k21_all_rows_invalid(cuda_device):
+    # every row scores -inf and still takes a slot, the lower rows first
+    q, v, valid = _k21_inputs(cuda_device, 3000, 17, 40, seed=9)
+    valid = torch.zeros_like(valid)
+    state = vector.empty_state(40, 10, cuda_device)
+    got = vector.sims_topk_cuda(q, v, valid, 10, *state, 2)
+    exp = vector.sims_topk_plain(q, v, valid, 10, *state, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].view(torch.int32), exp[0].view(torch.int32))
+    assert torch.equal(got[1], exp[1])
+    assert bool((got[0] == float("-inf")).all())
+
+
+def _k22_columns(device, d, n, seed):
+    """d columns of every type with NaN and invalid rows; the last column a
+    slice at an odd element offset (an unaligned start)."""
+    r = np.random.default_rng(seed)
+    cols = []
+    for j in range(d):
+        m = n + 1 if j == d - 1 else n
+        kind = j % 5
+        if kind == 0:
+            x = r.normal(size=m) * 100
+            x[r.random(m) < 0.001] = np.nan
+            c = torch.from_numpy(x)
+        elif kind == 1:
+            c = torch.from_numpy(r.integers(-10**6, 10**6, m))
+        elif kind == 2:
+            c = torch.from_numpy(r.integers(0, 50, m).astype(np.int32))
+        elif kind == 3:
+            c = torch.from_numpy(r.random(m) < 0.3)
+        else:
+            c = torch.from_numpy(r.normal(size=m).astype(np.float32))
+        c = c.to(device)
+        cols.append(c[1:] if j == d - 1 else c)
+    return cols, torch.from_numpy(r.random(n) < 0.9).to(device)
+
+
+@pytest.mark.parametrize("d", list(range(1, 10)))
+def test_k22_register_path_matches_plain(cuda_device, d):
+    # every templated width (1-8) and the first on the shared-memory path (9)
+    cols, valid = _k22_columns(cuda_device, d, (1 << 18) + 3, seed=50 + d)
+    g, s = linalg.gramian_cuda(cols, valid)
+    gp, sp = linalg.gramian_plain(cols, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(g), torch.isnan(gp))
+    assert torch.allclose(g, gp, rtol=1e-9, atol=0, equal_nan=True)
+    assert torch.allclose(s, sp, rtol=1e-9, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("d", [4, 17])
+def test_k22_same_bits_every_run(cuda_device, d):
+    cols, valid = _k22_columns(cuda_device, d, 1 << 20, seed=70 + d)
+    first = [t.clone() for t in linalg.gramian_cuda(cols, valid)]
+    again = linalg.gramian_cuda(cols, valid)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a.view(torch.int64), b.view(torch.int64))
 
 
 @pytest.mark.parametrize("d", [1, 4, 17, 64, 100])

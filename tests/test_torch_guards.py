@@ -106,6 +106,23 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
         assert '"ok"' not in out.stdout
 
 
+@pytest.mark.parametrize("ev, want", [
+    ({"k": (30.0, 3)}, {"k": 10.0}),  # every launch recorded
+    ({"k": (10.0, 1)}, {"k": 10.0}),  # two of three dropped
+    ({"a": (60.0, 6), "b": (5.0, 1)}, {"a": 20.0, "b": 5.0}),  # two launches a call
+], ids=["all recorded", "two dropped", "two a call"])
+def test_smoke_device_us_scales_by_the_recorded_launches(ev, want):
+    """chip_smoke.py's device time per call over a window of three calls:
+    a kernel's mean per recorded launch times its launches per call, so
+    records the profiler drops do not lower it."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    assert chip_smoke.per_call_us(ev, 3) == pytest.approx(want)
+
+
 def test_new_modules_import_with_jax_and_reference_blocked():
     code = (
         "import sys\n"

@@ -276,6 +276,20 @@ def test_gramian_and_covariance(kind, covariance):
     np.testing.assert_allclose(got, g, rtol=1e-9)
 
 
+def _k22_plain_against_reference(columns, valid):
+    """K22's plain version against the reference's ``_accumulate`` (float32
+    sums: rtol 1e-4) and the float64 oracle (rtol 1e-9)."""
+    mat = np.stack(columns, 1)
+    g_ref, s_ref = RefGramian._accumulate(jax.numpy.asarray(mat.astype(np.float32)),
+                                          jax.numpy.asarray(valid))
+    g, s = linalg.gramian_plain([torch.from_numpy(c) for c in columns], torch.from_numpy(valid))
+    np.testing.assert_allclose(g.numpy(), np.asarray(g_ref, np.float64), rtol=1e-4)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_ref, np.float64), rtol=1e-4, atol=1e-3)
+    go, so, _ = _f32_oracle(columns, valid)
+    np.testing.assert_allclose(g.numpy(), go, rtol=1e-9)
+    np.testing.assert_allclose(s.numpy(), so, rtol=1e-9)
+
+
 def test_k22_plain_matches_reference_accumulate():
     t = _numeric_table("float_nulls", n=3000, seed=32)
     rb = ref_batch_of(t)
@@ -292,6 +306,46 @@ def test_k22_plain_matches_reference_accumulate():
     go, so, _ = _f32_oracle([np.asarray(rb.columns[c].data) for c in cols], valid)
     np.testing.assert_allclose(g.numpy(), go, rtol=1e-9)
     np.testing.assert_allclose(s.numpy(), so, rtol=1e-9)
+
+
+@pytest.mark.parametrize("d", [1, 8, 9])
+def test_k22_plain_matches_reference_accumulate_at_the_register_path_ends(d):
+    # the card holds K22's register path (d <= 8) and its shared-memory path
+    # (d > 8) against this plain version
+    r = np.random.default_rng(33 + d)
+    n = 3000
+    columns = []
+    for j in range(d):
+        if j % 3 == 0:
+            x = r.normal(size=n) * 3 + 1
+            if j > 0:  # a null float in a later column
+                x[r.random(n) < 0.01] = np.nan
+        elif j % 3 == 1:
+            x = r.integers(1, 50, n)
+        else:
+            x = r.uniform(0, 2, n)
+        columns.append(x)
+    _k22_plain_against_reference(columns, r.random(n) < 0.9)
+
+
+@pytest.mark.parametrize("n", [1, 127, (1 << 20) + 5])
+@pytest.mark.parametrize("nq", [1, 4, 10_000])
+def test_k21_plan_covers_every_row_once(nq, n):
+    for slots in (132, 264, 1):  # an H100's SMs at one and two blocks each; one slot
+        n_split, per = vector._plan(nq, n, slots)
+        assert 1 <= n_split <= vector._MAX_SPLIT
+        assert per % vector._TN == 0
+        bounds = [(s * per, min(n, (s + 1) * per)) for s in range(n_split)]
+        assert all(lo < hi for lo, hi in bounds)  # every split holds rows
+        assert bounds[0][0] == 0 and bounds[-1][1] == n
+        assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    if nq == 10_000 and n > 1 << 20:
+        # the vector path's shape fills whole waves: the busiest of 264
+        # slots takes within 2% of the mean's tiles
+        n_split, per = vector._plan(nq, n, 264)
+        q_tiles, tiles = -(-nq // vector._TQ), -(-n // vector._TN)
+        waves = -(-q_tiles * n_split // 264)
+        assert waves * per // vector._TN <= 1.02 * q_tiles * tiles / 264
 
 
 def test_approximate_quantile_matches_reference():
