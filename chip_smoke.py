@@ -66,13 +66,16 @@ Phases, each fatal on failure:
      matmul and 2^21-element add) beside the data sheet, and EXPLAIN
      ANALYZE of Q1 and Q5 with its device-efficiency section;
   6. hold each kernel against its plain torch version on the card, at the
-     shapes the query runs gave it (K1, K2 at Q1's; K3, K4 at Q1's and
-     Q3's; K5, K11, K12 at Q3's, K12 also on float64 keys with -0.0 and
+     shapes the query runs gave it (K1, K2 at Q1's; K3 at Q1's, Q3's,
+     tumbling's and hopping's, each call under torch.cuda's sync debug
+     mode, so that a host read in a call fails; K4 at Q1's and Q3's; K5, K11, K12 at Q3's, K12 also on float64 keys with -0.0 and
      NaN; K13 at Q13's and with one probe key matching 10^4 build rows;
      K16 at Q7's, also with dates before 1970 and nulls; K18 at the
      asof's, K19 at the sort strategy's, sliding's and shift's, K20a and
      K20b at sliding's, each also on one symbol holding every quote,
      whole-second timestamps, 2^23 rows and empty or all-invalid sides,
+     K20b also on random and degenerate ranges with NaN in x and on one
+     window over all rows, at 2^20 rows,
      K18 also with every quote its own key, 20,000 keys (past its
      shared-memory stage of the run table), no key limb, float64 times
      with NaN and -0.0, int32 and float32 times, and on every path K18's
@@ -92,7 +95,8 @@ Phases, each fatal on failure:
      holding NaN and -0.0, bit for bit; K14 at the mesh Q3's largest call,
      with duplicate build keys, no matches and no valid row),
      and time kernel, plain version and bound with CUDA events; the
-     torch-primitive rows 7, 8, 9, 10, 14, 15 and 20 are timed too;
+     torch-primitive rows 7, 8, 9, 10, 14, 15, 20 and `_mask_and_count`
+     (kernels.apply_mask) are timed too;
   7. print one JSON line of per-kernel numbers, the card line, and last the
      contract line {"ok": true, "device": {...}}.
 
@@ -1037,9 +1041,10 @@ def check_quantiles(got, exp):
 
 
 def tpch_stream(name: str, ctx, tables):
-    """TPC-H Q1, Q3 or Q5 over the made tables through the port's API (a
-    reader per source: it holds the source's pushed-down projection).  The
-    walls-only run uses it against another checkout's package too."""
+    """TPC-H Q1, Q3, Q13, Q7 or Q5 over the made tables through the port's
+    API (a reader per source: it holds the source's pushed-down
+    projection).  The walls-only run uses it against another checkout's
+    package too."""
     from quokka_tpu_torch import col, date
 
     def src(t):
@@ -1058,6 +1063,30 @@ def tpch_stream(name: str, ctx, tables):
                       left_on="o_custkey", right_on="c_custkey")
                 .groupby(["l_orderkey", "o_orderdate", "o_shippriority"])
                 .agg_sql(REV).top_k(["revenue"], 10, [True]))
+    if name == "q13":
+        return (src("customer")
+                .join(src("orders").filter(~col("o_comment").str.contains("special")),
+                      left_on="c_custkey", right_on="o_custkey", how="left")
+                .groupby("c_custkey").agg_sql("count(o_orderkey) as c_count")
+                .groupby("c_count").agg_sql("count(*) as custdist"))
+    if name == "q7":
+        nation = src("nation")
+        n1 = nation.rename({"n_name": "supp_nation", "n_nationkey": "n1key"})
+        n2 = nation.rename({"n_name": "cust_nation", "n_nationkey": "n2key"})
+        return (src("lineitem")
+                .filter_sql("l_shipdate between date '1995-01-01' and date '1996-12-31'")
+                .join(src("supplier"), left_on="l_suppkey", right_on="s_suppkey")
+                .join(src("orders"), left_on="l_orderkey", right_on="o_orderkey")
+                .join(src("customer"), left_on="o_custkey", right_on="c_custkey")
+                .join(n1.select(["supp_nation", "n1key"]), left_on="s_nationkey",
+                      right_on="n1key")
+                .join(n2.select(["cust_nation", "n2key"]), left_on="c_nationkey",
+                      right_on="n2key")
+                .filter_sql(Q7_FILTER)
+                .with_columns_sql("extract(year from l_shipdate) as l_year, "
+                                  "l_extendedprice * (1 - l_discount) as volume")
+                .groupby(["supp_nation", "cust_nation", "l_year"])
+                .agg_sql("sum(volume) as revenue"))
     return (src("lineitem")
             .join(src("orders").filter_sql(
                 "o_orderdate >= date '1994-01-01' and o_orderdate < date '1995-01-01'"),
@@ -1128,6 +1157,12 @@ def check_dryrun_q3(got, exp) -> None:
 # ---------------------------------------------------------------------------
 
 
+# the device operations of one K3 call and of one K20b call, by the start
+# of the profiler's names (a memset is "Memset (Device)")
+K3_OPS = ("Memset", "qk_gb_insert_kernel", "qk_gb_rank_kernel", "qk_gb_segment_kernel")
+K20B_OPS = ("qk_range_summary_kernel", "qk_range_query_kernel")
+
+
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     import torch
 
@@ -1163,7 +1198,7 @@ def device_events(prof):
     return out
 
 
-def kernel_us(fn, prefixes=None, iters: int = 10):
+def kernel_us(fn, prefixes=None, iters: int = 10, expect=()):
     """({kernel: device us per call of fn}, the profile) over a window of
     ``iters`` calls (device-side events only; only the kernels whose names
     start with ``prefixes`` when given).  The profiler drops kernel records
@@ -1172,25 +1207,33 @@ def kernel_us(fn, prefixes=None, iters: int = 10):
     calls, rounded up.  A window in which some kernel's launches are not a
     whole multiple of the calls, or that recorded none, is taken again, up
     to three times, and the one that recorded the most launches is kept
-    (``per_call_us``)."""
+    (``per_call_us``).  ``expect`` names (by the start of their names) the
+    device operations every call makes: a window that recorded none of one
+    of them is taken again, up to eight times in all, and the run fails if
+    no window recorded them all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     best = None
-    for _ in range(3):
+    for _ in range(8 if expect else 3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         ev = {k: tc for k, tc in device_events(prof).items()
               if prefixes is None or k.startswith(prefixes)}
-        recorded = sum(c for _, c in ev.values())
-        if best is None or recorded > best[0]:
-            best = (recorded, ev, prof)
-        if ev and all(c % iters == 0 for _, c in ev.values()):
+        whole = all(any(k.startswith(e) for k in ev) for e in expect)
+        rank = (whole, sum(c for _, c in ev.values()))
+        if best is None or rank > best[0]:
+            best = (rank, ev, prof)
+        if whole and ev and all(c % iters == 0 for _, c in ev.values()):
             break
+    if not best[0][0]:
+        missing = [e for e in expect if not any(k.startswith(e) for k in best[1])]
+        fail(f"device time: no profiled window recorded {missing} (recorded: "
+             f"{sorted(k.split('(')[0] for k in best[1])})")
     return per_call_us(best[1], iters), best[2]
 
 
@@ -1202,9 +1245,9 @@ def per_call_us(ev, iters: int) -> dict:
     return {k: t / c * -(-c // iters) for k, (t, c) in ev.items()}
 
 
-def device_us(fn, prefixes=None, iters: int = 10) -> float:
+def device_us(fn, prefixes=None, iters: int = 10, expect=()) -> float:
     """Device time per call of fn: the sum of ``kernel_us``."""
-    return sum(kernel_us(fn, prefixes, iters)[0].values())
+    return sum(kernel_us(fn, prefixes, iters, expect)[0].values())
 
 
 def profile_counts(prof):
@@ -1225,6 +1268,8 @@ def profile_counts(prof):
 
 
 COMPARED = ("q1", "q3", "q5")
+WALL_TPCH = COMPARED + ("q13", "q7")
+WALL_TICKS = ("tumbling", "hopping", "session", "sliding")
 
 
 def query_walls(dev, streams) -> dict:
@@ -1315,7 +1360,8 @@ def vector_streams(dev, pkg: Path, args) -> dict:
 
 def walls_only(args) -> int:
     """``--walls-only``: the walls and copy / sync counts of the paths in
-    ``--walls-paths`` (Q1, Q3 and Q5 by default; also the vector and ann
+    ``--walls-paths`` (Q1, Q3 and Q5 by default; also Q13, Q7, the
+    tumbling, hopping, session and sliding windows, and the vector and ann
     paths, over the data the smoke makes for them) through the package in
     ``--package`` (a checkout's root), as one JSON line."""
     import torch
@@ -1331,15 +1377,19 @@ def walls_only(args) -> int:
     native.build_all()
     dev = torch.device("cuda", 0)
     paths = args.walls_paths.split(",")
-    unknown = sorted(set(paths) - set(COMPARED) - {"vector", "ann"})
+    unknown = sorted(set(paths) - set(WALL_TPCH) - set(WALL_TICKS) - {"vector", "ann"})
     if unknown:
         print(f"chip_smoke: --walls-paths: no path {unknown}", file=sys.stderr)
         return 2
     streams = {}
-    if set(paths) & set(COMPARED):
+    if set(paths) & set(WALL_TPCH):
         tables = make_tpch(args.sf, args.seed)
         streams.update({q: (lambda ctx, q=q: tpch_stream(q, ctx, tables))
-                        for q in paths if q in COMPARED})
+                        for q in paths if q in WALL_TPCH})
+    if set(paths) & set(WALL_TICKS):
+        ticks = make_ticks(args.sf, args.seed)
+        streams.update({q: (lambda ctx, q=q: tick_stream(q, ctx, ticks))
+                        for q in paths if q in WALL_TICKS})
     if {"vector", "ann"} & set(paths):
         streams.update(vector_streams(dev, pkg, args))
     walls = query_walls(dev, {p: streams[p] for p in paths})
@@ -1747,7 +1797,7 @@ def main() -> int:
                          "print one JSON line (what --parent runs)")
     ap.add_argument("--walls-paths", default=",".join(COMPARED),
                     help="with --walls-only: the paths to time, comma-separated, of q1, q3, "
-                         "q5, vector and ann")
+                         "q5, q13, q7, tumbling, hopping, session, sliding, vector and ann")
     ap.add_argument("--package", default=str(ROOT))
     args = ap.parse_args()
 
@@ -1906,11 +1956,7 @@ def smoke(dev, card: str, args) -> int:
                 .groupby("o_orderpriority").agg_sql("count(*) as order_count"))
 
     def q13_stream():
-        return (src("customer")
-                .join(src("orders").filter(~col("o_comment").str.contains("special")),
-                      left_on="c_custkey", right_on="o_custkey", how="left")
-                .groupby("c_custkey").agg_sql("count(o_orderkey) as c_count")
-                .groupby("c_count").agg_sql("count(*) as custdist"))
+        return tpch_stream("q13", ctx, tables)
 
     def q19_stream():
         return (src("lineitem").join(src("part"), left_on="l_partkey", right_on="p_partkey")
@@ -1938,23 +1984,7 @@ def smoke(dev, card: str, args) -> int:
         return tick_stream("shift", ctx, ticks)
 
     def q7_stream():
-        nation = src("nation")
-        n1 = nation.rename({"n_name": "supp_nation", "n_nationkey": "n1key"})
-        n2 = nation.rename({"n_name": "cust_nation", "n_nationkey": "n2key"})
-        return (src("lineitem")
-                .filter_sql("l_shipdate between date '1995-01-01' and date '1996-12-31'")
-                .join(src("supplier"), left_on="l_suppkey", right_on="s_suppkey")
-                .join(src("orders"), left_on="l_orderkey", right_on="o_orderkey")
-                .join(src("customer"), left_on="o_custkey", right_on="c_custkey")
-                .join(n1.select(["supp_nation", "n1key"]), left_on="s_nationkey",
-                      right_on="n1key")
-                .join(n2.select(["cust_nation", "n2key"]), left_on="c_nationkey",
-                      right_on="n2key")
-                .filter_sql(Q7_FILTER)
-                .with_columns_sql("extract(year from l_shipdate) as l_year, "
-                                  "l_extendedprice * (1 - l_discount) as volume")
-                .groupby(["supp_nation", "cust_nation", "l_year"])
-                .agg_sql("sum(volume) as revenue"))
+        return tpch_stream("q7", ctx, tables)
 
     def vector_stream():
         # glove-100-angular's shape: 2^20-row batches of an Arrow corpus
@@ -2415,10 +2445,10 @@ def smoke(dev, card: str, args) -> int:
           f"(pad, sentinels, pinned staging, H2D) alone {report['q1_encode_and_h2d_s']:.4f} s")
 
     prefixes = ("qk_predicate", "qk_small_agg", "qk_colreduce", "qk_pre_agg",
-                "qk_insert_kernel", "qk_segment_kernel", "qk_partition_kernel",
+                "qk_insert_kernel", "qk_gb_", "qk_partition_kernel",
                 "qk_probe_kernel", "qk_sorted_probe_kernel", "qk_mm_expand_kernel",
                 "qk_elemwise", "qk_asof_probe", "qk_fill_", "qk_window_bounds_kernel",
-                "qk_minmax_", "qk_sims_", "qk_topk_merge_kernel", "qk_gram_",
+                "qk_range_", "qk_sims_", "qk_topk_merge_kernel", "qk_gram_",
                 "qk_plan_", "qk_adapt_kernel", "qk_onehot_", "qk_decode", "qk_mesh_", "qk_pk_")
     profiles = {}
     for path, (stream, *_) in paths.items():
@@ -2570,8 +2600,13 @@ def smoke(dev, card: str, args) -> int:
                     "K20b": (ts_execs, "range_minmax", lambda x, lf, rt, op: x.shape[0]),
                     "row 9 reduce": (kernels, "reduce_array", lambda a, v, op: a.shape[0]),
                     "row 20 segment ends": (ts_execs, "_rows_from_segment_end",
-                                            lambda io, fl, n: n)},
-        "shift": {"K19": (asof, "seg_fill_forward", lambda v, st: v.shape[0])}}
+                                            lambda io, fl, n: n),
+                    # the optimizer's catalog masks its samples on the CPU
+                    "mask": (kernels, "apply_mask",
+                             lambda b, m: m.shape[0] if m.is_cuda else -1)},
+        "shift": {"K19": (asof, "seg_fill_forward", lambda v, st: v.shape[0])},
+        **{p: {"K3": (hashtable, "hash_groupby", lambda l, a, o, v: v.shape[0])}
+           for p in ("tumbling", "hopping")}}
     s4 = {}
     for path, tg in ts_targets.items():
         set_strategy(path)
@@ -2664,15 +2699,25 @@ def smoke(dev, card: str, args) -> int:
         bound_by="bytes", library_ms=None, shape=f"{n} rows, {call.n_groups + 1} buckets",
         device_us=device_us(call.launch, ("qk_small_agg", "qk_colreduce"))))
 
-    # K3: a Q1 recombine of a few partial batches, and Q3's largest call
+    # K3: a Q1 recombine of a few partial batches, Q3's largest call and the
+    # largest calls of tumbling and hopping; each K3 call under the sync
+    # debug mode, which raises on a host read
     def key_order(k):
         idx = torch.arange(k.shape[0], device=dev)
         for c in reversed(range(k.shape[1])):
             idx = idx[torch.argsort(k[idx, c], stable=True)]
         return idx
 
+    def no_sync(fn):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
     def check_k3(label, lb, ar, op, va) -> float:
-        ko, kc, kr, kn = hashtable.hash_groupby(lb, ar, op, va)
+        ko, kc, kr, kn = no_sync(lambda: hashtable.hash_groupby(lb, ar, op, va))
         plain = hashtable.hash_groupby_plain(lb, ar, op, va)
         if plain is None:
             fail(f"K3 {label}: the plain version's insert did not converge")
@@ -2699,12 +2744,18 @@ def smoke(dev, card: str, args) -> int:
                     err = max(err, float((a[both] - b[both]).abs().max()))
             elif not torch.equal(a, b):
                 fail(f"K3 {label}: {name} differs")
-        print(f"K3 {label}: {g_n} groups match the plain version")
+        print(f"K3 {label}: {g_n} groups match the plain version, no host read in the call")
         return err
 
-    def k3_bytes(lb, ar, va):
-        m = va.shape[0]
-        return nbytes(*lb, *ar, va) + m * (4 + 4 + sum(a.element_size() for a in ar))
+    def k3_bytes(lb, ar, op, va):
+        """What the group-by must move: every row's validity byte, the keys
+        and inputs of the live rows, and the outputs it writes (counts, the
+        smallest rows, the group count, one array per aggregate; an integer
+        count is the counts array itself)."""
+        m, live = va.shape[0], int(va.sum())
+        ko, kc, _, _ = hashtable.hash_groupby(lb, ar, op, va)
+        outs = sum(nbytes(o) for o in ko if o.data_ptr() != kc.data_ptr())
+        return (m + live * sum(t.element_size() for t in (*lb, *ar)) + m * (4 + 4) + 4 + outs)
 
     pex = PartialAggExecutor(keys, plan)
     parts = [kernels.compact(pex._partial(pred(bridge.host_to_device(
@@ -2713,28 +2764,33 @@ def smoke(dev, card: str, args) -> int:
     limbs = key_limbs(merged, keys)
     arrays = [merged.columns[p].data for p, _ in plan.recombine]
     ops = [op for _, op in plan.recombine]
-    q1_k3 = (limbs, arrays, ops, merged.valid)
-    (q3_lb, q3_ar, q3_op, q3_va), _ = hcap.args["K3"]
-    k3_err = max(check_k3("Q1 recombine", *q1_k3), check_k3("Q3 largest call", q3_lb, q3_ar,
-                                                             q3_op, q3_va))
+    k3_calls = {"q1": (limbs, arrays, ops, merged.valid), "q3": hcap.args["K3"][0],
+                "tumbling": s4["tumbling"].args["K3"][0],
+                "hopping": s4["hopping"].args["K3"][0]}
+    k3_label = {"q1": "Q1 recombine", "q3": "Q3 largest call",
+                "tumbling": "tumbling's largest call", "hopping": "hopping's largest call"}
+    k3_err = max(check_k3(k3_label[p], *a) for p, a in k3_calls.items())
+
+    def k3_row(p):
+        lb, ar, op, va = k3_calls[p]
+        fn = lambda: hashtable.hash_groupby(lb, ar, op, va)  # noqa: E731
+        no_sync(fn)
+        return {"shape": f"{va.shape[0]} rows ({int(va.sum())} live), {len(lb)} key columns, "
+                         f"{len(ar)} aggregates",
+                "launches": launches_by_path[p]["K3"],
+                "ms": cuda_ms(fn, iters=20 if p == "q1" else 5),
+                "plain_ms": cuda_ms(lambda: hashtable.hash_groupby_plain(lb, ar, op, va),
+                                    iters=5 if p == "q1" else 2, warmup=1),
+                # the whole call: memset and every kernel
+                "device_us": device_us(fn, iters=10 if p == "q1" else 5, expect=K3_OPS),
+                "bound_ms": bound_ms(k3_bytes(lb, ar, op, va))}
+
+    k3 = {p: k3_row(p) for p in k3_calls}
     out.append(dict(
         name="K3 hash group-by", route="cuda", source="quokka_tpu_torch/csrc/hashtable.cu",
-        replaces="quokka_tpu/ops/hashtable.py:310", launches=launches_by_path["q1"]["K3"],
-        max_abs_err=k3_err, ms=cuda_ms(lambda: hashtable.hash_groupby(*q1_k3)),
-        plain_ms=cuda_ms(lambda: hashtable.hash_groupby_plain(*q1_k3), iters=5),
-        bound_ms=bound_ms(k3_bytes(limbs, arrays, merged.valid)), bound_by="bytes",
-        library_ms=None,
-        shape=f"{merged.padded_len} rows, {len(limbs)} limbs, {len(arrays)} aggregates",
-        device_us=device_us(lambda: hashtable.hash_groupby(*q1_k3),
-                            ("qk_insert_kernel", "qk_segment_kernel")),
-        q3={"shape": f"{q3_va.shape[0]} rows, {len(q3_lb)} key columns, {len(q3_ar)} aggregates",
-            "launches": launches_by_path["q3"]["K3"],
-            "ms": cuda_ms(lambda: hashtable.hash_groupby(q3_lb, q3_ar, q3_op, q3_va), iters=5),
-            "plain_ms": cuda_ms(lambda: hashtable.hash_groupby_plain(q3_lb, q3_ar, q3_op, q3_va),
-                                iters=2, warmup=1),
-            "device_us": device_us(lambda: hashtable.hash_groupby(q3_lb, q3_ar, q3_op, q3_va),
-                                   ("qk_insert_kernel", "qk_segment_kernel"), iters=5),
-            "bound_ms": bound_ms(k3_bytes(hashtable.canonical_limbs(q3_lb), q3_ar, q3_va))}))
+        replaces="quokka_tpu/ops/hashtable.py:310", max_abs_err=k3_err, bound_by="bytes",
+        library_ms=None, **k3["q1"], q3=k3["q3"], tumbling=k3["tumbling"],
+        hopping=k3["hopping"], per_query={p: launches_by_path[p]["K3"] for p in paths}))
 
     # K4: Q1's exchange of the partial state, and Q3's largest split
     state_b = kernels.compact(pex._recombine(parts))
@@ -3195,6 +3251,23 @@ def smoke(dev, card: str, args) -> int:
     for a in k20b_calls:
         same("K20b sliding query call", [ts_execs._range_minmax_cuda(*a)],
              [ts_execs._range_minmax_plain(*a)])
+    # arbitrary ranges at 2^20 rows: random ones up to 3^11 rows long, a
+    # twentieth degenerate (left > right), NaN in x; and one window over
+    # every row
+    g20 = np.random.default_rng(args.seed + 20)
+    n_r = 1 << 20
+    x_r = qu["bid"][:n_r].copy()
+    x_r[g20.random(n_r) < 0.01] = np.nan
+    l_r = g20.integers(0, n_r, n_r)
+    r_r = np.minimum(l_r + g20.integers(0, 3, n_r) ** g20.integers(0, 12, n_r), n_r - 1)
+    l_r[g20.random(n_r) < 0.05] = n_r - 1
+    for label, lr in (("random ranges, 2^20 rows", (l_r, r_r)),
+                      ("one window over all 2^20 rows", (np.zeros(n_r), np.full(n_r, n_r - 1)))):
+        lr = [dev_t(a.astype(np.int32)) for a in lr]
+        for op in ("min", "max"):
+            same(f"K20b {label} {op}", [ts_execs._range_minmax_cuda(dev_t(x_r), *lr, op)],
+                 [ts_execs._range_minmax_plain(dev_t(x_r), *lr, op)])
+        print(f"K20b {label}: matches the plain version (NaN in x)")
     n20 = k20a_a[0].shape[0]
     out.append(dict(
         name="K20a sliding-window bounds", route="cuda",
@@ -3217,9 +3290,10 @@ def smoke(dev, card: str, args) -> int:
         ms=cuda_ms(lambda: ts_execs._range_minmax_cuda(*k20b_big)),
         plain_ms=cuda_ms(lambda: ts_execs._range_minmax_plain(*k20b_big), iters=5),
         bound_ms=bound_ms(nb20 * (8 + 4 + 4 + 8)), bound_by="bytes", library_ms=None,
-        shape=f"sliding: {nb20} rows, {ts_execs._levels(nb20)} table levels, "
-              f"{k20b_big[3]}", per_query={p: launches_by_path[p]["K20b"] for p in ts_paths},
-        device_us=device_us(lambda: ts_execs._range_minmax_cuda(*k20b_big), ("qk_minmax_",))))
+        shape=f"sliding: {nb20} rows, {k20b_big[3]}",
+        per_query={p: launches_by_path[p]["K20b"] for p in ts_paths},
+        # the whole call: both kernels
+        device_us=device_us(lambda: ts_execs._range_minmax_cuda(*k20b_big), expect=K20B_OPS)))
 
     # -- the vector tier's kernels: K21 and K22 ----------------------------------
     def k21_agree(label, got, exp, tol):
@@ -3579,6 +3653,10 @@ def smoke(dev, card: str, args) -> int:
           + sum(nbytes(c.data if hasattr(c, "data") else c.codes)
                 for b in c_parts for c in b.columns.values())
           + nbytes(*c_cols, c_out.valid), hcap.calls["row 8 concat"])
+    (mk_b, mk_m), _ = s4["sliding"].args["mask"]
+    t_row(52, "mask and live count (kernels.apply_mask, `_mask_and_count`)",
+          lambda: kernels.apply_mask(mk_b, mk_m).nrows_dev,
+          nbytes(mk_b.valid, mk_m) + mk_m.shape[0] + 4, s4["sliding"].calls["mask"], "sliding")
     (ct_m,), _ = hcap.args["row 14 count"]
     t_row(14, "output live count (count_true)", lambda: join._count_true(ct_m),
           nbytes(ct_m) + 4, hcap.calls["row 14 count"])
@@ -3635,7 +3713,7 @@ def smoke(dev, card: str, args) -> int:
         if kk.get("library_device_us") is not None:
             print(f"  library: {kk['library_ms']:.4f} ms, {kk['library_device_us']:.1f} "
                   "device us per call")
-        for sub in ("q3", "build", "skew"):
+        for sub in ("q3", "tumbling", "hopping", "build", "skew"):
             if sub in kk:
                 v = kk[sub]
                 print(f"  {sub}: {v['launches']} launches, {v['ms']:.4f} ms, "

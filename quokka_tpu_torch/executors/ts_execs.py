@@ -16,7 +16,8 @@ wrappers take the plain version for CPU tensors only):
   ``_bisect_left_segmented`` + ``_bisect_right_segmented``: every row's
   sliding-window bounds inside its key segment, in one pass;
 - K20b ``range_minmax`` (``csrc/window.cu``) replaces ``_range_minmax``:
-  min / max over each row's window, through a sparse table.
+  min / max over each row's window, in two launches: per-chunk summaries,
+  then tiles of rows answered from their span staged in shared memory.
 
 ``_rows_from_segment_end`` (a flip and a cummin), the session ids and the
 rolling prefix sums are torch primitives (Queue 2 row 20, T); the segment
@@ -661,6 +662,9 @@ class SlidingWindowExecutor(_TimeRebase, Executor):
         # each row's window inside its key segment: [first time >= t - size,
         # last time <= t]
         left, right = window_bounds(t, seg_start, seg_end, self.size)
+        # a padding row's window is its own row: its results are never read,
+        # and the padding's one wide window would cost K20b a long walk a row
+        left, right = torch.where(s.valid, left, iota), torch.where(s.valid, right, iota)
         outs = {}
         for pname, op, tmp in self.plan.partials:
             if op in ("min", "max"):
@@ -798,8 +802,10 @@ def _window_lib():
         P, I, L, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
         lib.qk_window_bounds.argtypes = [P, I, P, P, L, L, D, P, P, P]
         lib.qk_window_bounds.restype = I
-        lib.qk_range_minmax.argtypes = [P, I, L, I, P, P, I, P, P, P]
+        lib.qk_range_minmax.argtypes = [P, I, L, P, P, I, P, P, P, P]
         lib.qk_range_minmax.restype = I
+        for f in (lib.qk_range_scratch, lib.qk_range_tickets):
+            f.argtypes, f.restype = [L], L
         lib.qk_bound = True
     return lib
 
@@ -825,11 +831,13 @@ def _window_bounds_cuda(t, seg_start, seg_end, size):
         t, dt = t.to(torch.float64), 0
     else:
         t, dt = t.to(torch.int64), 2
+    # held through the launch, as in _range_minmax_cuda
+    t, seg_start, seg_end = t.contiguous(), seg_start.contiguous(), seg_end.contiguous()
     left = torch.empty(n, dtype=torch.int32, device=dev)
     right = torch.empty(n, dtype=torch.int32, device=dev)
     native.check(lib.qk_window_bounds(
-        t.contiguous().data_ptr(), dt, seg_start.contiguous().data_ptr(),
-        seg_end.contiguous().data_ptr(), n, int(size) if dt == 2 else 0, float(size),
+        t.data_ptr(), dt, seg_start.data_ptr(),
+        seg_end.data_ptr(), n, int(size) if dt == 2 else 0, float(size),
         left.data_ptr(), right.data_ptr(), native.stream_ptr(dev)), "qk_window_bounds")
     WINDOW_BOUNDS_LAUNCHES += 1
     return left, right
@@ -846,11 +854,6 @@ def window_bounds(t: torch.Tensor, seg_start: torch.Tensor, seg_end: torch.Tenso
     if t.device.type == "cpu":
         return _window_bounds_plain(t, seg_start, seg_end, size)
     return _window_bounds_cuda(t, seg_start, seg_end, size)
-
-
-def _levels(n: int) -> int:
-    """Sparse-table levels the reference builds: 1 + ceil(log2(n))."""
-    return 1 + max(n - 1, 0).bit_length()
 
 
 def _floor_log2(v: torch.Tensor) -> torch.Tensor:
@@ -893,13 +896,19 @@ def _range_minmax_cuda(x, left, right, op: str):
     for a in (left, right):
         if a.dtype != torch.int32 or a.device != dev or a.shape[0] != n:
             raise TypeError(f"range_minmax: bounds must be int32 of {n} rows on {dev}")
-    levels = _levels(n)
-    table = torch.empty((levels, n), dtype=x.dtype, device=dev)
+    # held through the launch: a contiguous copy freed before it could be
+    # handed to the allocations below
+    x, left, right = x.contiguous(), left.contiguous(), right.contiguous()
+    # the summaries of 32, 1024 and 32768 rows, about n / 31 values
+    # (csrc/window.cu)
+    scratch = torch.empty(lib.qk_range_scratch(n), dtype=x.dtype, device=dev)
     out = torch.empty(n, dtype=x.dtype, device=dev)
+    stream = native.stream_ptr(dev)
     native.check(lib.qk_range_minmax(
-        x.contiguous().data_ptr(), _X_DT[x.dtype], n, levels, left.contiguous().data_ptr(),
-        right.contiguous().data_ptr(), 1 if op == "min" else 0, table.data_ptr(),
-        out.data_ptr(), native.stream_ptr(dev)), "qk_range_minmax")
+        x.data_ptr(), _X_DT[x.dtype], n, left.data_ptr(), right.data_ptr(),
+        1 if op == "min" else 0, scratch.data_ptr(),
+        native.tickets(dev, stream, lib.qk_range_tickets(n)).data_ptr(), out.data_ptr(), stream),
+        "qk_range_minmax")
     RANGE_MINMAX_LAUNCHES += 1
     return out
 

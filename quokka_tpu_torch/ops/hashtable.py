@@ -10,18 +10,23 @@ tensor it runs ``hash_groupby_plain``, the same function in plain torch ops,
 which the CPU tests hold against the reference.
 
 Contract (the reference's ``sorted_groupby`` contract): returns
-``(outs, counts, rep, num)`` with every output indexed by group rank.  Group
+``(outs, counts, rep, num)`` with every output indexed by group rank,
+``rep`` each group's smallest valid row and ``num`` a device scalar.  Group
 ranks follow table-slot order, so group order differs from the reference's
 (claim order); no consumer depends on it, and results compare after a sort
-on the keys.  A non-converged insert never aliases rows to slot 0:
-``hash_groupby`` reads the flag on the host (one scalar read per call, the
-price of never answering wrong) and reruns the batch through the sort
-group-by (``kernels.sorted_groupby``), as the reference does; the plain
-version returns None for such a batch, and the PK build raises
-``HashTableConvergenceError``.
+on the keys.  A NaN key makes its own group and -0.0 equals +0.0, as
+``canonical_limbs`` defines them.  On the card a call is four device
+operations and no host read: the table has cap >= 2n slots
+(``capbits_for``), its probe walk visits every slot, claims are never
+undone and at most n slots are claimed, so every live row finds an empty
+slot or its own key and the insert cannot fail.  Only a table patched to
+cap <= n can fail: then, and only then, ``hash_groupby`` reads the flag
+and reruns the batch through the sort group-by (``kernels.sorted_groupby``),
+as the reference does; the plain version returns None for such a batch,
+and the PK build raises ``HashTableConvergenceError``.
 
 Kernel K11, the PK-join build and probe: ``build_table`` inserts a build
-batch's key limbs once (K3's insert alone, through ``qk_hash_build``) and
+batch's canonical int32 key limbs once (``qk_hash_build``) and
 caches the table on the batch; ``pk_probe`` walks each probe row's probe
 sequence (``qk_probe_kernel``) to the slot holding its key or to an EMPTY
 slot.  The table holds row ids directly (the reference packs a claim round
@@ -34,6 +39,7 @@ plain twin, ``_probe_plain``, walks the plain insert's table.
 
 from __future__ import annotations
 
+import array
 import ctypes
 from typing import List, Sequence, Tuple
 
@@ -44,13 +50,13 @@ from quokka_tpu_torch.ops import native, strategy
 
 EMPTY = 2**31 - 1
 
-# launches of the CUDA path (insert + segment kernels count as one)
+# launches of the CUDA group-by (one C call: memset, insert, rank, segment)
 LAUNCHES = 0
 # launches of K11: PK build inserts and probes
 BUILD_LAUNCHES = 0
 PROBE_LAUNCHES = 0
 
-_OP_CODES = {"sum": 0, "count": 1, "min": 2, "max": 3, "mean": 0}
+_OP_CODES = {"sum": 0, "count": 1, "min": 2, "max": 3, "mean": 4, "first": 5}
 _DT_CODES = {torch.float64: 0, torch.float32: 1, torch.int64: 2, torch.int32: 3}
 
 
@@ -237,40 +243,46 @@ def hash_groupby_plain(limbs, arrays, ops, valid):
 def segment_aggs(ranks: torch.Tensor, valid: torch.Tensor,
                  arrays: Sequence[torch.Tensor], ops: Sequence[str]):
     """Segment aggregates over given dense ranks: (outs, counts, rep).
-    CUDA tensors launch K3's segment kernel; CPU tensors the plain version."""
+    CUDA tensors launch K3's segment pass; CPU tensors the plain version."""
     if valid.device.type == "cpu":
         return segment_aggs_plain(ranks, valid, arrays, ops)
     _require_cuda(valid, "segment_aggs")
-    n = valid.shape[0]
-    ident = torch.arange(n, dtype=torch.int64, device=valid.device)
-    return _segment_cuda(ranks.to(torch.int32).contiguous(), ident, valid,
-                         tuple(arrays), tuple(ops))
+    return _segment_ranked_cuda(ranks, valid, tuple(arrays), tuple(ops))
 
 
 def hash_groupby(limbs: Sequence[torch.Tensor], arrays: Sequence[torch.Tensor],
                  ops: Sequence[str], valid: torch.Tensor):
     """Group by key limbs and aggregate: (outs, counts, rep, num).
     CUDA tensors launch K3; CPU tensors take the plain version.  When the
-    insert did not converge, the batch is grouped by the sort group-by
-    instead (``groupby`` is then recorded as ``sort``)."""
+    insert did not converge (only possible with cap <= n), the batch is
+    grouped by the sort group-by instead (``groupby`` is then recorded as
+    ``sort``)."""
     from quokka_tpu_torch.ops import kernels  # kernels imports this module
 
     n = valid.shape[0]
-    devprof.on_dispatch(
-        ("K3", valid.device.type, n, tuple(str(l.dtype) for l in limbs), tuple(str(a.dtype) for a in arrays)),
-        lambda: (0.0, float(devprof.nbytes(*limbs, *arrays, valid) + n * (8 + sum(
-            a.element_size() for a in arrays))), float(n * (8 + sum(a.element_size()
-                                                                   for a in arrays)))))
+
+    def cost():
+        row = 8 + sum(a.element_size() for a in arrays)
+        return 0.0, float(devprof.nbytes(*limbs, *arrays, valid) + n * row), float(n * row)
+
     if valid.device.type == "cpu":
+        devprof.on_dispatch(("K3", "cpu", n, tuple(str(l.dtype) for l in limbs),
+                             tuple(str(a.dtype) for a in arrays)), cost)
         res = hash_groupby_plain(limbs, arrays, ops, valid)
     else:
         _require_cuda(valid, "hash_groupby")
-        res = _hash_groupby_cuda(tuple(limbs), tuple(arrays), tuple(ops), valid)
+        capbits = capbits_for(n)
+        plan = _plan(n, 1 << capbits, limbs, arrays, ops)
+        devprof.on_dispatch(plan.dp_key, cost)
+        *res, failed = _hash_groupby_cuda(limbs, arrays, ops, valid, capbits, plan)
+        # cap > n: the insert cannot fail, and the flag is not read
+        if (1 << capbits) <= n and int(failed):
+            res = None
     if res is None:
         strategy.note_used("groupby", "sort")
         return kernels.sorted_groupby(limbs, arrays, ops, valid)
     strategy.note_used("groupby", "hashtable")
-    return res
+    return tuple(res)
 
 
 def _require_cuda(t: torch.Tensor, what: str) -> None:
@@ -281,97 +293,201 @@ def _require_cuda(t: torch.Tensor, what: str) -> None:
 def _lib():
     lib = native.library("hashtable")
     if not getattr(lib, "qk_bound", False):
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        PP, PI = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
-        lib.qk_hash_insert.argtypes = [PP, I, P, L, P, ctypes.c_uint, P, P, P]
-        lib.qk_hash_insert.restype = I
-        lib.qk_segment_aggs.argtypes = [P, P, P, L, P, P, I, PP, PP, PI, PI, P]
-        lib.qk_segment_aggs.restype = I
-        lib.qk_hash_build.argtypes = [PP, I, P, L, P, ctypes.c_uint, P, P]
+        P, I, L, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
+        PP = ctypes.POINTER(ctypes.c_void_p)
+        lib.qk_gb_scratch.argtypes, lib.qk_gb_scratch.restype = [L, L], L
+        lib.qk_groupby.argtypes = [L, L, P, P, P, P, P, I, P, I, P, P]
+        lib.qk_groupby.restype = I
+        lib.qk_segment_ranked.argtypes = [L, P, I, P, P, P, P, I, P, P]
+        lib.qk_segment_ranked.restype = I
+        lib.qk_hash_build.argtypes = [PP, I, P, L, P, U, P, P]
         lib.qk_hash_build.restype = I
-        lib.qk_pk_probe.argtypes = [PP, PP, I, P, L, P, ctypes.c_uint, L, P, P, P]
+        lib.qk_pk_probe.argtypes = [PP, PP, I, P, L, P, U, L, P, P, P]
         lib.qk_pk_probe.restype = I
         lib.qk_bound = True
     return lib
 
 
-def _hash_groupby_cuda(limbs, arrays, ops, valid):
+def _align(nbytes: int) -> int:
+    return (nbytes + 15) & ~15
+
+
+_SIZE = {torch.float64: 8, torch.int64: 8, torch.float32: 4, torch.int32: 4}
+
+
+class _Plan:
+    """One signature's layout (rows, table size, key dtypes, each column's
+    dtype and op) and its column words but the pointers.
+
+    Outputs, one allocation: a 16-byte header (num, failed), counts and
+    rep, then the kernel columns' outputs grouped by dtype, each group an
+    [its columns, n] block.  Scratch, the other: what ``qk_gb_scratch``
+    asks for (counters; for the group-by the table and its scan), then the
+    integer means' sums."""
+
+    __slots__ = ("n", "cap", "k", "cols", "out_bytes", "scratch_bytes", "groups", "src", "outs",
+                 "accs", "view", "key_dts", "keys_cast", "dp_key")
+
+    def __init__(self, n: int, cap: int, key_dts, sig):
+        self.n, self.cap = n, cap
+        cols = []  # per kernel column: (kind, out dtype, acc bytes or 0)
+        self.src = []  # per column: (how, kernel column): "counts", "gather" or "out"
+        for dt, op in sig:
+            if op not in _OP_CODES:
+                raise ValueError(f"unknown agg {op}")
+            if op == "count" and not dt.is_floating_point:
+                self.src.append(("counts", None))
+                continue
+            if dt not in _DT_CODES:
+                if op == "first":  # any other dtype: gathered at rep after the call
+                    self.src.append(("gather", None))
+                    continue
+                raise TypeError(f"segment aggregates: unsupported input {dt}")
+            out_dt, acc = (torch.int32 if op == "count" else dt), 0
+            if op == "mean" and not dt.is_floating_point:
+                out_dt = torch.get_default_dtype()
+                if out_dt != torch.float32:
+                    raise TypeError(f"segment aggregates: mean of {dt} into {out_dt}")
+                acc = _align(n * _SIZE[dt])
+            self.src.append(("out", len(cols)))
+            cols.append((_OP_CODES[op] * 4 + _DT_CODES[dt], out_dt, acc))
+        if len(cols) > 32:
+            raise ValueError("segment aggregates: at most 32 per launch")
+        self.k = len(cols)
+        off = 16 + 8 * n  # header, counts, rep
+        self.groups = []  # (dtype, byte offset, columns)
+        self.outs, self.view = [0] * self.k, [0] * self.k
+        for dt in _SIZE:
+            members = [c for c, col in enumerate(cols) if col[1] == dt]
+            if members:
+                off = _align(off)
+                self.groups.append((dt, off, len(members)))
+                for c in members:
+                    self.outs[c], self.view[c] = off, sum(g[2] for g in self.groups[:-1]) + \
+                        members.index(c)
+                    off += n * _SIZE[dt]
+        self.out_bytes = _align(off)
+        base = _lib().qk_gb_scratch(n, cap)
+        self.accs = []
+        for _, _, acc in cols:
+            self.accs.append(base if acc else None)
+            base += acc
+        self.scratch_bytes = base
+        self.cols = [0] * (3 * self.k) + [col[0] for col in cols]
+        self.key_dts = [_DT_CODES.get(dt, 3) for dt in key_dts]
+        self.keys_cast = [dt not in _DT_CODES for dt in key_dts]
+        self.dp_key = ("K3", "cuda", n, tuple(str(dt) for dt in key_dts),
+                       tuple(str(dt) for dt, _ in sig))
+
+
+_PLANS = {}
+
+
+def _plan(n: int, cap: int, limbs, arrays, ops) -> _Plan:
+    """The cached plan of a signature; cap 0 for the segment pass alone."""
+    key = (n, cap, tuple(l.dtype for l in limbs), tuple(a.dtype for a in arrays), tuple(ops))
+    plan = _PLANS.get(key)
+    if plan is None:
+        if len(_PLANS) > 256:
+            _PLANS.clear()
+        plan = _PLANS[key] = _Plan(n, cap, key[2], tuple(zip(key[3], key[4])))
+    return plan
+
+
+def _ptrs(tensors, n: int, di: int, what: str, keep: list) -> List[int]:
+    """The data pointers of n-row tensors on device index di, each made
+    contiguous.  A copy goes into ``keep``, which the caller holds until its
+    launch is issued: a copy freed earlier goes back to the allocator, and
+    the next allocation on the stream could take its memory."""
+    out = []
+    for t in tensors:
+        if t.shape[0] != n or t.get_device() != di:
+            raise TypeError(f"{what}: unsupported input {t.dtype} {tuple(t.shape)} on "
+                            f"{t.device}")
+        if not t.is_contiguous():
+            t = t.contiguous()
+            keep.append(t)
+        out.append(t.data_ptr())
+    return out
+
+
+def _cols(plan: _Plan, arrays, di: int, ob: int, sb: int, keep: list):
+    """The plan's column words with the pointers filled in."""
+    w = list(plan.cols)
+    k = plan.k
+    ins = [a for a, (how, _) in zip(arrays, plan.src) if how == "out"]
+    w[:k] = _ptrs(ins, plan.n, di, "segment aggregates", keep)
+    w[k:2 * k] = [ob + off for off in plan.outs]
+    w[2 * k:3 * k] = [ob + off if acc is None else sb + acc
+                      for off, acc in zip(plan.outs, plan.accs)]
+    return array.array("q", w)
+
+
+def _results(plan: _Plan, buf, arrays):
+    """(outs, counts, rep, num, failed) as views of the output buffer."""
+    n = plan.n
+    hdr, counts, rep = buf[:16 + 8 * n].view(torch.int32).split_with_sizes([4, n, n])
+    views = []
+    for dt, off, cnt in plan.groups:
+        views.extend(buf[off:off + cnt * n * _SIZE[dt]].view(dt).view(cnt, n).unbind(0))
+    outs = tuple(views[plan.view[c]] if how == "out" else
+                 counts if how == "counts" else a[rep.long()]
+                 for a, (how, c) in zip(arrays, plan.src))
+    num, failed = hdr[:2].unbind(0)
+    return outs, counts, rep, num, failed
+
+
+def _device_index(dev) -> int:
+    return dev.index if dev.type == "cuda" else -1
+
+
+def _hash_groupby_cuda(limbs, arrays, ops, valid, capbits: int, plan=None):
+    """Launch K3: (outs, counts, rep, num, failed), the last two 0-d device
+    tensors; ``failed`` is 1 only if the insert could not place a row,
+    which needs cap <= n."""
     global LAUNCHES
-    lib = _lib()
     dev = valid.device
     n = valid.shape[0]
-    climbs = [l.contiguous() for l in canonical_limbs(limbs)]
-    if len(climbs) > 16:
-        raise ValueError("hash_groupby: at most 16 key limbs")
-    capbits = capbits_for(n)
-    cap = 1 << capbits
-    valid_u8 = valid.contiguous().view(torch.uint8)
-    table = torch.full((cap,), EMPTY, dtype=torch.int32, device=dev)
-    myslot = torch.empty(n, dtype=torch.int32, device=dev)
-    failed = torch.zeros(1, dtype=torch.int32, device=dev)
-    native.check(lib.qk_hash_insert(
-        native.ptr_array([l.data_ptr() for l in climbs]), len(climbs),
-        valid_u8.data_ptr(), n, table.data_ptr(), cap - 1, myslot.data_ptr(),
-        failed.data_ptr(), native.stream_ptr(dev)), "qk_hash_insert")
-    flag = (table != EMPTY).to(torch.int64)
-    rank_of_slot = torch.cumsum(flag, 0) - flag
-    num = flag.sum().to(torch.int32)
-    outs, counts, rep = _segment_cuda(myslot, rank_of_slot, valid, arrays, ops)
+    if not 1 <= len(limbs) <= 16:
+        raise ValueError("hash_groupby: 1 to 16 key columns")
+    if plan is None:
+        plan = _plan(n, 1 << capbits, limbs, arrays, ops)
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=dev)
+    buf = torch.empty(plan.out_bytes, dtype=torch.uint8, device=dev)
+    if n == 0:
+        buf.zero_()
+        return _results(plan, buf, arrays)
+    di, ob, sb = _device_index(dev), buf.data_ptr(), scratch.data_ptr()
+    keys = [l.to(torch.int32) if cast else l for l, cast in zip(limbs, plan.keys_cast)]
+    keep = []  # the contiguous copies, held through the launch
+    cols = _cols(plan, arrays, di, ob, sb, keep)
+    key_words = array.array("q", _ptrs(keys, n, di, "hash_groupby", keep) + plan.key_dts)
+    vp = _ptrs((valid,), n, di, "hash_groupby", keep)[0]
+    native.check(_lib().qk_groupby(n, plan.cap, vp, sb, ob, ob + 16, ob + 16 + 4 * n, len(keys),
+                                   key_words.buffer_info()[0], plan.k, cols.buffer_info()[0],
+                                   native.stream_ptr(dev)), "qk_groupby")
     LAUNCHES += 1
-    if int(failed.item()):
-        return None
-    return outs, counts, rep, num
+    return _results(plan, buf, arrays)
 
 
-def _segment_cuda(myslot, rank_of_slot, valid, arrays, ops):
-    """Launch the segment kernel: row i adds into group
-    rank_of_slot[myslot[i]]."""
-    lib = _lib()
+def _segment_ranked_cuda(ranks, valid, arrays, ops):
+    """K3's segment pass over given ranks: (outs, counts, rep)."""
     dev = valid.device
     n = valid.shape[0]
-    if len(ops) > 32:
-        raise ValueError("segment aggregates: at most 32 per launch")
-    valid_u8 = valid.contiguous().view(torch.uint8)
-    counts = torch.zeros(n, dtype=torch.int32, device=dev)
-    rep = torch.full((n,), n - 1, dtype=torch.int32, device=dev)
-    ins, outs, codes, dts, kept = [], [], [], [], []
-    for arr, op in zip(arrays, ops):
-        if op == "first":
-            kept.append(None)
-            continue
-        if op not in _OP_CODES:
-            raise ValueError(f"unknown agg {op}")
-        if arr.dtype not in _DT_CODES or arr.device != dev or arr.shape[0] != n:
-            raise TypeError(f"segment aggregates: unsupported input {arr.dtype} "
-                            f"{tuple(arr.shape)} on {arr.device}")
-        arr = arr.contiguous()
-        if op == "count":
-            out = torch.zeros(n, dtype=torch.int32, device=dev)
-        elif op in ("min", "max"):
-            ident = _max_sentinel(arr.dtype) if op == "min" else _min_sentinel(arr.dtype)
-            out = torch.full((n,), ident, dtype=arr.dtype, device=dev)
-        else:
-            out = torch.zeros(n, dtype=arr.dtype, device=dev)
-        ins.append(arr.data_ptr())
-        outs.append(out.data_ptr())
-        codes.append(_OP_CODES[op])
-        dts.append(_DT_CODES[arr.dtype])
-        kept.append((arr, out))
-    native.check(lib.qk_segment_aggs(
-        myslot.data_ptr(), rank_of_slot.data_ptr(), valid_u8.data_ptr(), n,
-        counts.data_ptr(), rep.data_ptr(), len(ins), native.ptr_array(ins),
-        native.ptr_array(outs), native.int_array(codes), native.int_array(dts),
-        native.stream_ptr(dev)), "qk_segment_aggs")
-    results = []
-    for arr, op, k in zip(arrays, ops, kept):
-        if op == "first":
-            results.append(arr[rep.long()])
-        elif op == "mean":
-            s = k[1]
-            results.append(s / torch.clamp(counts, min=1).to(s.dtype))
-        else:
-            results.append(k[1])
-    return tuple(results), counts, rep
+    if ranks.dtype not in (torch.int32, torch.int64):
+        ranks = ranks.to(torch.int64)
+    plan = _plan(n, 0, (), arrays, ops)
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=dev)
+    buf = torch.empty(plan.out_bytes, dtype=torch.uint8, device=dev)
+    if n > 0:
+        di, ob, sb = _device_index(dev), buf.data_ptr(), scratch.data_ptr()
+        keep = []  # the contiguous copies, held through the launch
+        cols = _cols(plan, arrays, di, ob, sb, keep)
+        rp, vp = _ptrs((ranks, valid), n, di, "segment_aggs", keep)
+        native.check(_lib().qk_segment_ranked(n, rp, _DT_CODES[ranks.dtype], vp, sb, ob + 16,
+                                              ob + 16 + 4 * n, plan.k, cols.buffer_info()[0],
+                                              native.stream_ptr(dev)), "qk_segment_ranked")
+    return _results(plan, buf, arrays)[:3]
 
 
 # ---------------------------------------------------------------------------
@@ -399,8 +515,8 @@ _DIVERGED = object()
 
 
 def _build_insert(limbs: Tuple[torch.Tensor, ...], ok: torch.Tensor, capbits: int):
-    """Insert-only pass of K3: (table, converged).  The CUDA route reads the
-    device flag once: the one host read a build pays."""
+    """K11's insert over canonical limbs: (table, converged).  The CUDA route
+    reads the device flag once: the one host read a build pays."""
     n = ok.shape[0]
     devprof.on_dispatch(("K11 build", ok.device.type, n, len(limbs), capbits),
                         lambda: (0.0, float(devprof.nbytes(*limbs, ok) + 4 * (1 << capbits)

@@ -57,7 +57,6 @@ def gramian_plain(cols: Sequence[torch.Tensor],
 
 
 _PER_SM = {}  # (device index, d) -> blocks of the d <= 8 kernel an SM holds
-_TICKETS = {}  # (device index, stream) -> the launches' zeroed uint32 ticket
 
 
 def _blocks(dev, d: int, n: int) -> int:
@@ -74,14 +73,6 @@ def _blocks(dev, d: int, n: int) -> int:
                                f"qk_gram_blocks_per_sm: no block of d = {d} fits an SM")
         _PER_SM[key] = got
     return max(1, min(sms * _PER_SM[key], -(-n // _THREADS)))
-
-
-def _ticket(dev, stream: int) -> torch.Tensor:
-    """The stream's ticket: zeroed once; every launch leaves it at 0."""
-    key = (dev.index, stream)
-    if key not in _TICKETS:
-        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
-    return _TICKETS[key]
 
 
 def gramian_cuda(cols: Sequence[torch.Tensor],
@@ -111,7 +102,7 @@ def gramian_cuda(cols: Sequence[torch.Tensor],
                           else c.data_ptr() for c in cols]),
         native.int_array([_DT[c.dtype] for c in cols]), d, n,
         valid.contiguous().view(torch.uint8).data_ptr(), blocks, base + 8 * (d * d + d),
-        _ticket(dev, stream).data_ptr(), base, stream), "qk_gramian")
+        native.tickets(dev, stream).data_ptr(), base, stream), "qk_gramian")
     LAUNCHES += 1
     return out[:d * d].view(d, d), out[d * d:d * d + d]
 

@@ -114,9 +114,29 @@ def check(err: int, what: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The raw cudaStream_t of the device's current stream."""
     import torch
 
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None and device.index is not None:
+        return raw(device.index)
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_TICKETS = {}  # (device index, stream) -> zeroed int32 tickets
+
+
+def tickets(device, stream: int, count: int = 1):
+    """At least ``count`` int32 tickets of the stream, zeroed once: the
+    kernels that take a ticket (a last-block count) leave it at zero, so
+    launches on one stream share them."""
+    import torch
+
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < count:
+        t = _TICKETS[key] = torch.zeros(count, dtype=torch.int32, device=device)
+    return t
 
 
 def ptr_array(ptrs: List[int]):

@@ -119,6 +119,136 @@ def test_k3_kernel_matches_plain(cuda_device, n):
         assert torch.allclose(a[:g][ki], c[:g][pi], rtol=1e-9, atol=1e-12, equal_nan=True)
 
 
+K3_CASES = ["float64_nan_zero", "int32_codes", "three_mixed", "all_invalid", "one_row",
+            "one_group", "distinct_2e16", "low_bits"]
+
+
+def _k3_case(case, dev):
+    """Key columns, aggregate inputs, ops and validity of a K3 case: float64
+    keys with NaN, -0.0 and +0.0; int32 dictionary codes; three key columns
+    of mixed types; every row invalid; one row; one group; 2^16 distinct
+    keys; int64 keys that agree in their low 32 bits."""
+    r = np.random.default_rng(len(case))
+    n = {"one_row": 1, "distinct_2e16": 1 << 16}.get(case, 5000)
+    valid = r.random(n) < 0.85
+    if case == "float64_nan_zero":
+        keys = [r.choice([0.0, -0.0, 1.5, np.nan, -2.25], n)]
+    elif case == "int32_codes":
+        keys = [r.integers(0, 25, n).astype(np.int32)]
+    elif case == "three_mixed":
+        keys = [r.integers(0, 3, n).astype(np.int32),
+                r.choice([0.0, -0.0, 0.5, np.nan], n).astype(np.float32),
+                r.integers(-3, 3, n) << 40]
+    elif case == "all_invalid":
+        keys = [r.integers(0, 9, n)]
+        valid[:] = False
+    elif case == "one_row":
+        keys = [np.array([3])]
+        valid[:] = True
+    elif case == "one_group":
+        keys = [np.zeros(n, dtype=np.int64)]
+    elif case == "distinct_2e16":
+        keys = [r.permutation(n).astype(np.int64)]
+    else:
+        keys = [(r.permutation(n).astype(np.int64) << 32) | 99]
+    vals = r.normal(size=n)
+    vals[r.random(n) < 0.03] = np.nan
+    ints = r.integers(-1000, 1000, n)
+    lb = [torch.from_numpy(np.ascontiguousarray(k)).to(dev) for k in keys]
+    ar = [torch.from_numpy(v).to(dev) for v in [vals] * len(OPS) + [ints] * len(OPS)]
+    return lb, ar, OPS + OPS, torch.from_numpy(valid).to(dev)
+
+
+def _k3_agree(got, want):
+    """K3 against its plain version: groups matched by their smallest row
+    (which also names a NaN key's group), float outputs within rtol 1e-9,
+    the rest exact; past the group count every output holds its identity."""
+    ko, kc, kr, kn = got
+    po, pc, pr, pn = want
+    g = int(kn)
+    assert g == int(pn)
+    ki, pi = torch.argsort(kr[:g]), torch.argsort(pr[:g])
+    assert torch.equal(kr[:g][ki], pr[:g][pi]) and torch.equal(kc[:g][ki], pc[:g][pi])
+    assert torch.equal(kr[g:], pr[g:]) and torch.equal(kc[g:], pc[g:])
+    for a, c in zip(ko, po):
+        assert a.dtype == c.dtype and a.shape == c.shape
+        if a.is_floating_point():
+            assert torch.allclose(a[:g][ki], c[:g][pi], rtol=1e-9, atol=1e-12, equal_nan=True)
+            assert torch.allclose(a[g:], c[g:], rtol=0, atol=0, equal_nan=True)
+        else:
+            assert torch.equal(a[:g][ki], c[:g][pi]) and torch.equal(a[g:], c[g:])
+
+
+@pytest.mark.parametrize("case", K3_CASES)
+def test_k3_typed_keys_match_plain(cuda_device, case):
+    lb, ar, ops, va = _k3_case(case, cuda_device)
+    _k3_agree(hashtable.hash_groupby(lb, ar, ops, va),
+              hashtable.hash_groupby_plain(lb, ar, ops, va))
+
+
+@pytest.mark.parametrize("case", K3_CASES)
+def test_k3_never_syncs_and_never_fails(cuda_device, case):
+    """At capbits_for(n) a K3 call makes no host read (the sync debug mode
+    raises on one), and the insert's flag stays 0."""
+    lb, ar, ops, va = _k3_case(case, cuda_device)
+    hashtable.hash_groupby(lb, ar, ops, va)  # builds and loads the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = hashtable._hash_groupby_cuda(tuple(lb), tuple(ar), tuple(ops), va,
+                                           hashtable.capbits_for(va.shape[0]))
+        hashtable.hash_groupby(lb, ar, ops, va)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(got[4]) == 0
+
+
+@pytest.mark.parametrize("ranks", ["int64", "int32", "keyless"])
+def test_k3_segment_pass_over_given_ranks(cuda_device, ranks):
+    """segment_aggs (the sort group-by's and the keyless aggregates') against
+    its plain version."""
+    r = np.random.default_rng(5)
+    n = 1 << 14
+    rk = torch.from_numpy(r.integers(0, 300, n)).to(cuda_device)
+    rk = {"int64": rk, "int32": rk.to(torch.int32),
+          "keyless": torch.zeros(n, dtype=torch.int32, device=cuda_device)}[ranks]
+    vals = r.normal(size=n)
+    vals[r.random(n) < 0.03] = np.nan
+    ar = [torch.from_numpy(vals).to(cuda_device)] * len(OPS)
+    va = torch.from_numpy(r.random(n) < 0.9).to(cuda_device)
+    ko, kc, kr = hashtable.segment_aggs(rk, va, ar, OPS)
+    po, pc, pr = hashtable.segment_aggs_plain(rk, va, ar, OPS)
+    assert torch.equal(kc, pc) and torch.equal(kr, pr)
+    for a, c in zip(ko, po):
+        assert a.dtype == c.dtype and torch.allclose(a, c, rtol=1e-9, atol=1e-12, equal_nan=True)
+
+
+@pytest.mark.parametrize("entry", ["hash_groupby", "segment_aggs"])
+def test_k3_strided_inputs_match_plain(cuda_device, entry):
+    """Strided inputs: a key column and two aggregate columns of one size
+    taken from wider tensors (their contiguous copies must each live through
+    the launch: two freed copies of one size would share a block), and a
+    strided validity mask."""
+    r = np.random.default_rng(11)
+    n = 20_000
+    wide = torch.from_numpy(r.normal(size=(n, 3))).to(cuda_device)
+    ints = torch.from_numpy(r.integers(-50, 50, (n, 2))).to(cuda_device)
+    keys = torch.from_numpy(r.integers(0, 40, (n, 2))).to(cuda_device)[:, 1]
+    va = torch.from_numpy(r.random((n, 2)) < 0.9).to(cuda_device)[:, 0]
+    ar = [wide[:, 0], wide[:, 2], ints[:, 1], wide[:, 1]]
+    ops = ["sum", "max", "sum", "mean"]
+    assert not any(t.is_contiguous() for t in (keys, va, *ar))
+    if entry == "hash_groupby":
+        _k3_agree(hashtable.hash_groupby([keys], ar, ops, va),
+                  hashtable.hash_groupby_plain([keys], ar, ops, va))
+        return
+    ko, kc, kr = hashtable.segment_aggs(keys, va, ar, ops)
+    po, pc, pr = hashtable.segment_aggs_plain(keys, va, ar, ops)
+    assert torch.equal(kc, pc) and torch.equal(kr, pr)
+    for a, c in zip(ko, po):
+        assert a.dtype == c.dtype and torch.allclose(a, c, rtol=1e-9, atol=1e-12, equal_nan=True)
+
+
 def test_k4_kernel_matches_plain(cuda_device):
     b = bridge.host_to_device(host_table(5000, seed=6), cuda_device)
     big = torch.from_numpy(np.random.default_rng(1).uniform(-4e9, 4e9, b.padded_len))
@@ -408,6 +538,97 @@ def test_k20_kernels_match_plain(cuda_device, n_keys, size, dtype):
     for op in ("min", "max"):
         _equal([ts_execs._range_minmax_cuda(x, *lr, op)],
                [ts_execs._range_minmax_plain(x, *lr, op)])
+
+
+def _equal_nan(a, b):
+    """Value equality, NaN equal to NaN."""
+    assert a.dtype == b.dtype and a.shape == b.shape
+    if a.is_floating_point():
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        a, b = torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0)
+    assert torch.equal(a, b)
+
+
+def _k20b_x(r, n, dtype):
+    if dtype.is_floating_point:
+        x = r.normal(size=n).round(3)
+        x[r.random(n) < 0.01] = np.nan
+        return torch.from_numpy(x).to(dtype)
+    info = torch.iinfo(dtype)
+    return torch.from_numpy(r.integers(info.min, info.max, n, endpoint=True)).to(dtype)
+
+
+K20B_CASES = ["random", "degenerate", "wider_than_a_tile", "whole", "ragged", "out_of_range"]
+
+
+@pytest.mark.parametrize("case", K20B_CASES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.int64, torch.int32])
+def test_k20b_ranges_match_plain(cuda_device, case, dtype):
+    """K20b on arbitrary ranges: random and degenerate (left > right) ones,
+    monotone windows of 700-3000 rows (wider than a 256-row tile), one
+    window over every row, a row count that is no multiple of the tile, and
+    bounds outside [0, n), with NaN in float inputs."""
+    r = np.random.default_rng(len(case) + dtype.itemsize)
+    n = (1 << 18) + 77 if case == "ragged" else 1 << 18
+    iota = np.arange(n)
+    if case == "random":
+        left = r.integers(0, n, n)
+        right = np.minimum(left + r.integers(0, 3, n) ** r.integers(0, 12, n), n - 1)
+    elif case == "degenerate":
+        left, right = r.integers(0, n, n), r.integers(0, n, n)
+    elif case == "wider_than_a_tile":
+        left = np.maximum.accumulate(np.maximum(iota - r.choice([700, 3000], n), 0))
+        right = iota
+    elif case == "whole":
+        left, right = np.zeros(n, dtype=np.int64), np.full(n, n - 1)
+    elif case == "ragged":
+        left, right = np.maximum.accumulate(np.maximum(iota - r.integers(0, 9, n), 0)), iota
+    else:
+        left = r.integers(-n, 2 * n, n)
+        right = left + r.integers(-50, 5000, n)
+    x = _k20b_x(r, n, dtype).to(cuda_device)
+    lr = [torch.from_numpy(a.astype(np.int32)).to(cuda_device) for a in (left, right)]
+    launches = ts_execs.RANGE_MINMAX_LAUNCHES
+    for op in ("min", "max"):
+        _equal_nan(ts_execs._range_minmax_cuda(x, *lr, op),
+                   ts_execs._range_minmax_plain(x, *lr, op))
+    assert ts_execs.RANGE_MINMAX_LAUNCHES == launches + 2
+
+
+def test_k20b_strided_inputs_match_plain(cuda_device):
+    """x and both bounds taken from wider tensors: their contiguous copies
+    live through the launch."""
+    r = np.random.default_rng(21)
+    n = 1 << 17
+    x = torch.from_numpy(r.normal(size=(n, 2))).to(cuda_device)[:, 1]
+    iota = np.arange(n)
+    left = np.maximum.accumulate(np.maximum(iota - r.integers(0, 40, n), 0))
+    lr = torch.from_numpy(np.stack([left, iota, left], 1).astype(np.int32)).to(cuda_device)
+    assert not any(t.is_contiguous() for t in (x, lr[:, 0], lr[:, 1]))
+    for op in ("min", "max"):
+        _equal_nan(ts_execs._range_minmax_cuda(x, lr[:, 0], lr[:, 1], op),
+                   ts_execs._range_minmax_plain(x, lr[:, 0], lr[:, 1], op))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.int64, torch.int32])
+def test_k20b_over_k20a_bounds(cuda_device, dtype):
+    """K20b over the windows K20a gives on sorted key segments."""
+    r = np.random.default_rng(20)
+    n = 1 << 19
+    key = np.sort(r.integers(0, 100, n))
+    t = np.sort(r.integers(0, 10**7, n))
+    o = np.lexsort((t, key))
+    t = torch.from_numpy(t[o]).to(cuda_device)
+    key = torch.from_numpy(key[o]).to(cuda_device)
+    io = torch.arange(n, dtype=torch.int32, device=cuda_device)
+    fl = (key != torch.roll(key, 1)) | (io == 0)
+    ss = asof._seg_fill_forward_cuda(torch.where(fl, io, torch.full_like(io, -1)), fl)
+    se = io + ts_execs._rows_from_segment_end(io, fl, n)
+    lr = ts_execs._window_bounds_cuda(t, ss, se, 20_000)
+    x = _k20b_x(r, n, dtype).to(cuda_device)
+    for op in ("min", "max"):
+        _equal_nan(ts_execs._range_minmax_cuda(x, *lr, op),
+                   ts_execs._range_minmax_plain(x, *lr, op))
 
 
 def _topk_agree(got, exp, tol):

@@ -209,6 +209,52 @@ def test_k3_hash_groupby_matches_reference(key_kind, value, fresh_aot):
             np.testing.assert_array_equal(got[col].to_numpy(), ref[col].to_numpy())
 
 
+def _adversarial_keys(case, n, r):
+    if case == "all_nan":
+        return [np.full(n, np.nan)]
+    if case == "all_equal":
+        return [np.full(n, 7, dtype=np.int64)]
+    if case == "all_distinct":
+        return [r.permutation(n).astype(np.int64)]
+    # keys that agree in their low 32 bits: they differ only in the high word
+    return [(r.permutation(n).astype(np.int64) << 32) | 12345]
+
+
+@pytest.mark.parametrize("case", ["all_nan", "all_equal", "all_distinct", "low_bits"])
+def test_k3_plain_insert_converges_at_its_capacity(case, fresh_aot):
+    """At capbits_for(n) (cap >= 2n) the insert places every live row: the
+    plain version never answers None on adversarial keys (every row NaN,
+    one key, every key distinct, 2^12 keys sharing their low 32 bits), and
+    its groups match the reference's hash_groupby."""
+    n = 1 << 12
+    r = np.random.default_rng(len(case))
+    keys = _adversarial_keys(case, n, r)
+    valid = r.random(n) < 0.9
+    vals = r.normal(size=n)
+    ops = ("sum", "count", "min", "first")
+    got = hashtable.hash_groupby_plain([torch.from_numpy(k) for k in keys],
+                                       [torch.from_numpy(vals) for _ in ops], ops,
+                                       torch.from_numpy(valid))
+    assert got is not None
+    r_outs, r_counts, r_rep, r_num = ref_hashtable.hash_groupby(
+        tuple(jnp.asarray(k) for k in keys), tuple(jnp.asarray(vals) for _ in ops), ops,
+        jnp.asarray(valid))
+    p_outs, p_counts, p_rep, p_num = got
+    num = int(r_num)
+    assert int(p_num) == num
+    # every group is identified by its representative row (NaN keys too)
+    ro = np.argsort(np.asarray(r_rep)[:num])
+    po = np.argsort(p_rep.numpy()[:num])
+    np.testing.assert_array_equal(p_rep.numpy()[:num][po], np.asarray(r_rep)[:num][ro])
+    np.testing.assert_array_equal(p_counts.numpy()[:num][po], np.asarray(r_counts)[:num][ro])
+    for op, a, b in zip(ops, p_outs, r_outs):
+        a, b = a.numpy()[:num][po], np.asarray(b)[:num][ro]
+        if a.dtype.kind == "f":
+            np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12, err_msg=op)
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=op)
+
+
 def test_k3_nonconvergence_raises(monkeypatch):
     """An insert whose probe walk cannot place every row raises; it never
     aliases rows to slot 0.  The group-by itself now falls back to the sort

@@ -211,16 +211,18 @@ def test_k20a_bounds_match_reference(time_kind, size, n_keys):
     np.testing.assert_array_equal(_np(right), np.asarray(r_right))
 
 
-@pytest.mark.parametrize("dtype", [np.float64, np.int64])
+@pytest.mark.parametrize("dtype", [np.float64, np.int64, np.float32, np.int32])
 @pytest.mark.parametrize("op", ["min", "max"])
 @pytest.mark.parametrize("n", [1, 1000, 4097])
 def test_k20b_range_minmax_matches_reference(dtype, op, n):
     r = np.random.default_rng(n + len(op))
-    if dtype == np.float64:
-        x = r.normal(size=n).round(2)
+    if dtype in (np.float64, np.float32):
+        x = r.normal(size=n).round(2).astype(dtype)
         x[r.random(n) < 0.02] = np.nan
-    else:
+    elif dtype == np.int64:
         x = r.integers(-(2**62), 2**62, n)
+    else:
+        x = r.integers(-(2**31), 2**31 - 1, n).astype(np.int32)
     left = r.integers(0, n, n)
     span = r.integers(0, 3, n) ** r.integers(0, 12, n)
     right = np.minimum(left + span, n - 1)

@@ -78,20 +78,25 @@ K21_VARIANTS = {
 }
 
 
-def load_package(root: Path):
-    """quokka_tpu_torch's vector and linalg ops from the checkout at root.
-    Each load drops the modules of an earlier one from sys.modules; the
-    module objects already held keep working."""
+def load_package(root: Path, sources=("vector", "linalg")):
+    """quokka_tpu_torch from the checkout at root, with the CUDA sources
+    ``sources`` built: its vector, linalg and hashtable ops, its
+    time-series executors and the package itself.  Each load drops the
+    modules of an earlier one from sys.modules; the module objects already
+    held keep working."""
     for name in [m for m in sys.modules if m == "quokka_tpu_torch"
                  or m.startswith("quokka_tpu_torch.")]:
         del sys.modules[name]
     sys.path.insert(0, str(root))
     try:
-        from quokka_tpu_torch.ops import linalg, native, vector
+        import quokka_tpu_torch
+        from quokka_tpu_torch.executors import ts_execs
+        from quokka_tpu_torch.ops import hashtable, linalg, native, vector
     finally:
         sys.path.remove(str(root))
-    native.build_all(["vector", "linalg"])
-    return SimpleNamespace(root=str(root), vops=vector, lops=linalg)
+    native.build_all(list(sources))
+    return SimpleNamespace(root=str(root), vops=vector, lops=linalg, ht=hashtable, ts=ts_execs,
+                           pkg=quokka_tpu_torch)
 
 
 def parse_ptxas(log: str) -> dict:
