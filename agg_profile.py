@@ -1,0 +1,343 @@
+#!/usr/bin/env python3
+"""Profile K2 (small-key partial aggregate) and K14 (rank PK match) of the PyTorch port on one NVIDIA GPU.
+
+    python3 agg_profile.py [--package DIR] [--variants] [--seed N] [--out FILE]
+
+It runs TPC-H Q1 at SF1 and the forward as-of join over bench.py's ticks
+(chip_smoke.py's data and queries) through this checkout's
+quokka_tpu_torch and, with ``--package``, through another checkout's
+(e.g. the parent commit unpacked with ``git archive``), and keeps in each
+the K2 call of the largest batch on each path: Q1's (2^20 rows, 17
+buckets, three plain float64 inputs and two expressions) and the forward
+as-of's (its largest batch, 129 buckets, ``sum(notional), count(*)``).
+It keeps K6's largest call on Q1 under ``groupby=sort`` (K6 shares K2's
+bucket core) and, through ``QuokkaContext(mesh=make_mesh(8))``, the
+arguments of K14's largest call on mesh Q3 and on mesh Q5.  It calls each
+wrapper of both packages in turns (package, this, this, package) and
+reports per call:
+
+- the wrapper's ms, CUDA events over many calls;
+- the host ms, time.perf_counter over calls issued with no
+  synchronisation;
+- the device us of every device operation of the call (kernels, memsets,
+  copies: the profiler's device events), in all and by operation, with
+  each operation's count per call;
+- the allocations per call (the caching allocator's requests);
+- whether the call made a host read;
+
+beside the bound, the bytes the function must move over 3.35 TB/s (K2:
+the plan's input columns, the key codes and the mask read once, each
+bucket's sums and smallest row written; K6: its columns, codes and mask,
+and its outputs; K14: 9 B a rank and 5 B a probe row written).  It checks
+every call against the plain version of this checkout (K2 and K6: counts,
+integer sums and smallest rows exact, float sums within rtol 1e-9; K14 bit
+for bit), checks that two launches of this checkout's K2 give the same
+bits, and compiles csrc/onehot.cu and csrc/join.cu with ``-Xptxas -v``
+(vector_profile.py's compile_sources) to keep each kernel's registers,
+shared memory and spills.  With ``--variants`` it also builds the bucket
+core from copies of csrc/onehot.cu patched here (``CORE_VARIANTS``, each
+(text, replacement) pair must match once; some leave out part of the work,
+to show what it costs, and their results are reported, not checked) and
+times each at K2's two shapes and K6's.
+
+It prints the card's name and power limit, one line per measurement and
+one JSON line, and writes the JSON to ``--out``.  It imports neither JAX
+nor quokka_tpu.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12
+K2_SHAPES = ("q1", "asof forward")
+K14_SHAPES = ("mesh q3", "mesh q5")
+_RUNS = """    const unsigned eq = __match_any_sync(0xffffffffu, g);
+    const int size = __popc(eq);
+    const bool lead = (eq & lower) == 0u;  // the run's first lane
+    int start = lead ? size : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, start, d);
+      if (lane >= d) start += y;
+    }
+    start -= lead ? size : 0;
+    const int head = __shfl_sync(0xffffffffu, start, __ffs(eq) - 1);
+"""
+# the runs in bucket order: one ballot per bit of the bucket id gives the
+# lanes of lower buckets (less) and of the same bucket (eq)
+_RUNS_BY_BALLOTS = """    const int nbits = 32 - __clz(G);
+    unsigned ones[8];
+#pragma unroll
+    for (int b = 0; b < 8; ++b) ones[b] = b < nbits ? __ballot_sync(0xffffffffu, (g >> b) & 1) : 0u;
+    unsigned eq = 0xffffffffu, less = 0u;
+#pragma unroll
+    for (int b = 7; b >= 0; --b) {
+      if (b >= nbits) continue;
+      const bool bit = (g >> b) & 1;
+      if (bit) less |= eq & ~ones[b];
+      eq &= bit ? ones[b] : ~ones[b];
+    }
+    const int size = __popc(eq);
+    const bool lead = (eq & lower) == 0u;
+    const int head = __popc(less);
+"""
+# the bucket core (csrc/onehot.cu) built with these (text, replacement)
+# patches: an ablation that leaves out the columns' sums (its results are
+# not the function's); the runs in bucket order; scans of five levels;
+# another grid
+CORE_VARIANTS = {
+    "no column sums (ablation)": [("    for (int a0 = 0; a0 < C; a0 += QK_AGG_PREFETCH) {\n",
+                                   "    for (int a0 = C; a0 < C; a0 += QK_AGG_PREFETCH) {\n")],
+    "runs in bucket order (a ballot per bit of the bucket id)": [(_RUNS, _RUNS_BY_BALLOTS)],
+    "every scan five levels": [("    if (d >= widest) break;\n", "")],
+    "four warps a block": [("  warps = warps > QK_AGG_WARPS ? QK_AGG_WARPS : warps;",
+                            "  warps = warps > 4 ? 4 : warps;")],
+}
+
+
+def nbytes(*tensors) -> int:
+    return int(sum(t.numel() * t.element_size() for t in tensors))
+
+
+def sums_agree(got, want) -> bool:
+    """Per-bucket sums and smallest rows against the plain version's: float
+    sums within rtol 1e-9, the rest exact, dtypes equal."""
+    import torch
+
+    for a, c in zip(got, want):
+        if a.dtype != c.dtype or a.shape != c.shape:
+            return False
+        if a.is_floating_point():
+            if not torch.allclose(a, c, rtol=1e-9, atol=1e-12, equal_nan=True):
+                return False
+        elif not torch.equal(a, c):
+            return False
+    return True
+
+
+def bits(t):
+    import torch
+
+    return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+
+def k2_calls(pkg, dev, tables, ticks):
+    """{shape: (the package's SmallCall of the path's largest batch, the
+    K2 calls per query)}, captured on the package's own query runs."""
+    import chip_smoke
+
+    ctx = pkg.pkg.QuokkaContext(io_channels=2, exec_channels=2, device=dev)
+    out = {}
+    for shape in K2_SHAPES:
+        stream = (chip_smoke.tpch_stream(shape, ctx, tables) if shape == "q1"
+                  else chip_smoke.tick_stream(shape, ctx, ticks))
+        with chip_smoke.Capture({"K2": (pkg.fuse.FusedPartialAgg, "prepare_small",
+                                        lambda self, b: b.padded_len)}) as cap:
+            chip_smoke.collect_numpy(stream, shape)
+        agg, batch = cap.args["K2"][0]
+        out[shape] = (agg.prepare_small(batch), cap.calls["K2"])
+    return out
+
+
+def variant_sources() -> dict:
+    """{label: .cu path} of CORE_VARIANTS, written into build/agg_profile/."""
+    from quokka_tpu_torch.ops import native
+
+    base = (native.CSRC_DIR / "onehot.cu").read_text()
+    out = {}
+    for i, patches in enumerate(CORE_VARIANTS.values()):
+        src = base
+        for a, b in patches:
+            if src.count(a) != 1:
+                raise RuntimeError(f"core variant {i}: {a!r} is not once in csrc/onehot.cu")
+            src = src.replace(a, b)
+        path = ROOT / "build" / "agg_profile" / f"core_variant_{i}.cu"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(src)
+        out[f"core_variant_{i}"] = path
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--package", default=None,
+                    help="root of another checkout whose quokka_tpu_torch is timed in turns "
+                         "with this one's")
+    ap.add_argument("--variants", action="store_true",
+                    help="also time the bucket core built with each of CORE_VARIANTS")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "agg_profile.json"))
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("agg_profile: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    if not (ROOT / "quokka_tpu_torch" / "__init__.py").is_file():
+        print(f"agg_profile: no quokka_tpu_torch package beside {__file__}", file=sys.stderr)
+        return 2
+    other = Path(args.package).resolve() if args.package else None
+    if other is not None and not (other / "quokka_tpu_torch" / "__init__.py").is_file():
+        print(f"agg_profile: no quokka_tpu_torch package in {other}", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    sys.path.insert(0, str(ROOT))
+
+    import chip_smoke
+    from quokka_tpu_torch.ops import native
+    from vector_profile import compile_sources, load_package
+    from window_profile import call_profile
+
+    built = compile_sources({"onehot": native.CSRC_DIR / "onehot.cu",
+                             "join": native.CSRC_DIR / "join.cu",
+                             **(variant_sources() if args.variants else {})})
+    report = {"card": card, "package": str(other) if other else None,
+              "ptxas": {**built["onehot"][1], **built["join"][1]}}
+    dev = torch.device("cuda", 0)
+    tables = chip_smoke.make_tpch(1.0, args.seed)
+    ticks = chip_smoke.make_ticks(1.0, args.seed)
+
+    # this checkout's calls: K2 on its paths, K6 on Q1 under groupby=sort,
+    # K14 on the mesh's Q3 and Q5
+    this = load_package(ROOT, ("onehot", "join", "partition", "hashtable", "asof", "pack"))
+    k2 = {"this": k2_calls(this, dev, tables, ticks)}
+    ctx = this.pkg.QuokkaContext(io_channels=2, exec_channels=2, device=dev)
+    os.environ["QK_KERNEL_STRATEGY"] = "groupby=sort"
+    try:
+        with chip_smoke.Capture({"K6": (this.fuse, "onehot_agg",
+                                        lambda fc, ic, co, st, g, v: v.shape[0])}) as cap:
+            chip_smoke.collect_numpy(chip_smoke.tpch_stream("q1", ctx, tables), "q1 sort")
+    finally:
+        os.environ.pop("QK_KERNEL_STRATEGY")
+    k6_args = cap.args["K6"][0]
+    from quokka_tpu_torch.parallel import make_mesh  # this checkout's, loaded last
+
+    mctx = this.pkg.QuokkaContext(io_channels=2, exec_channels=2, device=dev,
+                                  mesh=make_mesh(8, device=dev))
+    k14_args, calls = {}, {"K2": {s: c for s, (_, c) in k2["this"].items()}, "K6 q1 sort":
+                           cap.calls["K6"]}
+    for shape in K14_SHAPES:
+        build = chip_smoke.mesh_paths(tables, ticks)[shape][0]
+        with chip_smoke.Capture({"K14": (this.join, "pk_match_ranks",
+                                         lambda r, v, p: v.shape[0])}) as cap:
+            chip_smoke.collect_numpy(build(mctx), shape)
+        k14_args[shape] = cap.args["K14"][0]
+        calls[f"K14 {shape}"] = cap.calls["K14"]
+    del mctx, ctx
+    report["calls_per_query"] = calls
+    print(f"calls per query: {calls}", flush=True)
+
+    pkgs = {"this": this}
+    if other is not None:
+        pkgs["package"] = load_package(other, ("onehot", "join", "partition", "hashtable",
+                                               "asof", "pack"))
+        k2["package"] = k2_calls(pkgs["package"], dev, tables, ticks)
+    turns = ["package", "this", "this", "package"] if other is not None else ["this", "this"]
+
+    report["k2"], want_k2 = {}, {}
+    for shape in K2_SHAPES:
+        call = k2["this"][shape][0]
+        want = call.plain()
+        outs = sum(nbytes(x) for x in want[0]) + nbytes(want[1])
+        plains = {t: want if t == "this" else k2[t][shape][0].plain() for t in set(turns)}
+        want_k2[shape] = want[0] + [want[1]]
+        bound = nbytes(*call.inputs.values(), *call.codes, call.valid) + outs
+        entry = {"shape": f"{call.valid.shape[0]} rows ({int(call.valid.sum())} valid), "
+                          f"{call.n_groups + 1} buckets, partials "
+                          f"{[op for _, op, _ in call.partials]}, inputs "
+                          f"{ {k: str(t.dtype) for k, t in call.inputs.items()} }, pre-pass "
+                          f"outputs {call.kern.pre_outs}",
+                 "bound_ms": bound / HBM_BYTES_PER_S * 1e3, "turns": []}
+        print(f"K2 {shape}: {entry['shape']}, bound {entry['bound_ms']:.5f} ms", flush=True)
+        for t in turns:
+            c = k2[t][shape][0]
+            row = call_profile(f"K2 {shape} ({t})", c.launch, 50)
+            got, exp = c.launch(), plains[t]
+            row["matches_plain"] = sums_agree(got[0] + [got[1]], exp[0] + [exp[1]])
+            if t == "this":
+                again = c.launch()
+                row["same_bits"] = all(torch.equal(bits(a), bits(b))
+                                       for a, b in zip(got[0] + [got[1]], again[0] + [again[1]]))
+            entry["turns"].append({"package": t, **row})
+        report["k2"][shape] = entry
+
+    fc, ic, co, st, g, va = k6_args
+    want = this.fuse.onehot_agg_plain(fc, ic, co, st, g, va)
+    entry = {"shape": f"{va.shape[0]} rows, {g + 1} buckets, {len(fc)} float + {len(ic)} int "
+                      "columns",
+             "bound_ms": (nbytes(*fc, *ic, *co, va) + sum(nbytes(x) for x in want))
+             / HBM_BYTES_PER_S * 1e3, "turns": []}
+    print(f"K6 q1 sort: {entry['shape']}, bound {entry['bound_ms']:.5f} ms", flush=True)
+    for t in turns:
+        fn = lambda t=t: pkgs[t].fuse.onehot_agg_cuda(fc, ic, co, st, g, va)  # noqa: E731
+        row = call_profile(f"K6 q1 sort ({t})", fn, 50)
+        row["matches_plain"] = sums_agree(fn(), want)
+        entry["turns"].append({"package": t, **row})
+    report["k6"] = {"q1 sort": entry}
+
+    if args.variants:
+        import ctypes
+
+        prod = this.fuse._bucket_lib()
+        report["core_variants"] = {}
+        for i, label in enumerate(CORE_VARIANTS):
+            lib = ctypes.CDLL(str(built[f"core_variant_{i}"][0]))
+            lib.qk_small_agg.argtypes = prod.qk_small_agg.argtypes
+            lib.qk_small_agg.restype = prod.qk_small_agg.restype
+            this.fuse._bucket_lib = lambda lib=lib: lib
+            rows = {"ptxas": built[f"core_variant_{i}"][1]}
+            for shape in K2_SHAPES:
+                call = k2["this"][shape][0]
+                rows[f"K2 {shape}"] = call_profile(f"K2 {shape}, variant: {label}", call.launch, 50)
+                got = call.launch()
+                rows[f"K2 {shape}"]["matches_plain"] = sums_agree(got[0] + [got[1]],
+                                                                  want_k2[shape])
+            fn = lambda: this.fuse.onehot_agg_cuda(fc, ic, co, st, g, va)  # noqa: E731
+            rows["K6 q1 sort"] = call_profile(f"K6 q1 sort, variant: {label}", fn, 50)
+            report["core_variants"][label] = rows
+        this.fuse._bucket_lib = lambda: prod
+
+    report["k14"] = {}
+    for shape in K14_SHAPES:
+        ranks, valid, p = k14_args[shape]
+        n = valid.shape[0]
+        want = this.join._pk_match_plain(ranks, valid, p)
+        entry = {"shape": f"one shard: {p} probe + {n - p} build rows, {int(want[1].sum())} "
+                          "matched",
+                 "bound_ms": (9 * n + 5 * p) / HBM_BYTES_PER_S * 1e3, "turns": []}
+        print(f"K14 {shape}: {entry['shape']}, bound {entry['bound_ms']:.5f} ms", flush=True)
+        for t in turns:
+            fn = lambda t=t: pkgs[t].join.pk_match_ranks(ranks, valid, p)  # noqa: E731
+            row = call_profile(f"K14 {shape} ({t})", fn, 20)
+            row["matches_plain"] = all(a.dtype == b.dtype and torch.equal(a, b)
+                                       for a, b in zip(fn(), want))
+            entry["turns"].append({"package": t, **row})
+        report["k14"][shape] = entry
+
+    line = json.dumps(report)
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    Path(args.out).write_text(line + "\n")
+    print(line)
+    wrong = [f"{k} {s} {r['package']}" for k in ("k2", "k6", "k14")
+             for s, e in report[k].items() for r in e["turns"]
+             if not r["matches_plain"] or r.get("same_bits") is False]
+    if wrong:
+        print(f"agg_profile: results differ from the plain version or between launches: "
+              f"{wrong}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

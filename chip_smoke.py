@@ -37,7 +37,10 @@ Phases, each fatal on failure:
      warm.  Every batch of every path lands through the narrowed wire and
      one K23 decode: it fails unless K23 launched once per landed batch,
      unless every kernel's devprof dispatches on the path equal its
-     launches, or when Q1's wire bytes exceed half its logical bytes; it
+     launches, when K2's Triton pre-pass did not run once a K2 call on Q1
+     and Q5 (their plans have expression inputs) or ran at all elsewhere
+     (the as-of paths' plan is plain columns and count(*)), or when Q1's
+     wire bytes exceed half its logical bytes; it
      prints each path's landed batches, wire and logical bytes and host
      encode seconds per batch;
   4b. the mesh plane: Q1, Q3, Q5, dryrun_multichip's two shapes
@@ -66,7 +69,11 @@ Phases, each fatal on failure:
      matmul and 2^21-element add) beside the data sheet, and EXPLAIN
      ANALYZE of Q1 and Q5 with its device-efficiency section;
   6. hold each kernel against its plain torch version on the card, at the
-     shapes the query runs gave it (K1, K2 at Q1's; K3 at Q1's, Q3's,
+     shapes the query runs gave it (K1 at Q1's; K2 at Q1's and at the
+     forward as-of's largest call, 129 buckets, each also for the same
+     bits in a second launch, beside one index_add_ of its stacked float64
+     inputs, a yardstick of the sums only; K2's pre-pass alone at Q1's;
+     K3 at Q1's, Q3's,
      tumbling's and hopping's, each call under torch.cuda's sync debug
      mode, so that a host read in a call fails; K4 at Q1's and Q3's; K5, K11, K12 at Q3's, K12 also on float64 keys with -0.0 and
      NaN; K13 at Q13's and with one probe key matching 10^4 build rows;
@@ -92,8 +99,9 @@ Phases, each fatal on failure:
      all-pass layout and a 0-row batch, bit for bit; K24 at the mesh Q3's
      largest shuffle and at 1, 2, 8 and 64 shards, with every leaf width,
      no valid row, one bucket holding every row and float key limbs
-     holding NaN and -0.0, bit for bit; K14 at the mesh Q3's largest call,
-     with duplicate build keys, no matches and no valid row),
+     holding NaN and -0.0, bit for bit; K14 at the mesh Q3's and Q5's
+     largest calls, with duplicate build keys, no matches and no valid
+     row),
      and time kernel, plain version and bound with CUDA events; the
      torch-primitive rows 7, 8, 9, 10, 14, 15, 20 and `_mask_and_count`
      (kernels.apply_mask) are timed too;
@@ -1509,8 +1517,8 @@ K24_CASE_ROWS = 1 << 21  # input rows of K24's checks beyond Q3's (64 shards: 2^
 # groups by the sort group-by (no K2 / K5 / K6), joins by rank (no K11 /
 # K12; K13 only for a many-to-many join, which no path here has) and takes
 # the sort as-of (no K18)
-MESH_MUST_NOT = ["K2", "K4", "K5", "K6", "K11 build", "K11", "K12", "K13", "K17", "K18",
-                 "K21", "K22", "K26"]
+MESH_MUST_NOT = ["K2", "K2 pre", "K4", "K5", "K6", "K11 build", "K11", "K12", "K13", "K17",
+                 "K18", "K21", "K22", "K26"]
 
 
 def mesh_paths(tables, ticks):
@@ -1656,12 +1664,16 @@ def mesh_phase(dev, tables, ticks, oracles, engine_walls, counters):
               f"{ {k: v for k, v in launches.items() if v} }; matches the numpy oracle")
         print(f"{path} device time by kernel (us, calls): "
               + "; ".join(f"{k[:60]} {t:.0f} ({c})" for k, (t, c) in top[:4]))
-    # Q3's largest K24 and K14 calls, for phase 6
+    # Q3's largest K24 and K14 calls, and Q5's largest K14 call, for phase 6
     with Capture({"K24": (kernels, "mesh_bucketize",
                           lambda cols, valid, key_idx, n: valid.shape[0] * len(cols)),
                   "K14": (join, "pk_match_ranks", lambda r, v, p: v.shape[0])}) as cap:
         run(mesh_paths(tables, ticks)["mesh q3"][0], mctx, "mesh q3")
     print(f"mesh q3 calls per query: {cap.calls}")
+    with Capture({"K14": (join, "pk_match_ranks", lambda r, v, p: v.shape[0])}) as cap5:
+        run(mesh_paths(tables, ticks)["mesh q5"][0], mctx, "mesh q5")
+    print(f"mesh q5 calls per query: {cap5.calls}")
+    cap.args["K14 q5"] = cap5.args["K14"]
     return report, launches_by, cap
 
 
@@ -1700,9 +1712,9 @@ def _k24_cases(dev, seed: int):
 
 def mesh_kernel_rows(dev, cap, launches_by, seed: int):
     """K24 and K14 against their plain versions on the card, bit for bit:
-    K24 at Q3's largest shuffle and the ``_k24_cases``; K14 at Q3's largest
-    call and, at its shape, with duplicate build keys, no matches and every
-    row invalid.  Each timed with CUDA events beside its bound, its plain
+    K24 at Q3's largest shuffle and the ``_k24_cases``; K14 at Q3's and Q5's
+    largest calls and, at Q3's shape, with duplicate build keys, no matches
+    and every row invalid.  Each timed with CUDA events beside its bound, its plain
     version and (K24) one stable torch.sort of its part ids."""
     import numpy as np
     import torch
@@ -1750,6 +1762,7 @@ def mesh_kernel_rows(dev, cap, launches_by, seed: int):
     del pids
 
     (ranks, valid, p), _ = cap.args["K14"]
+    (ranks5, valid5, p5), _ = cap.args["K14 q5"]
     n = valid.shape[0]
     r = np.random.default_rng(seed + 14)
     cases = [("Q3's largest call", ranks, valid)]
@@ -1760,14 +1773,16 @@ def mesh_kernel_rows(dev, cap, launches_by, seed: int):
         v = torch.from_numpy(np.zeros(n, bool) if label == "all invalid"
                              else r.random(n) < 0.9).to(dev)
         cases.append((label, kernels.dense_rank([torch.from_numpy(keys).to(dev)], v)[0], v))
-    for label, rk, v in cases:
-        got = join.pk_match_ranks(rk, v, p)
-        exp = join._pk_match_plain(rk, v, p)
+    cases.append(("Q5's largest call", ranks5, valid5, p5))
+    for label, rk, v, *pp in cases:
+        pc = pp[0] if pp else p
+        got = join.pk_match_ranks(rk, v, pc)
+        exp = join._pk_match_plain(rk, v, pc)
         torch.cuda.synchronize()
         if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, exp)):
             fail(f"K14 {label}: build rows or matches differ from the plain version")
-        print(f"K14 {label}: {p} probe + {n - p} build rows, {int(got[1].sum())} matched: "
-              "matches the plain version")
+        print(f"K14 {label}: {pc} probe + {v.shape[0] - pc} build rows, {int(got[1].sum())} "
+              "matched: matches the plain version")
     k14 = dict(
         name="K14 rank PK match", route="cuda", source="quokka_tpu_torch/csrc/join.cu",
         replaces="quokka_tpu/ops/join.py:129", launches=launches_by["mesh q3"]["K14"],
@@ -1775,8 +1790,14 @@ def mesh_kernel_rows(dev, cap, launches_by, seed: int):
         plain_ms=cuda_ms(lambda: join._pk_match_plain(ranks, valid, p)),
         bound_ms=bound_ms(nbytes(ranks, valid) + 5 * p), bound_by="bytes", library_ms=None,
         shape=f"mesh q3: {p} probe + {n - p} build rows (one shard)",
-        device_us=device_us(lambda: join.pk_match_ranks(ranks, valid, p)),  # memsets too
-        per_query={q: v["K14"] for q, v in launches_by.items()})
+        device_us=device_us(lambda: join.pk_match_ranks(ranks, valid, p)),  # the memset too
+        per_query={q: v["K14"] for q, v in launches_by.items()},
+        q5=dict(launches=launches_by["mesh q5"]["K14"],
+                ms=cuda_ms(lambda: join.pk_match_ranks(ranks5, valid5, p5)),
+                plain_ms=cuda_ms(lambda: join._pk_match_plain(ranks5, valid5, p5)),
+                bound_ms=bound_ms(nbytes(ranks5, valid5) + 5 * p5),
+                device_us=device_us(lambda: join.pk_match_ranks(ranks5, valid5, p5)),
+                shape=f"mesh q5: {p5} probe + {valid5.shape[0] - p5} build rows (one shard)"))
     return [k24, k14]
 
 
@@ -2030,6 +2051,7 @@ def smoke(dev, card: str, args) -> int:
         vec_stats["ann"] = check_topk("ann", got, *exp, VEC_K)
 
     counters = {"K1": (fuse, "PREDICATE_LAUNCHES"), "K2": (fuse, "SMALL_AGG_LAUNCHES"),
+                "K2 pre": (fuse, "SMALL_PRE_LAUNCHES"),
                 "K3": (hashtable, "LAUNCHES"), "K4": (kernels, "PARTITION_LAUNCHES"),
                 "K5": (fuse, "PRE_AGG_LAUNCHES"),
                 "K11 build": (hashtable, "BUILD_LAUNCHES"),
@@ -2106,7 +2128,7 @@ def smoke(dev, card: str, args) -> int:
     # (K26) and static; groupby=sort's one-hot partial aggregate (K6)
     # kernels of the time-series tier and of the mesh
     ts_only = ["K18", "K19", "K20a", "K20b", "K24", "K14"]
-    sort_must_not = ["K2", "K17", "K26", "K12", "K21", "K22"] + ts_only
+    sort_must_not = ["K2", "K2 pre", "K17", "K26", "K12", "K21", "K22"] + ts_only
     paths.update({
         "q3 compacted": (q3_stream, check_q3, ["K1", "K3", "K4", "K5", "K11 build", "K11",
                                                "K17"], [k for k in paths["q3"][3] if k != "K17"],
@@ -2206,6 +2228,7 @@ def smoke(dev, card: str, args) -> int:
                 by[row["kernel"]] = by.get(row["kernel"], 0) + row["dispatches"]
         return by
 
+    k2_pre_paths = {"q1", "q5", "q5 compacted"}
     for path, (stream, check, must, must_not, general) in paths.items():
         set_strategy(path)
         land = landing[path] = {"batches": 0, "encode_s": 0.0, "stage_s": 0.0,
@@ -2288,6 +2311,13 @@ def smoke(dev, card: str, args) -> int:
         missing = [k for k in must if launches[k] == 0]
         if missing:
             fail(f"kernels not launched on the {path} run: {missing}")
+        # K2's pre-pass runs once a K2 call whose plan has expression inputs
+        # (Q1's and Q5's), and never on a plan of plain columns and count(*)
+        # (the as-of paths' sum(notional), count(*); Q4's count(*))
+        want_pre = launches["K2"] if path in k2_pre_paths else 0
+        if launches["K2 pre"] != want_pre:
+            fail(f"{path}: {launches['K2 pre']} K2 pre-pass launches for {launches['K2']} K2 "
+                 f"calls, expected {want_pre}")
         stray = [k for k in must_not if launches[k] != 0]
         if stray:
             fail(f"kernels launched on the {path} run that its strategy excludes: {stray}")
@@ -2444,12 +2474,12 @@ def smoke(dev, card: str, args) -> int:
     print(f"where (q1 outside a query): reader alone {report['q1_read_s']:.4f} s, bridge "
           f"(pad, sentinels, pinned staging, H2D) alone {report['q1_encode_and_h2d_s']:.4f} s")
 
-    prefixes = ("qk_predicate", "qk_small_agg", "qk_colreduce", "qk_pre_agg",
+    prefixes = ("qk_predicate", "qk_bucket_", "qk_small_pre", "qk_pre_agg",
                 "qk_insert_kernel", "qk_gb_", "qk_partition_kernel",
                 "qk_probe_kernel", "qk_sorted_probe_kernel", "qk_mm_expand_kernel",
                 "qk_elemwise", "qk_asof_probe", "qk_fill_", "qk_window_bounds_kernel",
                 "qk_range_", "qk_sims_", "qk_topk_merge_kernel", "qk_gram_",
-                "qk_plan_", "qk_adapt_kernel", "qk_onehot_", "qk_decode", "qk_mesh_", "qk_pk_")
+                "qk_plan_", "qk_adapt_kernel", "qk_decode", "qk_mesh_", "qk_pk_")
     profiles = {}
     for path, (stream, *_) in paths.items():
         set_strategy(path)
@@ -2593,7 +2623,9 @@ def smoke(dev, card: str, args) -> int:
         "asof": {"K18": (asof, "asof_probe",
                          lambda so, pm, nv, po, pv, up, nk, runs=None: pv.shape[0])},
         "asof forward": {"K18": (asof, "asof_probe",
-                                 lambda so, pm, nv, po, pv, up, nk, runs=None: pv.shape[0])},
+                                 lambda so, pm, nv, po, pv, up, nk, runs=None: pv.shape[0]),
+                         "K2": (fuse.FusedPartialAgg, "prepare_small",
+                                lambda self, b: b.padded_len)},
         "asof sort": {"K19": (asof, "seg_fill_forward", lambda v, st: v.shape[0])},
         "sliding": {"K19": (asof, "seg_fill_forward", lambda v, st: v.shape[0]),
                     "K20a": (ts_execs, "window_bounds", lambda t, a, b, sz: t.shape[0]),
@@ -2667,37 +2699,110 @@ def smoke(dev, card: str, args) -> int:
         bound_ms=bound_ms(nbytes(*ins, first.valid) + n + 4), bound_by="bytes",
         library_ms=None, shape=f"{n} rows",
         device_us=device_us(lambda: fuse.predicate_launch(kern, ins, first.valid),
-                            ("qk_predicate",))))
+                            ("qk_predicate",), expect=("qk_predicate",))))
     filtered = pred(first)
 
-    # K2 at Q1's shape
+    # K2 at Q1's shape and at the forward as-of's largest call (the tick
+    # shape): the whole call (pre-pass and bucket core) against its plain
+    # version and again for the same bits; the pre-pass alone against K5's
+    # plain evaluator; the yardstick one index_add_ of the stacked float64
+    # inputs by bucket (sums only, not the same function)
     plan = plan_aggregation(sqlparse.parse_select_list(Q1_AGGS))
     keys = ["l_returnflag", "l_linestatus"]
     pagg = fuse.FusedPartialAgg(keys, plan)
     call = pagg.prepare_small(filtered)
     if call is None:
         fail("Q1 batch did not take the small-key path")
-    sk, rk = call.launch()
-    sp, rp = call.plain()
-    if not torch.equal(rk, rp):
-        fail("K2 min row ids differ from the plain version")
-    err2 = 0.0
-    for a, b in zip(sk, sp):
-        if a.is_floating_point():
-            if not torch.allclose(a, b, rtol=1e-9, atol=0):
-                fail("K2 sums beyond rtol 1e-9 of the plain version")
-            err2 = max(err2, float((a - b).abs().max()))
-        elif not torch.equal(a, b):
-            fail("K2 counts differ from the plain version")
-    k2_in = list(call.inputs.values()) + call.codes + [call.valid]
+    tick_agg, tick_batch = s4["asof forward"].args["K2"][0]
+    tick_call = tick_agg.prepare_small(tick_batch)
+    if tick_call.kern.pre is not None:
+        fail(f"the as-of K2 plan {tick_call.kern.pre_outs} is not plain columns and count(*)")
+
+    def check_k2(label, c) -> float:
+        (sk, rk), (sp, rp) = c.launch(), c.plain()
+        again = c.launch()
+        torch.cuda.synchronize()
+        if not torch.equal(rk, rp):
+            fail(f"K2 {label}: min row ids differ from the plain version")
+        err = 0.0
+        for a, b in zip(sk, sp):
+            if a.dtype != b.dtype:
+                fail(f"K2 {label}: {a.dtype} outputs, the plain version's {b.dtype}")
+            if a.is_floating_point():
+                if not torch.allclose(a, b, rtol=1e-9, atol=0):
+                    fail(f"K2 {label}: sums beyond rtol 1e-9 of the plain version")
+                err = max(err, float((a - b).abs().max()))
+            elif not torch.equal(a, b):
+                fail(f"K2 {label}: counts or integer sums differ from the plain version")
+        if not all(torch.equal(a.view(torch.int64) if a.is_floating_point() else a,
+                               b.view(torch.int64) if b.is_floating_point() else b)
+                   for a, b in zip(sk + [rk], again[0] + [again[1]])):
+            fail(f"K2 {label}: two launches gave other bits")
+        print(f"K2 {label}: {c.valid.shape[0]} rows, {c.n_groups + 1} buckets, core columns "
+              f"{[src for src, _ in c.kern.cols]}: matches the plain version (max abs err {err}), "
+              "the same bits in two launches")
+        return err
+
+    def k2_row(c):
+        sums, rep2 = c.plain()
+        k2_in = list(c.inputs.values()) + c.codes + [c.valid]
+        # the yardstick's operands, built outside the timing
+        gid2 = fuse._bucket_ids(c.codes, c.strides, c.valid, c.n_groups)
+        cols = [c.inputs[src[1]] for src, t in c.kern.cols
+                if src[0] == "col" and fuse._float_tag(t)]
+        if c.kern.pre is not None:
+            pre = fuse.pre_exprs_plain(c.pre_exprs, c.kern.pre_outs, c.inputs, c.valid)
+            cols += [x.to(torch.float64) for x in pre if x.is_floating_point()]
+        stacked = torch.stack([x.to(torch.float64) for x in cols], 1)
+        acc = torch.zeros((c.n_groups + 1, stacked.shape[1]), dtype=torch.float64, device=dev)
+        return dict(
+            ms=cuda_ms(c.launch), plain_ms=cuda_ms(c.plain),
+            bound_ms=bound_ms(nbytes(*k2_in) + sum(nbytes(x) for x in sums) + nbytes(rep2)),
+            library_ms=cuda_ms(lambda: acc.index_add_(0, gid2, stacked)),
+            device_us=device_us(c.launch, ("qk_bucket_", "qk_small_pre"),
+                                expect=("qk_bucket_agg", "qk_bucket_reduce")),
+            shape=f"{c.valid.shape[0]} rows, {c.n_groups + 1} buckets, inputs "
+                  f"{ {k: str(t.dtype) for k, t in c.inputs.items()} }, pre-pass outputs "
+                  f"{c.kern.pre_outs}")
+
+    err2 = max(check_k2("Q1", call), check_k2("asof forward", tick_call))
+    q1_row, tick_row = k2_row(call), k2_row(tick_call)
     out.append(dict(
-        name="K2 small-key partial aggregate", route="triton",
-        source="quokka_tpu_torch/ops/fuse.py", replaces="quokka_tpu/ops/fuse.py:469",
-        launches=launches_by_path["q1"]["K2"], max_abs_err=err2, ms=cuda_ms(call.launch),
-        plain_ms=cuda_ms(call.plain),
-        bound_ms=bound_ms(nbytes(*k2_in) + sum(nbytes(x) for x in sk) + nbytes(rk)),
-        bound_by="bytes", library_ms=None, shape=f"{n} rows, {call.n_groups + 1} buckets",
-        device_us=device_us(call.launch, ("qk_small_agg", "qk_colreduce"))))
+        name="K2 small-key partial aggregate", route="cuda",
+        source="quokka_tpu_torch/csrc/onehot.cu", replaces="quokka_tpu/ops/fuse.py:462",
+        launches=launches_by_path["q1"]["K2"], max_abs_err=err2, bound_by="bytes",
+        library="one index_add_ of the stacked float64 inputs by bucket: sums only, not the "
+                "same function",
+        **q1_row, per_query={p: launches_by_path[p]["K2"] for p in paths
+                             if launches_by_path[p]["K2"]},
+        tick={"launches": launches_by_path["asof forward"]["K2"], **tick_row}))
+
+    # K2's pre-pass alone at Q1's shape, against K5's plain evaluator
+    pre_in = [call.inputs[k] for k in call.kern.pre_inputs]
+    got_pre = fuse._pre_launch(call.kern.pre, pre_in, call.valid, call.kern.pre_dtypes)
+    want_pre = fuse.pre_exprs_plain(call.pre_exprs, call.kern.pre_outs, call.inputs, call.valid)
+    err_pre = 0.0
+    for a, b in zip(got_pre, want_pre):
+        b = b.to(a.dtype)
+        if not torch.allclose(a, b, rtol=1e-12, atol=0, equal_nan=True):
+            fail("K2's pre-pass differs from the plain evaluator beyond rtol 1e-12")
+        fin = ~torch.isnan(b) if b.is_floating_point() else torch.ones_like(b, dtype=torch.bool)
+        err_pre = max(err_pre, float((a - b)[fin].abs().max()) if bool(fin.any()) else 0.0)
+    out.append(dict(
+        name="K2 pre-pass (expression inputs)", route="triton",
+        source="quokka_tpu_torch/ops/fuse.py", replaces="quokka_tpu/ops/fuse.py:462",
+        launches=launches_by_path["q1"]["K2 pre"], max_abs_err=err_pre,
+        ms=cuda_ms(lambda: fuse._pre_launch(call.kern.pre, pre_in, call.valid,
+                                             call.kern.pre_dtypes)),
+        plain_ms=cuda_ms(lambda: fuse.pre_exprs_plain(call.pre_exprs, call.kern.pre_outs,
+                                                      call.inputs, call.valid)),
+        bound_ms=bound_ms(nbytes(*pre_in, call.valid) + sum(nbytes(x) for x in got_pre)),
+        bound_by="bytes", library_ms=None, shape=f"{n} rows, outputs {call.kern.pre_outs}",
+        device_us=device_us(lambda: fuse._pre_launch(call.kern.pre, pre_in, call.valid,
+                                                     call.kern.pre_dtypes), ("qk_small_pre",),
+                            expect=("qk_small_pre",)),
+        per_query={p: launches_by_path[p]["K2 pre"] for p in paths
+                   if launches_by_path[p]["K2 pre"]}))
 
     # K3: a Q1 recombine of a few partial batches, Q3's largest call and the
     # largest calls of tumbling and hopping; each K3 call under the sync
@@ -3583,7 +3688,7 @@ def smoke(dev, card: str, args) -> int:
         bound_by="bytes", library_ms=cuda_ms(lambda: torch.mm(onehot6.T, stacked6)),
         shape=f"q1 sort: {n6} rows, {k6_g + 1} buckets, {len(k6_fc)} float + {len(k6_ic)} "
               "integer columns",
-        device_us=device_us(lambda: fuse.onehot_agg_cuda(*k6_a), ("qk_onehot_",)),
+        device_us=device_us(lambda: fuse.onehot_agg_cuda(*k6_a), ("qk_bucket_",)),
         per_query={p: launches_by_path[p]["K6"] for p in sorted(sort_paths)}))
     del onehot6, stacked6
 

@@ -52,21 +52,30 @@
 // Rank PK match for Hopper (sm_90a): kernel K14.  Replaces
 // quokka_tpu/ops/join.py:129 `_pk_match` after its dense rank (row 10,
 // torch): over the ranks of p probe rows and b build rows, the least valid
-// build row of every rank (a scatter-min), the valid build rows per rank (a
-// segment sum), both gathered back by probe rank:
-// build_idx = clip(first[rp], 0, b - 1), matched = vp & (count[rp] > 0).
+// build row of every rank (a scatter-min), gathered back by probe rank:
+// build_idx = clip(first[rp], 0, b - 1), matched = vp & (first[rp] < b).
+// The reference's count[rp] > 0 is the same test: a rank has a valid build
+// row exactly when its least valid build row exists.
 //
 // What bounds it: bytes.  The build pass reads each build row's rank (8 B)
-// and validity (1 B) once and updates two int32 counters of its rank; the
-// probe pass reads each probe row's rank and validity once, gathers the two
-// counters of its rank and writes build_idx (4 B) and matched (1 B).
+// and validity (1 B) once; the probe pass reads each probe row's rank and
+// validity once and writes build_idx (4 B) and matched (1 B).  Beyond the
+// bound: one int32 per rank of scratch, zeroed, updated once per valid
+// build row and read once per probe row.
 //
-// Design: two launches, a build pass and a probe pass.  Min and an integer
-// count are order-free, so atomicMin and atomicAdd on int32 give an exact
-// result that is the same every run.  The minimum is kept as (row - b),
-// which is negative for every build row, so a zeroed array (cudaMemsetAsync)
-// is the "no build row" state and first = stored + b reads b there, as the
-// reference's jnp.full(n, b) does; both arrays start from one memset each.
+// Design: one array, one memset, two launches (four probe rows a thread,
+// 16-byte loads; the streamed inputs and outputs evict first from the L2,
+// which keeps the array for the gathers).  The minimum is kept as
+// (row - b), negative for every build row, so the zeroed array
+// (cudaMemsetAsync) is the "no valid build row" state: first = stored + b
+// reads b there, as the reference's jnp.full(n, b) does, and matched is
+// stored != 0.  Min is order-free, so one atomicMin per valid build row
+// gives an exact result that is the same every run; the probe pass reads
+// one int32 per row.  At mesh Q3's largest call (n = 2^23 + 2^21) the
+// array is 41.9 MB, inside the card's 50 MB L2, so the probe's gathers
+// mostly hit the L2; the per-rank count this kernel kept before doubled
+// the scratch, the memset, the atomics and the gathers for a test the
+// minimum already answers.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -159,33 +168,58 @@ __global__ void qk_mm_expand_kernel(const long long* __restrict__ cum, int64_t p
   if (unmatched_out != nullptr) unmatched_out[j] = unmatched_in[pi];
 }
 
-// K14 build pass: rank r's least valid build row (kept as row - b) and count
+// K14 build pass: rank r's least valid build row, kept as row - b.  The
+// ranks and validity stream past the L2 (evict-first loads), which keeps
+// the array.
 __global__ void qk_pk_first_kernel(const long long* __restrict__ rb,
                                    const uint8_t* __restrict__ vb, int64_t b, int64_t n,
-                                   int32_t* first_minus_b, int32_t* count) {
+                                   int32_t* first_minus_b) {
   int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= b || !vb[j]) return;
-  long long r = rb[j];
+  if (j >= b || !__ldcs(vb + j)) return;
+  long long r = __ldcs(rb + j);
   if (r < 0 || r >= n) return;
   atomicMin(&first_minus_b[r], (int32_t)(j - b));
-  atomicAdd(&count[r], 1);
 }
 
-// K14 probe pass: gather by probe rank
+__device__ __forceinline__ void qk_pk_match_row(long long r, uint8_t v, int64_t n, int64_t b,
+                                                const int32_t* __restrict__ first_minus_b,
+                                                int32_t* idx, uint8_t* m) {
+  const int32_t f = (r >= 0 && r < n) ? first_minus_b[r] : 0;
+  const int64_t row = (int64_t)f + b;
+  *idx = (int32_t)(row < 0 ? 0 : (row > b - 1 ? b - 1 : row));
+  *m = (v && f != 0) ? 1 : 0;
+}
+
+// K14 probe pass: one gather by probe rank, four probe rows a thread with
+// 16-byte loads and stores; the ranks, validity and outputs stream past the
+// L2 (evict-first), the gathers hit the array there.  `vec` says that rp,
+// build_idx (16 B) and vp, matched (4 B) are aligned for it.
 __global__ void qk_pk_match_kernel(const long long* __restrict__ rp,
                                    const uint8_t* __restrict__ vp, int64_t p, int64_t n,
                                    int64_t b, const int32_t* __restrict__ first_minus_b,
-                                   const int32_t* __restrict__ count,
                                    int32_t* __restrict__ build_idx,
-                                   uint8_t* __restrict__ matched) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+                                   uint8_t* __restrict__ matched, int vec) {
+  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
   if (i >= p) return;
-  long long r = rp[i];
-  bool in = r >= 0 && r < n;
-  int64_t f = in ? (int64_t)first_minus_b[r] + b : b;
-  int32_t c = in ? count[r] : 0;
-  build_idx[i] = (int32_t)(f < 0 ? 0 : (f > b - 1 ? b - 1 : f));
-  matched[i] = (vp[i] && c > 0) ? 1 : 0;
+  if (vec && i + 4 <= p) {
+    const longlong2 r01 = __ldcs((const longlong2*)(rp + i));
+    const longlong2 r23 = __ldcs((const longlong2*)(rp + i + 2));
+    const uint32_t v4 = __ldcs((const unsigned int*)(vp + i));
+    int4 idx;
+    uint8_t m[4];
+    qk_pk_match_row(r01.x, v4 & 0xff, n, b, first_minus_b, &idx.x, m);
+    qk_pk_match_row(r01.y, (v4 >> 8) & 0xff, n, b, first_minus_b, &idx.y, m + 1);
+    qk_pk_match_row(r23.x, (v4 >> 16) & 0xff, n, b, first_minus_b, &idx.z, m + 2);
+    qk_pk_match_row(r23.y, v4 >> 24, n, b, first_minus_b, &idx.w, m + 3);
+    __stcs((int4*)(build_idx + i), idx);
+    __stcs((unsigned int*)(matched + i),
+           (unsigned int)m[0] | (unsigned int)m[1] << 8 | (unsigned int)m[2] << 16
+               | (unsigned int)m[3] << 24);
+    return;
+  }
+  for (int64_t k = i; k < i + 4 && k < p; ++k)
+    qk_pk_match_row(__ldcs(rp + k), __ldcs(vp + k), n, b, first_minus_b, build_idx + k,
+                    matched + k);
 }
 
 extern "C" {
@@ -251,23 +285,26 @@ int qk_mm_expand(const void* cum, long long p, const void* offsets,
 
 // K14.  rp (p int64) / vp (p uint8): the probe rows' ranks and validity; rb
 // (b int64) / vb (b uint8): the build rows'; ranks lie in [0, n), n = p + b.
-// first and count are n int32 each of scratch; build_idx (p int32) and
-// matched (p uint8) are the outputs.
+// first is n int32 of scratch; build_idx (p int32) and matched (p uint8)
+// are the outputs.
 int qk_pk_match(const void* rp, const void* vp, long long p, const void* rb,
-                const void* vb, long long b, long long n, void* first, void* count,
-                void* build_idx, void* matched, void* stream) {
+                const void* vb, long long b, long long n, void* first, void* build_idx,
+                void* matched, void* stream) {
   if (p < 0 || b < 1 || n != p + b || n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaMemsetAsync(first, 0, sizeof(int32_t) * n, st);
-  cudaMemsetAsync(count, 0, sizeof(int32_t) * n, st);
+  cudaError_t err = cudaMemsetAsync(first, 0, sizeof(int32_t) * n, st);
+  if (err != cudaSuccess) return (int)err;
   int threads = 256;
   qk_pk_first_kernel<<<(unsigned int)((b + threads - 1) / threads), threads, 0, st>>>(
-      (const long long*)rb, (const uint8_t*)vb, b, n, (int32_t*)first, (int32_t*)count);
-  cudaError_t err = cudaGetLastError();
+      (const long long*)rb, (const uint8_t*)vb, b, n, (int32_t*)first);
+  err = cudaGetLastError();
   if (err != cudaSuccess || p == 0) return (int)err;
-  qk_pk_match_kernel<<<(unsigned int)((p + threads - 1) / threads), threads, 0, st>>>(
+  const int vec = ((uintptr_t)rp % 16 == 0 && (uintptr_t)build_idx % 16 == 0
+                   && (uintptr_t)vp % 4 == 0 && (uintptr_t)matched % 4 == 0);
+  const long long quads = (p + 3) / 4;
+  qk_pk_match_kernel<<<(unsigned int)((quads + threads - 1) / threads), threads, 0, st>>>(
       (const long long*)rp, (const uint8_t*)vp, p, n, b, (const int32_t*)first,
-      (const int32_t*)count, (int32_t*)build_idx, (uint8_t*)matched);
+      (int32_t*)build_idx, (uint8_t*)matched, vec);
   return (int)cudaGetLastError();
 }
 

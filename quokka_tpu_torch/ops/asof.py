@@ -260,13 +260,17 @@ def _asof_probe_cuda(sorted_ops, perm, n_valid, probe_ops, probe_valid, upper: b
     def arg(t):
         return t.view(torch.uint8) if t.dtype == torch.bool else t
 
+    # the contiguous copies live in locals until the launch has been issued
+    bounds = bounds.contiguous()
+    times = arg(sorted_ops[nkey]).contiguous()
+    perm = perm.contiguous()
+    pv8 = probe_valid.contiguous().view(torch.uint8)
     native.check(lib.qk_asof_probe(
         native.ptr_array([arg(k).data_ptr() for k in run_keys]),
         native.ptr_array([arg(l).data_ptr() for l in probe_ops]),
         native.int_array([_LIMB_DT[s.dtype] for s in sorted_ops]), nkey, 1 if upper else 0,
-        bounds.contiguous().data_ptr(), bounds.shape[0] - 1,
-        arg(sorted_ops[nkey]).contiguous().data_ptr(), perm.contiguous().data_ptr(), nq,
-        probe_valid.contiguous().view(torch.uint8).data_ptr(), p, quote_idx.data_ptr(),
+        bounds.data_ptr(), bounds.shape[0] - 1, times.data_ptr(), perm.data_ptr(), nq,
+        pv8.data_ptr(), p, quote_idx.data_ptr(),
         matched.view(torch.uint8).data_ptr(), ctypes.byref(typed), native.stream_ptr(dev)),
         "qk_asof_probe")
     ASOF_PROBE_LAUNCHES += 1

@@ -11,20 +11,29 @@ and keeps the whole expression in registers.  Triton rather than CUDA C++:
 the predicate is known only at query time, and Triton's JIT compiles a new
 signature without an ``nvcc`` run per query.
 
-Kernel K2, the small-key partial aggregate of ``FusedPartialAgg``: one
-generated Triton kernel per plan signature, replacing the reference's
-``_build_small_scatter`` program (the GPU row of its strategy matrix).
-Pre-expressions (``l_extendedprice * (1 - l_discount) * (1 + l_tax)``, ...)
-are inlined; the group id is the mixed radix ``sum((code + 1) * stride)``
-with invalid rows sent to a dump bucket.  Pass 1: a grid of persistent
-programs, each walking a strided set of blocks and reducing them through a
-block x buckets one-hot into per-program partial sums, counts and minimum
-row ids kept in registers, then written to scratch.  Pass 2: a column
-reduction over programs.  Both passes run in a fixed order, so sums are
-deterministic.  Bound: bytes, 41 B/row on Q1 (4 float64 + 2 int32 codes +
-validity); the one-hot work is arithmetic that the card hides under the
-loads at Q1's bucket count.  The live-first ordering of the <= 256 buckets
-and the padding to 256 rows are torch ops on a few hundred elements.
+Kernel K2, the small-key partial aggregate of ``FusedPartialAgg``,
+replacing the reference's ``_build_small_scatter`` program (the GPU row of
+its strategy matrix): per-bucket sums of every partial, counts and the
+least valid row of each bucket, the bucket being the mixed radix
+``sum((code + 1) * stride)`` of the dictionary codes, invalid rows sent to
+a dump bucket.  It runs the bucket core of ``csrc/onehot.cu``, which K6
+shares: a partial whose input is a numeric column (float64, float32, int64
+or int32; ``x``, or the null-skipping ``__nn0(x)`` of sum and
+``__nncount(x)`` of count and avg) is read in place, typed, with no cast
+or copy; only expression inputs (Q1's ``l_extendedprice * (1 - l_discount) *
+(1 + l_tax)``, ...) come from one generated Triton pre-pass, K5's
+generator restricted to those outputs and counted apart from K5
+(``SMALL_PRE_LAUNCHES``).  A plan of plain columns and ``count(*)``, as
+the tick paths' ``sum(notional), count(*)``, is one CUDA call and no
+Triton launch.  Bound: bytes, 41 B/row for Q1's fused function (4 float64
++ 2 int32 codes + validity); the pre-pass writes its outputs and the core
+reads them back, about 90 B/row in all.  The Triton kernel this replaced
+compared every row with every bucket (a [block, buckets] float64 tile per
+partial, 16x its bound at Q1); the core groups each warp's 32 rows into
+runs by bucket and sums each run with a shuffle scan, a cost that does not
+grow with the buckets (see ``csrc/onehot.cu``).  Deterministic: the same bits every run.
+The live-first ordering of the <= 256 buckets and the padding to 256 rows
+are torch ops on a few hundred elements.
 
 Kernel K5, the general partial aggregate of ``FusedPartialAgg`` (any key
 shape, e.g. TPC-H Q3's ``(l_orderkey, o_orderdate, o_shippriority)``): one
@@ -38,16 +47,16 @@ serves here for the reason it serves K1: a fused elementwise pass over a
 few columns, known only at query time, with no reuse across rows for shared
 memory or tensor cores to exploit.
 
-Kernel K6, the one-hot small-key partial aggregate (``csrc/onehot.cu``):
-under ``groupby=sort`` the small-key path is the reference's matmul
-strategy (``_build_small``, ``use_tables=False``) instead of K2.  K5
-evaluates the pre-expressions; K6 then reduces the columns by bucket
-(a stable counting sort of each 256-row chunk in shared memory, then each
-bucket's rows in row order, block partials reduced in block order): float64
-sums, exact integer sums, int32 counts and the smallest row of each bucket.  It takes a batch only where the
-reference's gate admits the one-hot: at most 256 buckets and
-``padded_len * buckets * 8`` bytes at most 512 MiB; other batches take the
-general path, whose group-by is then the sort group-by (row 10).
+Kernel K6, the one-hot small-key partial aggregate: under
+``groupby=sort`` the small-key path is the reference's matmul strategy
+(``_build_small``, ``use_tables=False``) instead of K2.  K5 evaluates the
+pre-expressions; K6 then reduces the float64 and int64 columns by bucket
+on the same bucket core as K2 (``csrc/onehot.cu``): float64 sums, exact
+integer sums, int32 counts and the smallest row of each bucket.  It takes
+a batch only where the reference's gate admits the one-hot: at most 256
+buckets and ``padded_len * buckets * 8`` bytes at most 512 MiB; other
+batches take the general path, whose group-by is then the sort group-by
+(row 10).
 
 Each kernel has a plain torch version beside it (``predicate_plain``,
 ``small_agg_plain``, ``pre_exprs_plain``, ``onehot_agg_plain``), taken
@@ -78,6 +87,7 @@ from quokka_tpu_torch.expression import (
     Cast,
     ColRef,
     Expr,
+    Func,
     InList,
     IsNull,
     Literal,
@@ -90,11 +100,13 @@ from quokka_tpu_torch.ops import expr_compile, kernels, native, sigkey, strategy
 from quokka_tpu_torch.ops.batch import DeviceBatch, NumCol, StrCol, gather_columns
 from quokka_tpu_torch.ops.bridge import pad_tail
 
-# launch counters of the three Triton kernels and of K6, and of the unfused
-# fallbacks (a predicate or partial aggregate whose expression left the
-# generator's subset); the smoke runs require the fallbacks to stay at 0
+# launch counters of K1, K2 (its bucket core, and its Triton pre-pass
+# apart), K5 and K6, and of the unfused fallbacks (a predicate or partial
+# aggregate whose expression left the generator's subset); the smoke runs
+# require the fallbacks to stay at 0
 PREDICATE_LAUNCHES = 0
 SMALL_AGG_LAUNCHES = 0
+SMALL_PRE_LAUNCHES = 0
 PRE_AGG_LAUNCHES = 0
 ONEHOT_LAUNCHES = 0
 FALLBACKS = 0
@@ -240,34 +252,6 @@ def _load_generated(src: str):
             spec.loader.exec_module(mod)
             _GEN_MODULES[key] = mod
     return mod
-
-
-_COLREDUCE_SRC = '''@triton.jit
-def qk_colreduce(src_ptr, dst_ptr, P, C, IS_MIN: tl.constexpr, BLOCK_C: tl.constexpr):
-    cid = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
-    m = cid < C
-    acc = tl.load(src_ptr + cid, mask=m, other=0)
-    for p in range(1, P):
-        x = tl.load(src_ptr + p * C + cid, mask=m, other=0)
-        if IS_MIN:
-            acc = tl.minimum(acc, x)
-        else:
-            acc = acc + x
-    tl.store(dst_ptr + cid, acc, mask=m)
-'''
-
-
-def _colreduce(src: torch.Tensor, is_min: bool) -> torch.Tensor:
-    """Pass 2 of K2: reduce a [programs, C] scratch over its first axis."""
-    p, c = src.shape
-    dst = torch.empty(c, dtype=src.dtype, device=src.device)
-    if c == 0:
-        return dst
-    mod = _load_generated(_COLREDUCE_SRC)
-    block_c = 128
-    mod.qk_colreduce[(triton_cdiv(c, block_c),)](src, dst, p, c, IS_MIN=is_min,
-                                                  BLOCK_C=block_c, num_warps=4)
-    return dst
 
 
 def triton_cdiv(a: int, b: int) -> int:
@@ -416,66 +400,86 @@ class FusedPredicate:
 # ---------------------------------------------------------------------------
 
 _SMALL_GROUPBY_MAX_BUCKETS = 256
+# the bucket core's limits (csrc/onehot.cu): columns, then key columns
+_BUCKET_MAX_COLUMNS = 32
+_BUCKET_MAX_KEYS = 8
+
+
+# the bucket core's column tags (csrc/onehot.cu): the type, then whether a
+# null (NaN, the int sentinel) adds 0 (the reference's __nn0 of sum(x)), or
+# each value adds 1 unless it is null (its __nncount of count(x) and avg(x))
+_AGG_TAG = {torch.float64: 0, torch.float32: 1, torch.int64: 2, torch.int32: 3}
+_AGG_WRAP = {None: 0, "__nn0": 4, "__nncount": 8}
+
+
+def _float_tag(tag: int) -> bool:
+    """Does a tagged column sum into float64 (else exactly into int64)?"""
+    return (tag & 3 in (_AGG_TAG[torch.float64], _AGG_TAG[torch.float32])
+            and not tag & _AGG_WRAP["__nncount"])
+
+
+def _plain_column(e: Expr, inputs: Dict[str, torch.Tensor]) -> Optional[Tuple[str, int]]:
+    """(column, tag) when a partial's input is a numeric column of a type the
+    bucket core reads, as it lies (``x``) or in the null-skipping wrapper of
+    sum (``__nn0(x)``) or of count (``__nncount(x)``); else None (an
+    expression, for the pre-pass)."""
+    if isinstance(e, Alias):
+        e = e.expr
+    wrap = None
+    if isinstance(e, Func) and e.name in _AGG_WRAP and len(e.args) == 1:
+        wrap, e = e.name, e.args[0]
+    if isinstance(e, ColRef) and e.name in inputs and inputs[e.name].dtype in _AGG_TAG:
+        return e.name, _AGG_TAG[inputs[e.name].dtype] | _AGG_WRAP[wrap]
+    return None
 
 
 class _SmallAggKernel:
-    """Generated source of one small-key partial-aggregate signature."""
+    """How one small-key plan signature feeds K2's bucket core: each partial
+    a plain column read in place, an output of the generated pre-pass (K5's
+    generator over the expression inputs only; ``pre`` is None when there
+    are none) or the count.  ``cols`` lists the core's columns, float ones
+    first: (("col", name) or ("pre", output index), tag)."""
 
-    def __init__(self, pre_exprs: Dict[str, Expr], partials, cols, n_keys: int,
-                 strides: Tuple[int, ...], n_groups: int):
-        gen = expr_compile.TritonExpr({n: (f"c{i}", dt) for i, (n, dt) in enumerate(cols)})
-        self.fparts: List[int] = []  # partial index -> float accumulator
-        self.iparts: List[int] = []
-        lines: List[str] = []
-        accs: List[Tuple[str, str]] = []  # (acc var, init)
-        upd: List[str] = []
-        for j, (_pname, op, tmp) in enumerate(partials):
+    def __init__(self, pre_exprs: Dict[str, Expr], partials, inputs: Dict[str, torch.Tensor],
+                 valid: torch.Tensor):
+        fcols: List[Tuple[Tuple, int]] = []
+        icols: List[Tuple[Tuple, int]] = []
+        self.pre_outs: List[str] = []  # the pre-pass outputs, by partial input name
+        self.pre_dtypes: List[torch.dtype] = []
+        by_src: Dict[Tuple, Tuple[str, int]] = {}
+        self.slots: List[Tuple] = []  # per partial: ("c",), ("f", i) or ("i", i)
+        for _pname, op, tmp in partials:
             if op == "count":
-                self.iparts.append(j)
-                acc = f"acc{j}"
-                accs.append((acc, "tl.zeros([BP], tl.int64)"))
-                upd.append(f"{acc} += tl.sum(tl.where(hit, valid.to(tl.int64)[:, None], 0), axis=0)")
+                self.slots.append(("c",))
                 continue
-            v = gen.value(pre_exprs[tmp])
-            if v.scalar:
-                raise expr_compile.CompileError("constant aggregate input in the fused subset")
-            acc = f"acc{j}"
-            if v.dt in ("tl.float64", "tl.float32"):
-                self.fparts.append(j)
-                accs.append((acc, "tl.zeros([BP], tl.float64)"))
-                upd.append(f"x{j} = tl.where(valid, {v.code}.to(tl.float64), 0.0)")
-                upd.append(f"{acc} += tl.sum(tl.where(hit, x{j}[:, None], 0.0), axis=0)")
+            plain = _plain_column(pre_exprs[tmp], inputs)
+            if plain is not None:
+                src, tag = ("col", plain[0]), plain[1]
+                key = (src, tag)
             else:
-                self.iparts.append(j)
-                accs.append((acc, "tl.zeros([BP], tl.int64)"))
-                upd.append(f"x{j} = tl.where(valid, {v.code}.to(tl.int64), 0)")
-                upd.append(f"{acc} += tl.sum(tl.where(hit, x{j}[:, None], 0), axis=0)")
-        self.consts = gen.consts
-        gid = " + ".join(f"(k{i} + 1) * {st}" for i, st in enumerate(strides))
-        args = ", ".join([f"c{i}_ptr" for i in range(len(cols))]
-                         + [f"k{i}_ptr" for i in range(n_keys)]
-                         + ["valid_ptr", "consts_ptr", "fsc_ptr", "isc_ptr", "rsc_ptr",
-                            "n", "nprog", "BLOCK: tl.constexpr", "BP: tl.constexpr"])
-        body = ["    pid = tl.program_id(0)", "    bidx = tl.arange(0, BP)"]
-        body += [f"    {a} = {init}" for a, init in accs]
-        body += ["    rmin = tl.zeros([BP], tl.int32) + n",
-                 "    for start in range(pid * BLOCK, n, nprog * BLOCK):",
-                 "        offs = start + tl.arange(0, BLOCK)",
-                 "        m = offs < n",
-                 "        valid = tl.load(valid_ptr + offs, mask=m, other=0) != 0"]
-        body += _load_lines(cols, "        ")
-        body += [f"        k{i} = tl.load(k{i}_ptr + offs, mask=m, other=0)"
-                 for i in range(n_keys)]
-        body += [f"        gid = tl.where(valid, {gid}, {n_groups})",
-                 "        hit = gid[:, None] == bidx[None, :]"]
-        body += [f"        {l}" for l in gen.lines + upd]
-        body += ["        rmin = tl.minimum(rmin, tl.min(tl.where(hit, offs[:, None], n), axis=0))"]
-        for slot, j in enumerate(self.fparts):
-            body.append(f"    tl.store(fsc_ptr + (pid * {len(self.fparts)} + {slot}) * BP + bidx, acc{j})")
-        for slot, j in enumerate(self.iparts):
-            body.append(f"    tl.store(isc_ptr + (pid * {len(self.iparts)} + {slot}) * BP + bidx, acc{j})")
-        body.append("    tl.store(rsc_ptr + pid * BP + bidx, rmin)")
-        self.src = f"@triton.jit\ndef qk_small_agg({args}):\n" + "\n".join(body) + "\n"
+                key = ("pre", tmp)
+                if key not in by_src:
+                    # the plain evaluator's type, read off a 0-row evaluation
+                    dt = pre_exprs_plain(pre_exprs, [tmp], {n: t[:0] for n, t in inputs.items()},
+                                         valid[:0])[0].dtype
+                    dt = torch.float64 if dt.is_floating_point else torch.int64
+                    src, tag = ("pre", len(self.pre_outs)), _AGG_TAG[dt]
+                    self.pre_outs.append(tmp)
+                    self.pre_dtypes.append(dt)
+            if key not in by_src:
+                kind, cols = ("f", fcols) if _float_tag(tag) else ("i", icols)
+                by_src[key] = (kind, len(cols))
+                cols.append((src, tag))
+            self.slots.append(by_src[key])
+        self.cols = fcols + icols
+        self.nf = len(fcols)
+        needed = set()
+        for tmp in self.pre_outs:
+            needed |= pre_exprs[tmp].required_columns()
+        self.pre_inputs = [n for n in inputs if n in needed]
+        self.pre = _PreAggKernel(pre_exprs, self.pre_outs,
+                                 [(n, inputs[n].dtype) for n in self.pre_inputs],
+                                 "qk_small_pre") if self.pre_outs else None
 
 
 def small_agg_plain(pre_exprs, partials, columns: Dict[str, torch.Tensor],
@@ -505,37 +509,88 @@ def small_agg_plain(pre_exprs, partials, columns: Dict[str, torch.Tensor],
     return sums, rep[:n_groups]
 
 
-def small_agg_launch(kern: _SmallAggKernel, partials, inputs: List[torch.Tensor],
-                     codes: List[torch.Tensor], valid: torch.Tensor, n_groups: int):
-    """Launch K2 (both passes) on CUDA tensors; same outputs as the plain
-    version."""
-    global SMALL_AGG_LAUNCHES
+def _bucket_lib():
+    lib = native.library("onehot")
+    if not getattr(lib, "qk_bound", False):
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.qk_small_agg.argtypes = [ctypes.POINTER(P), ctypes.POINTER(I), I, I,
+                                     ctypes.POINTER(P), ctypes.POINTER(I), I, P, L, I, P, I,
+                                     P, P, P, I, P, P]
+        lib.qk_small_agg.restype = I
+        lib.qk_bound = True
+    return lib
+
+
+def _bucket_agg(cols: List[torch.Tensor], tags: List[int], nf: int, codes: List[torch.Tensor],
+                strides: Tuple[int, ...], n_groups: int, valid: torch.Tensor, cnt_dtype,
+                what: str):
+    """The bucket core (``csrc/onehot.cu``) on CUDA tensors: (float64 sums
+    [nf, G], int64 sums [ni, G], counts [G] of ``cnt_dtype``, smallest row
+    [G] int64).  Every converted or contiguous copy is held in a local
+    until the launch has been issued.  Outputs and scratch are one
+    allocation."""
     dev = valid.device
     n = valid.shape[0]
-    _check_inputs(inputs + codes + [valid], dev, n)
-    mod = _load_generated(kern.src)
-    bp = sigkey.pow2_dim(n_groups + 1)
-    block = max(16, 4096 // bp)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    nprog = max(1, min(triton_cdiv(n, block), 4 * sms))
-    kf, ki = len(kern.fparts), len(kern.iparts)
-    fsc = torch.empty((nprog, max(kf, 1) * bp), dtype=torch.float64, device=dev)
-    isc = torch.empty((nprog, max(ki, 1) * bp), dtype=torch.int64, device=dev)
-    rsc = torch.empty((nprog, bp), dtype=torch.int32, device=dev)
-    consts = _consts_on(kern, dev)
-    mod.qk_small_agg[(nprog,)](
-        *[_kernel_arg(t) for t in inputs], *codes, valid.view(torch.uint8), consts,
-        fsc, isc, rsc, n, nprog, BLOCK=block, BP=bp, num_warps=4)
-    fsum = _colreduce(fsc, False).view(max(kf, 1), bp)
-    isum = _colreduce(isc, False).view(max(ki, 1), bp)
-    rep = _colreduce(rsc, True)
+    ni = len(cols) - nf
+    cols = [c.contiguous() for c in cols]
+    codes = [c.to(torch.int32).contiguous() for c in codes]
+    v8 = valid.contiguous().view(torch.uint8)
+    for c in cols + codes:
+        if c.shape != (n,) or c.device != dev:
+            raise TypeError(f"{what}: column {c.dtype} {tuple(c.shape)} on {c.device}, "
+                            f"expected [{n}] on {dev}")
+    if len(cols) > _BUCKET_MAX_COLUMNS or not 1 <= len(codes) <= _BUCKET_MAX_KEYS:
+        raise ValueError(f"{what}: {len(cols)} columns and {len(codes)} keys; the bucket core "
+                         f"takes at most {_BUCKET_MAX_COLUMNS} and 1 to {_BUCKET_MAX_KEYS}")
+    if not 1 <= n_groups < _SMALL_GROUPBY_MAX_BUCKETS:
+        raise ValueError(f"{what}: {n_groups} groups; the bucket core takes 1 to "
+                         f"{_SMALL_GROUPBY_MAX_BUCKETS - 1}")
+    entries = n_groups * (len(cols) + 2)
+    # eight blocks an SM at most: the core sizes its grid to the resident blocks
+    cap = 8 * torch.cuda.get_device_properties(dev).multi_processor_count
+    buf = torch.empty(cap * entries + entries, dtype=torch.int64, device=dev)
+    out = buf[cap * entries:]
+    g = n_groups
+    fs = out[:nf * g].view(torch.float64).view(nf, g)
+    is_ = out[nf * g:(nf + ni) * g].view(ni, g)
+    cnt = out[(nf + ni) * g:(nf + ni + 1) * g]
+    rep = out[(nf + ni + 1) * g:]
+    native.check(_bucket_lib().qk_small_agg(
+        native.ptr_array([c.data_ptr() for c in cols]), native.int_array(tags), nf, ni,
+        native.ptr_array([c.data_ptr() for c in codes]), native.int_array(list(strides)),
+        len(codes), v8.data_ptr(), n, n_groups, buf.data_ptr(), cap, fs.data_ptr(),
+        is_.data_ptr(), cnt.data_ptr(), 1 if cnt_dtype == torch.int64 else 0, rep.data_ptr(),
+        native.stream_ptr(dev)), what)
+    if cnt_dtype == torch.int32:  # the core wrote int32 counts
+        cnt = cnt.view(torch.int32)[:g]
+    return fs, is_, cnt, rep
+
+
+def small_agg_launch(kern: _SmallAggKernel, inputs: Dict[str, torch.Tensor],
+                     codes: List[torch.Tensor], strides: Tuple[int, ...], valid: torch.Tensor,
+                     n_groups: int):
+    """Launch K2 on CUDA tensors: the pre-pass when the plan has expression
+    inputs, then the bucket core; the plain version's outputs."""
+    global SMALL_AGG_LAUNCHES, SMALL_PRE_LAUNCHES
+    dev = valid.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"small_agg: unsupported device {dev}")
+    inputs = {k: t.contiguous() for k, t in inputs.items()}
+    pre: List[torch.Tensor] = []
+    if kern.pre is not None:
+        pre = _pre_launch(kern.pre, [inputs[k] for k in kern.pre_inputs], valid,
+                          kern.pre_dtypes)
+        SMALL_PRE_LAUNCHES += 1
+    cols = [inputs[src[1]] if src[0] == "col" else pre[src[1]] for src, _ in kern.cols]
+    for c, (_, tag) in zip(cols, kern.cols):
+        if _AGG_TAG.get(c.dtype) != tag & 3:
+            raise TypeError(f"small_agg: column {c.dtype}, expected tag {tag}")
+    fs, is_, cnt, rep = _bucket_agg(cols, [t for _, t in kern.cols], kern.nf, codes, strides,
+                                    n_groups, valid, torch.int64, "qk_small_agg")
     SMALL_AGG_LAUNCHES += 1
-    sums: List[Optional[torch.Tensor]] = [None] * len(partials)
-    for slot, j in enumerate(kern.fparts):
-        sums[j] = fsum[slot, :n_groups]
-    for slot, j in enumerate(kern.iparts):
-        sums[j] = isum[slot, :n_groups]
-    return sums, rep[:n_groups].to(torch.int64)
+    sums = [cnt if s[0] == "c" else fs[s[1]] if s[0] == "f" else is_[s[1]]
+            for s in kern.slots]
+    return sums, rep
 
 
 @dataclasses.dataclass
@@ -556,20 +611,31 @@ class SmallCall:
                                self.valid, self.strides, self.n_groups)
 
     def launch(self):
-        return small_agg_launch(self.kern, self.partials, list(self.inputs.values()),
-                                self.codes, self.valid, self.n_groups)
+        return small_agg_launch(self.kern, self.inputs, self.codes, self.strides, self.valid,
+                                self.n_groups)
 
     def run(self):
         """K2 on CUDA tensors, the plain version on CPU ones, charged to
         devprof: inputs, codes and mask read, each bucket's sums and
-        smallest row written."""
+        smallest row written; on the card the pre-pass is charged apart
+        ("K2 pre": its inputs and mask read, its outputs written)."""
+        dev, n = self.valid.device.type, self.valid.shape[0]
         out = 8 * self.n_groups * (len(self.partials) + 1)
         devprof.on_dispatch(
-            ("K2", self.valid.device.type, self.valid.shape[0], tuple(str(t.dtype) for t in self.inputs.values()),
+            ("K2", dev, n, tuple(str(t.dtype) for t in self.inputs.values()),
              len(self.codes), len(self.partials), self.n_groups),
             lambda: (0.0, float(devprof.nbytes(*self.inputs.values(), *self.codes,
                                                self.valid) + out), float(out)))
-        return self.plain() if self.valid.device.type == "cpu" else self.launch()
+        if dev == "cpu":
+            return self.plain()
+        if self.kern.pre is not None:
+            pre_in = [self.inputs[k] for k in self.kern.pre_inputs]
+            pre_out = 8 * n * len(self.kern.pre_outs)
+            devprof.on_dispatch(
+                ("K2 pre", dev, n, tuple(str(t.dtype) for t in pre_in), len(self.kern.pre_outs)),
+                lambda: (0.0, float(devprof.nbytes(*pre_in, self.valid) + pre_out),
+                         float(pre_out)))
+        return self.launch()
 
 
 # ---------------------------------------------------------------------------
@@ -579,9 +645,13 @@ class SmallCall:
 
 class _PreAggKernel:
     """Generated source of one pre-expression signature: every listed
-    pre-expression evaluated in one pass, one output array each."""
+    pre-expression evaluated in one pass, one output array each.  ``name``
+    is the kernel's (K5's, or K2's pre-pass ``qk_small_pre``), so that a
+    profile tells the two apart."""
 
-    def __init__(self, pre_exprs: Dict[str, Expr], outs: List[str], cols):
+    def __init__(self, pre_exprs: Dict[str, Expr], outs: List[str], cols,
+                 name: str = "qk_pre_agg"):
+        self.name = name
         gen = expr_compile.TritonExpr({n: (f"c{i}", dt) for i, (n, dt) in enumerate(cols)})
         stores = []
         for j, tmp in enumerate(outs):
@@ -602,7 +672,7 @@ class _PreAggKernel:
             *[f"    {l}" for l in gen.lines],
             *stores,
         ]
-        self.src = f"@triton.jit\ndef qk_pre_agg({args}):\n" + "\n".join(body) + "\n"
+        self.src = f"@triton.jit\ndef {name}({args}):\n" + "\n".join(body) + "\n"
 
 
 def pre_exprs_plain(pre_exprs: Dict[str, Expr], outs: List[str],
@@ -617,6 +687,15 @@ def pre_exprs_launch(kern: _PreAggKernel, inputs: List[torch.Tensor], valid: tor
     """Launch K5 on CUDA tensors: one output per pre-expression, in the
     plain version's dtypes."""
     global PRE_AGG_LAUNCHES
+    outs = _pre_launch(kern, inputs, valid, out_dtypes)
+    PRE_AGG_LAUNCHES += 1
+    return outs
+
+
+def _pre_launch(kern: _PreAggKernel, inputs: List[torch.Tensor], valid: torch.Tensor,
+                out_dtypes: List[torch.dtype]) -> List[torch.Tensor]:
+    """One generated pre-expression kernel (K5, or K2's pre-pass) on CUDA
+    tensors: one output per pre-expression, in ``out_dtypes``."""
     dev = valid.device
     n = valid.shape[0]
     _check_inputs(inputs + [valid], dev, n)
@@ -624,11 +703,10 @@ def pre_exprs_launch(kern: _PreAggKernel, inputs: List[torch.Tensor], valid: tor
     outs = [torch.empty(n, dtype=dt, device=dev) for dt in out_dtypes]
     if n:
         block = 1024
-        mod.qk_pre_agg[(triton_cdiv(n, block),)](
+        getattr(mod, kern.name)[(triton_cdiv(n, block),)](
             *[_kernel_arg(t) for t in inputs], valid.view(torch.uint8),
             _consts_on(kern, dev), *[_kernel_arg(o) for o in outs], n, BLOCK=block,
             num_warps=4)
-    PRE_AGG_LAUNCHES += 1
     return outs
 
 
@@ -669,8 +747,6 @@ class PreAggCall:
 
 # the reference's one-hot gate: the n x buckets operand in float64
 _SMALL_GROUPBY_MAX_BYTES = 512 << 20
-_ONEHOT_MAX_COLUMNS = 32
-_ONEHOT_MAX_KEYS = 8
 
 
 def _bucket_ids(codes: List[torch.Tensor], strides: Tuple[int, ...], valid: torch.Tensor,
@@ -707,59 +783,28 @@ def onehot_agg_plain(fcols: List[torch.Tensor], icols: List[torch.Tensor],
     return fs, is_, counts, rep
 
 
-def _onehot_lib():
-    lib = native.library("onehot")
-    if not getattr(lib, "qk_bound", False):
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.qk_onehot_agg.argtypes = [ctypes.POINTER(P), I, ctypes.POINTER(P), I,
-                                      ctypes.POINTER(P), ctypes.POINTER(I), I, P, L, I, I,
-                                      P, P, P, P, P, P]
-        lib.qk_onehot_agg.restype = I
-        lib.qk_bound = True
-    return lib
-
-
 def onehot_agg_cuda(fcols: List[torch.Tensor], icols: List[torch.Tensor],
                     codes: List[torch.Tensor], strides: Tuple[int, ...], n_groups: int,
                     valid: torch.Tensor):
-    """Launch K6 (both passes) on CUDA tensors; the plain version's outputs."""
+    """Launch K6 (the bucket core, two kernels) on CUDA tensors; the plain
+    version's outputs."""
     global ONEHOT_LAUNCHES
     dev = valid.device
     n = valid.shape[0]
     if dev.type != "cuda":
         raise RuntimeError(f"onehot_agg: unsupported device {dev}")
-    fcols = [c.contiguous() for c in fcols]
-    icols = [c.contiguous() for c in icols]
-    codes = [c.contiguous() for c in codes]
     for c, dt in [(c, torch.float64) for c in fcols] + [(c, torch.int64) for c in icols] + \
             [(c, torch.int32) for c in codes]:
         if c.dtype != dt or c.shape != (n,) or c.device != dev:
             raise TypeError(f"onehot_agg: column {c.dtype} {tuple(c.shape)} on {c.device}, "
                             f"expected {dt} [{n}] on {dev}")
-    if len(fcols) + len(icols) > _ONEHOT_MAX_COLUMNS or not 1 <= len(codes) <= _ONEHOT_MAX_KEYS:
-        raise ValueError(f"onehot_agg: {len(fcols) + len(icols)} columns and {len(codes)} keys;"
-                         f" K6 takes at most {_ONEHOT_MAX_COLUMNS} and 1 to {_ONEHOT_MAX_KEYS}")
-    if not 1 <= n_groups < _SMALL_GROUPBY_MAX_BUCKETS or n < 1:
+    if n < 1:
         raise ValueError(f"onehot_agg: {n_groups} groups over {n} rows")
-    nf, ni = len(fcols), len(icols)
-    entries = n_groups * (nf + ni + 2)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    # eight blocks an SM keep the chunks' loads in flight
-    blocks = max(1, min(8 * sms, -(-n // 256)))
-    partial = torch.empty((blocks, entries), dtype=torch.float64, device=dev)
-    fs = torch.empty((nf, n_groups), dtype=torch.float64, device=dev)
-    is_ = torch.empty((ni, n_groups), dtype=torch.int64, device=dev)
-    counts = torch.empty(n_groups, dtype=torch.int32, device=dev)
-    rep = torch.empty(n_groups, dtype=torch.int64, device=dev)
-    native.check(_onehot_lib().qk_onehot_agg(
-        native.ptr_array([c.data_ptr() for c in fcols]), nf,
-        native.ptr_array([c.data_ptr() for c in icols]), ni,
-        native.ptr_array([c.data_ptr() for c in codes]), native.int_array(list(strides)),
-        len(codes), valid.contiguous().view(torch.uint8).data_ptr(), n, n_groups, blocks,
-        partial.data_ptr(), fs.data_ptr(), is_.data_ptr(), counts.data_ptr(), rep.data_ptr(),
-        native.stream_ptr(dev)), "qk_onehot_agg")
+    tags = [_AGG_TAG[torch.float64]] * len(fcols) + [_AGG_TAG[torch.int64]] * len(icols)
+    out = _bucket_agg(fcols + icols, tags, len(fcols), codes, strides, n_groups, valid,
+                      torch.int32, "qk_onehot_agg")
     ONEHOT_LAUNCHES += 1
-    return fs, is_, counts, rep
+    return out
 
 
 def onehot_agg(fcols: List[torch.Tensor], icols: List[torch.Tensor], codes: List[torch.Tensor],
@@ -851,11 +896,10 @@ class FusedPartialAgg:
         n_groups = int(np.prod(dims))
         strides = self._strides(dims)
         cols = [(n, t.dtype) for n, t in inputs.items()]
-        sig = (tuple((k, e.sql()) for k, e in pre_exprs.items()), tuple(cols), dims)
+        sig = (tuple((k, e.sql()) for k, e in pre_exprs.items()), tuple(cols))
         kern = self._kernels.get(sig)
         if kern is None:
-            kern = _SmallAggKernel(pre_exprs, self.plan.partials, cols, len(self.keys),
-                                   strides, n_groups)
+            kern = _SmallAggKernel(pre_exprs, self.plan.partials, inputs, batch.valid)
             self._kernels[sig] = kern
         codes = [batch.columns[k].codes.contiguous() for k in self.keys]
         return SmallCall(kern, pre_exprs, self.plan.partials, inputs, codes,

@@ -30,8 +30,10 @@ per output row; ``_mm_expand_plain`` is its plain version.
 The mesh joins (``parallel/mesh_exec.py``) match by rank within each shard:
 ``_pk_match`` is the dense rank of the probe and build keys together (row
 10) followed by kernel K14 (``pk_match_ranks``, ``csrc/join.cu``): each
-rank's least valid build row and build count, gathered by probe rank, in a
-build pass and a probe pass; ``_pk_match_plain`` is its plain version.
+rank's least valid build row, gathered by probe rank, in a build pass (one
+``atomicMin`` per valid build row into one int32 per rank, zeroed by one
+memset) and a probe pass (one gather a row); a probe row matches where its
+rank's minimum exists.  ``_pk_match_plain`` is its plain version.
 """
 
 from __future__ import annotations
@@ -128,7 +130,7 @@ def _join_lib():
         lib.qk_sorted_probe.restype = I
         lib.qk_mm_expand.argtypes = [P, L, P, P, L, P, P, P, L, P, P, P, P, P]
         lib.qk_mm_expand.restype = I
-        lib.qk_pk_match.argtypes = [P, P, L, P, P, L, L, P, P, P, P, P]
+        lib.qk_pk_match.argtypes = [P, P, L, P, P, L, L, P, P, P, P]
         lib.qk_pk_match.restype = I
         lib.qk_bound = True
     return lib
@@ -145,12 +147,16 @@ def _pk_probe_sorted_cuda(sorted_limbs, perm, n_valid, probe_limbs, probe_ok):
     if nb >= 1 << 31 or p >= 1 << 31:
         raise ValueError("pk_probe_sorted: 32-bit positions take fewer than 2^31 build and "
                          "probe rows")
+    # the contiguous copies live in locals until the launch has been issued
+    sorted_limbs = [s.contiguous() for s in sorted_limbs]
     probe_limbs = [l.contiguous() for l in probe_limbs]
     for s, l in zip(sorted_limbs, probe_limbs):
         if (s.dtype not in _LIMB_DT or l.dtype != s.dtype or s.device != dev
                 or l.device != dev or l.shape[0] != p or s.shape[0] != nb):
             raise TypeError(f"pk_probe_sorted: unsupported limbs {s.dtype}/{l.dtype} "
                             f"on {s.device}/{l.device}")
+    perm = perm.contiguous()
+    ok8 = probe_ok.contiguous().view(torch.uint8)
     n_valid = n_valid.to(device=dev, dtype=torch.int64).reshape(1)
     build_idx = torch.empty(p, dtype=torch.int32, device=dev)
     matched = torch.empty(p, dtype=torch.bool, device=dev)
@@ -163,8 +169,7 @@ def _pk_probe_sorted_cuda(sorted_limbs, perm, n_valid, probe_limbs, probe_ok):
         native.ptr_array([arg(s).data_ptr() for s in sorted_limbs]),
         native.ptr_array([arg(l).data_ptr() for l in probe_limbs]),
         native.int_array([_LIMB_DT[s.dtype] for s in sorted_limbs]), len(sorted_limbs),
-        perm.contiguous().data_ptr(), n_valid.data_ptr(), nb,
-        probe_ok.contiguous().view(torch.uint8).data_ptr(), p, build_idx.data_ptr(),
+        perm.data_ptr(), n_valid.data_ptr(), nb, ok8.data_ptr(), p, build_idx.data_ptr(),
         matched.view(torch.uint8).data_ptr(), ctypes.byref(typed), native.stream_ptr(dev)),
         "qk_sorted_probe")
     SORTED_PROBE_LAUNCHES += 1
@@ -198,7 +203,9 @@ def _pk_match_plain(ranks: torch.Tensor, valid: torch.Tensor, p: int):
     """Plain version of K14, the reference's ``_pk_match`` arithmetic after
     its dense rank: over ``ranks`` / ``valid`` of [probe (p rows) | build],
     each rank's least valid build row (a scatter-min, b where it has none)
-    and its valid build rows (a bincount), gathered by probe rank.
+    and its valid build rows (a bincount), gathered by probe rank.  K14
+    computes the same from the minimum alone: a rank has a valid build row
+    exactly when its minimum is below b.
     (build_idx int32 clipped to [0, b - 1], matched bool)."""
     n = valid.shape[0]
     b = n - p
@@ -222,14 +229,13 @@ def _pk_match_cuda(ranks: torch.Tensor, valid: torch.Tensor, p: int):
                         f"validity of {n} rows on {dev}")
     ranks = ranks.to(torch.int64).contiguous()
     v8 = valid.contiguous().view(torch.uint8)
-    first = torch.empty(n, dtype=torch.int32, device=dev)
-    count = torch.empty(n, dtype=torch.int32, device=dev)
+    first = torch.empty(n, dtype=torch.int32, device=dev)  # freed on return
     build_idx = torch.empty(p, dtype=torch.int32, device=dev)
     matched = torch.empty(p, dtype=torch.bool, device=dev)
     native.check(_join_lib().qk_pk_match(
         ranks.data_ptr(), v8.data_ptr(), p, ranks[p:].data_ptr(), v8[p:].data_ptr(),
-        n - p, n, first.data_ptr(), count.data_ptr(), build_idx.data_ptr(),
-        matched.view(torch.uint8).data_ptr(), native.stream_ptr(dev)), "qk_pk_match")
+        n - p, n, first.data_ptr(), build_idx.data_ptr(), matched.view(torch.uint8).data_ptr(),
+        native.stream_ptr(dev)), "qk_pk_match")
     PK_MATCH_LAUNCHES += 1
     return build_idx, matched
 

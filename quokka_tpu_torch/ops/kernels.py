@@ -509,14 +509,16 @@ def partition_plan(pids: torch.Tensor, valid: torch.Tensor, n_parts: int):
     if dev.type != "cuda" or pids.device != dev or pids.shape != (n,):
         raise RuntimeError(f"partition_plan: ids {tuple(pids.shape)} on {pids.device}, "
                            f"validity {tuple(valid.shape)} on {dev}")
+    # the converted copies live in locals until the launch has been issued
+    pids32 = pids.to(torch.int32).contiguous()
+    v8 = valid.contiguous().view(torch.uint8)
     nblocks = -(-n // _PLAN_TILE)
     hist = torch.empty((n_parts + 1) * max(nblocks, 1), dtype=torch.int32, device=dev)
     perm = torch.empty(n, dtype=torch.int32, device=dev)
     counts = torch.empty(n_parts, dtype=torch.int32, device=dev)
     offsets = torch.empty(n_parts, dtype=torch.int32, device=dev)
     native.check(_partition_lib().qk_partition_plan(
-        pids.to(torch.int32).contiguous().data_ptr(),
-        valid.contiguous().view(torch.uint8).data_ptr(), n, n_parts, nblocks,
+        pids32.data_ptr(), v8.data_ptr(), n, n_parts, nblocks,
         hist.data_ptr(), perm.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
         native.stream_ptr(dev)), "qk_partition_plan")
     PLAN_LAUNCHES += 1

@@ -23,6 +23,8 @@ K24's exchanged columns and validity, and K14's build rows and matches,
 are exact.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -96,6 +98,91 @@ def test_k2_kernel_matches_plain(cuda_device):
             assert torch.allclose(a, c, rtol=1e-9, atol=1e-12)
         else:
             assert torch.equal(a, c)
+
+
+# K2's bucket core reads plain columns in place (float64, float32, int64,
+# int32; nulls add 0); only the expression inputs go through the pre-pass
+K2_AGGS = ("sum(f) as sf, sum(x32) as sx, sum(i) as si, sum(j32) as sj, count(*) as n, "
+           "avg(g) as ag, sum(g * (1 - f)) as se")
+K2_COLUMNS = "sum(f) as sf, sum(x32) as sx, sum(i) as si, sum(j32) as sj, count(*) as n"
+K2_CASES = ["17 buckets", "129 buckets", "columns 17 buckets", "columns 129 buckets",
+            "all invalid"]
+
+
+def _k2_batch(dev, n: int, seed: int, invalid: bool = False):
+    """host_table's columns, a key "q" of 3 values (with "t": Q1's 16
+    groups), a key "k" of 100 values and nulls (128 groups), a float32
+    column "x32" with NaN and an int32 column "j32" with its null sentinel."""
+    from quokka_tpu_torch.ops.batch import NULL_I32, DeviceBatch, NumCol
+
+    r = np.random.default_rng(seed)
+    ht = host_table(n, seed)
+    k = np.array([f"sym{j:03d}" for j in range(100)], dtype=object)[r.integers(0, 100, n)]
+    k[r.random(n) < 0.05] = None
+    q = np.array(["A", "N", "R"], dtype=object)[r.integers(0, 3, n)]
+    ht = bridge.HostTable({**ht.columns, "k": k, "q": q}, validity=ht.validity)
+    b = bridge.host_to_device(ht, dev)
+    x32 = r.normal(size=n).astype(np.float32)
+    x32[r.random(n) < 0.05] = np.nan
+    j32 = r.integers(-1000, 1000, n).astype(np.int32)
+    j32[r.random(n) < 0.05] = NULL_I32
+    pad = b.padded_len
+    cols = {**b.columns,
+            "x32": NumCol(bridge.pad_tail(torch.from_numpy(x32).to(dev), pad), "f"),
+            "j32": NumCol(bridge.pad_tail(torch.from_numpy(j32).to(dev), pad), "i")}
+    return DeviceBatch(cols, torch.zeros_like(b.valid) if invalid else b.valid)
+
+
+def _k2_agree(got, want):
+    (sk, rk), (sp, rp) = got, want
+    assert rk.dtype == rp.dtype and torch.equal(rk, rp)
+    assert len(sk) == len(sp)
+    for a, c in zip(sk, sp):
+        assert a.dtype == c.dtype and a.shape == c.shape
+        if a.is_floating_point():
+            assert torch.allclose(a, c, rtol=1e-9, atol=1e-12, equal_nan=True)
+        else:
+            assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("case", K2_CASES)
+def test_k2_bucket_core_matches_plain(cuda_device, case):
+    """K2 on the bucket core against its plain version at 17 and 129 buckets
+    (Q1's and the tick paths' shapes), with float32 and int32 plain
+    columns: a plan of plain columns and count(*) launches no pre-pass;
+    every row invalid; and the same bits in a second launch."""
+    wide = "129" in case or case == "all invalid"
+    b = _k2_batch(cuda_device, 70_001, seed=len(case), invalid=case == "all invalid")
+    plan = plan_aggregation(sqlparse.parse_select_list(
+        K2_COLUMNS if case.startswith("columns") else K2_AGGS))
+    call = fuse.FusedPartialAgg(["k"] if wide else ["q", "t"], plan).prepare_small(b)
+    assert call.n_groups + 1 == (129 if wide else 17)
+    assert (call.kern.pre is None) == case.startswith("columns")
+    launches, pre = fuse.SMALL_AGG_LAUNCHES, fuse.SMALL_PRE_LAUNCHES
+    got = call.launch()
+    assert fuse.SMALL_AGG_LAUNCHES == launches + 1
+    assert fuse.SMALL_PRE_LAUNCHES == pre + (call.kern.pre is not None)
+    _k2_agree(got, call.plain())
+    again = call.launch()
+    for a, c in zip(got[0] + [got[1]], again[0] + [again[1]]):
+        assert torch.equal(_bits(a), _bits(c))
+    if case == "all invalid":
+        assert bool((got[1] == b.padded_len).all())
+
+
+def test_k2_strided_inputs_match_plain(cuda_device):
+    """Plain columns, a key's codes and the mask taken from wider tensors:
+    their contiguous copies live through the launch (two freed copies of
+    one size would share a block)."""
+    b = _k2_batch(cuda_device, 50_000, seed=7)
+    plan = plan_aggregation(sqlparse.parse_select_list(K2_COLUMNS))
+    call = fuse.FusedPartialAgg(["s", "t"], plan).prepare_small(b)
+
+    call = dataclasses.replace(call, inputs={k: _strided(t) for k, t in call.inputs.items()},
+                               codes=[_strided(c) for c in call.codes],
+                               valid=_strided(call.valid))
+    assert not any(t.is_contiguous() for t in (*call.inputs.values(), *call.codes, call.valid))
+    _k2_agree(call.launch(), call.plain())
 
 
 @pytest.mark.parametrize("n", [1 << 10, 1 << 16])
@@ -364,6 +451,32 @@ def test_k12_kernel_matches_plain(cuda_device, kind):
     assert 0 < int(mk.sum()) < p
 
 
+def _strided(t: torch.Tensor) -> torch.Tensor:
+    """t's values in a view that is not contiguous."""
+    return torch.stack([t, t], 1)[:, 1]
+
+
+def test_k12_strided_inputs_match_plain(cuda_device):
+    """The sorted build's limbs and perm, the probe's limbs and its ok mask
+    taken from wider tensors: their contiguous copies live through the
+    launch."""
+    r = np.random.default_rng(12)
+    nb, p = 1 << 15, 1 << 18
+    build = [torch.from_numpy(x).to(cuda_device) for x in _unique_keys("composite", nb, r)]
+    probe = [torch.from_numpy(x).to(cuda_device) for x in _probe_of(
+        [x.cpu().numpy() for x in build], p, r, "composite")]
+    ok = torch.from_numpy(r.random(nb) < 0.9).to(cuda_device)
+    pok = torch.from_numpy(r.random(p) < 0.95).to(cuda_device)
+    sorted_limbs, perm, nv = join._sort_build_keys(build, ok)
+    want = join._pk_probe_sorted_plain(sorted_limbs, perm, nv, probe, pok)
+    args = ([_strided(l) for l in sorted_limbs], _strided(perm), nv,
+            [_strided(l) for l in probe], _strided(pok))
+    assert not any(t.is_contiguous() for t in (*args[0], args[1], *args[3], args[4]))
+    ik, mk = join._pk_probe_sorted_cuda(*args)
+    assert torch.equal(mk, want[1])
+    assert torch.equal(ik[mk], want[0][want[1]])
+
+
 @pytest.mark.parametrize("how", ["inner", "left"])
 @pytest.mark.parametrize("skew", [False, True], ids=["spread", "hot_key"])
 def test_k13_kernel_matches_plain(cuda_device, how, skew):
@@ -506,6 +619,34 @@ def test_k18_kernel_matches_plain(cuda_device, case, upper):
     _equal(got, want)
     if case != "empty_quotes":
         assert int(want[1].sum()) > 0
+
+
+@pytest.mark.parametrize("upper", [True, False], ids=["backward", "forward"])
+def test_k18_strided_inputs_match_plain(cuda_device, upper):
+    """The run table's bounds, the sorted times, perm, the probe's limbs
+    and its mask taken from wider tensors: the four contiguous copies the
+    wrapper makes live through the launch."""
+    r = np.random.default_rng(180)
+    nq, p = 1 << 17, 1 << 15
+
+    def ops(n):
+        k = r.integers(0, 50, n).astype(np.int32)
+        t = np.sort(r.integers(0, 10**8, n))
+        return [torch.from_numpy(x).to(cuda_device) for x in (k, k * 31 - 7, t)]
+
+    qvalid = torch.from_numpy(r.random(nq) < 0.9).to(cuda_device)
+    so, perm, nv = asof._ss_sort_quotes(ops(nq), qvalid)
+    runs = asof._ss_key_runs(so, nv, 2)
+    po = ops(p)
+    pv = torch.from_numpy(r.random(p) < 0.9).to(cuda_device)
+    want = asof._asof_probe_plain(so, perm, nv, po, pv, upper, 2)
+    so_s = list(so[:2]) + [_strided(so[2])]
+    runs_s = runs._replace(bounds=_strided(runs.bounds))
+    args = (so_s, _strided(perm), nv, [_strided(o) for o in po], _strided(pv))
+    assert not any(t.is_contiguous() for t in (so_s[2], args[1], *args[3], args[4],
+                                               runs_s.bounds))
+    _equal(asof._asof_probe_cuda(*args, upper, 2, runs_s), want)
+    assert int(want[1].sum()) > 0
 
 
 @pytest.mark.parametrize("n", [0, 1000, 1 << 20, (1 << 22) + 3])
@@ -834,6 +975,23 @@ def test_k17_kernel_matches_plain(cuda_device, n_parts, case):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_k17_strided_inputs_match_plain(cuda_device, dtype):
+    """Part ids and validity taken from wider tensors (int64 ids also cast
+    to int32): the wrapper's converted copies live through the launch."""
+    r = np.random.default_rng(17)
+    n, n_parts = 300_001, 7
+    pids = torch.from_numpy(r.integers(0, n_parts, n)).to(cuda_device, dtype)
+    valid = torch.from_numpy(r.random(n) < 0.8).to(cuda_device)
+    want = kernels.partition_plan_plain(pids, valid, n_parts)
+    ps, vs = _strided(pids), _strided(valid)
+    assert not ps.is_contiguous() and not vs.is_contiguous()
+    got = kernels.partition_plan(ps, vs, n_parts)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 @pytest.mark.parametrize("mode", ["salt", "replicate"])
 @pytest.mark.parametrize("n_parts", [2, 3, 7, 64])
 def test_k26_kernel_matches_plain(cuda_device, n_parts, mode):
@@ -986,16 +1144,27 @@ def test_k24_kernel_matches_plain(cuda_device, n_parts, case):
         assert a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
 
 
-@pytest.mark.parametrize("case", ["unique", "duplicates", "no_matches", "all_invalid"])
+@pytest.mark.parametrize("case", ["unique", "duplicates", "no_matches", "all_invalid",
+                                  "invalid_build_ranks", "duplicates_beside_invalid"])
 def test_k14_kernel_matches_plain(cuda_device, case):
+    """Unique, duplicate and unmatched build keys, every row invalid; ranks
+    whose build rows are all invalid (their probe rows must not match); and
+    duplicate valid build rows beside invalid ones of the same key (the
+    least valid row is the match, not the least row)."""
     r = np.random.default_rng(14)
     p, b = 70_001, 30_017
     keys = r.integers(0, 50_000, p + b)
-    if case == "unique":
+    if case in ("unique", "invalid_build_ranks"):
         keys[p:] = r.permutation(60_000)[:b]
     elif case == "no_matches":
         keys[p:] = r.integers(100_000, 200_000, b)
+    elif case == "duplicates_beside_invalid":
+        keys[p:] = r.integers(0, 5_000, b)
     valid = np.zeros(p + b, dtype=bool) if case == "all_invalid" else r.random(p + b) < 0.9
+    if case == "invalid_build_ranks":
+        valid[p:][keys[p:] % 3 == 0] = False
+    elif case == "duplicates_beside_invalid":
+        valid[p:] = r.random(b) < 0.5
     limbs = [torch.from_numpy(keys).to(cuda_device)]
     v = torch.from_numpy(valid).to(cuda_device)
     ranks, _ = kernels.dense_rank(limbs, v)
@@ -1004,3 +1173,10 @@ def test_k14_kernel_matches_plain(cuda_device, case):
     torch.cuda.synchronize()
     for a, e in zip(got, exp):
         assert a.dtype == e.dtype and torch.equal(a, e)
+    if case == "invalid_build_ranks":
+        # probe rows whose key has only invalid build rows exist, and none matches
+        pk, bk = keys[:p], keys[p:]
+        dead = np.isin(pk, bk[keys[p:] % 3 == 0]) & valid[:p]
+        assert dead.any() and not got[1].cpu().numpy()[dead].any()
+    if case == "duplicates_beside_invalid":
+        assert int(got[1].sum()) > 0

@@ -85,16 +85,38 @@ AGGS = ("sum(g) as sg, count(*) as n, count(g) as ng, avg(f) as af, "
         "sum(g * (1 - f) * (1 + g)) as sx, sum(i) as si")
 
 
-@pytest.mark.parametrize("n,nulls", [(0, False), (900, False), (4000, True)])
-def test_k2_small_agg_matches_reference_and_pandas(n, nulls, fresh_aot):
+def _with_wide_key(t, seed: int, nulls: bool):
+    """t with a string column "k" of 100 dictionary values (and nulls)."""
+    r = np.random.default_rng(seed)
+    syms = np.array([f"sym{j:03d}" for j in range(100)], dtype=object)
+    vals = syms[r.integers(0, 100, t.num_rows)]
+    if nulls:
+        vals[r.random(t.num_rows) < 0.05] = None
+    return t.append_column("k", pa.array(vals.tolist(), type=pa.string()))
+
+
+@pytest.mark.parametrize("n,nulls,wide", [(0, False, False), (900, False, False),
+                                          (4000, True, False), (5000, True, True)],
+                         ids=["0-False", "900-False", "4000-True", "5000-True-129buckets"])
+def test_k2_small_agg_matches_reference_and_pandas(n, nulls, wide, fresh_aot):
+    """Q1-shaped keys (4 x 2 values, 17 buckets) and, in the last case, one
+    key of 100 values (128 groups and the dump bucket, the tick paths'
+    shape): the reference's CPU strategy row is hashtable, so it runs
+    ``_build_small_scatter``."""
     t = mixed_table(n, seed=11 + n, nulls=nulls)
     keys = ["s", "t"]
+    if wide:
+        t = _with_wide_key(t, seed=n, nulls=nulls)
+        keys = ["k"]
     ref_b = ref_batch_of(t)
     ref_out = ref_fuse.FusedPartialAgg(keys, ref_plan(ref_sqlparse.parse_select_list(AGGS)))(ref_b)
     plan = plan_aggregation(sqlparse.parse_select_list(AGGS))
     agg = fuse.FusedPartialAgg(keys, plan)
     b = port_batch(ref_b)
-    assert agg.prepare_small(b) is not None, "Q1-shaped keys must take the small-key path"
+    call = agg.prepare_small(b)
+    assert call is not None, "dictionary keys of at most 256 buckets take the small-key path"
+    if wide:
+        assert call.n_groups + 1 == 129  # 100 values and a null slot, to 128, and the dump
     out = agg(b)
     num = out.count_valid()
     assert num == ref_out.count_valid()
@@ -136,13 +158,41 @@ def _decode(strcol, num):
 
 
 def test_k2_kernel_source_is_wellformed():
+    """K2's plan: plain columns go to the bucket core as they lie; the
+    Q1-shaped plan generates one well-formed pre-pass whose outputs are only
+    its expression inputs, reading only the columns they name; a plan of
+    plain columns and count(*) generates none."""
     t = mixed_table(300, seed=5)
     b = port_batch(ref_batch_of(t))
     plan = plan_aggregation(sqlparse.parse_select_list(AGGS))
     call = fuse.FusedPartialAgg(["s", "t"], plan).prepare_small(b)
-    tree = ast.parse(call.kern.src)
-    assert [f.name for f in tree.body] == ["qk_small_agg"]
-    assert len(call.kern.fparts) + len(call.kern.iparts) == len(plan.partials)
+    kern = call.kern
+    tree = ast.parse(kern.pre.src)
+    assert [f.name for f in tree.body] == ["qk_small_pre"]
+    exprs = [tmp for _, op, tmp in plan.partials
+             if op != "count" and fuse._plain_column(call.pre_exprs[tmp], call.inputs) is None]
+    assert exprs and kern.pre_outs == list(dict.fromkeys(exprs))
+    stores = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+              and ast.unparse(n.func) == "tl.store"]
+    assert len(stores) == len(kern.pre_outs)
+    needed = set().union(*(call.pre_exprs[tmp].required_columns() for tmp in exprs))
+    assert set(kern.pre_inputs) == needed & set(call.inputs)
+    # every partial has a slot: a count, or a float / int column of the core
+    assert len(kern.slots) == len(plan.partials)
+    assert {s[0] for s in kern.slots} == {"c", "f", "i"}
+    plain = [fuse._plain_column(call.pre_exprs[tmp], call.inputs) for _, op, tmp in plan.partials
+             if op != "count"]
+    tag, wrap = fuse._AGG_TAG, fuse._AGG_WRAP
+    # sum(g), count(g) (avg(f)'s too) and sum(i) read their columns in place
+    assert ("g", tag[torch.float64] | wrap["__nn0"]) in plain
+    assert ("g", tag[torch.float64] | wrap["__nncount"]) in plain
+    assert ("i", tag[torch.int64] | wrap["__nn0"]) in plain
+
+    only = plan_aggregation(sqlparse.parse_select_list(
+        "sum(g) as sg, sum(i) as si, count(*) as n"))
+    call = fuse.FusedPartialAgg(["s", "t"], only).prepare_small(b)
+    assert call.kern.pre is None and call.kern.pre_outs == []
+    assert [src for src, _ in call.kern.cols] == [("col", "g"), ("col", "i")]
 
 
 # ---------------------------------------------------------------------------
