@@ -78,8 +78,11 @@ Phases, each fatal on failure:
      mode, so that a host read in a call fails; K4 at Q1's and Q3's; K5, K11, K12 at Q3's, K12 also on float64 keys with -0.0 and
      NaN; K13 at Q13's and with one probe key matching 10^4 build rows;
      K16 at Q7's, also with dates before 1970 and nulls; K18 at the
-     asof's, K19 at the sort strategy's, sliding's and shift's, K20a and
-     K20b at sliding's, each also on one symbol holding every quote,
+     asof's, K19 at the sort strategy's, sliding's and shift's, and K19's
+     segment bounds (its scan both ways) at sliding's and shift's, beside
+     one torch.cummax (the start half) and row 20's flip and cummin (the
+     end half), K20a and K20b at sliding's, each also on one symbol
+     holding every quote,
      whole-second timestamps, 2^23 rows and empty or all-invalid sides,
      K20b also on random and degenerate ranges with NaN in x and on one
      window over all rows, at 2^20 rows,
@@ -1168,6 +1171,9 @@ def check_dryrun_q3(got, exp) -> None:
 # the device operations of one K3 call and of one K20b call, by the start
 # of the profiler's names (a memset is "Memset (Device)")
 K3_OPS = ("Memset", "qk_gb_insert_kernel", "qk_gb_rank_kernel", "qk_gb_segment_kernel")
+K19_OPS = ("Memset", "qk_fill_chain_kernel")
+K19B_OPS = ("Memset", "qk_bounds_chain_kernel")
+K20A_OPS = ("Memset", "qk_window_check_kernel", "qk_window_bounds_kernel")
 K20B_OPS = ("qk_range_summary_kernel", "qk_range_query_kernel")
 
 
@@ -1277,7 +1283,7 @@ def profile_counts(prof):
 
 COMPARED = ("q1", "q3", "q5")
 WALL_TPCH = COMPARED + ("q13", "q7")
-WALL_TICKS = ("tumbling", "hopping", "session", "sliding")
+WALL_TICKS = ("tumbling", "hopping", "session", "sliding", "shift")
 
 
 def query_walls(dev, streams) -> dict:
@@ -1369,7 +1375,7 @@ def vector_streams(dev, pkg: Path, args) -> dict:
 def walls_only(args) -> int:
     """``--walls-only``: the walls and copy / sync counts of the paths in
     ``--walls-paths`` (Q1, Q3 and Q5 by default; also Q13, Q7, the
-    tumbling, hopping, session and sliding windows, and the vector and ann
+    tumbling, hopping, session and sliding windows, shift, and the vector and ann
     paths, over the data the smoke makes for them) through the package in
     ``--package`` (a checkout's root), as one JSON line."""
     import torch
@@ -1507,6 +1513,42 @@ class Capture:
         return False
 
 
+class Row20Spy:
+    """Counts the calls of row 20's flip and cummin (``_rows_from_segment_end``,
+    the plain version of K19's segment ends) made on CUDA tensors,
+    under both names the package gives it (``ops/asof.py`` and the
+    executors' module); ``calls`` is set to 0 before a path's run."""
+
+    def __init__(self):
+        self.calls = 0
+        self._saved = []
+
+    def __enter__(self):
+        from quokka_tpu_torch.executors import ts_execs
+        from quokka_tpu_torch.ops import asof
+
+        for mod in (asof, ts_execs):
+            real = mod._rows_from_segment_end
+            self._saved.append((mod, real))
+
+            def spy(iota, flag, n, _real=real):
+                self.calls += iota.is_cuda
+                return _real(iota, flag, n)
+
+            mod._rows_from_segment_end = spy
+        return self
+
+    def __exit__(self, *exc):
+        for mod, real in reversed(self._saved):
+            mod._rows_from_segment_end = real
+        return False
+
+
+# K19's segment bounds per query on sliding and shift: one a batch the
+# executor processes (bench.py's ticks: 12)
+SEGMENT_BOUNDS_PER_QUERY = 12
+
+
 # ---------------------------------------------------------------------------
 # the mesh plane: QuokkaContext(mesh=make_mesh(8)), eight shards on one card
 # ---------------------------------------------------------------------------
@@ -1542,8 +1584,9 @@ def mesh_paths(tables, ticks):
         "mesh tumbling": (tk("tumbling"), check_tumbling, "tumbling", ["K16"]),
         "mesh hopping": (tk("hopping"), check_hopping, "hopping", []),
         "mesh session": (tk("session"), check_session, "session", []),
-        "mesh sliding": (tk("sliding"), check_sliding, "sliding", ["K16", "K19", "K20a", "K20b"]),
-        "mesh shift": (tk("shift"), check_shift, "shift", ["K19"]),
+        "mesh sliding": (tk("sliding"), check_sliding, "sliding",
+                         ["K16", "K19 bounds", "K20a", "K20b"]),
+        "mesh shift": (tk("shift"), check_shift, "shift", ["K19 bounds"]),
     }
 
 
@@ -1605,7 +1648,8 @@ def mesh_phase(dev, tables, ticks, oracles, engine_walls, counters):
         torch.cuda.reset_peak_memory_stats(dev)
         pack.pack_put = counted_put
         try:
-            got, cold = run(build, mctx, path)
+            with Row20Spy() as row20:
+                got, cold = run(build, mctx, path)
         finally:
             pack.pack_put = real_put
         peak = torch.cuda.max_memory_allocated(dev)
@@ -1628,6 +1672,11 @@ def mesh_phase(dev, tables, ticks, oracles, engine_walls, counters):
         stray = [k for k in MESH_MUST_NOT if launches[k] != 0]
         if stray:
             fail(f"kernels launched on the {path} run that the mesh does not run: {stray}")
+        # each shard's windows take their segment bounds from K19, not row 20
+        if path == "mesh sliding" and (row20.calls
+                                       or launches["K19 bounds"] != launches["K20a"]):
+            fail(f"{path}: {row20.calls} flip + cummin calls on the card and "
+                 f"{launches['K19 bounds']} K19 segment bounds for {launches['K20a']} K20a")
         check(got, exp)
         rows_out = len(next(iter(got.values())))
         warm = []
@@ -1818,7 +1867,8 @@ def main() -> int:
                          "print one JSON line (what --parent runs)")
     ap.add_argument("--walls-paths", default=",".join(COMPARED),
                     help="with --walls-only: the paths to time, comma-separated, of q1, q3, "
-                         "q5, q13, q7, tumbling, hopping, session, sliding, vector and ann")
+                         "q5, q13, q7, tumbling, hopping, session, sliding, shift, vector "
+                         "and ann")
     ap.add_argument("--package", default=str(ROOT))
     args = ap.parse_args()
 
@@ -2060,6 +2110,7 @@ def smoke(dev, card: str, args) -> int:
                 "K13": (join, "EXPAND_LAUNCHES"),
                 "K16": (stagefuse, "ELEMWISE_LAUNCHES"),
                 "K18": (asof, "ASOF_PROBE_LAUNCHES"), "K19": (asof, "FILL_FORWARD_LAUNCHES"),
+                "K19 bounds": (asof, "SEGMENT_BOUNDS_LAUNCHES"),
                 "K20a": (ts_execs, "WINDOW_BOUNDS_LAUNCHES"),
                 "K20b": (ts_execs, "RANGE_MINMAX_LAUNCHES"),
                 "K21": (vops, "LAUNCHES"), "K22": (lops, "LAUNCHES"),
@@ -2070,7 +2121,7 @@ def smoke(dev, card: str, args) -> int:
     # any path (the main paths' signatures are compiled typed)
     dispatch_counters = {"K18": (asof, "ASOF_PROBE_DISPATCH_LAUNCHES"),
                          "K12": (join, "SORTED_PROBE_DISPATCH_LAUNCHES")}
-    ts_kernels = ["K18", "K19", "K20a", "K20b"]
+    ts_kernels = ["K18", "K19", "K19 bounds", "K20a", "K20b"]
     # path: (stream, check, kernels it must launch, kernels it must not, and
     # whether it must take the general join).  Q4's semi join takes the
     # general join's plan but never expands, so it launches no K13.
@@ -2092,16 +2143,19 @@ def smoke(dev, card: str, args) -> int:
         "q7": (q7_stream, check_q7, ["K1", "K3", "K4", "K5", "K11 build", "K11", "K16"],
                ["K12", "K13"], False),
         # the time-series tier over bench.py's ticks
-        "asof": (asof_stream, check_asof, ["K18", "K4"], ["K19", "K20a", "K20b"], False),
-        "asof sort": (asof_stream, check_asof, ["K19", "K4"], ["K18", "K20a", "K20b"], False),
+        "asof": (asof_stream, check_asof, ["K18", "K4"], ["K19", "K19 bounds", "K20a", "K20b"],
+                 False),
+        "asof sort": (asof_stream, check_asof, ["K19", "K4"],
+                      ["K18", "K19 bounds", "K20a", "K20b"], False),
         "asof forward": (lambda: asof_stream("forward"), check_asof, ["K18", "K4"],
-                         ["K19", "K20a", "K20b"], False),
+                         ["K19", "K19 bounds", "K20a", "K20b"], False),
         "tumbling": (tumbling_stream, check_tumbling, ["K3", "K4"], ts_kernels, False),
         "hopping": (hopping_stream, check_hopping, ["K3", "K4"], ts_kernels, False),
         "session": (session_stream, check_session, ["K3", "K4"], ts_kernels, False),
-        "sliding": (sliding_stream, check_sliding, ["K19", "K20a", "K20b", "K4"],
-                    ["K18"], False),
-        "shift": (shift_stream, check_shift, ["K19", "K4"], ["K18", "K20a", "K20b"], False),
+        "sliding": (sliding_stream, check_sliding, ["K19 bounds", "K20a", "K20b", "K4"],
+                    ["K18", "K19"], False),
+        "shift": (shift_stream, check_shift, ["K19 bounds", "K4"],
+                  ["K18", "K19", "K20a", "K20b"], False),
     }
     for p in paths.values():
         # no earlier path runs the vector tier's kernels, nor slice 6's: the
@@ -2127,7 +2181,7 @@ def smoke(dev, card: str, args) -> int:
     # and past a lowered masked-split cap; bench.py's skew join, adaptive
     # (K26) and static; groupby=sort's one-hot partial aggregate (K6)
     # kernels of the time-series tier and of the mesh
-    ts_only = ["K18", "K19", "K20a", "K20b", "K24", "K14"]
+    ts_only = ["K18", "K19", "K19 bounds", "K20a", "K20b", "K24", "K14"]
     sort_must_not = ["K2", "K2 pre", "K17", "K26", "K12", "K21", "K22"] + ts_only
     paths.update({
         "q3 compacted": (q3_stream, check_q3, ["K1", "K3", "K4", "K5", "K11 build", "K11",
@@ -2275,7 +2329,8 @@ def smoke(dev, card: str, args) -> int:
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            got = collect_numpy(stream(), path)
+            with Row20Spy() as row20:
+                got = collect_numpy(stream(), path)
             torch.cuda.synchronize()
             cold = time.perf_counter() - t0
         finally:
@@ -2321,6 +2376,13 @@ def smoke(dev, card: str, args) -> int:
         stray = [k for k in must_not if launches[k] != 0]
         if stray:
             fail(f"kernels launched on the {path} run that its strategy excludes: {stray}")
+        # sliding and shift take every row's segment start and end from K19's
+        # segment bounds: no flip + cummin on the card
+        if path in ("sliding", "shift") and (
+                row20.calls or launches["K19 bounds"] != SEGMENT_BOUNDS_PER_QUERY):
+            fail(f"{path}: {row20.calls} flip + cummin calls on the card and "
+                 f"{launches['K19 bounds']} K19 segment bounds, expected 0 and "
+                 f"{SEGMENT_BOUNDS_PER_QUERY}")
         if any(dispatched.values()):
             fail(f"{path}: sorted searches took the runtime-dispatch kernel, not the typed "
                  f"one: {dispatched}")
@@ -2477,7 +2539,7 @@ def smoke(dev, card: str, args) -> int:
     prefixes = ("qk_predicate", "qk_bucket_", "qk_small_pre", "qk_pre_agg",
                 "qk_insert_kernel", "qk_gb_", "qk_partition_kernel",
                 "qk_probe_kernel", "qk_sorted_probe_kernel", "qk_mm_expand_kernel",
-                "qk_elemwise", "qk_asof_probe", "qk_fill_", "qk_window_bounds_kernel",
+                "qk_elemwise", "qk_asof_probe", "qk_fill_", "qk_bounds_chain", "qk_window_",
                 "qk_range_", "qk_sims_", "qk_topk_merge_kernel", "qk_gram_",
                 "qk_plan_", "qk_adapt_kernel", "qk_decode", "qk_mesh_", "qk_pk_")
     profiles = {}
@@ -2627,16 +2689,14 @@ def smoke(dev, card: str, args) -> int:
                          "K2": (fuse.FusedPartialAgg, "prepare_small",
                                 lambda self, b: b.padded_len)},
         "asof sort": {"K19": (asof, "seg_fill_forward", lambda v, st: v.shape[0])},
-        "sliding": {"K19": (asof, "seg_fill_forward", lambda v, st: v.shape[0]),
+        "sliding": {"K19 bounds": (asof, "segment_bounds", lambda fl: fl.shape[0]),
                     "K20a": (ts_execs, "window_bounds", lambda t, a, b, sz: t.shape[0]),
                     "K20b": (ts_execs, "range_minmax", lambda x, lf, rt, op: x.shape[0]),
                     "row 9 reduce": (kernels, "reduce_array", lambda a, v, op: a.shape[0]),
-                    "row 20 segment ends": (ts_execs, "_rows_from_segment_end",
-                                            lambda io, fl, n: n),
                     # the optimizer's catalog masks its samples on the CPU
                     "mask": (kernels, "apply_mask",
                              lambda b, m: m.shape[0] if m.is_cuda else -1)},
-        "shift": {"K19": (asof, "seg_fill_forward", lambda v, st: v.shape[0])},
+        "shift": {"K19 bounds": (asof, "segment_bounds", lambda fl: fl.shape[0])},
         **{p: {"K3": (hashtable, "hash_groupby", lambda l, a, o, v: v.shape[0])}
            for p in ("tumbling", "hopping")}}
     s4 = {}
@@ -3289,27 +3349,53 @@ def smoke(dev, card: str, args) -> int:
         library_device_us=device_us(lambda: torch.searchsorted(qk_sorted, tk, right=True)),
         per_query={p: launches_by_path[p]["K18"] for p in ts_paths}))
 
-    # K19 at the sort strategy's, the sliding window's and shift's shapes, and
-    # on one segment, every row a segment, no quote at all, 2^23 and 0 rows
+    # K19 at the sort strategy's shape and on sliding's and shift's start
+    # flags (the start form, where(flag, iota, -1)), and on one segment,
+    # every row a segment, no quote at all, 2^23 and 0 rows; K19's segment
+    # bounds at sliding's and shift's query shapes, at the sort strategy's
+    # row count and on the same made flags
     g19 = torch.Generator(device="cpu").manual_seed(args.seed + 19)
-    k19_cases = {f"{p} query shape": s4[p].args["K19"][0] for p in ("asof sort", "sliding",
-                                                                    "shift")}
+
+    def start_form(fl):
+        io = torch.arange(fl.shape[0], dtype=torch.int32, device=fl.device)
+        return torch.where(fl, io, torch.full_like(io, -1)), fl
+
+    flags_of = {p: s4[p].args["K19 bounds"][0][0] for p in ("sliding", "shift")}
+    k19_cases = {"asof sort query shape": s4["asof sort"].args["K19"][0],
+                 **{f"{p} query shape, start form": start_form(fl) for p, fl in flags_of.items()}}
     n23 = 1 << 23
     iota23 = torch.arange(n23, dtype=torch.int32)
+    made = {
+        "one segment, 2^23 rows": (iota23 == 0).to(dev),
+        "every row a segment, 2^23 rows": torch.ones(n23, dtype=torch.bool, device=dev),
+        "random starts, 2^23 rows": (torch.rand(n23, generator=g19) < 1e-3).to(dev),
+        "no start, 2^23 rows": torch.zeros(n23, dtype=torch.bool, device=dev),
+        "empty": torch.zeros(0, dtype=torch.bool, device=dev),
+    }
     k19_cases.update({
-        "one segment, 2^23 rows": (iota23.to(dev), (iota23 == 0).to(dev)),
-        "every row a segment": (iota23.to(dev), torch.ones(n23, dtype=torch.bool, device=dev)),
+        "one segment, 2^23 rows": (iota23.to(dev), made["one segment, 2^23 rows"]),
+        "every row a segment": (iota23.to(dev), made["every row a segment, 2^23 rows"]),
         "no quote (all -1), random starts": (torch.full((n23,), -1, dtype=torch.int32,
                                                         device=dev),
-                                             (torch.rand(n23, generator=g19) < 1e-3).to(dev)),
-        "empty": (torch.zeros(0, dtype=torch.int32, device=dev),
-                  torch.zeros(0, dtype=torch.bool, device=dev)),
+                                             made["random starts, 2^23 rows"]),
+        "empty": (torch.zeros(0, dtype=torch.int32, device=dev), made["empty"]),
     })
     for label, (v, st) in k19_cases.items():
         same(f"K19 {label}", [asof._seg_fill_forward_cuda(v, st)],
              [asof._seg_fill_forward_plain(v, st)])
     print(f"K19: {', '.join(k19_cases)}: match the plain version")
+    n_sort = s4["asof sort"].args["K19"][0][0].shape[0]
+    kb_cases = {f"{p} query shape": fl for p, fl in flags_of.items()}
+    kb_cases[f"asof sort's {n_sort} rows, random starts"] = (
+        torch.rand(n_sort, generator=g19) < 1e-3).to(dev)
+    kb_cases.update(made)
+    for label, fl in kb_cases.items():
+        same(f"K19 segment bounds {label}", asof._segment_bounds_cuda(fl),
+             asof._segment_bounds_plain(fl))
+    print(f"K19 segment bounds: {', '.join(kb_cases)}: match the plain version")
     k19_a = s4["asof sort"].args["K19"][0]
+    k19_s = start_form(flags_of["sliding"])
+    n19 = k19_s[0].shape[0]
     out.append(dict(
         name="K19 segmented fill-forward", route="cuda",
         source="quokka_tpu_torch/csrc/asof.cu", replaces="quokka_tpu/ops/asof.py:42",
@@ -3318,8 +3404,56 @@ def smoke(dev, card: str, args) -> int:
         plain_ms=cuda_ms(lambda: asof._seg_fill_forward_plain(*k19_a)),
         bound_ms=bound_ms(k19_a[0].shape[0] * (4 + 1 + 4)), bound_by="bytes",
         library_ms=None, shape=f"asof sort: {k19_a[0].shape[0]} rows",
-        device_us=device_us(lambda: asof._seg_fill_forward_cuda(*k19_a), ("qk_fill_",)),
-        per_query={p: launches_by_path[p]["K19"] for p in ts_paths}))
+        device_us=device_us(lambda: asof._seg_fill_forward_cuda(*k19_a), expect=K19_OPS),
+        per_query={p: launches_by_path[p]["K19"] for p in ts_paths},
+        # the start form at sliding's 2^20 rows, beside its one-call yardstick
+        sliding_start_form={
+            "shape": f"sliding's start flags, start form: {n19} rows",
+            "ms": cuda_ms(lambda: asof._seg_fill_forward_cuda(*k19_s)),
+            "device_us": device_us(lambda: asof._seg_fill_forward_cuda(*k19_s),
+                                   expect=K19_OPS),
+            "bound_ms": bound_ms(n19 * (4 + 1 + 4)),
+            "cummax_ms": cuda_ms(lambda: torch.cummax(k19_s[0], 0)),
+            "cummax_device_us": device_us(lambda: torch.cummax(k19_s[0], 0))}))
+    kb_rows = {}
+    for p, fl in flags_of.items():
+        nb = fl.shape[0]
+        io = torch.arange(nb, dtype=torch.int32, device=dev)
+        kb_rows[p] = {
+            "launches": launches_by_path[p]["K19 bounds"], "shape": f"{p}: {nb} rows",
+            "ms": cuda_ms(lambda: asof._segment_bounds_cuda(fl)),
+            "device_us": device_us(lambda: asof._segment_bounds_cuda(fl), expect=K19B_OPS),
+            "plain_ms": cuda_ms(lambda: asof._segment_bounds_plain(fl)),
+            "bound_ms": bound_ms(nb * (1 + 4 + 4)),
+            # the yardsticks: one cummax gives the start half, row 20's flip
+            # and cummin the end half
+            "cummax_ms": cuda_ms(lambda: torch.cummax(start_form(fl)[0], 0)),
+            "cummax_device_us": device_us(lambda: torch.cummax(start_form(fl)[0], 0)),
+            "flip_cummin_ms": cuda_ms(lambda: ts_execs._rows_from_segment_end(io, fl, nb)),
+            "flip_cummin_device_us": device_us(
+                lambda: ts_execs._rows_from_segment_end(io, fl, nb))}
+        print(f"K19 segment bounds at {kb_rows[p]['shape']}: {kb_rows[p]['ms']:.4f} ms, "
+              f"{kb_rows[p]['device_us']:.1f} device us (bound {kb_rows[p]['bound_ms']:.5f} "
+              f"ms); cummax {kb_rows[p]['cummax_ms']:.4f} ms, "
+              f"{kb_rows[p]['cummax_device_us']:.1f} device us; flip + cummin "
+              f"{kb_rows[p]['flip_cummin_ms']:.4f} ms, "
+              f"{kb_rows[p]['flip_cummin_device_us']:.1f} device us; "
+              f"{kb_rows[p]['launches']} launches a query")
+    k19s = out[-1]["sliding_start_form"]
+    print(f"K19 start form at sliding's {n19} rows: {k19s['ms']:.4f} ms, "
+          f"{k19s['device_us']:.1f} device us; cummax {k19s['cummax_ms']:.4f} ms, "
+          f"{k19s['cummax_device_us']:.1f} device us")
+    kbs = kb_rows["sliding"]
+    out.append(dict(
+        name="K19 segment bounds (the scan both ways)", route="cuda",
+        source="quokka_tpu_torch/csrc/asof.cu",
+        replaces="quokka_tpu/ops/asof.py:42 + quokka_tpu/executors/ts_execs.py:928",
+        launches=kbs["launches"], max_abs_err=0.0, ms=kbs["ms"], plain_ms=kbs["plain_ms"],
+        bound_ms=kbs["bound_ms"], bound_by="bytes", library_ms=None, shape=kbs["shape"],
+        device_us=kbs["device_us"], shift=kb_rows["shift"],
+        yardsticks={k: kbs[k] for k in ("cummax_ms", "cummax_device_us", "flip_cummin_ms",
+                                        "flip_cummin_device_us")},
+        per_query={p: launches_by_path[p]["K19 bounds"] for p in ts_paths}))
 
     # K20a and K20b at the sliding window's shape, and on one symbol holding
     # every quote (windows of about 700 rows), equal timestamps, 2^23 rows
@@ -3374,6 +3508,7 @@ def smoke(dev, card: str, args) -> int:
                  [ts_execs._range_minmax_plain(dev_t(x_r), *lr, op)])
         print(f"K20b {label}: matches the plain version (NaN in x)")
     n20 = k20a_a[0].shape[0]
+    k20_one = (*k20_cases["one symbol holding every quote"][:3], TS_SLIDE)
     out.append(dict(
         name="K20a sliding-window bounds", route="cuda",
         source="quokka_tpu_torch/csrc/window.cu",
@@ -3384,8 +3519,13 @@ def smoke(dev, card: str, args) -> int:
         bound_ms=bound_ms(n20 * (8 + 4 + 4 + 4 + 4)), bound_by="bytes", library_ms=None,
         shape=f"sliding: {n20} rows", per_query={p: launches_by_path[p]["K20a"]
                                                   for p in ts_paths},
-        device_us=device_us(lambda: ts_execs._window_bounds_cuda(*k20a_a),
-                            ("qk_window_bounds_kernel",))))
+        device_us=device_us(lambda: ts_execs._window_bounds_cuda(*k20a_a), expect=K20A_OPS),
+        one_symbol={"shape": f"one symbol holding every quote: {k20_one[0].shape[0]} rows",
+                    "ms": cuda_ms(lambda: ts_execs._window_bounds_cuda(*k20_one)),
+                    "device_us": device_us(lambda: ts_execs._window_bounds_cuda(*k20_one),
+                                           expect=K20A_OPS)}))
+    print(f"K20a {out[-1]['one_symbol']['shape']}: {out[-1]['one_symbol']['ms']:.4f} ms, "
+          f"{out[-1]['one_symbol']['device_us']:.1f} device us")
     nb20 = k20b_big[0].shape[0]
     out.append(dict(
         name="K20b sliding-window range min/max", route="cuda",
@@ -3790,11 +3930,14 @@ def smoke(dev, card: str, args) -> int:
     t_row(9, f"reduce_array ({r9_op}, the sliding watermark)",
           lambda: kernels.reduce_array(r9_a, r9_v, r9_op), nbytes(r9_a, r9_v) + 8,
           s4["sliding"].calls["row 9 reduce"], "sliding")
-    (r20_io, r20_fl, r20_n), _ = s4["sliding"].args["row 20 segment ends"]
+    # row 20, K19's plain segment ends: timed at sliding's flags as a
+    # yardstick, with the calls the card path makes (none)
+    r20_fl = flags_of["sliding"]
+    r20_n = r20_fl.shape[0]
+    r20_io = torch.arange(r20_n, dtype=torch.int32, device=dev)
     t_row(20, "rows to the segment end (flip + cummin)",
           lambda: ts_execs._rows_from_segment_end(r20_io, r20_fl, r20_n),
-          nbytes(r20_io, r20_fl) + r20_n * 4, s4["sliding"].calls["row 20 segment ends"],
-          "sliding")
+          nbytes(r20_io, r20_fl) + r20_n * 4, 0, "sliding")
     k20b_x, k20b_l, k20b_r, _ = k20b_big
 
     def prefix_window_sums():

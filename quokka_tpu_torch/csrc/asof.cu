@@ -44,13 +44,30 @@
 // K19 replaces quokka_tpu/ops/asof.py:_seg_fill_forward (a
 // lax.associative_scan of the segmented running max): out[i] is the max of
 // values[j] over j from the last segment start at or before i (or from 0)
-// to i.  What bounds it: bytes (5 B read twice, 4 B written per row).
-// Design: reduce, then scan.  Pass 1 reduces each block of 1024 rows to
-// one (value, started) pair; pass 2, one block, scans those pairs into an
-// exclusive carry per block; pass 3 scans each block again with its carry
-// combined into its first row.  The combine, (a, b) -> b.started ? b.value
-// : max(a.value, b.value), is associative, so every order of combination
-// gives the reference's result exactly (integers, no rounding).
+// to i.  The same scan run from the end with min replaces
+// quokka_tpu/executors/ts_execs.py:_rows_from_segment_end (the reference's
+// backward associative_scan over the start rows, a flip and a cummin in the
+// port before): `qk_segment_bounds` gives every row its segment's first row
+// (the forward max of start rows) and last row (the backward min of the
+// next start row less one) in one launch.  What bounds both: bytes (the
+// general form 5 B read and 4 B written a row; the bounds 1 B read and 8 B
+// written a row).  Design: one single-pass chained scan.  A block takes a
+// tile of QK_CHAIN_TILE consecutive rows, QK_CHAIN_ITEMS a thread read with
+// 16-byte loads, scans them in registers, then across the warp with
+// shuffles and across the block's warps; the tile's carry comes from a
+// decoupled look-back over the tiles before it in scan order: each tile
+// publishes its aggregate, then its inclusive prefix, in one 64-bit status
+// word (value, started flag, state), and a tile whose aggregate holds a
+// segment start publishes its prefix at once, since nothing before it
+// reaches past that start.  A block takes its tile from an atomic ticket,
+// so it waits only on tiles whose blocks already run; the backward scan
+// takes tiles from the last one down and scans each from its end.  The
+// bounds kernel interleaves both directions' tickets in one launch.  The
+// status words and tickets are zeroed by one memset on the same stream.
+// The combine, (a, b) -> b.started ? b.value : op(a.value, b.value), with
+// op max forwards and min backwards, is associative, so every order of
+// combination gives the reference's result exactly (integers, no
+// rounding).
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -58,7 +75,6 @@
 
 #include "search.cuh"
 
-#define QK_SCAN_THREADS 1024
 #define QK_PROBE_THREADS 256
 #define QK_RUN_STAGE_BYTES 16384
 
@@ -215,109 +231,264 @@ static int qk_asof_dyn(const QkAsofArgs& a) {
   return (int)cudaGetLastError();
 }
 
-// -- K19: segmented fill-forward (running max) ------------------------------
+// -- K19: the segmented scan, forwards (max) or backwards (min) --------------
 
-__device__ __forceinline__ void qk_fill_combine(int32_t av, bool as, int32_t* bv,
-                                                bool* bs) {
-  // (a, b) -> (b.started ? b.value : max(a.value, b.value), a.started | b.started)
-  if (!*bs) *bv = av > *bv ? av : *bv;
-  *bs = as || *bs;
+#define QK_CHAIN_THREADS 256
+#define QK_CHAIN_ITEMS 16  // rows a thread: four 16-byte loads of int32, one of flags
+#define QK_CHAIN_TILE (QK_CHAIN_THREADS * QK_CHAIN_ITEMS)
+#define QK_CHAIN_WARPS (QK_CHAIN_THREADS / 32)
+
+struct QkSeg {
+  int32_t v;
+  bool s;  // a segment starts in the combined rows
+};
+
+template <bool kMin>
+__device__ __forceinline__ QkSeg qk_seg_ident() {
+  return QkSeg{kMin ? INT_MAX : INT_MIN, false};
 }
 
-// inclusive scan of (x, s) across the block; every thread gets its prefix
-__device__ __forceinline__ void qk_block_scan(int32_t* x, bool* s, int32_t* sv,
-                                             uint8_t* ss) {
-  int t = threadIdx.x;
-  sv[t] = *x;
-  ss[t] = *s;
+// a before b in scan order
+template <bool kMin>
+__device__ __forceinline__ QkSeg qk_seg_combine(QkSeg a, QkSeg b) {
+  if (!b.s) b.v = kMin ? (a.v < b.v ? a.v : b.v) : (a.v > b.v ? a.v : b.v);
+  b.s = a.s || b.s;
+  return b;
+}
+
+__device__ __forceinline__ QkSeg qk_seg_shfl_up(QkSeg x, int d) {
+  return QkSeg{__shfl_up_sync(0xffffffffu, x.v, d), __shfl_up_sync(0xffffffffu, (int)x.s, d) != 0};
+}
+
+__device__ __forceinline__ QkSeg qk_seg_shfl_down(QkSeg x, int d) {
+  return QkSeg{__shfl_down_sync(0xffffffffu, x.v, d),
+               __shfl_down_sync(0xffffffffu, (int)x.s, d) != 0};
+}
+
+// a tile's status word: state (1 aggregate, 2 inclusive prefix) in bits
+// 62-63, the started flag in bit 32, the value in bits 0-31; 0 = not yet
+__device__ __forceinline__ unsigned long long qk_seg_pack(QkSeg x, unsigned long long state) {
+  return (state << 62) | ((unsigned long long)x.s << 32) | (unsigned long long)(uint32_t)x.v;
+}
+
+__device__ __forceinline__ unsigned long long qk_ld_status(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void qk_st_status(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ void qk_unpack_flags(uint4 f, bool* s) {
+  const uint32_t w[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+  for (int q = 0; q < 16; ++q) s[q] = ((w[q >> 2] >> (8 * (q & 3))) & 0xffu) != 0;
+}
+
+// a thread's QK_CHAIN_ITEMS outputs from row r0, the first cnt written
+__device__ __forceinline__ void qk_store_rows(int32_t* dst, bool vec, long long r0, int cnt,
+                                              const int32_t* o) {
+  if (vec && cnt == QK_CHAIN_ITEMS) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      __stcs((int4*)(dst + r0) + q, make_int4(o[4 * q], o[4 * q + 1], o[4 * q + 2], o[4 * q + 3]));
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < QK_CHAIN_ITEMS; ++q)
+    if (q < cnt) dst[r0 + q] = o[q];
+}
+
+// the rows a thread reads and writes, in row order; rows past cnt are the
+// scan's identity and are not written
+struct QkFillIo {  // the general form: values and starts, forwards, inclusive
+  static constexpr bool kBack = false, kExcl = false;
+  const int32_t* values;
+  const uint8_t* starts;
+  int32_t* out;
+  bool vec;  // every pointer 16-byte aligned
+  __device__ __forceinline__ void load(long long r0, int cnt, QkSeg* x) const {
+    if (vec && cnt == QK_CHAIN_ITEMS) {
+      bool s[16];
+      qk_unpack_flags(__ldcs((const uint4*)(starts + r0)), s);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int4 v = __ldcs((const int4*)(values + r0) + q);
+        x[4 * q] = QkSeg{v.x, s[4 * q]};
+        x[4 * q + 1] = QkSeg{v.y, s[4 * q + 1]};
+        x[4 * q + 2] = QkSeg{v.z, s[4 * q + 2]};
+        x[4 * q + 3] = QkSeg{v.w, s[4 * q + 3]};
+      }
+      return;
+    }
+#pragma unroll
+    for (int q = 0; q < QK_CHAIN_ITEMS; ++q)
+      x[q] = q < cnt ? QkSeg{values[r0 + q], starts[r0 + q] != 0} : qk_seg_ident<false>();
+  }
+  __device__ __forceinline__ void store(long long r0, int cnt, const int32_t* o) const {
+    qk_store_rows(out, vec, r0, cnt, o);
+  }
+};
+
+// the segment bounds from start flags: forwards, each row's last start at
+// or before it (the max over start rows and -1 elsewhere, inclusive: -1
+// before the first start); backwards, each row's next start after it less
+// one (the min, exclusive), n - 1 where none
+template <bool B>
+struct QkBoundsIo {
+  static constexpr bool kBack = B, kExcl = B;
+  const uint8_t* flags;
+  int32_t* out;
+  int32_t n;
+  bool vec;
+  __device__ __forceinline__ void load(long long r0, int cnt, QkSeg* x) const {
+    bool s[16];
+    if (vec && cnt == QK_CHAIN_ITEMS) {
+      qk_unpack_flags(__ldcs((const uint4*)(flags + r0)), s);
+    } else {
+#pragma unroll
+      for (int q = 0; q < QK_CHAIN_ITEMS; ++q) s[q] = q < cnt && flags[r0 + q] != 0;
+    }
+#pragma unroll
+    for (int q = 0; q < QK_CHAIN_ITEMS; ++q) {
+      const int32_t r = (int32_t)(r0 + q);
+      x[q] = s[q] ? QkSeg{B ? r - 1 : r, true} : QkSeg{B ? INT_MAX : -1, false};
+    }
+  }
+  __device__ __forceinline__ void store(long long r0, int cnt, const int32_t* o) const {
+    if (B) {
+      int32_t c[QK_CHAIN_ITEMS];
+#pragma unroll
+      for (int q = 0; q < QK_CHAIN_ITEMS; ++q) c[q] = o[q] < n - 1 ? o[q] : n - 1;
+      qk_store_rows(out, vec, r0, cnt, c);
+    } else {
+      qk_store_rows(out, vec, r0, cnt, o);
+    }
+  }
+};
+
+struct QkChainShared {
+  QkSeg warp[QK_CHAIN_WARPS];  // each warp's aggregate, then its exclusive prefix
+  QkSeg carry;                 // the tile's exclusive prefix
+  unsigned int ticket;
+};
+
+// tile k in scan order (the k-th from the start, or backwards from the
+// end) over n rows in nt tiles; status holds the nt tiles' words of this
+// direction
+template <class Io>
+__device__ __forceinline__ void qk_chain_tile(const Io& io, long long n, long long nt, long long k,
+                                              unsigned long long* status, QkChainShared& sh) {
+  constexpr bool kBack = Io::kBack;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const long long tile = kBack ? nt - 1 - k : k;
+  const int chunk = kBack ? QK_CHAIN_THREADS - 1 - (int)threadIdx.x : (int)threadIdx.x;
+  const long long r0 = tile * QK_CHAIN_TILE + (long long)chunk * QK_CHAIN_ITEMS;
+  const long long left = n - r0;
+  const int cnt = left <= 0 ? 0 : (left < QK_CHAIN_ITEMS ? (int)left : QK_CHAIN_ITEMS);
+  QkSeg x[QK_CHAIN_ITEMS];
+  io.load(r0, cnt, x);
+  // the thread's aggregate, then its exclusive prefix in the warp
+  QkSeg acc = qk_seg_ident<kBack>();
+#pragma unroll
+  for (int q = 0; q < QK_CHAIN_ITEMS; ++q)
+    acc = qk_seg_combine<kBack>(acc, x[kBack ? QK_CHAIN_ITEMS - 1 - q : q]);
+  QkSeg inc = acc;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const QkSeg o = qk_seg_shfl_up(inc, d);
+    if (lane >= d) inc = qk_seg_combine<kBack>(o, inc);
+  }
+  QkSeg wex = qk_seg_shfl_up(inc, 1);
+  if (lane == 0) wex = qk_seg_ident<kBack>();
+  if (lane == 31) sh.warp[w] = inc;
   __syncthreads();
-  for (int off = 1; off < blockDim.x; off <<= 1) {
-    int32_t pv = INT_MIN;
-    bool ps = false;
-    if (t >= off) {
-      pv = sv[t - off];
-      ps = ss[t - off];
+  if (w == 0) {
+    // the warps' exclusive prefixes and the tile's aggregate
+    QkSeg y = lane < QK_CHAIN_WARPS ? sh.warp[lane] : qk_seg_ident<kBack>();
+#pragma unroll
+    for (int d = 1; d < QK_CHAIN_WARPS; d <<= 1) {
+      const QkSeg o = qk_seg_shfl_up(y, d);
+      if (lane >= d) y = qk_seg_combine<kBack>(o, y);
     }
-    __syncthreads();
-    if (t >= off) {
-      qk_fill_combine(pv, ps, x, s);
-      sv[t] = *x;
-      ss[t] = *s;
+    QkSeg yex = qk_seg_shfl_up(y, 1);
+    if (lane == 0) yex = qk_seg_ident<kBack>();
+    const QkSeg agg = {__shfl_sync(0xffffffffu, y.v, QK_CHAIN_WARPS - 1),
+                       __shfl_sync(0xffffffffu, (int)y.s, QK_CHAIN_WARPS - 1) != 0};
+    if (lane < QK_CHAIN_WARPS) sh.warp[lane] = yex;
+    // publish, then look back over the tiles before this one
+    if (lane == 0) qk_st_status(status + k, qk_seg_pack(agg, (k == 0 || agg.s) ? 2ull : 1ull));
+    QkSeg excl = qk_seg_ident<kBack>();
+    for (long long j0 = k - 1; j0 >= 0; j0 -= 32) {
+      const long long j = j0 - lane;
+      unsigned long long word = qk_seg_pack(qk_seg_ident<kBack>(), 2ull);
+      if (j >= 0) {
+        do {
+          word = qk_ld_status(status + j);
+        } while ((word >> 62) == 0);
+      }
+      QkSeg z = {(int32_t)(uint32_t)word, ((word >> 32) & 1ull) != 0};
+      const unsigned stop = __ballot_sync(0xffffffffu, (word >> 62) == 2 || z.s);
+      // lanes up to the nearest tile whose prefix is known; higher lanes
+      // are earlier tiles
+      if (stop && lane > __ffs(stop) - 1) z = qk_seg_ident<kBack>();
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const QkSeg o = qk_seg_shfl_down(z, d);
+        if (lane + d < 32) z = qk_seg_combine<kBack>(o, z);
+      }
+      const QkSeg win = {__shfl_sync(0xffffffffu, z.v, 0),
+                         __shfl_sync(0xffffffffu, (int)z.s, 0) != 0};
+      excl = qk_seg_combine<kBack>(win, excl);
+      if (stop) break;
     }
-    __syncthreads();
+    if (lane == 0) {
+      if (k > 0 && !agg.s)
+        qk_st_status(status + k, qk_seg_pack(qk_seg_combine<kBack>(excl, agg), 2ull));
+      sh.carry = excl;
+    }
   }
+  __syncthreads();
+  QkSeg c = qk_seg_combine<kBack>(sh.carry, qk_seg_combine<kBack>(sh.warp[w], wex));
+  int32_t o[QK_CHAIN_ITEMS];
+#pragma unroll
+  for (int q = 0; q < QK_CHAIN_ITEMS; ++q) {
+    const int i = kBack ? QK_CHAIN_ITEMS - 1 - q : q;
+    if (Io::kExcl) {
+      o[i] = c.v;
+      c = qk_seg_combine<kBack>(c, x[i]);
+    } else {
+      c = qk_seg_combine<kBack>(c, x[i]);
+      o[i] = c.v;
+    }
+  }
+  io.store(r0, cnt, o);
 }
 
-__global__ void qk_fill_reduce_kernel(const int32_t* __restrict__ values,
-                                      const uint8_t* __restrict__ starts, int64_t n,
-                                      int32_t* __restrict__ agg_v,
-                                      uint8_t* __restrict__ agg_s) {
-  __shared__ int32_t sv[QK_SCAN_THREADS];
-  __shared__ uint8_t ss[QK_SCAN_THREADS];
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  int32_t x = i < n ? values[i] : INT_MIN;
-  bool s = i < n ? starts[i] != 0 : false;
-  qk_block_scan(&x, &s, sv, ss);
-  if (threadIdx.x == blockDim.x - 1) {
-    agg_v[blockIdx.x] = x;
-    agg_s[blockIdx.x] = s ? 1 : 0;
-  }
+__global__ void __launch_bounds__(QK_CHAIN_THREADS)
+    qk_fill_chain_kernel(QkFillIo io, long long n, long long nt, unsigned long long* status,
+                         unsigned int* ticket) {
+  __shared__ QkChainShared sh;
+  if (threadIdx.x == 0) sh.ticket = atomicAdd(ticket, 1u);
+  __syncthreads();
+  qk_chain_tile(io, n, nt, (long long)sh.ticket, status, sh);
 }
 
-// one block: the exclusive carry into every block of pass 1
-__global__ void qk_fill_carry_kernel(const int32_t* __restrict__ agg_v,
-                                     const uint8_t* __restrict__ agg_s, int64_t nb,
-                                     int32_t* __restrict__ carry_v,
-                                     uint8_t* __restrict__ carry_s) {
-  __shared__ int32_t sv[QK_SCAN_THREADS];
-  __shared__ uint8_t ss[QK_SCAN_THREADS];
-  int t = threadIdx.x;
-  int64_t chunk = (nb + blockDim.x - 1) / blockDim.x;
-  int64_t b0 = (int64_t)t * chunk;
-  int64_t b1 = b0 + chunk < nb ? b0 + chunk : nb;
-  int32_t x = INT_MIN;
-  bool s = false;
-  for (int64_t b = b0; b < b1; ++b) {
-    int32_t v = agg_v[b];
-    bool f = agg_s[b] != 0;
-    qk_fill_combine(x, s, &v, &f);
-    x = v;
-    s = f;
-  }
-  qk_block_scan(&x, &s, sv, ss);
-  // exclusive prefix of this thread's chunk
-  int32_t cv = INT_MIN;
-  bool cs = false;
-  if (t > 0) {
-    cv = sv[t - 1];
-    cs = ss[t - 1] != 0;
-  }
-  for (int64_t b = b0; b < b1; ++b) {
-    carry_v[b] = cv;
-    carry_s[b] = cs ? 1 : 0;
-    int32_t v = agg_v[b];
-    bool f = agg_s[b] != 0;
-    qk_fill_combine(cv, cs, &v, &f);
-    cv = v;
-    cs = f;
-  }
+// tickets alternate between the directions: even forwards, odd backwards
+__global__ void __launch_bounds__(QK_CHAIN_THREADS)
+    qk_bounds_chain_kernel(QkBoundsIo<false> fwd, QkBoundsIo<true> bwd, long long n, long long nt,
+                           unsigned long long* status, unsigned int* ticket) {
+  __shared__ QkChainShared sh;
+  if (threadIdx.x == 0) sh.ticket = atomicAdd(ticket, 1u);
+  __syncthreads();
+  const long long k = (long long)(sh.ticket >> 1);
+  if (sh.ticket & 1u) qk_chain_tile(bwd, n, nt, k, status + nt, sh);
+  else qk_chain_tile(fwd, n, nt, k, status, sh);
 }
 
-__global__ void qk_fill_scan_kernel(const int32_t* __restrict__ values,
-                                    const uint8_t* __restrict__ starts, int64_t n,
-                                    const int32_t* __restrict__ carry_v,
-                                    const uint8_t* __restrict__ carry_s,
-                                    int32_t* __restrict__ out) {
-  __shared__ int32_t sv[QK_SCAN_THREADS];
-  __shared__ uint8_t ss[QK_SCAN_THREADS];
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  int32_t x = i < n ? values[i] : INT_MIN;
-  bool s = i < n ? starts[i] != 0 : false;
-  if (threadIdx.x == 0) qk_fill_combine(carry_v[blockIdx.x], carry_s[blockIdx.x] != 0,
-                                        &x, &s);
-  qk_block_scan(&x, &s, sv, ss);
-  if (i < n) out[i] = x;
-}
+static bool qk_aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 extern "C" {
 
@@ -367,28 +538,51 @@ int qk_asof_probe(const void* const* run_keys, const void* const* probe, const i
   }
 }
 
-// values (n int32), starts (n uint8); scratch: agg_v, carry_v (nb int32),
-// agg_s, carry_s (nb uint8) with nb = ceil(n / 1024).  out (n int32).
-int qk_seg_fill_forward(const void* values, const void* starts, long long n,
-                        void* agg_v, void* agg_s, void* carry_v, void* carry_s,
+// the scratch of K19 over n rows (uint64 words): a status word per tile
+// and direction, and the ticket
+long long qk_chain_scratch(long long n, int dirs) {
+  return (long long)dirs * ((n + QK_CHAIN_TILE - 1) / QK_CHAIN_TILE) + 1;
+}
+
+// values (n int32), starts (n uint8), scratch (qk_chain_scratch(n, 1)
+// words, zeroed here), out (n int32).
+int qk_seg_fill_forward(const void* values, const void* starts, long long n, void* scratch,
                         void* out, void* stream) {
-  if (n < 0) return (int)cudaErrorInvalidValue;
+  if (n < 0 || n > INT_MAX) return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  long long nb = (n + QK_SCAN_THREADS - 1) / QK_SCAN_THREADS;
-  qk_fill_reduce_kernel<<<(unsigned int)nb, QK_SCAN_THREADS, 0, st>>>(
-      (const int32_t*)values, (const uint8_t*)starts, n, (int32_t*)agg_v,
-      (uint8_t*)agg_s);
-  cudaError_t err = cudaGetLastError();
+  const long long nt = (n + QK_CHAIN_TILE - 1) / QK_CHAIN_TILE;
+  cudaError_t err = cudaMemsetAsync(scratch, 0, 8 * (size_t)qk_chain_scratch(n, 1), st);
   if (err != cudaSuccess) return (int)err;
-  qk_fill_carry_kernel<<<1, QK_SCAN_THREADS, 0, st>>>(
-      (const int32_t*)agg_v, (const uint8_t*)agg_s, nb, (int32_t*)carry_v,
-      (uint8_t*)carry_s);
-  err = cudaGetLastError();
+  QkFillIo io;
+  io.values = (const int32_t*)values;
+  io.starts = (const uint8_t*)starts;
+  io.out = (int32_t*)out;
+  io.vec = qk_aligned16(values) && qk_aligned16(starts) && qk_aligned16(out);
+  unsigned long long* status = (unsigned long long*)scratch;
+  qk_fill_chain_kernel<<<(unsigned int)nt, QK_CHAIN_THREADS, 0, st>>>(
+      io, n, nt, status, (unsigned int*)(status + nt));
+  return (int)cudaGetLastError();
+}
+
+// flags (n uint8, a segment starts where nonzero), scratch
+// (qk_chain_scratch(n, 2) words, zeroed here); start and end (n int32):
+// each row's last flagged row at or before it (-1 where none) and its next
+// flagged row after it less one (n - 1 where none).
+int qk_segment_bounds(const void* flags, long long n, void* scratch, void* start, void* end,
+                      void* stream) {
+  if (n < 0 || n > INT_MAX) return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long nt = (n + QK_CHAIN_TILE - 1) / QK_CHAIN_TILE;
+  cudaError_t err = cudaMemsetAsync(scratch, 0, 8 * (size_t)qk_chain_scratch(n, 2), st);
   if (err != cudaSuccess) return (int)err;
-  qk_fill_scan_kernel<<<(unsigned int)nb, QK_SCAN_THREADS, 0, st>>>(
-      (const int32_t*)values, (const uint8_t*)starts, n, (const int32_t*)carry_v,
-      (const uint8_t*)carry_s, (int32_t*)out);
+  const bool vec = qk_aligned16(flags) && qk_aligned16(start) && qk_aligned16(end);
+  QkBoundsIo<false> fwd = {(const uint8_t*)flags, (int32_t*)start, (int32_t)n, vec};
+  QkBoundsIo<true> bwd = {(const uint8_t*)flags, (int32_t*)end, (int32_t)n, vec};
+  unsigned long long* status = (unsigned long long*)scratch;
+  qk_bounds_chain_kernel<<<(unsigned int)(2 * nt), QK_CHAIN_THREADS, 0, st>>>(
+      fwd, bwd, n, nt, status, (unsigned int*)(status + 2 * nt));
   return (int)cudaGetLastError();
 }
 

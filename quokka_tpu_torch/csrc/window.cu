@@ -6,13 +6,23 @@
 // window is [left_i, right_i] where left_i is the first row of its key
 // segment with time >= t_i - size and right_i the last row with time <=
 // t_i.  The reference runs two lockstep binary searches of 32 fixed steps
-// with clamped gathers; this kernel runs the same 32 steps per row for
-// both bounds in one pass, so every row, padding included, gets the
-// reference's bounds bit for bit.  What bounds it: bytes (the time, segment
-// start and end of each row read once, two int32 written) and the latency
-// of the dependent reads, which stay inside one key segment and mostly hit
-// L1 and L2.  Design: one thread per row, both searches in registers.
-//
+// with clamped gathers.  What bounds it: bytes (the time, segment start and
+// end of each row read once, two int32 written) and the latency of the
+// dependent reads.  Design: two launches, one thread a row.
+// `qk_window_check_kernel` reads each row and its successor and raises one
+// flag where the segment bounds are not a partition of the rows into runs
+// or a run's times are out of order (NaN last, the sort's order).  Where
+// they are, both searches see a monotone predicate, and
+// `qk_window_bounds_kernel` searches outward from the row: back 1, 2, 4, ...
+// rows until the time drops below t_i - size or the step reaches the
+// segment start, forward over times <= t_i until the segment end in the
+// same way, then bisects inside the last step; a row costs about 2 log2 of
+// its window in rows, whatever its segment's length, and neighbouring
+// threads read neighbouring lines.  Where the flag is up, every row runs
+// the reference's two searches (stopping once the range is one row, whose
+// remaining steps are then known), so every row, padding included, gets
+// the reference's bounds bit for bit on any input.
+
 // K20b replaces :902 `_range_minmax`: the min or max of x over [left_i,
 // right_i], NaN propagating as jnp.minimum / jnp.maximum do; a range with
 // left > right gives op(x[left], x[right]), and bounds out of range clamp
@@ -53,33 +63,113 @@ __device__ __forceinline__ int64_t qk_floordiv2(int64_t v) {
   return v >= 0 ? v / 2 : -((-v + 1) / 2);
 }
 
+// a pair of neighbouring times in the order the sort leaves them: NaN last
+template <typename T>
+__device__ __forceinline__ bool qk_ordered(T a, T b) {
+  return b != b || a <= b;
+}
+
+// one flag for the whole call: some row's segment bounds are not its run's
+// ends, or some run's times are out of order
+template <typename T>
+__global__ void qk_window_check_kernel(const T* __restrict__ t,
+                                       const int32_t* __restrict__ seg_start,
+                                       const int32_t* __restrict__ seg_end, int64_t n,
+                                       unsigned int* __restrict__ unsorted) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int64_t s = seg_start[i], e = seg_end[i];
+  bool ok = 0 <= s && s <= i && i <= e && e < n;
+  if (i + 1 < n) {
+    const int64_t s1 = seg_start[i + 1], e1 = seg_end[i + 1];
+    if (s1 == s && e1 == e) ok = ok && qk_ordered(t[i], t[i + 1]);  // one run
+    else ok = ok && s1 == i + 1 && e == i;                          // a run ends at i
+  }
+  if (!ok) *unsorted = 1u;
+}
+
 template <typename T>
 __global__ void qk_window_bounds_kernel(const T* __restrict__ t,
                                         const int32_t* __restrict__ seg_start,
                                         const int32_t* __restrict__ seg_end, int64_t n,
-                                        T size, int32_t* __restrict__ left,
+                                        T size, const unsigned int* __restrict__ unsorted,
+                                        int32_t* __restrict__ left,
                                         int32_t* __restrict__ right) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  T ti = t[i];
-  T lo_t = ti - size;
-  // smallest j in [seg_start, i] with t[j] >= t_i - size
-  int64_t lo = seg_start[i], hi = i;
-  for (int s = 0; s < 32; ++s) {
-    int64_t mid = qk_floordiv2(lo + hi);
-    bool go_right = t[qk_clamp(mid, n)] < lo_t;
-    if (go_right) lo = mid + 1;
-    else hi = mid;
+  const T ti = t[i];
+  const T lo_t = ti - size;
+  const int64_t s = seg_start[i], e = seg_end[i];
+  if (*unsorted) {
+    // the reference's searches: smallest j in [s, i] with t[j] >= t_i -
+    // size, largest j in [i, e] with t[j] <= t_i.  Once lo == hi, the left
+    // search's remaining steps give lo + (t[lo] < t_i - size) and the
+    // right one's lo.
+    int64_t lo = s, hi = i;
+    int k = 0;
+    for (; k < 32 && lo != hi; ++k) {
+      const int64_t mid = qk_floordiv2(lo + hi);
+      if (t[qk_clamp(mid, n)] < lo_t) lo = mid + 1;
+      else hi = mid;
+    }
+    if (k < 32 && t[qk_clamp(lo, n)] < lo_t) ++lo;
+    left[i] = (int32_t)lo;
+    lo = i;
+    hi = e;
+    for (k = 0; k < 32 && lo != hi; ++k) {
+      const int64_t mid = qk_floordiv2(lo + hi + 1);
+      if (t[qk_clamp(mid, n)] <= ti) lo = mid;
+      else hi = mid - 1;
+    }
+    right[i] = (int32_t)lo;
+    return;
+  }
+  // the left bound: the first j in [s, i] with t[j] >= t_i - size (i + 1
+  // if none); t[hi] >= t_i - size and t[lo] < t_i - size (s - 1 stands for
+  // a row before the segment)
+  int64_t lo, hi;
+  if (ti < lo_t) {
+    lo = i + 1;
+  } else {
+    lo = s - 1;
+    hi = i;
+    for (int64_t d = 1;; d <<= 1) {
+      const bool last = i - d <= s;
+      const int64_t j = last ? s : i - d;
+      if (t[j] < lo_t) {
+        lo = j;
+        break;
+      }
+      hi = j;
+      if (last) break;
+    }
+    while (hi - lo > 1) {
+      const int64_t m = lo + ((hi - lo) >> 1);
+      if (t[m] < lo_t) lo = m;
+      else hi = m;
+    }
+    lo = hi;
   }
   left[i] = (int32_t)lo;
-  // largest j in [i, seg_end] with t[j] <= t_i
+  // the right bound: the last j in [i, e] with t[j] <= t_i (i itself is
+  // never compared); t[lo] <= t_i and t[hi] > t_i (e + 1 stands for a row
+  // after the segment)
   lo = i;
-  hi = seg_end[i];
-  for (int s = 0; s < 32; ++s) {
-    int64_t mid = qk_floordiv2(lo + hi + 1);
-    bool le = t[qk_clamp(mid, n)] <= ti;
-    if (le) lo = mid;
-    else hi = mid - 1;
+  hi = e + 1;
+  for (int64_t d = 1; i < e; d <<= 1) {
+    const bool last = i + d >= e;
+    const int64_t j = last ? e : i + d;
+    if (!(t[j] <= ti)) {
+      hi = j;
+      break;
+    }
+    lo = j;
+    if (last) break;
+  }
+  while (hi - lo > 1) {
+    const int64_t m = lo + ((hi - lo) >> 1);
+    if (t[m] <= ti) lo = m;
+    else hi = m;
   }
   right[i] = (int32_t)lo;
 }
@@ -419,24 +509,35 @@ static int qk_range_minmax_t(const void* x, long long n, const void* left, const
 extern "C" {
 
 // t (n rows, dt 0 f64 / 2 i64), seg_start and seg_end (n int32); size as
-// the column's type (size_f for f64, size_i for i64).  left and right (n
-// int32) are outputs.
+// the column's type (size_f for f64, size_i for i64); unsorted (one uint32
+// of scratch, zeroed here).  left and right (n int32) are outputs.
 int qk_window_bounds(const void* t, int dt, const void* seg_start, const void* seg_end,
-                     long long n, long long size_i, double size_f, void* left,
+                     long long n, long long size_i, double size_f, void* unsorted, void* left,
                      void* right, void* stream) {
-  if (n < 0 || (dt != 0 && dt != 2)) return (int)cudaErrorInvalidValue;
+  if (n < 0 || n > 0x7fffffffLL || (dt != 0 && dt != 2)) return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
-  int threads = 256;
-  unsigned int blocks = (unsigned int)((n + threads - 1) / threads);
+  const int threads = 256;
+  const unsigned int blocks = (unsigned int)((n + threads - 1) / threads);
   cudaStream_t st = (cudaStream_t)stream;
-  if (dt == 0)
+  cudaError_t err = cudaMemsetAsync(unsorted, 0, sizeof(unsigned int), st);
+  if (err != cudaSuccess) return (int)err;
+  const int32_t* ss = (const int32_t*)seg_start;
+  const int32_t* se = (const int32_t*)seg_end;
+  unsigned int* flag = (unsigned int*)unsorted;
+  if (dt == 0) {
+    qk_window_check_kernel<double><<<blocks, threads, 0, st>>>((const double*)t, ss, se, n, flag);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
     qk_window_bounds_kernel<double><<<blocks, threads, 0, st>>>(
-        (const double*)t, (const int32_t*)seg_start, (const int32_t*)seg_end, n, size_f,
-        (int32_t*)left, (int32_t*)right);
-  else
+        (const double*)t, ss, se, n, size_f, flag, (int32_t*)left, (int32_t*)right);
+  } else {
+    qk_window_check_kernel<long long><<<blocks, threads, 0, st>>>((const long long*)t, ss, se, n,
+                                                                  flag);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
     qk_window_bounds_kernel<long long><<<blocks, threads, 0, st>>>(
-        (const long long*)t, (const int32_t*)seg_start, (const int32_t*)seg_end, n,
-        size_i, (int32_t*)left, (int32_t*)right);
+        (const long long*)t, ss, se, n, size_i, flag, (int32_t*)left, (int32_t*)right);
+  }
   return (int)cudaGetLastError();
 }
 

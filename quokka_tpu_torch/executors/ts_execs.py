@@ -14,14 +14,16 @@ wrappers take the plain version for CPU tensors only):
 
 - K20a ``window_bounds`` (``csrc/window.cu``) replaces the reference's
   ``_bisect_left_segmented`` + ``_bisect_right_segmented``: every row's
-  sliding-window bounds inside its key segment, in one pass;
+  sliding-window bounds inside its key segment, searched outward from the
+  row once one pass has checked that the segments' times are in order;
 - K20b ``range_minmax`` (``csrc/window.cu``) replaces ``_range_minmax``:
   min / max over each row's window, in two launches: per-chunk summaries,
   then tiles of rows answered from their span staged in shared memory.
 
-``_rows_from_segment_end`` (a flip and a cummin), the session ids and the
-rolling prefix sums are torch primitives (Queue 2 row 20, T); the segment
-starts come from K19 (``ops/asof.seg_fill_forward``) and the watermarks
+The session ids and the rolling prefix sums are torch primitives (Queue 2
+row 20, T); each row's segment start and end come from K19's scan run both
+ways (``ops/asof.segment_bounds``; row 20's flip and cummin,
+``_rows_from_segment_end``, is its plain version) and the watermarks
 from ``kernels.reduce_array`` (row 9, T).
 
 Times keep their native dtypes (int64, int32 days, float64), so window
@@ -581,20 +583,18 @@ class SessionWindowExecutor(_TimeRebase, Executor):
 
 
 def _segments(s: DeviceBatch, keys: Sequence[str]):
-    """(row ids int32, segment-start flags, each row's segment start) of a
-    key-sorted batch; the starts come from K19.  The padding after the live
-    rows is a segment of its own: the reference lets the last key's segment
-    run on into padding rows of an equal key (every row, without keys), so
-    its window searches and shift tails read them."""
+    """(row ids int32, each row's segment start, each row's segment end) of
+    a key-sorted batch, from K19's scan both ways.  The padding after the
+    live rows is a segment of its own: the reference lets the last key's
+    segment run on into padding rows of an equal key (every row, without
+    keys), so its window searches and shift tails read them."""
     n = s.padded_len
     iota = torch.arange(n, dtype=torch.int32, device=s.device)
     key_changed = s.valid != torch.roll(s.valid, 1)
     for limb in (key_limbs(s, keys) if keys else []):
         key_changed = key_changed | (limb != torch.roll(limb, 1))
-    flag = key_changed | (iota == 0)
-    seg_start = asof_ops.seg_fill_forward(torch.where(flag, iota, torch.full_like(iota, -1)),
-                                          flag)
-    return iota, flag, seg_start
+    seg_start, seg_end = asof_ops.segment_bounds(key_changed | (iota == 0))
+    return iota, seg_start, seg_end
 
 
 class SlidingWindowExecutor(_TimeRebase, Executor):
@@ -655,10 +655,8 @@ class SlidingWindowExecutor(_TimeRebase, Executor):
 
     def _rolling(self, merged: DeviceBatch) -> Optional[DeviceBatch]:
         s = kernels.sort_batch(merged, self.keys + [self.time_col])
-        n = s.padded_len
-        iota, flag, seg_start = _segments(s, self.keys)
+        iota, seg_start, seg_end = _segments(s, self.keys)
         t = s.columns[self.time_col].data
-        seg_end = iota + _rows_from_segment_end(iota, flag, n)
         # each row's window inside its key segment: [first time >= t - size,
         # last time <= t]
         left, right = window_bounds(t, seg_start, seg_end, self.size)
@@ -737,7 +735,7 @@ class ShiftExecutor(Executor):
             merged = b
         s = kernels.sort_batch(merged, self.keys + [self.time_col])
         rows = s.padded_len
-        iota, flag, seg_start = _segments(s, self.keys)
+        iota, seg_start, seg_end = _segments(s, self.keys)
         src = iota - self.n
         ok = src >= seg_start
         src = torch.clamp(src, 0, rows - 1).long()
@@ -748,7 +746,7 @@ class ShiftExecutor(Executor):
             taken = with_nulls(s.columns[c].take(src), ~ok)
             out = out.with_column(f"{c}_shifted_{self.n}", taken)
         # the last n rows per key carry over to the next batch
-        tail_mask = s.valid & (_rows_from_segment_end(iota, flag, rows) < self.n)
+        tail_mask = s.valid & (seg_end - iota < self.n)
         tail = kernels.compact(kernels.apply_mask(s, tail_mask))
         self.tail = tail.select(batch.names) if tail.count_valid() > 0 else None
         only_new = kernels.apply_mask(out, out.valid & out.columns["__new"].data)
@@ -761,22 +759,19 @@ class ShiftExecutor(Executor):
 # ---------------------------------------------------------------------------
 
 
-def _rows_from_segment_end(iota: torch.Tensor, seg_start_flag: torch.Tensor,
-                           n: int) -> torch.Tensor:
-    """Distance from each row to its segment's last row (0 = last): the
-    segment ends one before the next start, found by a suffix min of the
-    start rows (a flip and a cummin, T)."""
-    starts_idx = torch.where(seg_start_flag, iota, torch.full_like(iota, n))
-    suffix_min = torch.flip(torch.cummin(torch.flip(starts_idx, [0]), 0).values, [0])
-    after = torch.cat([suffix_min[1:], torch.full((1,), n, dtype=iota.dtype,
-                                                  device=iota.device)])
-    return after - 1 - iota
+# row 20: the distance to the segment's last row, a flip and a cummin (T):
+# the plain version of K19's segment ends
+_rows_from_segment_end = asof_ops._rows_from_segment_end
 
 
 def _window_bounds_plain(t: torch.Tensor, seg_start: torch.Tensor, seg_end: torch.Tensor,
                          size):
     """Plain version of K20a: the reference's two segmented binary searches
-    of 32 lockstep steps each, with clamped gathers.  (left, right) int32."""
+    of 32 lockstep steps each, with clamped gathers.  (left, right) int32.
+    A fractional size makes integer times float64, as the reference's x64
+    promotion does (torch would take float32)."""
+    if not t.is_floating_point() and float(size) != int(size):
+        t = t.to(torch.float64)
     n = t.shape[0]
     iota = torch.arange(n, dtype=torch.int64, device=t.device)
     lo_t = t - size
@@ -800,7 +795,7 @@ def _window_lib():
     lib = native.library("window")
     if not getattr(lib, "qk_bound", False):
         P, I, L, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
-        lib.qk_window_bounds.argtypes = [P, I, P, P, L, L, D, P, P, P]
+        lib.qk_window_bounds.argtypes = [P, I, P, P, L, L, D, P, P, P, P]
         lib.qk_window_bounds.restype = I
         lib.qk_range_minmax.argtypes = [P, I, L, P, P, I, P, P, P, P]
         lib.qk_range_minmax.restype = I
@@ -831,13 +826,16 @@ def _window_bounds_cuda(t, seg_start, seg_end, size):
         t, dt = t.to(torch.float64), 0
     else:
         t, dt = t.to(torch.int64), 2
+    if n >= 1 << 31:
+        raise ValueError("window_bounds: 32-bit bounds take fewer than 2^31 rows")
     # held through the launch, as in _range_minmax_cuda
     t, seg_start, seg_end = t.contiguous(), seg_start.contiguous(), seg_end.contiguous()
+    unsorted = torch.empty(1, dtype=torch.int32, device=dev)
     left = torch.empty(n, dtype=torch.int32, device=dev)
     right = torch.empty(n, dtype=torch.int32, device=dev)
     native.check(lib.qk_window_bounds(
         t.data_ptr(), dt, seg_start.data_ptr(),
-        seg_end.data_ptr(), n, int(size) if dt == 2 else 0, float(size),
+        seg_end.data_ptr(), n, int(size) if dt == 2 else 0, float(size), unsorted.data_ptr(),
         left.data_ptr(), right.data_ptr(), native.stream_ptr(dev)), "qk_window_bounds")
     WINDOW_BOUNDS_LAUNCHES += 1
     return left, right

@@ -16,6 +16,11 @@ Two strategies (``ops/strategy`` op ``asof``), each recorded as it runs:
   (``seg_fill_forward``, ``csrc/asof.cu``), a segmented running max that
   carries the latest quote position forward onto every trade row.
 
+K19's scan also runs from the end with min: ``segment_bounds`` gives the
+windows, shift and the mesh every row's segment start and end from the
+start flags in one launch (the reference's ``_seg_fill_forward`` over the
+start rows and its ``_rows_from_segment_end``).
+
 The reference's third strategy, ``host`` (its native O(n+m) merge), is
 CPU-only there (``strategy.py:316-330``) and is not ported: asking for it
 raises.  Times and keys keep native dtypes (int64 times, int32 string
@@ -26,7 +31,8 @@ time; 'forward' quotes with time >= trade time.  Among quotes sharing
 first, as pandas' merge_asof does.
 
 Each kernel has its plain torch version beside it (``_asof_probe_plain``,
-``_seg_fill_forward_plain``); the wrappers take them for CPU tensors only.
+``_seg_fill_forward_plain``, ``_segment_bounds_plain``); the wrappers take
+them for CPU tensors only.
 """
 
 from __future__ import annotations
@@ -41,16 +47,17 @@ from quokka_tpu_torch.ops import kernels, native
 from quokka_tpu_torch.ops import strategy as kstrategy
 from quokka_tpu_torch.ops.batch import DeviceBatch, NumCol, key_limbs, with_nulls
 
-# launches of the K18 and K19 CUDA kernels; K18's launches that took the
-# runtime-dispatch kernel (a key or time signature csrc/asof.cu does not
-# compile typed) are also counted apart
+# launches of the K18 and K19 CUDA kernels (K19's general form and its
+# segment bounds apart); K18's launches that took the runtime-dispatch
+# kernel (a key or time signature csrc/asof.cu does not compile typed) are
+# also counted apart
 ASOF_PROBE_LAUNCHES = 0
 ASOF_PROBE_DISPATCH_LAUNCHES = 0
 FILL_FORWARD_LAUNCHES = 0
+SEGMENT_BOUNDS_LAUNCHES = 0
 
 _LIMB_DT = {torch.float64: 0, torch.float32: 1, torch.int64: 2, torch.int32: 3,
             torch.bool: 4}
-_SCAN_BLOCK = 1024  # rows per block of K19's passes
 
 
 def _lib():
@@ -60,8 +67,11 @@ def _lib():
         PP, PI = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
         lib.qk_asof_probe.argtypes = [PP, PP, PI, I, I, P, L, P, P, L, P, L, P, P, PI, P]
         lib.qk_asof_probe.restype = I
-        lib.qk_seg_fill_forward.argtypes = [P, P, L, P, P, P, P, P, P]
+        lib.qk_seg_fill_forward.argtypes = [P, P, L, P, P, P]
         lib.qk_seg_fill_forward.restype = I
+        lib.qk_segment_bounds.argtypes = [P, L, P, P, P, P]
+        lib.qk_segment_bounds.restype = I
+        lib.qk_chain_scratch.argtypes, lib.qk_chain_scratch.restype = [L, I], L
         lib.qk_bound = True
     return lib
 
@@ -97,18 +107,16 @@ def _seg_fill_forward_cuda(values: torch.Tensor, seg_start: torch.Tensor) -> tor
             or seg_start.device != dev or seg_start.shape[0] != n:
         raise TypeError(f"seg_fill_forward: needs int32 values and bool starts of one "
                         f"length on one device, got {values.dtype}/{seg_start.dtype}")
+    if n >= 1 << 31:
+        raise ValueError("seg_fill_forward: 32-bit rows take fewer than 2^31 rows")
+    # the contiguous copies live in locals until the launch has been issued
     values = values.contiguous()
     starts = seg_start.contiguous().view(torch.uint8)
-    nb = max(1, (n + _SCAN_BLOCK - 1) // _SCAN_BLOCK)
-    agg_v = torch.empty(nb, dtype=torch.int32, device=dev)
-    carry_v = torch.empty(nb, dtype=torch.int32, device=dev)
-    agg_s = torch.empty(nb, dtype=torch.uint8, device=dev)
-    carry_s = torch.empty(nb, dtype=torch.uint8, device=dev)
+    scratch = torch.empty(lib.qk_chain_scratch(n, 1), dtype=torch.int64, device=dev)
     out = torch.empty(n, dtype=torch.int32, device=dev)
     native.check(lib.qk_seg_fill_forward(
-        values.data_ptr(), starts.data_ptr(), n, agg_v.data_ptr(), agg_s.data_ptr(),
-        carry_v.data_ptr(), carry_s.data_ptr(), out.data_ptr(), native.stream_ptr(dev)),
-        "qk_seg_fill_forward")
+        values.data_ptr(), starts.data_ptr(), n, scratch.data_ptr(), out.data_ptr(),
+        native.stream_ptr(dev)), "qk_seg_fill_forward")
     FILL_FORWARD_LAUNCHES += 1
     return out
 
@@ -122,6 +130,66 @@ def seg_fill_forward(values: torch.Tensor, seg_start: torch.Tensor) -> torch.Ten
     if values.device.type == "cpu":
         return _seg_fill_forward_plain(values, seg_start)
     return _seg_fill_forward_cuda(values, seg_start)
+
+
+def _rows_from_segment_end(iota: torch.Tensor, seg_start_flag: torch.Tensor,
+                           n: int) -> torch.Tensor:
+    """Distance from each row to its segment's last row (0 = last): the
+    segment ends one before the next start, found by a suffix min of the
+    start rows (a flip and a cummin, T; the reference's
+    ``_rows_from_segment_end``)."""
+    starts_idx = torch.where(seg_start_flag, iota, torch.full_like(iota, n))
+    suffix_min = torch.flip(torch.cummin(torch.flip(starts_idx, [0]), 0).values, [0])
+    after = torch.cat([suffix_min[1:], torch.full((1,), n, dtype=iota.dtype,
+                                                  device=iota.device)])
+    return after - 1 - iota
+
+
+def _segment_bounds_plain(flag: torch.Tensor):
+    """Plain version of K19's segment bounds: K19's plain scan over the
+    start rows, and row 20's flip and cummin."""
+    n = flag.shape[0]
+    iota = torch.arange(n, dtype=torch.int32, device=flag.device)
+    start = _seg_fill_forward_plain(torch.where(flag, iota, torch.full_like(iota, -1)), flag)
+    return start, iota + _rows_from_segment_end(iota, flag, n)
+
+
+def _segment_bounds_cuda(flag: torch.Tensor):
+    global SEGMENT_BOUNDS_LAUNCHES
+    _require_cuda(flag, "segment_bounds")
+    lib = _lib()
+    dev = flag.device
+    n = flag.shape[0]
+    if flag.dtype != torch.bool or flag.dim() != 1:
+        raise TypeError(f"segment_bounds: needs one bool column of start flags, got "
+                        f"{flag.dtype} {tuple(flag.shape)}")
+    if n >= 1 << 31:
+        raise ValueError("segment_bounds: 32-bit rows take fewer than 2^31 rows")
+    # the contiguous copy lives in a local until the launch has been issued
+    flags = flag.contiguous().view(torch.uint8)
+    scratch = torch.empty(lib.qk_chain_scratch(n, 2), dtype=torch.int64, device=dev)
+    start = torch.empty(n, dtype=torch.int32, device=dev)
+    end = torch.empty(n, dtype=torch.int32, device=dev)
+    native.check(lib.qk_segment_bounds(
+        flags.data_ptr(), n, scratch.data_ptr(), start.data_ptr(), end.data_ptr(),
+        native.stream_ptr(dev)), "qk_segment_bounds")
+    SEGMENT_BOUNDS_LAUNCHES += 1
+    return start, end
+
+
+def segment_bounds(flag: torch.Tensor):
+    """K19 both ways: from the bool start flags of rows in segments (a
+    segment starts at each flagged row), each row's segment start (the last
+    flagged row at or before it, -1 before the first flag) and segment end
+    (the row before the next flagged row, n - 1 after the last), int32
+    each.  CUDA tensors launch the kernel; CPU tensors take the plain
+    version."""
+    n = flag.shape[0]
+    devprof.on_dispatch(("K19 bounds", flag.device.type, n),
+                        lambda: (0.0, float(9 * n), float(8 * n)))
+    if flag.device.type == "cpu":
+        return _segment_bounds_plain(flag)
+    return _segment_bounds_cuda(flag)
 
 
 # ---------------------------------------------------------------------------

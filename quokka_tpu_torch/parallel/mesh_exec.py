@@ -413,13 +413,6 @@ def _sort_segments(klimbs: Sequence[torch.Tensor], tlimbs: Sequence[torch.Tensor
     return perm, inv_s == 0, klimbs_s, tuple(l[perm] for l in tlimbs), changed
 
 
-def _seg_start(seg_flag: torch.Tensor) -> torch.Tensor:
-    """Each row's segment start (K19)."""
-    iota = torch.arange(seg_flag.shape[0], dtype=torch.int32, device=seg_flag.device)
-    return asof_ops.seg_fill_forward(torch.where(seg_flag, iota, torch.full_like(iota, -1)),
-                                     seg_flag)
-
-
 def mesh_session_window(mesh: Mesh, batch: DeviceBatch, by: List[str],
                         time_data: torch.Tensor, timeout: int,
                         partials: List[Tuple[str, str, Optional[str]]]) -> DeviceBatch:
@@ -470,9 +463,9 @@ def mesh_sliding_window(mesh: Mesh, batch: DeviceBatch, by: List[str],
                         partials: List[Tuple[str, str, Optional[str]]]) -> DeviceBatch:
     """Per-event trailing windows [t - size, t] over the mesh: key-shuffle
     (K24), then per shard the engine's rolling kernels over whole key
-    groups: segment starts (K19), window bounds (K20a), range min / max
-    (K20b), prefix sums for sum and count.  Returns the per-event batch in
-    per-shard key-major order with the partial outputs."""
+    groups: segment bounds (K19 both ways), window bounds (K20a), range
+    min / max (K20b), prefix sums for sum and count.  Returns the per-event
+    batch in per-shard key-major order with the partial outputs."""
     from quokka_tpu_torch.executors import ts_execs
 
     if not by:
@@ -502,10 +495,7 @@ def mesh_sliding_window(mesh: Mesh, batch: DeviceBatch, by: List[str],
         ca = arrs[nlimb + 1:nlimb + 1 + ncarry]
         valid = arrs[-1]
         perm, valid_s, _, (t_s,), seg_flag = _sort_segments(lb, (t_in,), valid)
-        p = valid_s.shape[0]
-        iota = torch.arange(p, dtype=torch.int32, device=valid_s.device)
-        seg_start = _seg_start(seg_flag)
-        seg_end = iota + ts_execs._rows_from_segment_end(iota, seg_flag, p)
+        seg_start, seg_end = asof_ops.segment_bounds(seg_flag)
         left, right = ts_execs.window_bounds(t_s, seg_start, seg_end, size)
         outs = []
         for (_, op, _), j in zip(partials, val_idx):
@@ -544,9 +534,9 @@ def mesh_shift(mesh: Mesh, batch: DeviceBatch, by: List[str], time_col: str,
                columns: List[str], n_lag: int) -> DeviceBatch:
     """Per-key lag over the mesh: rows key-shuffle (K24), each shard sorts
     its whole key groups by (key, time) and takes the value n rows earlier
-    within the key's segment (segment starts by K19).  Rows with no history
-    get null (NaN for floats, the int sentinel otherwise); each shard's
-    output is key-major."""
+    within the key's segment (segment starts by K19's segment bounds).  Rows
+    with no history get null (NaN for floats, the int sentinel otherwise);
+    each shard's output is key-major."""
     if not by:
         raise MeshUnsupported("by-less shift on mesh (no shuffle key)")
     limbs = key_limbs(batch, by)
@@ -573,7 +563,7 @@ def mesh_shift(mesh: Mesh, batch: DeviceBatch, by: List[str], time_col: str,
         perm, valid_s, _, _, seg_flag = _sort_segments(lb, (t,), valid)
         p = valid_s.shape[0]
         src = _iota(p, valid_s.device) - n_lag
-        ok = src >= _seg_start(seg_flag).long()
+        ok = src >= asof_ops.segment_bounds(seg_flag)[0].long()
         src = torch.clamp(src, 0, p - 1)
         out_ca = tuple(c[perm] for c in ca)
         shifted = []

@@ -649,13 +649,56 @@ def test_k18_strided_inputs_match_plain(cuda_device, upper):
     assert int(want[1].sum()) > 0
 
 
-@pytest.mark.parametrize("n", [0, 1000, 1 << 20, (1 << 22) + 3])
+K19_ROWS = [0, 1000, 1 << 20, (1 << 22) + 3, 5_242_880]
+
+
+@pytest.mark.parametrize("n", K19_ROWS)
 @pytest.mark.parametrize("density", [0.0, 1e-3, 1.0])
 def test_k19_kernel_matches_plain(cuda_device, n, density):
+    """K19's general form at row counts that are and are not a multiple of
+    its 4096-row tile (the as-of sort strategy's 5,242,880 rows among
+    them), with no start, sparse starts and a start on every row."""
     r = np.random.default_rng(n)
     v = torch.from_numpy(r.integers(-(2**31), 2**31 - 1, n).astype(np.int32)).to(cuda_device)
     st = torch.from_numpy(r.random(n) < density).to(cuda_device)
     _equal([asof._seg_fill_forward_cuda(v, st)], [asof._seg_fill_forward_plain(v, st)])
+
+
+@pytest.mark.parametrize("n", K19_ROWS)
+@pytest.mark.parametrize("density", [0.0, 1e-3, 1.0])
+def test_k19_segment_bounds_match_plain(cuda_device, n, density):
+    """K19 both ways: each row's segment start (forwards) and end
+    (backwards) against K19's plain scan and row 20's flip and cummin."""
+    r = np.random.default_rng(n + 1)
+    fl = torch.from_numpy(r.random(n) < density).to(cuda_device)
+    launches = asof.SEGMENT_BOUNDS_LAUNCHES
+    _equal(asof._segment_bounds_cuda(fl), asof._segment_bounds_plain(fl))
+    assert asof.SEGMENT_BOUNDS_LAUNCHES == launches + 1
+
+
+def test_k19_strided_inputs_match_plain(cuda_device):
+    """Values and starts taken from wider tensors, and starts that begin
+    one byte into their storage (no 16-byte loads): the contiguous copies
+    live through the launch."""
+    r = np.random.default_rng(19)
+    n = (1 << 20) + 5
+    v = _strided(torch.from_numpy(r.integers(-50, 50, n).astype(np.int32)).to(cuda_device))
+    st = _strided(torch.from_numpy(r.random(n) < 1e-3).to(cuda_device))
+    assert not v.is_contiguous() and not st.is_contiguous()
+    _equal([asof._seg_fill_forward_cuda(v, st)], [asof._seg_fill_forward_plain(v, st)])
+    fl = torch.from_numpy(r.random(n + 1) < 1e-3).to(cuda_device)[1:]
+    _equal([asof._seg_fill_forward_cuda(v.contiguous(), fl)],
+           [asof._seg_fill_forward_plain(v, fl)])
+
+
+def test_k19_segment_bounds_strided_inputs_match_plain(cuda_device):
+    r = np.random.default_rng(191)
+    n = (1 << 20) + 5
+    fl = _strided(torch.from_numpy(r.random(n) < 1e-3).to(cuda_device))
+    assert not fl.is_contiguous()
+    _equal(asof._segment_bounds_cuda(fl), asof._segment_bounds_plain(fl))
+    off = torch.from_numpy(r.random(n + 1) < 0.3).to(cuda_device)[1:]
+    _equal(asof._segment_bounds_cuda(off), asof._segment_bounds_plain(off))
 
 
 @pytest.mark.parametrize("n_keys", [1, 100])
@@ -671,14 +714,76 @@ def test_k20_kernels_match_plain(cuda_device, n_keys, size, dtype):
     key = torch.from_numpy(key[o]).to(cuda_device)
     io = torch.arange(n, dtype=torch.int32, device=cuda_device)
     fl = (key != torch.roll(key, 1)) | (io == 0)
-    ss = asof._seg_fill_forward_cuda(torch.where(fl, io, torch.full_like(io, -1)), fl)
-    se = io + ts_execs._rows_from_segment_end(io, fl, n)
+    ss, se = asof._segment_bounds_cuda(fl)
     lr = ts_execs._window_bounds_cuda(t, ss, se, size)
     _equal(lr, ts_execs._window_bounds_plain(t, ss, se, size))
     x = torch.from_numpy(r.uniform(10, 500, n).round(3)).to(cuda_device)
     for op in ("min", "max"):
         _equal([ts_execs._range_minmax_cuda(x, *lr, op)],
                [ts_execs._range_minmax_plain(x, *lr, op)])
+
+
+def _k20a_case(r, case, dtype, dev):
+    """(times, segment starts, segment ends) of K20a's cases: rows sorted by
+    (key, time) in 100 keys, runs of equal timestamps, one segment holding
+    every row, that segment padded with zero times (out of order: every row
+    takes the reference's searches), the sorted rows padded to 2^23 with a
+    segment of their own, float64 times with NaN last in each key, and no
+    row."""
+    n = 1 << 19
+    key = np.sort(r.integers(0, 100, n))
+    t = r.integers(1, 10**7, n)
+    if case == "equal_timestamps":
+        t = t // 1000 * 1000
+    if case in ("one_segment", "one_segment_padded"):
+        key[:] = 0
+    if case == "empty":
+        key, t = key[:0], t[:0]
+    o = np.lexsort((t, key))
+    key, t = key[o], t[o].astype(np.float64 if dtype == torch.float64 else np.int64)
+    if case == "nan_last":
+        t = t.astype(np.float64)
+        for k in np.unique(key)[::7]:
+            t[np.flatnonzero(key == k)[-3:]] = np.nan
+    pad = {"one_segment_padded": n + 300_000, "rows_2_23": 1 << 23}.get(case)
+    if pad is not None:
+        key = np.r_[key, np.full(pad - n, 0 if case == "one_segment_padded" else 100)]
+        t = np.r_[t, np.zeros(pad - n, dtype=t.dtype)]
+    key, t = torch.from_numpy(key).to(dev), torch.from_numpy(t).to(dev)
+    io = torch.arange(key.shape[0], dtype=torch.int32, device=dev)
+    fl = (key != torch.roll(key, 1)) | (io == 0)
+    return (t, *asof._segment_bounds_cuda(fl))
+
+
+K20A_CASES = ["sorted", "equal_timestamps", "one_segment", "one_segment_padded", "rows_2_23",
+              "nan_last", "empty"]
+
+
+@pytest.mark.parametrize("case,dtype", [(c, d) for c in K20A_CASES
+                                        for d in (torch.int64, torch.float64)
+                                        if c != "nan_last" or d == torch.float64])
+@pytest.mark.parametrize("size", [0, 10_000, 2.5])
+def test_k20a_cases_match_plain(cuda_device, case, dtype, size):
+    """K20a against the reference's 32-step searches on every row, int64
+    and float64 times (NaN times float64 only), a fractional size (float64
+    targets)."""
+    r = np.random.default_rng(K20A_CASES.index(case) * 10 + int(size))
+    t, ss, se = _k20a_case(r, case, dtype, cuda_device)
+    launches = ts_execs.WINDOW_BOUNDS_LAUNCHES
+    _equal(ts_execs._window_bounds_cuda(t, ss, se, size),
+           ts_execs._window_bounds_plain(t, ss, se, size))
+    assert ts_execs.WINDOW_BOUNDS_LAUNCHES == launches + 1
+
+
+def test_k20a_strided_inputs_match_plain(cuda_device):
+    """Times and both segment bounds taken from wider tensors: their
+    contiguous copies live through the launch."""
+    r = np.random.default_rng(201)
+    t, ss, se = _k20a_case(r, "sorted", torch.int64, cuda_device)
+    args = (_strided(t), _strided(ss), _strided(se))
+    assert not any(a.is_contiguous() for a in args)
+    _equal(ts_execs._window_bounds_cuda(*args, 10_000),
+           ts_execs._window_bounds_plain(t, ss, se, 10_000))
 
 
 def _equal_nan(a, b):
@@ -763,8 +868,7 @@ def test_k20b_over_k20a_bounds(cuda_device, dtype):
     key = torch.from_numpy(key[o]).to(cuda_device)
     io = torch.arange(n, dtype=torch.int32, device=cuda_device)
     fl = (key != torch.roll(key, 1)) | (io == 0)
-    ss = asof._seg_fill_forward_cuda(torch.where(fl, io, torch.full_like(io, -1)), fl)
-    se = io + ts_execs._rows_from_segment_end(io, fl, n)
+    ss, se = asof._segment_bounds_cuda(fl)
     lr = ts_execs._window_bounds_cuda(t, ss, se, 20_000)
     x = _k20b_x(r, n, dtype).to(cuda_device)
     for op in ("min", "max"):

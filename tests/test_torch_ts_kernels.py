@@ -2,8 +2,10 @@
 (quokka_tpu, JAX x64 on the CPU), on identical inputs made from a numpy seed.
 
 K18 (the sorted-quote probe) against ``_ss_sort_quotes`` + ``_ss_probe``,
-K19 (segmented fill-forward) against ``_seg_fill_forward``, K20a (window
-bounds) against ``_bisect_left_segmented`` + ``_bisect_right_segmented``,
+K19 (segmented fill-forward) against ``_seg_fill_forward``, K19's segment
+bounds against ``_seg_fill_forward`` over the start rows +
+``_rows_from_segment_end``, K20a (window bounds) against
+``_bisect_left_segmented`` + ``_bisect_right_segmented``,
 K20b (range min/max) against ``_range_minmax``, and the torch rows beside
 them (``reduce_array``, ``_rows_from_segment_end``, the sort strategy's
 ``_asof_match``).  The port runs each kernel's plain torch version here
@@ -23,8 +25,11 @@ import torch
 from quokka_tpu.executors import ts_execs as ref_ts
 from quokka_tpu.ops import asof as ref_asof
 from quokka_tpu.ops import kernels as ref_kernels
+from quokka_tpu_torch import sqlparse
 from quokka_tpu_torch.executors import ts_execs
-from quokka_tpu_torch.ops import asof, kernels
+from quokka_tpu_torch.ops import asof, bridge, kernels
+from quokka_tpu_torch.ops.expr_compile import plan_aggregation
+from quokka_tpu_torch.windows import SlidingWindow
 
 import torch_port_util  # noqa: F401  (a private reference AOT store per process)
 
@@ -132,6 +137,102 @@ def test_k19_as_the_segment_start_of_sorted_keys():
     np.testing.assert_array_equal(got, starts)
 
 
+def _ref_segment_bounds(flag):
+    n = len(flag)
+    iota = np.arange(n, dtype=np.int32)
+    start = ref_asof._seg_fill_forward(jnp.asarray(np.where(flag, iota, -1).astype(np.int32)),
+                                       jnp.asarray(flag))
+    end = iota + np.asarray(ref_ts._rows_from_segment_end(jnp.asarray(iota), jnp.asarray(flag),
+                                                          n))
+    return np.asarray(start), end
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 257, 5000])
+@pytest.mark.parametrize("density", ["every row", 0.3, 0.01, "one segment", "none"])
+def test_k19_segment_bounds_match_reference(n, density):
+    """Each row's segment start and end from the start flags, from the
+    densest (every row its own segment) to one segment and no flag at all
+    (rows before the first flag start at -1)."""
+    r = np.random.default_rng(n * 7 + len(str(density)))
+    if density == "every row":
+        flag = np.ones(n, dtype=bool)
+    elif density == "one segment":
+        flag = np.arange(n) == 0
+    elif density == "none":
+        flag = np.zeros(n, dtype=bool)
+    else:
+        flag = r.random(n) < density
+    start, end = asof.segment_bounds(_t(flag))
+    assert start.dtype == end.dtype == torch.int32
+    r_start, r_end = _ref_segment_bounds(flag)
+    np.testing.assert_array_equal(_np(start), r_start)
+    np.testing.assert_array_equal(_np(end), r_end)
+
+
+def test_k19_segment_bounds_of_one_row_segments_and_padding():
+    """Runs of one row between longer runs, then the padding after the live
+    rows as a segment of its own, flagged where validity changes as the
+    windows' and shift's ``_segments`` flags it."""
+    lens = [1, 1, 4, 1, 9, 1, 1, 2, 1]
+    key = np.repeat(np.arange(len(lens)), lens)
+    valid = np.r_[np.ones(len(key), dtype=bool), np.zeros(13, dtype=bool)]
+    key = np.r_[key, np.zeros(13, dtype=key.dtype)]
+    iota = np.arange(len(key))
+    flag = (valid != np.roll(valid, 1)) | (key != np.roll(key, 1)) | (iota == 0)
+    start, end = asof.segment_bounds(_t(flag))
+    r_start, r_end = _ref_segment_bounds(flag)
+    np.testing.assert_array_equal(_np(start), r_start)
+    np.testing.assert_array_equal(_np(end), r_end)
+    assert _np(start)[-1] == len(iota) - 13 and _np(end)[len(iota) - 14] == len(iota) - 14
+
+
+def _key_ticks(r, n, n_keys):
+    t = np.sort(r.integers(0, 40 * n, n)).astype(np.int64)
+    return bridge.HostTable({"sym": r.integers(0, n_keys, n).astype(np.int64), "time": t,
+                             "px": r.uniform(10, 20, n).round(3)})
+
+
+@pytest.mark.parametrize("n_keys", [1, 5])
+def test_sliding_and_shift_executors_over_segment_bounds(n_keys):
+    """The sliding-window and shift executors, which take every row's
+    segment start and end from K19's segment bounds, over two padded
+    batches with a carried tail, against a numpy oracle per key: the same
+    lags and window sums as before the bounds came from one call."""
+    r = np.random.default_rng(40 + n_keys)
+    hosts = [_key_ticks(r, 900, n_keys), _key_ticks(r, 700, n_keys)]
+    hosts[1].columns["time"] += hosts[0].columns["time"].max() + 1
+    batches = [bridge.host_to_device(h, "cpu", sorted_by=["time"]) for h in hosts]
+    assert all(b.padded_len > b.nrows for b in batches)
+    allc = {c: np.concatenate([h.columns[c] for h in hosts]) for c in ("sym", "time", "px")}
+    size = 400
+    shift = ts_execs.ShiftExecutor("time", ["sym"], ["px"], 2)
+    plan = plan_aggregation(sqlparse.parse_select_list("sum(px) as tot, count(*) as n"))
+    slide = ts_execs.SlidingWindowExecutor("time", ["sym"], SlidingWindow(size), plan)
+    got_shift = [bridge.device_to_host(shift.execute([b], 0, 0)) for b in batches]
+    got_slide = [bridge.device_to_host(slide.execute([b], 0, 0)) for b in batches]
+    got_shift = {c: np.concatenate([g[c] for g in got_shift]) for c in got_shift[0]}
+    got_slide = {c: np.concatenate([g[c] for g in got_slide]) for c in got_slide[0]}
+    want_lag = np.full(len(allc["time"]), np.nan)
+    want_tot = np.zeros(len(allc["time"]))
+    want_n = np.zeros(len(allc["time"]))
+    for k in np.unique(allc["sym"]):
+        rows = np.flatnonzero(allc["sym"] == k)
+        t, px = allc["time"][rows], allc["px"][rows]
+        want_lag[rows[2:]] = px[:-2]
+        lo = np.searchsorted(t, t - size, side="left")
+        hi = np.searchsorted(t, t, side="right")
+        cs = np.r_[0.0, np.cumsum(px)]
+        want_tot[rows] = cs[hi] - cs[lo]
+        want_n[rows] = hi - lo
+    for got, cols in ((got_shift, ["px_shifted_2"]), (got_slide, ["tot", "n"])):
+        o = np.lexsort((got["time"], got["sym"]))
+        w = np.lexsort((allc["time"], allc["sym"]))
+        np.testing.assert_array_equal(got["time"][o], allc["time"][w])
+        for c in cols:
+            want = {"px_shifted_2": want_lag, "tot": want_tot, "n": want_n}[c][w]
+            np.testing.assert_allclose(got[c][o], want, rtol=1e-9, atol=0)
+
+
 # ---------------------------------------------------------------------------
 # the sort strategy's match (row 10's rank, one sort, K19)
 # ---------------------------------------------------------------------------
@@ -211,6 +312,30 @@ def test_k20a_bounds_match_reference(time_kind, size, n_keys):
     np.testing.assert_array_equal(_np(right), np.asarray(r_right))
 
 
+@pytest.mark.parametrize("size", [2.5, 0.5])
+def test_k20a_fractional_size_on_int_times_matches_reference(size):
+    """int64 times minus a fractional size: the reference (x64) compares in
+    float64; float32 targets lose the epoch-millisecond times' low digits."""
+    r = np.random.default_rng(int(size * 10))
+    n = 3000
+    key = np.sort(r.integers(0, 3, n))
+    t = r.integers(0, 40, n) + 1_700_000_000_000
+    o = np.lexsort((t, key))
+    key, t = key[o], t[o]
+    iota = np.arange(n, dtype=np.int32)
+    flag = np.r_[True, key[1:] != key[:-1]]
+    seg_start, seg_end = _ref_segment_bounds(flag)
+    jt = jnp.asarray(t)
+    r_left = ref_ts._bisect_left_segmented(jt, jt - size, jnp.asarray(seg_start),
+                                           jnp.asarray(iota))
+    r_right = ref_ts._bisect_right_segmented(jt, jt, jnp.asarray(iota), jnp.asarray(seg_end))
+    left, right = ts_execs.window_bounds(_t(t), _t(seg_start), _t(seg_end.astype(np.int32)),
+                                         size)
+    np.testing.assert_array_equal(_np(left), np.asarray(r_left))
+    np.testing.assert_array_equal(_np(right), np.asarray(r_right))
+    assert (_np(left) < iota).any()
+
+
 @pytest.mark.parametrize("dtype", [np.float64, np.int64, np.float32, np.int32])
 @pytest.mark.parametrize("op", ["min", "max"])
 @pytest.mark.parametrize("n", [1, 1000, 4097])
@@ -275,6 +400,8 @@ def test_kernel_wrappers_refuse_other_devices():
     i32 = meta.to(torch.int32)
     with pytest.raises(RuntimeError, match="unsupported device"):
         asof.seg_fill_forward(i32, meta.bool())
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        asof.segment_bounds(meta.bool())
     with pytest.raises(RuntimeError, match="unsupported device"):
         asof.asof_probe([i32], i32, meta.long()[0], [i32], meta.bool(), True, 0)
     with pytest.raises(RuntimeError, match="unsupported device"):

@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
-"""Profile K3 (hash group-by) and K20b (range min/max) of the PyTorch port on one NVIDIA GPU.
+"""Profile K3, K19, K20a and K20b of the PyTorch port on one NVIDIA GPU.
 
     python3 window_profile.py [--package DIR] [--variants] [--seed N] [--out FILE]
+
+K3 is the hash group-by, K19 the segmented scan (its general form and its
+segment bounds, the scan both ways), K20a the sliding-window bounds and
+K20b the range min/max.
 
 It runs TPC-H Q1 and Q3 at SF1 and the tumbling, hopping and sliding
 windows over bench.py's ticks (chip_smoke.py's data and queries) through
@@ -14,8 +18,17 @@ windows K20a gave before that cut (every padding row's window spans the
 padding), and times the cut itself (two ``torch.where``).  It makes K20b's
 case of one symbol holding every quote (chip_smoke.py's: the quotes sorted
 by time in one segment, padded to the bucket, K20a's 10-second windows,
-the padding rows' windows cut as the executor cuts them).  At
-those arguments it calls the wrapper of this checkout's package and, with
+the padding rows' windows cut as the executor cuts them).  K19: its
+general form at the as-of sort strategy's largest call (5,242,880 rows)
+and on sliding's start flags (the start form, 2^20 rows), and every row's
+segment start and end at sliding's and shift's largest calls, where the
+parent package (which has no segment bounds) runs what its executors ran:
+K19 on the start form, then row 20's flip and cummin; ``torch.cummax`` of
+the start form and the flip and cummin alone are timed as yardsticks.
+K20a: sliding's first full batch and its padded batch, and the one-symbol
+case (its segment runs on into the zero-time padding, so every row takes
+the reference's searches).  At those arguments it calls the wrapper of
+this checkout's package and, with
 ``--package``, of another checkout's (e.g. the parent commit unpacked
 with ``git archive``) in turns (package, this, this, package), and
 reports per call:
@@ -34,8 +47,10 @@ beside the bound, the bytes the function must move over 3.35 TB/s (K3:
 every row's validity byte, the keys and inputs of the live rows, the
 outputs; K20b: x, both bounds and the output, 24 B a float64 row).  It
 checks K3 against its plain version (groups matched by their smallest row,
-floats within rtol 1e-9) and K20b against the other package's values
-(NaN equal to NaN), and compiles csrc/hashtable.cu and csrc/window.cu with
+floats within rtol 1e-9), K19 and K20a against this package's plain
+versions bit for bit, and K20b against the other package's values (NaN
+equal to NaN), and compiles csrc/hashtable.cu, csrc/asof.cu and
+csrc/window.cu with
 ``-Xptxas -v`` (vector_profile.py's compile_sources) to keep each kernel's
 registers, shared memory and spills.  With ``--variants`` it also builds K3
 from copies of csrc/hashtable.cu patched here (``K3_VARIANTS``, each
@@ -52,6 +67,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import os
 import subprocess
 import sys
 import time
@@ -306,29 +322,47 @@ def main() -> int:
     from vector_profile import compile_sources, load_package
 
     built = compile_sources({"hashtable": native.CSRC_DIR / "hashtable.cu",
+                             "asof": native.CSRC_DIR / "asof.cu",
                              "window": native.CSRC_DIR / "window.cu",
                              **(variant_sources() if args.variants else {})})
     report = {"card": card, "package": str(other) if other else None,
-              "ptxas": {**built["hashtable"][1], **built["window"][1]}}
+              "ptxas": {**built["hashtable"][1], **built["asof"][1], **built["window"][1]}}
     dev = torch.device("cuda", 0)
-    this = load_package(ROOT, ("hashtable", "window"))
+    this = load_package(ROOT, ("hashtable", "asof", "window"))
 
     # the calls: captured on this checkout's package
     tables = chip_smoke.make_tpch(1.0, args.seed)
     ticks = chip_smoke.make_ticks(1.0, args.seed)
     ctx = this.pkg.QuokkaContext(io_channels=2, exec_channels=2, device=dev)
     k3_target = {"K3": (this.ht, "hash_groupby", lambda l, a, o, v: v.shape[0])}
+    this_asof = this.pkg.ops.asof
+    bounds_target = {"K19 bounds": (this_asof, "segment_bounds", lambda fl: fl.shape[0])}
     k20b_target = {"K20b": (this.ts, "range_minmax", lambda x, lf, rt, op: x.shape[0]),
-                   "K20a": (this.ts, "window_bounds", lambda t, ss, se, size: t.shape[0])}
-    k3, calls = {}, {}
-    for path in K3_SHAPES + ("sliding",):
+                   "K20a": (this.ts, "window_bounds", lambda t, ss, se, size: t.shape[0]),
+                   **bounds_target}
+    targets = {"sliding": k20b_target, "shift": bounds_target,
+               "asof sort": {"K19": (this_asof, "seg_fill_forward", lambda v, st: v.shape[0])}}
+    k3, calls, k19_flags = {}, {}, {}
+    for path in K3_SHAPES + ("sliding", "shift", "asof sort"):
+        # the as-of sort strategy's stream is the as-of path's, under asof=sort
         stream = (chip_smoke.tpch_stream(path, ctx, tables) if path in ("q1", "q3")
-                  else chip_smoke.tick_stream(path, ctx, ticks))
-        with chip_smoke.Capture(k20b_target if path == "sliding" else k3_target,
-                                keep_every=["K20b"] if path == "sliding" else ()) as cap:
-            chip_smoke.collect_numpy(stream, path)
+                  else chip_smoke.tick_stream("asof" if path == "asof sort" else path, ctx,
+                                              ticks))
+        if path == "asof sort":
+            os.environ["QK_KERNEL_STRATEGY"] = "asof=sort"
+        try:
+            with chip_smoke.Capture(targets.get(path, k3_target),
+                                    keep_every=["K20b", "K20a"] if path == "sliding"
+                                    else ()) as cap:
+                chip_smoke.collect_numpy(stream, path)
+        finally:
+            os.environ.pop("QK_KERNEL_STRATEGY", None)
         calls[path] = cap.calls
-        if path == "sliding":
+        if path in ("sliding", "shift"):
+            k19_flags[path] = cap.args["K19 bounds"][0][0]
+        if path == "asof sort":
+            k19_sort = cap.args["K19"][0]
+        elif path == "sliding":
             k20b_big = cap.args["K20b"][0]  # the last of the largest: the padded batch
             every = [a for a, _ in cap.every["K20b"]]
             k20b_full = next(a for a in every if a[0].shape[0] == k20b_big[0].shape[0])
@@ -340,7 +374,10 @@ def main() -> int:
                 raise RuntimeError("sliding: the last K20a call is not the padded batch's")
             k20b_uncut = (k20b_big[0], *raw, k20b_big[3])
             k20b_cut = (cut, iota, *raw)
-        else:
+            k20a_padded = cap.args["K20a"][0]
+            k20a_full = next(a for a, _ in cap.every["K20a"]
+                             if a[0].shape[0] == k20a_padded[0].shape[0])
+        elif path != "shift":
             k3[path] = cap.args["K3"][0]
     report["calls_per_query"] = calls
     print(f"calls per query: {calls}", flush=True)
@@ -362,10 +399,12 @@ def main() -> int:
     k20b = {"sliding, a full batch": k20b_full, "sliding, the padded batch": k20b_big,
             "sliding, the padded batch before the cut": k20b_uncut,
             "one symbol": (x_one, *lr, k20b_big[3])}
+    k20a = {"sliding, a full batch": k20a_full, "sliding, the padded batch": k20a_padded,
+            "one symbol holding every quote": (t_s, ss, se, chip_smoke.TS_SLIDE)}
 
     pkgs = {"this": this}
     if other is not None:
-        pkgs["package"] = load_package(other, ("hashtable", "window"))
+        pkgs["package"] = load_package(other, ("hashtable", "asof", "window"))
     turns = ["package", "this", "this", "package"] if other is not None else ["this", "this"]
 
     report["k3"] = {}
@@ -418,6 +457,70 @@ def main() -> int:
             entry["turns"].append({"package": t, **row})
         report["k20b"][shape] = entry
 
+    # K19: the general form, and the segment start and end of every row (the
+    # parent: K19 on the start form, then row 20's flip and cummin)
+    def start_form(fl):
+        io = torch.arange(fl.shape[0], dtype=torch.int32, device=fl.device)
+        return torch.where(fl, io, torch.full_like(io, -1)), fl
+
+    def parent_bounds(pk, fl):
+        io = torch.arange(fl.shape[0], dtype=torch.int32, device=fl.device)
+        start = pk.pkg.ops.asof._seg_fill_forward_cuda(*start_form(fl))
+        return start, io + pk.ts._rows_from_segment_end(io, fl, fl.shape[0])
+
+    k19_cases = {"general form, asof sort": k19_sort,
+                 "general form, sliding's start form": start_form(k19_flags["sliding"])}
+    report["k19"] = {}
+    for shape, (v, st) in k19_cases.items():
+        n = v.shape[0]
+        entry = {"shape": f"{n} rows, {int(st.sum())} starts",
+                 "bound_ms": n * 9 / HBM_BYTES_PER_S * 1e3, "turns": []}
+        print(f"K19 {shape}: {entry['shape']}, bound {entry['bound_ms']:.5f} ms", flush=True)
+        ref = this_asof._seg_fill_forward_plain(v, st)
+        for t in turns:
+            fn = lambda t=t: pkgs[t].pkg.ops.asof._seg_fill_forward_cuda(v, st)  # noqa: E731
+            row = call_profile(f"K19 {shape} ({t})", fn, 50)
+            row["matches_plain"] = torch.equal(fn(), ref)
+            entry["turns"].append({"package": t, **row})
+        if shape.endswith("start form"):
+            entry["cummax"] = call_profile(f"K19 {shape}: torch.cummax (yardstick)",
+                                           lambda: torch.cummax(v, 0), 50)
+        report["k19"][shape] = entry
+    for path, fl in k19_flags.items():
+        n = fl.shape[0]
+        shape = f"segment bounds, {path}"
+        entry = {"shape": f"{n} rows, {int(fl.sum())} starts",
+                 "bound_ms": n * 9 / HBM_BYTES_PER_S * 1e3, "turns": []}
+        print(f"K19 {shape}: {entry['shape']}, bound {entry['bound_ms']:.5f} ms", flush=True)
+        ref = this_asof._segment_bounds_plain(fl)
+        for t in turns:
+            if t == "this":
+                fn = lambda: this_asof._segment_bounds_cuda(fl)  # noqa: E731
+            else:
+                fn = lambda: parent_bounds(pkgs["package"], fl)  # noqa: E731
+            row = call_profile(f"K19 {shape} ({t})", fn, 50)
+            row["matches_plain"] = all(torch.equal(a, b) for a, b in zip(fn(), ref))
+            entry["turns"].append({"package": t, **row})
+        io = torch.arange(n, dtype=torch.int32, device=dev)
+        entry["flip_cummin"] = call_profile(
+            f"K19 {shape}: row 20's flip + cummin (yardstick)",
+            lambda: this.ts._rows_from_segment_end(io, fl, n), 50)
+        report["k19"][shape] = entry
+
+    report["k20a"] = {}
+    for shape, (tt, s0, e0, size) in k20a.items():
+        n = tt.shape[0]
+        entry = {"shape": f"{n} rows, {tt.dtype}, size {size}",
+                 "bound_ms": n * 24 / HBM_BYTES_PER_S * 1e3, "turns": []}
+        print(f"K20a {shape}: {entry['shape']}, bound {entry['bound_ms']:.5f} ms", flush=True)
+        ref = this.ts._window_bounds_plain(tt, s0, e0, size)
+        for t in turns:
+            fn = lambda t=t: pkgs[t].ts._window_bounds_cuda(tt, s0, e0, size)  # noqa: E731
+            row = call_profile(f"K20a {shape} ({t})", fn, 50)
+            row["matches_plain"] = all(torch.equal(a, b) for a, b in zip(fn(), ref))
+            entry["turns"].append({"package": t, **row})
+        report["k20a"][shape] = entry
+
     # the cut itself, as the sliding executor makes it: two torch.where
     cut, iota, lf0, rt0 = k20b_cut
     report["k20b_cut"] = call_profile(
@@ -430,8 +533,8 @@ def main() -> int:
     print(line)
     wrong = [f"K3 {s} {r['package']}" for s, e in report["k3"].items() for r in e["turns"]
              if not r["matches_plain"]]
-    wrong += [f"K20b {s} {r['package']}" for s, e in report["k20b"].items() for r in e["turns"]
-              if not r["matches_plain"]]
+    wrong += [f"{k.upper()} {s} {r['package']}" for k in ("k19", "k20a", "k20b")
+              for s, e in report[k].items() for r in e["turns"] if not r["matches_plain"]]
     wrong += [f"K3 variant {v} {s}" for v, rows in report.get("k3_variants", {}).items()
               for s, r in rows.items() if s != "ptxas" and not r["matches_plain"]]
     if wrong:
