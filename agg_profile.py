@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Profile K2 (small-key partial aggregate) and K14 (rank PK match) of the PyTorch port on one NVIDIA GPU.
+"""Profile K2 (small-key partial aggregate), K14 (rank PK match), K17 (partition plan) and K8 (compact-concat) of the PyTorch port on one NVIDIA GPU.
 
     python3 agg_profile.py [--package DIR] [--variants] [--seed N] [--out FILE]
 
@@ -12,8 +12,14 @@ buckets, three plain float64 inputs and two expressions) and the forward
 as-of's (its largest batch, 129 buckets, ``sum(notional), count(*)``).
 It keeps K6's largest call on Q1 under ``groupby=sort`` (K6 shares K2's
 bucket core) and, through ``QuokkaContext(mesh=make_mesh(8))``, the
-arguments of K14's largest call on mesh Q3 and on mesh Q5.  It calls each
-wrapper of both packages in turns (package, this, this, package) and
+arguments of K14's largest call on mesh Q3 and on mesh Q5.  It keeps
+K17's largest call on Q3 under ``shuffle=compacted`` (2^20 rows, 2 parts)
+and also times K17 at 64 parts on the same rows and at 2^24 rows made
+from the seed (2 and 64 parts), and at 2^24 + 3 rows (2 parts); and it keeps the parts of Q3's largest
+compacting concat, which both packages' ``bridge.concat_batches`` join
+(the other package's on its own batch classes), with this checkout's K8
+(``bridge.compact_concat``) and its plain version beside them.  It calls
+each wrapper of both packages in turns (package, this, this, package) and
 reports per call:
 
 - the wrapper's ms, CUDA events over many calls;
@@ -28,11 +34,15 @@ reports per call:
 beside the bound, the bytes the function must move over 3.35 TB/s (K2:
 the plan's input columns, the key codes and the mask read once, each
 bucket's sums and smallest row written; K6: its columns, codes and mask,
-and its outputs; K14: 9 B a rank and 5 B a probe row written).  It checks
+and its outputs; K14: 9 B a rank and 5 B a probe row written; K17: the
+ids and validity read and the permutation written, 9 B a row; K8: every
+part row's validity byte, each live row of each column read and the
+bucket of each column and of the validity written).  It checks
 every call against the plain version of this checkout (K2 and K6: counts,
-integer sums and smallest rows exact, float sums within rtol 1e-9; K14 bit
-for bit), checks that two launches of this checkout's K2 give the same
-bits, and compiles csrc/onehot.cu and csrc/join.cu with ``-Xptxas -v``
+integer sums and smallest rows exact, float sums within rtol 1e-9; K14,
+K17 and K8 bit for bit), checks that two launches of this checkout's K2 give the same
+bits, and compiles csrc/onehot.cu, csrc/join.cu, csrc/partition.cu and
+csrc/concat.cu with ``-Xptxas -v``
 (vector_profile.py's compile_sources) to keep each kernel's registers,
 shared memory and spills.  With ``--variants`` it also builds the bucket
 core from copies of csrc/onehot.cu patched here (``CORE_VARIANTS``, each
@@ -58,6 +68,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 K2_SHAPES = ("q1", "asof forward")
 K14_SHAPES = ("mesh q3", "mesh q5")
+K17_ROWS = 1 << 24  # the made inputs' rows, and 3 more for one more tile
+SOURCES = ("onehot", "join", "partition", "hashtable", "asof", "pack")
 _RUNS = """    const unsigned eq = __match_any_sync(0xffffffffu, g);
     const int size = __popc(eq);
     const bool lead = (eq & lower) == 0u;  // the run's first lane
@@ -100,6 +112,56 @@ CORE_VARIANTS = {
     "four warps a block": [("  warps = warps > QK_AGG_WARPS ? QK_AGG_WARPS : warps;",
                             "  warps = warps > 4 ? 4 : warps;")],
 }
+
+
+# csrc/partition.cu (K17) and csrc/concat.cu (K8) built with these
+# (text, replacement) patches: other choices of the stable-compaction core
+# (K17's ranking by rounds of warp peers, K8's wider look-back steps, one
+# load a thread in flight, larger zeroing blocks) and ablations that leave
+# out one step (their results are not the function's, and are reported,
+# not checked)
+COMPACT_VARIANTS = {
+    "K17 rounds of warp peers at every bucket count": ("partition", [(
+        "  if (nb <= QK_PLAN_SMALL)\n", "  if (nb <= 0)\n")]),
+    "K17 groups of a power of two tiles (the earlier choice)": ("partition", [(
+        "  long long g = (long long)sqrt((double)nt);\n  while (g * g < nt) ++g;\n",
+        "  long long g = 16;\n  while (g * g < nt) g *= 2;\n")]),
+    "K17 no perm writes (ablation)": ("partition", [(
+        "    perm[sh.dst[x >> 16] + i] =", "    if (t0 < 0) perm[sh.dst[x >> 16] + i] =")]),
+    "K8 look-back of 8 words a lane": ("concat", [(
+        "#define QK_CAT_LOOK 2 ", "#define QK_CAT_LOOK 8 ")]),
+    "K8 one load a thread in flight": ("concat", [(
+        "  constexpr int kFlight = sizeof(V) <= 8 ? 4 : 1;", "  constexpr int kFlight = 1;")]),
+    "K8 zeroing blocks of 16384 rows": ("concat", [(
+        "#define QK_CAT_ZERO_ROWS 4096", "#define QK_CAT_ZERO_ROWS 16384")]),
+    "K8 no column copies (ablation)": ("concat", [(
+        "  for (int ci = 0; ci < n_cols; ++ci) {\n    const QkCatCol col = cols[ci];",
+        "  for (int ci = 0; ci < 0; ++ci) {\n    const QkCatCol col = cols[ci];")]),
+    "K8 no zeroed tail (ablation)": ("concat", [(
+        "      qk_cat_zero(cols[c].dst, zlo * wd, hi * wd);",
+        "      if (wd < 0) qk_cat_zero(cols[c].dst, zlo * wd, hi * wd);")]),
+}
+
+
+def compact_variant_sources() -> dict:
+    """{label: .cu path} of COMPACT_VARIANTS, written into build/agg_profile/
+    beside a copy of csrc/compact.cuh."""
+    from quokka_tpu_torch.ops import native
+
+    out_dir = ROOT / "build" / "agg_profile"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "compact.cuh").write_text((native.CSRC_DIR / "compact.cuh").read_text())
+    out = {}
+    for i, (source, patches) in enumerate(COMPACT_VARIANTS.values()):
+        src = (native.CSRC_DIR / f"{source}.cu").read_text()
+        for a, b in patches:
+            if src.count(a) != 1:
+                raise RuntimeError(f"compact variant {i}: {a!r} is not once in csrc/{source}.cu")
+            src = src.replace(a, b)
+        path = out_dir / f"compact_variant_{i}.cu"
+        path.write_text(src)
+        out[f"compact_variant_{i}"] = path
+    return out
 
 
 def nbytes(*tensors) -> int:
@@ -146,6 +208,61 @@ def k2_calls(pkg, dev, tables, ticks):
     return out
 
 
+def shuffle_calls(pkg, dev, tables):
+    """(K17's largest call on Q3 under shuffle=compacted, the parts of Q3's
+    largest compacting concat, {calls per query}), on the package's runs."""
+    import chip_smoke
+
+    ctx = pkg.pkg.QuokkaContext(io_channels=2, exec_channels=2, device=dev)
+    os.environ["QK_KERNEL_STRATEGY"] = "shuffle=compacted"
+    try:
+        with chip_smoke.Capture({"K17": (pkg.kernels, "partition_plan",
+                                         lambda p, v, n: v.shape[0])}) as cap17:
+            chip_smoke.collect_numpy(chip_smoke.tpch_stream("q3", ctx, tables), "q3 compacted")
+    finally:
+        os.environ.pop("QK_KERNEL_STRATEGY")
+    with chip_smoke.Capture({"K8": (pkg.bridge, "compact_concat",
+                                    lambda b, pc, d, t, pad: sum(x.padded_len for x in b))}) as cap8:
+        chip_smoke.collect_numpy(chip_smoke.tpch_stream("q3", ctx, tables), "q3")
+    return (cap17.args["K17"][0], cap8.args["K8"][0],
+            {"K17 q3 compacted": cap17.calls["K17"], "K8 q3": cap8.calls["K8"]})
+
+
+def as_package(pkg, parts):
+    """The parts as batches of another package's classes (its concat tests
+    them with isinstance); parts that shared a dictionary still share one."""
+    B, dicts, out = pkg.batch, {}, []
+    for b in parts:
+        cols = {}
+        for name, c in b.columns.items():
+            kind = type(c).__name__
+            if kind == "StrCol":
+                d = c.dictionary
+                if id(d) not in dicts:
+                    dicts[id(d)] = B.StringDict(d.values, binary=d.binary)
+                cols[name] = B.StrCol(c.codes, dicts[id(d)])
+            elif kind == "VecCol":
+                cols[name] = B.VecCol(c.data)
+            else:
+                cols[name] = B.NumCol(c.data, c.kind, c.unit)
+        out.append(B.DeviceBatch(cols, b.valid, b.nrows, b.sorted_by))
+    return out
+
+
+def same_batch(a, b) -> bool:
+    """Bit for bit: live count, validity, and every column's padded rows."""
+    import torch
+
+    def data(c):
+        t = c.codes if hasattr(c, "codes") else c.data
+        return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+    return (a.nrows == b.nrows and torch.equal(a.valid, b.valid)
+            and list(a.columns) == list(b.columns)
+            and all(data(a.columns[k]).dtype == data(b.columns[k]).dtype
+                    and torch.equal(data(a.columns[k]), data(b.columns[k])) for k in a.columns))
+
+
 def variant_sources() -> dict:
     """{label: .cu path} of CORE_VARIANTS, written into build/agg_profile/."""
     from quokka_tpu_torch.ops import native
@@ -176,6 +293,7 @@ def main() -> int:
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "agg_profile.json"))
     args = ap.parse_args()
 
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -201,16 +319,20 @@ def main() -> int:
 
     built = compile_sources({"onehot": native.CSRC_DIR / "onehot.cu",
                              "join": native.CSRC_DIR / "join.cu",
-                             **(variant_sources() if args.variants else {})})
+                             "partition": native.CSRC_DIR / "partition.cu",
+                             "concat": native.CSRC_DIR / "concat.cu",
+                             **(variant_sources() if args.variants else {}),
+                             **(compact_variant_sources() if args.variants else {})})
     report = {"card": card, "package": str(other) if other else None,
-              "ptxas": {**built["onehot"][1], **built["join"][1]}}
+              "ptxas": {k: v for lib in ("onehot", "join", "partition", "concat")
+                        for k, v in built[lib][1].items()}}
     dev = torch.device("cuda", 0)
     tables = chip_smoke.make_tpch(1.0, args.seed)
     ticks = chip_smoke.make_ticks(1.0, args.seed)
 
     # this checkout's calls: K2 on its paths, K6 on Q1 under groupby=sort,
     # K14 on the mesh's Q3 and Q5
-    this = load_package(ROOT, ("onehot", "join", "partition", "hashtable", "asof", "pack"))
+    this = load_package(ROOT, SOURCES + ("concat",))
     k2 = {"this": k2_calls(this, dev, tables, ticks)}
     ctx = this.pkg.QuokkaContext(io_channels=2, exec_channels=2, device=dev)
     os.environ["QK_KERNEL_STRATEGY"] = "groupby=sort"
@@ -235,13 +357,14 @@ def main() -> int:
         k14_args[shape] = cap.args["K14"][0]
         calls[f"K14 {shape}"] = cap.calls["K14"]
     del mctx, ctx
+    k17_args, k8_args, more = shuffle_calls(this, dev, tables)
+    calls.update(more)
     report["calls_per_query"] = calls
     print(f"calls per query: {calls}", flush=True)
 
     pkgs = {"this": this}
     if other is not None:
-        pkgs["package"] = load_package(other, ("onehot", "join", "partition", "hashtable",
-                                               "asof", "pack"))
+        pkgs["package"] = load_package(other, SOURCES)
         k2["package"] = k2_calls(pkgs["package"], dev, tables, ticks)
     turns = ["package", "this", "this", "package"] if other is not None else ["this", "this"]
 
@@ -325,13 +448,101 @@ def main() -> int:
             entry["turns"].append({"package": t, **row})
         report["k14"][shape] = entry
 
+    # K17 at Q3 compacted's largest split, at 64 parts on the same rows, and
+    # at 2^24 and 2^24 + 3 rows made from the seed
+    k17_p, k17_v, k17_n = k17_args
+    r = np.random.default_rng(args.seed)
+    more_v = torch.from_numpy(r.random(K17_ROWS + 3) < 0.8).to(dev)
+    more_p = torch.from_numpy(r.integers(0, 64, K17_ROWS + 3).astype(np.int32)).to(dev)
+    big_v, big_p = more_v[:K17_ROWS], more_p[:K17_ROWS]
+    k17_cases = {"q3 compacted": (k17_p, k17_v, k17_n),
+                 "q3 compacted, 64 parts": (k17_p * 31 % 64, k17_v, 64),
+                 "2^24 rows, 2 parts": (big_p % 2, big_v, 2),
+                 "2^24 rows, 64 parts": (big_p, big_v, 64),
+                 "2^24 + 3 rows, 2 parts": (more_p % 2, more_v, 2)}
+    report["k17"] = {}
+    for label, (pids, valid, n_parts) in k17_cases.items():
+        n = valid.shape[0]
+        want = this.kernels.partition_plan_plain(pids, valid, n_parts)
+        entry = {"shape": f"{n} rows ({int(valid.sum())} valid), {n_parts} parts",
+                 "bound_ms": (9 * n + 8 * n_parts) / HBM_BYTES_PER_S * 1e3, "turns": []}
+        print(f"K17 {label}: {entry['shape']}, bound {entry['bound_ms']:.5f} ms", flush=True)
+        for t in turns:
+            fn = lambda t=t: pkgs[t].kernels.partition_plan(pids, valid, n_parts)  # noqa: E731
+            row = call_profile(f"K17 {label} ({t})", fn, 20)
+            row["matches_plain"] = all(a.dtype == b.dtype and torch.equal(a, b)
+                                       for a, b in zip(fn(), want))
+            entry["turns"].append({"package": t, **row})
+        report["k17"][label] = entry
+
+    # K8 at Q3's largest compacting concat: both packages' concat_batches,
+    # then this checkout's K8 alone and its plain version
+    k8_parts, per_col, dicts, total, padded = k8_args
+    parts = {t: k8_parts if t == "this" else as_package(pkgs[t], k8_parts) for t in set(turns)}
+    widths = [pkgs["this"].bridge._row_bytes(pkgs["this"].bridge._promoted(p), p[0].shape[1:])
+              for p in per_col.values()]
+    lens = [b.padded_len for b in k8_parts]
+    want = this.bridge.compact_concat_plain(k8_parts, per_col, dicts, total, padded)
+    entry = {"shape": f"{len(k8_parts)} parts of {lens} rows, {total} live, bucket {padded}, "
+                      f"{len(widths)} columns of {widths} B",
+             "bound_ms": (sum(lens) + total * sum(widths) + padded * (sum(widths) + 1))
+             / HBM_BYTES_PER_S * 1e3, "turns": []}
+    print(f"K8 q3: {entry['shape']}, bound {entry['bound_ms']:.5f} ms", flush=True)
+    for t in turns:
+        fn = lambda t=t: pkgs[t].bridge.concat_batches(parts[t])  # noqa: E731
+        row = call_profile(f"concat_batches q3 ({t})", fn, 20)
+        row["matches_plain"] = same_batch(fn(), want)
+        entry["turns"].append({"package": t, **row})
+    for label, fn in (("K8 alone", lambda: this.bridge.compact_concat(k8_parts, per_col, dicts,
+                                                                      total, padded)),
+                      ("plain version", lambda: this.bridge.compact_concat_plain(
+                          k8_parts, per_col, dicts, total, padded))):
+        row = call_profile(f"{label} q3", fn, 20)
+        row["matches_plain"] = same_batch(fn(), want)
+        entry[label] = row
+    report["k8"] = {"q3": entry}
+
+    if args.variants:
+        import ctypes
+
+        libs = {"partition": (this.kernels, "_partition_lib",
+                              ("qk_plan_scratch", "qk_partition_plan")),
+                "concat": (this.bridge, "_concat_lib", ("qk_concat_scratch", "qk_concat"))}
+        report["compact_variants"] = {}
+        for i, (label, (source, _)) in enumerate(COMPACT_VARIANTS.items()):
+            mod, attr, fns = libs[source]
+            prod = getattr(mod, attr)()
+            lib = ctypes.CDLL(str(built[f"compact_variant_{i}"][0]))
+            for fn in fns:
+                getattr(lib, fn).argtypes = getattr(prod, fn).argtypes
+                getattr(lib, fn).restype = getattr(prod, fn).restype
+            setattr(mod, attr, lambda lib=lib: lib)
+            rows = {"ptxas": built[f"compact_variant_{i}"][1]}
+            if source == "partition":
+                for shape in ("q3 compacted", "2^24 rows, 2 parts", "2^24 + 3 rows, 2 parts"):
+                    pids, valid, n_parts = k17_cases[shape]
+                    fn = lambda: this.kernels.partition_plan(pids, valid, n_parts)  # noqa: E731
+                    rows[f"K17 {shape}"] = call_profile(f"K17 {shape}, variant: {label}", fn, 20)
+                    rows[f"K17 {shape}"]["matches_plain"] = all(
+                        torch.equal(a, b) for a, b in zip(
+                            fn(), this.kernels.partition_plan_plain(pids, valid, n_parts)))
+            else:
+                fn = lambda: this.bridge.compact_concat(k8_parts, per_col, dicts, total,  # noqa: E731
+                                                        padded)
+                rows["K8 q3"] = call_profile(f"K8 q3, variant: {label}", fn, 20)
+                rows["K8 q3"]["matches_plain"] = same_batch(fn(), want)
+            setattr(mod, attr, lambda prod=prod: prod)
+            report["compact_variants"][label] = rows
+
     line = json.dumps(report)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(line + "\n")
     print(line)
-    wrong = [f"{k} {s} {r['package']}" for k in ("k2", "k6", "k14")
+    wrong = [f"{k} {s} {r['package']}" for k in ("k2", "k6", "k14", "k17", "k8")
              for s, e in report[k].items() for r in e["turns"]
              if not r["matches_plain"] or r.get("same_bits") is False]
+    wrong += [f"k8 q3 {label}" for label in ("K8 alone", "plain version")
+              if not report["k8"]["q3"][label]["matches_plain"]]
     if wrong:
         print(f"agg_profile: results differ from the plain version or between launches: "
               f"{wrong}", file=sys.stderr)

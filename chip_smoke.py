@@ -37,7 +37,10 @@ Phases, each fatal on failure:
      warm.  Every batch of every path lands through the narrowed wire and
      one K23 decode: it fails unless K23 launched once per landed batch,
      unless every kernel's devprof dispatches on the path equal its
-     launches, when K2's Triton pre-pass did not run once a K2 call on Q1
+     launches, unless K8's launches equal the path's compacting concats
+     (one a 16 columns) with no torch.nonzero inside them, when a path but
+     the gramian, covariance and quantile ones launched no K8, when K2's
+     Triton pre-pass did not run once a K2 call on Q1
      and Q5 (their plans have expression inputs) or ran at all elsewhere
      (the as-of paths' plan is plain columns and count(*)), or when Q1's
      wire bytes exceed half its logical bytes; it
@@ -49,7 +52,7 @@ Phases, each fatal on failure:
      tick paths (both as-of directions, tumbling, hopping, session and
      sliding windows, shift) through QuokkaContext(mesh=make_mesh(8)),
      eight shards on the card, each against its numpy oracle; it fails on
-     a fallback to the engine, a per-step batch, K24 not launched, K14 not
+     a fallback to the engine, a per-step batch, K24 or K8 not launched, K14 not
      launched on a path with a PK join, a kernel the mesh does not run, or
      launches that differ from devprof's dispatches or (K23) from the
      landed batches; it prints cold and warm walls beside the engine's for
@@ -95,7 +98,12 @@ Phases, each fatal on failure:
      d = 1, 7, 100, 768 with invalid and null rows, merged again into its
      own result, and 50 rows at k = 100; K22 at the gramian's shape and at
      d = 1, 4, 17, 64; K17 at Q3 compacted's largest split, also at 64
-     parts, with empty parts and all rows invalid; K26 at the skew join's
+     parts, with empty parts and all rows invalid, and at 2^24 + 3 rows
+     with 1, 2 and 64 parts and ids out of range; K8 at Q3's largest
+     compacting concat and on part lengths that are not multiples of 4096,
+     one part of 2^24 rows, more columns than a launch takes, dtypes that
+     differ between parts, strided sources and empty and all-invalid
+     parts, each through concat_batches and bit for bit; K26 at the skew join's
      and Q3's largest splits in both modes; K6 at Q1 sort's largest call;
      K23 at Q1's and Q3's largest landed batches and on NaN / -0.0
      dictionaries, uint16 codes, a plan that widens then degrades, an
@@ -106,7 +114,7 @@ Phases, each fatal on failure:
      largest calls, with duplicate build keys, no matches and no valid
      row),
      and time kernel, plain version and bound with CUDA events; the
-     torch-primitive rows 7, 8, 9, 10, 14, 15, 20 and `_mask_and_count`
+     torch-primitive rows 7, 9, 10, 14, 15, 20 and `_mask_and_count`
      (kernels.apply_mask) are timed too;
   7. print one JSON line of per-kernel numbers, the card line, and last the
      contract line {"ok": true, "device": {...}}.
@@ -1469,6 +1477,89 @@ def check_k23(dev, label: str, leaves) -> dict:
             "kinds": [spec[0] for spec in layout]}
 
 
+# K8's cases beyond Q3's concat: each a list of parts, (rows, live share)
+K8_CASES = {
+    "lengths not multiples of 4096": [(5000, 0.7), (256, 0.5), (12_289, 0.9), (70_001, 0.3)],
+    "one part of 2^24 rows": [(1 << 24, 0.6), (4096, 0.5)],
+    "more columns than the cap": [(30_000, 0.6), (70_000, 0.4)],
+    "mixed dtypes across parts": [(30_000, 0.6), (70_000, 0.4), (5, 1.0)],
+    "strided sources": [(30_000, 0.6), (70_000, 0.4)],
+    "empty and all-invalid parts": [(0, 0.5), (3000, 0.0), (90_000, 0.6), (4096, 0.0)],
+}
+
+
+def k8_parts(dev, label: str, seed: int):
+    """K8_CASES[label] as batches on dev: int64, float64 with NaN, bool, and
+    (but for the 2^24-row part) int32, date, timestamp (ms), float32, a
+    string column with its own dictionary order and null codes, and 3- and
+    2-wide vectors; int16 columns past the cap; int32 / float64 in the
+    first part where the others hold int64 / float32; strided sources."""
+    import numpy as np
+    import torch
+    from quokka_tpu_torch.ops import bridge
+    from quokka_tpu_torch.ops.batch import DeviceBatch, NumCol, StrCol, StringDict, VecCol
+
+    r = np.random.default_rng(seed)
+    out = []
+    for i, (m, dens) in enumerate(K8_CASES[label]):
+        f = r.normal(size=m)
+        f[r.random(m) < 0.1] = np.nan
+        cols = {"i": NumCol(torch.from_numpy(r.integers(-10**12, 10**12, m)), "i"),
+                "f": NumCol(torch.from_numpy(f), "f"),
+                "b": NumCol(torch.from_numpy(r.random(m) < 0.5), "b")}
+        if m < 1 << 24:
+            cols.update(
+                n=NumCol(torch.from_numpy(r.integers(-100, 100, m).astype(np.int32)), "i"),
+                d=NumCol(torch.from_numpy(r.integers(0, 20_000, m).astype(np.int32)), "d"),
+                t=NumCol(torch.from_numpy(r.integers(0, 10**13, m)), "t", "ms"),
+                h=NumCol(torch.from_numpy(r.normal(size=m).astype(np.float32)), "f"),
+                s=StrCol(torch.from_numpy(r.integers(-1, 3, m).astype(np.int32)),
+                         StringDict(np.array(["x", "y", "z"], dtype=object)[r.permutation(3)])),
+                v=VecCol(torch.from_numpy(r.normal(size=(m, 3)))),
+                w=VecCol(torch.from_numpy(r.normal(size=(m, 2)))))
+        if label == "more columns than the cap":
+            for j in range(bridge.CONCAT_MAX_COLUMNS + 3):
+                cols[f"x{j}"] = NumCol(torch.from_numpy(r.integers(0, 999, m).astype(np.int16)),
+                                       "i")
+        if label == "mixed dtypes across parts" and i == 0:
+            cols["i"] = NumCol(cols["i"].data.to(torch.int32), "i")
+            cols["h"] = NumCol(cols["h"].data.double(), "f")
+        cols = {k: (StrCol(c.codes.to(dev), c.dictionary) if isinstance(c, StrCol)
+                    else VecCol(c.data.to(dev)) if isinstance(c, VecCol)
+                    else NumCol(c.data.to(dev), c.kind, c.unit)) for k, c in cols.items()}
+        valid = torch.from_numpy(r.random(m) < dens).to(dev)
+        if label == "strided sources":
+            cols["i"] = NumCol(torch.stack([cols["i"].data] * 2, 1)[:, 1], "i")
+            valid = torch.stack([valid] * 2, 1)[:, 0]
+        out.append(DeviceBatch(cols, valid, int(valid.sum())))
+    return out
+
+
+def same_batch(a, b) -> bool:
+    """Bit for bit: live count, validity, column order, kinds, units,
+    dictionaries, dtypes and every padded row (floats as their bits)."""
+    import torch
+
+    def bits(t):
+        return t.view({8: torch.int64, 4: torch.int32, 2: torch.int16}[t.element_size()]) \
+            if t.is_floating_point() else t
+
+    if a.nrows != b.nrows or not torch.equal(a.valid, b.valid) \
+            or list(a.columns) != list(b.columns):
+        return False
+    for name, x in a.columns.items():
+        y = b.columns[name]
+        tx, ty = (x.codes, y.codes) if hasattr(x, "codes") else (x.data, y.data)
+        if type(x) is not type(y) or tx.dtype != ty.dtype or tx.shape != ty.shape \
+                or getattr(x, "kind", None) != getattr(y, "kind", None) \
+                or getattr(x, "unit", None) != getattr(y, "unit", None) \
+                or not torch.equal(bits(tx), bits(ty)):
+            return False
+        if hasattr(x, "dictionary") and list(x.dictionary.values) != list(y.dictionary.values):
+            return False
+    return True
+
+
 def nbytes(*tensors) -> int:
     return int(sum(t.numel() * t.element_size() for t in tensors))
 
@@ -1543,6 +1634,57 @@ class Row20Spy:
             mod._rows_from_segment_end = real
         return False
 
+
+class ConcatSpy:
+    """Counts the compacting concats of CUDA batches (``bridge.compact_concat``
+    calls), the K8 launches they take (one a ``CONCAT_MAX_COLUMNS`` columns)
+    and the ``torch.nonzero`` calls made inside them, which must be none."""
+
+    def __init__(self):
+        self.calls = self.launches = self.nonzero = 0
+        self._saved = None
+
+    def __enter__(self):
+        import torch
+        from quokka_tpu_torch.ops import bridge
+
+        real, real_nz = bridge.compact_concat, torch.nonzero
+        self._saved = (bridge, real, torch, real_nz)
+        inside = [0]
+
+        def nonzero(*a, **kw):
+            self.nonzero += bool(inside[0]) and bool(a) and getattr(a[0], "is_cuda", False)
+            return real_nz(*a, **kw)
+
+        def spy(batches, per_col, dicts, total, padded):
+            if batches[0].valid.is_cuda:
+                self.calls += 1
+                self.launches += max(1, -(-len(per_col) // bridge.CONCAT_MAX_COLUMNS))
+            inside[0] += 1
+            try:
+                return real(batches, per_col, dicts, total, padded)
+            finally:
+                inside[0] -= 1
+
+        bridge.compact_concat, torch.nonzero = spy, nonzero
+        return self
+
+    def __exit__(self, *exc):
+        bridge, real, torch, real_nz = self._saved
+        bridge.compact_concat, torch.nonzero = real, real_nz
+        return False
+
+    def check(self, path: str, launched: int) -> None:
+        """The gate: K8's launches on the path are the compacting concats'
+        (one a CONCAT_MAX_COLUMNS columns), and none of them ran a nonzero."""
+        if launched != self.launches or self.nonzero:
+            fail(f"{path}: {launched} K8 launches for {self.calls} compacting concats "
+                 f"(expected {self.launches} launches), {self.nonzero} torch.nonzero calls "
+                 "inside them")
+
+
+# the device operations of every K17 call: a memset and two kernels
+K17_OPS = ("Memset", "qk_plan_count_kernel", "qk_plan_place_kernel")
 
 # K19's segment bounds per query on sliding and shift: one a batch the
 # executor processes (bench.py's ticks: 12)
@@ -1648,7 +1790,7 @@ def mesh_phase(dev, tables, ticks, oracles, engine_walls, counters):
         torch.cuda.reset_peak_memory_stats(dev)
         pack.pack_put = counted_put
         try:
-            with Row20Spy() as row20:
+            with Row20Spy() as row20, ConcatSpy() as concat:
                 got, cold = run(build, mctx, path)
         finally:
             pack.pack_put = real_put
@@ -1666,7 +1808,8 @@ def mesh_phase(dev, tables, ticks, oracles, engine_walls, counters):
             fail(f"{path}: launches vs devprof dispatches differ: {miscounted}")
         if launches["K23"] != landed[0]:
             fail(f"{path}: {launches['K23']} K23 launches for {landed[0]} landed batches")
-        missing = [k for k in ["K23", "K24"] + must if launches[k] == 0]
+        concat.check(path, launches["K8"])
+        missing = [k for k in ["K23", "K24", "K8"] + must if launches[k] == 0]
         if missing:
             fail(f"kernels not launched on the {path} run: {missing}")
         stray = [k for k in MESH_MUST_NOT if launches[k] != 0]
@@ -2116,7 +2259,8 @@ def smoke(dev, card: str, args) -> int:
                 "K21": (vops, "LAUNCHES"), "K22": (lops, "LAUNCHES"),
                 "K6": (fuse, "ONEHOT_LAUNCHES"), "K17": (kernels, "PLAN_LAUNCHES"),
                 "K26": (kernels, "ADAPT_LAUNCHES"), "K23": (pack, "LAUNCHES"),
-                "K24": (kernels, "MESH_LAUNCHES"), "K14": (join, "PK_MATCH_LAUNCHES")}
+                "K24": (kernels, "MESH_LAUNCHES"), "K14": (join, "PK_MATCH_LAUNCHES"),
+                "K8": (bridge, "CONCAT_LAUNCHES")}
     # K18's and K12's launches that took the runtime-dispatch kernel: none on
     # any path (the main paths' signatures are compiled typed)
     dispatch_counters = {"K18": (asof, "ASOF_PROBE_DISPATCH_LAUNCHES"),
@@ -2164,7 +2308,9 @@ def smoke(dev, card: str, args) -> int:
         p[3].extend(["K21", "K22", "K6", "K17", "K26", "K24", "K14"])
 
     def all_but(*keep):
-        return [k for k in counters if k not in keep and k != "K23"]
+        # K23 lands every batch and K8 joins every compacting concat, on
+        # any path (their own gates count them)
+        return [k for k in counters if k not in keep and k not in ("K23", "K8")]
 
     # the vector, linear-algebra and quantile tier: pass-through exchanges
     # only, so no kernel but its own (the quantiles' t-digest runs on the host)
@@ -2205,8 +2351,12 @@ def smoke(dev, card: str, args) -> int:
         "q5 sort": (q5_stream, check_q5, ["K1", "K4", "K5", "K11 build", "K11"],
                     sort_must_not, False),
     })
-    # every batch of every path lands through the wire decode (K23)
-    paths = {k: (st, ch, must + ["K23"], mn, g) for k, (st, ch, must, mn, g) in paths.items()}
+    # every batch of every path lands through the wire decode (K23), and
+    # every path but the linear-algebra and quantile ones joins its
+    # exchanged parts by a compacting concat (K8)
+    no_concat = {"gramian", "covariance", "quantile"}
+    paths = {k: (st, ch, must + ["K23"] + ([] if k in no_concat else ["K8"]), mn, g)
+             for k, (st, ch, must, mn, g) in paths.items()}
     compacted_paths = {"q3 compacted", "q5 compacted", "q7 compacted", "q3 cap"}
     sort_paths = {"q1 sort", "q4 sort", "q5 sort"}
     ts_paths = ["asof", "asof sort", "asof forward", "tumbling", "hopping", "session",
@@ -2235,7 +2385,7 @@ def smoke(dev, card: str, args) -> int:
                  "skewjoin": 3, "skewjoin static": 3}
     per_row = {"sliding", "shift"}
     plan_text = {}
-    launches_by_path, walls = {}, {}
+    launches_by_path, walls, concat_calls = {}, {}, {}
     slice6 = {}  # what the slice-6 paths showed: syncs, ADT records, one-hot batches
 
     def set_strategy(path=None):
@@ -2329,7 +2479,7 @@ def smoke(dev, card: str, args) -> int:
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with Row20Spy() as row20:
+            with Row20Spy() as row20, ConcatSpy() as concat:
                 got = collect_numpy(stream(), path)
             torch.cuda.synchronize()
             cold = time.perf_counter() - t0
@@ -2350,6 +2500,9 @@ def smoke(dev, card: str, args) -> int:
             fail(f"{path}: launches vs devprof dispatches differ: {miscounted}")
         if launches["K23"] != land["batches"]:
             fail(f"{path}: {launches['K23']} K23 launches for {land['batches']} landed batches")
+        # every compacting concat took K8, with no torch.nonzero
+        concat.check(path, launches["K8"])
+        concat_calls[path] = concat.calls
         fallbacks, sequential = fuse.FALLBACKS, stagefuse.SEQUENTIAL
         used = strategy.used_snapshot()
         check(got, exp)
@@ -2457,6 +2610,7 @@ def smoke(dev, card: str, args) -> int:
              f"{q1_land['logical_bytes']}")
     report["slice6"] = slice6
     report.update(walls=walls, launches=launches_by_path, plans=plan_text,
+                  compacting_concats=concat_calls,
                   vector_checks={p: {"max_score_err": e, "queries_ids_differ": d}
                                  for p, (e, d) in vec_stats.items()})
 
@@ -2541,7 +2695,7 @@ def smoke(dev, card: str, args) -> int:
                 "qk_probe_kernel", "qk_sorted_probe_kernel", "qk_mm_expand_kernel",
                 "qk_elemwise", "qk_asof_probe", "qk_fill_", "qk_bounds_chain", "qk_window_",
                 "qk_range_", "qk_sims_", "qk_topk_merge_kernel", "qk_gram_",
-                "qk_plan_", "qk_adapt_kernel", "qk_decode", "qk_mesh_", "qk_pk_")
+                "qk_plan_", "qk_adapt_kernel", "qk_decode", "qk_mesh_", "qk_pk_", "qk_concat")
     profiles = {}
     for path, (stream, *_) in paths.items():
         set_strategy(path)
@@ -2639,7 +2793,8 @@ def smoke(dev, card: str, args) -> int:
              "K4": (kernels, "partition_split", lambda l, p, v, n, masks=True: v.shape[0]),
              "K5": (fuse.PreAggCall, "__init__", lambda self, *a: a[4].shape[0]),
              "row 7 gather": (join, "gather_columns", gather_rows),
-             "row 8 concat": (bridge, "concat_batches", rows_of),
+             "K8": (bridge, "compact_concat",
+                    lambda b, pc, d, t, pad: sum(x.padded_len for x in b)),
              "row 14 count": (join, "_count_true", rows_of),
              "row 15 sort": (kernels, "lexsort_perm", rows_of)}
         if sorted_path:
@@ -2673,7 +2828,9 @@ def smoke(dev, card: str, args) -> int:
                                  **rank_target}),
             ("q4", q4_stream, dict(rank_target)),
             ("q7", q7_stream, {"K16": (stagefuse.ElemwiseCall, "__init__",
-                                       lambda self, *a: a[5].shape[0])})):
+                                       lambda self, *a: a[5].shape[0]),
+                               "K4": (kernels, "partition_split",
+                                      lambda l, p, v, n, masks=True: v.shape[0])})):
         with Capture(tg) as cap:
             collect_numpy(stream(), path)
         s3[path] = cap
@@ -2957,7 +3114,28 @@ def smoke(dev, card: str, args) -> int:
         library_ms=None, **k3["q1"], q3=k3["q3"], tumbling=k3["tumbling"],
         hopping=k3["hopping"], per_query={p: launches_by_path[p]["K3"] for p in paths}))
 
-    # K4: Q1's exchange of the partial state, and Q3's largest split
+    def k4_largest(cap, launches):
+        """K4 at a path's largest captured split, as the path called it."""
+        (l7, p7, v7, n7, *m7), kw7 = cap.args["K4"]
+        masks7 = kw7.get("masks", m7[0] if m7 else True)
+        want7 = kernels.partition_split_plain(l7, p7, v7, n7, masks7)
+        if not all((x is None and y is None) or torch.equal(x, y)
+                   for x, y in zip(kernels.partition_split(l7, p7, v7, n7, masks7), want7)):
+            fail("K4 at Q7's largest split differs from the plain version")
+
+        def call():
+            return kernels.partition_split(l7, p7, v7, n7, masks7)
+
+        n = v7.shape[0]
+        return {"shape": f"{n} rows, {len(l7)} limbs, {n7} parts, masks {masks7}",
+                "launches": launches, "ms": cuda_ms(call),
+                "plain_ms": cuda_ms(lambda: kernels.partition_split_plain(l7, p7, v7, n7, masks7)),
+                "device_us": device_us(call, ("qk_partition_kernel",)),
+                "bound_ms": bound_ms(nbytes(*l7, *[t for t in (p7, v7) if t is not None])
+                                     + n * (4 if l7 else 0)
+                                     + (n * n7 + 4 * n7 if masks7 else 0))}
+
+    # K4: Q1's exchange of the partial state, Q3's and Q7's largest splits
     state_b = kernels.compact(pex._recombine(parts))
     (q3_l4, q3_p4, q3_v4, q3_n4), _ = hcap.args["K4"]
     for label, lb, va in (("Q1 exchange", key_limbs(state_b, keys), state_b.valid),
@@ -2988,7 +3166,8 @@ def smoke(dev, card: str, args) -> int:
             "device_us": device_us(lambda: kernels.partition_split(q3_l4, None, q3_v4, q3_n4),
                                    ("qk_partition_kernel",)),
             "bound_ms": bound_ms(nbytes(*q3_l4, q3_v4) + q3_v4.shape[0] * (4 + q3_n4)
-                                 + 4 * q3_n4)}))
+                                 + 4 * q3_n4)},
+        q7=k4_largest(s3["q7"], launches_by_path["q7"]["K4"])))
 
     # K5 at Q3's shape: the pre-expression of the partial aggregate
     (k5_call, *_), _ = hcap.args["K5"]
@@ -3714,11 +3893,19 @@ def smoke(dev, card: str, args) -> int:
     # K17 at Q3 compacted's largest split; also at 64 parts, with empty parts
     # and all rows invalid, at the same length
     (k17_p, k17_v, k17_n), _ = s6["q3 compacted"].args["K17"]
+    r17 = np.random.default_rng(args.seed)
+    big17 = (1 << 24) + 3
+    p17 = torch.from_numpy(r17.integers(-1, 65, big17).astype(np.int32)).to(dev)
+    v17 = torch.from_numpy(r17.random(big17) < 0.8).to(dev)
+    p17_2 = p17 % 2  # made here, so that no timed call below makes it
     k17_cases = (("query shape", k17_p, k17_v, k17_n),
                  ("64 parts", k17_p * 31 % 64, k17_v, 64),
                  ("empty parts", torch.where(k17_p == 0, 0, k17_n - 1).to(torch.int32), k17_v,
                   max(k17_n, 3)),
-                 ("all invalid", k17_p, torch.zeros_like(k17_v), k17_n))
+                 ("all invalid", k17_p, torch.zeros_like(k17_v), k17_n),
+                 ("2^24 + 3 rows, 2 parts", p17_2, v17, 2),
+                 ("2^24 + 3 rows, 64 parts, ids out of range", p17, v17, 64),
+                 ("2^24 + 3 rows, 1 part", p17, v17, 1))
     for label, p_, v_, n_ in k17_cases:
         got, want = kernels.partition_plan(p_, v_, n_), kernels.partition_plan_plain(p_, v_, n_)
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
@@ -3732,7 +3919,8 @@ def smoke(dev, card: str, args) -> int:
     if not torch.equal(k17_library().to(torch.int32),
                        kernels.partition_plan(k17_p, k17_v, k17_n)[0]):
         fail("K17's yardstick torch.sort is not the plan's permutation")
-    print(f"K17: {', '.join(c[0] for c in k17_cases)} ({n17} rows) match the plain version")
+    print(f"K17: {', '.join(c[0] for c in k17_cases)} ({n17} rows at the query shape) match "
+          "the plain version")
     out.append(dict(
         name="K17 stable radix partition plan", route="cuda",
         source="quokka_tpu_torch/csrc/partition.cu", replaces="quokka_tpu/ops/kernels.py:417",
@@ -3742,8 +3930,58 @@ def smoke(dev, card: str, args) -> int:
         bound_ms=bound_ms(9 * n17 + 8 * k17_n), bound_by="bytes",
         library_ms=cuda_ms(k17_library), shape=f"q3 compacted: {n17} rows, {k17_n} parts",
         device_us=device_us(lambda: kernels.partition_plan(k17_p, k17_v, k17_n),
-                            ("qk_plan_",)),
-        per_query={p: launches_by_path[p]["K17"] for p in sorted(compacted_paths)}))
+                            expect=K17_OPS),
+        per_query={p: launches_by_path[p]["K17"] for p in sorted(compacted_paths)},
+        big={"shape": f"{big17} rows, 2 parts", "launches": 0,
+             "ms": cuda_ms(lambda: kernels.partition_plan(p17_2, v17, 2)),
+             "plain_ms": cuda_ms(lambda: kernels.partition_plan_plain(p17_2, v17, 2), iters=3),
+             "device_us": device_us(lambda: kernels.partition_plan(p17_2, v17, 2),
+                                    expect=K17_OPS),
+             "bound_ms": bound_ms(9 * big17 + 16)}))
+    del p17, p17_2, v17
+
+    # K8 at Q3's largest compacting concat, then the cases beyond it, each
+    # through concat_batches and bit for bit against the plain version
+    c_parts, c_per_col, c_dicts, c_total, c_padded = hcap.args["K8"][0]
+
+    def k8_check(label, parts):
+        per_col, dicts = bridge._concat_parts(parts)
+        total = sum(b.count_valid() for b in parts)
+        before = bridge.CONCAT_LAUNCHES
+        got = bridge.concat_batches(parts)
+        launched = bridge.CONCAT_LAUNCHES - before
+        want = bridge.compact_concat_plain(parts, per_col, dicts, total,
+                                           config.bucket_size(total))
+        torch.cuda.synchronize()
+        if launched != -(-len(per_col) // bridge.CONCAT_MAX_COLUMNS) or not same_batch(got, want):
+            fail(f"K8 {label}: {launched} launches; the concat differs from the plain version")
+        return (f"{label} ({len(parts)} parts, {total} of {sum(b.padded_len for b in parts)} "
+                f"rows live, {len(per_col)} columns, {launched} launches)")
+
+    k8_done = [k8_check("Q3's largest concat", c_parts)]
+    for label in K8_CASES:
+        k8_done.append(k8_check(label, k8_parts(dev, label, args.seed)))
+    print(f"K8: {'; '.join(k8_done)}: match the plain version bit for bit")
+    c_lens = [b.padded_len for b in c_parts]
+    c_widths = [bridge._row_bytes(bridge._promoted(p), p[0].shape[1:]) for p in c_per_col.values()]
+    c_bytes = sum(c_lens) + c_total * sum(c_widths) + c_padded * (sum(c_widths) + 1)
+
+    def k8_call():
+        return bridge.compact_concat(c_parts, c_per_col, c_dicts, c_total, c_padded)
+
+    out.append(dict(
+        name="K8 compact-concat", route="cuda", source="quokka_tpu_torch/csrc/concat.cu",
+        replaces="quokka_tpu/ops/bridge.py:382", launches=launches_by_path["q3"]["K8"],
+        max_abs_err=0.0, ms=cuda_ms(k8_call),
+        plain_ms=cuda_ms(lambda: bridge.compact_concat_plain(c_parts, c_per_col, c_dicts,
+                                                             c_total, c_padded)),
+        bound_ms=bound_ms(c_bytes), bound_by="bytes", library_ms=None,
+        shape=f"q3's largest: {len(c_parts)} parts of {c_lens} rows, {c_total} live, bucket "
+              f"{c_padded}, {len(c_widths)} columns of {c_widths} B",
+        device_us=device_us(k8_call, expect=("qk_concat_kernel",)),
+        concat_ms=cuda_ms(lambda: bridge.concat_batches(c_parts)),
+        per_query={p: launches_by_path[p]["K8"] for p in paths},
+        concats_per_query={p: concat_calls[p] for p in paths}))
 
     # K26 at the skew join's largest split (both modes, with and without
     # masks), and at Q3's largest split shape
@@ -3890,14 +4128,6 @@ def smoke(dev, card: str, args) -> int:
           nbytes(g_idx) + 2 * sum(nbytes(c.data if hasattr(c, "data") else c.codes)
                                   for c in g_out.values()),
           hcap.calls["row 7 gather"])
-    (c_parts,), _ = hcap.args["row 8 concat"]
-    c_out = bridge.concat_batches(c_parts)
-    c_cols = [c.data if hasattr(c, "data") else c.codes for c in c_out.columns.values()]
-    t_row(8, "concat + compact of coalesced batches", lambda: bridge.concat_batches(c_parts),
-          sum(nbytes(b.valid) for b in c_parts)
-          + sum(nbytes(c.data if hasattr(c, "data") else c.codes)
-                for b in c_parts for c in b.columns.values())
-          + nbytes(*c_cols, c_out.valid), hcap.calls["row 8 concat"])
     (mk_b, mk_m), _ = s4["sliding"].args["mask"]
     t_row(52, "mask and live count (kernels.apply_mask, `_mask_and_count`)",
           lambda: kernels.apply_mask(mk_b, mk_m).nrows_dev,
@@ -3958,10 +4188,12 @@ def smoke(dev, card: str, args) -> int:
         print(f"{kk['name']}: {kk['launches']} launches on its path, {kk['ms']:.4f} ms per "
               f"call, {kk['device_us']:.1f} device us per call, bound {kk['bound_ms']:.5f} ms "
               f"({kk['shape']}); plain {kk['plain_ms']:.4f} ms")
+        if "concat_ms" in kk:
+            print(f"  the whole concat_batches call: {kk['concat_ms']:.4f} ms")
         if kk.get("library_device_us") is not None:
             print(f"  library: {kk['library_ms']:.4f} ms, {kk['library_device_us']:.1f} "
                   "device us per call")
-        for sub in ("q3", "tumbling", "hopping", "build", "skew"):
+        for sub in ("q3", "q7", "tumbling", "hopping", "build", "skew", "big"):
             if sub in kk:
                 v = kk[sub]
                 print(f"  {sub}: {v['launches']} launches, {v['ms']:.4f} ms, "

@@ -19,17 +19,27 @@
 // permutation grouping the valid rows by partition id, the invalid rows
 // last in row order (the reference's lax.sort([where(valid, pid, P), iota],
 // num_keys=2)), and each partition's count and start offset.  What bounds
-// it: bytes, 9 per row (the id and validity read twice, the permutation
-// written once).  Design, a stable counting sort in three launches: (1)
-// each block counts its tile's rows per bucket (P parts + the invalid
-// bucket) in shared memory; (2) one block scans the [bucket][block] counts
-// in bucket-major order, which gives every (bucket, block) its first output
-// position and every part its offset and count; (3) each block walks its
-// tile again in row order, 256 rows a round: a row's rank among the earlier
-// rows of its bucket in its warp comes from __match_any_sync and a popcount
-// of the lower lanes, and the warps' counts are turned into offsets in
-// shared memory.  No atomics place a row, so the permutation is stable and
-// the same every run.
+// it: bytes, 14 per row (the id and validity read twice, the permutation
+// written once).  Design, a memset and two launches on the 4096-row tiles
+// that K8 shares (csrc/compact.cuh): (1) each block counts its tile's rows
+// (16 a thread, read with 16-byte loads) per bucket (P parts + the invalid
+// bucket), writes the counts as its tile's words and adds them to its
+// group's words (g consecutive tiles, g the square root of the tiles
+// rounded up, at least 16) and to P + 1 totals, one atomic a bucket each;
+// (2) each block looks back for every bucket's rows in the tiles before
+// it, all at once: the words of the groups before its own and of its
+// group's earlier tiles, fewer than 2 g a bucket; it ranks its rows stably
+// by bucket (up to six buckets counted in registers, a 10-bit field a
+// bucket in one 64-bit word, and placed by one shuffle scan; more by 16
+// rounds of warp peers by __match_any_sync), stages them in shared memory
+// in bucket order and writes perm with consecutive threads on consecutive
+// places, from each bucket's base (a scan of the totals) plus that prefix.
+// No block waits on another: a decoupled look-back in one pass (K8's) cost
+// about 4.5 us at 256 tiles that all start together, the walk over their
+// aggregates, where two passes make every tile's counts known before the
+// second starts.  No atomics place a row, so the permutation is stable and
+// the same every run.  Scratch: a count a tile, a group and in all a
+// bucket; no scan kernel.
 //
 // K26 replaces quokka_tpu/planner/adapt.py:57 `_salt_pids` and :77
 // `_replicate_masks`, each with the hash in front: in salt mode a row of
@@ -50,11 +60,12 @@
 // it: bytes.  The key limbs, validity and every carried column are read
 // once (the ids are written and read back once, 8 B a row), and the
 // P x P x N output frames are written once, zeroed first: the output is P
-// times the input by the reference's static design.  Design: K17's stable
-// counting sort, per shard: (1) each block hashes one tile of one shard,
-// stores the ids and counts them per bucket (P parts + the invalid bucket)
-// in shared memory; (2) one block scans the [shard][bucket][tile] counts,
-// which gives every (shard, bucket, tile) its first position in the frame;
+// times the input by the reference's static design.  Design: a stable
+// counting sort in three launches, per shard: (1) each block hashes one
+// tile of one shard, stores the ids and counts them per bucket (P parts
+// + the invalid bucket) in shared memory; (2) one block scans the
+// [shard][bucket][tile] counts, which gives every (shard, bucket, tile) its
+// first position in the frame;
 // (3) each block walks its tile again in row order, 256 rows a round, ranks
 // a row among its warp's rows of the same bucket with __match_any_sync and
 // a popcount, and copies every carried column of the row (1-, 4- or 8-byte
@@ -62,13 +73,15 @@
 // a row, so positions are stable and the same every run.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "compact.cuh"
 
 #define QK_MAX_LIMBS 16
 #define QK_MAX_PARTS 64
-#define QK_PLAN_THREADS 256
-#define QK_PLAN_WARPS (QK_PLAN_THREADS / 32)
-#define QK_PLAN_TILE 4096  // rows a block of K17 owns: 16 rounds of 256
+#define QK_MESH_THREADS 256
+#define QK_MESH_WARPS (QK_MESH_THREADS / 32)
 #define QK_SCAN_THREADS 1024
 #define QK_MESH_TILE 4096  // rows of one shard a block of K24 owns
 #define QK_MESH_MAX_LEAVES 64
@@ -177,105 +190,252 @@ __global__ void qk_adapt_kernel(PLimbs L, const int32_t* __restrict__ pids_in,
 
 // K17's bucket of a row: its id when valid, else n_parts (the invalid
 // bucket).  An id outside [0, n_parts) is filed with the invalid rows, so no
-// launch writes out of bounds.
-__device__ __forceinline__ int qk_bucket(const int32_t* pids, const uint8_t* valid, int64_t i,
-                                         int n_parts) {
-  int p = pids[i];
-  return (valid[i] && (unsigned)p < (unsigned)n_parts) ? p : n_parts;
+// launch writes out of bounds.  Rows past n get -1.
+__device__ __forceinline__ int qk_bucket(int32_t p, bool valid, int n_parts) {
+  return (valid && (unsigned)p < (unsigned)n_parts) ? p : n_parts;
 }
 
-__global__ void __launch_bounds__(QK_PLAN_THREADS)
-qk_plan_hist_kernel(const int32_t* __restrict__ pids, const uint8_t* __restrict__ valid,
-                    int64_t n, int n_parts, int nblocks, int32_t* __restrict__ hist) {
-  __shared__ int32_t h[QK_MAX_PARTS + 1];
+// the buckets of rows r0 .. r0 + 15, with 16-byte loads where the tile is
+// whole and aligned; kStream reads them as the last pass does (evict first)
+template <bool kStream>
+__device__ __forceinline__ void qk_plan_buckets(const int32_t* __restrict__ pids,
+                                                const uint8_t* __restrict__ valid, long long n,
+                                                int n_parts, long long r0, int* bk) {
+  if (n - r0 >= QK_CT_ITEMS && ((((uintptr_t)(pids + r0)) | ((uintptr_t)(valid + r0))) & 15u) == 0) {
+    const uint4 f = kStream ? __ldcs((const uint4*)(valid + r0)) : __ldg((const uint4*)(valid + r0));
+    const uint32_t x[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+    for (int q4 = 0; q4 < 4; ++q4) {
+      const int4 p = kStream ? __ldcs((const int4*)(pids + r0) + q4) : __ldg((const int4*)(pids + r0) + q4);
+      const int32_t id[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) bk[4 * q4 + e] = qk_bucket(id[e], ((x[q4] >> (8 * e)) & 0xffu) != 0, n_parts);
+    }
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < QK_CT_ITEMS; ++q)
+    bk[q] = r0 + q < n ? qk_bucket(pids[r0 + q], valid[r0 + q] != 0, n_parts) : -1;
+}
+
+// K17's rankings: up to QK_PLAN_SMALL buckets are counted in registers, a
+// bucket a 10-bit field of one 64-bit word (a warp's 512 rows fit); more go
+// through rounds of warp peers (__match_any_sync)
+#define QK_PLAN_SMALL 6
+
+__device__ __forceinline__ uint32_t qk_field(unsigned long long x, int b) {
+  return (uint32_t)(x >> (10 * b)) & 1023u;
+}
+
+// K17 pass 1: each block counts its tile's rows per bucket in shared
+// memory (a warp's counts by one shuffle reduction of packed fields, or a
+// warp's rows of one bucket a round by one shared atomic), writes them as
+// its tile's words and adds them to its group's words (a group is g
+// consecutive tiles) and to the n_parts + 1 totals.
+template <bool kSmall>
+__global__ void __launch_bounds__(QK_CT_THREADS)
+    qk_plan_count_kernel(const int32_t* __restrict__ pids, const uint8_t* __restrict__ valid,
+                         long long n, int n_parts, int g, uint32_t* __restrict__ tiles,
+                         uint32_t* __restrict__ groups, uint32_t* __restrict__ totals) {
+  __shared__ uint32_t h[QK_MAX_PARTS + 1];
   const int nb = n_parts + 1;
-  for (int b = threadIdx.x; b < nb; b += blockDim.x) h[b] = 0;
-  __syncthreads();
-  const int64_t start = (int64_t)blockIdx.x * QK_PLAN_TILE;
-  const int64_t end = start + QK_PLAN_TILE < n ? start + QK_PLAN_TILE : n;
-  for (int64_t i = start + threadIdx.x; i < end; i += blockDim.x)
-    atomicAdd(&h[qk_bucket(pids, valid, i, n_parts)], 1);
-  __syncthreads();
-  for (int b = threadIdx.x; b < nb; b += blockDim.x)
-    hist[(int64_t)b * nblocks + blockIdx.x] = h[b];
-}
-
-// one block: exclusive scan of hist [n_parts + 1][nblocks] in place, then
-// each part's offset and count
-__global__ void __launch_bounds__(QK_SCAN_THREADS)
-qk_plan_scan_kernel(int32_t* __restrict__ hist, int n_parts, int nblocks,
-                    int32_t* __restrict__ counts, int32_t* __restrict__ offsets) {
-  __shared__ int32_t s[QK_SCAN_THREADS];
-  const int tid = threadIdx.x;
-  const int64_t m = (int64_t)(n_parts + 1) * nblocks;
-  const int64_t per = (m + QK_SCAN_THREADS - 1) / QK_SCAN_THREADS;
-  const int64_t lo = tid * per < m ? tid * per : m;
-  const int64_t hi = lo + per < m ? lo + per : m;
-  int32_t sum = 0;
-  for (int64_t j = lo; j < hi; ++j) sum += hist[j];
-  s[tid] = sum;
-  __syncthreads();
-  for (int d = 1; d < QK_SCAN_THREADS; d <<= 1) {  // inclusive Hillis-Steele
-    int32_t add = tid >= d ? s[tid - d] : 0;
-    __syncthreads();
-    s[tid] += add;
-    __syncthreads();
-  }
-  int32_t run = s[tid] - sum;
-  for (int64_t j = lo; j < hi; ++j) {
-    int32_t c = hist[j];
-    hist[j] = run;
-    run += c;
-  }
-  __syncthreads();
-  if (tid < n_parts) {
-    int32_t a = hist[(int64_t)tid * nblocks], b = hist[(int64_t)(tid + 1) * nblocks];
-    offsets[tid] = a;
-    counts[tid] = b - a;
-  }
-}
-
-__global__ void __launch_bounds__(QK_PLAN_THREADS)
-qk_plan_scatter_kernel(const int32_t* __restrict__ pids, const uint8_t* __restrict__ valid,
-                       int64_t n, int n_parts, int nblocks, const int32_t* __restrict__ base,
-                       int32_t* __restrict__ perm) {
-  __shared__ int32_t run[QK_MAX_PARTS + 1];
-  __shared__ int32_t wcnt[QK_PLAN_WARPS][QK_MAX_PARTS + 1];
-  const int nb = n_parts + 1;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lane = threadIdx.x & 31;
   const unsigned lower = (1u << lane) - 1u;
-  for (int b = tid; b < nb; b += blockDim.x) run[b] = base[(int64_t)b * nblocks + blockIdx.x];
-  const int64_t start = (int64_t)blockIdx.x * QK_PLAN_TILE;
-  const int64_t end = start + QK_PLAN_TILE < n ? start + QK_PLAN_TILE : n;
-  for (int64_t r0 = start; r0 < end; r0 += QK_PLAN_THREADS) {
-    for (int j = tid; j < QK_PLAN_WARPS * (QK_MAX_PARTS + 1); j += blockDim.x)
-      wcnt[j / (QK_MAX_PARTS + 1)][j % (QK_MAX_PARTS + 1)] = 0;
+  const long long k = blockIdx.x;
+  for (int b = threadIdx.x; b < nb; b += QK_CT_THREADS) h[b] = 0;
+  __syncthreads();
+  int bk[QK_CT_ITEMS];
+  qk_plan_buckets<false>(pids, valid, n, n_parts,
+                         k * QK_CT_TILE + (long long)threadIdx.x * QK_CT_ITEMS, bk);
+  if (kSmall) {
+    unsigned long long c = 0;
+#pragma unroll
+    for (int q = 0; q < QK_CT_ITEMS; ++q)
+      if (bk[q] >= 0) c += 1ull << (10 * bk[q]);
+#pragma unroll
+    for (int d = 16; d >= 1; d >>= 1) c += __shfl_xor_sync(0xffffffffu, c, d);
+    if (lane < nb && qk_field(c, lane)) atomicAdd(&h[lane], qk_field(c, lane));
+  } else {
+#pragma unroll
+    for (int q = 0; q < QK_CT_ITEMS; ++q) {
+      const unsigned peers = __match_any_sync(0xffffffffu, bk[q]);
+      if (bk[q] >= 0 && (peers & lower) == 0) atomicAdd(&h[bk[q]], (uint32_t)__popc(peers));
+    }
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < nb; b += QK_CT_THREADS) {
+    const uint32_t c = h[b];
+    tiles[k * nb + b] = c;
+    if (c) {
+      atomicAdd(&groups[(k / g) * nb + b], c);
+      atomicAdd(&totals[b], c);
+    }
+  }
+}
+
+struct QkPlanShared {
+  uint32_t stage[QK_CT_TILE];                  // the tile's rows in bucket order: row | bucket << 16
+  uint32_t bk[QK_CT_TILE / 4];                 // the tile's buckets, a byte a row (0xff past n)
+  uint32_t wc[QK_CT_WARPS][QK_MAX_PARTS + 1];  // a warp's count a bucket, then its first place
+  unsigned long long wtot[QK_CT_WARPS];        // a warp's packed counts
+  uint32_t agg[QK_MAX_PARTS + 1], excl[QK_MAX_PARTS + 1], base[QK_MAX_PARTS + 1];
+  uint32_t tstart[QK_MAX_PARTS + 1];  // bucket b's first place in the tile's bucket order
+  int32_t dst[QK_MAX_PARTS + 1];      // perm index of the tile's place 0 of bucket b
+  uint32_t rows;                      // the tile's rows before n
+};
+
+// K17 pass 2: each block ranks its tile's rows stably by bucket: with few
+// buckets each thread counts its 16 rows in packed fields and one shuffle
+// scan of the words gives every row its place; with more, warp w ranks
+// rows w * 512 .. w * 512 + 511 in 16 rounds of 32 (a round's peers by
+// __match_any_sync, a running count a bucket a warp).  The
+// warps' counts become first places, the rows are staged in shared memory
+// in bucket order, and the block writes perm with consecutive threads on
+// consecutive places: bucket b's rows start at the sum of the totals of
+// the buckets before b, plus bucket b's rows in the tiles before, which
+// the block looks back for in pass 1's words, all at once: those of the
+// groups before its own and of its group's tiles before it.  The first
+// tile writes counts and offsets.
+template <bool kSmall>
+__global__ void __launch_bounds__(QK_CT_THREADS)
+    qk_plan_place_kernel(const int32_t* __restrict__ pids, const uint8_t* __restrict__ valid,
+                         long long n, int n_parts, int g, const uint32_t* __restrict__ tiles,
+                         const uint32_t* __restrict__ groups, const uint32_t* __restrict__ totals,
+                         int32_t* __restrict__ perm, int32_t* __restrict__ counts,
+                         int32_t* __restrict__ offsets) {
+  __shared__ QkPlanShared sh;
+  const long long k = blockIdx.x;
+  const int nb = n_parts + 1;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const unsigned lower = (1u << lane) - 1u;
+  const long long t0 = k * QK_CT_TILE;
+  int bk[QK_CT_ITEMS];
+  qk_plan_buckets<true>(pids, valid, n, n_parts, t0 + (long long)tid * QK_CT_ITEMS, bk);
+  if (tid == 0) {
+    uint32_t run = 0;
+    for (int b = 0; b < nb; ++b) {
+      sh.base[b] = run;
+      run += totals[b];
+    }
+  }
+  {  // the rows of the tiles before, a warp a bucket: whole groups, then
+     // the group's own tiles
+    const long long g0 = k / g, terms = g0 + (k - g0 * g);
+    for (int b = w; b < nb; b += QK_CT_WARPS) {
+      uint32_t c = 0;
+      for (long long t = lane; t < terms; t += 32)
+        c += t < g0 ? groups[t * nb + b] : tiles[(g0 * g + t - g0) * nb + b];
+#pragma unroll
+      for (int d = 16; d >= 1; d >>= 1) c += __shfl_xor_sync(0xffffffffu, c, d);
+      if (lane == 0) sh.excl[b] = c;
+    }
+  }
+  unsigned long long run = 0, inc = 0;  // kSmall: the thread's packed counts, their warp scan
+  uint32_t rank[QK_CT_ITEMS];           // otherwise: each round's row's place in its warp
+  if (kSmall) {
+#pragma unroll
+    for (int q = 0; q < QK_CT_ITEMS; ++q)
+      if (bk[q] >= 0) run += 1ull << (10 * bk[q]);
+    inc = run;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned long long y = __shfl_up_sync(0xffffffffu, inc, d);
+      if (lane >= d) inc += y;
+    }
+    if (lane == 31) sh.wtot[w] = inc;
     __syncthreads();
-    const int64_t i = r0 + tid;
-    const bool have = i < end;
-    const int b = have ? qk_bucket(pids, valid, i, n_parts) : -1;
-    const unsigned peers = __match_any_sync(0xffffffffu, b);
-    const int rank = __popc(peers & lower);
-    if (have && rank == 0) wcnt[warp][b] = __popc(peers);
-    __syncthreads();
-    if (tid < nb) {  // warps' counts -> their first positions, in warp order
-      int32_t pos = run[tid];
-      for (int w = 0; w < QK_PLAN_WARPS; ++w) {
-        int32_t c = wcnt[w][tid];
-        wcnt[w][tid] = pos;
-        pos += c;
+    if (tid < nb) {  // bucket tid: the warps' first places and the tile's count
+      uint32_t c = 0;
+#pragma unroll
+      for (int u = 0; u < QK_CT_WARPS; ++u) {
+        sh.wc[u][tid] = c;
+        c += qk_field(sh.wtot[u], tid);
       }
-      run[tid] = pos;
+      sh.agg[tid] = c;
+    }
+  } else {
+#pragma unroll
+    for (int q4 = 0; q4 < 4; ++q4) {
+      uint32_t x = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x |= (uint32_t)(bk[4 * q4 + e] & 0xff) << (8 * e);
+      sh.bk[tid * 4 + q4] = x;
+    }
+    for (int b = lane; b < nb; b += 32) sh.wc[w][b] = 0;
+    __syncthreads();
+    const uint8_t* tb = (const uint8_t*)sh.bk;
+#pragma unroll
+    for (int q = 0; q < QK_CT_ITEMS; ++q) {
+      const int b = tb[w * 512 + q * 32 + lane];
+      const bool have = b < nb;
+      const unsigned peers = __match_any_sync(0xffffffffu, have ? b : -1);
+      const uint32_t before = have ? sh.wc[w][b] : 0u;
+      rank[q] = before + __popc(peers & lower);
+      __syncwarp();
+      if (have && (peers & lower) == 0) sh.wc[w][b] = before + __popc(peers);
+      __syncwarp();
     }
     __syncthreads();
-    if (have) perm[wcnt[warp][b] + rank] = (int32_t)i;
-    __syncthreads();
+    for (int b = tid; b < nb; b += QK_CT_THREADS) {
+      uint32_t c = 0;
+#pragma unroll
+      for (int u = 0; u < QK_CT_WARPS; ++u) {
+        const uint32_t x = sh.wc[u][b];
+        sh.wc[u][b] = c;
+        c += x;
+      }
+      sh.agg[b] = c;
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {  // the buckets' first places in the tile
+    uint32_t c = 0;
+    for (int b = 0; b < nb; ++b) {
+      sh.tstart[b] = c;
+      c += sh.agg[b];
+    }
+    sh.rows = c;
+  }
+  __syncthreads();
+  // stage the rows in bucket order
+  if (kSmall) {
+    unsigned long long seen = inc - run;  // the earlier lanes' rows, then this thread's too
+#pragma unroll
+    for (int q = 0; q < QK_CT_ITEMS; ++q) {
+      const int b = bk[q];
+      if (b >= 0) {
+        sh.stage[sh.tstart[b] + sh.wc[w][b] + qk_field(seen, b)] =
+            (uint32_t)(tid * QK_CT_ITEMS + q) | ((uint32_t)b << 16);
+        seen += 1ull << (10 * b);
+      }
+    }
+  } else {
+    const uint8_t* tb = (const uint8_t*)sh.bk;
+#pragma unroll
+    for (int q = 0; q < QK_CT_ITEMS; ++q) {
+      const int r = w * 512 + q * 32 + lane;
+      const int b = tb[r];
+      if (b < nb) sh.stage[sh.tstart[b] + sh.wc[w][b] + rank[q]] = (uint32_t)r | ((uint32_t)b << 16);
+    }
+  }
+  for (int b = tid; b < nb; b += QK_CT_THREADS)
+    sh.dst[b] = (int32_t)(sh.base[b] + sh.excl[b]) - (int32_t)sh.tstart[b];
+  if (w == 1 && k == 0) {
+    for (int p = lane; p < n_parts; p += 32) {
+      counts[p] = (int32_t)totals[p];
+      offsets[p] = (int32_t)sh.base[p];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < (int)sh.rows; i += QK_CT_THREADS) {
+    const uint32_t x = sh.stage[i];
+    perm[sh.dst[x >> 16] + i] = (int32_t)(t0 + (x & 0xffffu));
   }
 }
 
 // K24 pass 1: ids of one tile of one shard (n_parts for an invalid row) and
 // their per-bucket counts, hist[(shard * (n_parts + 1) + bucket) * tiles + tile]
-__global__ void __launch_bounds__(QK_PLAN_THREADS)
+__global__ void __launch_bounds__(QK_MESH_THREADS)
 qk_mesh_hist_kernel(PLimbs L, const uint8_t* __restrict__ valid, int n_parts,
                     int64_t shard_rows, int tiles, int32_t* __restrict__ bucket,
                     int32_t* __restrict__ hist) {
@@ -332,12 +492,12 @@ __device__ __forceinline__ void qk_copy_leaf(const void* src, void* dst, int wid
 }
 
 // K24 pass 3: stable placement and the copy of every leaf
-__global__ void __launch_bounds__(QK_PLAN_THREADS)
+__global__ void __launch_bounds__(QK_MESH_THREADS)
 qk_mesh_scatter_kernel(MeshLeaves V, const int32_t* __restrict__ bucket, int n_parts,
                        int64_t shard_rows, int tiles, const int32_t* __restrict__ scanned,
                        uint8_t* __restrict__ out_valid) {
   __shared__ int32_t run[QK_MAX_PARTS + 1];
-  __shared__ int32_t wcnt[QK_PLAN_WARPS][QK_MAX_PARTS + 1];
+  __shared__ int32_t wcnt[QK_MESH_WARPS][QK_MAX_PARTS + 1];
   const int nb = n_parts + 1;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const unsigned lower = (1u << lane) - 1u;
@@ -353,8 +513,8 @@ qk_mesh_scatter_kernel(MeshLeaves V, const int32_t* __restrict__ bucket, int n_p
   const int64_t stop = (int64_t)(tile + 1) * QK_MESH_TILE < shard_rows
                            ? start + QK_MESH_TILE : base + shard_rows;
   const int64_t frame_stride = (int64_t)n_parts * shard_rows;
-  for (int64_t r0 = start; r0 < stop; r0 += QK_PLAN_THREADS) {
-    for (int j = tid; j < QK_PLAN_WARPS * (QK_MAX_PARTS + 1); j += blockDim.x)
+  for (int64_t r0 = start; r0 < stop; r0 += QK_MESH_THREADS) {
+    for (int j = tid; j < QK_MESH_WARPS * (QK_MAX_PARTS + 1); j += blockDim.x)
       wcnt[j / (QK_MAX_PARTS + 1)][j % (QK_MAX_PARTS + 1)] = 0;
     __syncthreads();
     const int64_t i = r0 + tid;
@@ -366,7 +526,7 @@ qk_mesh_scatter_kernel(MeshLeaves V, const int32_t* __restrict__ bucket, int n_p
     __syncthreads();
     if (tid < nb) {  // warps' counts -> their first positions, in warp order
       int32_t pos = run[tid];
-      for (int w = 0; w < QK_PLAN_WARPS; ++w) {
+      for (int w = 0; w < QK_MESH_WARPS; ++w) {
         int32_t c = wcnt[w][tid];
         wcnt[w][tid] = pos;
         pos += c;
@@ -382,6 +542,28 @@ qk_mesh_scatter_kernel(MeshLeaves V, const int32_t* __restrict__ bucket, int n_p
     }
     __syncthreads();
   }
+}
+
+template <bool kSmall>
+static int qk_plan_launch(const int32_t* p, const uint8_t* v, long long n, int n_parts, int g,
+                          uint32_t* tiles, uint32_t* groups, uint32_t* totals, void* perm,
+                          void* counts, void* offsets, long long nt, cudaStream_t st) {
+  qk_plan_count_kernel<kSmall><<<(unsigned int)nt, QK_CT_THREADS, 0, st>>>(
+      p, v, n, n_parts, g, tiles, groups, totals);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  qk_plan_place_kernel<kSmall><<<(unsigned int)nt, QK_CT_THREADS, 0, st>>>(
+      p, v, n, n_parts, g, tiles, groups, totals, (int32_t*)perm, (int32_t*)counts,
+      (int32_t*)offsets);
+  return (int)cudaGetLastError();
+}
+
+// K17's tiles a group: the square root of the tiles rounded up, at least
+// 16, so a tile sums fewer than 2 sqrt(tiles) + 2 words a bucket
+static long long qk_plan_group(long long nt) {
+  long long g = (long long)sqrt((double)nt);
+  while (g * g < nt) ++g;
+  return g < 16 ? 16 : g;
 }
 
 static int qk_fill_limbs(PLimbs* L, const void* const* limbs, const int* dtypes, int n_limbs) {
@@ -436,14 +618,21 @@ int qk_adapt_split(const void* const* limbs, const int* dtypes, int n_limbs,
   return (int)cudaGetLastError();
 }
 
+// K17's scratch (uint64 words): the uint32 counts of every tile, then of
+// every group, then the totals, a word a bucket each.
+long long qk_plan_scratch(long long n, int n_parts) {
+  const long long nt = (n + QK_CT_TILE - 1) / QK_CT_TILE;
+  const long long ng = (nt + qk_plan_group(nt) - 1) / qk_plan_group(nt);
+  return ((nt + ng + 1) * (n_parts + 1) + 1) / 2;
+}
+
 // K17.  pids [n] int32 and valid [n] uint8 in; perm [n] int32, counts and
-// offsets [n_parts] int32 out.  hist is [n_parts + 1, nblocks] int32
-// scratch with nblocks = ceil(n / 4096).
+// offsets [n_parts] int32 out; scratch: qk_plan_scratch(n, n_parts) words,
+// whose group counts and totals are zeroed here.  One memset and two
+// launches.
 int qk_partition_plan(const void* pids, const void* valid, long long n, int n_parts,
-                      int nblocks, void* hist, void* perm, void* counts, void* offsets,
-                      void* stream) {
-  if (n_parts < 1 || n_parts > QK_MAX_PARTS || n < 0 || n > 0x7fffffffLL
-      || nblocks != (int)((n + QK_PLAN_TILE - 1) / QK_PLAN_TILE))
+                      void* scratch, void* perm, void* counts, void* offsets, void* stream) {
+  if (n_parts < 1 || n_parts > QK_MAX_PARTS || n < 0 || n > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (n == 0) {
@@ -451,18 +640,21 @@ int qk_partition_plan(const void* pids, const void* valid, long long n, int n_pa
     cudaMemsetAsync(offsets, 0, sizeof(int32_t) * n_parts, st);
     return (int)cudaGetLastError();
   }
-  qk_plan_hist_kernel<<<nblocks, QK_PLAN_THREADS, 0, st>>>(
-      (const int32_t*)pids, (const uint8_t*)valid, n, n_parts, nblocks, (int32_t*)hist);
-  cudaError_t err = cudaGetLastError();
+  const int nb = n_parts + 1;
+  const long long nt = (n + QK_CT_TILE - 1) / QK_CT_TILE, g = qk_plan_group(nt);
+  const long long ng = (nt + g - 1) / g;
+  uint32_t* tiles = (uint32_t*)scratch;
+  uint32_t* groups = tiles + nt * nb;
+  uint32_t* totals = groups + ng * nb;
+  cudaError_t err = cudaMemsetAsync(groups, 0, sizeof(uint32_t) * (size_t)((ng + 1) * nb), st);
   if (err != cudaSuccess) return (int)err;
-  qk_plan_scan_kernel<<<1, QK_SCAN_THREADS, 0, st>>>((int32_t*)hist, n_parts, nblocks,
-                                                     (int32_t*)counts, (int32_t*)offsets);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  qk_plan_scatter_kernel<<<nblocks, QK_PLAN_THREADS, 0, st>>>(
-      (const int32_t*)pids, (const uint8_t*)valid, n, n_parts, nblocks,
-      (const int32_t*)hist, (int32_t*)perm);
-  return (int)cudaGetLastError();
+  const int32_t* p = (const int32_t*)pids;
+  const uint8_t* v = (const uint8_t*)valid;
+  if (nb <= QK_PLAN_SMALL)
+    return qk_plan_launch<true>(p, v, n, n_parts, (int)g, tiles, groups, totals, perm, counts,
+                                offsets, nt, st);
+  return qk_plan_launch<false>(p, v, n, n_parts, (int)g, tiles, groups, totals, perm, counts,
+                               offsets, nt, st);
 }
 
 // K24.  limbs (n_limbs arrays of n_shards * shard_rows rows, dtypes as K4)
@@ -496,7 +688,7 @@ int qk_mesh_bucketize(const void* const* limbs, const int* dtypes, int n_limbs,
   }
   cudaMemsetAsync(out_valid, 0, (size_t)out_rows, st);
   const int blocks = n_shards * tiles;
-  qk_mesh_hist_kernel<<<blocks, QK_PLAN_THREADS, 0, st>>>(
+  qk_mesh_hist_kernel<<<blocks, QK_MESH_THREADS, 0, st>>>(
       L, (const uint8_t*)valid, n_shards, shard_rows, tiles, (int32_t*)bucket,
       (int32_t*)hist);
   cudaError_t err = cudaGetLastError();
@@ -505,7 +697,7 @@ int qk_mesh_bucketize(const void* const* limbs, const int* dtypes, int n_limbs,
       (int32_t*)hist, (int64_t)n_shards * (n_shards + 1) * tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  qk_mesh_scatter_kernel<<<blocks, QK_PLAN_THREADS, 0, st>>>(
+  qk_mesh_scatter_kernel<<<blocks, QK_MESH_THREADS, 0, st>>>(
       V, (const int32_t*)bucket, n_shards, shard_rows, tiles, (const int32_t*)hist,
       (uint8_t*)out_valid);
   return (int)cudaGetLastError();

@@ -18,15 +18,18 @@ validity mask, dictionaries) — how a reference ``DeviceBatch`` read back with
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import datetime
+import math
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from quokka_tpu_torch import config
-from quokka_tpu_torch.ops import pack
+from quokka_tpu_torch.obs import devprof
+from quokka_tpu_torch.ops import native, pack
 from quokka_tpu_torch.ops.batch import (
     NULL_I32,
     NULL_I64,
@@ -38,6 +41,13 @@ from quokka_tpu_torch.ops.batch import (
 )
 
 _EPOCH = np.datetime64("1970-01-01", "D")
+
+# launches of K8 (csrc/concat.cu); columns a launch writes (QK_CAT_MAX_COLS);
+# K8's part and column descriptors
+CONCAT_LAUNCHES = 0
+CONCAT_MAX_COLUMNS = 16
+_CAT_PART = np.dtype([("valid", "<i8"), ("rows", "<i8")])
+_CAT_COL = np.dtype([("dst", "<i8"), ("width", "<i4"), ("unit", "<i4")])
 
 
 @dataclasses.dataclass
@@ -408,39 +418,177 @@ def _assemble(batches, per_col, dicts, idx, valid, nrows) -> DeviceBatch:
             data = torch.cat([data, torch.zeros((valid.shape[0] - data.shape[0],)
                                                 + data.shape[1:],
                                                 dtype=data.dtype, device=data.device)])
-        src = batches[0].columns[name]
-        out[name] = (StrCol(data, dicts[name]) if isinstance(src, StrCol)
-                     else VecCol(data) if isinstance(src, VecCol)
-                     else NumCol(data, src.kind, src.unit))
+        out[name] = _column_like(batches[0].columns[name], data, dicts.get(name))
     return DeviceBatch(out, valid, nrows, batches[0].sorted_by)
 
 
-def concat_batches(batches: Sequence[DeviceBatch]) -> DeviceBatch:
-    """Concatenate same-schema batches into one padded batch.
+def _column_like(src, data: torch.Tensor, dictionary):
+    return (StrCol(data, dictionary) if isinstance(src, StrCol)
+            else VecCol(data) if isinstance(src, VecCol)
+            else NumCol(data, src.kind, src.unit))
 
-    With every live count known on the host, live rows are compacted to the
-    front of one bucket (a nonzero + one gather per column).  Otherwise the
-    padded regions and masks are stacked as they are, with no host sync."""
-    if len(batches) == 1:
-        return batches[0]
-    for b in batches:
-        if b.nrows is None and b.nrows_dev is not None:
-            b.count_valid()
-    per_col, dicts = _concat_parts(batches)
+
+def compact_concat_plain(batches, per_col, dicts, total: int, padded: int) -> DeviceBatch:
+    """Plain version of K8: the live rows of every part, in part and row
+    order, gathered to the front of ``padded`` rows of every column (the
+    per-part arrays of ``per_col``, string codes already remapped), the rest
+    zero, and the validity ``arange(padded) < total`` (the reference's
+    ``_fused_concat_kernel``).  A torch.cat a column, one nonzero (a host
+    read of its count) and a gather and a where a column."""
     vcat = torch.cat([b.valid for b in batches])
-    if any(b.nrows is None for b in batches) and vcat.shape[0] <= config.MAX_BUCKET:
-        padded = config.bucket_size(vcat.shape[0])
-        valid = torch.cat([vcat, torch.zeros(padded - vcat.shape[0], dtype=torch.bool,
-                                             device=vcat.device)])
-        return _assemble(batches, per_col, dicts, None, valid, None)
-    total = sum(b.count_valid() for b in batches)
-    padded = config.bucket_size(total)
     idx = torch.nonzero(vcat).flatten()
     if idx.shape[0] < padded:
         idx = torch.cat([idx, torch.zeros(padded - idx.shape[0], dtype=idx.dtype,
                                           device=idx.device)])
     valid = torch.arange(padded, device=vcat.device) < total
     return _assemble(batches, per_col, dicts, idx, valid, total)
+
+
+def _concat_lib():
+    lib = native.library("concat")
+    if not getattr(lib, "qk_bound", False):
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.qk_concat_scratch.argtypes = [P, I]
+        lib.qk_concat_scratch.restype = L
+        lib.qk_concat.argtypes = [P, P, I, P, P, I, L, L, P, P, P]
+        lib.qk_concat.restype = I
+        lib.qk_bound = True
+    return lib
+
+
+def _unit(width: int, ptrs) -> int:
+    """Bytes a K8 copy moves: the largest power of two up to 16 that divides
+    the row width and every pointer of the column."""
+    u = 16
+    while u > 1 and (width % u or any(p % u for p in ptrs)):
+        u //= 2
+    return u
+
+
+def _charge_concat(dev_type: str, lens, total: int, padded: int, widths, first: bool) -> None:
+    """devprof's charge of one K8 launch (or plain call): every part row's
+    validity byte and each live row of each column read once, ``padded``
+    rows of each column and (``first``) of the validity written."""
+    out = padded * (sum(widths) + (1 if first else 0))
+    devprof.on_dispatch(("K8", dev_type, tuple(lens), total, padded, tuple(widths), first),
+                        lambda: (0.0, float(sum(lens) + total * sum(widths) + out), float(out)))
+
+
+def compact_concat(batches, per_col, dicts, total: int, padded: int) -> DeviceBatch:
+    """K8: the compact-concat (see ``compact_concat_plain``).  CUDA tensors
+    launch the kernel, one launch a ``CONCAT_MAX_COLUMNS`` columns; CPU
+    tensors take the plain version."""
+    dev = batches[0].device
+    if dev.type == "cpu":
+        _charge_concat("cpu", [b.padded_len for b in batches], total, padded,
+                       [_row_bytes(_promoted(p), p[0].shape[1:]) for p in per_col.values()],
+                       True)
+        return compact_concat_plain(batches, per_col, dicts, total, padded)
+    if dev.type != "cuda":
+        raise RuntimeError(f"compact_concat: unsupported device {dev}")
+    return _compact_concat_cuda(batches, per_col, dicts, total, padded)
+
+
+def _promoted(parts) -> torch.dtype:
+    """The dtype torch.cat gives the parts of a column."""
+    dt = parts[0].dtype
+    for t in parts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return dt
+
+
+def _row_bytes(dtype: torch.dtype, row) -> int:
+    return dtype.itemsize * math.prod(row)
+
+
+def _compact_concat_cuda(batches, per_col, dicts, total: int, padded: int) -> DeviceBatch:
+    global CONCAT_LAUNCHES
+    dev = batches[0].device
+    # every contiguous or converted copy stays in these locals until the
+    # launches have been issued
+    valids = [b.valid.contiguous() for b in batches]
+    lens = [v.shape[0] for v in valids]
+    if any(v.device != dev or v.dtype != torch.bool or v.dim() != 1 for v in valids):
+        raise TypeError("compact_concat: every part's validity is a 1-D bool tensor on "
+                        f"{dev}")
+    held, outs = {}, {}
+    for name, parts in per_col.items():
+        dt = _promoted(parts)
+        held[name] = [t.to(dt).contiguous() for t in parts]
+        row = held[name][0].shape[1:]
+        if any(t.device != dev or t.shape[1:] != row or t.shape[0] != m
+               for t, m in zip(held[name], lens)):
+            raise TypeError(f"compact_concat: column {name}'s parts do not match their "
+                            "validity")
+        outs[name] = torch.empty((padded,) + tuple(row), dtype=dt, device=dev)
+    out_valid = torch.empty(padded, dtype=torch.bool, device=dev)
+    names = list(per_col)
+    groups = [names[i: i + CONCAT_MAX_COLUMNS]
+              for i in range(0, len(names), CONCAT_MAX_COLUMNS)] or [[]]
+    # the descriptors of every launch in one pinned buffer, one copy: the
+    # parts, then each launch's columns and (part-major) source pointers
+    n_parts = len(batches)
+    part_desc = np.zeros(n_parts, dtype=_CAT_PART)
+    part_desc["valid"] = [v.data_ptr() for v in valids]
+    part_desc["rows"] = lens
+    blobs, offs = [part_desc.tobytes()], [0]
+    off = len(blobs[0])
+    for group in groups:
+        cols = np.zeros(len(group), dtype=_CAT_COL)
+        srcs = np.zeros((n_parts, len(group)), dtype=np.int64)
+        for j, name in enumerate(group):
+            width = _row_bytes(outs[name].dtype, outs[name].shape[1:])
+            ptrs = [t.data_ptr() for t in held[name]]
+            cols[j] = (outs[name].data_ptr(), width, _unit(width, ptrs + [outs[name].data_ptr()]))
+            srcs[:, j] = ptrs
+        offs.append(off)
+        blobs.append(cols.tobytes())
+        off += len(blobs[-1])
+        offs.append(off)
+        blobs.append(srcs.tobytes())
+        off += len(blobs[-1])
+    lib = _concat_lib()
+    rows = (ctypes.c_longlong * n_parts)(*lens)
+    desc_bytes = -(-off // 8) * 8
+    ws = torch.empty(desc_bytes // 8 + lib.qk_concat_scratch(rows, n_parts), dtype=torch.int64,
+                     device=dev)
+    staging = torch.empty(desc_bytes, dtype=torch.uint8, pin_memory=True)
+    staging.numpy()[:off] = np.frombuffer(b"".join(blobs), dtype=np.uint8)
+    ws.view(torch.uint8)[:desc_bytes].copy_(staging, non_blocking=True)
+    base, stream = ws.data_ptr(), native.stream_ptr(dev)
+    for gi, group in enumerate(groups):
+        _charge_concat("cuda", lens, total, padded,
+                       [_row_bytes(outs[n].dtype, outs[n].shape[1:]) for n in group], gi == 0)
+        native.check(lib.qk_concat(
+            base, rows, n_parts, base + offs[1 + 2 * gi], base + offs[2 + 2 * gi], len(group),
+            total, padded, out_valid.data_ptr() if gi == 0 else None, base + desc_bytes,
+            stream), "qk_concat")
+        CONCAT_LAUNCHES += 1
+    cols = {name: _column_like(batches[0].columns[name], outs[name], dicts.get(name))
+            for name in names}
+    return DeviceBatch(cols, out_valid, total, batches[0].sorted_by)
+
+
+def concat_batches(batches: Sequence[DeviceBatch]) -> DeviceBatch:
+    """Concatenate same-schema batches into one padded batch.
+
+    With every live count known on the host, live rows are compacted to the
+    front of one bucket (K8, ``compact_concat``).  Otherwise the padded
+    regions and masks are stacked as they are, with no host sync."""
+    if len(batches) == 1:
+        return batches[0]
+    for b in batches:
+        if b.nrows is None and b.nrows_dev is not None:
+            b.count_valid()
+    per_col, dicts = _concat_parts(batches)
+    stacked = sum(b.padded_len for b in batches)
+    if any(b.nrows is None for b in batches) and stacked <= config.MAX_BUCKET:
+        vcat = torch.cat([b.valid for b in batches])
+        valid = torch.cat([vcat, torch.zeros(config.bucket_size(stacked) - stacked,
+                                             dtype=torch.bool, device=vcat.device)])
+        return _assemble(batches, per_col, dicts, None, valid, None)
+    total = sum(b.count_valid() for b in batches)
+    return compact_concat(batches, per_col, dicts, total, config.bucket_size(total))
 
 
 def pad_tail(arr: torch.Tensor, padded: int) -> torch.Tensor:

@@ -49,9 +49,7 @@ MESH_LAUNCHES = 0
 # ``shuffle.host_syncs``
 SHUFFLE_HOST_SYNCS = 0
 MAX_PARTS = 64
-# rows each block of K17 owns (csrc/partition.cu QK_PLAN_TILE), and rows of
-# one shard each block of K24 owns (QK_MESH_TILE)
-_PLAN_TILE = 4096
+# rows of one shard each block of K24 owns (csrc/partition.cu QK_MESH_TILE)
 _MESH_TILE = 4096
 MAX_MESH_LEAVES = 64
 
@@ -341,7 +339,9 @@ def _partition_lib():
         lib.qk_adapt_split.argtypes = [
             ctypes.POINTER(P), ctypes.POINTER(I), I, P, P, L, I, I, I, P, P, P, P]
         lib.qk_adapt_split.restype = I
-        lib.qk_partition_plan.argtypes = [P, P, L, I, I, P, P, P, P, P]
+        lib.qk_plan_scratch.argtypes = [L, I]
+        lib.qk_plan_scratch.restype = L
+        lib.qk_partition_plan.argtypes = [P, P, L, I, P, P, P, P, P]
         lib.qk_partition_plan.restype = I
         PP = ctypes.POINTER(P)
         lib.qk_mesh_bucketize.argtypes = [PP, ctypes.POINTER(I), I, P, I, L, PP, PP,
@@ -512,15 +512,14 @@ def partition_plan(pids: torch.Tensor, valid: torch.Tensor, n_parts: int):
     # the converted copies live in locals until the launch has been issued
     pids32 = pids.to(torch.int32).contiguous()
     v8 = valid.contiguous().view(torch.uint8)
-    nblocks = -(-n // _PLAN_TILE)
-    hist = torch.empty((n_parts + 1) * max(nblocks, 1), dtype=torch.int32, device=dev)
+    lib = _partition_lib()
+    scratch = torch.empty(max(lib.qk_plan_scratch(n, n_parts), 1), dtype=torch.int64, device=dev)
     perm = torch.empty(n, dtype=torch.int32, device=dev)
     counts = torch.empty(n_parts, dtype=torch.int32, device=dev)
     offsets = torch.empty(n_parts, dtype=torch.int32, device=dev)
-    native.check(_partition_lib().qk_partition_plan(
-        pids32.data_ptr(), v8.data_ptr(), n, n_parts, nblocks,
-        hist.data_ptr(), perm.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
-        native.stream_ptr(dev)), "qk_partition_plan")
+    native.check(lib.qk_partition_plan(
+        pids32.data_ptr(), v8.data_ptr(), n, n_parts, scratch.data_ptr(), perm.data_ptr(),
+        counts.data_ptr(), offsets.data_ptr(), native.stream_ptr(dev)), "qk_partition_plan")
     PLAN_LAUNCHES += 1
     return perm, counts, offsets
 

@@ -29,10 +29,11 @@ import numpy as np
 import pytest
 import torch
 
-from quokka_tpu_torch import sqlparse
+from quokka_tpu_torch import config, sqlparse
 from quokka_tpu_torch.executors import ts_execs
 from quokka_tpu_torch.ops import asof, bridge, fuse, hashtable, join, kernels, linalg, stagefuse
 from quokka_tpu_torch.ops import pack, vector
+from quokka_tpu_torch.ops.batch import DeviceBatch, NumCol, StrCol, StringDict, VecCol
 from quokka_tpu_torch.ops.expr_compile import plan_aggregation
 
 pytestmark = pytest.mark.cuda
@@ -1063,7 +1064,7 @@ def test_k22_kernel_matches_plain(cuda_device, d):
 
 
 @pytest.mark.parametrize("case", ["mixed", "empty_parts", "all_invalid", "wide"])
-@pytest.mark.parametrize("n_parts", [2, 3, 7, 64])
+@pytest.mark.parametrize("n_parts", [1, 2, 3, 7, 64])
 def test_k17_kernel_matches_plain(cuda_device, n_parts, case):
     r = np.random.default_rng(n_parts)
     n = (1 << 21) + 77 if case == "wide" else 70_001
@@ -1072,6 +1073,25 @@ def test_k17_kernel_matches_plain(cuda_device, n_parts, case):
         pids = np.where(r.random(n) < 0.5, 0, n_parts - 1).astype(np.int32)
     valid = np.zeros(n, dtype=bool) if case == "all_invalid" else r.random(n) < 0.8
     p, v = torch.from_numpy(pids).to(cuda_device), torch.from_numpy(valid).to(cuda_device)
+    got = kernels.partition_plan(p, v, n_parts)
+    exp = kernels.partition_plan_plain(p, v, n_parts)
+    torch.cuda.synchronize()
+    for a, b in zip(got, exp):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["rows_2^24_plus_3", "out_of_range_ids", "misaligned"])
+@pytest.mark.parametrize("n_parts", [1, 2, 64])
+def test_k17_large_and_out_of_range_match_plain(cuda_device, n_parts, case):
+    """2^24 + 3 rows (4097 tiles of look-back); ids below 0 and at or past
+    n_parts, which K17 files with the invalid rows; ids and validity that
+    start one element past an aligned address (no 16-byte loads)."""
+    r = np.random.default_rng(1700 + n_parts)
+    n = (1 << 24) + 3 if case == "rows_2^24_plus_3" else 300_001
+    lo, hi = (-3, n_parts + 3) if case == "out_of_range_ids" else (0, n_parts)
+    pids = torch.from_numpy(r.integers(lo, hi, n + 1).astype(np.int32)).to(cuda_device)
+    valid = torch.from_numpy(r.random(n + 1) < 0.8).to(cuda_device)
+    p, v = (pids[1:], valid[1:]) if case == "misaligned" else (pids[:n], valid[:n])
     got = kernels.partition_plan(p, v, n_parts)
     exp = kernels.partition_plan_plain(p, v, n_parts)
     torch.cuda.synchronize()
@@ -1284,3 +1304,113 @@ def test_k14_kernel_matches_plain(cuda_device, case):
         assert dead.any() and not got[1].cpu().numpy()[dead].any()
     if case == "duplicates_beside_invalid":
         assert int(got[1].sum()) > 0
+
+
+# K8, the compact-concat: each case is a list of parts, (rows, live share)
+K8_CASES = {
+    "lengths_not_multiples_of_4096": [(5000, 0.7), (256, 0.5), (12_289, 0.9), (70_001, 0.3)],
+    "one_part_of_2^24_rows": [(1 << 24, 0.6), (4096, 0.5)],
+    "more_columns_than_the_cap": [(30_000, 0.6), (70_000, 0.4)],
+    "mixed_dtypes_across_parts": [(30_000, 0.6), (70_000, 0.4), (5, 1.0)],
+    "strided_sources": [(30_000, 0.6), (70_000, 0.4)],
+    "empty_and_all_invalid_parts": [(0, 0.5), (3000, 0.0), (90_000, 0.6), (4096, 0.0)],
+    "one_live_row": [(4096, 0.0), (70_000, 0.0)],
+    "fully_live_total_a_bucket": [(1 << 15, 1.0), (1 << 15, 1.0)],
+    "forty_parts_some_empty": [((i * 997) % 6000 if i % 7 else 0, 0.6) for i in range(40)],
+}
+
+
+def _k8_part(r, m, dens, case, i, dev):
+    """One part: int64, float64 with NaN, int32, date, timestamp (ms), bool,
+    float32, a string column (null code -1, its own dictionary order) and a
+    3-wide and a 2-wide vector column; the 2^24-row part keeps three."""
+    valid = torch.from_numpy(r.random(m) < dens)
+    f = r.normal(size=m)
+    f[r.random(m) < 0.1] = np.nan
+    cols = {"i": NumCol(torch.from_numpy(r.integers(-10**12, 10**12, m)), "i"),
+            "f": NumCol(torch.from_numpy(f), "f"),
+            "b": NumCol(torch.from_numpy(r.random(m) < 0.5), "b")}
+    if case != "one_part_of_2^24_rows":
+        cols.update(
+            n=NumCol(torch.from_numpy(r.integers(-100, 100, m).astype(np.int32)), "i"),
+            d=NumCol(torch.from_numpy(r.integers(0, 20_000, m).astype(np.int32)), "d"),
+            t=NumCol(torch.from_numpy(r.integers(0, 10**13, m)), "t", "ms"),
+            h=NumCol(torch.from_numpy(r.normal(size=m).astype(np.float32)), "f"),
+            s=StrCol(torch.from_numpy(r.integers(-1, 3, m).astype(np.int32)),
+                     StringDict(np.array(["x", "y", "z"], dtype=object)[r.permutation(3)])),
+            v=VecCol(torch.from_numpy(r.normal(size=(m, 3)))),
+            w=VecCol(torch.from_numpy(r.normal(size=(m, 2)))))
+    if case == "more_columns_than_the_cap":
+        for j in range(bridge.CONCAT_MAX_COLUMNS + 3):
+            cols[f"x{j}"] = NumCol(torch.from_numpy(r.integers(0, 1000, m).astype(np.int16)), "i")
+    if case == "mixed_dtypes_across_parts" and i == 0:
+        cols["i"] = NumCol(cols["i"].data.to(torch.int32), "i")
+        cols["h"] = NumCol(cols["h"].data.double(), "f")
+    cols = {k: (StrCol(c.codes.to(dev), c.dictionary) if isinstance(c, StrCol)
+                else VecCol(c.data.to(dev)) if isinstance(c, VecCol)
+                else NumCol(c.data.to(dev), c.kind, c.unit)) for k, c in cols.items()}
+    if case == "strided_sources":
+        cols["i"] = NumCol(_strided(cols["i"].data), "i")
+        cols["v"] = VecCol(torch.stack([cols["v"].data] * 2, 0)[1])  # contiguous, but a view
+        valid = _strided(valid.to(dev))
+    if case == "one_live_row" and i == 1:
+        valid[54_321] = True
+    valid = valid.to(dev)
+    return DeviceBatch(cols, valid, int(valid.sum()))
+
+
+def _same_batch(a, b) -> bool:
+    """Bit for bit: nrows, validity, column order, kinds, units, dtypes and
+    every padded row (floats compared as their bits)."""
+    def bits(t):
+        return t.view({8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.uint8}[
+            t.element_size()]) if t.is_floating_point() else t
+
+    if a.nrows != b.nrows or not torch.equal(a.valid, b.valid) or list(a.columns) != list(b.columns):
+        return False
+    for name, x in a.columns.items():
+        y = b.columns[name]
+        tx, ty = (x.codes, y.codes) if isinstance(x, StrCol) else (x.data, y.data)
+        if type(x) is not type(y) or tx.dtype != ty.dtype or tx.shape != ty.shape:
+            return False
+        if isinstance(x, NumCol) and (x.kind, x.unit) != (y.kind, y.unit):
+            return False
+        if isinstance(x, StrCol) and list(x.dictionary.values) != list(y.dictionary.values):
+            return False
+        if not torch.equal(bits(tx), bits(ty)):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("case", list(K8_CASES))
+def test_k8_kernel_matches_plain(cuda_device, case):
+    """K8 through ``concat_batches`` against its plain version on the same
+    remapped parts, bit for bit, in one launch a ``CONCAT_MAX_COLUMNS``
+    columns; the tail past the live rows is zero."""
+    r = np.random.default_rng(8)
+    parts = [_k8_part(r, m, dens, case, i, cuda_device)
+             for i, (m, dens) in enumerate(K8_CASES[case])]
+    per_col, dicts = bridge._concat_parts(parts)
+    total = sum(b.nrows for b in parts)
+    padded = config.bucket_size(total)
+    before = bridge.CONCAT_LAUNCHES
+    got = bridge.concat_batches(parts)
+    launches = bridge.CONCAT_LAUNCHES - before
+    want = bridge.compact_concat_plain(parts, per_col, dicts, total, padded)
+    torch.cuda.synchronize()
+    assert launches == -(-len(per_col) // bridge.CONCAT_MAX_COLUMNS)
+    assert _same_batch(got, want)
+    if case == "fully_live_total_a_bucket":
+        assert total == padded
+    for c in got.columns.values():
+        t = c.codes if isinstance(c, StrCol) else c.data
+        assert not t[total:].view(torch.uint8).any()
+
+
+def test_k8_same_bits_every_run(cuda_device):
+    r = np.random.default_rng(88)
+    parts = [_k8_part(r, m, 0.5, "lengths_not_multiples_of_4096", i, cuda_device)
+             for i, m in enumerate((70_001, 3, 129_000))]
+    a, b = bridge.concat_batches(parts), bridge.concat_batches(parts)
+    torch.cuda.synchronize()
+    assert _same_batch(a, b)

@@ -393,7 +393,8 @@ def _rows(snap):
 CALLS = {"K1": ("ops.fuse", "predicate_plain"), "K2": ("ops.fuse", "SmallCall.plain"),
          "K3": ("ops.hashtable", "hash_groupby"), "K4": ("ops.kernels", "partition_split"),
          "K5": ("ops.fuse", "PreAggCall.plain"), "K11 build": ("ops.hashtable", "_build_insert"),
-         "K11": ("ops.hashtable", "probe"), "K23": ("ops.pack", "decode_plain")}
+         "K11": ("ops.hashtable", "probe"), "K23": ("ops.pack", "decode_plain"),
+         "K8": ("ops.bridge", "compact_concat_plain")}
 
 
 @pytest.mark.parametrize("query", ["q1", "q3"])

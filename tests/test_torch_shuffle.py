@@ -48,7 +48,7 @@ def _plan_inputs(n, n_parts, case, seed):
 
 
 @pytest.mark.parametrize("case", ["mixed", "empty_parts", "all_invalid"])
-@pytest.mark.parametrize("n_parts", [2, 3, 7, 64])
+@pytest.mark.parametrize("n_parts", [1, 2, 3, 7, 64])
 def test_plan_matches_reference(n_parts, case):
     """K17's plain version against the reference's ``_partition_plan``:
     perm, counts and offsets exact."""

@@ -80,8 +80,9 @@ K21_VARIANTS = {
 
 def load_package(root: Path, sources=("vector", "linalg")):
     """quokka_tpu_torch from the checkout at root, with the CUDA sources
-    ``sources`` built: its vector, linalg, hashtable, fuse and join ops,
-    its time-series executors and the package itself.  Each load drops the
+    ``sources`` built: its vector, linalg, hashtable, fuse, join, kernels,
+    bridge and batch modules, its time-series executors and the package
+    itself.  Each load drops the
     modules of an earlier one from sys.modules; the module objects already
     held keep working."""
     for name in [m for m in sys.modules if m == "quokka_tpu_torch"
@@ -91,12 +92,14 @@ def load_package(root: Path, sources=("vector", "linalg")):
     try:
         import quokka_tpu_torch
         from quokka_tpu_torch.executors import ts_execs
-        from quokka_tpu_torch.ops import fuse, hashtable, join, linalg, native, vector
+        from quokka_tpu_torch.ops import batch, bridge, fuse, hashtable, join, kernels, linalg
+        from quokka_tpu_torch.ops import native, vector
     finally:
         sys.path.remove(str(root))
     native.build_all(list(sources))
     return SimpleNamespace(root=str(root), vops=vector, lops=linalg, ht=hashtable, ts=ts_execs,
-                           fuse=fuse, join=join, pkg=quokka_tpu_torch)
+                           fuse=fuse, join=join, kernels=kernels, bridge=bridge, batch=batch,
+                           pkg=quokka_tpu_torch)
 
 
 def parse_ptxas(log: str) -> dict:
