@@ -16,9 +16,11 @@ Phases, each fatal on failure:
      2^18-row Parquet file of the same distribution in 16 row groups with
      its IVF sidecar (built on the card), and their float64 oracles;
   4. run TPC-H Q1, Q3 (join_build=hashtable, then join_build=sort), Q5,
-     Q4, Q13, Q19 and Q7, then the time-series tier over the ticks (the
-     backward asof backtest under asof=searchsorted, then asof=sort, the
-     forward asof, tumbling, hopping, session and sliding windows, shift)
+     Q4, Q13, Q19, Q7 and Q21 (three distincts over lineitem, held to a
+     numpy oracle that dedupes the (order, supplier) pairs), then the
+     time-series tier over the ticks (the backward asof backtest under
+     asof=searchsorted, then asof=sort, the forward asof, tumbling,
+     hopping, session and sliding windows, shift)
      through the port's own QuokkaContext on the card, then the vector tier
      (exact nearest_neighbors, k = 10, over the corpus in 2^20-row
      batches; the approximate search over the Parquet file, nprobe 4; the
@@ -38,7 +40,9 @@ Phases, each fatal on failure:
      one K23 decode: it fails unless K23 launched once per landed batch,
      unless every kernel's devprof dispatches on the path equal its
      launches, unless K8's launches equal the path's compacting concats
-     (one a 16 columns) with no torch.nonzero inside them, when a path but
+     (one a 16 columns) with no torch.nonzero inside them, unless every
+     many-to-many plan took K13p and one lexsort_perm (the combined sort),
+     unless K10 and K13p launched on Q4, Q13 and Q21, when a path but
      the gramian, covariance and quantile ones launched no K8, when K2's
      Triton pre-pass did not run once a K2 call on Q1
      and Q5 (their plans have expression inputs) or ran at all elsewhere
@@ -78,8 +82,14 @@ Phases, each fatal on failure:
      inputs, a yardstick of the sums only; K2's pre-pass alone at Q1's;
      K3 at Q1's, Q3's,
      tumbling's and hopping's, each call under torch.cuda's sync debug
-     mode, so that a host read in a call fails; K4 at Q1's and Q3's; K5, K11, K12 at Q3's, K12 also on float64 keys with -0.0 and
-     NaN; K13 at Q13's and with one probe key matching 10^4 build rows;
+     mode, so that a host read in a call fails; K4 at Q1's and Q3's; K5, K11,
+     K12 at Q3's, K12 also on float64 keys with -0.0 and NaN; K13 at
+     Q13's and with one probe key matching 10^4 build rows;
+     K10 and K13p (both modes) at Q4's, Q13's and Q21's largest plans, at
+     that skewed case and on float64 limbs with -0.0 and NaN, float32 and
+     bool limbs, all rows invalid, no valid build row, row counts that are
+     not a multiple of the tile and strided inputs, bit for bit, each timed
+     whole, its sort apart from its pass, beside a stable torch.sort;
      K16 at Q7's, also with dates before 1970 and nulls; K18 at the
      asof's, K19 at the sort strategy's, sliding's and shift's, and K19's
      segment bounds (its scan both ways) at sliding's and shift's, beside
@@ -114,7 +124,7 @@ Phases, each fatal on failure:
      largest calls, with duplicate build keys, no matches and no valid
      row),
      and time kernel, plain version and bound with CUDA events; the
-     torch-primitive rows 7, 9, 10, 14, 15, 20 and `_mask_and_count`
+     torch-primitive rows 7, 9, 14, 15, 20 and `_mask_and_count`
      (kernels.apply_mask) are timed too;
   7. print one JSON line of per-kernel numbers, the card line, and last the
      contract line {"ok": true, "device": {...}}.
@@ -163,6 +173,7 @@ NATIONS = [
 ]
 SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"]
 PRIORITIES = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]
+ORDER_STATUS = ["F", "O", "P"]
 BRANDS = [f"Brand#{m}{n}" for m in range(1, 6) for n in range(1, 6)]
 # o_comment: "special requests" (code 0) with probability 0.05, else one of
 # this many distinct comments
@@ -211,7 +222,7 @@ class Table:
 
 
 def make_tpch(sf: float, seed: int):
-    """The seven tables Q1, Q3, Q5, Q4, Q13, Q19 and Q7 read: orders have
+    """The seven tables Q1, Q3, Q5, Q4, Q13, Q19, Q7 and Q21 read: orders have
     keys 4, 8, 12, ...; customers whose key is a multiple of 3 place no
     orders; 1-7 lines per order; ship date = order date + 1..121 days,
     commit date = order date + 30..90, receipt date = ship date + 1..30;
@@ -275,6 +286,18 @@ def make_tpch(sf: float, seed: int):
         "l_receiptdate": (ship + r.integers(1, 31, n)).astype(np.int32),
     }, {"l_returnflag": RETURNFLAGS, "l_linestatus": LINESTATUS},
         dates=["l_shipdate", "l_commitdate", "l_receiptdate"])
+    # Q21's columns, made from the draws above (no draw of their own, so the
+    # other tables stay as they were): an order is 'F' when every line
+    # shipped by 1995-06-17, 'O' when none did, else 'P' (TPC-H's rule)
+    first = np.concatenate([[0], np.cumsum(lines_per)[:-1]])
+    cut = days("1995-06-17")
+    shipped = np.add.reduceat((ship <= cut).astype(np.int64), first)
+    orders.cols["o_orderstatus"] = np.where(shipped == lines_per, 0,
+                                            np.where(shipped == 0, 1, 2)).astype(np.int32)
+    orders.dicts["o_orderstatus"] = np.array(ORDER_STATUS, dtype=object)
+    supplier.cols["s_name"] = np.arange(n_supp, dtype=np.int32)
+    supplier.dicts["s_name"] = np.array([f"Supplier#{k:09d}" for k in range(1, n_supp + 1)],
+                                        dtype=object)
     return {"region": region, "nation": nation, "supplier": supplier, "part": part,
             "customer": customer, "orders": orders, "lineitem": lineitem}
 
@@ -547,6 +570,45 @@ def check_q19(got, exp) -> None:
 def check_q7(got, exp) -> None:
     check_groups("Q7", got, ["supp_nation", "cust_nation", "l_year"], "revenue", exp,
                  exact=False)
+
+
+def q21_nation(t) -> str:
+    """Q21's nation: the modal supplier nation (tests/test_tpch2.py's rule;
+    the spec names SAUDI ARABIA)."""
+    import numpy as np
+
+    return NATIONS[int(np.bincount(t["supplier"].cols["s_nationkey"], minlength=25).argmax())][0]
+
+
+def q21_oracle(t):
+    """{s_name: numwait}: the distinct (order, supplier) pairs of late lines
+    (receipt after commit) of 'F' orders with more than one supplier and
+    exactly one late supplier, whose supplier is of Q21's nation."""
+    import numpy as np
+
+    li, o, s = t["lineitem"].cols, t["orders"].cols, t["supplier"].cols
+    width = int(s["s_suppkey"].max()) + 1
+    pair = li["l_orderkey"] * width + li["l_suppkey"]
+    late = li["l_receiptdate"] > li["l_commitdate"]
+    every, lpairs = np.unique(pair), np.unique(pair[late])
+    order_of = every // width
+    n_supp = dict(zip(*np.unique(order_of, return_counts=True)))
+    lo, ls = lpairs // width, lpairs % width
+    lorders, lcounts = np.unique(lo, return_counts=True)
+    n_late = dict(zip(lorders, lcounts))
+    status_f = o["o_orderstatus"][lo // 4 - 1] == ORDER_STATUS.index("F")
+    nat = [n for n, _ in NATIONS].index(q21_nation(t))
+    keep = status_f & (s["s_nationkey"][ls - 1] == nat) & np.array(
+        [n_supp[x] > 1 and n_late[x] == 1 for x in lo.tolist()], dtype=bool)
+    names = t["supplier"].dicts["s_name"][s["s_name"][ls[keep] - 1]]
+    got, cnt = np.unique(names.astype(str), return_counts=True)
+    return {str(a): int(c) for a, c in zip(got, cnt)}
+
+
+def check_q21(got, exp) -> None:
+    if not exp:
+        fail("Q21: the oracle's result is empty")
+    check_groups("Q21", got, ["s_name"], "numwait", exp, exact=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1060,7 +1122,7 @@ def check_quantiles(got, exp):
 
 
 def tpch_stream(name: str, ctx, tables):
-    """TPC-H Q1, Q3, Q13, Q7 or Q5 over the made tables through the port's
+    """TPC-H Q1, Q3, Q4, Q13, Q7, Q21 or Q5 over the made tables through the port's
     API (a reader per source: it holds the source's pushed-down
     projection).  The walls-only run uses it against another checkout's
     package too."""
@@ -1082,6 +1144,12 @@ def tpch_stream(name: str, ctx, tables):
                       left_on="o_custkey", right_on="c_custkey")
                 .groupby(["l_orderkey", "o_orderdate", "o_shippriority"])
                 .agg_sql(REV).top_k(["revenue"], 10, [True]))
+    if name == "q4":
+        return (src("orders")
+                .filter_sql("o_orderdate >= date '1993-07-01' and o_orderdate < date '1993-10-01'")
+                .join(src("lineitem").filter_sql("l_commitdate < l_receiptdate"),
+                      left_on="o_orderkey", right_on="l_orderkey", how="semi")
+                .groupby("o_orderpriority").agg_sql("count(*) as order_count"))
     if name == "q13":
         return (src("customer")
                 .join(src("orders").filter(~col("o_comment").str.contains("special")),
@@ -1106,6 +1174,24 @@ def tpch_stream(name: str, ctx, tables):
                                   "l_extendedprice * (1 - l_discount) as volume")
                 .groupby(["supp_nation", "cust_nation", "l_year"])
                 .agg_sql("sum(volume) as revenue"))
+    if name == "q21":
+        late = src("lineitem").filter_sql("l_receiptdate > l_commitdate")
+        n_supp = (src("lineitem").select(["l_orderkey", "l_suppkey"]).distinct()
+                  .groupby("l_orderkey").agg_sql("count(*) as n_supp")
+                  .rename({"l_orderkey": "ns_orderkey"}))
+        n_late = (late.select(["l_orderkey", "l_suppkey"]).distinct()
+                  .groupby("l_orderkey").agg_sql("count(*) as n_late")
+                  .rename({"l_orderkey": "nl_orderkey"}))
+        return (late.select(["l_orderkey", "l_suppkey"]).distinct()
+                .join(src("orders").filter_sql("o_orderstatus = 'F'"),
+                      left_on="l_orderkey", right_on="o_orderkey", how="semi")
+                .join(n_supp, left_on="l_orderkey", right_on="ns_orderkey")
+                .join(n_late, left_on="l_orderkey", right_on="nl_orderkey")
+                .filter_sql("n_supp > 1 and n_late = 1")
+                .join(src("supplier"), left_on="l_suppkey", right_on="s_suppkey")
+                .join(src("nation").filter_sql(f"n_name = '{q21_nation(tables)}'"),
+                      left_on="s_nationkey", right_on="n_nationkey", how="semi")
+                .groupby("s_name").agg_sql("count(*) as numwait"))
     return (src("lineitem")
             .join(src("orders").filter_sql(
                 "o_orderdate >= date '1994-01-01' and o_orderdate < date '1995-01-01'"),
@@ -1290,7 +1376,7 @@ def profile_counts(prof):
 
 
 COMPARED = ("q1", "q3", "q5")
-WALL_TPCH = COMPARED + ("q13", "q7")
+WALL_TPCH = COMPARED + ("q13", "q7", "q21")
 WALL_TICKS = ("tumbling", "hopping", "session", "sliding", "shift")
 
 
@@ -1683,6 +1769,50 @@ class ConcatSpy:
                  "inside them")
 
 
+class PlanSortSpy:
+    """Counts the many-to-many plans of CUDA batches (``join._mm_plan_dispatch``
+    calls: K13p, its K10 pass and its fill) and the ``kernels.lexsort_perm``
+    calls made inside them: one a plan, the combined sort, and none of the
+    build side's own."""
+
+    def __init__(self):
+        self.plans = self.sorts = 0
+        self._saved = None
+
+    def __enter__(self):
+        from quokka_tpu_torch.ops import join, kernels
+
+        real, real_sort = join._mm_plan_dispatch, kernels.lexsort_perm
+        self._saved = (join, real, kernels, real_sort)
+        inside = [0]
+
+        def sort(keys):
+            self.sorts += bool(inside[0])
+            return real_sort(keys)
+
+        def spy(limbs, valid, p, with_bps):
+            self.plans += valid.is_cuda
+            inside[0] += valid.is_cuda
+            try:
+                return real(limbs, valid, p, with_bps)
+            finally:
+                inside[0] -= valid.is_cuda
+
+        join._mm_plan_dispatch, kernels.lexsort_perm = spy, sort
+        return self
+
+    def __exit__(self, *exc):
+        join, real, kernels, real_sort = self._saved
+        join._mm_plan_dispatch, kernels.lexsort_perm = real, real_sort
+        return False
+
+    def check(self, path: str, launched: int) -> None:
+        """The gate: one K13p launch and one sort a plan."""
+        if launched != self.plans or self.sorts != self.plans:
+            fail(f"{path}: {launched} K13p launches and {self.sorts} lexsort_perm calls for "
+                 f"{self.plans} many-to-many plans (expected one of each a plan)")
+
+
 # the device operations of every K17 call: a memset and two kernels
 K17_OPS = ("Memset", "qk_plan_count_kernel", "qk_plan_place_kernel")
 
@@ -1998,6 +2128,145 @@ def mesh_kernel_rows(dev, cap, launches_by, seed: int):
 # ---------------------------------------------------------------------------
 
 
+def rank_plan_rows(dev, plans, launches_by_path, skewed, seed: int):
+    """K10's and K13p's rows of the per-kernel table: each kernel against its
+    plain version bit for bit at the queries' largest plans (``plans``: path
+    -> (limbs, valid, probe rows) of Q4's, Q13's and Q21's) and on made
+    inputs, then timed whole, its sort apart from the rest, beside its plain
+    version, its bound and a stable torch.sort of the first limb."""
+    import torch
+    from quokka_tpu_torch.ops import join, kernels
+
+    # K10 and K13p, each against its plain version bit for bit: at Q4's plan
+    # (its semi join, one int64 limb), Q13's plan (its left join) and Q21's
+    # largest anti-join plan (two int64 limbs), at K13's skewed case (one
+    # probe key matching 10^4 build rows), and on made inputs: float64 limbs
+    # with -0.0, +0.0 and NaN, float32 and bool limbs, every row invalid, row
+    # counts that are not a multiple of the 4096-row tile, strided limbs and
+    # validity.  Each plan is checked in both modes (with build positions,
+    # and the semi / anti joins' counts only).
+    (q4_l, q4_v, q4_p), (q13_l, q13_v, q13_p), (q21_l, q21_v, q21_p) = (
+        plans["q4"], plans["q13"], plans["q21"])
+    s_limbs, s_valid, p_s = skewed
+    if len(q21_l) != 2:
+        fail(f"Q21's largest anti-join plan has {len(q21_l)} limbs, expected 2")
+
+    def same_bits(label, got, want):
+        for i, (x, y) in enumerate(zip(got, want)):
+            if x.dtype != y.dtype or not torch.equal(x.reshape(-1), y.reshape(-1)):
+                fail(f"{label}: output {i} differs from the plain version")
+
+    def check_k10_k13p(label, limbs, valid, p):
+        same_bits(f"K10 {label}", kernels._dense_rank_cuda(limbs, valid),
+                  kernels.dense_rank_plain(limbs, valid))
+        same_bits(f"K13p {label}", join._mm_plan_cuda(limbs, valid, p),
+                  join._mm_plan_plain(limbs, valid, p))
+        same_bits(f"K13p {label}, counts", join._mm_plan_cuda(limbs, valid, p, False)[:1],
+                  join._mm_counts_plain(limbs, valid, p)[:1])
+        torch.cuda.synchronize()
+        print(f"K10 and K13p {label}: {valid.shape[0]} rows ({int(valid.sum())} valid, {p} "
+              f"probe), {len(limbs)} limbs {[str(l.dtype) for l in limbs]}: bit for bit")
+
+    g10 = torch.Generator(device="cpu").manual_seed(seed + 10)
+    n10 = 3 * (1 << 16) + 123
+    f10 = torch.randint(-4, 4, (n10,), generator=g10).to(torch.float64)
+    u10 = torch.rand(n10, generator=g10)
+    f10[u10 < 0.1] = float("nan")
+    f10[(u10 >= 0.1) & (u10 < 0.3)] = -0.0
+    v10 = torch.rand(n10, generator=g10) < 0.9
+    i10 = torch.randint(0, 1 << 12, (n10,), generator=g10)
+    wide = torch.stack([i10, torch.randint(0, 7, (n10,), generator=g10)], 1).to(dev)
+    vwide = torch.stack([v10, ~v10], 1).to(dev)
+    cases10 = [
+        ("at Q4's plan", q4_l, q4_v, q4_p), ("at Q13's plan", q13_l, q13_v, q13_p),
+        ("at Q21's largest anti-join plan", q21_l, q21_v, q21_p),
+        ("one probe key x 10^4 build rows", s_limbs, s_valid, p_s),
+        ("float64 with -0.0, +0.0 and NaN", [f10.to(dev)], v10.to(dev), n10 // 3),
+        ("float32 and bool limbs", [f10.to(torch.float32).to(dev), (i10 % 2 == 0).to(dev)],
+         v10.to(dev), 1000),
+        ("int64 and int32 limbs, 100,003 rows",
+         [i10[:100_003].to(dev), (i10[:100_003] % 5).to(torch.int32).to(dev)],
+         v10[:100_003].to(dev), 50_001),
+        ("every row invalid", [i10.to(dev)], torch.zeros(n10, dtype=torch.bool, device=dev),
+         n10 // 2),
+        ("no valid build row", [i10.to(dev)], torch.cat([v10[:1000], torch.zeros(
+            n10 - 1000, dtype=torch.bool)]).to(dev), 1000),
+        ("strided limbs and validity", [wide[:, 0], wide[:, 1]], vwide[:, 0], n10 // 4)]
+    for label, limbs, valid, p in cases10:
+        check_k10_k13p(label, limbs, valid, p)
+
+    def split_us(fn):
+        """(whole call, K10's pass and K13p's fill, the rest) device us a
+        call: every device operation of the call; the rest is the sort's
+        operations and the memsets (the pass's own memset is about 1 us)."""
+        per = {}
+        for _ in range(3):
+            # a window whose sort records the profiler dropped is taken again
+            got, _ = kernel_us(fn, expect=("qk_rank_kernel",))
+            if sum(got.values()) > sum(per.values()):
+                per = got
+            if any("RadixSort" in k for k in got):
+                break
+        ours = sum(t for k, t in per.items()
+                   if k.startswith(("qk_rank_kernel", "qk_mm_fill_kernel")))
+        return sum(per.values()), ours, sum(per.values()) - ours
+
+    def rank_bytes(limbs, valid):
+        return nbytes(*limbs, valid) + valid.shape[0] * 8 + 4
+
+    def plan_bytes(limbs, valid, p, with_bps):
+        n = valid.shape[0]
+        return nbytes(*limbs, valid) + 8 * ((p + 1 + 2 * n) if with_bps else p)
+
+    def k10_at(limbs, valid, path):
+        fn = lambda: kernels.dense_rank(limbs, valid)
+        whole, ours, sort = split_us(fn)
+        return dict(launches=launches_by_path[path]["K10"], ms=cuda_ms(fn),
+                    plain_ms=cuda_ms(lambda: kernels.dense_rank_plain(limbs, valid), iters=5),
+                    bound_ms=bound_ms(rank_bytes(limbs, valid)), device_us=whole,
+                    pass_device_us=ours, sort_device_us=sort,
+                    sort_yardstick_ms=cuda_ms(lambda: torch.sort(limbs[0], stable=True)),
+                    shape=f"{path}'s plan: {valid.shape[0]} rows, {len(limbs)} limbs "
+                          f"{[str(l.dtype) for l in limbs]}")
+
+    def k13p_at(limbs, valid, p, path, with_bps):
+        fn = ((lambda: join._mm_plan(limbs, valid, p)) if with_bps
+              else (lambda: join._mm_counts(limbs, valid, p)))
+        plain = ((lambda: join._mm_plan_plain(limbs, valid, p)) if with_bps
+                 else (lambda: join._mm_counts_plain(limbs, valid, p)))
+        whole, ours, sort = split_us(fn)
+        return dict(launches=launches_by_path[path]["K13p"], ms=cuda_ms(fn),
+                    plain_ms=cuda_ms(plain, iters=5),
+                    bound_ms=bound_ms(plan_bytes(limbs, valid, p, with_bps)), device_us=whole,
+                    pass_device_us=ours, sort_device_us=sort,
+                    sort_yardstick_ms=cuda_ms(lambda: torch.sort(limbs[0], stable=True)),
+                    shape=f"{path}'s plan: {p} probe + {valid.shape[0] - p} build rows, "
+                          f"{len(limbs)} limbs, "
+                          + ("with build positions" if with_bps else "counts only"))
+
+    def per_query(kernel):
+        return {p: n[kernel] for p, n in launches_by_path.items() if n[kernel]}
+
+    out = []
+    row10 = k10_at(q4_l, q4_v, "q4")
+    out.append(dict(
+        name="K10 dense rank (one pass over the sorted order)", route="cuda",
+        source="quokka_tpu_torch/csrc/rank.cu", replaces="quokka_tpu/ops/kernels.py:138",
+        max_abs_err=0.0, bound_by="bytes", library_ms=None, per_query=per_query("K10"),
+        **row10, q13=k10_at(q13_l, q13_v, "q13"), q21=k10_at(q21_l, q21_v, "q21")))
+    row13 = k13p_at(q13_l, q13_v, q13_p, "q13", True)
+    out.append(dict(
+        name="K13p many-to-many plan (K10's pass in plan mode and the fill)", route="cuda",
+        source="quokka_tpu_torch/csrc/rank.cu", replaces="quokka_tpu/ops/join.py:220",
+        max_abs_err=0.0, bound_by="bytes", library_ms=None, per_query=per_query("K13p"),
+        **row13, q4=k13p_at(q4_l, q4_v, q4_p, "q4", False),
+        q21=k13p_at(q21_l, q21_v, q21_p, "q21", False),
+        skew=k13p_at(s_limbs, s_valid, p_s, "q13", True)))
+    out[-1]["skew"].update(launches=0, shape="one probe key x 10^4 build rows: "
+                           + out[-1]["skew"]["shape"].split(": ", 1)[1])
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2079,7 +2348,7 @@ def smoke(dev, card: str, args) -> int:
     li = tables["lineitem"]
     oracles = {"q1": q1_oracle(li), "q3": q3_oracle(tables), "q5": q5_oracle(tables),
                "q4": q4_oracle(tables), "q13": q13_oracle(tables),
-               "q19": q19_oracle(tables), "q7": q7_oracle(tables)}
+               "q19": q19_oracle(tables), "q7": q7_oracle(tables), "q21": q21_oracle(tables)}
     ticks = make_ticks(args.sf, args.seed)
     oracles.update(asof=asof_oracle(ticks, "backward"),
                    **{"asof forward": asof_oracle(ticks, "forward")}, **window_oracles(ticks))
@@ -2163,11 +2432,7 @@ def smoke(dev, card: str, args) -> int:
         return tpch_stream("q5", ctx, tables)
 
     def q4_stream():
-        return (src("orders")
-                .filter_sql("o_orderdate >= date '1993-07-01' and o_orderdate < date '1993-10-01'")
-                .join(src("lineitem").filter_sql("l_commitdate < l_receiptdate"),
-                      left_on="o_orderkey", right_on="l_orderkey", how="semi")
-                .groupby("o_orderpriority").agg_sql("count(*) as order_count"))
+        return tpch_stream("q4", ctx, tables)
 
     def q13_stream():
         return tpch_stream("q13", ctx, tables)
@@ -2199,6 +2464,9 @@ def smoke(dev, card: str, args) -> int:
 
     def q7_stream():
         return tpch_stream("q7", ctx, tables)
+
+    def q21_stream():
+        return tpch_stream("q21", ctx, tables)
 
     def vector_stream():
         # glove-100-angular's shape: 2^20-row batches of an Arrow corpus
@@ -2260,7 +2528,8 @@ def smoke(dev, card: str, args) -> int:
                 "K6": (fuse, "ONEHOT_LAUNCHES"), "K17": (kernels, "PLAN_LAUNCHES"),
                 "K26": (kernels, "ADAPT_LAUNCHES"), "K23": (pack, "LAUNCHES"),
                 "K24": (kernels, "MESH_LAUNCHES"), "K14": (join, "PK_MATCH_LAUNCHES"),
-                "K8": (bridge, "CONCAT_LAUNCHES")}
+                "K8": (bridge, "CONCAT_LAUNCHES"), "K10": (kernels, "RANK_LAUNCHES"),
+                "K13p": (join, "MM_PLAN_LAUNCHES")}
     # K18's and K12's launches that took the runtime-dispatch kernel: none on
     # any path (the main paths' signatures are compiled typed)
     dispatch_counters = {"K18": (asof, "ASOF_PROBE_DISPATCH_LAUNCHES"),
@@ -2278,14 +2547,19 @@ def smoke(dev, card: str, args) -> int:
                     ["K11 build", "K11", "K13", "K16"], False),
         "q5": (q5_stream, check_q5, ["K1", "K2", "K3", "K4", "K11 build", "K11"],
                ["K12", "K13", "K16"], False),
-        "q4": (q4_stream, check_q4, ["K1", "K2", "K3", "K4", "K11 build"],
+        "q4": (q4_stream, check_q4, ["K1", "K2", "K3", "K4", "K11 build", "K10", "K13p"],
                ["K11", "K12", "K13", "K16"], True),
-        "q13": (q13_stream, check_q13, ["K1", "K3", "K4", "K5", "K11 build", "K13"],
-                ["K11", "K12", "K16"], True),
+        "q13": (q13_stream, check_q13, ["K1", "K3", "K4", "K5", "K11 build", "K13", "K10",
+                                        "K13p"], ["K11", "K12", "K16"], True),
         "q19": (q19_stream, check_q19, ["K4", "K5", "K11 build", "K11", "K16"],
                 ["K12", "K13"], False),
         "q7": (q7_stream, check_q7, ["K1", "K3", "K4", "K5", "K11 build", "K11", "K16"],
                ["K12", "K13"], False),
+        # three distincts over lineitem: each a group-by with no aggregates
+        # (K3) and, from a channel's second batch on, an anti join against
+        # the keys seen (the general join's plan, K10's pass and K13p)
+        "q21": (q21_stream, check_q21, ["K1", "K3", "K4", "K11 build", "K11", "K10", "K13p"],
+                ["K12", "K13"], True),
         # the time-series tier over bench.py's ticks
         "asof": (asof_stream, check_asof, ["K18", "K4"], ["K19", "K19 bounds", "K20a", "K20b"],
                  False),
@@ -2301,11 +2575,16 @@ def smoke(dev, card: str, args) -> int:
         "shift": (shift_stream, check_shift, ["K19 bounds", "K4"],
                   ["K18", "K19", "K20a", "K20b"], False),
     }
-    for p in paths.values():
+    for name, p in paths.items():
         # no earlier path runs the vector tier's kernels, nor slice 6's: the
         # adaptive exchange, on by default, must not fire on them; the
-        # engine never runs the mesh's K24 and K14
-        p[3].extend(["K21", "K22", "K6", "K17", "K26", "K24", "K14"])
+        # engine never runs the mesh's K24 and K14.  On Q21 the trigger may
+        # fire: a final aggregate's channel delivers all its rows to one
+        # build channel of the next join (both hash the order key), and
+        # while the other channel's rows have not come, that channel holds
+        # twice the mean (QK_SKEW_RATIO 2.0 at two channels)
+        p[3].extend(["K21", "K22", "K6", "K17", "K24", "K14"]
+                    + ([] if name == "q21" else ["K26"]))
 
     def all_but(*keep):
         # K23 lands every batch and K8 joins every compacting concat, on
@@ -2479,7 +2758,7 @@ def smoke(dev, card: str, args) -> int:
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with Row20Spy() as row20, ConcatSpy() as concat:
+            with Row20Spy() as row20, ConcatSpy() as concat, PlanSortSpy() as plans:
                 got = collect_numpy(stream(), path)
             torch.cuda.synchronize()
             cold = time.perf_counter() - t0
@@ -2503,6 +2782,8 @@ def smoke(dev, card: str, args) -> int:
         # every compacting concat took K8, with no torch.nonzero
         concat.check(path, launches["K8"])
         concat_calls[path] = concat.calls
+        # every many-to-many plan took K13p with one sort, the combined one
+        plans.check(path, launches["K13p"])
         fallbacks, sequential = fuse.FALLBACKS, stagefuse.SEQUENTIAL
         used = strategy.used_snapshot()
         check(got, exp)
@@ -2566,6 +2847,10 @@ def smoke(dev, card: str, args) -> int:
                 taken[f"{padded} rows: {what}"] = taken.get(f"{padded} rows: {what}", 0) + 1
             slice6[path] = {"partial_agg_batches": taken}
             print(f"{path}: partial aggregates by batch {taken}")
+        if path == "q21":
+            adt = dict(ctx.latest_graph.store.titems("ADT"))
+            slice6[path] = {"adt": {str(k): v for k, v in adt.items()}}
+            print(f"{path}: ADT {adt} (K26 launches {launches['K26']})")
         if path.startswith("skewjoin"):
             adt = dict(ctx.latest_graph.store.titems("ADT"))
             edges = {}
@@ -2695,7 +2980,8 @@ def smoke(dev, card: str, args) -> int:
                 "qk_probe_kernel", "qk_sorted_probe_kernel", "qk_mm_expand_kernel",
                 "qk_elemwise", "qk_asof_probe", "qk_fill_", "qk_bounds_chain", "qk_window_",
                 "qk_range_", "qk_sims_", "qk_topk_merge_kernel", "qk_gram_",
-                "qk_plan_", "qk_adapt_kernel", "qk_decode", "qk_mesh_", "qk_pk_", "qk_concat")
+                "qk_plan_", "qk_adapt_kernel", "qk_decode", "qk_mesh_", "qk_pk_", "qk_concat",
+                "qk_rank_kernel", "qk_mm_fill_kernel")
     profiles = {}
     for path, (stream, *_) in paths.items():
         set_strategy(path)
@@ -2819,14 +3105,15 @@ def smoke(dev, card: str, args) -> int:
     hcap, scap = caps["q3"], caps["q3 sort"]
 
     # the calls the slice-3 paths make: Q13's expands and plans, Q4's and
-    # Q13's dense ranks (row 10), Q7's in-stage elementwise calls (K16)
+    # Q21's semi / anti plans (K13p without build positions, each with its
+    # K10 pass), Q7's in-stage elementwise calls (K16)
     s3 = {}
-    rank_target = {"row 10 rank": (kernels, "dense_rank", lambda l, v: v.shape[0])}
+    counts_target = {"K13p counts": (join, "_mm_counts", lambda l, v, p: v.shape[0])}
     for path, stream, tg in (
             ("q13", q13_stream, {"K13": (join, "mm_expand", lambda *a: a[5]),
-                                 "row 13 plan": (join, "_mm_plan", lambda l, v, p: v.shape[0]),
-                                 **rank_target}),
-            ("q4", q4_stream, dict(rank_target)),
+                                 "K13p": (join, "_mm_plan", lambda l, v, p: v.shape[0])}),
+            ("q4", q4_stream, dict(counts_target)),
+            ("q21", q21_stream, dict(counts_target)),
             ("q7", q7_stream, {"K16": (stagefuse.ElemwiseCall, "__init__",
                                        lambda self, *a: a[5].shape[0]),
                                "K4": (kernels, "partition_split",
@@ -3357,6 +3644,11 @@ def smoke(dev, card: str, args) -> int:
               "plain_ms": cuda_ms(expand13_plain(sk_a, sk_cum), iters=3, warmup=1),
               "device_us": device_us(expand13(sk_a, sk_cum), ("qk_mm_expand_kernel",)),
               "bound_ms": bound_ms(k13_bytes(sk_a, sk_cum))}))
+
+    # K10 and K13p at Q4's, Q13's and Q21's largest plans and made cases
+    out.extend(rank_plan_rows(dev, {q: s3[q].args["K13p" if q == "q13" else "K13p counts"][0]
+                                    for q in ("q4", "q13", "q21")},
+                              launches_by_path, (s_limbs, s_valid, p_s), args.seed))
 
     # K16 at Q7's stage, and on the same call with dates from 0001 to 9999
     # (before 1970 too) and 5% nulls in place of l_shipdate
@@ -4144,18 +4436,6 @@ def smoke(dev, card: str, args) -> int:
     (ls_keys,), _ = scap.args["row 15 sort"]
     t_row(15, "stable lexicographic sort (build keys)", lambda: kernels.lexsort_perm(ls_keys),
           nbytes(*ls_keys) + ls_keys[0].shape[0] * 8, scap.calls["row 15 sort"])
-    for path in ("q13", "q4"):
-        (r_limbs, r_valid), _ = s3[path].args["row 10 rank"]
-        t_row(10, f"dense rank ({path}'s largest, {len(r_limbs)} limbs)",
-              lambda: kernels.dense_rank(r_limbs, r_valid),
-              nbytes(*r_limbs, r_valid) + r_valid.shape[0] * 8 + 4,
-              s3[path].calls["row 10 rank"], path)
-        t_rows[-1]["library_ms"] = cuda_ms(lambda: torch.sort(r_limbs[0], stable=True))
-    (p_limbs, p_valid, p_p), _ = s3["q13"].args["row 13 plan"]
-    t_row(13, "many-to-many plan (Q13's largest: rank, counts, build sort, offsets)",
-          lambda: join._mm_plan(p_limbs, p_valid, p_p),
-          nbytes(*p_limbs, p_valid) + 8 * (p_p + 1 + 2 * p_valid.shape[0]),
-          s3["q13"].calls["row 13 plan"], "q13")
     (r9_a, r9_v, r9_op), _ = s4["sliding"].args["row 9 reduce"]
     t_row(9, f"reduce_array ({r9_op}, the sliding watermark)",
           lambda: kernels.reduce_array(r9_a, r9_v, r9_op), nbytes(r9_a, r9_v) + 8,
@@ -4193,18 +4473,26 @@ def smoke(dev, card: str, args) -> int:
         if kk.get("library_device_us") is not None:
             print(f"  library: {kk['library_ms']:.4f} ms, {kk['library_device_us']:.1f} "
                   "device us per call")
-        for sub in ("q3", "q7", "tumbling", "hopping", "build", "skew", "big"):
+        if "sort_device_us" in kk:
+            print(f"  the sort and the memsets {kk['sort_device_us']:.1f} device us, the rank pass "
+                  f"and the fill {kk['pass_device_us']:.1f}; a stable torch.sort of the first limb "
+                  f"(a yardstick, not the same function) {kk['sort_yardstick_ms']:.4f} ms")
+        for sub in ("q3", "q4", "q7", "q13", "q21", "tumbling", "hopping", "build", "skew",
+                    "big"):
             if sub in kk:
                 v = kk[sub]
                 print(f"  {sub}: {v['launches']} launches, {v['ms']:.4f} ms, "
                       f"{v['device_us']:.1f} device us, bound {v['bound_ms']:.5f} ms "
-                      f"({v['shape']}); plain {v['plain_ms']:.4f} ms")
+                      f"({v['shape']}); plain {v['plain_ms']:.4f} ms"
+                      + (f"; sort {v['sort_device_us']:.1f}, rest {v['pass_device_us']:.1f} "
+                         "device us" if "sort_device_us" in v else ""))
     report["kernels"] = out
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     keep = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "device_us", "per_query")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "device_us", "per_query",
+            "sort_device_us", "pass_device_us", "sort_yardstick_ms")
     print(json.dumps({"kernels": [{k: kk[k] for k in keep if k in kk} for kk in out]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

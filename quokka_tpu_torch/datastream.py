@@ -21,7 +21,7 @@ from quokka_tpu_torch.target_info import HashPartitioner, PassThroughPartitioner
 def _not_in_slice(what: str):
     raise NotImplementedError(
         f"{what} is not in quokka_tpu_torch yet (it carries filter, select, rename, "
-        "with_columns, join, groupby/agg, top_k, nearest_neighbors, gramian, "
+        "with_columns, join, groupby/agg, distinct, top_k, nearest_neighbors, gramian, "
         "covariance, approximate_quantile and collect; see ROADMAP.md for the "
         "slice that adds it)")
 
@@ -235,6 +235,15 @@ class DataStream:
         combine.channels = 1
         return DataStream(self.ctx, self.ctx.add_node(combine))
 
+    def distinct(self, keys: Optional[Sequence[str]] = None) -> "DataStream":
+        """One row per distinct value of ``keys`` (every column by default),
+        hash-partitioned on them; the output holds the key columns only."""
+        keys = list(keys) if keys else list(self.schema)
+        missing = set(keys) - set(self.schema)
+        if missing:
+            raise ValueError(f"distinct references unknown columns {missing}")
+        return self._child(logical.DistinctNode([self.node_id], keys, keys))
+
     # -- ordering ----------------------------------------------------------------
     def top_k(self, by, k: int, descending=None) -> "DataStream":
         by = [by] if isinstance(by, str) else list(by)
@@ -246,8 +255,6 @@ class DataStream:
     def sort(self, *args, **kwargs):
         _not_in_slice("sort")
 
-    def distinct(self, *args, **kwargs):
-        _not_in_slice("distinct")
 
 
 class GroupedDataStream:

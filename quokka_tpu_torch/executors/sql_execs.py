@@ -1,12 +1,12 @@
 """Core relational executors (port of ``quokka_tpu/executors/sql_execs.py``).
 
 The UDF, Storage, SelectingStorage, PartialAgg, FinalAgg, BuildProbeJoin,
-BroadcastJoin and TopK executors.  Aggregation is decomposed partial -> hash
+BroadcastJoin, Distinct and TopK executors.  Aggregation is decomposed partial -> hash
 shuffle -> final, as in the reference.  Inner, semi and anti joins take the
 PK path (``ops/join.hash_join_pk``) on unique builds and the general path
 (``hash_join_general``) otherwise; every left join takes the general path,
-as in the reference.  The join spill tier, join checkpoints, distinct and
-sort come with later slices (ROADMAP Queue 1, "The rest of the DataStream/SQL
+as in the reference.  The join spill tier, join checkpoints and sort come
+with later slices (ROADMAP Queue 1, "The rest of the DataStream/SQL
 surface").
 """
 
@@ -389,6 +389,34 @@ class BuildProbeJoinExecutor(Executor):
 class BroadcastJoinExecutor(BuildProbeJoinExecutor):
     """Small side broadcast to every channel: the device logic is the same;
     only the build edge's partitioner differs (Broadcast)."""
+
+
+class DistinctExecutor(Executor):
+    """Streaming distinct (reference ``DistinctExecutor``): each batch's
+    distinct keys (a group-by with no aggregates), less the keys seen before
+    on this channel (an anti join against them), are emitted and join the
+    seen keys."""
+
+    def __init__(self, keys: Sequence[str]):
+        self.keys = list(keys)
+        self.seen: Optional[DeviceBatch] = None
+
+    def execute(self, batches, stream_id, channel):
+        outs = []
+        for b in batches:
+            if b is None:
+                continue
+            b = kernels.compact(kernels.distinct(b, self.keys))
+            if self.seen is not None:
+                b = kernels.compact(join_ops.hash_join_general(b, self.seen, self.keys,
+                                                               self.keys, "anti"))
+            if b.count_valid() == 0:
+                continue
+            self.seen = b if self.seen is None else bridge.concat_batches([self.seen, b])
+            outs.append(b)
+        if not outs:
+            return None
+        return bridge.concat_batches(outs) if len(outs) > 1 else outs[0]
 
 
 class TopKExecutor(Executor):

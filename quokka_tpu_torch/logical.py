@@ -1,5 +1,5 @@
 """Logical plan nodes (port of ``quokka_tpu/logical.py``: Source, Filter,
-Projection, Map, Join, Agg, FusedStage, TopK, Sink, and the time-series
+Projection, Map, Join, Agg, FusedStage, Distinct, TopK, Sink, and the time-series
 nodes AsofJoin, WindowAgg and Shift).
 
 A node whose ``sorted_by`` is set lowers to a sorted actor: its consumers
@@ -502,6 +502,27 @@ class FusedStageNode(Node):
             graph.adapt_edges[(sources[1][0], fused)] = {"probe_src": sources[0][0]}
         actor_of[node_id] = fused if agg is None else agg.lower_final(
             ctx, graph, fused, self.channels, self.stage)
+
+
+class DistinctNode(Node):
+    def __init__(self, parents, schema, keys):
+        super().__init__(parents, schema)
+        self.keys = keys
+
+    def derive_schema(self, parents):
+        _require(self.keys, parents[0], "distinct keys")
+        return list(self.keys)
+
+    def lower(self, ctx, graph, actor_of, node_id):
+        from quokka_tpu_torch.executors.sql_execs import DistinctExecutor
+
+        actor_of[node_id] = graph.new_exec_node(
+            functools.partial(DistinctExecutor, self.keys),
+            {0: (actor_of[self.parents[0]], TargetInfo(HashPartitioner(self.keys)))},
+            self.channels or ctx.exec_channels, self.stage)
+
+    def describe(self):
+        return f"Distinct({self.keys})"
 
 
 class TopKNode(Node):

@@ -18,10 +18,15 @@ the probe path.  Two strategies serve the probe (``ops/strategy`` op
 applies, from the same cached structure the probe will use.
 
 ``hash_join_general`` serves a build whose keys repeat, and every left
-join.  Its plan is torch primitives (PERF.md row 13's plan, T): the dense
-rank of the probe and build keys together (row 10), per-rank build counts,
-the build rows stably sorted by rank and an exclusive cumsum.  Semi and
-anti joins stop there (a probe row matches when its rank has a build row).
+join.  Its plan is kernel K13p (``_mm_plan``, ``csrc/rank.cu``): one
+stable sort of the probe and build keys together (``lexsort_perm``), then
+K10's pass over the sorted order in a plan mode (the dense rank, the probe
+ranks, each rank's offset and the valid build rows in (rank, row) order,
+which the stable sort already gives: no sort of the build side) and a fill
+launch (the offsets past the last rank, the match counts and their total,
+the invalid build rows in row order); ``_mm_plan_plain`` is its plain
+version.  Semi and anti joins stop at the match counts (a probe row matches
+when its rank has a build row).
 Inner and left joins read the output total on the host once per probe
 batch to pick the output bucket, as the reference does, then kernel K13
 (``mm_expand``, ``csrc/join.cu``) writes one (probe row, build row) pair
@@ -61,6 +66,9 @@ SORTED_PROBE_LAUNCHES = 0
 SORTED_PROBE_DISPATCH_LAUNCHES = 0
 EXPAND_LAUNCHES = 0
 PK_MATCH_LAUNCHES = 0
+# K13p's plans (its fill launch; its pass is counted as K10's,
+# ``kernels.RANK_LAUNCHES``)
+MM_PLAN_LAUNCHES = 0
 JOIN_HOWS = ("inner", "left", "semi", "anti")
 PK_HOWS = ("inner", "semi", "anti")  # the executor sends every left join to the general path
 
@@ -258,7 +266,7 @@ def pk_match_ranks(ranks: torch.Tensor, valid: torch.Tensor, p: int):
 
 def _pk_match(limbs: Sequence[torch.Tensor], valid: torch.Tensor, p: int):
     """The reference's ``_pk_match``: dense ranks of the concatenated probe
-    and build key limbs (row 10), then K14.  A probe row matches when its
+    and build key limbs (K10), then K14.  A probe row matches when its
     key has a valid build row; build_idx is the least such row."""
     ranks, _ = kernels.dense_rank(limbs, valid)
     return pk_match_ranks(ranks, valid, p)
@@ -330,7 +338,7 @@ def hash_join_pk(probe: DeviceBatch, build: DeviceBatch, probe_keys: Sequence[st
 
 
 # ---------------------------------------------------------------------------
-# many-to-many and left joins: the plan (T) and the expand, kernel K13
+# many-to-many and left joins: the plan, kernel K13p, and the expand, kernel K13
 # ---------------------------------------------------------------------------
 
 
@@ -346,7 +354,7 @@ def _concat_limbs(probe: DeviceBatch, build: DeviceBatch, probe_keys, build_keys
     return limbs, valid
 
 
-def _mm_counts(limbs, valid, p: int):
+def _mm_counts_plain(limbs, valid, p: int):
     """Dense ranks of probe+build keys: (build rows per probe row, build
     rows per rank, probe ranks, build ranks)."""
     n = valid.shape[0]
@@ -358,14 +366,80 @@ def _mm_counts(limbs, valid, p: int):
     return match_count, cnt, rp, rb
 
 
-def _mm_plan(limbs, valid, p: int):
-    """The reference's ``_mm_plan``: (match_count, total, offsets,
-    build_pos_sorted, rp).  Build rows are stably sorted by rank with
-    invalid rows last; ``offsets[r]`` is where rank r's run starts."""
-    match_count, cnt, rp, rb = _mm_counts(limbs, valid, p)
+def _mm_plan_plain(limbs, valid, p: int):
+    """Plain version of K13p, the reference's ``_mm_plan``: (match_count,
+    total, offsets, build_pos_sorted, rp).  Build rows are stably sorted by
+    rank with invalid rows last; ``offsets[r]`` is where rank r's run
+    starts."""
+    match_count, cnt, rp, rb = _mm_counts_plain(limbs, valid, p)
     build_pos_sorted = kernels.lexsort_perm([(~valid[p:]).to(torch.int32), rb])
     offsets = torch.cumsum(cnt, 0) - cnt
     return match_count, match_count.sum(), offsets, build_pos_sorted, rp
+
+
+def _mm_plan_cuda(limbs, valid, p: int, with_bps: bool = True):
+    """K13p: the combined sort, K10's pass in plan mode and the fill (see
+    ``csrc/rank.cu``); without ``with_bps`` (semi and anti joins) no build
+    positions are written and only match_count is meaningful."""
+    global MM_PLAN_LAUNCHES
+    dev = valid.device
+    n = valid.shape[0]
+    if not 0 <= p <= n:
+        raise ValueError(f"mm_plan: {p} probe rows of {n}")
+    perm, v8, cols, dts, scratch = kernels.rank_pass_args("mm_plan", limbs, valid)
+    rp = torch.empty(p, dtype=torch.int64, device=dev)
+    num = torch.empty((), dtype=torch.int32, device=dev)
+    offsets = torch.empty(n, dtype=torch.int64, device=dev)
+    bps = torch.empty(n - p if with_bps else 0, dtype=torch.int64, device=dev)
+    match_count = torch.empty(p, dtype=torch.int64, device=dev)
+    nbv = torch.empty(2, dtype=torch.int64, device=dev)  # valid build rows, total
+    native.check(kernels._rank_lib().qk_mm_plan(
+        perm.data_ptr(), v8.data_ptr(), native.ptr_array([c.data_ptr() for c in cols]),
+        native.int_array(dts), len(cols), n, p, int(with_bps), rp.data_ptr(), num.data_ptr(),
+        offsets.data_ptr(), bps.data_ptr() if with_bps else None, match_count.data_ptr(),
+        nbv.data_ptr(), scratch.data_ptr(), native.stream_ptr(dev)), "qk_mm_plan")
+    kernels.RANK_LAUNCHES += 1
+    MM_PLAN_LAUNCHES += 1
+    return match_count, nbv[1], offsets, bps, rp
+
+
+def _charge_plan(limbs, valid, p: int, with_bps: bool) -> None:
+    """devprof's charges of one plan: K10's pass and K13p's fill (the probe
+    ranks and validity read, the offsets, match counts and build positions
+    written)."""
+    kernels.charge_rank(limbs, valid)
+    n = valid.shape[0]
+    out = 8 * (p + (2 * n - p if with_bps else 0))
+    devprof.on_dispatch(
+        ("K13p", valid.device.type, n, p, with_bps, tuple(str(l.dtype) for l in limbs)),
+        lambda: (0.0, float(9 * p + n + out), float(out)))
+
+
+def _mm_plan_dispatch(limbs, valid, p: int, with_bps: bool):
+    _charge_plan(limbs, valid, p, with_bps)
+    if valid.device.type == "cpu":
+        if with_bps:
+            return _mm_plan_plain(limbs, valid, p)
+        return _mm_counts_plain(limbs, valid, p)[0]
+    if valid.device.type != "cuda":
+        raise RuntimeError(f"mm_plan: unsupported device {valid.device}")
+    out = _mm_plan_cuda(limbs, valid, p, with_bps)
+    return out if with_bps else out[0]
+
+
+def _mm_counts(limbs, valid, p: int):
+    """Build rows matching each probe row (int64), for semi and anti joins:
+    K13p with no build positions on CUDA tensors, the plain counts on CPU
+    tensors."""
+    return _mm_plan_dispatch(limbs, valid, p, False)
+
+
+def _mm_plan(limbs, valid, p: int):
+    """The reference's ``_mm_plan``: (match_count, total, offsets,
+    build_pos_sorted, rp).  CUDA tensors launch K13p (one sort, the
+    combined one; no sort of the build side); CPU tensors take
+    ``_mm_plan_plain``."""
+    return _mm_plan_dispatch(limbs, valid, p, True)
 
 
 def mm_plan_for(limbs, valid, p: int, how: str, probe_valid: torch.Tensor):
@@ -472,7 +546,7 @@ def hash_join_general(probe: DeviceBatch, build: DeviceBatch, probe_keys: Sequen
     p = probe.padded_len
     limbs, valid = _concat_limbs(probe, build, probe_keys, build_keys)
     if how in ("semi", "anti"):
-        matched = _mm_counts(limbs, valid, p)[0] > 0
+        matched = _mm_counts(limbs, valid, p) > 0
         return kernels.apply_mask(probe, matched if how == "semi" else probe.valid & ~matched)
     match_count, total, offsets, build_pos_sorted, rp, unmatched = mm_plan_for(
         limbs, valid, p, how, probe.valid)

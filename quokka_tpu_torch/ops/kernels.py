@@ -1,8 +1,8 @@
 """Relational kernels over DeviceBatch (PyTorch port of ``quokka_tpu/ops/kernels.py``).
 
-Kernels K4, K17, K24 and K26 live here (``csrc/partition.cu``).  K4, hash
-partition + split, replaces the reference's ``_partition_ids`` and
-``_split_masks`` with one launch.  K17, the compacted split's plan,
+Kernels K4, K17, K24 and K26 live here (``csrc/partition.cu``), and K10
+(``csrc/rank.cu``).  K4, hash partition + split, replaces the reference's
+``_partition_ids`` and ``_split_masks`` with one launch.  K17, the compacted split's plan,
 replaces ``_partition_plan``: a stable permutation grouping rows by part,
 with each part's count and offset; every part is then a window of it
 (``_part_window``, a slice and an ``arange < count`` mask, torch ops) and
@@ -16,11 +16,14 @@ kernels; group-by goes to the hash table (K3), the default of the
 reference's strategy matrix (``ops/strategy``), or to the sort group-by
 under ``groupby=sort``.
 
-PERF.md row 10, ``dense_rank`` and ``sorted_groupby``, is torch primitives
-(T): stable sorts on integer order keys, a run test, a cumsum and a
-scatter back, then K3's segment aggregates over the ranks.  The
-many-to-many join plan (``ops/join``) ranks with it, and K3 falls back to
-it when its insert does not converge.
+K10 (``csrc/rank.cu``), ``dense_rank``, replaces the reference's
+``_dense_rank_impl`` after its sort: the sort stays stable torch sorts on
+integer order keys (``lexsort_perm``), and one pass over the sorted order
+tests each run, scans the run starts across 4096-row tiles and scatters the
+ranks back (``dense_rank_plain`` is its plain version).  ``sorted_groupby``
+is the dense rank then K3's segment aggregates over the ranks; the
+many-to-many join plan (``ops/join``, K13p) runs K10's pass in a plan mode,
+and K3 falls back to the sort group-by when its insert does not converge.
 """
 
 from __future__ import annotations
@@ -42,6 +45,9 @@ from quokka_tpu_torch.ops.hashtable import _min_sentinel as min_sentinel
 # launches of the K4, K17, K24 and K26 CUDA kernels
 PARTITION_LAUNCHES = 0
 PLAN_LAUNCHES = 0
+# launches of K10's pass over the sorted order (csrc/rank.cu), in either
+# mode: the dense rank's, and the many-to-many plan's (ops/join.py, K13p)
+RANK_LAUNCHES = 0
 ADAPT_LAUNCHES = 0
 MESH_LAUNCHES = 0
 # blocking host reads of split counts on the shuffle path (one per
@@ -101,21 +107,17 @@ def groupby_limbs(limbs: Sequence[torch.Tensor], arrays: Sequence[torch.Tensor],
 
 
 # ---------------------------------------------------------------------------
-# dense rank and the sort group-by (PERF.md row 10, T)
+# dense rank and the sort group-by: kernel K10 (PERF.md row 10)
 # ---------------------------------------------------------------------------
 
 
-def dense_rank(limbs: Sequence[torch.Tensor], valid: torch.Tensor):
-    """Dense 0..k-1 ids (int64) such that two valid rows share an id iff
-    their key limbs are equal, and the number of ids (int32 device scalar).
-    Invalid rows get an arbitrary id; callers must mask.
-
-    The reference's ``_dense_rank_impl``: one stable sort with invalid rows
-    last and the row id as the last key, run starts where any limb differs
-    from the row before, a cumsum, and a scatter back to row order.  The
-    sort runs on integer order keys (``lexsort_perm``) and the run test on
-    the raw limbs with ``!=``, so -0.0 and +0.0 share a rank and every NaN
-    starts a run of its own, as in the reference."""
+def dense_rank_plain(limbs: Sequence[torch.Tensor], valid: torch.Tensor):
+    """Plain version of K10, the reference's ``_dense_rank_impl``: one stable
+    sort with invalid rows last and the row id as the last key, run starts
+    where any limb differs from the row before, a cumsum, and a scatter back
+    to row order.  The sort runs on integer order keys (``lexsort_perm``) and
+    the run test on the raw limbs with ``!=``, so -0.0 and +0.0 share a rank
+    and every NaN starts a run of its own, as in the reference."""
     n = valid.shape[0]
     dev = valid.device
     perm = _sort_perm(limbs, valid)
@@ -131,6 +133,83 @@ def dense_rank(limbs: Sequence[torch.Tensor], valid: torch.Tensor):
     ranks = torch.empty(n, dtype=torch.int64, device=dev)
     ranks[perm] = ranks_s
     return ranks, num
+
+
+def _rank_lib():
+    lib = native.library("rank")
+    if not getattr(lib, "qk_bound", False):
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        PP, PI = ctypes.POINTER(P), ctypes.POINTER(I)
+        lib.qk_rank_scratch.argtypes = [L]
+        lib.qk_rank_scratch.restype = L
+        lib.qk_rank.argtypes = [P, P, PP, PI, I, L, P, P, P, P]
+        lib.qk_rank.restype = I
+        lib.qk_mm_plan.argtypes = [P, P, PP, PI, I, L, L, I, P, P, P, P, P, P, P, P]
+        lib.qk_mm_plan.restype = I
+        lib.qk_bound = True
+    return lib
+
+
+def rank_pass_args(what: str, limbs: Sequence[torch.Tensor], valid: torch.Tensor):
+    """The checked inputs of K10's pass: (the stable sort's perm, the
+    validity as bytes, the limbs as contiguous arrays (bool as bytes), their
+    dtype codes, scratch).  The caller keeps every returned tensor alive
+    until its launch has been issued (contiguous copies)."""
+    dev = valid.device
+    n = valid.shape[0]
+    if dev.type != "cuda":
+        raise RuntimeError(f"{what}: unsupported device {dev}")
+    if not 1 <= n < 1 << 31:
+        raise ValueError(f"{what}: 1 to 2^31 - 1 rows, got {n}")
+    if len(limbs) > 16:
+        raise ValueError(f"{what}: at most 16 key limbs")
+    for l in limbs:
+        if l.dtype not in _LIMB_DT or l.device != dev or l.shape != (n,):
+            raise TypeError(f"{what}: unsupported limb {l.dtype} {tuple(l.shape)} on {l.device}")
+    perm = _sort_perm(limbs, valid).contiguous()
+    cols = [(l.view(torch.uint8) if l.dtype == torch.bool else l).contiguous() for l in limbs]
+    v8 = valid.contiguous().view(torch.uint8)
+    scratch = torch.empty(_rank_lib().qk_rank_scratch(n), dtype=torch.int64, device=dev)
+    return perm, v8, cols, [_LIMB_DT[l.dtype] for l in limbs], scratch
+
+
+def _dense_rank_cuda(limbs: Sequence[torch.Tensor], valid: torch.Tensor):
+    global RANK_LAUNCHES
+    dev = valid.device
+    n = valid.shape[0]
+    perm, v8, cols, dts, scratch = rank_pass_args("dense_rank", limbs, valid)
+    ranks = torch.empty(n, dtype=torch.int64, device=dev)
+    num = torch.empty((), dtype=torch.int32, device=dev)
+    native.check(_rank_lib().qk_rank(
+        perm.data_ptr(), v8.data_ptr(), native.ptr_array([c.data_ptr() for c in cols]),
+        native.int_array(dts), len(cols), n, ranks.data_ptr(), num.data_ptr(),
+        scratch.data_ptr(), native.stream_ptr(dev)), "qk_rank")
+    RANK_LAUNCHES += 1
+    return ranks, num
+
+
+def charge_rank(limbs: Sequence[torch.Tensor], valid: torch.Tensor) -> None:
+    """devprof's charge of one K10 pass: perm read, the validity and every
+    limb gathered once a row, one int64 a row written."""
+    n = valid.shape[0]
+    devprof.on_dispatch(
+        ("K10", valid.device.type, n, tuple(str(l.dtype) for l in limbs)),
+        lambda: (0.0, float(devprof.nbytes(*limbs, valid) + 16 * n), float(8 * n)))
+
+
+def dense_rank(limbs: Sequence[torch.Tensor], valid: torch.Tensor):
+    """Dense 0..k-1 ids (int64) such that two valid rows share an id iff
+    their key limbs are equal, and the number of ids (int32 device scalar);
+    invalid rows get max(num - 1, 0).  The sort is ``lexsort_perm`` (stable
+    torch sorts); then CUDA tensors launch K10 (``csrc/rank.cu``: the run
+    test, the scan and the scatter in one pass over the sorted order, with
+    no host read) and CPU tensors take ``dense_rank_plain``."""
+    charge_rank(limbs, valid)
+    if valid.device.type == "cpu":
+        return dense_rank_plain(limbs, valid)
+    if valid.device.type != "cuda":
+        raise RuntimeError(f"dense_rank: unsupported device {valid.device}")
+    return _dense_rank_cuda(limbs, valid)
 
 
 def sorted_groupby(limbs: Sequence[torch.Tensor], arrays: Sequence[torch.Tensor],
@@ -169,6 +248,12 @@ def groupby_aggregate(
         cols[name] = NumCol(arr, "f" if arr.is_floating_point() else "i")
     group_valid = torch.arange(n, device=dev) < num
     return DeviceBatch(cols, group_valid, None, None).note_count(num)
+
+
+def distinct(batch: DeviceBatch, keys: Sequence[str]) -> DeviceBatch:
+    """One row per distinct key (the reference's ``distinct``): a group-by
+    with no aggregates, the key columns kept."""
+    return groupby_aggregate(batch, list(keys), []).select(list(keys))
 
 
 # ---------------------------------------------------------------------------

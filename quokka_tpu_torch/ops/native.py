@@ -32,7 +32,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = Path(config.CACHE_ROOT)
 SOURCES = ("hashtable", "partition", "join", "asof", "window", "vector", "linalg", "onehot",
-           "pack", "concat")
+           "pack", "concat", "rank")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]

@@ -1,7 +1,7 @@
 """Logical-plan optimizer (port of ``quokka_tpu/optimizer.py``).
 
 1. push_filters      -- predicate pushdown per conjunct, through stacked
-                        filters and joins into source readers.
+                        filters, distincts and joins into source readers.
 2. early_projection  -- column-requirement analysis; prunes the column set
                         each source actually reads.
 3. choose_broadcast  -- a build side the catalog estimates at no more than
@@ -109,6 +109,19 @@ def _try_push_one(sub, sink_id, fid: int, fnode: logical.FilterNode, cons) -> bo
         parent.predicate = (fnode.predicate if parent.predicate is None
                             else conjoin([parent.predicate, fnode.predicate]))
         _relink(sub, sink_id, fid, pid)
+        return True
+    if isinstance(parent, logical.DistinctNode):
+        if parent_shared:
+            return False
+        # swap: the filter below, the distinct above it (the filter reads only
+        # the distinct's keys, so it keeps the same rows either way)
+        fnode.parents = list(parent.parents)
+        src = sub[fnode.parents[0]]
+        fnode.sorted_by = list(src.sorted_by) if src.sorted_by is not None else None
+        parent.parents = [fid]
+        for nid in _reachable(sub, sink_id):
+            if nid not in (fid, pid):
+                sub[nid].parents = [pid if p == fid else p for p in sub[nid].parents]
         return True
     if isinstance(parent, logical.JoinNode):
         # each conjunct goes to the side that holds all its columns: the
@@ -219,6 +232,8 @@ def _needed_from_parent(sub, node: logical.Node, i: int, need: Set[str]) -> Set[
         return out & parent_schema
     if isinstance(node, logical.TopKNode):
         return (need | set(node.by)) & parent_schema
+    if isinstance(node, logical.DistinctNode):
+        return set(node.keys) & parent_schema
     if isinstance(node, logical.StatefulNode):
         # an executor's own state: the time-series nodes read their whole input
         return parent_schema

@@ -9,8 +9,9 @@ row range of one global batch:
 - elementwise nodes ignore shard boundaries and run once over the whole
   batch, through the port's generated kernels: K1 for a predicate, K16 for
   a map or an aggregate's pre-expressions;
-- group-bys, joins, as-of joins, windows and shifts run as per-shard local
-  work with the same kernels the engine uses (``kernels.sorted_groupby``,
+- group-bys, distincts, joins, as-of joins, windows and shifts run as
+  per-shard local work with the same kernels the engine uses
+  (``kernels.sorted_groupby``,
   ``join._pk_match``, ``asof._asof_match``, the sliding-window kernels),
   with a key shuffle (K24, ``mesh.collective_hash_shuffle``) between them;
 - small root-level work (final aggregates with having / order / limit,
@@ -597,8 +598,8 @@ class MeshExecutor:
 
     SUPPORTED = (
         logical.SourceNode, logical.FilterNode, logical.ProjectionNode, logical.MapNode,
-        logical.AggNode, logical.JoinNode, logical.TopKNode, logical.SinkNode,
-        logical.AsofJoinNode, logical.WindowAggNode, logical.ShiftNode, logical.StatefulNode,
+        logical.DistinctNode, logical.AggNode, logical.JoinNode, logical.TopKNode,
+        logical.SinkNode, logical.AsofJoinNode, logical.WindowAggNode, logical.ShiftNode, logical.StatefulNode,
     )
     MAX_WINDOW_REPLICATION = 16
 
@@ -692,6 +693,12 @@ class MeshExecutor:
                 b = _with_exprs(b, node.exprs.items())
                 return b.select([c for c in node.schema if c in b.columns])
             return node.fn(b)
+        if isinstance(node, logical.DistinctNode):
+            # a group-by with no aggregates (the sort group-by, K10), then the
+            # live rows compacted back
+            b = self._exec(sub, node.parents[0])
+            g = mesh_groupby(self.mesh, b, list(node.keys), [], [])
+            return self._compact_reshard(g.select(list(node.keys)))
         if isinstance(node, logical.AggNode):
             return self._agg(sub, node)
         if isinstance(node, logical.AsofJoinNode):

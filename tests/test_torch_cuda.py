@@ -1,4 +1,4 @@
-"""The port's hand-written kernels (K1-K6, K11-K14, K16-K24, K26) against
+"""The port's hand-written kernels (K1-K6, K8, K10, K11-K14, K13p, K16-K24, K26) against
 their plain torch versions, on a card.  Every test is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False.
 
@@ -20,7 +20,8 @@ and K26's routing are exact index for index; K6's counts, integer sums and
 smallest rows are exact and its float64 sums within rtol 1e-9.  K23's
 decoded leaves equal the plain version's and the shipped input bit for bit.
 K24's exchanged columns and validity, and K14's build rows and matches,
-are exact.
+are exact.  K10's ranks and K13p's plan equal the plain versions bit for
+bit.
 """
 
 import dataclasses
@@ -1414,3 +1415,104 @@ def test_k8_same_bits_every_run(cuda_device):
     a, b = bridge.concat_batches(parts), bridge.concat_batches(parts)
     torch.cuda.synchronize()
     assert _same_batch(a, b)
+
+
+def _k10_case(r, case, dev):
+    """(limbs, valid, probe rows) of one K10 / K13p case."""
+    n = {"rows_2^21_plus_2^16": (1 << 21) + (1 << 16), "rows_100003": 100_003}.get(case, 70_001)
+    valid = r.random(n) < 0.9
+    keys = r.integers(0, max(n // 8, 1), n).astype(np.int64)
+    p = n // 3
+    if case == "float64_neg_zero_nan":
+        f = r.integers(-4, 4, n).astype(np.float64)
+        u = r.random(n)
+        f[u < 0.1] = np.nan
+        f[(u >= 0.1) & (u < 0.3)] = -0.0
+        limbs = [torch.from_numpy(f)]
+    elif case == "two_int64_limbs":
+        limbs = [torch.from_numpy(keys), torch.from_numpy(r.integers(0, 4, n).astype(np.int64))]
+    elif case == "int32_float32_bool":
+        limbs = [torch.from_numpy((keys % 97).astype(np.int32)),
+                 torch.from_numpy(r.integers(0, 3, n).astype(np.float32)),
+                 torch.from_numpy(r.random(n) < 0.5)]
+    elif case == "all_invalid":
+        valid[:] = False
+        limbs = [torch.from_numpy(keys)]
+    elif case == "no_valid_build_row":
+        valid[p:] = False
+        limbs = [torch.from_numpy(keys)]
+    elif case == "one_key_x_10^4_build_rows":
+        keys[p:p + 10_000] = -1
+        keys[:100] = -1
+        limbs = [torch.from_numpy(keys)]
+    else:
+        limbs = [torch.from_numpy(keys)]
+    return [l.to(dev) for l in limbs], torch.from_numpy(valid).to(dev), p
+
+
+K10_CASES = ["rows_2^21_plus_2^16", "rows_100003", "float64_neg_zero_nan", "two_int64_limbs",
+             "int32_float32_bool", "all_invalid", "no_valid_build_row",
+             "one_key_x_10^4_build_rows"]
+
+
+def _same_bits(got, want):
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.equal(x.reshape(-1), y.reshape(-1))
+
+
+@pytest.mark.parametrize("case", K10_CASES)
+def test_k10_kernel_matches_plain(cuda_device, case):
+    """K10's ranks and num against the plain dense rank, bit for bit, invalid
+    rows included; one launch a call."""
+    limbs, valid, _ = _k10_case(np.random.default_rng(10), case, cuda_device)
+    before = kernels.RANK_LAUNCHES
+    got = kernels.dense_rank(limbs, valid)
+    assert kernels.RANK_LAUNCHES == before + 1
+    _same_bits(got, kernels.dense_rank_plain(limbs, valid))
+
+
+@pytest.mark.parametrize("case", K10_CASES)
+def test_k13p_plan_matches_plain(cuda_device, case):
+    """K13p's match counts, total, offsets (every rank), build positions
+    (the invalid tail included) and probe ranks against the plain plan, bit
+    for bit, with one sort a plan; the counts-only mode gives the same match
+    counts."""
+    limbs, valid, p = _k10_case(np.random.default_rng(13), case, cuda_device)
+    sorts = []
+    real = kernels.lexsort_perm
+
+    def counted(keys):
+        sorts.append(len(keys))
+        return real(keys)
+
+    kernels.lexsort_perm = counted
+    try:
+        before = (kernels.RANK_LAUNCHES, join.MM_PLAN_LAUNCHES)
+        got = join._mm_plan(limbs, valid, p)
+        counts = join._mm_counts(limbs, valid, p)
+    finally:
+        kernels.lexsort_perm = real
+    assert (kernels.RANK_LAUNCHES, join.MM_PLAN_LAUNCHES) == (before[0] + 2, before[1] + 2)
+    assert len(sorts) == 2
+    want = join._mm_plan_plain(limbs, valid, p)
+    _same_bits(got, want)
+    _same_bits((counts,), want[:1])
+
+
+def test_k10_k13p_strided_inputs_match_plain(cuda_device):
+    """Strided limbs and validity: the wrappers' contiguous copies live until
+    their launches."""
+    r = np.random.default_rng(1013)
+    n = 200_003
+    wide = torch.from_numpy(r.integers(0, 5000, (n, 2)).astype(np.int64)).to(cuda_device)
+    vwide = torch.from_numpy(r.random((n, 2)) < 0.8).to(cuda_device)
+    limbs, valid, p = [wide[:, 0], wide[:, 1]], vwide[:, 1], n // 5
+    _same_bits(kernels.dense_rank(limbs, valid), kernels.dense_rank_plain(limbs, valid))
+    _same_bits(join._mm_plan(limbs, valid, p), join._mm_plan_plain(limbs, valid, p))
+    _same_bits((join._mm_counts(limbs, valid, p),), join._mm_plan_plain(limbs, valid, p)[:1])
+
+
+def test_k10_same_bits_every_run(cuda_device):
+    limbs, valid, p = _k10_case(np.random.default_rng(110), "two_int64_limbs", cuda_device)
+    _same_bits(kernels.dense_rank(limbs, valid), kernels.dense_rank(limbs, valid))
+    _same_bits(join._mm_plan(limbs, valid, p), join._mm_plan(limbs, valid, p))
