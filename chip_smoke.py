@@ -41,8 +41,10 @@ Phases, each fatal on failure:
      unless every kernel's devprof dispatches on the path equal its
      launches, unless K8's launches equal the path's compacting concats
      (one a 16 columns) with no torch.nonzero inside them, unless every
-     many-to-many plan took K13p and one lexsort_perm (the combined sort),
-     unless K10 and K13p launched on Q4, Q13 and Q21, when a path but
+     dense rank (K10) and many-to-many plan (K13p) launched one radix sort
+     of csrc/sort.cuh and called no lexsort_perm or torch.sort (on every
+     engine and mesh path), unless K10 and K13p launched on Q4, Q13 and
+     Q21, when a path but
      the gramian, covariance and quantile ones launched no K8, when K2's
      Triton pre-pass did not run once a K2 call on Q1
      and Q5 (their plans have expression inputs) or ran at all elsewhere
@@ -57,9 +59,10 @@ Phases, each fatal on failure:
      sliding windows, shift) through QuokkaContext(mesh=make_mesh(8)),
      eight shards on the card, each against its numpy oracle; it fails on
      a fallback to the engine, a per-step batch, K24 or K8 not launched, K14 not
-     launched on a path with a PK join, a kernel the mesh does not run, or
-     launches that differ from devprof's dispatches or (K23) from the
-     landed batches; it prints cold and warm walls beside the engine's for
+     launched on a path with a PK join, a kernel the mesh does not run, a
+     dense rank without its one radix sort or with a lexsort_perm or
+     torch.sort inside it, or launches that differ from devprof's
+     dispatches or (K23) from the landed batches; it prints cold and warm walls beside the engine's for
      the same query, peak device memory, device busy time, idle share, D2H
      copies, cudaStreamSynchronize calls and the device time of the top
      kernels;
@@ -88,8 +91,11 @@ Phases, each fatal on failure:
      K10 and K13p (both modes) at Q4's, Q13's and Q21's largest plans, at
      that skewed case and on float64 limbs with -0.0 and NaN, float32 and
      bool limbs, all rows invalid, no valid build row, row counts that are
-     not a multiple of the tile and strided inputs, bit for bit, each timed
-     whole, its sort apart from its pass, beside a stable torch.sort;
+     not a multiple of the tile and strided inputs, bit for bit, and the
+     radix sort under them (csrc/sort.cuh) index for index against its
+     plain version at the three plans, on a key of two words and on float
+     limbs; each timed whole and by part (range and pack passes, digit
+     passes, rank pass, fill), beside a stable torch.sort of the packed key;
      K16 at Q7's, also with dates before 1970 and nulls; K18 at the
      asof's, K19 at the sort strategy's, sliding's and shift's, and K19's
      segment bounds (its scan both ways) at sliding's and shift's, beside
@@ -1770,47 +1776,69 @@ class ConcatSpy:
 
 
 class PlanSortSpy:
-    """Counts the many-to-many plans of CUDA batches (``join._mm_plan_dispatch``
-    calls: K13p, its K10 pass and its fill) and the ``kernels.lexsort_perm``
-    calls made inside them: one a plan, the combined sort, and none of the
-    build side's own."""
+    """Counts the dense ranks (``kernels.dense_rank``: K10) and many-to-many
+    plans (``join._mm_plan_dispatch``: K13p) of CUDA batches, the radix
+    sorts they launch (``kernels.SORT_LAUNCHES``), and the
+    ``kernels.lexsort_perm`` and ``torch.sort`` calls made inside them:
+    one radix sort a call and neither of the others."""
 
     def __init__(self):
-        self.plans = self.sorts = 0
+        self.ranks = self.plans = self.sorts = self.lexsorts = self.torch_sorts = 0
         self._saved = None
 
     def __enter__(self):
+        import torch
         from quokka_tpu_torch.ops import join, kernels
 
-        real, real_sort = join._mm_plan_dispatch, kernels.lexsort_perm
-        self._saved = (join, real, kernels, real_sort)
+        real_rank, real_plan = kernels.dense_rank, join._mm_plan_dispatch
+        real_lex, real_sort = kernels.lexsort_perm, torch.sort
+        self._saved = (join, kernels, torch, real_rank, real_plan, real_lex, real_sort)
         inside = [0]
 
-        def sort(keys):
-            self.sorts += bool(inside[0])
-            return real_sort(keys)
+        def lex(keys):
+            self.lexsorts += bool(inside[0])
+            return real_lex(keys)
 
-        def spy(limbs, valid, p, with_bps):
-            self.plans += valid.is_cuda
-            inside[0] += valid.is_cuda
-            try:
-                return real(limbs, valid, p, with_bps)
-            finally:
-                inside[0] -= valid.is_cuda
+        def tsort(*a, **k):
+            self.torch_sorts += bool(inside[0])
+            return real_sort(*a, **k)
 
-        join._mm_plan_dispatch, kernels.lexsort_perm = spy, sort
+        def watched(real, counter):
+            def call(*a):
+                cuda = a[1].is_cuda
+                if not cuda or inside[0]:
+                    return real(*a)
+                setattr(self, counter, getattr(self, counter) + 1)
+                before = kernels.SORT_LAUNCHES
+                inside[0] += 1
+                try:
+                    return real(*a)
+                finally:
+                    inside[0] -= 1
+                    self.sorts += kernels.SORT_LAUNCHES - before
+            return call
+
+        kernels.dense_rank = watched(real_rank, "ranks")
+        join._mm_plan_dispatch = watched(real_plan, "plans")
+        kernels.lexsort_perm, torch.sort = lex, tsort
         return self
 
     def __exit__(self, *exc):
-        join, real, kernels, real_sort = self._saved
-        join._mm_plan_dispatch, kernels.lexsort_perm = real, real_sort
+        join, kernels, torch, real_rank, real_plan, real_lex, real_sort = self._saved
+        kernels.dense_rank, join._mm_plan_dispatch = real_rank, real_plan
+        kernels.lexsort_perm, torch.sort = real_lex, real_sort
         return False
 
-    def check(self, path: str, launched: int) -> None:
-        """The gate: one K13p launch and one sort a plan."""
-        if launched != self.plans or self.sorts != self.plans:
-            fail(f"{path}: {launched} K13p launches and {self.sorts} lexsort_perm calls for "
-                 f"{self.plans} many-to-many plans (expected one of each a plan)")
+    def check(self, path: str, k10: int, k13p: int) -> None:
+        """The gate: one K13p launch a plan, one K10 launch a dense rank
+        and a plan, one radix sort a call, no lexsort_perm or torch.sort
+        inside them."""
+        if (k13p != self.plans or k10 != self.ranks + self.plans
+                or self.sorts != self.ranks + self.plans or self.lexsorts or self.torch_sorts):
+            fail(f"{path}: {k10} K10 and {k13p} K13p launches and {self.sorts} radix sorts "
+                 f"for {self.ranks} dense ranks and {self.plans} many-to-many plans, with "
+                 f"{self.lexsorts} lexsort_perm and {self.torch_sorts} torch.sort calls inside "
+                 "them (expected one radix sort a call and none of the others)")
 
 
 # the device operations of every K17 call: a memset and two kernels
@@ -1920,7 +1948,7 @@ def mesh_phase(dev, tables, ticks, oracles, engine_walls, counters):
         torch.cuda.reset_peak_memory_stats(dev)
         pack.pack_put = counted_put
         try:
-            with Row20Spy() as row20, ConcatSpy() as concat:
+            with Row20Spy() as row20, ConcatSpy() as concat, PlanSortSpy() as plans:
                 got, cold = run(build, mctx, path)
         finally:
             pack.pack_put = real_put
@@ -1939,6 +1967,7 @@ def mesh_phase(dev, tables, ticks, oracles, engine_walls, counters):
         if launches["K23"] != landed[0]:
             fail(f"{path}: {launches['K23']} K23 launches for {landed[0]} landed batches")
         concat.check(path, launches["K8"])
+        plans.check(path, launches["K10"], launches["K13p"])
         missing = [k for k in ["K23", "K24", "K8"] + must if launches[k] == 0]
         if missing:
             fail(f"kernels not launched on the {path} run: {missing}")
@@ -2132,8 +2161,11 @@ def rank_plan_rows(dev, plans, launches_by_path, skewed, seed: int):
     """K10's and K13p's rows of the per-kernel table: each kernel against its
     plain version bit for bit at the queries' largest plans (``plans``: path
     -> (limbs, valid, probe rows) of Q4's, Q13's and Q21's) and on made
-    inputs, then timed whole, its sort apart from the rest, beside its plain
-    version, its bound and a stable torch.sort of the first limb."""
+    inputs, the radix sort under both against its plain version index for
+    index, then each timed whole and by part (range and pack passes, digit
+    passes, rank pass, fill), beside its plain version, its bound and one
+    stable torch.sort of the valid rows' packed key (the library column: a
+    yardstick, not the same function)."""
     import torch
     from quokka_tpu_torch.ops import join, kernels
 
@@ -2195,21 +2227,62 @@ def rank_plan_rows(dev, plans, launches_by_path, skewed, seed: int):
     for label, limbs, valid, p in cases10:
         check_k10_k13p(label, limbs, valid, p)
 
+    # the radix sort under both, index for index against its plain version
+    # (the valid prefix _sort_perm's, the invalid rows in row order) at the
+    # three plans, on a key of two words, and on float limbs
+    g17 = torch.Generator(device="cpu").manual_seed(seed + 17)
+    n17 = (1 << 20) + 17
+    two_words = [torch.randint(-(1 << 40), 1 << 40, (n17,), generator=g17).to(dev),
+                 torch.randint(-(1 << 45), 1 << 45, (n17,), generator=g17).to(dev)]
+    v17 = (torch.rand(n17, generator=g17) < 0.8).to(dev)
+    sort_cases = [("at Q4's plan", q4_l, q4_v), ("at Q13's plan", q13_l, q13_v),
+                  ("at Q21's largest anti-join plan", q21_l, q21_v),
+                  ("two int64 limbs over two words", two_words, v17),
+                  ("float64 and float32 with -0.0, +0.0 and NaN",
+                   [f10.to(dev), f10.to(torch.float32).to(dev)], v10.to(dev))]
+    sort_info = {}
+    for label, limbs, valid in sort_cases:
+        got = kernels.sort_perm(limbs, valid)
+        want = kernels.sort_perm_plain(limbs, valid)
+        nv = int(valid.sum())
+        if not torch.equal(got, want) or not torch.equal(
+                got[:nv], kernels._sort_perm(limbs, valid)[:nv]):
+            fail(f"radix sort {label}: its permutation differs from the plain version")
+        _, words, bits = kernels.pack_keys_plain(limbs, valid)
+        if label.startswith("two int64") and len(words) != 2:
+            fail(f"radix sort {label}: {len(words)} key words, expected 2")
+        sort_info[label] = {"rows": valid.shape[0], "valid": nv, "key_bits": bits,
+                            "key_words": len(words)}
+        print(f"radix sort {label}: {valid.shape[0]} rows ({nv} valid), {len(limbs)} limbs "
+              f"packed into {bits} key bits in {len(words)} words: index for index")
+
+    parts = {"range_pack": ("qk_sort_range_kernel", "qk_sort_pack_kernel"),
+             "digits": ("qk_sort_digit_kernel",), "pass": ("qk_rank_kernel",),
+             "fill": ("qk_mm_fill_kernel",)}
+
     def split_us(fn):
-        """(whole call, K10's pass and K13p's fill, the rest) device us a
-        call: every device operation of the call; the rest is the sort's
-        operations and the memsets (the pass's own memset is about 1 us)."""
+        """(whole call, {part: device us}) a call: every device operation of
+        the call; "other" is the memset."""
         per = {}
-        for _ in range(3):
-            # a window whose sort records the profiler dropped is taken again
-            got, _ = kernel_us(fn, expect=("qk_rank_kernel",))
+        for _ in range(2):
+            # the profiler drops records in a long process: of two windows,
+            # the one that kept more device time
+            got, _ = kernel_us(fn, expect=("qk_rank_kernel", "qk_sort_pack_kernel",
+                                           "qk_sort_digit_kernel"))
             if sum(got.values()) > sum(per.values()):
                 per = got
-            if any("RadixSort" in k for k in got):
-                break
-        ours = sum(t for k, t in per.items()
-                   if k.startswith(("qk_rank_kernel", "qk_mm_fill_kernel")))
-        return sum(per.values()), ours, sum(per.values()) - ours
+        split = {part: sum(t for k, t in per.items() if k.startswith(names))
+                 for part, names in parts.items()}
+        split["other"] = sum(per.values()) - sum(split.values())
+        return sum(per.values()), split
+
+    def yardstick_ms(limbs, valid):
+        """One stable torch.sort of the valid rows' packed key, its first
+        word (the whole key where it fits one): a yardstick, not the same
+        function."""
+        _, words, _ = kernels.pack_keys_plain(limbs, valid)
+        key = words[0] if words else torch.zeros(int(valid.sum()), dtype=torch.int64, device=dev)
+        return cuda_ms(lambda: torch.sort(key, stable=True))
 
     def rank_bytes(limbs, valid):
         return nbytes(*limbs, valid) + valid.shape[0] * 8 + 4
@@ -2220,12 +2293,11 @@ def rank_plan_rows(dev, plans, launches_by_path, skewed, seed: int):
 
     def k10_at(limbs, valid, path):
         fn = lambda: kernels.dense_rank(limbs, valid)
-        whole, ours, sort = split_us(fn)
+        whole, split = split_us(fn)
         return dict(launches=launches_by_path[path]["K10"], ms=cuda_ms(fn),
                     plain_ms=cuda_ms(lambda: kernels.dense_rank_plain(limbs, valid), iters=5),
                     bound_ms=bound_ms(rank_bytes(limbs, valid)), device_us=whole,
-                    pass_device_us=ours, sort_device_us=sort,
-                    sort_yardstick_ms=cuda_ms(lambda: torch.sort(limbs[0], stable=True)),
+                    split_device_us=split, library_ms=yardstick_ms(limbs, valid),
                     shape=f"{path}'s plan: {valid.shape[0]} rows, {len(limbs)} limbs "
                           f"{[str(l.dtype) for l in limbs]}")
 
@@ -2234,12 +2306,11 @@ def rank_plan_rows(dev, plans, launches_by_path, skewed, seed: int):
               else (lambda: join._mm_counts(limbs, valid, p)))
         plain = ((lambda: join._mm_plan_plain(limbs, valid, p)) if with_bps
                  else (lambda: join._mm_counts_plain(limbs, valid, p)))
-        whole, ours, sort = split_us(fn)
+        whole, split = split_us(fn)
         return dict(launches=launches_by_path[path]["K13p"], ms=cuda_ms(fn),
                     plain_ms=cuda_ms(plain, iters=5),
                     bound_ms=bound_ms(plan_bytes(limbs, valid, p, with_bps)), device_us=whole,
-                    pass_device_us=ours, sort_device_us=sort,
-                    sort_yardstick_ms=cuda_ms(lambda: torch.sort(limbs[0], stable=True)),
+                    split_device_us=split, library_ms=yardstick_ms(limbs, valid),
                     shape=f"{path}'s plan: {p} probe + {valid.shape[0] - p} build rows, "
                           f"{len(limbs)} limbs, "
                           + ("with build positions" if with_bps else "counts only"))
@@ -2247,23 +2318,38 @@ def rank_plan_rows(dev, plans, launches_by_path, skewed, seed: int):
     def per_query(kernel):
         return {p: n[kernel] for p, n in launches_by_path.items() if n[kernel]}
 
+    def show(name, at):
+        sp = at["split_device_us"]
+        print(f"{name} {at['shape']}: {at['device_us']:.1f} device us (range+pack "
+              f"{sp['range_pack']:.1f}, digit passes {sp['digits']:.1f}, rank pass "
+              f"{sp['pass']:.1f}, fill {sp['fill']:.1f}, memset {sp['other']:.1f}), "
+              f"{at['ms']:.4f} ms, plain {at['plain_ms']:.4f} ms, bound {at['bound_ms']:.5f} ms, "
+              f"torch.sort of the packed key {at['library_ms']:.4f} ms")
+
     out = []
     row10 = k10_at(q4_l, q4_v, "q4")
     out.append(dict(
-        name="K10 dense rank (one pass over the sorted order)", route="cuda",
-        source="quokka_tpu_torch/csrc/rank.cu", replaces="quokka_tpu/ops/kernels.py:138",
-        max_abs_err=0.0, bound_by="bytes", library_ms=None, per_query=per_query("K10"),
+        name="K10 dense rank (radix sort of the valid rows, then one pass over the sorted keys)",
+        route="cuda", source="quokka_tpu_torch/csrc/rank.cu",
+        replaces="quokka_tpu/ops/kernels.py:138", max_abs_err=0.0, bound_by="bytes",
+        per_query=per_query("K10"), sort_cases=sort_info,
         **row10, q13=k10_at(q13_l, q13_v, "q13"), q21=k10_at(q21_l, q21_v, "q21")))
     row13 = k13p_at(q13_l, q13_v, q13_p, "q13", True)
     out.append(dict(
-        name="K13p many-to-many plan (K10's pass in plan mode and the fill)", route="cuda",
-        source="quokka_tpu_torch/csrc/rank.cu", replaces="quokka_tpu/ops/join.py:220",
-        max_abs_err=0.0, bound_by="bytes", library_ms=None, per_query=per_query("K13p"),
+        name="K13p many-to-many plan (the radix sort, K10's pass in plan mode and the fill)",
+        route="cuda", source="quokka_tpu_torch/csrc/rank.cu",
+        replaces="quokka_tpu/ops/join.py:220", max_abs_err=0.0, bound_by="bytes",
+        per_query=per_query("K13p"),
         **row13, q4=k13p_at(q4_l, q4_v, q4_p, "q4", False),
         q21=k13p_at(q21_l, q21_v, q21_p, "q21", False),
         skew=k13p_at(s_limbs, s_valid, p_s, "q13", True)))
     out[-1]["skew"].update(launches=0, shape="one probe key x 10^4 build rows: "
                            + out[-1]["skew"]["shape"].split(": ", 1)[1])
+    for row, short in ((out[0], "K10"), (out[1], "K13p")):
+        show(short, row)
+        for key in ("q4", "q13", "q21", "skew"):
+            if key in row:
+                show(short, row[key])
     return out
 
 
@@ -2664,7 +2750,7 @@ def smoke(dev, card: str, args) -> int:
                  "skewjoin": 3, "skewjoin static": 3}
     per_row = {"sliding", "shift"}
     plan_text = {}
-    launches_by_path, walls, concat_calls = {}, {}, {}
+    launches_by_path, walls, concat_calls, sort_calls = {}, {}, {}, {}
     slice6 = {}  # what the slice-6 paths showed: syncs, ADT records, one-hot batches
 
     def set_strategy(path=None):
@@ -2782,8 +2868,10 @@ def smoke(dev, card: str, args) -> int:
         # every compacting concat took K8, with no torch.nonzero
         concat.check(path, launches["K8"])
         concat_calls[path] = concat.calls
-        # every many-to-many plan took K13p with one sort, the combined one
-        plans.check(path, launches["K13p"])
+        # every dense rank and many-to-many plan took one radix sort, and no
+        # lexsort_perm or torch.sort
+        plans.check(path, launches["K10"], launches["K13p"])
+        sort_calls[path] = (plans.ranks, plans.plans)
         fallbacks, sequential = fuse.FALLBACKS, stagefuse.SEQUENTIAL
         used = strategy.used_snapshot()
         check(got, exp)
@@ -2895,7 +2983,7 @@ def smoke(dev, card: str, args) -> int:
              f"{q1_land['logical_bytes']}")
     report["slice6"] = slice6
     report.update(walls=walls, launches=launches_by_path, plans=plan_text,
-                  compacting_concats=concat_calls,
+                  compacting_concats=concat_calls, rank_sort_calls=sort_calls,
                   vector_checks={p: {"max_score_err": e, "queries_ids_differ": d}
                                  for p, (e, d) in vec_stats.items()})
 
@@ -2981,7 +3069,7 @@ def smoke(dev, card: str, args) -> int:
                 "qk_elemwise", "qk_asof_probe", "qk_fill_", "qk_bounds_chain", "qk_window_",
                 "qk_range_", "qk_sims_", "qk_topk_merge_kernel", "qk_gram_",
                 "qk_plan_", "qk_adapt_kernel", "qk_decode", "qk_mesh_", "qk_pk_", "qk_concat",
-                "qk_rank_kernel", "qk_mm_fill_kernel")
+                "qk_rank_kernel", "qk_mm_fill_kernel", "qk_sort_")
     profiles = {}
     for path, (stream, *_) in paths.items():
         set_strategy(path)
@@ -3008,6 +3096,9 @@ def smoke(dev, card: str, args) -> int:
               f"idle share of the warm median {med:.3f} s: "
               f"{'not measured' if busy == 0 else round(1 - busy / med, 4)}; {d2h} D2H "
               f"copies, {stream_syncs} cudaStreamSynchronize")
+        if path in ("q4", "q21"):
+            print(f"where ({path}) device time by operation (us, calls): "
+                  + "; ".join(f"{k[:60]} {t:.0f} ({c})" for k, (t, c) in profiles[path]["top"][:8]))
     set_strategy()
     report["profiles"] = profiles
 
@@ -4473,10 +4564,9 @@ def smoke(dev, card: str, args) -> int:
         if kk.get("library_device_us") is not None:
             print(f"  library: {kk['library_ms']:.4f} ms, {kk['library_device_us']:.1f} "
                   "device us per call")
-        if "sort_device_us" in kk:
-            print(f"  the sort and the memsets {kk['sort_device_us']:.1f} device us, the rank pass "
-                  f"and the fill {kk['pass_device_us']:.1f}; a stable torch.sort of the first limb "
-                  f"(a yardstick, not the same function) {kk['sort_yardstick_ms']:.4f} ms")
+        if "split_device_us" in kk:
+            print(f"  device us by part: {kk['split_device_us']}; a stable torch.sort of the "
+                  f"packed key (a yardstick, not the same function) {kk['library_ms']:.4f} ms")
         for sub in ("q3", "q4", "q7", "q13", "q21", "tumbling", "hopping", "build", "skew",
                     "big"):
             if sub in kk:
@@ -4484,15 +4574,15 @@ def smoke(dev, card: str, args) -> int:
                 print(f"  {sub}: {v['launches']} launches, {v['ms']:.4f} ms, "
                       f"{v['device_us']:.1f} device us, bound {v['bound_ms']:.5f} ms "
                       f"({v['shape']}); plain {v['plain_ms']:.4f} ms"
-                      + (f"; sort {v['sort_device_us']:.1f}, rest {v['pass_device_us']:.1f} "
-                         "device us" if "sort_device_us" in v else ""))
+                      + (f"; device us by part {v['split_device_us']}"
+                         if "split_device_us" in v else ""))
     report["kernels"] = out
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     keep = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "device_us", "per_query",
-            "sort_device_us", "pass_device_us", "sort_yardstick_ms")
+            "split_device_us")
     print(json.dumps({"kernels": [{k: kk[k] for k in keep if k in kk} for kk in out]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

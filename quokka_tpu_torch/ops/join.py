@@ -19,13 +19,14 @@ applies, from the same cached structure the probe will use.
 
 ``hash_join_general`` serves a build whose keys repeat, and every left
 join.  Its plan is kernel K13p (``_mm_plan``, ``csrc/rank.cu``): one
-stable sort of the probe and build keys together (``lexsort_perm``), then
-K10's pass over the sorted order in a plan mode (the dense rank, the probe
-ranks, each rank's offset and the valid build rows in (rank, row) order,
-which the stable sort already gives: no sort of the build side) and a fill
-launch (the offsets past the last rank, the match counts and their total,
-the invalid build rows in row order); ``_mm_plan_plain`` is its plain
-version.  Semi and anti joins stop at the match counts (a probe row matches
+stable radix sort of the probe and build keys together (``csrc/sort.cuh``:
+the valid rows only, on keys packed by their ranges; the invalid rows
+behind in row order), then K10's pass over the sorted keys in a plan mode
+(the dense rank, the probe ranks, each rank's offset, the valid build rows
+in (rank, row) order, which the stable sort already gives, and the invalid
+build rows, the sorted order's tail) and a fill launch (the offsets past
+the last rank, the match counts and their total); ``_mm_plan_plain`` is its
+plain version.  Semi and anti joins stop at the match counts (a probe row matches
 when its rank has a build row).
 Inner and left joins read the output total on the host once per probe
 batch to pick the output bucket, as the reference does, then kernel K13
@@ -378,15 +379,16 @@ def _mm_plan_plain(limbs, valid, p: int):
 
 
 def _mm_plan_cuda(limbs, valid, p: int, with_bps: bool = True):
-    """K13p: the combined sort, K10's pass in plan mode and the fill (see
-    ``csrc/rank.cu``); without ``with_bps`` (semi and anti joins) no build
-    positions are written and only match_count is meaningful."""
+    """K13p: the combined radix sort, K10's pass in plan mode and the fill
+    (see ``csrc/rank.cu``), from one C call with no host read; without
+    ``with_bps`` (semi and anti joins) no build positions are written and
+    only match_count is meaningful."""
     global MM_PLAN_LAUNCHES
     dev = valid.device
     n = valid.shape[0]
     if not 0 <= p <= n:
         raise ValueError(f"mm_plan: {p} probe rows of {n}")
-    perm, v8, cols, dts, scratch = kernels.rank_pass_args("mm_plan", limbs, valid)
+    v8, cols, dts, ptrs, scratch = kernels.rank_pass_args("mm_plan", limbs, valid)
     rp = torch.empty(p, dtype=torch.int64, device=dev)
     num = torch.empty((), dtype=torch.int32, device=dev)
     offsets = torch.empty(n, dtype=torch.int64, device=dev)
@@ -394,10 +396,10 @@ def _mm_plan_cuda(limbs, valid, p: int, with_bps: bool = True):
     match_count = torch.empty(p, dtype=torch.int64, device=dev)
     nbv = torch.empty(2, dtype=torch.int64, device=dev)  # valid build rows, total
     native.check(kernels._rank_lib().qk_mm_plan(
-        perm.data_ptr(), v8.data_ptr(), native.ptr_array([c.data_ptr() for c in cols]),
-        native.int_array(dts), len(cols), n, p, int(with_bps), rp.data_ptr(), num.data_ptr(),
+        v8.data_ptr(), ptrs, dts, len(cols), n, p, int(with_bps), rp.data_ptr(), num.data_ptr(),
         offsets.data_ptr(), bps.data_ptr() if with_bps else None, match_count.data_ptr(),
         nbv.data_ptr(), scratch.data_ptr(), native.stream_ptr(dev)), "qk_mm_plan")
+    kernels.SORT_LAUNCHES += 1
     kernels.RANK_LAUNCHES += 1
     MM_PLAN_LAUNCHES += 1
     return match_count, nbv[1], offsets, bps, rp
@@ -436,7 +438,7 @@ def _mm_counts(limbs, valid, p: int):
 
 def _mm_plan(limbs, valid, p: int):
     """The reference's ``_mm_plan``: (match_count, total, offsets,
-    build_pos_sorted, rp).  CUDA tensors launch K13p (one sort, the
+    build_pos_sorted, rp).  CUDA tensors launch K13p (one radix sort, the
     combined one; no sort of the build side); CPU tensors take
     ``_mm_plan_plain``."""
     return _mm_plan_dispatch(limbs, valid, p, True)

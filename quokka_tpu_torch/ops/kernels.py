@@ -16,11 +16,13 @@ kernels; group-by goes to the hash table (K3), the default of the
 reference's strategy matrix (``ops/strategy``), or to the sort group-by
 under ``groupby=sort``.
 
-K10 (``csrc/rank.cu``), ``dense_rank``, replaces the reference's
-``_dense_rank_impl`` after its sort: the sort stays stable torch sorts on
-integer order keys (``lexsort_perm``), and one pass over the sorted order
-tests each run, scans the run starts across 4096-row tiles and scatters the
-ranks back (``dense_rank_plain`` is its plain version).  ``sorted_groupby``
+K10 (``csrc/rank.cu`` on ``csrc/sort.cuh``), ``dense_rank``, replaces the
+reference's ``_dense_rank_impl``: a stable LSD radix sort of the valid rows
+only, on keys packed by the limbs' actual ranges (``sort_perm`` runs it
+alone; ``packed_sort_perm_plain`` models it in torch), then one pass over
+the sorted keys tests each run, scans the run starts across 4096-row tiles
+and scatters the ranks back (``dense_rank_plain`` is its plain version, on
+``_sort_perm``'s stable torch sorts).  ``sorted_groupby``
 is the dense rank then K3's segment aggregates over the ranks; the
 many-to-many join plan (``ops/join``, K13p) runs K10's pass in a plan mode,
 and K3 falls back to the sort group-by when its insert does not converge.
@@ -48,6 +50,9 @@ PLAN_LAUNCHES = 0
 # launches of K10's pass over the sorted order (csrc/rank.cu), in either
 # mode: the dense rank's, and the many-to-many plan's (ops/join.py, K13p)
 RANK_LAUNCHES = 0
+# launches of the radix sort under them (csrc/sort.cuh): one a K10 or K13p
+# call, and one a ``sort_perm`` call
+SORT_LAUNCHES = 0
 ADAPT_LAUNCHES = 0
 MESH_LAUNCHES = 0
 # blocking host reads of split counts on the shuffle path (one per
@@ -135,26 +140,95 @@ def dense_rank_plain(limbs: Sequence[torch.Tensor], valid: torch.Tensor):
     return ranks, num
 
 
+def _packed_order_key(limb: torch.Tensor) -> torch.Tensor:
+    """The radix sort's order key of a limb (int64, signed order): as
+    ``_order_key``, but float32 on its own 32-bit key, whose order and
+    equality are the float64 key's."""
+    if limb.dtype != torch.float32:
+        return _order_key(limb).to(torch.int64)
+    x = torch.where(limb == 0.0, torch.zeros((), dtype=limb.dtype, device=limb.device), limb)
+    x = torch.where(torch.isnan(x), torch.full((), float("nan"), dtype=x.dtype,
+                                                device=x.device), x)
+    bits = x.view(torch.int32)
+    return (bits ^ ((bits >> 31) & 0x7FFFFFFF)).to(torch.int64)
+
+
+def _lsr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bits by 0 <= s < 64."""
+    return x if s == 0 else (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def pack_keys_plain(limbs: Sequence[torch.Tensor], valid: torch.Tensor):
+    """The radix sort's range and pack passes (``csrc/sort.cuh``) in torch:
+    (the valid rows' ids in row order, their packed key words, least
+    significant first, as int64 bits, and the key's bits).  Each limb takes
+    the bits of its max - min over the valid rows, the last limb lowest, so
+    the words' unsigned order is the limbs' lexicographic order."""
+    ids = torch.nonzero(valid).flatten()
+    keys = [_packed_order_key(l)[ids] for l in limbs]
+    fields, width = [], []
+    for o in keys:
+        if o.numel() == 0:
+            fields.append(o)
+            width.append(0)
+            continue
+        lo, hi = int(o.min()), int(o.max())
+        fields.append(o - lo)  # the unsigned difference, as int64 bits
+        width.append((hi - lo).bit_length())
+    bits = sum(width)
+    words = [torch.zeros(ids.shape[0], dtype=torch.int64, device=valid.device)
+             for _ in range((bits + 63) // 64)]
+    off = bits
+    for v, b in zip(fields, width):
+        off -= b
+        for w, word in enumerate(words):
+            lo = 64 * w
+            if b == 0 or off >= lo + 64 or off + b <= lo:
+                continue
+            word |= (v << (off - lo)) if off >= lo else _lsr(v, lo - off)
+    return ids, words, bits
+
+
+def packed_sort_perm_plain(limbs: Sequence[torch.Tensor], valid: torch.Tensor) -> torch.Tensor:
+    """The radix sort of ``csrc/sort.cuh`` in torch, its plain model: the
+    packed keys of the valid rows, one stable sort an 8-bit digit, least
+    significant first, skipping a digit every valid row shares; the
+    invalid rows behind in row order.  Index for index ``sort_perm_plain``."""
+    ids, words, bits = pack_keys_plain(limbs, valid)
+    nv = ids.shape[0]
+    for d in range((bits + 7) // 8):
+        digit = _lsr(words[d // 8], 8 * (d % 8)) & 0xFF
+        if int(torch.bincount(digit, minlength=256).max()) == nv:
+            continue
+        order = torch.sort(digit, stable=True).indices
+        ids = ids[order]
+        words = [w[order] for w in words]
+    return torch.cat([ids, torch.nonzero(~valid).flatten()])
+
+
 def _rank_lib():
     lib = native.library("rank")
     if not getattr(lib, "qk_bound", False):
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         PP, PI = ctypes.POINTER(P), ctypes.POINTER(I)
-        lib.qk_rank_scratch.argtypes = [L]
+        lib.qk_rank_scratch.argtypes = [L, PI, I]
         lib.qk_rank_scratch.restype = L
-        lib.qk_rank.argtypes = [P, P, PP, PI, I, L, P, P, P, P]
+        lib.qk_sort_perm.argtypes = [P, PP, PI, I, L, P, P, P]
+        lib.qk_sort_perm.restype = I
+        lib.qk_rank.argtypes = [P, PP, PI, I, L, P, P, P, P]
         lib.qk_rank.restype = I
-        lib.qk_mm_plan.argtypes = [P, P, PP, PI, I, L, L, I, P, P, P, P, P, P, P, P]
+        lib.qk_mm_plan.argtypes = [P, PP, PI, I, L, L, I, P, P, P, P, P, P, P, P]
         lib.qk_mm_plan.restype = I
         lib.qk_bound = True
     return lib
 
 
 def rank_pass_args(what: str, limbs: Sequence[torch.Tensor], valid: torch.Tensor):
-    """The checked inputs of K10's pass: (the stable sort's perm, the
-    validity as bytes, the limbs as contiguous arrays (bool as bytes), their
-    dtype codes, scratch).  The caller keeps every returned tensor alive
-    until its launch has been issued (contiguous copies)."""
+    """The checked inputs of the radix sort and K10's pass: (the validity as
+    bytes, the limbs as contiguous arrays (bool as bytes), their dtype codes
+    as a ctypes array, the ctypes array of their pointers, scratch).  The
+    caller keeps every returned tensor alive until its launch has been
+    issued (contiguous copies)."""
     dev = valid.device
     n = valid.shape[0]
     if dev.type != "cuda":
@@ -166,44 +240,74 @@ def rank_pass_args(what: str, limbs: Sequence[torch.Tensor], valid: torch.Tensor
     for l in limbs:
         if l.dtype not in _LIMB_DT or l.device != dev or l.shape != (n,):
             raise TypeError(f"{what}: unsupported limb {l.dtype} {tuple(l.shape)} on {l.device}")
-    perm = _sort_perm(limbs, valid).contiguous()
     cols = [(l.view(torch.uint8) if l.dtype == torch.bool else l).contiguous() for l in limbs]
     v8 = valid.contiguous().view(torch.uint8)
-    scratch = torch.empty(_rank_lib().qk_rank_scratch(n), dtype=torch.int64, device=dev)
-    return perm, v8, cols, [_LIMB_DT[l.dtype] for l in limbs], scratch
+    dts = native.int_array([_LIMB_DT[l.dtype] for l in limbs])
+    scratch = torch.empty(_rank_lib().qk_rank_scratch(n, dts, len(cols)), dtype=torch.int64,
+                          device=dev)
+    return v8, cols, dts, native.ptr_array([c.data_ptr() for c in cols]), scratch
+
+
+def sort_perm_plain(limbs: Sequence[torch.Tensor], valid: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``sort_perm``: ``_sort_perm`` of the limbs with the
+    invalid rows' values masked to zero, so its valid prefix is
+    ``_sort_perm``'s and the invalid rows follow in row order (where
+    ``_sort_perm`` orders them by values no caller reads: K10 gives them
+    one rank, K13p's build positions take them in row order)."""
+    return _sort_perm([torch.where(valid, l, torch.zeros((), dtype=l.dtype, device=l.device))
+                       for l in limbs], valid)
+
+
+def sort_perm(limbs: Sequence[torch.Tensor], valid: torch.Tensor) -> torch.Tensor:
+    """The stable order under K10 and K13p: the valid rows first, by the
+    limbs lexicographically (-0.0 equal to +0.0, NaN last), ties in row
+    order, then the invalid rows in row order (``sort_perm_plain``'s, index
+    for index).  CUDA tensors launch the radix sort of ``csrc/sort.cuh``;
+    CPU tensors take ``sort_perm_plain``."""
+    global SORT_LAUNCHES
+    if valid.device.type == "cpu":
+        return sort_perm_plain(limbs, valid)
+    v8, cols, dts, ptrs, scratch = rank_pass_args("sort_perm", limbs, valid)
+    n = valid.shape[0]
+    perm = torch.empty(n, dtype=torch.int64, device=valid.device)
+    native.check(_rank_lib().qk_sort_perm(
+        v8.data_ptr(), ptrs, dts, len(cols), n, perm.data_ptr(), scratch.data_ptr(),
+        native.stream_ptr(valid.device)), "qk_sort_perm")
+    SORT_LAUNCHES += 1
+    return perm
 
 
 def _dense_rank_cuda(limbs: Sequence[torch.Tensor], valid: torch.Tensor):
-    global RANK_LAUNCHES
+    global RANK_LAUNCHES, SORT_LAUNCHES
     dev = valid.device
     n = valid.shape[0]
-    perm, v8, cols, dts, scratch = rank_pass_args("dense_rank", limbs, valid)
+    v8, cols, dts, ptrs, scratch = rank_pass_args("dense_rank", limbs, valid)
     ranks = torch.empty(n, dtype=torch.int64, device=dev)
     num = torch.empty((), dtype=torch.int32, device=dev)
     native.check(_rank_lib().qk_rank(
-        perm.data_ptr(), v8.data_ptr(), native.ptr_array([c.data_ptr() for c in cols]),
-        native.int_array(dts), len(cols), n, ranks.data_ptr(), num.data_ptr(),
+        v8.data_ptr(), ptrs, dts, len(cols), n, ranks.data_ptr(), num.data_ptr(),
         scratch.data_ptr(), native.stream_ptr(dev)), "qk_rank")
+    SORT_LAUNCHES += 1
     RANK_LAUNCHES += 1
     return ranks, num
 
 
 def charge_rank(limbs: Sequence[torch.Tensor], valid: torch.Tensor) -> None:
-    """devprof's charge of one K10 pass: perm read, the validity and every
-    limb gathered once a row, one int64 a row written."""
+    """devprof's charge of one K10 call: the limbs and the validity read,
+    one int64 a row written."""
     n = valid.shape[0]
     devprof.on_dispatch(
         ("K10", valid.device.type, n, tuple(str(l.dtype) for l in limbs)),
-        lambda: (0.0, float(devprof.nbytes(*limbs, valid) + 16 * n), float(8 * n)))
+        lambda: (0.0, float(devprof.nbytes(*limbs, valid) + 8 * n), float(8 * n)))
 
 
 def dense_rank(limbs: Sequence[torch.Tensor], valid: torch.Tensor):
     """Dense 0..k-1 ids (int64) such that two valid rows share an id iff
     their key limbs are equal, and the number of ids (int32 device scalar);
-    invalid rows get max(num - 1, 0).  The sort is ``lexsort_perm`` (stable
-    torch sorts); then CUDA tensors launch K10 (``csrc/rank.cu``: the run
-    test, the scan and the scatter in one pass over the sorted order, with
-    no host read) and CPU tensors take ``dense_rank_plain``."""
+    invalid rows get max(num - 1, 0).  CUDA tensors launch the radix sort
+    (``csrc/sort.cuh``) and K10 (``csrc/rank.cu``: the run test, the scan and
+    the scatter in one pass over the sorted keys) from one C call with no
+    host read; CPU tensors take ``dense_rank_plain``."""
     charge_rank(limbs, valid)
     if valid.device.type == "cpu":
         return dense_rank_plain(limbs, valid)

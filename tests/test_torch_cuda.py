@@ -21,7 +21,8 @@ smallest rows are exact and its float64 sums within rtol 1e-9.  K23's
 decoded leaves equal the plain version's and the shipped input bit for bit.
 K24's exchanged columns and validity, and K14's build rows and matches,
 are exact.  K10's ranks and K13p's plan equal the plain versions bit for
-bit.
+bit, and the radix sort under them equals ``kernels.sort_perm_plain``
+index for index.
 """
 
 import dataclasses
@@ -1465,9 +1466,9 @@ def test_k10_kernel_matches_plain(cuda_device, case):
     """K10's ranks and num against the plain dense rank, bit for bit, invalid
     rows included; one launch a call."""
     limbs, valid, _ = _k10_case(np.random.default_rng(10), case, cuda_device)
-    before = kernels.RANK_LAUNCHES
+    before = (kernels.RANK_LAUNCHES, kernels.SORT_LAUNCHES)
     got = kernels.dense_rank(limbs, valid)
-    assert kernels.RANK_LAUNCHES == before + 1
+    assert (kernels.RANK_LAUNCHES, kernels.SORT_LAUNCHES) == (before[0] + 1, before[1] + 1)
     _same_bits(got, kernels.dense_rank_plain(limbs, valid))
 
 
@@ -1479,21 +1480,26 @@ def test_k13p_plan_matches_plain(cuda_device, case):
     counts."""
     limbs, valid, p = _k10_case(np.random.default_rng(13), case, cuda_device)
     sorts = []
-    real = kernels.lexsort_perm
+    real, real_sort = kernels.lexsort_perm, torch.sort
 
     def counted(keys):
         sorts.append(len(keys))
         return real(keys)
 
-    kernels.lexsort_perm = counted
+    def counted_sort(*a, **k):
+        sorts.append("torch.sort")
+        return real_sort(*a, **k)
+
+    kernels.lexsort_perm, torch.sort = counted, counted_sort
     try:
-        before = (kernels.RANK_LAUNCHES, join.MM_PLAN_LAUNCHES)
+        before = (kernels.RANK_LAUNCHES, join.MM_PLAN_LAUNCHES, kernels.SORT_LAUNCHES)
         got = join._mm_plan(limbs, valid, p)
         counts = join._mm_counts(limbs, valid, p)
     finally:
-        kernels.lexsort_perm = real
-    assert (kernels.RANK_LAUNCHES, join.MM_PLAN_LAUNCHES) == (before[0] + 2, before[1] + 2)
-    assert len(sorts) == 2
+        kernels.lexsort_perm, torch.sort = real, real_sort
+    assert (kernels.RANK_LAUNCHES, join.MM_PLAN_LAUNCHES, kernels.SORT_LAUNCHES) == (
+        before[0] + 2, before[1] + 2, before[2] + 2)
+    assert sorts == []
     want = join._mm_plan_plain(limbs, valid, p)
     _same_bits(got, want)
     _same_bits((counts,), want[:1])
@@ -1516,3 +1522,77 @@ def test_k10_same_bits_every_run(cuda_device):
     limbs, valid, p = _k10_case(np.random.default_rng(110), "two_int64_limbs", cuda_device)
     _same_bits(kernels.dense_rank(limbs, valid), kernels.dense_rank(limbs, valid))
     _same_bits(join._mm_plan(limbs, valid, p), join._mm_plan(limbs, valid, p))
+
+
+def _sort_case(r, case, dev):
+    """(limbs, valid) of one case of the radix sort under K10 and K13p."""
+    n = {"n_1": 1, "n_4097": 4097, "rows_2^24_plus_3": (1 << 24) + 3}.get(case, 50_003)
+    valid = r.random(n) < 0.85
+    i64 = lambda lo, hi: r.integers(lo, hi, n, dtype=np.int64, endpoint=True)
+    if case == "int64_full_range":
+        x = i64(-(2**63), 2**63 - 1)
+        x[:2] = [-(2**63), 2**63 - 1]
+        valid[:2] = True
+        limbs = [x]
+    elif case == "two_int64_over_one_word":
+        limbs = [i64(-(2**40), 2**40), i64(0, 2**30)]
+    elif case == "two_int32_hash_limbs":
+        limbs = [r.integers(-(2**31), 2**31, n).astype(np.int32),
+                 r.integers(-(2**31), 2**31, n).astype(np.int32)]
+    elif case == "bool_limbs":
+        limbs = [r.random(n) < 0.5, r.random(n) < 0.3, i64(0, 3)]
+    elif case == "float64_neg_zero_nan":
+        f = r.integers(-4, 4, n).astype(np.float64)
+        u = r.random(n)
+        f[u < 0.1] = np.nan
+        f[(u >= 0.1) & (u < 0.3)] = -0.0
+        limbs = [f, f.astype(np.float32)]
+    elif case == "all_invalid":
+        valid[:] = False
+        limbs = [i64(0, 100)]
+    elif case == "one_key":
+        limbs = [np.full(n, 7, dtype=np.int64)]
+    else:
+        limbs = [i64(0, 6_000_000), i64(1, 10_000)]  # TPC-H's order and supplier keys
+    return [torch.from_numpy(np.asarray(l)).to(dev) for l in limbs], torch.from_numpy(valid).to(dev)
+
+
+SORT_CASES = ["int64_full_range", "two_int64_over_one_word", "two_int32_hash_limbs", "bool_limbs",
+              "float64_neg_zero_nan", "all_invalid", "one_key", "n_1", "n_4097",
+              "rows_2^24_plus_3"]
+
+
+@pytest.mark.parametrize("case", SORT_CASES)
+def test_radix_sort_matches_plain(cuda_device, case):
+    """The radix sort's permutation against its plain version, index for
+    index: the valid prefix is _sort_perm's, the invalid rows follow in row
+    order; one launch a call, and K10 and K13p on it bit for bit."""
+    limbs, valid = _sort_case(np.random.default_rng(17), case, cuda_device)
+    before = kernels.SORT_LAUNCHES
+    got = kernels.sort_perm(limbs, valid)
+    assert kernels.SORT_LAUNCHES == before + 1
+    want = kernels.sort_perm_plain(limbs, valid)
+    _same_bits((got,), (want,))
+    nv = int(valid.sum())
+    _same_bits((got[:nv],), (kernels._sort_perm(limbs, valid)[:nv],))
+    if valid.shape[0] < 1 << 20:
+        p = valid.shape[0] // 3
+        _same_bits(kernels.dense_rank(limbs, valid), kernels.dense_rank_plain(limbs, valid))
+        _same_bits(join._mm_plan(limbs, valid, p), join._mm_plan_plain(limbs, valid, p))
+
+
+def test_radix_sort_strided_inputs_match_plain(cuda_device):
+    """Strided limbs and validity: the contiguous copies live until the launch."""
+    r = np.random.default_rng(1017)
+    n = 120_007
+    wide = torch.from_numpy(r.integers(-(2**40), 2**40, (n, 2)).astype(np.int64)).to(cuda_device)
+    vwide = torch.from_numpy(r.random((n, 3)) < 0.7).to(cuda_device)
+    limbs, valid = [wide[:, 1], wide[:, 0]], vwide[:, 2]
+    _same_bits((kernels.sort_perm(limbs, valid),), (kernels.sort_perm_plain(limbs, valid),))
+
+
+def test_radix_sort_same_bits_every_run(cuda_device):
+    limbs, valid = _sort_case(np.random.default_rng(217), "two_int64_over_one_word", cuda_device)
+    first = kernels.sort_perm(limbs, valid)
+    for _ in range(3):
+        _same_bits((kernels.sort_perm(limbs, valid),), (first,))
