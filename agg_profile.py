@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Profile K2 (small-key partial aggregate), K14 (rank PK match), K17 (partition plan) and K8 (compact-concat) of the PyTorch port on one NVIDIA GPU.
+"""Profile K2 (small-key partial aggregate), K14 (rank PK match), K17 (partition plan), K8 (compact-concat) and K13 (many-to-many expand) of the PyTorch port on one NVIDIA GPU.
 
     python3 agg_profile.py [--package DIR] [--variants] [--seed N] [--out FILE]
 
@@ -15,12 +15,15 @@ bucket core) and, through ``QuokkaContext(mesh=make_mesh(8))``, the
 arguments of K14's largest call on mesh Q3 and on mesh Q5.  It keeps
 K17's largest call on Q3 under ``shuffle=compacted`` (2^20 rows, 2 parts)
 and also times K17 at 64 parts on the same rows and at 2^24 rows made
-from the seed (2 and 64 parts), and at 2^24 + 3 rows (2 parts); and it keeps the parts of Q3's largest
-compacting concat, which both packages' ``bridge.concat_batches`` join
-(the other package's on its own batch classes), with this checkout's K8
-(``bridge.compact_concat``) and its plain version beside them.  It calls
-each wrapper of both packages in turns (package, this, this, package) and
-reports per call:
+from the seed (2 and 64 parts), and at 2^24 + 3 rows (2 parts); and it keeps the parts of Q3's and
+Q5's largest compacting concats, which both packages' ``bridge.concat_batches``
+and K8 (``bridge.compact_concat``) join (the other package's on its own
+batch classes), with this checkout's plain version beside them, and Q3's
+parts again with validity made from the seed at live shares 0.02, 0.1,
+0.5 and 1.0 (``K8_SHARES``).  It keeps K13's largest call on Q13 (a left
+join) and times K13 there and on chip_smoke.py's skewed case (one probe
+key x 10^4 build rows).  It calls each wrapper of both packages in turns
+(package, this, this, package) and reports per call:
 
 - the wrapper's ms, CUDA events over many calls;
 - the host ms, time.perf_counter over calls issued with no
@@ -37,10 +40,11 @@ bucket's sums and smallest row written; K6: its columns, codes and mask,
 and its outputs; K14: 9 B a rank and 5 B a probe row written; K17: the
 ids and validity read and the permutation written, 9 B a row; K8: every
 part row's validity byte, each live row of each column read and the
-bucket of each column and of the validity written).  It checks
+bucket of each column and of the validity written; K13: chip_smoke.py's
+``k13_bytes``).  It checks
 every call against the plain version of this checkout (K2 and K6: counts,
 integer sums and smallest rows exact, float sums within rtol 1e-9; K14,
-K17 and K8 bit for bit), checks that two launches of this checkout's K2 give the same
+K17, K8 and K13 bit for bit), checks that two launches of this checkout's K2 give the same
 bits, and compiles csrc/onehot.cu, csrc/join.cu, csrc/partition.cu and
 csrc/concat.cu with ``-Xptxas -v``
 (vector_profile.py's compile_sources) to keep each kernel's registers,
@@ -48,7 +52,10 @@ shared memory and spills.  With ``--variants`` it also builds the bucket
 core from copies of csrc/onehot.cu patched here (``CORE_VARIANTS``, each
 (text, replacement) pair must match once; some leave out part of the work,
 to show what it costs, and their results are reported, not checked) and
-times each at K2's two shapes and K6's.
+times each at K2's two shapes and K6's, and builds K17's and K8's
+``COMPACT_VARIANTS`` and K13's ``EXPAND_VARIANTS`` the same way: K8's
+time each at Q3's and Q5's concats and at every live share, K13's at its
+two shapes.
 
 It prints the card's name and power limit, one line per measurement and
 one JSON line, and writes the JSON to ``--out``.  It imports neither JAX
@@ -142,6 +149,17 @@ COMPACT_VARIANTS = {
         "      if (wd < 0) qk_cat_zero(cols[c].dst, zlo * wd, hi * wd);")]),
 }
 
+# K8's made live shares: Q3's largest concat's parts with validity made from
+# the seed at each share
+K8_SHARES = (0.02, 0.1, 0.5, 1.0)
+
+# csrc/join.cu built with these (text, replacement) patches: K13 with other
+# merged items a thread (a block's shared slice grows with them)
+EXPAND_VARIANTS = {
+    "K13 4 merged items a thread": [("#define QK_MM_VT 8 ", "#define QK_MM_VT 4 ")],
+    "K13 6 merged items a thread": [("#define QK_MM_VT 8 ", "#define QK_MM_VT 6 ")],
+}
+
 
 def compact_variant_sources() -> dict:
     """{label: .cu path} of COMPACT_VARIANTS, written into build/agg_profile/
@@ -162,6 +180,39 @@ def compact_variant_sources() -> dict:
         path.write_text(src)
         out[f"compact_variant_{i}"] = path
     return out
+
+
+def expand_variant_sources() -> dict:
+    """{label: .cu path} of EXPAND_VARIANTS, written into build/agg_profile/
+    beside copies of the headers csrc/join.cu includes."""
+    from quokka_tpu_torch.ops import native
+
+    out_dir = ROOT / "build" / "agg_profile"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for h in native.CSRC_DIR.glob("*.cuh"):
+        (out_dir / h.name).write_text(h.read_text())
+    base = (native.CSRC_DIR / "join.cu").read_text()
+    out = {}
+    for i, patches in enumerate(EXPAND_VARIANTS.values()):
+        src = base
+        for a, b in patches:
+            if src.count(a) != 1:
+                raise RuntimeError(f"expand variant {i}: {a!r} is not once in csrc/join.cu")
+            src = src.replace(a, b)
+        path = out_dir / f"expand_variant_{i}.cu"
+        path.write_text(src)
+        out[f"expand_variant_{i}"] = path
+    return out
+
+
+def same_outputs(got, want) -> bool:
+    """K13's outputs bit for bit: each tensor equal in dtype and value, or
+    both None."""
+    import torch
+
+    return all((a is None and b is None) or (a is not None and b is not None
+                                             and a.dtype == b.dtype and torch.equal(a, b))
+               for a, b in zip(got, want))
 
 
 def nbytes(*tensors) -> int:
@@ -209,8 +260,9 @@ def k2_calls(pkg, dev, tables, ticks):
 
 
 def shuffle_calls(pkg, dev, tables):
-    """(K17's largest call on Q3 under shuffle=compacted, the parts of Q3's
-    largest compacting concat, {calls per query}), on the package's runs."""
+    """(K17's largest call on Q3 under shuffle=compacted, {q3, q5: the parts
+    of the query's largest compacting concat}, K13's largest call on Q13,
+    {calls per query}), on the package's runs."""
     import chip_smoke
 
     ctx = pkg.pkg.QuokkaContext(io_channels=2, exec_channels=2, device=dev)
@@ -221,11 +273,18 @@ def shuffle_calls(pkg, dev, tables):
             chip_smoke.collect_numpy(chip_smoke.tpch_stream("q3", ctx, tables), "q3 compacted")
     finally:
         os.environ.pop("QK_KERNEL_STRATEGY")
-    with chip_smoke.Capture({"K8": (pkg.bridge, "compact_concat",
-                                    lambda b, pc, d, t, pad: sum(x.padded_len for x in b))}) as cap8:
-        chip_smoke.collect_numpy(chip_smoke.tpch_stream("q3", ctx, tables), "q3")
-    return (cap17.args["K17"][0], cap8.args["K8"][0],
-            {"K17 q3 compacted": cap17.calls["K17"], "K8 q3": cap8.calls["K8"]})
+    k8, calls = {}, {"K17 q3 compacted": cap17.calls["K17"]}
+    for q in ("q3", "q5"):
+        with chip_smoke.Capture({"K8": (pkg.bridge, "compact_concat",
+                                        lambda b, pc, d, t, pad: sum(x.padded_len for x in b))}
+                                ) as cap8:
+            chip_smoke.collect_numpy(chip_smoke.tpch_stream(q, ctx, tables), q)
+        k8[q] = cap8.args["K8"][0]
+        calls[f"K8 {q}"] = cap8.calls["K8"]
+    with chip_smoke.Capture({"K13": (pkg.join, "mm_expand", lambda *a: a[5])}) as cap13:
+        chip_smoke.collect_numpy(chip_smoke.tpch_stream("q13", ctx, tables), "q13")
+    calls["K13 q13"] = cap13.calls["K13"]
+    return cap17.args["K17"][0], k8, cap13.args["K13"][0], calls
 
 
 def as_package(pkg, parts):
@@ -288,7 +347,8 @@ def main() -> int:
                     help="root of another checkout whose quokka_tpu_torch is timed in turns "
                          "with this one's")
     ap.add_argument("--variants", action="store_true",
-                    help="also time the bucket core built with each of CORE_VARIANTS")
+                    help="also time the bucket core built with each of CORE_VARIANTS, and K17, K8 "
+                         "and K13 built with each of COMPACT_VARIANTS and EXPAND_VARIANTS")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "agg_profile.json"))
     args = ap.parse_args()
@@ -322,7 +382,8 @@ def main() -> int:
                              "partition": native.CSRC_DIR / "partition.cu",
                              "concat": native.CSRC_DIR / "concat.cu",
                              **(variant_sources() if args.variants else {}),
-                             **(compact_variant_sources() if args.variants else {})})
+                             **(compact_variant_sources() if args.variants else {}),
+                             **(expand_variant_sources() if args.variants else {})})
     report = {"card": card, "package": str(other) if other else None,
               "ptxas": {k: v for lib in ("onehot", "join", "partition", "concat")
                         for k, v in built[lib][1].items()}}
@@ -357,7 +418,7 @@ def main() -> int:
         k14_args[shape] = cap.args["K14"][0]
         calls[f"K14 {shape}"] = cap.calls["K14"]
     del mctx, ctx
-    k17_args, k8_args, more = shuffle_calls(this, dev, tables)
+    k17_args, k8_args, k13_args, more = shuffle_calls(this, dev, tables)
     calls.update(more)
     report["calls_per_query"] = calls
     print(f"calls per query: {calls}", flush=True)
@@ -475,32 +536,75 @@ def main() -> int:
             entry["turns"].append({"package": t, **row})
         report["k17"][label] = entry
 
-    # K8 at Q3's largest compacting concat: both packages' concat_batches,
-    # then this checkout's K8 alone and its plain version
-    k8_parts, per_col, dicts, total, padded = k8_args
-    parts = {t: k8_parts if t == "this" else as_package(pkgs[t], k8_parts) for t in set(turns)}
-    widths = [pkgs["this"].bridge._row_bytes(pkgs["this"].bridge._promoted(p), p[0].shape[1:])
-              for p in per_col.values()]
-    lens = [b.padded_len for b in k8_parts]
-    want = this.bridge.compact_concat_plain(k8_parts, per_col, dicts, total, padded)
-    entry = {"shape": f"{len(k8_parts)} parts of {lens} rows, {total} live, bucket {padded}, "
-                      f"{len(widths)} columns of {widths} B",
-             "bound_ms": (sum(lens) + total * sum(widths) + padded * (sum(widths) + 1))
-             / HBM_BYTES_PER_S * 1e3, "turns": []}
-    print(f"K8 q3: {entry['shape']}, bound {entry['bound_ms']:.5f} ms", flush=True)
-    for t in turns:
-        fn = lambda t=t: pkgs[t].bridge.concat_batches(parts[t])  # noqa: E731
-        row = call_profile(f"concat_batches q3 ({t})", fn, 20)
-        row["matches_plain"] = same_batch(fn(), want)
-        entry["turns"].append({"package": t, **row})
-    for label, fn in (("K8 alone", lambda: this.bridge.compact_concat(k8_parts, per_col, dicts,
-                                                                      total, padded)),
-                      ("plain version", lambda: this.bridge.compact_concat_plain(
-                          k8_parts, per_col, dicts, total, padded))):
-        row = call_profile(f"{label} q3", fn, 20)
-        row["matches_plain"] = same_batch(fn(), want)
-        entry[label] = row
-    report["k8"] = {"q3": entry}
+    # K8 at Q3's and Q5's largest compacting concats (both packages'
+    # concat_batches and K8, in turns), then this checkout's plain version;
+    # and both packages' K8 on Q3's parts at the made live shares
+    r8 = np.random.default_rng(args.seed + 8)
+    k8_cases = dict(k8_args)
+    q3_parts = k8_args["q3"][0]
+    for share in K8_SHARES:
+        parts = []
+        for b in q3_parts:
+            v = torch.from_numpy(r8.random(b.padded_len) < share).to(dev)
+            parts.append(this.batch.DeviceBatch(b.columns, v, int(v.sum()), b.sorted_by))
+        per_col, dicts = this.bridge._concat_parts(parts)
+        total = sum(b.nrows for b in parts)
+        k8_cases[f"q3 parts, live {share}"] = (parts, per_col, dicts, total,
+                                               this.pkg.config.bucket_size(total))
+    report["k8"], want_k8 = {}, {}
+    for label, (k8_parts, per_col, dicts, total, padded) in k8_cases.items():
+        parts = {t: k8_parts if t == "this" else as_package(pkgs[t], k8_parts)
+                 for t in set(turns)}
+        widths = [this.bridge._row_bytes(this.bridge._promoted(p), p[0].shape[1:])
+                  for p in per_col.values()]
+        lens = [b.padded_len for b in k8_parts]
+        want = want_k8[label] = this.bridge.compact_concat_plain(k8_parts, per_col, dicts, total,
+                                                                 padded)
+        entry = {"shape": f"{len(k8_parts)} parts of {lens} rows, {total} live, bucket {padded}, "
+                          f"{len(widths)} columns of {widths} B",
+                 "bound_ms": (sum(lens) + total * sum(widths) + padded * (sum(widths) + 1))
+                 / HBM_BYTES_PER_S * 1e3, "turns": [], "k8_turns": []}
+        print(f"K8 {label}: {entry['shape']}, bound {entry['bound_ms']:.5f} ms", flush=True)
+        for t in turns:
+            if label in k8_args:
+                fn = lambda t=t: pkgs[t].bridge.concat_batches(parts[t])  # noqa: E731
+                row = call_profile(f"concat_batches {label} ({t})", fn, 20)
+                row["matches_plain"] = same_batch(fn(), want)
+                entry["turns"].append({"package": t, **row})
+            fn = lambda t=t: pkgs[t].bridge.compact_concat(  # noqa: E731
+                parts[t], per_col, dicts, total, padded)
+            row = call_profile(f"K8 {label} ({t})", fn, 20)
+            row["matches_plain"] = same_batch(fn(), want)
+            entry["k8_turns"].append({"package": t, **row})
+        if label in k8_args:
+            fn = lambda: this.bridge.compact_concat_plain(  # noqa: E731
+                k8_parts, per_col, dicts, total, padded)
+            row = call_profile(f"plain version {label}", fn, 20)
+            row["matches_plain"] = same_batch(fn(), want)
+            entry["plain version"] = row
+        report["k8"][label] = entry
+
+    # K13 at Q13's largest expand and on the skewed case, in turns
+    sk_a, _ = chip_smoke.k13_skew_case(
+        dev, torch.Generator(device="cpu").manual_seed(args.seed + 13))
+    k13_cases = {label: (torch.cumsum(a[0], 0), a)
+                 for label, a in (("q13", k13_args), ("one key x 10^4 build rows", sk_a))}
+    report["k13"], want_k13 = {}, {}
+    for label, (cum, a) in k13_cases.items():
+        want = want_k13[label] = this.join._mm_expand_plain(cum, *a[1:])
+        entry = {"shape": f"{a[5]} output rows ({int(a[4])} live), {a[0].shape[0]} probe rows, "
+                          f"{a[2].shape[0]} build rows, "
+                          f"{'left' if a[6] is not None else 'inner'}",
+                 "bound_ms": chip_smoke.k13_bytes(a, cum) / HBM_BYTES_PER_S * 1e3, "turns": []}
+        print(f"K13 {label}: {entry['shape']}, bound {entry['bound_ms']:.5f} ms", flush=True)
+        for t in turns:
+            fn = lambda t=t: pkgs[t].join._mm_expand_cuda(cum, *a[1:])  # noqa: E731
+            row = call_profile(f"K13 {label} ({t})", fn, 20)
+            row["matches_plain"] = same_outputs(fn(), want)
+            if t == "this":
+                row["same_bits"] = same_outputs(fn(), fn())
+            entry["turns"].append({"package": t, **row})
+        report["k13"][label] = entry
 
     if args.variants:
         import ctypes
@@ -527,22 +631,37 @@ def main() -> int:
                         torch.equal(a, b) for a, b in zip(
                             fn(), this.kernels.partition_plan_plain(pids, valid, n_parts)))
             else:
-                fn = lambda: this.bridge.compact_concat(k8_parts, per_col, dicts, total,  # noqa: E731
-                                                        padded)
-                rows["K8 q3"] = call_profile(f"K8 q3, variant: {label}", fn, 20)
-                rows["K8 q3"]["matches_plain"] = same_batch(fn(), want)
+                for case, (k8_parts, per_col, dicts, total, padded) in k8_cases.items():
+                    fn = lambda: this.bridge.compact_concat(  # noqa: E731
+                        k8_parts, per_col, dicts, total, padded)
+                    rows[f"K8 {case}"] = call_profile(f"K8 {case}, variant: {label}", fn, 20)
+                    rows[f"K8 {case}"]["matches_plain"] = same_batch(fn(), want_k8[case])
             setattr(mod, attr, lambda prod=prod: prod)
             report["compact_variants"][label] = rows
+        prod = this.join._join_lib()
+        report["expand_variants"] = {}
+        for i, label in enumerate(EXPAND_VARIANTS):
+            lib = ctypes.CDLL(str(built[f"expand_variant_{i}"][0]))
+            lib.qk_mm_expand.argtypes = prod.qk_mm_expand.argtypes
+            lib.qk_mm_expand.restype = prod.qk_mm_expand.restype
+            this.join._join_lib = lambda lib=lib: lib
+            rows = {"ptxas": built[f"expand_variant_{i}"][1]}
+            for case, (cum, a) in k13_cases.items():
+                fn = lambda: this.join._mm_expand_cuda(cum, *a[1:])  # noqa: E731
+                rows[f"K13 {case}"] = call_profile(f"K13 {case}, variant: {label}", fn, 20)
+                rows[f"K13 {case}"]["matches_plain"] = same_outputs(fn(), want_k13[case])
+            report["expand_variants"][label] = rows
+        this.join._join_lib = lambda: prod
 
     line = json.dumps(report)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(line + "\n")
     print(line)
-    wrong = [f"{k} {s} {r['package']}" for k in ("k2", "k6", "k14", "k17", "k8")
-             for s, e in report[k].items() for r in e["turns"]
+    wrong = [f"{k} {s} {r['package']}" for k in ("k2", "k6", "k14", "k17", "k8", "k13")
+             for s, e in report[k].items() for r in e["turns"] + e.get("k8_turns", [])
              if not r["matches_plain"] or r.get("same_bits") is False]
-    wrong += [f"k8 q3 {label}" for label in ("K8 alone", "plain version")
-              if not report["k8"]["q3"][label]["matches_plain"]]
+    wrong += [f"k8 {s} plain version" for s, e in report["k8"].items()
+              if "plain version" in e and not e["plain version"]["matches_plain"]]
     if wrong:
         print(f"agg_profile: results differ from the plain version or between launches: "
               f"{wrong}", file=sys.stderr)

@@ -87,7 +87,8 @@ Phases, each fatal on failure:
      tumbling's and hopping's, each call under torch.cuda's sync debug
      mode, so that a host read in a call fails; K4 at Q1's and Q3's; K5, K11,
      K12 at Q3's, K12 also on float64 keys with -0.0 and NaN; K13 at
-     Q13's and with one probe key matching 10^4 build rows;
+     Q13's, with one probe key matching 10^4 build rows and on an inner
+     join with a run of 8,000 probe rows that match nothing;
      K10 and K13p (both modes) at Q4's, Q13's and Q21's largest plans, at
      that skewed case and on float64 limbs with -0.0 and NaN, float32 and
      bool limbs, all rows invalid, no valid build row, row counts that are
@@ -118,8 +119,9 @@ Phases, each fatal on failure:
      with 1, 2 and 64 parts and ids out of range; K8 at Q3's largest
      compacting concat and on part lengths that are not multiples of 4096,
      one part of 2^24 rows, more columns than a launch takes, dtypes that
-     differ between parts, strided sources and empty and all-invalid
-     parts, each through concat_batches and bit for bit; K26 at the skew join's
+     differ between parts, strided sources, empty and all-invalid
+     parts and dense and sparse tiles in one call, each through
+     concat_batches and bit for bit; K26 at the skew join's
      and Q3's largest splits in both modes; K6 at Q1 sort's largest call;
      K23 at Q1's and Q3's largest landed batches and on NaN / -0.0
      dictionaries, uint16 codes, a plan that widens then degrades, an
@@ -1577,6 +1579,7 @@ K8_CASES = {
     "mixed dtypes across parts": [(30_000, 0.6), (70_000, 0.4), (5, 1.0)],
     "strided sources": [(30_000, 0.6), (70_000, 0.4)],
     "empty and all-invalid parts": [(0, 0.5), (3000, 0.0), (90_000, 0.6), (4096, 0.0)],
+    "dense and sparse tiles": [(1 << 16, 0.02), (1 << 16, 0.27), (1 << 16, 1.0), (5000, 0.27)],
 }
 
 
@@ -1658,6 +1661,74 @@ def nbytes(*tensors) -> int:
 
 def bound_ms(n_bytes: float) -> float:
     return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def k13_bytes(a, cum) -> int:
+    """Bytes K13 must move on this run's data (its arguments a, as
+    ``join.mm_expand`` takes them, and the cumsum): the cumsum, rank and
+    unmatched flag of each probe row with an output row, the offset of
+    each rank a matched probe row holds, the build positions of those
+    ranks, the total, and every output row written once."""
+    import torch
+
+    count, offsets, build_pos, rp, _, out_padded, unm = a
+    live = count > 0
+    matched = live if unm is None else live & ~unm
+    ranks, inv = torch.unique(rp[matched], return_inverse=True)
+    per_rank = torch.zeros(ranks.shape[0], dtype=count.dtype, device=count.device)
+    per_rank.scatter_reduce_(0, inv, count[matched], "amax")
+    flag = 0 if unm is None else 1
+    return (int(live.sum()) * (cum.element_size() + rp.element_size() + flag)
+            + ranks.shape[0] * offsets.element_size()
+            + int(per_rank.sum()) * build_pos.element_size() + 8
+            + out_padded * (4 + 4 + 1 + flag))
+
+
+def k13_skew_case(dev, g13):
+    """K13's skewed case: a left join of 2^16 probe rows on 2^20 build rows
+    whose first 100 probe rows hold the one key of 10^4 build rows, drawn
+    from the generator g13.  Returns (the ``join.mm_expand`` arguments,
+    (limbs, valid, probe rows, build rows))."""
+    import torch
+
+    from quokka_tpu_torch import config
+    from quokka_tpu_torch.ops import join
+
+    p_s, b_s = 1 << 16, 1 << 20
+    bk = torch.randint(0, 1 << 19, (b_s,), generator=g13)
+    pk = torch.randint(0, 1 << 19, (p_s,), generator=g13)
+    bk[:10_000] = -1
+    pk[:100] = -1
+    limbs = [torch.cat([pk, bk]).to(dev)]
+    valid = torch.ones(p_s + b_s, dtype=torch.bool, device=dev)
+    sk = join.mm_plan_for(limbs, valid, p_s, "left", valid[:p_s])
+    if int(sk[0][:100].min()) != 10_000:
+        fail("K13 skewed case: the hot probe key does not match 10^4 build rows")
+    a = (sk[0], sk[2], sk[3], sk[4], sk[1], config.bucket_size(int(sk[1])), sk[5])
+    return a, (limbs, valid, p_s, b_s)
+
+
+def k13_zero_run_case(dev, seed: int):
+    """K13 on an inner join of 2^16 probe rows on 2^18 build rows whose probe
+    rows 1,000 .. 8,999 hold keys no build row has: a run of probe items
+    longer than a block's share of the merge.  Returns the ``join.mm_expand``
+    arguments."""
+    import torch
+
+    from quokka_tpu_torch import config
+    from quokka_tpu_torch.ops import join
+
+    g = torch.Generator(device="cpu").manual_seed(seed + 14)
+    p, b = 1 << 16, 1 << 18
+    bk = torch.randint(0, 1 << 15, (b,), generator=g)
+    pk = torch.randint(0, 1 << 15, (p,), generator=g)
+    pk[1000:9000] = torch.arange(1 << 20, (1 << 20) + 8000)
+    limbs = [torch.cat([pk, bk]).to(dev)]
+    valid = torch.ones(p + b, dtype=torch.bool, device=dev)
+    mc, total, off, bps, rp, unm = join.mm_plan_for(limbs, valid, p, "inner", valid[:p])
+    if int(mc[1000:9000].max()) != 0:
+        fail("K13 zero-run case: the run's probe rows match build rows")
+    return (mc, off, bps, rp, total, config.bucket_size(int(total)), unm)
 
 
 class Capture:
@@ -3681,38 +3752,13 @@ def smoke(dev, card: str, args) -> int:
               f"rows match the plain version row for row")
         return cum
 
-    def k13_bytes(a, cum):
-        """Bytes K13 must move on this run's data: the cumsum, rank and
-        unmatched flag of each probe row with an output row, the offset of
-        each rank a matched probe row holds, the build positions of those
-        ranks, the total, and every output row written once."""
-        count, offsets, build_pos, rp, _, out_padded, unm = a
-        live = count > 0
-        matched = live if unm is None else live & ~unm
-        ranks, inv = torch.unique(rp[matched], return_inverse=True)
-        per_rank = torch.zeros(ranks.shape[0], dtype=count.dtype, device=count.device)
-        per_rank.scatter_reduce_(0, inv, count[matched], "amax")
-        flag = 0 if unm is None else 1
-        return (int(live.sum()) * (cum.element_size() + rp.element_size() + flag)
-                + ranks.shape[0] * offsets.element_size()
-                + int(per_rank.sum()) * build_pos.element_size() + 8
-                + out_padded * (4 + 4 + 1 + flag))
-
     (k13_a, _) = s3["q13"].args["K13"]
     k13_cum = check_k13("Q13", k13_a)
     g13 = torch.Generator(device="cpu").manual_seed(args.seed + 13)
-    p_s, b_s = 1 << 16, 1 << 20
-    bk = torch.randint(0, 1 << 19, (b_s,), generator=g13)
-    pk = torch.randint(0, 1 << 19, (p_s,), generator=g13)
-    bk[:10_000] = -1
-    pk[:100] = -1
-    s_limbs = [torch.cat([pk, bk]).to(dev)]
-    s_valid = torch.ones(p_s + b_s, dtype=torch.bool, device=dev)
-    sk = join.mm_plan_for(s_limbs, s_valid, p_s, "left", s_valid[:p_s])
-    if int(sk[0][:100].min()) != 10_000:
-        fail("K13 skewed case: the hot probe key does not match 10^4 build rows")
-    sk_a = (sk[0], sk[2], sk[3], sk[4], sk[1], config.bucket_size(int(sk[1])), sk[5])
+    sk_a, (s_limbs, s_valid, p_s, b_s) = k13_skew_case(dev, g13)
     sk_cum = check_k13("one key x 10^4 build rows", sk_a)
+    check_k13("an inner join with a run of 8,000 probe rows that match nothing",
+              k13_zero_run_case(dev, args.seed))
 
     def expand13(a, cum):
         return lambda: join._mm_expand_cuda(cum, *a[1:])

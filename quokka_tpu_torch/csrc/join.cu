@@ -34,19 +34,33 @@
 //
 // What bounds it: bytes.  Each output row writes probe_idx and build_idx
 // (4 B each), out_valid and, for left joins, unmatched (1 B each), and
-// reads one offset, one probe rank and one sorted build position; the
-// search reads about log2(p) cumsum entries per output row, whose first
-// levels every row shares and whose last levels neighbouring rows share
-// (they stay in L1 and L2).
+// reads one sorted build position; each probe row with an output row
+// reads its cumsum entry, rank, flag and its rank's offset once.  The
+// first design gave each output row a thread that ran an 18-level binary
+// search over the 2^18-entry cumsum in device memory and then three more
+// dependent gathers (rp, offsets, build_pos_sorted): about 21 dependent
+// loads a row against 17 bytes of real traffic, so latency bound it.
 //
-// Design: one thread per output row runs an upper-bound search over the
-// cumsum in registers.  Output rows are spread evenly over threads however
-// skewed the match counts are (one probe key matching 10^4 build rows
-// costs 10^4 threads, not one thread 10^4 iterations), and row j lands at
-// index j, so the output order is the reference's: probe row first, then
-// the key's build rows in ascending row order.  Out-of-range positions are
-// clipped exactly as the XLA program clips them, so padding rows agree
-// too.
+// Design: a merge-path load-balanced search.  The output rows 0 .. out_n
+// - 1 and the probe rows' inclusive cumsum are two sorted sequences
+// (probe row k ends before output row j when cum[k] <= j); each block
+// owns QK_MM_ITEMS items of their merge.  Its first two warps find the
+// block's two diagonals (the first probe row k with cum[k] + k >= d) by
+// 33-way splits, one coalesced load a lane a step, so 4-5 dependent loads
+// for 2^18 probe rows.  The block then loads its slice of cum, and of
+// offsets[rp] and the left join's flags for those probe rows, coalesced
+// into shared memory (at most QK_MM_ITEMS + 2 entries however skewed the
+// counts are: one probe key x 10^4 build rows is 10^4 output items spread
+// over blocks, a long run of probe rows with no match is as many probe
+// items).  Each thread finds its own diagonal in the slice and walks its
+// QK_MM_VT merged items there, writing each output row's probe row to
+// shared memory; then neighbouring threads write neighbouring output
+// rows, and the consecutive build positions of one probe row are read
+// from build_pos_sorted as a coalesced run.  Row j lands at index j, so
+// the output order is the reference's: probe row first, then the key's
+// build rows in ascending row order.  Out-of-range positions are clipped
+// exactly as the XLA program clips them (past the last probe row's end
+// every row takes the last probe row), so padding rows agree too.
 
 //
 // Rank PK match for Hopper (sm_90a): kernel K14.  Replaces
@@ -133,39 +147,114 @@ static int qk_sorted_probe_typed(const QkProbeArgs& a) {
   return qk_sorted_probe_launch(a, Cols::at(a.sorted), Cols::at(a.probe));
 }
 
+#define QK_MM_THREADS 256
+#define QK_MM_VT 8                                // merged items a thread
+#define QK_MM_ITEMS (QK_MM_THREADS * QK_MM_VT)    // merged items a block
+
+// The merge path at diagonal d of the output rows 0 .. out_n - 1 and the
+// probe rows' ends: the probe rows among the first d merged items, the
+// first k with cum[k] + k >= d (p if none), by one whole warp: 33-way
+// splits of [lo, hi), then one lane a candidate.
+__device__ __forceinline__ long long qk_mm_diag(const long long* __restrict__ cum, long long p,
+                                                long long out_n, long long d) {
+  const int lane = threadIdx.x & 31;
+  long long lo = d - out_n > 0 ? d - out_n : 0, hi = d < p ? d : p;
+  while (hi - lo > 32) {
+    const long long q = lo + (hi - lo) * (lane + 1) / 33;
+    const unsigned m = __ballot_sync(0xffffffffu, __ldg(cum + q) + q >= d);
+    const int f = m == 0u ? 31 : __ffs(m) - 1;
+    const long long qf = __shfl_sync(0xffffffffu, q, f);
+    const long long qb = __shfl_sync(0xffffffffu, q, f > 0 ? f - 1 : 0);
+    if (m == 0u) {
+      lo = qf + 1;
+    } else {
+      hi = qf;
+      lo = f > 0 ? qb + 1 : lo;
+    }
+  }
+  const long long q = lo + lane;
+  const unsigned m = __ballot_sync(0xffffffffu, q < hi && __ldg(cum + q) + q >= d);
+  return m == 0u ? hi : lo + __ffs(m) - 1;
+}
+
 // cum: inclusive cumsum of per-probe match counts (p int64); offsets: run
 // start of each rank (int64, indexed by rank); build_pos_sorted: build rows
 // sorted by rank (b int64); rp: rank of each probe row (p int64); total:
 // one int64 on the device.  Outputs for j < out_n: probe_idx, build_idx
 // (int32), out_valid (j < total) and, when unmatched_in is given,
 // unmatched_out[j] = unmatched_in[probe_idx[j]].
-__global__ void qk_mm_expand_kernel(const long long* __restrict__ cum, int64_t p,
-                                    const long long* __restrict__ offsets,
-                                    const long long* __restrict__ build_pos_sorted,
-                                    int64_t b, const long long* __restrict__ rp,
-                                    const long long* __restrict__ total_p,
-                                    const uint8_t* __restrict__ unmatched_in,
-                                    int64_t out_n, int32_t* __restrict__ probe_idx,
-                                    int32_t* __restrict__ build_idx,
-                                    uint8_t* __restrict__ out_valid,
-                                    uint8_t* __restrict__ unmatched_out) {
-  int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= out_n) return;
-  // upper bound: the first probe row whose inclusive cumsum exceeds j
-  int64_t lo = 0, hi = p;
-  while (lo < hi) {
-    int64_t mid = (lo + hi) >> 1;
-    if (cum[mid] <= j) lo = mid + 1;
-    else hi = mid;
+__global__ void __launch_bounds__(QK_MM_THREADS)
+    qk_mm_expand_kernel(const long long* __restrict__ cum, int64_t p,
+                        const long long* __restrict__ offsets,
+                        const long long* __restrict__ build_pos_sorted, int64_t b,
+                        const long long* __restrict__ rp, const long long* __restrict__ total_p,
+                        const uint8_t* __restrict__ unmatched_in, int64_t out_n,
+                        int32_t* __restrict__ probe_idx, int32_t* __restrict__ build_idx,
+                        uint8_t* __restrict__ out_valid, uint8_t* __restrict__ unmatched_out) {
+  // the slice: probe rows lo_k .. hi_k (lo_k may be -1, whose end is 0)
+  __shared__ long long s_cum[QK_MM_ITEMS + 2];
+  __shared__ long long s_off[QK_MM_ITEMS + 2];  // offsets[rp[k]]
+  __shared__ uint8_t s_unm[QK_MM_ITEMS + 2];
+  __shared__ int32_t s_pi[QK_MM_ITEMS];         // each output row's probe row (p past the last)
+  __shared__ long long s_k[2];
+  const int tid = threadIdx.x, w = tid >> 5;
+  const long long d0 = (long long)blockIdx.x * QK_MM_ITEMS;
+  const long long d1 = d0 + QK_MM_ITEMS < out_n + p ? d0 + QK_MM_ITEMS : out_n + p;
+  if (w < 2) {
+    const long long k = qk_mm_diag(cum, p, out_n, w == 0 ? d0 : d1);
+    if ((tid & 31) == 0) s_k[w] = k;
   }
-  int64_t pi = lo > p - 1 ? p - 1 : lo;
-  int64_t start = pi > 0 ? cum[pi - 1] : 0;
-  int64_t bpos = offsets[rp[pi]] + (j - start);
-  bpos = bpos < 0 ? 0 : (bpos > b - 1 ? b - 1 : bpos);
-  probe_idx[j] = (int32_t)pi;
-  build_idx[j] = (int32_t)build_pos_sorted[bpos];
-  out_valid[j] = j < *total_p ? 1 : 0;
-  if (unmatched_out != nullptr) unmatched_out[j] = unmatched_in[pi];
+  __syncthreads();
+  const long long k0 = s_k[0], k1 = s_k[1];
+  const long long i0 = d0 - k0;
+  const int na = (int)(d1 - k1 - i0), nb = (int)(k1 - k0);
+  const long long lo_k = (k0 < p - 1 ? k0 : p - 1) - 1;
+  const long long hi_k = k1 < p - 1 ? k1 : p - 1;
+  const int m = (int)(hi_k - lo_k + 1);
+  for (int x = tid; x < m; x += QK_MM_THREADS) {
+    const long long k = lo_k + x;
+    s_cum[x] = k < 0 ? 0 : cum[k];
+    s_off[x] = k < 0 ? 0 : offsets[rp[k]];
+    s_unm[x] = (k < 0 || unmatched_in == nullptr) ? 0 : unmatched_in[k];
+  }
+  __syncthreads();
+  // the thread's diagonal in the slice, then its walk: probe item x (the
+  // block's (k0 + x)-th probe row ends) comes before output item a when
+  // cum[k0 + x] <= i0 + a
+  const int boff = (int)(k0 - lo_k);  // the slice index of probe row k0
+  const int dt = tid * QK_MM_VT;
+  if (dt < na + nb) {
+    int lo = dt - na > 0 ? dt - na : 0, hi = dt < nb ? dt : nb;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (s_cum[mid + boff] + mid >= i0 + dt) hi = mid;
+      else lo = mid + 1;
+    }
+    int x = lo, a = dt - lo;
+#pragma unroll
+    for (int v = 0; v < QK_MM_VT; ++v) {
+      if (a + x >= na + nb) break;
+      if (x < nb && (a >= na || s_cum[x + boff] <= i0 + a)) {
+        ++x;
+      } else {
+        s_pi[a] = (int32_t)(k0 + x);
+        ++a;
+      }
+    }
+  }
+  __syncthreads();
+  const long long total = *total_p;
+  for (int a = tid; a < na; a += QK_MM_THREADS) {
+    const long long j = i0 + a;
+    const long long pi = s_pi[a] < p - 1 ? s_pi[a] : p - 1;
+    const int x = (int)(pi - lo_k);
+    long long bpos = s_off[x] + (j - s_cum[x - 1]);
+    bpos = bpos < 0 ? 0 : (bpos > b - 1 ? b - 1 : bpos);
+    probe_idx[j] = (int32_t)pi;
+    build_idx[j] = (int32_t)build_pos_sorted[bpos];
+    out_valid[j] = j < total ? 1 : 0;
+    if (unmatched_out != nullptr) unmatched_out[j] = s_unm[x];
+  }
 }
 
 // K14 build pass: rank r's least valid build row, kept as row - b.  The
@@ -272,9 +361,9 @@ int qk_mm_expand(const void* cum, long long p, const void* offsets,
   if (p < 1 || b < 1 || (unmatched_in == nullptr) != (unmatched_out == nullptr))
     return (int)cudaErrorInvalidValue;
   if (out_n == 0) return (int)cudaSuccess;
-  int threads = 256;
-  unsigned int blocks = (unsigned int)((out_n + threads - 1) / threads);
-  qk_mm_expand_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  if (p > 0x7fffffffLL || out_n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const unsigned int blocks = (unsigned int)((out_n + p + QK_MM_ITEMS - 1) / QK_MM_ITEMS);
+  qk_mm_expand_kernel<<<blocks, QK_MM_THREADS, 0, (cudaStream_t)stream>>>(
       (const long long*)cum, p, (const long long*)offsets,
       (const long long*)build_pos_sorted, b, (const long long*)rp,
       (const long long*)total, (const uint8_t*)unmatched_in, out_n,

@@ -22,7 +22,8 @@ decoded leaves equal the plain version's and the shipped input bit for bit.
 K24's exchanged columns and validity, and K14's build rows and matches,
 are exact.  K10's ranks and K13p's plan equal the plain versions bit for
 bit, and the radix sort under them equals ``kernels.sort_perm_plain``
-index for index.
+index for index.  K8's concat and K13's expand equal their plain versions
+bit for bit and give the same bits every run.
 """
 
 import dataclasses
@@ -480,33 +481,56 @@ def test_k12_strided_inputs_match_plain(cuda_device):
     assert torch.equal(ik[mk], want[0][want[1]])
 
 
-@pytest.mark.parametrize("how", ["inner", "left"])
-@pytest.mark.parametrize("skew", [False, True], ids=["spread", "hot_key"])
-def test_k13_kernel_matches_plain(cuda_device, how, skew):
-    """The many-to-many expand against its plain version at every output
-    row, the padding rows included; with one probe key that matches 10^4
-    build rows."""
-    r = np.random.default_rng(40 + skew)
+def _k13_case(dev, how, skew):
+    """(cum, offsets, build_pos_sorted, rp, total, out_padded, unmatched) of
+    a many-to-many plan over 2^16 probe and 2^18 build rows, 5% of each
+    invalid; "hot_key": one probe key matches 10^4 build rows; "zero_run":
+    probe rows 1,000 .. 8,999 match nothing (past a block's share of the
+    merge in an inner join).  out_padded passes total by at least 1,000."""
+    r = np.random.default_rng({"spread": 40, "hot_key": 41, "zero_run": 42}[skew])
     p, b = 1 << 16, 1 << 18
     bk = r.integers(0, 1 << 15, b).astype(np.int64)
     pk = r.integers(0, 1 << 16, p).astype(np.int64)
-    if skew:
+    if skew == "hot_key":
         bk[:10_000] = 12345
         pk[:50] = 12345
-    limbs = [torch.from_numpy(np.concatenate([pk, bk])).to(cuda_device)]
+    if skew == "zero_run":
+        pk[1000:9000] = np.arange(1 << 20, (1 << 20) + 8000)
+    limbs = [torch.from_numpy(np.concatenate([pk, bk])).to(dev)]
     valid = torch.from_numpy(np.concatenate([r.random(p) < 0.95, r.random(b) < 0.95]))
-    valid = valid.to(cuda_device)
-    pv = torch.ones(p, dtype=torch.bool, device=cuda_device)
+    valid = valid.to(dev)
+    pv = torch.ones(p, dtype=torch.bool, device=dev)
     mc, total, off, bps, rp, unm = join.mm_plan_for(limbs, valid, p, how, pv)
+    if skew == "zero_run" and how == "inner":
+        assert int(mc[1000:9000].max()) == 0
     out = 1 << int(np.ceil(np.log2(int(total) + 1000)))
-    cum = torch.cumsum(mc, 0)
-    k = join._mm_expand_cuda(cum, off, bps, rp, total, out, unm)
-    q = join._mm_expand_plain(cum, off, bps, rp, total, out, unm)
+    return torch.cumsum(mc, 0), off, bps, rp, total, out, unm
+
+
+@pytest.mark.parametrize("how", ["inner", "left"])
+@pytest.mark.parametrize("skew", ["spread", "hot_key", "zero_run"])
+def test_k13_kernel_matches_plain(cuda_device, how, skew):
+    """The many-to-many expand against its plain version at every output
+    row, the padding rows included; with one probe key that matches 10^4
+    build rows, and with a run of probe rows that match nothing."""
+    args = _k13_case(cuda_device, how, skew)
+    total, out = args[4], args[5]
+    k = join._mm_expand_cuda(*args)
+    q = join._mm_expand_plain(*args)
     for a, c in zip(k[:3], q[:3]):
-        assert torch.equal(a, c)
+        assert a.dtype == c.dtype and torch.equal(a, c)
     if how == "left":
         assert torch.equal(k[3], q[3]) and 0 < int(k[3][k[2]].sum())
-    assert int(k[2].sum()) == int(total)
+    else:
+        assert k[3] is None and q[3] is None
+    assert int(k[2].sum()) == int(total) < out
+
+
+def test_k13_same_bits_every_run(cuda_device):
+    args = _k13_case(cuda_device, "left", "hot_key")
+    a, b = join._mm_expand_cuda(*args), join._mm_expand_cuda(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 STAGES = [
@@ -1319,6 +1343,11 @@ K8_CASES = {
     "one_live_row": [(4096, 0.0), (70_000, 0.0)],
     "fully_live_total_a_bucket": [(1 << 15, 1.0), (1 << 15, 1.0)],
     "forty_parts_some_empty": [((i * 997) % 6000 if i % 7 else 0, 0.6) for i in range(40)],
+    "dense_and_sparse_tiles": [(1 << 16, 0.02), (1 << 16, 0.27), (1 << 16, 1.0), (5000, 0.27),
+                               (20_000, 0.02)],
+    "sixteen_columns_of_8_to_16_bytes": [(50_000, 0.6), (30_000, 1.0), (9000, 0.1)],
+    "unaligned_vectors_and_sources": [(40_000, 0.5), (4097, 1.0), (70_001, 0.3)],
+    "no_live_rows": [(4096, 0.0), (70_000, 0.0)],
 }
 
 
@@ -1357,6 +1386,28 @@ def _k8_part(r, m, dens, case, i, dev):
         valid = _strided(valid.to(dev))
     if case == "one_live_row" and i == 1:
         valid[54_321] = True
+    if case == "sixteen_columns_of_8_to_16_bytes":
+        # one launch of sixteen columns of 8-, 12- and 16-byte rows
+        cols = {}
+        for j in range(bridge.CONCAT_MAX_COLUMNS):
+            cols[f"c{j}"] = (
+                NumCol(torch.from_numpy(r.integers(-10**15, 10**15, m)).to(dev), "i")
+                if j % 3 == 0 else
+                VecCol(torch.from_numpy(r.normal(size=(m, 3)).astype(np.float32)).to(dev))
+                if j % 3 == 1 else VecCol(torch.from_numpy(r.normal(size=(m, 2))).to(dev)))
+    if case == "unaligned_vectors_and_sources":
+        # contiguous views one row into a larger tensor: 4-, 6-, 8-, 12- and
+        # 24-byte rows whose first row is not 16-byte aligned
+        def off_by_one(t):
+            return torch.cat([t[:1], t]).to(dev)[1:]
+
+        cols = {"i": NumCol(off_by_one(cols["i"].data), "i"),
+                "n": NumCol(off_by_one(cols["n"].data), "i"),
+                "v": VecCol(off_by_one(cols["v"].data)),
+                "h3": VecCol(off_by_one(torch.from_numpy(r.normal(size=(m, 3)).astype(np.float32)))),
+                "s3": VecCol(off_by_one(torch.from_numpy(r.integers(-99, 99, (m, 3)).astype(np.int16)))),
+                "b": cols["b"]}
+        assert all((c.data.data_ptr() % 16) != 0 for k, c in cols.items() if k != "b")
     valid = valid.to(dev)
     return DeviceBatch(cols, valid, int(valid.sum()))
 
@@ -1404,6 +1455,8 @@ def test_k8_kernel_matches_plain(cuda_device, case):
     assert _same_batch(got, want)
     if case == "fully_live_total_a_bucket":
         assert total == padded
+    if case == "no_live_rows":
+        assert total == 0
     for c in got.columns.values():
         t = c.codes if isinstance(c, StrCol) else c.data
         assert not t[total:].view(torch.uint8).any()

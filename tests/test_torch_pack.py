@@ -11,6 +11,8 @@ Tolerances: decoded leaves exact; query results as in test_torch_q1 /
 test_torch_q3q5 (floats rtol 1e-9, summation order).
 """
 
+import threading
+
 import numpy as np
 import pytest
 from hypothesis import HealthCheck, given, settings
@@ -30,6 +32,46 @@ from test_torch_q3q5 import pandas_q3, q3, same_q3
 
 NULL_I64 = np.iinfo(np.int64).min
 NULL_I32 = np.iinfo(np.int32).min
+
+
+class _ThisThread(dict):
+    """A module-wide plan or program cache that also records the keys the
+    test's own thread set.  The caches are shared by every thread of the
+    process: a query that another test left running (a service's or a
+    stream's thread) lands its batches through them too, so the checks read
+    only the entries of the calls under test (``mine``).  ``_own_caches``
+    installs them for each test and puts the module's own back after it."""
+
+    def __init__(self):
+        super().__init__()
+        self.owner = threading.get_ident()
+        self.own = []
+
+    def _note(self, key):
+        if threading.get_ident() == self.owner and key not in self.own:
+            self.own.append(key)
+
+    def setdefault(self, key, default=None):
+        self._note(key)
+        return super().setdefault(key, default)
+
+    def __setitem__(self, key, value):
+        self._note(key)
+        super().__setitem__(key, value)
+
+    def clear(self):
+        self.own = []
+        super().clear()
+
+    def mine(self) -> dict:
+        return {k: self[k] for k in self.own}
+
+
+@pytest.fixture(autouse=True)
+def _own_caches(monkeypatch):
+    monkeypatch.setattr(ref_pack, "_PLANS", _ThisThread())
+    monkeypatch.setattr(ref_pack, "_DECODE_PROGRAMS", _ThisThread())
+    monkeypatch.setattr(pack, "_PLANS", _ThisThread())
 
 
 def _clear():
@@ -57,7 +99,7 @@ def _put_both(leaves):
     ref = [np.asarray(a) for a in ref_pack.pack_put(
         [ref_pack.ValidCount(x.padded, x.nrows) if isinstance(x, pack.ValidCount) else x
          for x in leaves])]
-    (ref_layout,) = list(ref_pack._DECODE_PROGRAMS)
+    (ref_layout,) = list(ref_pack._DECODE_PROGRAMS.mine())
     seen = []
     real = pack.decode_plain
 
@@ -83,8 +125,8 @@ def _check(leaves):
             np.testing.assert_array_equal(g, np.arange(leaf.padded) < leaf.nrows)
         else:
             np.testing.assert_array_equal(_bits(g), _bits(np.asarray(leaf)))
-    assert len(ref_pack._PLANS) == len(pack._PLANS) == 1
-    (rp,), (pp,) = ref_pack._PLANS.values(), pack._PLANS.values()
+    assert len(ref_pack._PLANS.mine()) == len(pack._PLANS.mine()) == 1
+    (rp,), (pp,) = ref_pack._PLANS.mine().values(), pack._PLANS.mine().values()
     assert _plans(pp) == _plans(rp)
     return port_layout
 
@@ -161,7 +203,7 @@ def test_uint16_codes(dtype):
     for k in (150, 257, 300):
         layout = _check([pack.ValidCount(n, n), r.choice(pool[:k], n)])
         assert layout[1][0] == "dict"
-    (plans,) = pack._PLANS.values()
+    (plans,) = pack._PLANS.mine().values()
     assert (plans[1].mode, plans[1].tlen) == ("dict", 512)
 
 
@@ -182,7 +224,7 @@ def test_plans_widen_then_degrade_like_the_reference():
     for ints, floats in seq:
         layout = _check([pack.ValidCount(n, n), ints, floats])
         kinds.append([s[0] for s in layout])
-        (p,) = pack._PLANS.values()
+        (p,) = pack._PLANS.mine().values()
         plans.append(_plans(p))
     assert kinds == [["valid", "widen", "dict"], ["valid", "widen", "dict"],
                      ["valid", "widen", "dict"], ["valid", "pass", "pass"],
@@ -211,7 +253,7 @@ def test_q1_through_the_narrowed_wire_matches_reference(tpch, fresh_aot):
     paths, dfs = tpch
     _clear()
     got = q1(QuokkaContext(device="cpu"), paths["lineitem"])
-    assert pack._PLANS, "the bridge did not land through pack_put"
+    assert pack._PLANS.mine(), "the bridge did not land through pack_put"
     same(got, pandas_q1(dfs["lineitem"]))
     same(got, q1(RefContext(), paths["lineitem"]))
 
@@ -220,6 +262,6 @@ def test_q3_through_the_narrowed_wire_matches_reference(tpch, fresh_aot):
     paths, dfs = tpch
     _clear()
     got = q3(quokka_tpu_torch, QuokkaContext(device="cpu"), paths).collect()
-    assert pack._PLANS, "the bridge did not land through pack_put"
+    assert pack._PLANS.mine(), "the bridge did not land through pack_put"
     same_q3(got, pandas_q3(dfs))
     same_q3(got, q3(quokka_tpu, RefContext(), paths).collect())
