@@ -8,8 +8,10 @@ Phases, each fatal on failure:
   2. build the CUDA C++ kernels from the sources in this checkout
      (one nvcc per source, in parallel) and print the build seconds;
   3. make TPC-H tables at scale factor --sf with numpy from --seed (6.0M
-     lineitem, 1.5M orders, 150K customer, 200K part, 10K supplier, 25
-     nation and 5 region rows at SF1; the domains of tests/tpch_data.py),
+     lineitem, 1.5M orders, 150K customer, 200K part, 800K partsupp, 10K
+     supplier, 25 nation and 5 region rows at SF1; the domains of
+     tests/tpch_data.py; the columns only the other fourteen queries read,
+     and partsupp, from a second generator of the seed),
      bench.py's ticks (1.15M trades, 6M quotes, 100 symbols), and clustered
      embeddings at ann-benchmarks glove-100-angular's shape (1,183,514 x
      100 float32 at SF1, 0.1% null, 10,000 queries) as an Arrow table, a
@@ -17,7 +19,12 @@ Phases, each fatal on failure:
      its IVF sidecar (built on the card), and their float64 oracles;
   4. run TPC-H Q1, Q3 (join_build=hashtable, then join_build=sort), Q5,
      Q4, Q13, Q19, Q7 and Q21 (three distincts over lineitem, held to a
-     numpy oracle that dedupes the (order, supplier) pairs), then the
+     numpy oracle that dedupes the (order, supplier) pairs), and Q2, Q6,
+     Q8, Q9, Q10, Q11, Q12, Q14, Q15, Q16 (count(distinct), lowered to a
+     distinct), Q17, Q18, Q20 and Q22 (substring(c_phone, 1, 2) carried as
+     a string through K16's stage), written as tests/test_tpch.py and
+     tests/test_tpch2.py write them, each against a numpy oracle (Q15's
+     per-supplier sums must also be the same bits in three runs), then the
      time-series tier over the ticks (the backward asof backtest under
      asof=searchsorted, then asof=sort, the forward asof, tumbling,
      hopping, session and sliding windows, shift)
@@ -89,7 +96,9 @@ Phases, each fatal on failure:
      K12 at Q3's, K12 also on float64 keys with -0.0 and NaN; K13 at
      Q13's, with one probe key matching 10^4 build rows and on an inner
      join with a run of 8,000 probe rows that match nothing;
-     K10 and K13p (both modes) at Q4's, Q13's and Q21's largest plans, at
+     K10 and K13p (both modes) at Q4's, Q13's and Q21's largest plans and
+     at Q16's distinct key (its largest input split in two batches, the
+     plan its distinct would make: three 64-bit key words), at
      that skewed case and on float64 limbs with -0.0 and NaN, float32 and
      bool limbs, all rows invalid, no valid build row, row counts that are
      not a multiple of the tile and strided inputs, bit for bit, and the
@@ -97,7 +106,8 @@ Phases, each fatal on failure:
      plain version at the three plans, on a key of two words and on float
      limbs; each timed whole and by part (range and pack passes, digit
      passes, rank pass, fill), beside a stable torch.sort of the packed key;
-     K16 at Q7's, also with dates before 1970 and nulls; K18 at the
+     K16 at Q7's, also with dates before 1970 and nulls, and at Q22's,
+     the string column carried beside it; K18 at the
      asof's, K19 at the sort strategy's, sliding's and shift's, and K19's
      segment bounds (its scan both ways) at sliding's and shift's, beside
      one torch.cummax (the start half) and row 20's flip and cummin (the
@@ -183,6 +193,19 @@ SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"]
 PRIORITIES = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]
 ORDER_STATUS = ["F", "O", "P"]
 BRANDS = [f"Brand#{m}{n}" for m in range(1, 6) for n in range(1, 6)]
+# the domains of the columns the other fourteen queries read (tests/tpch_data.py)
+SHIPMODES = ["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]
+INSTRUCTS = ["DELIVER IN PERSON", "COLLECT COD", "NONE", "TAKE BACK RETURN"]
+TYPES = [f"{a} {b} {c}"
+         for a in ["STANDARD", "SMALL", "MEDIUM", "LARGE", "ECONOMY", "PROMO"]
+         for b in ["ANODIZED", "BURNISHED", "PLATED", "POLISHED", "BRUSHED"]
+         for c in ["TIN", "NICKEL", "BRASS", "STEEL", "COPPER"]]
+CONTAINERS = [f"{a} {b}" for a in ["SM", "LG", "MED", "JUMBO", "WRAP"]
+              for b in ["CASE", "BOX", "BAG", "JAR", "PKG", "PACK", "CAN", "DRUM"]]
+NAME_COLORS = ["tomato", "blue", "green", "red", "ivory", "forest"]
+NAME_WORDS = ["metallic", "polished", "sandy", "spring", "misty"]
+MFGRS = [f"Manufacturer#{k}" for k in range(1, 6)]
+COMPLAINTS = "Customer Complaints"
 # o_comment: "special requests" (code 0) with probability 0.05, else one of
 # this many distinct comments
 COMMENT_POOL = 10_000
@@ -230,7 +253,8 @@ class Table:
 
 
 def make_tpch(sf: float, seed: int):
-    """The seven tables Q1, Q3, Q5, Q4, Q13, Q19, Q7 and Q21 read: orders have
+    """The eight TPC-H tables (``add_tpch_rest`` adds partsupp and the
+    columns only the other fourteen queries read): orders have
     keys 4, 8, 12, ...; customers whose key is a multiple of 3 place no
     orders; 1-7 lines per order; ship date = order date + 1..121 days,
     commit date = order date + 30..90, receipt date = ship date + 1..30;
@@ -306,8 +330,66 @@ def make_tpch(sf: float, seed: int):
     supplier.cols["s_name"] = np.arange(n_supp, dtype=np.int32)
     supplier.dicts["s_name"] = np.array([f"Supplier#{k:09d}" for k in range(1, n_supp + 1)],
                                         dtype=object)
+    partsupp = add_tpch_rest(np.random.default_rng(np.random.SeedSequence(seed).spawn(1)[0]),
+                             supplier, part, customer, orders, lineitem)
     return {"region": region, "nation": nation, "supplier": supplier, "part": part,
-            "customer": customer, "orders": orders, "lineitem": lineitem}
+            "partsupp": partsupp, "customer": customer, "orders": orders,
+            "lineitem": lineitem}
+
+
+def _coded(values):
+    """(codes, dictionary) of one value per row, each row its own entry."""
+    import numpy as np
+
+    return np.arange(len(values), dtype=np.int32), np.array(values, dtype=object)
+
+
+def add_tpch_rest(r, supplier, part, customer, orders, lineitem):
+    """The columns the other fourteen queries (Q2, Q6, Q8-Q12, Q14-Q18,
+    Q20, Q22) read, with tests/tpch_data.py's domains, each drawn from
+    ``r`` (a second generator from the seed, so the draws above and the
+    eight queries' data stay as they were), and the partsupp table: four
+    suppliers a part, 800,000 rows at SF1.  Names, addresses and phones
+    are one dictionary entry a row (p_name 200,000, c_name and c_phone
+    150,000 entries at SF1)."""
+    import numpy as np
+
+    n_part, n_supp = part.num_rows, supplier.num_rows
+    n_cust, n_orders, n = customer.num_rows, orders.num_rows, lineitem.num_rows
+    color, word = r.integers(0, 6, n_part), r.integers(0, 5, n_part)
+    part.cols["p_name"], part.dicts["p_name"] = _coded(
+        [f"{NAME_COLORS[c]} {NAME_WORDS[w]} part{i}"
+         for i, (c, w) in enumerate(zip(color.tolist(), word.tolist()))])
+    for name, domain in (("p_mfgr", MFGRS), ("p_type", TYPES), ("p_container", CONTAINERS)):
+        part.cols[name] = r.integers(0, len(domain), n_part).astype(np.int32)
+        part.dicts[name] = np.array(domain, dtype=object)
+    supplier.cols["s_address"], supplier.dicts["s_address"] = _coded(
+        [f"addr {i}" for i in range(n_supp)])
+    supplier.cols["s_acctbal"] = np.round(r.uniform(-999, 9999, n_supp), 2)
+    complaint = r.random(n_supp) < 0.02
+    supplier.cols["s_comment"] = np.where(complaint, 0, 1 + np.arange(n_supp)).astype(np.int32)
+    supplier.dicts["s_comment"] = np.array(
+        [COMPLAINTS] + [f"supp comment {i}" for i in range(n_supp)], dtype=object)
+    customer.cols["c_name"], customer.dicts["c_name"] = _coded(
+        [f"Customer#{i:09d}" for i in range(1, n_cust + 1)])
+    k, a, b, c = (r.integers(lo, hi, n_cust).tolist()
+                  for lo, hi in ((10, 35), (100, 999), (100, 999), (1000, 9999)))
+    customer.cols["c_phone"], customer.dicts["c_phone"] = _coded(
+        [f"{w}-{x}-{y}-{z}" for w, x, y, z in zip(k, a, b, c)])
+    customer.cols["c_acctbal"] = np.round(r.uniform(-999, 9999, n_cust), 2)
+    orders.cols["o_totalprice"] = np.round(r.uniform(1000, 400000, n_orders), 2)
+    lineitem.cols["l_shipmode"] = r.integers(0, len(SHIPMODES), n).astype(np.int32)
+    lineitem.dicts["l_shipmode"] = np.array(SHIPMODES, dtype=object)
+    lineitem.cols["l_shipinstruct"] = r.integers(0, len(INSTRUCTS), n).astype(np.int32)
+    lineitem.dicts["l_shipinstruct"] = np.array(INSTRUCTS, dtype=object)
+    n_ps = 4 * n_part
+    return Table({
+        "ps_partkey": np.repeat(np.arange(1, n_part + 1, dtype=np.int64), 4),
+        "ps_suppkey": (np.repeat(np.arange(n_part, dtype=np.int64), 4)
+                       + np.tile(np.arange(4, dtype=np.int64) * (n_supp // 4 + 1), n_part))
+        % n_supp + 1,
+        "ps_availqty": r.integers(1, 10000, n_ps).astype(np.int64),
+        "ps_supplycost": np.round(r.uniform(1, 1000, n_ps), 2)})
 
 
 class TableReader:
@@ -617,6 +699,457 @@ def check_q21(got, exp) -> None:
     if not exp:
         fail("Q21: the oracle's result is empty")
     check_groups("Q21", got, ["s_name"], "numwait", exp, exact=True)
+
+
+# ---------------------------------------------------------------------------
+# the other fourteen TPC-H queries: numpy oracles over the made tables
+# ---------------------------------------------------------------------------
+
+Q16_SIZES = (49, 14, 23, 45, 19, 3, 36, 9)
+Q22_CODES = ("13", "31", "23", "29", "30", "18", "17")
+NEW_TPCH = ("q2", "q6", "q8", "q9", "q10", "q11", "q12", "q14", "q15", "q16", "q17", "q18",
+            "q20", "q22")
+
+
+def _in_range(d, lo, hi):
+    """lo <= d < hi, dates as ISO strings."""
+    return (d >= days(lo)) & (d < days(hi))
+
+
+def _names(t, table, col, codes):
+    """The string values of a dictionary column's codes."""
+    return t[table].dicts[col][codes].astype(str)
+
+
+def _years(d):
+    import numpy as np
+
+    return d.astype("datetime64[D]").astype("datetime64[Y]").astype(np.int64) + 1970
+
+
+def _group_sums(keys, values):
+    """{key tuple: sum} of values by the key columns (a list of arrays)."""
+    out = {}
+    for key, v in zip(zip(*[k.tolist() for k in keys]), values.tolist()):
+        out[key] = out.get(key, 0.0) + v
+    return out
+
+
+def q11_params(t):
+    """Q11's nation (the modal supplier nation, tests/test_tpch2.py's rule;
+    the spec names GERMANY) and cutoff: the 80th percentile of the parts'
+    values, taken midway between two of them so that no value sits on it
+    (the spec's 0.0001 / SF fraction is tests/test_tpch2.py's 80th
+    percentile there too)."""
+    import numpy as np
+
+    s, ps = t["supplier"].cols, t["partsupp"].cols
+    nat = int(np.bincount(s["s_nationkey"], minlength=25).argmax())
+    sel = s["s_nationkey"][ps["ps_suppkey"] - 1] == nat
+    value = np.bincount(ps["ps_partkey"][sel], ps["ps_supplycost"][sel] * ps["ps_availqty"][sel])
+    v = np.sort(value[np.unique(ps["ps_partkey"][sel])])
+    k = int(0.8 * (len(v) - 1))
+    return NATIONS[nat][0], float((v[k] + v[k + 1]) / 2)
+
+
+def q2_oracle(t):
+    """Sorted (ps_partkey, s_name, s_acctbal, n_name, p_mfgr) of the EUROPE
+    suppliers at the least EUROPE supply cost of size-15 BRASS parts."""
+    import numpy as np
+
+    ps, s, p, nat = (t[k].cols for k in ("partsupp", "supplier", "part", "nation"))
+    snat = s["s_nationkey"][ps["ps_suppkey"] - 1]
+    eu = nat["n_regionkey"][snat] == REGIONS.index("EUROPE")
+    pk, cost = ps["ps_partkey"], ps["ps_supplycost"]
+    least = np.full(len(p["p_partkey"]) + 1, np.inf)
+    np.minimum.at(least, pk[eu], cost[eu])
+    brass = np.char.endswith(t["part"].dicts["p_type"].astype(str), "BRASS")
+    pi = pk - 1
+    sel = eu & (p["p_size"][pi] == 15) & brass[p["p_type"][pi]] & (cost == least[pk])
+    si = ps["ps_suppkey"][sel] - 1
+    return sorted(zip(pk[sel].tolist(), _names(t, "supplier", "s_name", s["s_name"][si]).tolist(),
+                      s["s_acctbal"][si].tolist(), [NATIONS[k][0] for k in snat[sel].tolist()],
+                      _names(t, "part", "p_mfgr", p["p_mfgr"][pi[sel]]).tolist()))
+
+
+def check_q2(got, exp) -> None:
+    rows = sorted(zip(got["ps_partkey"].tolist(), [str(x) for x in got["s_name"]],
+                      got["s_acctbal"].tolist(), [str(x) for x in got["n_name"]],
+                      [str(x) for x in got["p_mfgr"]]))
+    if not exp or rows != exp:
+        fail(f"Q2: {len(rows)} rows, the oracle {len(exp)}; first {rows[:2]} vs {exp[:2]}")
+
+
+def q6_oracle(t):
+    li = t["lineitem"].cols
+    m = (_in_range(li["l_shipdate"], "1994-01-01", "1995-01-01") & (li["l_discount"] >= 0.05)
+         & (li["l_discount"] <= 0.07) & (li["l_quantity"] < 24))
+    return float((li["l_extendedprice"][m] * li["l_discount"][m]).sum())
+
+
+def check_scalar(what, got, col, exp) -> None:
+    import numpy as np
+
+    if len(got[col]) != 1 or not np.isclose(got[col][0], exp, rtol=1e-9, atol=0):
+        fail(f"{what} {col} {got[col].tolist()} vs {exp} beyond rtol 1e-9")
+
+
+def _lines_orders(t):
+    """Each line's order row and customer row (orders have keys 4, 8, ...)."""
+    li, o = t["lineitem"].cols, t["orders"].cols
+    oi = li["l_orderkey"] // 4 - 1
+    return oi, o["o_custkey"][oi] - 1
+
+
+def q8_oracle(t):
+    """{o_year: BRAZIL's share of the volume} of ECONOMY ANODIZED STEEL
+    lines ordered in 1995-1996 by AMERICA's customers."""
+    import numpy as np
+
+    li, o, c, s, p, nat = (t[k].cols for k in ("lineitem", "orders", "customer", "supplier",
+                                               "part", "nation"))
+    oi, ci = _lines_orders(t)
+    econ = list(t["part"].dicts["p_type"]).index("ECONOMY ANODIZED STEEL")
+    od = o["o_orderdate"][oi]
+    sel = ((p["p_type"][li["l_partkey"] - 1] == econ)
+           & (od >= days("1995-01-01")) & (od <= days("1996-12-31"))
+           & (nat["n_regionkey"][c["c_nationkey"][ci]] == REGIONS.index("AMERICA")))
+    vol = li["l_extendedprice"][sel] * (1 - li["l_discount"][sel])
+    brazil = s["s_nationkey"][li["l_suppkey"][sel] - 1] == [n for n, _ in NATIONS].index("BRAZIL")
+    years = _years(od[sel])
+    out = {}
+    for y in np.unique(years).tolist():
+        m = years == y
+        out[y] = float(np.where(brazil[m], vol[m], 0.0).sum() / vol[m].sum())
+    return out
+
+
+def _ps_rows(t, partkey, suppkey):
+    """The partsupp row of each (partkey, suppkey) and whether there is one."""
+    import numpy as np
+
+    ps = t["partsupp"].cols
+    width = int(ps["ps_suppkey"].max()) + 1
+    key = ps["ps_partkey"] * width + ps["ps_suppkey"]
+    order = np.argsort(key, kind="stable")
+    at, hit = _pk_lookup(key[order], partkey * width + suppkey)
+    return order[at], hit
+
+
+def q9_oracle(t):
+    """{(n_name, o_year): profit} of the lines of green parts that have
+    their (part, supplier) in partsupp."""
+    li, o, s, p, ps = (t[k].cols for k in ("lineitem", "orders", "supplier", "part", "partsupp"))
+    import numpy as np
+
+    green = np.char.find(t["part"].dicts["p_name"].astype(str), "green") >= 0
+    g = green[p["p_name"][li["l_partkey"] - 1]]
+    rows = np.nonzero(g)[0]
+    psi, hit = _ps_rows(t, li["l_partkey"][rows], li["l_suppkey"][rows])
+    rows, psi = rows[hit], psi[hit]
+    amount = (li["l_extendedprice"][rows] * (1 - li["l_discount"][rows])
+              - ps["ps_supplycost"][psi] * li["l_quantity"][rows])
+    snat = s["s_nationkey"][li["l_suppkey"][rows] - 1]
+    years = _years(o["o_orderdate"][li["l_orderkey"][rows] // 4 - 1])
+    return _group_sums([np.array([NATIONS[k][0] for k in snat.tolist()], dtype=object), years],
+                       amount)
+
+
+def q10_oracle(t):
+    """The top 20 (o_custkey, c_name, n_name, revenue) of returned lines
+    of orders placed in 1993's last quarter."""
+    import numpy as np
+
+    li, o, c = t["lineitem"].cols, t["orders"].cols, t["customer"].cols
+    oi, ci = _lines_orders(t)
+    sel = ((li["l_returnflag"] == RETURNFLAGS.index("R"))
+           & _in_range(o["o_orderdate"][oi], "1993-10-01", "1994-01-01"))
+    rev = np.bincount(ci[sel], li["l_extendedprice"][sel] * (1 - li["l_discount"][sel]),
+                      len(c["c_custkey"]))
+    has = np.bincount(ci[sel], minlength=len(c["c_custkey"])) > 0
+    cand = np.nonzero(has)[0]
+    top = cand[np.argsort(-rev[cand], kind="stable")[:20]]
+    return {"o_custkey": c["c_custkey"][top], "revenue": rev[top],
+            "c_name": _names(t, "customer", "c_name", c["c_name"][top]),
+            "n_name": np.array([NATIONS[k][0] for k in c["c_nationkey"][top].tolist()])}
+
+
+def check_q10(got, exp) -> None:
+    import numpy as np
+
+    order = np.argsort(-got["revenue"], kind="stable")
+    if len(order) != len(exp["revenue"]) or not np.array_equal(
+            got["o_custkey"][order], exp["o_custkey"]):
+        fail(f"Q10 top-20 customers {got['o_custkey'][order].tolist()} != oracle "
+             f"{exp['o_custkey'].tolist()}")
+    if [str(x) for x in got["c_name"][order]] != exp["c_name"].tolist() or [
+            str(x) for x in got["n_name"][order]] != exp["n_name"].tolist():
+        fail("Q10 customer or nation names differ from the oracle")
+    if not np.allclose(got["revenue"][order], exp["revenue"], rtol=1e-9, atol=0):
+        fail("Q10 revenue beyond rtol 1e-9 of the oracle")
+
+
+def q11_oracle(t):
+    """{ps_partkey: value} of Q11's nation's parts above its cutoff."""
+    import numpy as np
+
+    s, ps = t["supplier"].cols, t["partsupp"].cols
+    name, cutoff = q11_params(t)
+    sel = s["s_nationkey"][ps["ps_suppkey"] - 1] == [n for n, _ in NATIONS].index(name)
+    value = np.bincount(ps["ps_partkey"][sel], ps["ps_supplycost"][sel] * ps["ps_availqty"][sel])
+    keys = np.unique(ps["ps_partkey"][sel])
+    keys = keys[value[keys] > cutoff]
+    return {int(k): float(value[k]) for k in keys.tolist()}
+
+
+def q12_oracle(t):
+    """{l_shipmode: (high_line_count, low_line_count)}."""
+    import numpy as np
+
+    li, o = t["lineitem"].cols, t["orders"].cols
+    oi, _ = _lines_orders(t)
+    modes = [SHIPMODES.index("MAIL"), SHIPMODES.index("SHIP")]
+    sel = (np.isin(li["l_shipmode"], modes) & (li["l_commitdate"] < li["l_receiptdate"])
+           & (li["l_shipdate"] < li["l_commitdate"])
+           & _in_range(li["l_receiptdate"], "1994-01-01", "1995-01-01"))
+    high = o["o_orderpriority"][oi[sel]] <= PRIORITIES.index("2-HIGH")
+    mode = li["l_shipmode"][sel]
+    return {SHIPMODES[m]: (int((high & (mode == m)).sum()), int((~high & (mode == m)).sum()))
+            for m in modes if (mode == m).any()}
+
+
+def check_q12(got, exp) -> None:
+    rows = {str(m): (int(h), int(lo)) for m, h, lo in zip(
+        got["l_shipmode"], got["high_line_count"], got["low_line_count"])}
+    if not exp or rows != exp:
+        fail(f"Q12 {rows} != oracle {exp} (exact)")
+
+
+def q14_oracle(t):
+    import numpy as np
+
+    li, p = t["lineitem"].cols, t["part"].cols
+    sel = _in_range(li["l_shipdate"], "1995-09-01", "1995-10-01")
+    promo = np.char.startswith(t["part"].dicts["p_type"].astype(str), "PROMO")
+    rev = li["l_extendedprice"][sel] * (1 - li["l_discount"][sel])
+    is_promo = promo[p["p_type"][li["l_partkey"][sel] - 1]]
+    return float(100.0 * np.where(is_promo, rev, 0.0).sum() / rev.sum())
+
+
+def q15_oracle(t):
+    """{l_suppkey: (s_name, total_revenue)} of the suppliers with the
+    greatest revenue in 1996's first quarter."""
+    import numpy as np
+
+    li, s = t["lineitem"].cols, t["supplier"].cols
+    sel = _in_range(li["l_shipdate"], "1996-01-01", "1996-04-01")
+    rev = np.bincount(li["l_suppkey"][sel],
+                      li["l_extendedprice"][sel] * (1 - li["l_discount"][sel]))
+    top = np.nonzero(rev == rev.max())[0]
+    names = _names(t, "supplier", "s_name", s["s_name"][top - 1])
+    return {int(k): (str(n), float(rev[k])) for k, n in zip(top.tolist(), names.tolist())}
+
+
+def check_q15(got, exp) -> None:
+    import numpy as np
+
+    rows = {int(k): (str(n), float(v)) for k, n, v in zip(
+        got["l_suppkey"], got["s_name"], got["total_revenue"])}
+    if sorted(rows) != sorted(exp) or any(rows[k][0] != exp[k][0] for k in exp):
+        fail(f"Q15 suppliers {rows} != oracle {exp}")
+    for k, (_, v) in exp.items():
+        if not np.isclose(rows[k][1], v, rtol=1e-9, atol=0):
+            fail(f"Q15 supplier {k} revenue {rows[k][1]} vs {v} beyond rtol 1e-9")
+
+
+def q16_oracle(t):
+    """{(p_brand, p_type, p_size): distinct suppliers} of partsupp rows of
+    suppliers without complaints, parts outside Brand#45, MEDIUM POLISHED
+    types and Q16's sizes."""
+    import numpy as np
+
+    ps, s, p = t["partsupp"].cols, t["supplier"].cols, t["part"].cols
+    pi = ps["ps_partkey"] - 1
+    types = t["part"].dicts["p_type"].astype(str)
+    polished = np.char.startswith(types, "MEDIUM POLISHED")
+    sel = ((s["s_comment"][ps["ps_suppkey"] - 1] != 0)
+           & (p["p_brand"][pi] != BRANDS.index("Brand#45")) & ~polished[p["p_type"][pi]]
+           & np.isin(p["p_size"][pi], Q16_SIZES))
+    brand, ptype, size = p["p_brand"][pi[sel]], p["p_type"][pi[sel]], p["p_size"][pi[sel]]
+    group = (brand.astype(np.int64) * len(TYPES) + ptype) * 51 + size
+    pairs = np.unique(group * (int(ps["ps_suppkey"].max()) + 1) + ps["ps_suppkey"][sel])
+    g, cnt = np.unique(pairs // (int(ps["ps_suppkey"].max()) + 1), return_counts=True)
+    return {(BRANDS[k // 51 // len(TYPES)], TYPES[k // 51 % len(TYPES)], int(k % 51)): int(c)
+            for k, c in zip(g.tolist(), cnt.tolist())}
+
+
+def q17_oracle(t):
+    """sum(l_extendedprice) / 7 of Brand#23's lines below a fifth of their
+    part's average quantity."""
+    import numpy as np
+
+    li, p = t["lineitem"].cols, t["part"].cols
+    sel = p["p_brand"][li["l_partkey"] - 1] == BRANDS.index("Brand#23")
+    pk, q = li["l_partkey"][sel], li["l_quantity"][sel]
+    n = len(p["p_partkey"]) + 1
+    cnt = np.bincount(pk, minlength=n)
+    avg = np.bincount(pk, q, n) / np.maximum(cnt, 1)
+    small = q < 0.2 * avg[pk]
+    return float(li["l_extendedprice"][sel][small].sum() / 7.0)
+
+
+def q18_oracle(t):
+    """Sorted (o_orderkey, c_name, o_orderdate, o_totalprice, sum_qty) of
+    the orders of more than 250 units."""
+    import numpy as np
+
+    li, o, c = t["lineitem"].cols, t["orders"].cols, t["customer"].cols
+    qty = np.bincount(li["l_orderkey"] // 4 - 1, li["l_quantity"], len(o["o_orderkey"]))
+    big = np.nonzero(qty > 250)[0]
+    ci = o["o_custkey"][big] - 1
+    return sorted(zip(o["o_orderkey"][big].tolist(),
+                      _names(t, "customer", "c_name", c["c_name"][ci]).tolist(),
+                      o["o_orderdate"][big].tolist(), o["o_totalprice"][big].tolist(),
+                      qty[big].tolist()))
+
+
+def check_q18(got, exp) -> None:
+    import numpy as np
+
+    gdays = (got["o_orderdate"].astype("datetime64[D]")
+             - np.datetime64("1970-01-01", "D")).astype(np.int64)
+    rows = sorted(zip(got["o_orderkey"].tolist(), [str(x) for x in got["c_name"]],
+                      gdays.tolist(), got["o_totalprice"].tolist(), got["sum_qty"].tolist()))
+    if not exp or rows != exp:
+        fail(f"Q18: {len(rows)} rows, the oracle {len(exp)}; first {rows[:2]} vs {exp[:2]}")
+
+
+def q20_oracle(t):
+    """Sorted (s_name, s_address) of CANADA's suppliers with an excess of a
+    forest part: availqty over half the units of it shipped in 1994."""
+    import numpy as np
+
+    li, ps, s, p = (t[k].cols for k in ("lineitem", "partsupp", "supplier", "part"))
+    forest = np.char.startswith(t["part"].dicts["p_name"].astype(str), "forest")
+    sel = _in_range(li["l_shipdate"], "1994-01-01", "1995-01-01")
+    width = int(ps["ps_suppkey"].max()) + 1
+    pair = li["l_partkey"][sel] * width + li["l_suppkey"][sel]
+    uniq, inv = np.unique(pair, return_inverse=True)
+    qty = np.bincount(inv, li["l_quantity"][sel], len(uniq))
+    fps = forest[p["p_name"][ps["ps_partkey"] - 1]]
+    at, hit = _pk_lookup(uniq, ps["ps_partkey"] * width + ps["ps_suppkey"])
+    excess = fps & hit & (ps["ps_availqty"] > 0.5 * qty[at])
+    supp = np.unique(ps["ps_suppkey"][excess])
+    canada = s["s_nationkey"][supp - 1] == [n for n, _ in NATIONS].index("CANADA")
+    si = supp[canada] - 1
+    return sorted(zip(_names(t, "supplier", "s_name", s["s_name"][si]).tolist(),
+                      _names(t, "supplier", "s_address", s["s_address"][si]).tolist()))
+
+
+def check_q20(got, exp) -> None:
+    rows = sorted(zip([str(x) for x in got["s_name"]], [str(x) for x in got["s_address"]]))
+    if not exp or rows != exp:
+        fail(f"Q20 {rows[:4]}... ({len(rows)}) != oracle {exp[:4]}... ({len(exp)})")
+
+
+def q22_oracle(t):
+    """{cntrycode: (numcust, totacctbal)} of Q22's country codes'
+    customers above their average positive balance without orders."""
+    import numpy as np
+
+    c, o = t["customer"].cols, t["orders"].cols
+    code = np.array([x[:2] for x in _names(t, "customer", "c_phone", c["c_phone"]).tolist()])
+    inc = np.isin(code, Q22_CODES)
+    bal = c["c_acctbal"]
+    avg = bal[inc & (bal > 0)].mean()
+    none = np.bincount(o["o_custkey"], minlength=len(c["c_custkey"]) + 1)[c["c_custkey"]] == 0
+    sel = inc & (bal > avg) & none
+    return {k: (int((code[sel] == k).sum()), float(bal[sel][code[sel] == k].sum()))
+            for k in np.unique(code[sel]).tolist()}
+
+
+def check_q22(got, exp) -> None:
+    import numpy as np
+
+    rows = {str(k): (int(n), float(v)) for k, n, v in zip(
+        got["cntrycode"], got["numcust"], got["totacctbal"])}
+    if not exp or sorted(rows) != sorted(exp):
+        fail(f"Q22 country codes {sorted(rows)} != oracle {sorted(exp)}")
+    for k, (n, v) in exp.items():
+        if rows[k][0] != n or not np.isclose(rows[k][1], v, rtol=1e-9, atol=0):
+            fail(f"Q22 {k}: {rows[k]} vs {(n, v)} (count exact, sum rtol 1e-9)")
+
+
+def new_tpch_oracles(t):
+    """The fourteen queries' oracles, by path name."""
+    return {"q2": q2_oracle(t), "q6": q6_oracle(t), "q8": q8_oracle(t), "q9": q9_oracle(t),
+            "q10": q10_oracle(t), "q11": q11_oracle(t), "q12": q12_oracle(t),
+            "q14": q14_oracle(t), "q15": q15_oracle(t), "q16": q16_oracle(t),
+            "q17": q17_oracle(t), "q18": q18_oracle(t), "q20": q20_oracle(t),
+            "q22": q22_oracle(t)}
+
+
+# each new path's gates at SF1: (kernels it must launch, kernels it must
+# not, whether it takes the general join).  K23, K8 and the extension of
+# the must-not lists (the vector tier's, slice 6's and the mesh's kernels)
+# are added in smoke(), as for the other paths.  Q6's keyless aggregate
+# runs no exchange; Q11's plans land no part that needs a compacting concat;
+# Q16's count(distinct) is a DistinctNode whose channels each receive one
+# batch at SF1, so its anti join against the keys seen (K10, K13p) does not
+# run there (phase 6 holds both kernels at its key); Q22's anti join
+# against orders (a build key with repeats) takes the general join.  Q15's
+# and Q22's first collects (the top revenue, the average balance: K5's
+# keyless aggregate) run inside the path's count
+_TPCH_KERNELS = ("K1", "K2", "K2 pre", "K3", "K4", "K5", "K11 build", "K11", "K12", "K13",
+                 "K16", "K10", "K13p")
+
+
+def _gates(must, general=False):
+    return (list(must), [k for k in _TPCH_KERNELS if k not in must], general)
+
+
+NEW_TPCH_GATES = {
+    "q2": _gates(["K1", "K3", "K4", "K5", "K11 build", "K11", "K16"]),
+    "q6": _gates(["K1", "K5"]),
+    "q8": _gates(["K1", "K3", "K4", "K5", "K11 build", "K11", "K16"]),
+    "q9": _gates(["K1", "K3", "K4", "K5", "K11 build", "K11", "K16"]),
+    "q10": _gates(["K1", "K3", "K4", "K5", "K11 build", "K11"]),
+    "q11": _gates(["K1", "K3", "K4", "K5", "K11 build", "K11", "K16"]),
+    "q12": _gates(["K1", "K2", "K2 pre", "K3", "K4", "K11 build", "K11"]),
+    "q14": _gates(["K1", "K4", "K5", "K11 build", "K11"]),
+    "q15": _gates(["K1", "K3", "K4", "K5", "K11 build", "K11", "K16"]),
+    "q16": _gates(["K1", "K3", "K4", "K5", "K11 build", "K11"]),
+    "q17": _gates(["K1", "K3", "K4", "K5", "K11 build", "K11", "K16"]),
+    "q18": _gates(["K3", "K4", "K5", "K11 build", "K11", "K16"]),
+    "q20": _gates(["K1", "K3", "K4", "K5", "K11 build", "K11", "K16"]),
+    "q22": _gates(["K2", "K3", "K4", "K5", "K11 build", "K16", "K10", "K13p"], general=True),
+}
+# the new paths whose K2 calls have expression inputs (Q12's sums of CASE):
+# K2's pre-pass runs once a call there
+K2_PRE_NEW = {"q12"}
+# the adaptive exchange may fire where a final aggregate feeds a join's
+# build on the same key (ROADMAP Queue 3): Q21's n_late, Q20's shipped
+# quantities
+ADAPT_MAY_FIRE = {"q21", "q20"}
+
+NEW_TPCH_CHECKS = {
+    "q2": check_q2,
+    "q6": lambda g, e: check_scalar("Q6", g, "revenue", e),
+    "q8": lambda g, e: check_groups("Q8", g, ["o_year"], "mkt_share", e, exact=False),
+    "q9": lambda g, e: check_groups("Q9", g, ["n_name", "o_year"], "sum_profit", e,
+                                    exact=False),
+    "q10": check_q10,
+    "q11": lambda g, e: check_groups("Q11", g, ["ps_partkey"], "value", e, exact=False),
+    "q12": check_q12,
+    "q14": lambda g, e: check_scalar("Q14", g, "promo_revenue", e),
+    "q15": check_q15,
+    "q16": lambda g, e: check_groups("Q16", g, ["p_brand", "p_type", "p_size"],
+                                     "supplier_cnt", e, exact=True),
+    "q17": lambda g, e: check_scalar("Q17", g, "avg_yearly", e),
+    "q18": check_q18,
+    "q20": check_q20,
+    "q22": check_q22,
+}
 
 
 # ---------------------------------------------------------------------------
@@ -1200,6 +1733,8 @@ def tpch_stream(name: str, ctx, tables):
                 .join(src("nation").filter_sql(f"n_name = '{q21_nation(tables)}'"),
                       left_on="s_nationkey", right_on="n_nationkey", how="semi")
                 .groupby("s_name").agg_sql("count(*) as numwait"))
+    if name in NEW_TPCH:
+        return new_tpch_stream(name, src, tables)
     return (src("lineitem")
             .join(src("orders").filter_sql(
                 "o_orderdate >= date '1994-01-01' and o_orderdate < date '1995-01-01'"),
@@ -1211,6 +1746,172 @@ def tpch_stream(name: str, ctx, tables):
             .join(src("region").filter(col("r_name") == "ASIA"),
                   left_on="n_regionkey", right_on="r_regionkey")
             .groupby("n_name").agg_sql(REV))
+
+
+def q15_revenue(src):
+    """Q15's revenue view: each supplier's revenue in 1996's first quarter."""
+    return (src("lineitem")
+            .filter_sql("l_shipdate >= date '1996-01-01' and "
+                        "l_shipdate < date '1996-01-01' + interval '3' month")
+            .with_columns_sql("l_extendedprice * (1 - l_discount) as v")
+            .groupby("l_suppkey").agg_sql("sum(v) as total_revenue"))
+
+
+def new_tpch_stream(name: str, src, tables):
+    """Q2, Q6, Q8-Q12, Q14-Q18, Q20 or Q22, written as tests/test_tpch.py
+    and tests/test_tpch2.py write them (``src(table)`` makes a source).
+    Q15 and Q22 first collect a scalar (the top revenue, the average
+    balance) through the same context, as those tests do; Q11's nation and
+    cutoff come from the data (``q11_params``)."""
+    from quokka_tpu_torch import col
+
+    if name == "q2":
+        nat_eu = src("nation").join(src("region").filter_sql("r_name = 'EUROPE'"),
+                                    left_on="n_regionkey", right_on="r_regionkey", how="semi")
+        ps_eu = (src("partsupp").join(src("supplier"), left_on="ps_suppkey",
+                                      right_on="s_suppkey")
+                 .join(nat_eu, left_on="s_nationkey", right_on="n_nationkey"))
+        minc = ps_eu.groupby("ps_partkey").agg_sql("min(ps_supplycost) as min_cost")
+        return (ps_eu.join(src("part").filter_sql("p_size = 15 and p_type like '%BRASS'"),
+                             left_on="ps_partkey", right_on="p_partkey")
+                .join(minc.rename({"ps_partkey": "mc_partkey"}),
+                      left_on="ps_partkey", right_on="mc_partkey")
+                .filter_sql("ps_supplycost = min_cost")
+                .select(["s_acctbal", "s_name", "n_name", "ps_partkey", "p_mfgr"]))
+    if name == "q6":
+        return (src("lineitem")
+                .filter_sql("l_shipdate >= date '1994-01-01' and l_shipdate < date '1995-01-01' "
+                            "and l_discount between 0.05 and 0.07 and l_quantity < 24")
+                .agg_sql("sum(l_extendedprice * l_discount) as revenue"))
+    if name == "q8":
+        nat_am = src("nation").join(src("region").filter_sql("r_name = 'AMERICA'"),
+                                    left_on="n_regionkey", right_on="r_regionkey", how="semi")
+        n2 = src("nation").rename({"n_name": "supp_nation", "n_nationkey": "n2key"})
+        return (src("lineitem")
+                .join(src("part").filter_sql("p_type = 'ECONOMY ANODIZED STEEL'"),
+                      left_on="l_partkey", right_on="p_partkey", how="semi")
+                .join(src("orders").filter_sql(
+                    "o_orderdate between date '1995-01-01' and date '1996-12-31'"),
+                    left_on="l_orderkey", right_on="o_orderkey")
+                .join(src("customer"), left_on="o_custkey", right_on="c_custkey")
+                .join(nat_am, left_on="c_nationkey", right_on="n_nationkey", how="semi")
+                .join(src("supplier"), left_on="l_suppkey", right_on="s_suppkey")
+                .join(n2.select(["supp_nation", "n2key"]), left_on="s_nationkey",
+                      right_on="n2key")
+                .with_columns_sql(
+                    "extract(year from o_orderdate) as o_year, "
+                    "l_extendedprice * (1 - l_discount) as volume, "
+                    "case when supp_nation = 'BRAZIL' then l_extendedprice * (1 - l_discount) "
+                    "else 0.0 end as brazil_volume")
+                .groupby("o_year").agg_sql("sum(brazil_volume) / sum(volume) as mkt_share"))
+    if name == "q9":
+        return (src("lineitem")
+                .join(src("part").filter_sql("p_name like '%green%'"),
+                      left_on="l_partkey", right_on="p_partkey", how="semi")
+                .join(src("partsupp"), left_on=["l_partkey", "l_suppkey"],
+                      right_on=["ps_partkey", "ps_suppkey"])
+                .join(src("supplier"), left_on="l_suppkey", right_on="s_suppkey")
+                .join(src("nation"), left_on="s_nationkey", right_on="n_nationkey")
+                .join(src("orders"), left_on="l_orderkey", right_on="o_orderkey")
+                .with_columns_sql(
+                    "extract(year from o_orderdate) as o_year, "
+                    "l_extendedprice * (1 - l_discount) - ps_supplycost * l_quantity as amount")
+                .groupby(["n_name", "o_year"]).agg_sql("sum(amount) as sum_profit"))
+    if name == "q10":
+        return (src("lineitem").filter_sql("l_returnflag = 'R'")
+                .join(src("orders").filter_sql(
+                    "o_orderdate >= date '1993-10-01' and o_orderdate < date '1994-01-01'"),
+                    left_on="l_orderkey", right_on="o_orderkey")
+                .join(src("customer"), left_on="o_custkey", right_on="c_custkey")
+                .join(src("nation"), left_on="c_nationkey", right_on="n_nationkey")
+                .groupby(["o_custkey", "c_name", "n_name"]).agg_sql(REV)
+                .top_k(["revenue"], 20, [True]))
+    if name == "q11":
+        nation, cutoff = q11_params(tables)
+        return (src("partsupp").join(src("supplier"), left_on="ps_suppkey", right_on="s_suppkey")
+                .join(src("nation").filter_sql(f"n_name = '{nation}'"),
+                      left_on="s_nationkey", right_on="n_nationkey", how="semi")
+                .with_columns_sql("ps_supplycost * ps_availqty as value")
+                .groupby("ps_partkey").agg_sql("sum(value) as value")
+                .filter_sql(f"value > {cutoff!r}"))
+    if name == "q12":
+        return (src("lineitem")
+                .filter_sql("l_shipmode in ('MAIL', 'SHIP') and l_commitdate < l_receiptdate "
+                            "and l_shipdate < l_commitdate and l_receiptdate >= date "
+                            "'1994-01-01' and l_receiptdate < date '1995-01-01'")
+                .join(src("orders"), left_on="l_orderkey", right_on="o_orderkey")
+                .groupby("l_shipmode")
+                .agg_sql("sum(case when o_orderpriority = '1-URGENT' or o_orderpriority = "
+                         "'2-HIGH' then 1 else 0 end) as high_line_count, "
+                         "sum(case when o_orderpriority <> '1-URGENT' and "
+                         "o_orderpriority <> '2-HIGH' then 1 else 0 end) as low_line_count"))
+    if name == "q14":
+        return (src("lineitem")
+                .filter_sql("l_shipdate >= date '1995-09-01' and l_shipdate < date '1995-10-01'")
+                .join(src("part"), left_on="l_partkey", right_on="p_partkey")
+                .agg_sql("100.00 * sum(case when p_type like 'PROMO%' "
+                         "then l_extendedprice * (1 - l_discount) else 0 end) / "
+                         "sum(l_extendedprice * (1 - l_discount)) as promo_revenue"))
+    if name == "q15":
+        top = float(collect_numpy(q15_revenue(src).agg_sql("max(total_revenue) as m"),
+                                  "q15 top")["m"][0])
+        return (q15_revenue(src).filter_sql(f"total_revenue >= {top!r}")
+                .join(src("supplier"), left_on="l_suppkey", right_on="s_suppkey")
+                .select(["l_suppkey", "s_name", "total_revenue"]))
+    if name == "q16":
+        sizes = ", ".join(str(x) for x in Q16_SIZES)
+        return (src("partsupp")
+                .join(src("supplier").filter(col("s_comment").str.contains(COMPLAINTS)),
+                      left_on="ps_suppkey", right_on="s_suppkey", how="anti")
+                .join(src("part").filter_sql(
+                    f"p_brand != 'Brand#45' and not (p_type like 'MEDIUM POLISHED%') "
+                    f"and p_size in ({sizes})"),
+                    left_on="ps_partkey", right_on="p_partkey")
+                .groupby(["p_brand", "p_type", "p_size"])
+                .agg_sql("count(distinct ps_suppkey) as supplier_cnt"))
+    if name == "q17":
+        li_part = src("lineitem").join(src("part").filter_sql("p_brand = 'Brand#23'"),
+                                       left_on="l_partkey", right_on="p_partkey", how="semi")
+        avg_qty = li_part.groupby("l_partkey").agg_sql("avg(l_quantity) as avg_qty")
+        return (li_part.join(avg_qty.rename({"l_partkey": "a_partkey"}),
+                             left_on="l_partkey", right_on="a_partkey")
+                .filter_sql("l_quantity < 0.2 * avg_qty")
+                .agg_sql("sum(l_extendedprice) / 7.0 as avg_yearly"))
+    if name == "q18":
+        big = (src("lineitem").groupby("l_orderkey").agg_sql("sum(l_quantity) as sum_qty")
+               .filter_sql("sum_qty > 250"))
+        return (src("orders").join(big.rename({"l_orderkey": "b_orderkey"}),
+                                   left_on="o_orderkey", right_on="b_orderkey")
+                .join(src("customer"), left_on="o_custkey", right_on="c_custkey")
+                .select(["c_name", "o_orderkey", "o_orderdate", "o_totalprice", "sum_qty"]))
+    if name == "q20":
+        shipped = (src("lineitem")
+                   .filter_sql("l_shipdate >= date '1994-01-01' and "
+                               "l_shipdate < date '1994-01-01' + interval '1' year")
+                   .groupby(["l_partkey", "l_suppkey"]).agg_sql("sum(l_quantity) as qty"))
+        excess = (src("partsupp")
+                  .join(src("part").filter_sql("p_name like 'forest%'"),
+                        left_on="ps_partkey", right_on="p_partkey", how="semi")
+                  .join(shipped, left_on=["ps_partkey", "ps_suppkey"],
+                        right_on=["l_partkey", "l_suppkey"])
+                  .filter_sql("ps_availqty > 0.5 * qty"))
+        return (src("supplier")
+                .join(src("nation").filter_sql("n_name = 'CANADA'"),
+                      left_on="s_nationkey", right_on="n_nationkey", how="semi")
+                .join(excess, left_on="s_suppkey", right_on="ps_suppkey", how="semi")
+                .select(["s_name", "s_address"]))
+    # q22
+    in_list = ", ".join(f"'{c}'" for c in Q22_CODES)
+
+    def cust():
+        return (src("customer").with_columns_sql("substring(c_phone, 1, 2) as cntrycode")
+                .filter_sql(f"cntrycode in ({in_list})"))
+
+    avg_bal = float(collect_numpy(cust().filter_sql("c_acctbal > 0.0")
+                                  .agg_sql("avg(c_acctbal) as a"), "q22 average")["a"][0])
+    return (cust().filter_sql(f"c_acctbal > {avg_bal!r}")
+            .join(src("orders"), left_on="c_custkey", right_on="o_custkey", how="anti")
+            .groupby("cntrycode").agg_sql("count(*) as numcust, sum(c_acctbal) as totacctbal"))
 
 
 def collect_numpy(stream, what: str):
@@ -2228,10 +2929,31 @@ def mesh_kernel_rows(dev, cap, launches_by, seed: int):
 # ---------------------------------------------------------------------------
 
 
+def q16_split_plan(batch, keys):
+    """The anti-join plan Q16's distinct (keys p_brand, p_type, p_size,
+    ps_suppkey) makes when a channel's input comes in two batches: the
+    distinct keys of the largest distinct call's second half of rows
+    probing those of its first half, as ``DistinctExecutor`` joins a
+    batch's keys against the keys seen.  (limbs, valid, probe rows)."""
+    import dataclasses
+
+    import torch
+    from quokka_tpu_torch.ops import join, kernels
+
+    first = torch.arange(batch.padded_len, device=batch.valid.device) < batch.padded_len // 2
+    seen, new = (kernels.compact(kernels.distinct(
+        dataclasses.replace(batch, valid=batch.valid & m, nrows=None, nrows_dev=None), keys))
+        for m in (first, ~first))
+    limbs, valid = join._concat_limbs(new, seen, keys, keys)
+    return limbs, valid, new.padded_len
+
+
 def rank_plan_rows(dev, plans, launches_by_path, skewed, seed: int):
     """K10's and K13p's rows of the per-kernel table: each kernel against its
     plain version bit for bit at the queries' largest plans (``plans``: path
-    -> (limbs, valid, probe rows) of Q4's, Q13's and Q21's) and on made
+    -> (limbs, valid, probe rows) of Q4's, Q13's, Q21's and Q16's distinct,
+    whose key of two strings, p_size and ps_suppkey packs into more than two
+    64-bit words) and on made
     inputs, the radix sort under both against its plain version index for
     index, then each timed whole and by part (range and pack passes, digit
     passes, rank pass, fill), beside its plain version, its bound and one
@@ -2248,8 +2970,8 @@ def rank_plan_rows(dev, plans, launches_by_path, skewed, seed: int):
     # counts that are not a multiple of the 4096-row tile, strided limbs and
     # validity.  Each plan is checked in both modes (with build positions,
     # and the semi / anti joins' counts only).
-    (q4_l, q4_v, q4_p), (q13_l, q13_v, q13_p), (q21_l, q21_v, q21_p) = (
-        plans["q4"], plans["q13"], plans["q21"])
+    (q4_l, q4_v, q4_p), (q13_l, q13_v, q13_p), (q21_l, q21_v, q21_p), (q16_l, q16_v, q16_p) = (
+        plans["q4"], plans["q13"], plans["q21"], plans["q16"])
     s_limbs, s_valid, p_s = skewed
     if len(q21_l) != 2:
         fail(f"Q21's largest anti-join plan has {len(q21_l)} limbs, expected 2")
@@ -2283,6 +3005,7 @@ def rank_plan_rows(dev, plans, launches_by_path, skewed, seed: int):
     cases10 = [
         ("at Q4's plan", q4_l, q4_v, q4_p), ("at Q13's plan", q13_l, q13_v, q13_p),
         ("at Q21's largest anti-join plan", q21_l, q21_v, q21_p),
+        ("at Q16's distinct key, its largest input in two batches", q16_l, q16_v, q16_p),
         ("one probe key x 10^4 build rows", s_limbs, s_valid, p_s),
         ("float64 with -0.0, +0.0 and NaN", [f10.to(dev)], v10.to(dev), n10 // 3),
         ("float32 and bool limbs", [f10.to(torch.float32).to(dev), (i10 % 2 == 0).to(dev)],
@@ -2308,6 +3031,7 @@ def rank_plan_rows(dev, plans, launches_by_path, skewed, seed: int):
     v17 = (torch.rand(n17, generator=g17) < 0.8).to(dev)
     sort_cases = [("at Q4's plan", q4_l, q4_v), ("at Q13's plan", q13_l, q13_v),
                   ("at Q21's largest anti-join plan", q21_l, q21_v),
+                  ("at Q16's distinct key, its largest input in two batches", q16_l, q16_v),
                   ("two int64 limbs over two words", two_words, v17),
                   ("float64 and float32 with -0.0, +0.0 and NaN",
                    [f10.to(dev), f10.to(torch.float32).to(dev)], v10.to(dev))]
@@ -2404,7 +3128,8 @@ def rank_plan_rows(dev, plans, launches_by_path, skewed, seed: int):
         route="cuda", source="quokka_tpu_torch/csrc/rank.cu",
         replaces="quokka_tpu/ops/kernels.py:138", max_abs_err=0.0, bound_by="bytes",
         per_query=per_query("K10"), sort_cases=sort_info,
-        **row10, q13=k10_at(q13_l, q13_v, "q13"), q21=k10_at(q21_l, q21_v, "q21")))
+        **row10, q13=k10_at(q13_l, q13_v, "q13"), q21=k10_at(q21_l, q21_v, "q21"),
+        q16=k10_at(q16_l, q16_v, "q16")))
     row13 = k13p_at(q13_l, q13_v, q13_p, "q13", True)
     out.append(dict(
         name="K13p many-to-many plan (the radix sort, K10's pass in plan mode and the fill)",
@@ -2413,12 +3138,16 @@ def rank_plan_rows(dev, plans, launches_by_path, skewed, seed: int):
         per_query=per_query("K13p"),
         **row13, q4=k13p_at(q4_l, q4_v, q4_p, "q4", False),
         q21=k13p_at(q21_l, q21_v, q21_p, "q21", False),
+        q16=k13p_at(q16_l, q16_v, q16_p, "q16", False),
         skew=k13p_at(s_limbs, s_valid, p_s, "q13", True)))
     out[-1]["skew"].update(launches=0, shape="one probe key x 10^4 build rows: "
                            + out[-1]["skew"]["shape"].split(": ", 1)[1])
+    for row in out:  # Q16's distinct runs no anti join at SF1 (one batch a channel)
+        row["q16"]["shape"] = ("Q16's distinct key, its largest input in two batches: "
+                               + row["q16"]["shape"].split(": ", 1)[1])
     for row, short in ((out[0], "K10"), (out[1], "K13p")):
         show(short, row)
-        for key in ("q4", "q13", "q21", "skew"):
+        for key in ("q4", "q13", "q21", "q16", "skew"):
             if key in row:
                 show(short, row[key])
     return out
@@ -2513,6 +3242,7 @@ def smoke(dev, card: str, args) -> int:
     oracles["dryrun asof shape"] = asof_oracle(ticks, "backward", value="size")
     skew = make_skewjoin(args.sf, args.seed)
     oracles["skewjoin"] = skewjoin_oracle(skew)
+    oracles.update(new_tpch_oracles(tables))
     report["datagen_s"] = time.perf_counter() - t0
     report["rows"] = {name: t.num_rows for name, t in tables.items()}
     report["rows"].update({name: len(c["time"]) for name, c in ticks.items()})
@@ -2732,6 +3462,13 @@ def smoke(dev, card: str, args) -> int:
         "shift": (shift_stream, check_shift, ["K19 bounds", "K4"],
                   ["K18", "K19", "K20a", "K20b"], False),
     }
+    # the other fourteen TPC-H queries, written as tests/test_tpch*.py write
+    # them (the kernels each must launch and must not, and whether it takes
+    # the general join: NEW_TPCH_GATES)
+    for q in NEW_TPCH:
+        must, must_not, general = NEW_TPCH_GATES[q]
+        paths[q] = (lambda q=q: tpch_stream(q, ctx, tables), NEW_TPCH_CHECKS[q], list(must),
+                    list(must_not), general)
     for name, p in paths.items():
         # no earlier path runs the vector tier's kernels, nor slice 6's: the
         # adaptive exchange, on by default, must not fire on them; the
@@ -2741,7 +3478,7 @@ def smoke(dev, card: str, args) -> int:
         # while the other channel's rows have not come, that channel holds
         # twice the mean (QK_SKEW_RATIO 2.0 at two channels)
         p[3].extend(["K21", "K22", "K6", "K17", "K24", "K14"]
-                    + ([] if name == "q21" else ["K26"]))
+                    + ([] if name in ADAPT_MAY_FIRE else ["K26"]))
 
     def all_but(*keep):
         # K23 lands every batch and K8 joins every compacting concat, on
@@ -2790,7 +3527,7 @@ def smoke(dev, card: str, args) -> int:
     # every batch of every path lands through the wire decode (K23), and
     # every path but the linear-algebra and quantile ones joins its
     # exchanged parts by a compacting concat (K8)
-    no_concat = {"gramian", "covariance", "quantile"}
+    no_concat = {"gramian", "covariance", "quantile", "q11"}
     paths = {k: (st, ch, must + ["K23"] + ([] if k in no_concat else ["K8"]), mn, g)
              for k, (st, ch, must, mn, g) in paths.items()}
     compacted_paths = {"q3 compacted", "q5 compacted", "q7 compacted", "q3 cap"}
@@ -2868,7 +3605,9 @@ def smoke(dev, card: str, args) -> int:
                 by[row["kernel"]] = by.get(row["kernel"], 0) + row["dispatches"]
         return by
 
-    k2_pre_paths = {"q1", "q5", "q5 compacted"}
+    k2_pre_paths = {"q1", "q5", "q5 compacted"} | K2_PRE_NEW
+    new_tpch_s = 0.0  # phase 4's seconds on the fourteen new queries
+    phase4_t0 = time.perf_counter()
     for path, (stream, check, must, must_not, general) in paths.items():
         set_strategy(path)
         land = landing[path] = {"batches": 0, "encode_s": 0.0, "stage_s": 0.0,
@@ -2894,6 +3633,7 @@ def smoke(dev, card: str, args) -> int:
             _land["wire_bytes"] += st.buf.numel()
             _land["logical_bytes"] += sum(o.numel() * o.element_size() for o in st.outs)
             return st
+        t_path = time.perf_counter()
         exp = oracles[oracle_of.get(path, path)]
         plan_text[path] = stream().explain()
         for mod, attr in list(counters.values()) + [(fuse, "FALLBACKS"),
@@ -3045,8 +3785,27 @@ def smoke(dev, card: str, args) -> int:
             elif len(next(iter(again.values()))) != rows_out:
                 fail(f"{path}: a warm run returned another number of rows")
         walls[path] = {"cold_s": cold, "warm_s": warm}
+        if path in NEW_TPCH:
+            new_tpch_s += time.perf_counter() - t_path
         print(f"{path} warm: {[round(w, 4) for w in warm]} s")
     set_strategy()
+    # Q15 compares each supplier's sum with the max of the same sums that
+    # another run collected: the card's sums must be the same bits every run
+    q15_runs = []
+    for _ in range(3):
+        got = collect_numpy(q15_revenue(src), "q15 revenue")
+        order = np.argsort(got["l_suppkey"], kind="stable")
+        q15_runs.append((got["l_suppkey"][order], got["total_revenue"][order].view(np.int64)))
+    if not all(np.array_equal(k, q15_runs[0][0]) and np.array_equal(v, q15_runs[0][1])
+               for k, v in q15_runs[1:]):
+        fail("q15: the per-supplier revenue sums differ in their bits between runs")
+    report["q15_sums_same_bits"] = {"runs": len(q15_runs), "suppliers": len(q15_runs[0][0])}
+    print(f"q15: {len(q15_runs[0][0])} per-supplier revenue sums, the same bits in "
+          f"{len(q15_runs)} runs")
+    report["phase4_s"] = time.perf_counter() - phase4_t0
+    report["new_tpch_s"] = new_tpch_s
+    print(f"phase 4: {report['phase4_s']:.1f} s, of which the fourteen new TPC-H queries "
+          f"{new_tpch_s:.1f} s (cold, warm runs and checks)")
     report["landing"] = landing
     q1_land = landing["q1"]
     if q1_land["wire_bytes"] * 2 > q1_land["logical_bytes"]:
@@ -3276,6 +4035,10 @@ def smoke(dev, card: str, args) -> int:
                                  "K13p": (join, "_mm_plan", lambda l, v, p: v.shape[0])}),
             ("q4", q4_stream, dict(counts_target)),
             ("q21", q21_stream, dict(counts_target)),
+            ("q16", paths["q16"][0], {"distinct": (kernels, "distinct",
+                                                   lambda b, keys: b.padded_len)}),
+            ("q22", paths["q22"][0], {"K16": (stagefuse.FusedElementwise, "prepare",
+                                              lambda self, b: b.padded_len)}),
             ("q7", q7_stream, {"K16": (stagefuse.ElemwiseCall, "__init__",
                                        lambda self, *a: a[5].shape[0]),
                                "K4": (kernels, "partition_split",
@@ -3783,8 +4546,10 @@ def smoke(dev, card: str, args) -> int:
               "bound_ms": bound_ms(k13_bytes(sk_a, sk_cum))}))
 
     # K10 and K13p at Q4's, Q13's and Q21's largest plans and made cases
-    out.extend(rank_plan_rows(dev, {q: s3[q].args["K13p" if q == "q13" else "K13p counts"][0]
-                                    for q in ("q4", "q13", "q21")},
+    plans = {q: s3[q].args["K13p" if q == "q13" else "K13p counts"][0]
+             for q in ("q4", "q13", "q21")}
+    plans["q16"] = q16_split_plan(*s3["q16"].args["distinct"][0])
+    out.extend(rank_plan_rows(dev, plans,
                               launches_by_path, (s_limbs, s_valid, p_s), args.seed))
 
     # K16 at Q7's stage, and on the same call with dates from 0001 to 9999
@@ -3821,6 +4586,30 @@ def smoke(dev, card: str, args) -> int:
     wide_dates["l_shipdate"] = dd.to(torch.int32).to(dev)
     err16 = max(err16, check_k16("Q7, dates 0001-9999 with nulls",
                                  dataclasses.replace(k16_call, inputs=wide_dates)))
+    # K16 at Q22's largest stage call: the numeric rest of a stage whose map
+    # output is a string (substring(c_phone, 1, 2) as cntrycode, a
+    # deduplicated dictionary transform the host prepass carries beside the
+    # kernel), bit for bit, and the carried column against the slice of
+    # each row's phone
+    (fe22, b22), _ = s3["q22"].args["K16"]
+    call22, _ = fe22.prepare(b22)
+    err16 = max(err16, check_k16("Q22", call22))
+    cc = call22.strings.get("cntrycode")
+    if cc is None or "cntrycode" in [name for name, _ in call22.outputs]:
+        fail("K16: Q22's stage did not carry cntrycode as a string beside the kernel")
+    live = b22.valid.cpu().numpy()
+    phones = b22.columns["c_phone"]
+    want = [None if c < 0 else str(phones.dictionary.values[c])[:2]
+            for c in phones.codes.cpu().numpy()[live].tolist()]
+    have = [None if c < 0 else str(cc.dictionary.values[c])
+            for c in cc.codes.cpu().numpy()[live].tolist()]
+    if have != want or len(set(cc.dictionary.values.tolist())) != len(cc.dictionary):
+        fail("K16: Q22's cntrycode differs from the phones' first two characters, or its "
+             "dictionary repeats a value")
+    print(f"K16 Q22: cntrycode carried beside the kernel for {len(have)} live rows, its "
+          f"dictionary {len(cc.dictionary)} values (the phones' {len(phones.dictionary)})")
+    n22 = call22.valid.shape[0]
+    k22_in = list(call22.inputs.values()) + [call22.valid]
     k16_in = list(k16_call.inputs.values()) + [k16_call.valid]
     out.append(dict(
         name="K16 in-stage elementwise", route="triton", source="quokka_tpu_torch/ops/stagefuse.py",
@@ -3830,7 +4619,14 @@ def smoke(dev, card: str, args) -> int:
             n16 * torch.empty(0, dtype=dt).element_size() for dt in k16_call.out_dtypes)),
         bound_by="bytes", library_ms=None,
         shape=f"Q7: {n16} rows, {len(k16_in) - 1} inputs, {len(k16_call.outputs)} outputs",
-        device_us=device_us(k16_call.launch, ("qk_elemwise",))))
+        device_us=device_us(k16_call.launch, ("qk_elemwise",)),
+        per_query={p: n["K16"] for p, n in launches_by_path.items() if n["K16"]},
+        q22={"shape": f"Q22: {n22} rows, {len(k22_in) - 1} inputs, no numeric output, "
+                      "cntrycode carried as a string",
+             "launches": launches_by_path["q22"]["K16"], "ms": cuda_ms(call22.launch),
+             "plain_ms": cuda_ms(call22.plain),
+             "device_us": device_us(call22.launch, ("qk_elemwise",)),
+             "bound_ms": bound_ms(nbytes(*k22_in) + n22 + 4)}))
 
     # -- the time-series kernels: K18, K19, K20a, K20b ---------------------------
     def same(label, a, b) -> None:

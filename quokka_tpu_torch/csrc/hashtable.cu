@@ -41,10 +41,19 @@
 //  4. `qk_gb_segment_kernel`, a cooperative launch of at most as many blocks
 //     as the card keeps resident: it writes every output's identity, meets
 //     the grid at a barrier, adds each live row into its group (counts and
-//     sums with atomicAdd, the smallest row with atomicMin, min / max of
-//     floats with compare-and-swap loops, NaN propagating as XLA's
+//     integer sums with atomicAdd, the smallest row with atomicMin, min /
+//     max of floats with compare-and-swap loops, NaN propagating as XLA's
 //     segment_min / max), meets the grid again, and finishes `mean` (sum /
-//     count) and `first` (the input at the smallest row) over the groups.
+//     count), `first` (the input at the smallest row) and the float sums
+//     over the groups.  Float sums and means are the same bits every run:
+//     a pass before the adds (and a barrier) takes each group's largest
+//     exponent and its NaN / infinity flags, and each value is added as a
+//     128-bit fixed-point integer at that exponent (two 64-bit atomicAdds,
+//     the carry from the low word counted into the high one), which no
+//     order of the adds can change; the finish rounds the integer to the
+//     output type.  A float atomicAdd's sum depends on the order the
+//     blocks reach it, and a query that compares a sum with the max of
+//     the same sums collected by another run (TPC-H Q15) needs the bits.
 //     Each aggregate's type and op select a template instance once per
 //     column and tile of 1024 rows; rows are a block's contiguous range.
 // `qk_segment_ranked` runs step 4 alone over given ranks (the sort
@@ -164,21 +173,29 @@ struct GbKeys {
 
 // an aggregate column: kind = op * 4 + input type.  `acc` is where a mean
 // sums (the output itself for float inputs; int64 / int32 scratch for
-// integer inputs, whose mean is float32, as torch's true division gives)
+// integer inputs, whose mean is float32, as torch's true division gives).
+// `fx` is a float sum's or mean's fixed-point scratch (null for the other
+// columns) over n groups: the high and low words (n uint64 each), the
+// largest biased exponent (n int32) and the NaN / +inf / -inf flags (n
+// int32), in that order
 struct GbCols {
   const void* in[QK_GB_MAX_COLS];
   void* out[QK_GB_MAX_COLS];
   void* acc[QK_GB_MAX_COLS];
+  void* fx[QK_GB_MAX_COLS];
   int kind[QK_GB_MAX_COLS];
   int k;
+  int any_fx;  // some column has fixed-point scratch
 };
 
 struct GbSeg {
   GbCols C;
   const uint8_t* valid;
   long long n;
-  // ranks: slots (myslot, in-block ranks, block offsets) or a given array
-  const int32_t* myslot;
+  // ranks: slots (myslot, in-block ranks, block offsets) or a given array;
+  // a float sum's exponent pass overwrites each live row's slot with its
+  // rank, which the add pass then reads
+  int32_t* myslot;
   const int32_t* local;
   const int32_t* boff;
   const void* ranks;
@@ -186,7 +203,7 @@ struct GbSeg {
   int32_t* rep;
   const int32_t* num;  // the group count on the device, or null: n
   unsigned int* bar;   // zeroed before the launch
-  int finish;          // some column is a mean or a first
+  int finish;          // some column is a mean, a first or a float sum
 };
 
 // one key word, canonical: -0.0 as +0.0; sets nan for a NaN
@@ -414,10 +431,110 @@ template <typename T> struct QkMeanOut { typedef T type; };
 template <> struct QkMeanOut<long long> { typedef float type; };
 template <> struct QkMeanOut<int32_t> { typedef float type; };
 
+// float sums and means in fixed point: a finite nonzero x is
+// +-M * 2^(E - 1075) with M < 2^53 and E its biased exponent (1 for a
+// subnormal, whose M has no implicit bit).  Added at its group's largest E
+// as M * 2^(E - Emax + QK_FX_SHIFT), below 2^90, so that up to 2^31 rows
+// cannot overflow the 128 bits; a value more than QK_FX_SHIFT binades
+// below the group's largest loses the bits under 2^-90 of it
+#define QK_FX_SHIFT 37
+#define QK_FX_NONE (-1)
+template <typename T> struct QkFx { enum { on = 0 }; };
+template <> struct QkFx<double> { enum { on = 1 }; };
+template <> struct QkFx<float> { enum { on = 1 }; };
+
+struct QkFxCol {
+  unsigned long long* hi;
+  unsigned long long* lo;
+  int32_t* emax;
+  int32_t* flags;  // 1 NaN, 2 +inf, 4 -inf
+};
+
+__device__ __forceinline__ QkFxCol qk_fx_col(const GbCols& C, int a, long long n) {
+  QkFxCol F;
+  F.hi = (unsigned long long*)C.fx[a];
+  F.lo = F.hi + n;
+  F.emax = (int32_t*)(F.lo + n);
+  F.flags = F.emax + n;
+  return F;
+}
+
+// x's biased exponent (0 for zero), or a flag for NaN / infinity
+__device__ __forceinline__ int qk_fx_exp(double x, int& flag) {
+  const unsigned long long b = (unsigned long long)__double_as_longlong(x);
+  const int e = (int)((b >> 52) & 0x7ff);
+  flag = 0;
+  if (e == 0x7ff) {
+    flag = (b & 0xfffffffffffffull) ? 1 : ((b >> 63) ? 4 : 2);
+    return 0;
+  }
+  if (e == 0) return (b & 0xfffffffffffffull) ? 1 : 0;
+  return e;
+}
+
+// add finite x at its group's largest exponent emax
+__device__ __forceinline__ void qk_fx_add(const QkFxCol& F, long long g, double x, int emax) {
+  const unsigned long long b = (unsigned long long)__double_as_longlong(x);
+  const int e = (int)((b >> 52) & 0x7ff);
+  const unsigned long long frac = b & 0xfffffffffffffull;
+  const unsigned long long m = e ? (frac | (1ull << 52)) : frac;
+  if (m == 0) return;
+  const int s = (e ? e : 1) - emax + QK_FX_SHIFT;  // at most QK_FX_SHIFT
+  unsigned long long hi, lo;
+  if (s >= 0) {
+    lo = m << s;
+    hi = s ? m >> (64 - s) : 0ull;
+  } else {
+    lo = -s < 64 ? m >> -s : 0ull;
+    hi = 0ull;
+  }
+  if (b >> 63) {  // two's complement of the 128 bits
+    lo = ~lo + 1ull;
+    hi = ~hi + (lo == 0ull ? 1ull : 0ull);
+  }
+  const unsigned long long old = atomicAdd(F.lo + g, lo);
+  hi += (old + lo < old) ? 1ull : 0ull;  // the low word's carry
+  if (hi) atomicAdd(F.hi + g, hi);
+}
+
+// the group's sum rounded to a double
+__device__ __forceinline__ double qk_fx_value(const QkFxCol& F, long long g) {
+  const int fl = F.flags[g];
+  if ((fl & 1) || (fl & 6) == 6) return __longlong_as_double(0x7ff8000000000000LL);
+  if (fl & 2) return __longlong_as_double(0x7ff0000000000000LL);
+  if (fl & 4) return __longlong_as_double(0xfff0000000000000LL);
+  const int emax = F.emax[g];
+  if (emax == QK_FX_NONE) return 0.0;
+  unsigned long long hi = F.hi[g], lo = F.lo[g];
+  const bool neg = hi >> 63;
+  if (neg) {
+    lo = ~lo + 1ull;
+    hi = ~hi + (lo == 0ull ? 1ull : 0ull);
+  }
+  const double mag = (double)hi * 18446744073709551616.0 + (double)lo;
+  const double v = ldexp(mag, emax - 1075 - QK_FX_SHIFT);
+  return neg ? -v : v;
+}
+
 // every output's identity over [g0, n) in steps of `step`
+// (a float sum's or mean's fixed-point scratch over the m groups, and its
+// output's identity past them: the finish writes the m groups' outputs)
 template <typename T, int OP>
-__device__ __forceinline__ void qk_fill_col(const GbCols& C, int a, long long n, long long g0,
-                                            long long step) {
+__device__ __forceinline__ void qk_fill_col(const GbCols& C, int a, long long n, long long m,
+                                            long long g0, long long step) {
+  if (QkFx<T>::on && (OP == QK_SUM || OP == QK_MEAN)) {
+    const QkFxCol F = qk_fx_col(C, a, n);
+    for (long long g = g0; g < n; g += step) {
+      if (g < m) {
+        F.hi[g] = F.lo[g] = 0ull;
+        F.emax[g] = QK_FX_NONE;
+        F.flags[g] = 0;
+      } else {
+        ((T*)C.out[a])[g] = (T)0;
+      }
+    }
+    return;
+  }
   if (OP == QK_COUNT) {
     for (long long g = g0; g < n; g += step) ((int32_t*)C.out[a])[g] = 0;
   } else if (OP == QK_MIN || OP == QK_MAX || OP == QK_SUM) {
@@ -437,13 +554,24 @@ __device__ __forceinline__ void qk_fill_col(const GbCols& C, int a, long long n,
 // add one tile's live rows of column a into their groups
 template <typename T, int OP>
 __device__ __forceinline__ void qk_add_col(const GbCols& C, int a, const long long* row,
-                                           const long long* r) {
+                                           const long long* r, long long n) {
   if (OP == QK_FIRST) return;
   const T* in = (const T*)C.in[a];
   T x[QK_GB_ITEMS];
 #pragma unroll
   for (int j = 0; j < QK_GB_ITEMS; ++j)
     if (r[j] >= 0) x[j] = in[row[j]];
+  if (QkFx<T>::on && (OP == QK_SUM || OP == QK_MEAN)) {
+    const QkFxCol F = qk_fx_col(C, a, n);
+#pragma unroll
+    for (int j = 0; j < QK_GB_ITEMS; ++j) {
+      if (r[j] < 0) continue;
+      int flag;
+      if (qk_fx_exp((double)x[j], flag) && !flag)
+        qk_fx_add(F, r[j], (double)x[j], F.emax[r[j]]);
+    }
+    return;
+  }
 #pragma unroll
   for (int j = 0; j < QK_GB_ITEMS; ++j) {
     if (r[j] < 0) continue;
@@ -455,11 +583,42 @@ __device__ __forceinline__ void qk_add_col(const GbCols& C, int a, const long lo
   }
 }
 
-// finish a mean or a first over groups [g0, m)
+// a float sum's or mean's exponent pass: each group's largest biased
+// exponent and its NaN / infinity flags
+template <typename T, int OP>
+__device__ __forceinline__ void qk_exp_col(const GbCols& C, int a, const long long* row,
+                                           const long long* r, long long n) {
+  if (!(QkFx<T>::on && (OP == QK_SUM || OP == QK_MEAN))) return;
+  const T* in = (const T*)C.in[a];
+  const QkFxCol F = qk_fx_col(C, a, n);
+#pragma unroll
+  for (int j = 0; j < QK_GB_ITEMS; ++j) {
+    if (r[j] < 0) continue;
+    int flag;
+    const int e = qk_fx_exp((double)in[row[j]], flag);
+    if (flag) atomicOr(F.flags + r[j], flag);
+    else if (e) atomicMax(F.emax + r[j], e);
+  }
+}
+
+// finish a mean, a first or a float sum over groups [g0, m)
 template <typename T, int OP>
 __device__ __forceinline__ void qk_finish_col(const GbCols& C, int a, const int32_t* counts,
                                               const int32_t* rep, long long m, long long g0,
-                                              long long step) {
+                                              long long step, long long n) {
+  if (QkFx<T>::on && (OP == QK_SUM || OP == QK_MEAN)) {
+    const QkFxCol F = qk_fx_col(C, a, n);
+    for (long long g = g0; g < m; g += step) {
+      const T sum = (T)qk_fx_value(F, g);
+      if (OP == QK_SUM) {
+        ((T*)C.out[a])[g] = sum;
+      } else {
+        const int32_t c = counts[g];
+        ((T*)C.out[a])[g] = sum / (T)(c > 1 ? c : 1);
+      }
+    }
+    return;
+  }
   if (OP == QK_MEAN) {
     typedef typename QkMeanOut<T>::type O;
     for (long long g = g0; g < m; g += step) {
@@ -519,12 +678,30 @@ __global__ void __launch_bounds__(QK_GB_THREADS) qk_gb_segment_kernel(GbSeg S) {
     S.counts[g] = 0;
     S.rep[g] = (int32_t)(n - 1);
   }
-  for (int a = 0; a < S.C.k; ++a) QK_GB_DISPATCH(S.C.kind[a], qk_fill_col, S.C, a, n, g0, step)
-  qk_grid_barrier(S.bar, 1u);
+  // the group count: the rank kernel wrote it before this launch
+  const long long m = S.num ? (long long)*(volatile const int32_t*)S.num : n;
+  for (int a = 0; a < S.C.k; ++a)
+    QK_GB_DISPATCH(S.C.kind[a], qk_fill_col, S.C, a, n, m, g0, step)
+  unsigned int barrier = 1u;
+  qk_grid_barrier(S.bar, barrier++);
 
   // this block's tiles: a contiguous range of rows
   const long long tiles = (n + QK_GB_TILE - 1) / QK_GB_TILE;
   const long long t_end = tiles * (blockIdx.x + 1) / gridDim.x;
+  if (S.C.any_fx) {  // uniform: every block or none meets this barrier
+    for (long long t = tiles * blockIdx.x / gridDim.x; t < t_end; ++t) {
+      long long row[QK_GB_ITEMS], r[QK_GB_ITEMS];
+#pragma unroll
+      for (int j = 0; j < QK_GB_ITEMS; ++j) {
+        row[j] = t * QK_GB_TILE + j * QK_GB_THREADS + threadIdx.x;
+        r[j] = row[j] < n && S.valid[row[j]] ? qk_rank_of<MODE>(S, row[j]) : -1;
+        if (MODE == 0 && r[j] >= 0) S.myslot[row[j]] = (int32_t)r[j];
+      }
+      for (int a = 0; a < S.C.k; ++a)
+        QK_GB_DISPATCH(S.C.kind[a], qk_exp_col, S.C, a, row, r, n)
+    }
+    qk_grid_barrier(S.bar, barrier++);
+  }
   for (long long t = tiles * blockIdx.x / gridDim.x; t < t_end; ++t) {
     long long row[QK_GB_ITEMS], r[QK_GB_ITEMS];
 #pragma unroll
@@ -535,35 +712,38 @@ __global__ void __launch_bounds__(QK_GB_THREADS) qk_gb_segment_kernel(GbSeg S) {
 #pragma unroll
     for (int j = 0; j < QK_GB_ITEMS; ++j) {
       if (r[j] < 0) continue;
-      r[j] = qk_rank_of<MODE>(S, row[j]);
+      r[j] = MODE == 0 && S.C.any_fx ? (long long)S.myslot[row[j]] : qk_rank_of<MODE>(S, row[j]);
       if (r[j] < 0) continue;
       atomicAdd(S.counts + r[j], 1);
       atomicMin(S.rep + r[j], (int32_t)row[j]);
     }
-    for (int a = 0; a < S.C.k; ++a) QK_GB_DISPATCH(S.C.kind[a], qk_add_col, S.C, a, row, r)
+    for (int a = 0; a < S.C.k; ++a) QK_GB_DISPATCH(S.C.kind[a], qk_add_col, S.C, a, row, r, n)
   }
-  if (!S.finish) return;  // uniform: no block meets the second barrier
-  qk_grid_barrier(S.bar, 2u);
-  const long long m = S.num ? (long long)*(volatile const int32_t*)S.num : n;
+  if (!S.finish) return;  // uniform: no block meets the last barrier
+  qk_grid_barrier(S.bar, barrier);
   for (int a = 0; a < S.C.k; ++a)
-    QK_GB_DISPATCH(S.C.kind[a], qk_finish_col, S.C, a, S.counts, S.rep, m, g0, step)
+    QK_GB_DISPATCH(S.C.kind[a], qk_finish_col, S.C, a, S.counts, S.rep, m, g0, step, n)
 }
 
-// the k columns' words: k inputs, k outputs, k accs, k kinds; sets finish
+// the k columns' words: k inputs, k outputs, k accs, k fixed-point
+// scratches (0 but for float sums and means), k kinds
 static void qk_fill_cols(GbCols& C, int k, const long long* w) {
   C.k = k;
+  C.any_fx = 0;
   for (int a = 0; a < k; ++a) {
     C.in[a] = (const void*)w[a];
     C.out[a] = (void*)w[k + a];
     C.acc[a] = (void*)w[2 * k + a];
-    C.kind[a] = (int)w[3 * k + a];
+    C.fx[a] = (void*)w[3 * k + a];
+    C.kind[a] = (int)w[4 * k + a];
+    C.any_fx |= C.fx[a] != nullptr;
   }
 }
 
 // the resident blocks of the segment kernel on the current device
 template <int MODE>
 static int qk_segment_launch(GbSeg& S, cudaStream_t st) {
-  S.finish = 0;
+  S.finish = S.C.any_fx;
   for (int a = 0; a < S.C.k; ++a) S.finish |= S.C.kind[a] / 4 >= QK_MEAN;
   static int resident[64];
   int dev = 0;
@@ -654,9 +834,10 @@ long long qk_gb_scratch(long long n, long long cap) {
 // n bytes; scratch holds qk_gb_scratch(n, cap) bytes; hdr (num, failed),
 // counts and rep (n int32 each) are written.  keys holds n_keys pointers,
 // then their types (0 f64, 1 f32, 2 i64, 3 i32); cols holds k input, k
-// output and k acc pointers, then k kinds (op * 4 + input type; op 0 sum, 1
-// count of a float input, 2 min, 3 max, 4 mean, 5 first), and every output
-// is written.
+// output, k acc and k fixed-point scratch pointers (24 n bytes each, 16-byte
+// aligned, for every float sum and mean, else 0), then k kinds (op * 4 +
+// input type; op 0 sum, 1 count of a float input, 2 min, 3 max, 4 mean, 5
+// first), and every output is written.
 int qk_groupby(long long n, long long cap, const void* valid, void* scratch, void* hdr,
                void* counts, void* rep, int n_keys, const long long* keys, int k,
                const long long* cols, void* stream) {
@@ -720,7 +901,8 @@ int qk_segment_ranked(long long n, const void* ranks, int rank_dt, const void* v
   if (err != cudaSuccess) return (int)err;
   S.valid = (const uint8_t*)valid;
   S.n = n;
-  S.myslot = S.local = S.boff = nullptr;
+  S.myslot = nullptr;
+  S.local = S.boff = nullptr;
   S.ranks = ranks;
   S.counts = (int32_t*)counts;
   S.rep = (int32_t*)rep;

@@ -1,5 +1,6 @@
 """DataStream: the lazy relational API (port of ``quokka_tpu/datastream.py``:
-filter, select, rename, with_columns, join, groupby + agg, top_k, collect,
+filter, select, rename, with_columns, join, groupby + agg (with
+count(distinct col) and count_distinct), distinct, top_k, collect,
 nearest_neighbors, gramian, covariance, approximate_quantile, and
 OrderedStream's time-series verbs: join_asof, window_agg and shift).
 
@@ -13,7 +14,7 @@ import functools
 from typing import Dict, List, Optional, Sequence, Union
 
 from quokka_tpu_torch import logical, sqlparse
-from quokka_tpu_torch.expression import Agg, Alias, ColRef, Expr
+from quokka_tpu_torch.expression import Agg, Alias, ColRef, Expr, IsNull
 from quokka_tpu_torch.ops.expr_compile import plan_aggregation
 from quokka_tpu_torch.target_info import HashPartitioner, PassThroughPartitioner
 
@@ -21,8 +22,9 @@ from quokka_tpu_torch.target_info import HashPartitioner, PassThroughPartitioner
 def _not_in_slice(what: str):
     raise NotImplementedError(
         f"{what} is not in quokka_tpu_torch yet (it carries filter, select, rename, "
-        "with_columns, join, groupby/agg, distinct, top_k, nearest_neighbors, gramian, "
-        "covariance, approximate_quantile and collect; see ROADMAP.md for the "
+        "with_columns, join, groupby/agg, count(distinct), distinct, top_k, "
+        "nearest_neighbors, gramian, covariance, approximate_quantile and collect; see "
+        "ROADMAP.md for the "
         "slice that adds it)")
 
 
@@ -127,6 +129,12 @@ class DataStream:
 
     aggregate = agg
     aggregate_sql = agg_sql
+
+    def count_distinct(self, col_name: str) -> "DataStream":
+        """The number of distinct non-null values of ``col_name``, lowered as
+        SQL ``count(distinct col)`` is."""
+        return GroupedDataStream(self, [])._agg_exprs(
+            [Alias(Agg("count", ColRef(col_name), distinct=True), "count")])
 
     # -- joins -----------------------------------------------------------------
     def join(self, right: "DataStream", on: Optional[Union[str, Sequence[str]]] = None,
@@ -290,12 +298,37 @@ class GroupedDataStream:
     aggregate_sql = agg_sql
 
     def _agg_exprs(self, exprs: List[Alias]) -> DataStream:
-        if any(_has_distinct(e) for e in exprs):
-            _not_in_slice("count(distinct ...)")
+        rewritten = self._rewrite_count_distinct(exprs)
+        if rewritten is not None:
+            return rewritten
         plan = plan_aggregation(exprs)
         out_schema = self.keys + [n for n, _ in plan.finals if n not in self.keys]
         node = logical.AggNode([self.stream.node_id], out_schema, self.keys, plan)
         return self.stream._child(node)
+
+    def _rewrite_count_distinct(self, exprs: List[Alias]) -> Optional[DataStream]:
+        """``count(distinct x)`` lowers to distinct-then-count, as the
+        reference's does (``datastream.py:563``): drop the rows where x is
+        null, project the keys and x, de-duplicate them (a DistinctNode),
+        then ``count(*)`` per key.  Only the pure form is rewritten: a
+        mix with other aggregates, or a distinct count of an expression,
+        raises ValueError."""
+        cds = [a for a in exprs if _has_distinct(a.expr)]
+        if not cds:
+            return None
+        if len(cds) != len(exprs) or len(cds) != 1 or not (
+                isinstance(cds[0].expr, Agg) and cds[0].expr.distinct):
+            raise ValueError(
+                "count(distinct) cannot be mixed with other aggregates yet; "
+                "compute it in a separate aggregation and join")
+        a = cds[0]
+        if a.expr.op != "count" or not isinstance(a.expr.arg, ColRef):
+            raise ValueError("only count(distinct column) is supported")
+        name = a.expr.arg.name
+        deduped = (self.stream.filter(IsNull(ColRef(name), True))  # nulls do not count
+                   .select(self.keys + [name]).distinct())
+        return GroupedDataStream(deduped, self.keys)._agg_exprs(
+            [Alias(Agg("count", None), a.name)])
 
 
 def _has_distinct(e: Expr) -> bool:

@@ -66,6 +66,8 @@ class StringDict:
         self._none: Optional[np.ndarray] = None
         self._none_known = False
         self._dev: Dict[tuple, torch.Tensor] = {}
+        # dictionary transforms of these values (expr_compile._dict_transform)
+        self._transforms: Dict[tuple, tuple] = {}
 
     def __len__(self) -> int:
         return len(self.values)

@@ -423,6 +423,8 @@ def _str_op(e: StrOp, batch: DeviceBatch):
     v = evaluate(e.expr, batch)
     if not isinstance(v, StrCol):
         raise CompileError(f"str op {e.op} on non-string")
+    if e.op in DICT_TRANSFORMS:
+        return _dict_transform(v, (e.op, tuple(e.args)))
     svals = v.dictionary.values.astype(str)
     if e.op == "like":
         rx = re.compile(_like_to_regex(e.args[0]))
@@ -435,13 +437,52 @@ def _str_op(e: StrOp, batch: DeviceBatch):
         return _dict_gather(v, np.char.endswith(svals, e.args[0]), "b")
     if e.op == "length":
         return _dict_gather(v, np.char.str_len(svals).astype(np.int32), "i")
-    if e.op == "lower":
-        return StrCol(v.codes, StringDict(np.char.lower(svals).astype(object)))
-    if e.op == "upper":
-        return StrCol(v.codes, StringDict(np.char.upper(svals).astype(object)))
-    if e.op == "strip":
-        return StrCol(v.codes, StringDict(np.char.strip(svals).astype(object)))
     raise CompileError(f"str op {e.op} (not in quokka_tpu_torch yet)")
+
+
+def _slice(svals: np.ndarray, args) -> np.ndarray:
+    off, length = int(args[0]), args[1]
+    end = None if length is None else off + int(length)
+    return np.array([s[off:end] for s in svals.tolist()], dtype=str)
+
+
+# string -> string transforms: (the dictionary's non-null values as a str
+# array, the op's arguments) -> the new values
+DICT_TRANSFORMS = {
+    "lower": lambda svals, args: np.char.lower(svals),
+    "upper": lambda svals, args: np.char.upper(svals),
+    "strip": lambda svals, args: np.char.strip(svals),
+    "slice": _slice,
+}
+
+
+def _dict_transform(col: StrCol, op: Tuple) -> StrCol:
+    """Apply the transform ``op`` (a ``DICT_TRANSFORMS`` name and its
+    arguments) to each dictionary value (null entries stay null) and
+    deduplicate the result, so that equal values share one code: the new
+    dictionary holds each distinct value once (``np.unique`` on the host)
+    and the codes go through the inverse in one gather; null rows keep code
+    -1.  The small-key partial aggregate buckets by code, so a dictionary
+    that repeated a value would split its group.  The host half is cached
+    on the dictionary, so a stage that reads the new column twice (an
+    output and a predicate) does it once."""
+    d = col.dictionary
+    hit = d._transforms.get(op)
+    if hit is None:
+        none = d.none_entries
+        keep = np.ones(len(d), dtype=bool) if none is None else ~none
+        mapped = DICT_TRANSFORMS[op[0]](d.values[keep].astype(str), op[1])
+        uniq, inv = np.unique(mapped, return_inverse=True)
+        remap = np.full(len(d), -1, dtype=np.int32)
+        remap[keep] = inv.astype(np.int32)
+        hit = d._transforms[op] = (StringDict(uniq.astype(object)), remap, {})
+    new_dict, remap, on_dev = hit
+    table = on_dev.get(col.codes.device)
+    if table is None:
+        table = on_dev[col.codes.device] = torch.from_numpy(remap).to(col.codes.device)
+    codes = torch.where(col.codes < 0, col.codes,
+                        table[torch.clamp(col.codes, min=0).long()])
+    return StrCol(codes.to(col.codes.dtype), new_dict)
 
 
 def _in_list(e: InList, batch: DeviceBatch):

@@ -15,8 +15,12 @@ Contract (the reference's ``sorted_groupby`` contract): returns
 ranks follow table-slot order, so group order differs from the reference's
 (claim order); no consumer depends on it, and results compare after a sort
 on the keys.  A NaN key makes its own group and -0.0 equals +0.0, as
-``canonical_limbs`` defines them.  On the card a call is four device
-operations and no host read: the table has cap >= 2n slots
+``canonical_limbs`` defines them.  Float sums and means are the same bits
+in every run on the card (the segment pass adds them as 128-bit fixed-point
+integers at each group's largest exponent, so the order of the blocks'
+adds cannot change them); they agree with the plain version's row-order
+sums to rounding.  On the card a call is four device operations and no
+host read: the table has cap >= 2n slots
 (``capbits_for``), its probe walk visits every slot, claims are never
 undone and at most n slots are claimed, so every live row finds an empty
 slot or its own key and the insert cannot fail.  Only a table patched to
@@ -323,10 +327,12 @@ class _Plan:
     rep, then the kernel columns' outputs grouped by dtype, each group an
     [its columns, n] block.  Scratch, the other: what ``qk_gb_scratch``
     asks for (counters; for the group-by the table and its scan), then the
-    integer means' sums."""
+    integer means' sums, then each float sum's and mean's fixed-point
+    accumulators (24 bytes a group: the kernel adds them as 128-bit
+    integers, so their bits do not depend on the order of the adds)."""
 
     __slots__ = ("n", "cap", "k", "cols", "out_bytes", "scratch_bytes", "groups", "src", "outs",
-                 "accs", "view", "key_dts", "keys_cast", "dp_key")
+                 "accs", "fxs", "view", "key_dts", "keys_cast", "dp_key")
 
     def __init__(self, n: int, cap: int, key_dts, sig):
         self.n, self.cap = n, cap
@@ -372,8 +378,14 @@ class _Plan:
         for _, _, acc in cols:
             self.accs.append(base if acc else None)
             base += acc
+        self.fxs = []
+        for kind, _, _ in cols:
+            fixed = kind // 4 in (_OP_CODES["sum"], _OP_CODES["mean"]) and \
+                kind % 4 in (_DT_CODES[torch.float64], _DT_CODES[torch.float32])
+            self.fxs.append(base if fixed else None)
+            base += _align(24 * n) if fixed else 0
         self.scratch_bytes = base
-        self.cols = [0] * (3 * self.k) + [col[0] for col in cols]
+        self.cols = [0] * (4 * self.k) + [col[0] for col in cols]
         self.key_dts = [_DT_CODES.get(dt, 3) for dt in key_dts]
         self.keys_cast = [dt not in _DT_CODES for dt in key_dts]
         self.dp_key = ("K3", "cuda", n, tuple(str(dt) for dt in key_dts),
@@ -420,6 +432,7 @@ def _cols(plan: _Plan, arrays, di: int, ob: int, sb: int, keep: list):
     w[k:2 * k] = [ob + off for off in plan.outs]
     w[2 * k:3 * k] = [ob + off if acc is None else sb + acc
                       for off, acc in zip(plan.outs, plan.accs)]
+    w[3 * k:4 * k] = [0 if fx is None else sb + fx for fx in plan.fxs]
     return array.array("q", w)
 
 

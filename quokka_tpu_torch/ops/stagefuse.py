@@ -20,10 +20,18 @@ the row mask (``valid`` and every conjunct), its count (each program adds
 its block's count to one int32, an order-free integer sum) and one array
 per map output, in the plain evaluator's dtypes.  String predicates are
 bound to code masks by the host prepass first, so the kernel sees numbers
-only.  Bound: bytes (every input column read once, the mask and each
-output written once); Triton serves for the reason it serves K1 and K5: a
-fused elementwise pass over a few columns, known only at query time, with
-no reuse across rows for shared memory or tensor cores to exploit.
+only.  A map output whose value is a string (a string column, or a
+dictionary transform of one: ``lower``, ``upper``, ``strip``, ``slice``,
+as TPC-H Q22's ``substring(c_phone, 1, 2)``) is evaluated by the host
+prepass over the batch's codes (``expr_compile.DICT_TRANSFORMS``: the new
+dictionary, deduplicated, and one gather of the codes) and carried beside
+the kernel's outputs; K16 takes the numeric rest of the stage, and a
+conjunct over the new column, inlined, is a string predicate that the
+prepass binds to a code mask.  Bound: bytes (every input column read
+once, the mask and each output written once); Triton serves for the reason
+it serves K1 and K5: a fused elementwise pass over a few columns, known
+only at query time, with no reuse across rows for shared memory or tensor
+cores to exploit.
 ``elementwise_plain`` is its plain version, taken only when the batch lies
 on the CPU.  The reference's per-step path (``_sequential``) is kept, for
 CPU batches only, for what the kernel does not take (an expression outside
@@ -40,10 +48,10 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from quokka_tpu_torch.executors.base import Executor
-from quokka_tpu_torch.expression import Expr, substitute_columns
+from quokka_tpu_torch.expression import ColRef, Expr, StrOp, substitute_columns
 from quokka_tpu_torch.obs import devprof, opstats
 from quokka_tpu_torch.ops import expr_compile, kernels
-from quokka_tpu_torch.ops.batch import DeviceBatch, NumCol
+from quokka_tpu_torch.ops.batch import DeviceBatch, NumCol, StrCol
 from quokka_tpu_torch.ops.fuse import (
     Prepass,
     _check_inputs,
@@ -128,9 +136,19 @@ def elementwise_launch(kern: _ElemwiseKernel, inputs: List[torch.Tensor],
     return mask.view(torch.bool), count[0], outs
 
 
+def _string_valued(e: Expr, batch: DeviceBatch) -> bool:
+    """Is e a string column of the batch, or a dictionary transform of one?"""
+    if isinstance(e, ColRef):
+        return isinstance(batch.columns.get(e.name), StrCol)
+    return (isinstance(e, StrOp) and e.op in expr_compile.DICT_TRANSFORMS
+            and _string_valued(e.expr, batch))
+
+
 @dataclasses.dataclass
 class ElemwiseCall:
-    """Everything one K16 call needs, for the kernel and its plain version."""
+    """Everything one K16 call needs, for the kernel and its plain version;
+    ``strings`` are the stage's string-valued outputs, evaluated by the
+    host prepass (no kernel writes them)."""
 
     kern: _ElemwiseKernel
     conjuncts: List[Expr]
@@ -139,6 +157,7 @@ class ElemwiseCall:
     kinds: Dict[str, str]
     valid: torch.Tensor
     out_dtypes: List[torch.dtype]
+    strings: Dict[str, StrCol] = dataclasses.field(default_factory=dict)
 
     def plain(self):
         m, num, outs = elementwise_plain(self.conjuncts, self.outputs, self.inputs,
@@ -219,8 +238,10 @@ class FusedElementwise:
         batch must take the per-step path."""
         pre = Prepass(batch)
         try:
+            strings = {n: expr_compile.evaluate(e, batch) for n, e in self._outputs
+                       if _string_valued(e, batch)}
             conjuncts = [pre.rewrite(e) for e in self._conjuncts]
-            outputs = [(n, pre.rewrite(e)) for n, e in self._outputs]
+            outputs = [(n, pre.rewrite(e)) for n, e in self._outputs if n not in strings]
         except expr_compile.CompileError:
             return None
         exprs = conjuncts + [e for _, e in outputs]
@@ -262,7 +283,8 @@ class FusedElementwise:
         if hit is None:
             return None
         kern, dts, out_kinds = hit
-        return ElemwiseCall(kern, conjuncts, outputs, inputs, kinds, batch.valid, dts), out_kinds
+        return ElemwiseCall(kern, conjuncts, outputs, inputs, kinds, batch.valid, dts,
+                            strings), out_kinds
 
     def __call__(self, batch: DeviceBatch) -> DeviceBatch:
         if not self._conjuncts and not self._outputs:
@@ -280,6 +302,8 @@ class FusedElementwise:
         mask, num, arrays = call.run()
         computed = {name: NumCol(arr, kind)
                     for (name, _), arr, kind in zip(call.outputs, arrays, out_kinds)}
+        computed.update(call.strings)
+        computed = {n: computed[n] for n, _ in self._outputs}  # definition order
         if self._visible is None:
             # a recomputed column keeps its position, new names append in
             # definition order (DeviceBatch.with_column's order)
