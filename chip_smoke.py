@@ -40,7 +40,9 @@ Phases, each fatal on failure:
      1.5, QK_ADAPT_MIN_ROWS 20000) adaptive (the trigger fires once: K26
      salts the build, replicates the probe) and with QK_ADAPT=0, and Q1, Q4
      and Q5 under groupby=sort (the one-hot partial aggregate K6 where its
-     512 MiB gate admits a batch, the sort group-by elsewhere), with every
+     512 MiB gate admits a batch, its plain columns read in place and its
+     expression inputs from its pre-pass, with no K5 on such a batch; the
+     sort group-by elsewhere), with every
      kernel's launch count set to 0 just before each path and read just
      after, and check each result against a numpy oracle; run each again
      warm.  Every batch of every path lands through the narrowed wire and
@@ -132,7 +134,10 @@ Phases, each fatal on failure:
      differ between parts, strided sources, empty and all-invalid
      parts and dense and sparse tiles in one call, each through
      concat_batches and bit for bit; K26 at the skew join's
-     and Q3's largest splits in both modes; K6 at Q1 sort's largest call;
+     and Q3's largest splits in both modes; K6 at Q1's, Q4's and Q5's
+     sort largest calls (Q5's when a batch fits the one-hot gate), the
+     same bits in a second launch, beside one torch.mm(onehot.T, stacked),
+     and the whole one-hot aggregate (pre-pass and K6) at each;
      K23 at Q1's and Q3's largest landed batches and on NaN / -0.0
      dictionaries, uint16 codes, a plan that widens then degrades, an
      all-pass layout and a 0-row batch, bit for bit; K24 at the mesh Q3's
@@ -1499,6 +1504,7 @@ ANN_ROWS, ANN_ROW_GROUPS, ANN_CELLS, ANN_NPROBE, ANN_QUERIES = 1 << 18, 16, 32, 
 LINALG_COLS = ["l_quantity", "l_extendedprice", "l_discount", "l_tax"]
 QUANTILES = [0.01, 0.25, 0.5, 0.75, 0.99]
 FP32_FLOP_PER_S = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
+FP64_TC_FLOP_PER_S = 67e12  # H100 SXM data sheet, float64 on the tensor cores
 MATMUL_N_NOTE = ("the reference's 256^3 matmul and 2^21-element add are launch-sized on "
                  "this card")
 VEC_SCORE_TOL, VEC_TIE_TOL = 2e-5, 4e-5
@@ -2631,7 +2637,8 @@ K24_CASE_ROWS = 1 << 21  # input rows of K24's checks beyond Q3's (64 shards: 2^
 # groups by the sort group-by (no K2 / K5 / K6), joins by rank (no K11 /
 # K12; K13 only for a many-to-many join, which no path here has) and takes
 # the sort as-of (no K18)
-MESH_MUST_NOT = ["K2", "K2 pre", "K4", "K5", "K6", "K11 build", "K11", "K12", "K13", "K17",
+MESH_MUST_NOT = ["K2", "K2 pre", "K4", "K5", "K6", "K6 pre", "K11 build", "K11", "K12", "K13",
+                 "K17",
                  "K18", "K21", "K22", "K26"]
 
 
@@ -3412,7 +3419,8 @@ def smoke(dev, card: str, args) -> int:
                 "K20a": (ts_execs, "WINDOW_BOUNDS_LAUNCHES"),
                 "K20b": (ts_execs, "RANGE_MINMAX_LAUNCHES"),
                 "K21": (vops, "LAUNCHES"), "K22": (lops, "LAUNCHES"),
-                "K6": (fuse, "ONEHOT_LAUNCHES"), "K17": (kernels, "PLAN_LAUNCHES"),
+                "K6": (fuse, "ONEHOT_LAUNCHES"), "K6 pre": (fuse, "ONEHOT_PRE_LAUNCHES"),
+                "K17": (kernels, "PLAN_LAUNCHES"),
                 "K26": (kernels, "ADAPT_LAUNCHES"), "K23": (pack, "LAUNCHES"),
                 "K24": (kernels, "MESH_LAUNCHES"), "K14": (join, "PK_MATCH_LAUNCHES"),
                 "K8": (bridge, "CONCAT_LAUNCHES"), "K10": (kernels, "RANK_LAUNCHES"),
@@ -3477,7 +3485,7 @@ def smoke(dev, card: str, args) -> int:
         # build channel of the next join (both hash the order key), and
         # while the other channel's rows have not come, that channel holds
         # twice the mean (QK_SKEW_RATIO 2.0 at two channels)
-        p[3].extend(["K21", "K22", "K6", "K17", "K24", "K14"]
+        p[3].extend(["K21", "K22", "K6", "K6 pre", "K17", "K24", "K14"]
                     + ([] if name in ADAPT_MAY_FIRE else ["K26"]))
 
     def all_but(*keep):
@@ -3515,14 +3523,19 @@ def smoke(dev, card: str, args) -> int:
         "q3 cap": (q3_stream, check_q3, ["K1", "K3", "K4", "K5", "K11 build", "K11", "K17"],
                    [k for k in paths["q3"][3] if k != "K17"], False),
         "skewjoin": (skewjoin_stream, check_skewjoin, ["K4", "K26", "K13"],
-                     ["K6", "K17", "K12", "K21", "K22"] + ts_only, True),
+                     ["K6", "K6 pre", "K17", "K12", "K21", "K22"] + ts_only, True),
         "skewjoin static": (skewjoin_stream, check_skewjoin, ["K4", "K13"],
-                            ["K6", "K17", "K26", "K12", "K21", "K22"] + ts_only, True),
-        "q1 sort": (q1_stream, check_q1, ["K1", "K4", "K5", "K6"], sort_must_not, False),
-        "q4 sort": (q4_stream, check_q4, ["K1", "K4", "K5", "K6", "K11 build"],
-                    sort_must_not, True),
-        "q5 sort": (q5_stream, check_q5, ["K1", "K4", "K5", "K11 build", "K11"],
-                    sort_must_not, False),
+                            ["K6", "K6 pre", "K17", "K26", "K12", "K21", "K22"] + ts_only,
+                            True),
+        # K6 reads Q1's plain columns in place and its two expressions (Q5's
+        # one) from its pre-pass; Q4's plan is count(*) alone; no K5 on any
+        # (at SF1 every batch of the three fits the one-hot gate)
+        "q1 sort": (q1_stream, check_q1, ["K1", "K4", "K6", "K6 pre"], sort_must_not + ["K5"],
+                    False),
+        "q4 sort": (q4_stream, check_q4, ["K1", "K4", "K6", "K11 build"],
+                    sort_must_not + ["K5", "K6 pre"], True),
+        "q5 sort": (q5_stream, check_q5, ["K1", "K4", "K6", "K6 pre", "K11 build", "K11"],
+                    sort_must_not + ["K5"], False),
     })
     # every batch of every path lands through the wire decode (K23), and
     # every path but the linear-algebra and quantile ones joins its
@@ -3532,6 +3545,7 @@ def smoke(dev, card: str, args) -> int:
              for k, (st, ch, must, mn, g) in paths.items()}
     compacted_paths = {"q3 compacted", "q5 compacted", "q7 compacted", "q3 cap"}
     sort_paths = {"q1 sort", "q4 sort", "q5 sort"}
+    k6_pre_paths = {"q1 sort", "q5 sort"}  # whose plans have an expression input
     ts_paths = ["asof", "asof sort", "asof forward", "tumbling", "hopping", "session",
                 "sliding", "shift"]
     # each path's knobs: the strategy rows it forces, the skew join's trigger
@@ -3576,7 +3590,8 @@ def smoke(dev, card: str, args) -> int:
         return real_general(*a, **kw)
 
     real_put, real_dims = engine_mod.BatchCache.put, fuse.FusedPartialAgg._small_dims
-    delivered, onehot_batches = {}, []
+    real_onehot = fuse.FusedPartialAgg._onehot
+    delivered, onehot_batches, k5_in_onehot = {}, [], []
 
     def counted_put(self, name, batch):
         # rows each (edge, target channel) received: the skew join's spread
@@ -3592,6 +3607,14 @@ def smoke(dev, card: str, args) -> int:
             onehot_batches.append((batch.padded_len, None if dims is None
                                    else int(np.prod(dims)) + 1))
         return dims
+
+    def counted_onehot(self, batch, dims):
+        # the K5 launches each one-hot batch made: none
+        k5 = fuse.PRE_AGG_LAUNCHES
+        try:
+            return real_onehot(self, batch, dims)
+        finally:
+            k5_in_onehot.append(fuse.PRE_AGG_LAUNCHES - k5)
 
     real_h2d, real_encode, real_stage = bridge.host_to_device, pack._encode, pack.stage
     landing = {}  # path -> landed batches, host encode / stage seconds, wire / logical bytes
@@ -3645,6 +3668,7 @@ def smoke(dev, card: str, args) -> int:
         general_calls.clear()
         delivered.clear()
         onehot_batches.clear()
+        k5_in_onehot.clear()
         join.hash_join_general = counted_general
         bridge.host_to_device, pack._encode, pack.stage = counted_h2d, timed_encode, timed_stage
         charged0 = charged()
@@ -3652,6 +3676,7 @@ def smoke(dev, card: str, args) -> int:
             engine_mod.BatchCache.put = counted_put
         if path in sort_paths:
             fuse.FusedPartialAgg._small_dims = recorded_dims
+            fuse.FusedPartialAgg._onehot = counted_onehot
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3663,6 +3688,7 @@ def smoke(dev, card: str, args) -> int:
             join.hash_join_general = real_general
             engine_mod.BatchCache.put = real_put
             fuse.FusedPartialAgg._small_dims = real_dims
+            fuse.FusedPartialAgg._onehot = real_onehot
             bridge.host_to_device, pack._encode, pack.stage = real_h2d, real_encode, real_stage
         syncs = kernels.SHUFFLE_HOST_SYNCS
         launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
@@ -3706,6 +3732,16 @@ def smoke(dev, card: str, args) -> int:
         if launches["K2 pre"] != want_pre:
             fail(f"{path}: {launches['K2 pre']} K2 pre-pass launches for {launches['K2']} K2 "
                  f"calls, expected {want_pre}")
+        # K6's pre-pass runs once a K6 call whose plan has expression inputs
+        # (Q1's, Q5's), never on Q4's count(*); no one-hot batch runs K5
+        if path in sort_paths:
+            want_pre = launches["K6"] if path in k6_pre_paths else 0
+            if launches["K6 pre"] != want_pre:
+                fail(f"{path}: {launches['K6 pre']} K6 pre-pass launches for {launches['K6']} "
+                     f"K6 calls, expected {want_pre}")
+            if len(k5_in_onehot) != launches["K6"] or any(k5_in_onehot):
+                fail(f"{path}: {len(k5_in_onehot)} one-hot batches for {launches['K6']} K6 "
+                     f"calls, K5 launches inside them {k5_in_onehot}")
         stray = [k for k in must_not if launches[k] != 0]
         if stray:
             fail(f"kernels launched on the {path} run that its strategy excludes: {stray}")
@@ -3744,8 +3780,10 @@ def smoke(dev, card: str, args) -> int:
             for padded, buckets in onehot_batches:
                 what = f"K6 ({buckets} buckets)" if buckets else "general (row 10)"
                 taken[f"{padded} rows: {what}"] = taken.get(f"{padded} rows: {what}", 0) + 1
-            slice6[path] = {"partial_agg_batches": taken}
-            print(f"{path}: partial aggregates by batch {taken}")
+            slice6[path] = {"partial_agg_batches": taken,
+                            "k5_in_one_hot_batches": k5_in_onehot[:]}
+            print(f"{path}: partial aggregates by batch {taken}; K5 launches inside the one-hot "
+                  f"batches {sum(k5_in_onehot)}")
         if path == "q21":
             adt = dict(ctx.latest_graph.store.titems("ADT"))
             slice6[path] = {"adt": {str(k): v for k, v in adt.items()}}
@@ -4091,14 +4129,17 @@ def smoke(dev, card: str, args) -> int:
     report["slice5_calls"] = {p: c.calls for p, c in s5.items()}
 
     # the calls the slice-6 paths make: K17's largest plan on Q3 compacted,
-    # K26's largest split on the skew join, K6's largest call on Q1 sort
+    # K26's largest split on the skew join, K6's largest call on Q1, Q4 and
+    # Q5 sort, with the whole one-hot aggregate of the same batch
     s6 = {}
+    k6_targets = {"K6": (fuse, "onehot_agg", lambda c, t, nf, co, st, g, v: v.shape[0]),
+                  "one-hot": (fuse.FusedPartialAgg, "_onehot", lambda a, b, d: b.padded_len)}
     for path, tg in (
             ("q3 compacted", {"K17": (kernels, "partition_plan", lambda p, v, n: v.shape[0])}),
             ("skewjoin", {"K26": (kernels, "adapt_split",
                                   lambda l, p, v, n, f, m, masks=True:
                                   (l[0] if l else p).shape[0])}),
-            ("q1 sort", {"K6": (fuse, "onehot_agg", lambda fc, ic, co, st, g, v: v.shape[0])})):
+            ("q1 sort", k6_targets), ("q4 sort", k6_targets), ("q5 sort", k6_targets)):
         set_strategy(path)
         with Capture(tg) as cap:
             collect_numpy(paths[path][0](), path)
@@ -5254,46 +5295,113 @@ def smoke(dev, card: str, args) -> int:
                                    ("qk_adapt_kernel",)),
             "bound_ms": bound_ms(k26_bytes(q3_l4, q3_v4, q3_n4))}))
 
-    # K6 at Q1 sort's largest call (the Q1 batch after K1 and K5)
-    (k6_a, _) = s6["q1 sort"].args["K6"]
-    k6_fc, k6_ic, k6_co, k6_st, k6_g, k6_v = k6_a
-    got6, want6 = fuse.onehot_agg_cuda(*k6_a), fuse.onehot_agg_plain(*k6_a)
-    if not (torch.equal(got6[1], want6[1]) and torch.equal(got6[2], want6[2])
-            and torch.equal(got6[3], want6[3])):
-        fail("K6 counts / integer sums / smallest rows differ from the plain version")
-    if not (torch.equal(torch.isnan(got6[0]), torch.isnan(want6[0]))
-            and torch.allclose(got6[0], want6[0], rtol=1e-9, atol=0, equal_nan=True)):
-        fail("K6 float sums beyond rtol 1e-9 of the plain version")
-    fin6 = ~torch.isnan(want6[0])
-    err6 = float((got6[0] - want6[0])[fin6].abs().max()) if bool(fin6.any()) else 0.0
-    # the yardstick: one float64 torch.mm(onehot.T, stacked) over the
-    # [n, G + 1] one-hot and the masked columns with validity last, built
-    # outside the timing (the reference's matmul); the port never calls it
-    gid6 = fuse._bucket_ids(k6_co, k6_st, k6_v, k6_g)
-    onehot6 = (gid6[:, None] == torch.arange(k6_g + 1, device=dev)[None, :]).to(torch.float64)
-    stacked6 = torch.stack([torch.where(k6_v, c, torch.zeros((), dtype=c.dtype, device=dev))
-                            for c in k6_fc] + [k6_v.to(torch.float64)], 1)
-    lib6 = torch.mm(onehot6.T, stacked6)[:k6_g]
-    if not (torch.allclose(lib6[:, :-1].T, want6[0], rtol=1e-9, atol=0, equal_nan=True)
-            and torch.equal(lib6[:, -1].to(torch.int32), want6[2])):
-        fail("K6's yardstick torch.mm(onehot.T, stacked) is not the plain version's function")
-    n6 = k6_v.shape[0]
-    print(f"K6 Q1 sort: {n6} rows, {k6_g + 1} buckets, {len(k6_fc)} float and {len(k6_ic)} "
-          f"integer columns: match the plain version (max abs err {err6})")
+    # K6 at Q1, Q4 and Q5 sort's largest calls (Q5's only when a batch fits
+    # the one-hot gate), the same bits in a second launch; beside it one
+    # float64 torch.mm(onehot.T, stacked) over the [n, G + 1] one-hot and
+    # the masked addends with validity last, built outside the timing (the
+    # reference's matmul; the port never calls it), and the whole one-hot
+    # aggregate of the same batch (K6's pre-pass and K6)
+    def k6_shape(path):
+        (a, _) = s6[path].args["K6"]
+        cols6, tags6, nf6, co6, st6, g6, v6 = a
+        got6, want6 = fuse.onehot_agg_cuda(*a), fuse.onehot_agg_plain(*a)
+        again6 = fuse.onehot_agg_cuda(*a)
+        torch.cuda.synchronize()
+        if not (torch.equal(got6[1], want6[1]) and torch.equal(got6[2], want6[2])
+                and torch.equal(got6[3], want6[3])):
+            fail(f"K6 {path}: counts / integer sums / smallest rows differ from the plain "
+                 "version")
+        if not (torch.equal(torch.isnan(got6[0]), torch.isnan(want6[0]))
+                and torch.allclose(got6[0], want6[0], rtol=1e-9, atol=0, equal_nan=True)):
+            fail(f"K6 {path}: float sums beyond rtol 1e-9 of the plain version")
+        if not all(torch.equal(x.view(torch.int64) if x.is_floating_point() else x,
+                               y.view(torch.int64) if y.is_floating_point() else y)
+                   for x, y in zip(got6, again6)):
+            fail(f"K6 {path}: two launches gave other bits")
+        fin6 = ~torch.isnan(want6[0])
+        err6 = float((got6[0] - want6[0])[fin6].abs().max()) if bool(fin6.any()) else 0.0
+        gid6 = fuse._bucket_ids(co6, st6, v6, g6)
+        onehot6 = (gid6[:, None] == torch.arange(g6 + 1, device=dev)[None, :]).to(torch.float64)
+        zero6 = torch.zeros((), dtype=torch.float64, device=dev)
+        stacked6 = torch.stack([torch.where(v6, fuse._tagged_addends(c, t).to(torch.float64),
+                                            zero6) for c, t in zip(cols6, tags6)]
+                               + [v6.to(torch.float64)], 1)
+        lib6 = torch.mm(onehot6.T, stacked6)[:g6]
+        if not (torch.allclose(lib6[:, :nf6].T, want6[0], rtol=1e-9, atol=0, equal_nan=True)
+                and torch.equal(lib6[:, -1].to(torch.int32), want6[2])):
+            fail(f"K6 {path}: its yardstick torch.mm(onehot.T, stacked) is not the plain "
+                 "version's function")
+        srcs6 = {(c.data_ptr(), c.dtype): c for c in cols6}.values()
+        n6 = v6.shape[0]
+        ops6 = 2.0 * n6 * (g6 + 1) * (len(cols6) + 1)  # the reference's product
+        bytes_ms = bound_ms(nbytes(*srcs6, *co6, v6) + g6 * (8 * len(cols6) + 12))
+        agg6, batch6, dims6 = s6[path].args["one-hot"][0]
+        print(f"K6 {path}: {n6} rows, {g6 + 1} buckets, {len(cols6)} entries ({nf6} float) over "
+              f"{len(srcs6)} columns: matches the plain version (max abs err {err6}), the same "
+              "bits in two launches")
+        row = dict(
+            launches=launches_by_path[path]["K6"], max_abs_err=err6,
+            ms=cuda_ms(lambda: fuse.onehot_agg_cuda(*a)),
+            plain_ms=cuda_ms(lambda: fuse.onehot_agg_plain(*a)),
+            bound_ms=max(bytes_ms, ops6 / FP64_TC_FLOP_PER_S * 1e3),
+            bound_by="bytes" if bytes_ms >= ops6 / FP64_TC_FLOP_PER_S * 1e3 else "operations",
+            library_ms=cuda_ms(lambda: torch.mm(onehot6.T, stacked6)),
+            library_device_us=device_us(lambda: torch.mm(onehot6.T, stacked6)),
+            device_us=device_us(lambda: fuse.onehot_agg_cuda(*a),
+                                ("qk_onehot_mma", "qk_onehot_reduce"),
+                                expect=("qk_onehot_mma", "qk_onehot_reduce")),
+            whole_ms=cuda_ms(lambda: agg6._onehot(batch6, dims6)),
+            whole_device_us=device_us(lambda: agg6._onehot(batch6, dims6)),
+            shape=f"{path}: {n6} rows, {g6 + 1} buckets, {len(cols6)} entries ({nf6} float) "
+                  f"over {len(srcs6)} columns, tags {list(tags6)}")
+        del onehot6, stacked6
+        return row
+
+    k6 = {}
+    for path in ("q1 sort", "q4 sort", "q5 sort"):
+        if "K6" in s6[path].args:
+            k6[path] = k6_shape(path)
+        else:
+            print(f"K6 {path}: skipped, every batch took the general path past the one-hot gate")
     out.append(dict(
         name="K6 one-hot small-key partial aggregate", route="cuda",
         source="quokka_tpu_torch/csrc/onehot.cu", replaces="quokka_tpu/ops/fuse.py:367",
-        launches=launches_by_path["q1 sort"]["K6"], max_abs_err=err6,
-        ms=cuda_ms(lambda: fuse.onehot_agg_cuda(*k6_a)),
-        plain_ms=cuda_ms(lambda: fuse.onehot_agg_plain(*k6_a)),
-        bound_ms=bound_ms(nbytes(*k6_fc, *k6_ic, *k6_co, k6_v)
-                          + k6_g * (8 * (len(k6_fc) + len(k6_ic)) + 12)),
-        bound_by="bytes", library_ms=cuda_ms(lambda: torch.mm(onehot6.T, stacked6)),
-        shape=f"q1 sort: {n6} rows, {k6_g + 1} buckets, {len(k6_fc)} float + {len(k6_ic)} "
-              "integer columns",
-        device_us=device_us(lambda: fuse.onehot_agg_cuda(*k6_a), ("qk_bucket_",)),
-        per_query={p: launches_by_path[p]["K6"] for p in sorted(sort_paths)}))
-    del onehot6, stacked6
+        library="one float64 torch.mm(onehot.T, stacked)", **k6["q1 sort"],
+        per_query={p: launches_by_path[p]["K6"] for p in sorted(sort_paths)},
+        **{p.split()[0]: k6.get(p, "skipped: past the one-hot gate")
+           for p in ("q4 sort", "q5 sort")}))
+
+    # K6's pre-pass alone at Q1 sort's largest call, against K5's plain
+    # evaluator
+    agg6, batch6, dims6 = s6["q1 sort"].args["one-hot"][0]
+    pre_exprs6, inputs6 = agg6._pre_inputs(batch6)
+    kern6 = fuse._OnehotPlan(pre_exprs6, agg6.plan.partials, inputs6, batch6.valid).kern
+    pre_in6 = [inputs6[k] for k in kern6.pre_inputs]
+
+    def k6_pre():
+        return fuse._pre_launch(kern6.pre, pre_in6, batch6.valid, kern6.pre_dtypes)
+
+    got_pre6 = k6_pre()
+    want_pre6 = fuse.pre_exprs_plain(pre_exprs6, kern6.pre_outs, inputs6, batch6.valid)
+    err_pre6 = 0.0
+    for a, b in zip(got_pre6, want_pre6):
+        b = b.to(a.dtype)
+        if not torch.allclose(a, b, rtol=1e-12, atol=0, equal_nan=True):
+            fail("K6's pre-pass differs from the plain evaluator beyond rtol 1e-12")
+        fin = ~torch.isnan(b) if b.is_floating_point() else torch.ones_like(b, dtype=torch.bool)
+        err_pre6 = max(err_pre6, float((a - b)[fin].abs().max()) if bool(fin.any()) else 0.0)
+    out.append(dict(
+        name="K6 pre-pass (expression inputs)", route="triton",
+        source="quokka_tpu_torch/ops/fuse.py", replaces="quokka_tpu/ops/fuse.py:367",
+        launches=launches_by_path["q1 sort"]["K6 pre"], max_abs_err=err_pre6,
+        ms=cuda_ms(k6_pre),
+        plain_ms=cuda_ms(lambda: fuse.pre_exprs_plain(pre_exprs6, kern6.pre_outs, inputs6,
+                                                      batch6.valid)),
+        bound_ms=bound_ms(nbytes(*pre_in6, batch6.valid) + sum(nbytes(x) for x in got_pre6)),
+        bound_by="bytes", library_ms=None,
+        shape=f"q1 sort: {batch6.padded_len} rows, outputs {kern6.pre_outs}",
+        device_us=device_us(k6_pre, ("qk_onehot_pre",), expect=("qk_onehot_pre",)),
+        per_query={p: launches_by_path[p]["K6 pre"] for p in sorted(sort_paths)}))
 
     # K23 at Q1's and Q3's largest landed batches, then the layouts beyond
     # them: NaN / -0.0 dictionaries, uint16 codes, a plan that widens then
@@ -5403,21 +5511,27 @@ def smoke(dev, card: str, args) -> int:
               f"({kk['shape']}); plain {kk['plain_ms']:.4f} ms")
         if "concat_ms" in kk:
             print(f"  the whole concat_batches call: {kk['concat_ms']:.4f} ms")
+        if "whole_ms" in kk:
+            print(f"  the whole one-hot aggregate (pre-pass and K6): {kk['whole_ms']:.4f} ms, "
+                  f"{kk['whole_device_us']:.1f} device us per call")
         if kk.get("library_device_us") is not None:
             print(f"  library: {kk['library_ms']:.4f} ms, {kk['library_device_us']:.1f} "
                   "device us per call")
         if "split_device_us" in kk:
             print(f"  device us by part: {kk['split_device_us']}; a stable torch.sort of the "
                   f"packed key (a yardstick, not the same function) {kk['library_ms']:.4f} ms")
-        for sub in ("q3", "q4", "q7", "q13", "q21", "tumbling", "hopping", "build", "skew",
-                    "big"):
-            if sub in kk:
+        for sub in ("q3", "q4", "q5", "q7", "q13", "q21", "tumbling", "hopping", "build",
+                    "skew", "big"):
+            if isinstance(kk.get(sub), dict):
                 v = kk[sub]
                 print(f"  {sub}: {v['launches']} launches, {v['ms']:.4f} ms, "
                       f"{v['device_us']:.1f} device us, bound {v['bound_ms']:.5f} ms "
                       f"({v['shape']}); plain {v['plain_ms']:.4f} ms"
                       + (f"; device us by part {v['split_device_us']}"
-                         if "split_device_us" in v else ""))
+                         if "split_device_us" in v else "")
+                      + (f"; library {v['library_ms']:.4f} ms, {v['library_device_us']:.1f} "
+                         f"device us; whole {v['whole_ms']:.4f} ms, "
+                         f"{v['whole_device_us']:.1f} device us" if "whole_ms" in v else ""))
     report["kernels"] = out
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -16,16 +16,16 @@ replacing the reference's ``_build_small_scatter`` program (the GPU row of
 its strategy matrix): per-bucket sums of every partial, counts and the
 least valid row of each bucket, the bucket being the mixed radix
 ``sum((code + 1) * stride)`` of the dictionary codes, invalid rows sent to
-a dump bucket.  It runs the bucket core of ``csrc/onehot.cu``, which K6
-shares: a partial whose input is a numeric column (float64, float32, int64
-or int32; ``x``, or the null-skipping ``__nn0(x)`` of sum and
-``__nncount(x)`` of count and avg) is read in place, typed, with no cast
-or copy; only expression inputs (Q1's ``l_extendedprice * (1 - l_discount) *
-(1 + l_tax)``, ...) come from one generated Triton pre-pass, K5's
-generator restricted to those outputs and counted apart from K5
-(``SMALL_PRE_LAUNCHES``).  A plan of plain columns and ``count(*)``, as
-the tick paths' ``sum(notional), count(*)``, is one CUDA call and no
-Triton launch.  Bound: bytes, 41 B/row for Q1's fused function (4 float64
+a dump bucket.  It runs the bucket core of ``csrc/onehot.cu``: a partial
+whose input is a numeric column (float64, float32, int64 or int32; ``x``,
+or the null-skipping ``__nn0(x)`` of sum and ``__nncount(x)`` of count
+and avg) is read in place, typed, with no cast or copy; only expression
+inputs (Q1's ``l_extendedprice * (1 - l_discount) * (1 + l_tax)``, ...)
+come from one generated Triton pre-pass, K5's generator restricted to
+those outputs and counted apart from K5 (``SMALL_PRE_LAUNCHES``).  K6
+takes the same plan (``_SmallAggKernel``).  A plan of plain columns and
+``count(*)``, as the tick paths' ``sum(notional), count(*)``, is one CUDA
+call and no Triton launch.  Bound: bytes, 41 B/row for Q1's fused function (4 float64
 + 2 int32 codes + validity); the pre-pass writes its outputs and the core
 reads them back, about 90 B/row in all.  The Triton kernel this replaced
 compared every row with every bucket (a [block, buckets] float64 tile per
@@ -49,11 +49,17 @@ memory or tensor cores to exploit.
 
 Kernel K6, the one-hot small-key partial aggregate: under
 ``groupby=sort`` the small-key path is the reference's matmul strategy
-(``_build_small``, ``use_tables=False``) instead of K2.  K5 evaluates the
-pre-expressions; K6 then reduces the float64 and int64 columns by bucket
-on the same bucket core as K2 (``csrc/onehot.cu``): float64 sums, exact
-integer sums, int32 counts and the smallest row of each bucket.  It takes
-a batch only where the reference's gate admits the one-hot: at most 256
+(``_build_small``, ``use_tables=False``) instead of K2.  It takes K2's
+plan and tags: plain columns are read in place (one tensor read under two
+tags is one source), and only expression inputs come from a generated
+pre-pass of its own, ``qk_onehot_pre`` ("K6 pre",
+``ONEHOT_PRE_LAUNCHES``); K5 does not run.  ``csrc/onehot.cu``'s
+``qk_onehot_mma_kernel`` then multiplies the one-hot of the bucket ids
+by the stacked columns on the FP64 tensor cores: float64 sums, exact
+integer sums (22-bit limbs), int32 counts and the smallest row of each
+bucket, the same bits every run (see its note).  Bound: bytes, 49 B/row
+at Q1 (five float64 columns, two int32 codes, validity).  It takes a
+batch only where the reference's gate admits the one-hot: at most 256
 buckets and ``padded_len * buckets * 8`` bytes at most 512 MiB; other
 batches take the general path, whose group-by is then the sort group-by
 (row 10).
@@ -109,6 +115,7 @@ SMALL_AGG_LAUNCHES = 0
 SMALL_PRE_LAUNCHES = 0
 PRE_AGG_LAUNCHES = 0
 ONEHOT_LAUNCHES = 0
+ONEHOT_PRE_LAUNCHES = 0
 FALLBACKS = 0
 
 
@@ -434,14 +441,15 @@ def _plain_column(e: Expr, inputs: Dict[str, torch.Tensor]) -> Optional[Tuple[st
 
 
 class _SmallAggKernel:
-    """How one small-key plan signature feeds K2's bucket core: each partial
-    a plain column read in place, an output of the generated pre-pass (K5's
-    generator over the expression inputs only; ``pre`` is None when there
-    are none) or the count.  ``cols`` lists the core's columns, float ones
-    first: (("col", name) or ("pre", output index), tag)."""
+    """How one small-key plan signature feeds K2's bucket core (and K6): each
+    partial a plain column read in place, an output of the generated
+    pre-pass (K5's generator over the expression inputs only, named
+    ``pre_name``; ``pre`` is None when there are none) or the count.
+    ``cols`` lists the core's columns, float ones first: (("col", name) or
+    ("pre", output index), tag)."""
 
     def __init__(self, pre_exprs: Dict[str, Expr], partials, inputs: Dict[str, torch.Tensor],
-                 valid: torch.Tensor):
+                 valid: torch.Tensor, pre_name: str = "qk_small_pre"):
         fcols: List[Tuple[Tuple, int]] = []
         icols: List[Tuple[Tuple, int]] = []
         self.pre_outs: List[str] = []  # the pre-pass outputs, by partial input name
@@ -479,7 +487,7 @@ class _SmallAggKernel:
         self.pre_inputs = [n for n in inputs if n in needed]
         self.pre = _PreAggKernel(pre_exprs, self.pre_outs,
                                  [(n, inputs[n].dtype) for n in self.pre_inputs],
-                                 "qk_small_pre") if self.pre_outs else None
+                                 pre_name) if self.pre_outs else None
 
 
 def small_agg_plain(pre_exprs, partials, columns: Dict[str, torch.Tensor],
@@ -747,6 +755,13 @@ class PreAggCall:
 
 # the reference's one-hot gate: the n x buckets operand in float64
 _SMALL_GROUPBY_MAX_BYTES = 512 << 20
+# K6's limits (csrc/onehot.cu): distinct columns read, and rows (a row
+# index is an int32 there)
+_ONEHOT_MAX_SOURCES = 32
+_ONEHOT_MAX_ROWS = (1 << 31) - 1 - 512
+# the blocks an SM the scratch is sized for (csrc/onehot.cu's
+# QK_OH_BLOCKS_PER_SM; the kernel launches no more than the scratch holds)
+_ONEHOT_BLOCKS_PER_SM = 2
 
 
 def _bucket_ids(codes: List[torch.Tensor], strides: Tuple[int, ...], valid: torch.Tensor,
@@ -757,12 +772,28 @@ def _bucket_ids(codes: List[torch.Tensor], strides: Tuple[int, ...], valid: torc
     return torch.where(valid, gid, torch.full_like(gid, n_groups))
 
 
-def onehot_agg_plain(fcols: List[torch.Tensor], icols: List[torch.Tensor],
+def _tagged_addends(c: torch.Tensor, tag: int) -> torch.Tensor:
+    """What a tagged column adds per row, as the kernels read it: float64
+    for a float sum, int64 else; a null (NaN, or the int sentinel) adds 0
+    under ``__nn0``, and under ``__nncount`` each value adds 1 unless null."""
+    null = torch.isnan(c) if c.is_floating_point() else c == torch.iinfo(c.dtype).min
+    if tag & _AGG_WRAP["__nncount"]:
+        return (~null).to(torch.int64)
+    x = c.to(torch.float64) if _float_tag(tag) else c.to(torch.int64)
+    if tag & _AGG_WRAP["__nn0"]:
+        x = torch.where(null, torch.zeros((), dtype=x.dtype, device=x.device), x)
+    return x
+
+
+def onehot_agg_plain(cols: List[torch.Tensor], tags: List[int], nf: int,
                      codes: List[torch.Tensor], strides: Tuple[int, ...], n_groups: int,
                      valid: torch.Tensor):
-    """Plain version of K6: (float64 sums [nf, G], int64 sums [ni, G], counts
-    [G] int32, smallest row [G] int64, n where empty).  Invalid rows go to a
-    dump bucket that no output reads."""
+    """Plain version of K6 over tagged columns (K2's tags, ``_AGG_TAG`` |
+    ``_AGG_WRAP``: the first ``nf`` sum into float64, the rest exactly into
+    int64): (float64 sums [nf, G], int64 sums [ni, G], counts [G] int32,
+    smallest row [G] int64, n where empty), each a per-bucket ``index_add_``
+    or ``scatter_reduce``.  Invalid rows go to a dump bucket that no output
+    reads; a NaN or an infinity in a valid row stays in its bucket."""
     n = valid.shape[0]
     dev = valid.device
     gid = _bucket_ids(codes, strides, valid, n_groups)
@@ -771,54 +802,175 @@ def onehot_agg_plain(fcols: List[torch.Tensor], icols: List[torch.Tensor],
         0, gid, iota, reduce="amin")[:n_groups]
 
     def sums(x):
+        x = torch.where(valid, x, torch.zeros((), dtype=x.dtype, device=dev))
         return torch.zeros(n_groups + 1, dtype=x.dtype, device=dev).index_add_(0, gid, x)[:n_groups]
 
-    zf = torch.zeros((), dtype=torch.float64, device=dev)
-    fs = torch.stack([sums(torch.where(valid, c, zf)) for c in fcols]) if fcols else \
-        torch.zeros((0, n_groups), dtype=torch.float64, device=dev)
-    zi = torch.zeros((), dtype=torch.int64, device=dev)
-    is_ = torch.stack([sums(torch.where(valid, c, zi)) for c in icols]) if icols else \
+    per = [sums(_tagged_addends(c, t)) for c, t in zip(cols, tags)]
+    fs = torch.stack(per[:nf]) if nf else torch.zeros((0, n_groups), dtype=torch.float64,
+                                                       device=dev)
+    is_ = torch.stack(per[nf:]) if len(per) > nf else \
         torch.zeros((0, n_groups), dtype=torch.int64, device=dev)
     counts = sums(valid.to(torch.int64)).to(torch.int32)
     return fs, is_, counts, rep
 
 
-def onehot_agg_cuda(fcols: List[torch.Tensor], icols: List[torch.Tensor],
+def _onehot_lib():
+    lib = native.library("onehot")
+    if not getattr(lib, "qk_onehot_bound", False):
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        pi = ctypes.POINTER(I)
+        lib.qk_onehot_agg.argtypes = [ctypes.POINTER(P), pi, I, pi, pi, I, I, ctypes.POINTER(P),
+                                      pi, I, P, L, I, P, L, I, P, P, P, P, P]
+        lib.qk_onehot_agg.restype = I
+        lib.qk_onehot_bound = True
+    return lib
+
+
+_ONEHOT_SIGS: Dict[Tuple, Tuple] = {}  # call signature -> its ctypes arrays and sizes
+
+
+def _tma_ptr(t: torch.Tensor, keep: List[torch.Tensor]) -> int:
+    """The address K6 reads t at: t's own when it is contiguous and 16-byte
+    aligned (a TMA copy's source), else a contiguous copy's, held in
+    ``keep`` until the launch has been issued."""
+    p = t.data_ptr()
+    if p & 15 or not t.is_contiguous():
+        t = t.clone(memory_format=torch.contiguous_format)
+        keep.append(t)
+        p = t.data_ptr()
+    return p
+
+
+def onehot_agg_cuda(cols: List[torch.Tensor], tags: List[int], nf: int,
                     codes: List[torch.Tensor], strides: Tuple[int, ...], n_groups: int,
                     valid: torch.Tensor):
-    """Launch K6 (the bucket core, two kernels) on CUDA tensors; the plain
-    version's outputs."""
+    """Launch K6 (the one-hot product, then its reduce) on CUDA tensors; the
+    plain version's outputs.  A tensor read under two tags is one source.
+    Every converted or contiguous copy is held in ``keep`` until the launch
+    has been issued; outputs and scratch are one allocation, and what does
+    not change between calls of one signature is made once."""
     global ONEHOT_LAUNCHES
     dev = valid.device
     n = valid.shape[0]
     if dev.type != "cuda":
         raise RuntimeError(f"onehot_agg: unsupported device {dev}")
-    for c, dt in [(c, torch.float64) for c in fcols] + [(c, torch.int64) for c in icols] + \
-            [(c, torch.int32) for c in codes]:
-        if c.dtype != dt or c.shape != (n,) or c.device != dev:
-            raise TypeError(f"onehot_agg: column {c.dtype} {tuple(c.shape)} on {c.device}, "
-                            f"expected {dt} [{n}] on {dev}")
-    if n < 1:
-        raise ValueError(f"onehot_agg: {n_groups} groups over {n} rows")
-    tags = [_AGG_TAG[torch.float64]] * len(fcols) + [_AGG_TAG[torch.int64]] * len(icols)
-    out = _bucket_agg(fcols + icols, tags, len(fcols), codes, strides, n_groups, valid,
-                      torch.int32, "qk_onehot_agg")
+    if valid.dtype not in (torch.bool, torch.uint8) or valid.dim() != 1:
+        raise TypeError(f"onehot_agg: mask {valid.dtype} {tuple(valid.shape)}, expected a "
+                        f"bool or uint8 vector")
+    if len(cols) != len(tags) or not 0 <= nf <= len(cols):
+        raise ValueError(f"onehot_agg: {len(cols)} columns, {len(tags)} tags, {nf} float")
+    if not 1 <= n <= _ONEHOT_MAX_ROWS or len(cols) > _BUCKET_MAX_COLUMNS \
+            or not 1 <= len(codes) <= _BUCKET_MAX_KEYS \
+            or not 1 <= n_groups < _SMALL_GROUPBY_MAX_BUCKETS:
+        raise ValueError(f"onehot_agg: {n} rows, {len(cols)} columns, {len(codes)} keys, "
+                         f"{n_groups} groups: K6 takes 1 to {_ONEHOT_MAX_ROWS} rows, at most "
+                         f"{_BUCKET_MAX_COLUMNS} columns, 1 to {_BUCKET_MAX_KEYS} keys and 1 "
+                         f"to {_SMALL_GROUPBY_MAX_BUCKETS - 1} groups")
+    keep: List[torch.Tensor] = []
+    where: Dict[Tuple[int, torch.dtype], int] = {}  # (address, type) -> source
+    seen: Dict[int, int] = {}  # id of a column passed again -> its source
+    ent_src = []
+    for c, t in zip(cols, tags):
+        if c.shape != (n,) or c.device != dev or _AGG_TAG.get(c.dtype) != t & 3:
+            raise TypeError(f"onehot_agg: column {c.dtype} {tuple(c.shape)} on {c.device} "
+                            f"under tag {t}, expected [{n}] on {dev}")
+        s = seen.get(id(c))
+        if s is None:
+            s = seen[id(c)] = where.setdefault((_tma_ptr(c, keep), c.dtype), len(where))
+        ent_src.append(s)
+    if len(where) > _ONEHOT_MAX_SOURCES:
+        raise ValueError(f"onehot_agg: {len(where)} distinct columns; K6 reads at most "
+                         f"{_ONEHOT_MAX_SOURCES}")
+    code_ptrs = []
+    for c in codes:
+        if c.shape != (n,) or c.device != dev:
+            raise TypeError(f"onehot_agg: codes {tuple(c.shape)} on {c.device}, expected [{n}]")
+        if c.dtype != torch.int32:
+            c = c.to(torch.int32)
+            keep.append(c)
+        code_ptrs.append(_tma_ptr(c, keep))
+    valid_ptr = _tma_ptr(valid, keep)
+    sig = (dev.index, tuple(tags), nf, tuple(ent_src), tuple(dt for _, dt in where),
+           tuple(strides), n_groups)
+    hit = _ONEHOT_SIGS.get(sig)
+    if hit is None:
+        nncount = sum(1 for t in tags[nf:] if t & _AGG_WRAP["__nncount"])
+        ncols = nf + 3 * (len(tags) - nf - nncount) + 1  # floats, limbs, the ones
+        cap = _ONEHOT_BLOCKS_PER_SM * torch.cuda.get_device_properties(dev).multi_processor_count
+        scratch = cap * (ncols + nncount + 1) * n_groups
+        ni = len(cols) - nf
+        hit = _ONEHOT_SIGS[sig] = (
+            native.int_array([_AGG_TAG[dt] for _, dt in where]), native.int_array(ent_src),
+            native.int_array(list(tags)), native.int_array(list(strides)), cap, scratch,
+            (scratch, nf * n_groups, ni * n_groups, n_groups, n_groups))
+    src_types, ent_arr, tag_arr, stride_arr, cap, scratch, sizes = hit
+    buf = torch.empty(sum(sizes), dtype=torch.int64, device=dev)
+    base = buf.data_ptr()
+    fs_at = base + 8 * scratch
+    is_at = fs_at + 8 * sizes[1]
+    rep_at = is_at + 8 * sizes[2]
+    native.check(_onehot_lib().qk_onehot_agg(
+        native.ptr_array([p for p, _ in where]), src_types, len(where), ent_arr, tag_arr, nf,
+        len(cols) - nf, native.ptr_array(code_ptrs), stride_arr, len(codes), valid_ptr, n,
+        n_groups, base, scratch, cap, fs_at, is_at, rep_at + 8 * n_groups, rep_at,
+        native.stream_ptr(dev)), "qk_onehot_agg")
     ONEHOT_LAUNCHES += 1
-    return out
+    _, fs, is_, rep, cnt = buf.split_with_sizes(sizes)
+    return (fs.view(torch.float64).view(nf, n_groups), is_.view(len(cols) - nf, n_groups),
+            cnt.view(torch.int32)[:n_groups], rep)
 
 
-def onehot_agg(fcols: List[torch.Tensor], icols: List[torch.Tensor], codes: List[torch.Tensor],
+def onehot_agg(cols: List[torch.Tensor], tags: List[int], nf: int, codes: List[torch.Tensor],
                strides: Tuple[int, ...], n_groups: int, valid: torch.Tensor):
     """K6: per-bucket float64 sums, exact int64 sums, int32 counts and the
-    smallest row id.  CUDA tensors launch the kernel; CPU tensors take the
-    plain version."""
-    out = n_groups * (8 * (len(fcols) + len(icols)) + 12)
+    smallest row id of tagged columns.  CUDA tensors launch the kernel; CPU
+    tensors take the plain version.  Charged to devprof: each distinct
+    column, the codes and the mask read once, the outputs written."""
+    out = n_groups * (8 * len(cols) + 12)
     devprof.on_dispatch(
-        ("K6", valid.device.type, valid.shape[0], len(fcols), len(icols), len(codes), n_groups),
-        lambda: (0.0, float(devprof.nbytes(*fcols, *icols, *codes, valid) + out), float(out)))
+        ("K6", valid.device.type, valid.shape[0], tuple(tags), nf, len(codes), n_groups),
+        lambda: (0.0, float(devprof.nbytes(*{(c.data_ptr(), c.dtype): c for c in cols}.values(),
+                                           *codes, valid) + out), float(out)))
     if valid.device.type == "cpu":
-        return onehot_agg_plain(fcols, icols, codes, strides, n_groups, valid)
-    return onehot_agg_cuda(fcols, icols, codes, strides, n_groups, valid)
+        return onehot_agg_plain(cols, tags, nf, codes, strides, n_groups, valid)
+    return onehot_agg_cuda(cols, tags, nf, codes, strides, n_groups, valid)
+
+
+class _OnehotPlan:
+    """How one small-key plan signature feeds K6: K2's plan
+    (``_SmallAggKernel``: each partial a plain column read in place, an
+    output of the generated pre-pass ``qk_onehot_pre``, or the count), and
+    the type each integer sum comes back in, its plain evaluation's (an
+    int32 sum wraps as the reference's segment sum does)."""
+
+    def __init__(self, pre_exprs: Dict[str, Expr], partials, inputs: Dict[str, torch.Tensor],
+                 valid: torch.Tensor):
+        self.kern = _SmallAggKernel(pre_exprs, partials, inputs, valid, "qk_onehot_pre")
+        tmps = [tmp for _, op, tmp in partials if op != "count"]
+        dts = iter([t.dtype for t in pre_exprs_plain(
+            pre_exprs, tmps, {n: t[:0] for n, t in inputs.items()}, valid[:0])])
+        self.dtypes = [None if op == "count" else next(dts) for _, op, _ in partials]
+
+
+def onehot_pre(kern: _SmallAggKernel, pre_exprs: Dict[str, Expr],
+               inputs: Dict[str, torch.Tensor], valid: torch.Tensor) -> List[torch.Tensor]:
+    """K6's pre-pass (K5's generator over the expression inputs only): one
+    float64 or int64 column per expression input.  CUDA tensors launch the
+    generated kernel, counted as ``ONEHOT_PRE_LAUNCHES`` and charged to
+    devprof as "K6 pre"; CPU tensors take K5's plain evaluator."""
+    global ONEHOT_PRE_LAUNCHES
+    dev, n = valid.device.type, valid.shape[0]
+    pre_in = [inputs[k] for k in kern.pre_inputs]
+    out = 8 * n * len(kern.pre_outs)
+    devprof.on_dispatch(
+        ("K6 pre", dev, n, tuple(str(t.dtype) for t in pre_in), len(kern.pre_outs)),
+        lambda: (0.0, float(devprof.nbytes(*pre_in, valid) + out), float(out)))
+    if dev == "cpu":
+        return [x.to(dt) for x, dt in zip(pre_exprs_plain(pre_exprs, kern.pre_outs, inputs, valid),
+                                          kern.pre_dtypes)]
+    outs = _pre_launch(kern.pre, pre_in, valid, kern.pre_dtypes)
+    ONEHOT_PRE_LAUNCHES += 1
+    return outs
 
 
 class FusedPartialAgg:
@@ -828,9 +980,9 @@ class FusedPartialAgg:
     sum/count partials and the product of dictionary sizes is small (TPC-H
     Q1: returnflag x linestatus).  Under the default ``groupby=hashtable`` it
     is K2 (the reference's scatter strategy); under ``groupby=sort`` it is
-    K5 then K6 (its one-hot matmul), where the one-hot fits the reference's
-    512 MiB gate.  The output is a 256-row bucket.  Other shapes take the
-    general path: the pre-expressions in one kernel (K5), then the group-by
+    K6 (its one-hot matmul), with K6's pre-pass for expression inputs,
+    where the one-hot fits the reference's 512 MiB gate.  The output is a
+    256-row bucket.  Other shapes take the general path: the pre-expressions in one kernel (K5), then the group-by
     the strategy picks (K3, or row 10's sort group-by), as the reference's
     general fused program does."""
 
@@ -839,6 +991,7 @@ class FusedPartialAgg:
         self.plan = plan
         self._kernels: Dict[Tuple, _SmallAggKernel] = {}
         self._pre_kernels: Dict[Tuple, Tuple[_PreAggKernel, List[torch.dtype]]] = {}
+        self._onehot_plans: Dict[Tuple, _OnehotPlan] = {}
 
     def _small_dims(self, batch: DeviceBatch,
                     use_tables: bool = True) -> Optional[Tuple[int, ...]]:
@@ -933,28 +1086,27 @@ class FusedPartialAgg:
         return self._assemble(batch, outs, rep, num, out_pad)
 
     def _onehot(self, batch: DeviceBatch, dims: Tuple[int, ...]):
-        """The one-hot small-key aggregate (K5's pre-expressions, then K6):
-        per-partial bucket arrays [G] and the smallest row of each bucket."""
-        call = self.prepare_general(batch)
-        pre = call.run()
-        by_tmp = dict(zip(call.outs, pre))
-        fcols, icols, slots = [], [], []
-        for _pname, op, tmp in self.plan.partials:
-            if op == "count":
-                slots.append(("c", 0))
-            elif by_tmp[tmp].is_floating_point():
-                slots.append(("f", len(fcols)))
-                fcols.append(by_tmp[tmp].to(torch.float64))
-            else:
-                # summed exactly in int64, returned in the column's own type
-                # (an int32 sum wraps as the reference's segment sum does)
-                slots.append(("i", len(icols), by_tmp[tmp].dtype))
-                icols.append(by_tmp[tmp].to(torch.int64))
+        """The one-hot small-key aggregate (K6, and its pre-pass when a
+        partial's input is an expression): per-partial bucket arrays [G] and
+        the smallest row of each bucket.  Plain columns are read in place:
+        no K5, no copy."""
+        pre_exprs, inputs = self._pre_inputs(batch)
+        sig = (tuple((k, e.sql()) for k, e in pre_exprs.items()),
+               tuple((n, t.dtype) for n, t in inputs.items()))
+        plan = self._onehot_plans.get(sig)
+        if plan is None:
+            plan = self._onehot_plans[sig] = _OnehotPlan(pre_exprs, self.plan.partials, inputs,
+                                                         batch.valid)
+        kern = plan.kern
+        pre = onehot_pre(kern, pre_exprs, inputs, batch.valid) if kern.pre is not None else []
+        cols = [inputs[src[1]] if src[0] == "col" else pre[src[1]] for src, _ in kern.cols]
         codes = [batch.columns[k].codes for k in self.keys]
-        fs, is_, counts, rep_b = onehot_agg(fcols, icols, codes, self._strides(dims),
-                                            int(np.prod(dims)), batch.valid)
-        sums = [counts if slot[0] == "c" else fs[slot[1]] if slot[0] == "f"
-                else is_[slot[1]].to(slot[2]) for slot in slots]
+        fs, is_, counts, rep_b = onehot_agg(cols, [t for _, t in kern.cols], kern.nf, codes,
+                                            self._strides(dims), int(np.prod(dims)), batch.valid)
+        # integer sums come back in their own type (an int32 sum wraps as
+        # the reference's segment sum does), count(*) in int32
+        sums = [counts if s[0] == "c" else fs[s[1]] if s[0] == "f" else is_[s[1]].to(dt)
+                for s, dt in zip(kern.slots, plan.dtypes)]
         return sums, rep_b
 
     def prepare_general(self, batch: DeviceBatch) -> PreAggCall:

@@ -1203,15 +1203,201 @@ def test_k6_kernel_matches_plain(cuda_device, keys, n):
     dims = [1 << int(np.ceil(np.log2(len(b.columns[k].dictionary.values) + 1))) for k in keys]
     strides = tuple(int(np.prod(dims[i + 1:])) for i in range(len(keys)))
     codes = [b.columns[k].codes for k in keys]
-    fcols = [b.columns["f"].data, b.columns["g"].data, b.columns["f"].data * 3]
-    icols = [b.columns["i"].data, b.columns["d"].data.to(torch.int64)]
-    g_n = int(np.prod(dims))
-    fs, is_, cnt, rep = fuse.onehot_agg_cuda(fcols, icols, codes, strides, g_n, b.valid)
-    pf, pi, pc, pr = fuse.onehot_agg_plain(fcols, icols, codes, strides, g_n, b.valid)
+    cols = [b.columns["f"].data, b.columns["g"].data, b.columns["f"].data * 3,
+            b.columns["i"].data, b.columns["d"].data.to(torch.int64)]
+    tags = [fuse._AGG_TAG[c.dtype] for c in cols]
+    args = (cols, tags, 3, codes, strides, int(np.prod(dims)), b.valid)
+    _k6_agree(fuse.onehot_agg_cuda(*args), fuse.onehot_agg_plain(*args))
+
+
+def _k6_agree(got, want):
+    """K6 against its plain version: counts, integer sums and smallest rows
+    exact; float sums within rtol 1e-9, NaN where the plain version has NaN
+    (and the same infinities)."""
     torch.cuda.synchronize()
+    (fs, is_, cnt, rep), (pf, pi, pc, pr) = got, want
+    for a, c in zip(got, want):
+        assert a.dtype == c.dtype and a.shape == c.shape
     assert torch.equal(cnt, pc) and torch.equal(rep, pr) and torch.equal(is_, pi)
-    assert torch.allclose(fs, pf, rtol=1e-9, atol=1e-9, equal_nan=True)
     assert torch.equal(torch.isnan(fs), torch.isnan(pf))
+    assert torch.allclose(fs, pf, rtol=1e-9, atol=1e-9, equal_nan=True)
+
+
+_F64, _F32, _I64, _I32 = (fuse._AGG_TAG[t] for t in (torch.float64, torch.float32,
+                                                       torch.int64, torch.int32))
+_WRAP = {"": 0, "nn0": fuse._AGG_WRAP["__nn0"], "nncount": fuse._AGG_WRAP["__nncount"]}
+
+
+def _k6_sources(dev, n: int, seed: int, g_n: int, gid: torch.Tensor):
+    """Columns of n rows made from the seed: float64 (a with NaN, b, c),
+    float32 and int32 with their nulls, int64 near zero with its sentinel,
+    int64 near +-2^63 (sums that wrap), and float64 whose valid rows hold
+    NaN in bucket 0, +inf in 1, -inf in 2, both infinities in 3, NaN and
+    +inf in 4, finite values elsewhere."""
+    from quokka_tpu_torch.ops.batch import NULL_I32, NULL_I64
+
+    r = np.random.default_rng(seed)
+    a = r.normal(size=n) * 1e3
+    a[r.random(n) < 0.05] = np.nan
+    x32 = r.normal(size=n).astype(np.float32)
+    x32[r.random(n) < 0.05] = np.nan
+    j32 = r.integers(-2**31 + 1, 2**31, n).astype(np.int32)
+    j32[r.random(n) < 0.05] = NULL_I32
+    i64 = r.integers(-10**12, 10**12, n)
+    i64[r.random(n) < 0.05] = NULL_I64
+    big = np.where(r.random(n) < 0.5, r.integers(2**62, 2**63 - 1, n, dtype=np.int64),
+                   r.integers(-2**63 + 1, -2**62, n, dtype=np.int64))
+    g = gid.cpu().numpy()
+    odd = r.normal(size=n)
+    pick = r.random(n)
+    odd[(g == 0) & (pick < 0.3)] = np.nan
+    odd[(g == 1) & (pick < 0.3)] = np.inf
+    odd[(g == 2) & (pick < 0.3)] = -np.inf
+    odd[(g == 3) & (pick < 0.2)] = np.inf
+    odd[(g == 3) & (pick > 0.8)] = -np.inf
+    odd[(g == 4) & (pick < 0.2)] = np.nan
+    odd[(g == 4) & (pick > 0.8)] = np.inf
+    made = {"a": a, "b": r.uniform(0, 1e5, n).round(2), "c": r.uniform(0, 0.1, n).round(2),
+            "x32": x32, "j32": j32, "i64": i64, "big": big, "odd": odd}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in made.items()}
+
+
+# name: (rows, key dims, entries "source:wrap" (a source named twice is one
+# column feeding two partials))
+K6_CASES = {
+    # Q1 sort: three plain float64 columns, each summed and counted, two
+    # expression outputs, 16 buckets
+    "q1": ((1 << 20), (4, 4), ["a:nn0", "b:nn0", "c:nn0", "a:nncount", "b:nncount",
+                               "c:nncount", "odd:", "b:"]),
+    "q4": ((1 << 20) + (1 << 16), (8,), []),  # count(*) only, 8 buckets
+    "q5": ((1 << 20), (32,), ["b:"]),  # one expression output, 32 buckets
+    "255 buckets": (5000, (15, 17), ["a:nn0", "x32:nn0", "i64:nn0", "j32:", "a:nncount"]),
+    "2^20 + 3 rows": ((1 << 20) + 3, (4, 2), ["a:nn0", "i64:nn0", "a:nncount"]),
+    "float32 and int32 in place": (70_001, (4, 4), ["x32:", "x32:nn0", "j32:", "j32:nn0",
+                                                    "x32:nncount", "j32:nncount"]),
+    "int64 sums wrap": (40_000, (4, 4), ["big:", "big:nn0", "i64:", "i64:nn0"]),
+    "nan and infinities": (50_000, (8,), ["odd:", "odd:nn0", "odd:nncount", "a:"]),
+    "wide": (20_000, (15, 17), ["i64:"] * 10 + ["j32:nn0"] * 10 + ["a:"] * 4),
+}
+
+
+def _k6_case(dev, label: str, strided: bool = False):
+    n, dims, entries = K6_CASES[label]
+    r = np.random.default_rng(len(label))
+    strides = tuple(int(np.prod(dims[i + 1:])) for i in range(len(dims)))
+    g_n = int(np.prod(dims))
+    codes = [torch.from_numpy(r.integers(-1, d - 1, n).astype(np.int32)).to(dev) for d in dims]
+    valid = torch.from_numpy(r.random(n) >= 0.1).to(dev)
+    gid = fuse._bucket_ids(codes, strides, valid, g_n)
+    src = _k6_sources(dev, n, len(label), g_n, gid)
+    tagged = []
+    for e in entries:
+        name, wrap = e.split(":")
+        t = src[name]
+        tagged.append((t, fuse._AGG_TAG[t.dtype] | _WRAP[wrap]))
+    tagged.sort(key=lambda ct: not fuse._float_tag(ct[1]))  # float sums first
+    cols = [c for c, _ in tagged]
+    if strided:  # every other element of a tensor twice as long
+        def spread(t):
+            w = torch.zeros(2 * n, dtype=t.dtype, device=dev)
+            w[::2] = t
+            return w[::2]
+        same = {id(c): spread(c) for c in cols}
+        cols = [same[id(c)] for c in cols]
+        codes = [spread(c) for c in codes]
+        valid = spread(valid)
+    return (cols, [t for _, t in tagged], sum(fuse._float_tag(t) for _, t in tagged), codes,
+            strides, g_n, valid)
+
+
+@pytest.mark.parametrize("label", list(K6_CASES))
+def test_k6_cases_match_plain(cuda_device, label):
+    """K6 at Q1's, Q4's and Q5's shapes, 255 buckets, 2^20 + 3 rows, float32
+    and int32 read in place, __nn0 and __nncount, int64 sums that wrap,
+    NaN and infinities in valid rows (alone and together in one bucket), and
+    many entries (several chunks of columns), against its plain version."""
+    args = _k6_case(cuda_device, label)
+    launches = fuse.ONEHOT_LAUNCHES
+    _k6_agree(fuse.onehot_agg_cuda(*args), fuse.onehot_agg_plain(*args))
+    assert fuse.ONEHOT_LAUNCHES == launches + 1
+
+
+def test_k6_nan_and_infinities_by_bucket(cuda_device):
+    """The plain version's answer where a bucket holds NaN, +inf, -inf,
+    both infinities, or NaN and +inf: NaN, +inf, -inf, NaN, NaN."""
+    cols, tags, nf, codes, strides, g_n, valid = _k6_case(cuda_device, "nan and infinities")
+    fs = fuse.onehot_agg_cuda(cols, tags, nf, codes, strides, g_n, valid)[0]
+    torch.cuda.synchronize()
+    odd = fs[0]  # "odd:" without a wrapper
+    assert torch.isnan(odd[0]) and odd[1] == float("inf") and odd[2] == float("-inf")
+    assert torch.isnan(odd[3]) and torch.isnan(odd[4]) and torch.isfinite(odd[5:]).all()
+
+
+@pytest.mark.parametrize("label", ["q1", "float32 and int32 in place", "nan and infinities"])
+def test_k6_strided_inputs_match_plain(cuda_device, label):
+    """Strided columns, codes and mask (a column feeding two partials stays
+    one tensor): every contiguous copy is held until the launch is issued."""
+    args = _k6_case(cuda_device, label, strided=True)
+    _k6_agree(fuse.onehot_agg_cuda(*args), fuse.onehot_agg_plain(*args))
+
+
+def test_k6_reads_a_column_once_and_unaligned_views(cuda_device):
+    """One column under two tags is one source, and a view that starts off
+    a 16-byte boundary (a copy's source must be aligned) gives the same
+    answer as its aligned copy."""
+    n = 30_001
+    r = np.random.default_rng(3)
+    base = torch.from_numpy(r.normal(size=n + 1)).to(cuda_device)
+    x = base[1:]
+    codes = [torch.from_numpy(r.integers(-1, 3, n).astype(np.int32)).to(cuda_device)]
+    valid = torch.from_numpy(r.random(n) < 0.9).to(cuda_device)
+    args = ([x, x], [_F64 | _WRAP["nn0"], _F64 | _WRAP["nncount"]], 1, codes, (1,), 4, valid)
+    _k6_agree(fuse.onehot_agg_cuda(*args), fuse.onehot_agg_plain(*args))
+    aligned = ([x.clone(), x.clone()],) + args[1:]
+    got, again = fuse.onehot_agg_cuda(*args), fuse.onehot_agg_cuda(*aligned)
+    torch.cuda.synchronize()
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("label", ["q1", "255 buckets", "nan and infinities"])
+def test_k6_same_bits_every_run(cuda_device, label):
+    """Block partials added in block order: three runs, the same bits."""
+    args = _k6_case(cuda_device, label)
+    runs = [fuse.onehot_agg_cuda(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(runs[0], other))
+
+
+def test_k6_path_reads_plain_columns_on_the_card(cuda_device, monkeypatch):
+    """FusedPartialAgg under groupby=sort on a card batch: no K5, K6's
+    pre-pass once for the one expression input, and the per-bucket result
+    of the same batch on the CPU (the plain versions)."""
+    monkeypatch.setenv("QK_KERNEL_STRATEGY", "groupby=sort")
+    b = bridge.host_to_device(host_table(70_001, seed=11), cuda_device)
+    plan = plan_aggregation(sqlparse.parse_select_list(AGGS))
+    agg = fuse.FusedPartialAgg(["s", "t"], plan)
+    k5, pre, k6 = fuse.PRE_AGG_LAUNCHES, fuse.ONEHOT_PRE_LAUNCHES, fuse.ONEHOT_LAUNCHES
+    got = agg(b)
+    assert (fuse.PRE_AGG_LAUNCHES, fuse.ONEHOT_PRE_LAUNCHES, fuse.ONEHOT_LAUNCHES) == \
+        (k5, pre + 1, k6 + 1)
+    cpu = DeviceBatch({k: (StrCol(c.codes.cpu(), c.dictionary) if isinstance(c, StrCol)
+                           else NumCol(c.data.cpu(), c.kind, c.unit))
+                       for k, c in b.columns.items()}, b.valid.cpu())
+    want = fuse.FusedPartialAgg(["s", "t"], plan)(cpu)
+    num = got.count_valid()
+    assert num == want.count_valid()
+    for name, c in want.columns.items():
+        a = got.columns[name]
+        if isinstance(c, StrCol):
+            assert torch.equal(a.codes.cpu()[:num], c.codes[:num])
+            continue
+        x, y = a.data.cpu()[:num], c.data[:num]
+        assert x.dtype == y.dtype, name
+        if x.is_floating_point():
+            assert torch.allclose(x, y, rtol=1e-9, atol=1e-9, equal_nan=True), name
+        else:
+            assert torch.equal(x, y), name
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
