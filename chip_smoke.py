@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (quokka_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--sf 1.0] [--parent DIR]
+    python3 chip_smoke.py [--seed N] [--sf 1.0] [--parent DIR [--walls-paths q1,q3,...]]
 
 Phases, each fatal on failure:
   1. print the card (nvidia-smi name, power.limit) and torch/CUDA versions;
@@ -75,14 +75,32 @@ Phases, each fatal on failure:
      the same query, peak device memory, device busy time, idle share, D2H
      copies, cudaStreamSynchronize calls and the device time of the top
      kernels;
+  4c. the host overlap: Q1 and Q3 through read_parquet over Parquet files
+     of SF1's lineitem, orders and customer (their columns only, 2^20-row
+     row groups, written under build/chip_smoke/ with pyarrow), once cold
+     after the scan cache is emptied and three times warm; each run must
+     match the numpy oracle and launch the kernels of its TableReader twin,
+     the cold run must miss the scan cache on every input batch, land each
+     with one K23 launch and read at most one batch a channel on the task
+     loop, each warm run must hit the cache on every input batch with no
+     K23 launch and no byte staged for the copy in the scan and return the
+     cold run's bits, and no quokka-io or quokka-emit thread may outlive a
+     collect; it prints each run's wall, read + bridge on the IO threads,
+     the loop's prefetch wait and its own reads;
   5. where the time goes: a warm run of each query with the engine's host
-     steps timed, and one under the profiler (device busy, idle share of
+     steps timed (read + bridge on the IO threads, the loop's wait for a
+     prefetched batch and its own reads, the other input-task steps, each
+     executor kind, the emitter's copies to the host), and one under the
+     profiler (device busy, idle share of
      the warm wall, device time per kernel, D2H copies and
      cudaStreamSynchronize calls).  With --parent DIR (another checkout's
-     root, e.g. the parent commit unpacked with git archive), Q1, Q3 and Q5
-     run through that tree and this one in turns (parent, change, change,
-     parent; ``--walls-only`` subprocesses): warm walls, read + bridge,
-     idle share, and the D2H copies and stream syncs, which must equal the
+     root, e.g. the parent commit unpacked with git archive), the paths of
+     --walls-paths (Q1, Q3 and Q5 by default; q1pq and q3pq are Q1 and Q3
+     over the Parquet files, cold, warm and with the scan cache emptied
+     before each run) run through that tree and this one in turns (parent,
+     change, change, parent; ``--walls-only`` subprocesses): walls, the
+     host steps, idle share, and on Q1, Q3 and Q5 the D2H copies and
+     stream syncs, which must equal the
      parent's once the ledger's own batched count reads are taken off.
      Then devprof's calibration (row 25: the reference's 256^3 float32
      matmul and 2^21-element add) beside the data sheet, and EXPLAIN
@@ -107,7 +125,8 @@ Phases, each fatal on failure:
      radix sort under them (csrc/sort.cuh) index for index against its
      plain version at the three plans, on a key of two words and on float
      limbs; each timed whole and by part (range and pack passes, digit
-     passes, rank pass, fill), beside a stable torch.sort of the packed key;
+     passes, rank pass, fill), beside a stable torch.sort of the packed key
+     (and K10 beside torch.unique over the valid rows, the same dense rank);
      K16 at Q7's, also with dates before 1970 and nulls, and at Q22's,
      the string column carried beside it; K18 at the
      asof's, K19 at the sort strategy's, sliding's and shift's, and K19's
@@ -154,7 +173,7 @@ Phases, each fatal on failure:
 
 Details of the run go to chiprun_out/chip_smoke.json.  The script imports
 neither JAX nor quokka_tpu; pyarrow only for the vector tier, whose inputs
-are an Arrow table and a Parquet file.  It exits non-zero without
+are an Arrow table and a Parquet file, and for the overlap phase's files.  It exits non-zero without
 printing a result when no CUDA device is available or when it runs outside
 a checkout that holds quokka_tpu_torch/.
 """
@@ -167,6 +186,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1668,14 +1688,17 @@ def check_quantiles(got, exp):
         fail(f"quantile: t-digest {est} against np.quantile {exp} (relative {rel})")
 
 
-def tpch_stream(name: str, ctx, tables):
+def tpch_stream(name: str, ctx, tables, files=None):
     """TPC-H Q1, Q3, Q4, Q13, Q7, Q21 or Q5 over the made tables through the port's
     API (a reader per source: it holds the source's pushed-down
-    projection).  The walls-only run uses it against another checkout's
-    package too."""
+    projection), or with ``files`` ({table: Parquet path}) over those files
+    through ``read_parquet``.  The walls-only run uses it against another
+    checkout's package too."""
     from quokka_tpu_torch import col, date
 
     def src(t):
+        if files is not None:
+            return ctx.read_parquet(files[t])
         reader = TableReader(tables[t])
         return ctx.read_dataset(reader, schema=reader.schema)
 
@@ -1920,6 +1943,47 @@ def new_tpch_stream(name: str, src, tables):
             .groupby("cntrycode").agg_sql("count(*) as numcust, sum(c_acctbal) as totacctbal"))
 
 
+# the overlap phase's Parquet files: Q1's and Q3's columns of SF1's lineitem,
+# orders and customer, in the TableReader paths' 2^20-row batches
+PARQUET_COLS = {
+    "lineitem": ["l_orderkey", "l_quantity", "l_extendedprice", "l_discount", "l_tax",
+                 "l_returnflag", "l_linestatus", "l_shipdate"],
+    "orders": ["o_orderkey", "o_custkey", "o_orderdate", "o_shippriority"],
+    "customer": ["c_custkey", "c_mktsegment"]}
+PARQUET_PATHS = {"q1pq": "q1", "q3pq": "q3"}  # path -> the TPC-H query it runs
+
+
+def write_tpch_parquet(tables, out_dir: Path, sf: float, seed: int) -> dict:
+    """``PARQUET_COLS`` of the made tables as Parquet files in ``out_dir``
+    (string columns dictionary-encoded, dates date32), written once a scale
+    factor and seed, so that two packages timed in turns read the same
+    files; {table: path}."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    files = {}
+    for name, cols in PARQUET_COLS.items():
+        path = out_dir / f"{name}-sf{sf}-seed{seed}.parquet"
+        if not path.exists():
+            t = tables[name]
+            arrays = {}
+            for c in cols:
+                v = t.cols[c]
+                if c in t.dicts:
+                    arrays[c] = pa.DictionaryArray.from_arrays(
+                        pa.array(v, pa.int32()), pa.array(t.dicts[c].tolist(), pa.string()))
+                elif c in t.dates:
+                    arrays[c] = pa.array(v.astype("datetime64[D]"))
+                else:
+                    arrays[c] = pa.array(v)
+            tmp = path.with_name(f"{path.name}.tmp{os.getpid()}")
+            pq.write_table(pa.table(arrays), tmp, row_group_size=BATCH_ROWS)
+            os.replace(tmp, path)
+        files[name] = str(path)
+    return files
+
+
 def collect_numpy(stream, what: str):
     cols = stream.compute().to_numpy()
     if cols is None:
@@ -2097,9 +2161,13 @@ WALL_TICKS = ("tumbling", "hopping", "session", "sliding", "shift")
 
 def query_walls(dev, streams) -> dict:
     """Each of ``streams`` ({path: stream of a context}) through the package
-    on sys.path: the cold wall, three warm walls, the read + bridge seconds
-    of a timed warm run, and one profiled run's device busy time, idle share of the warm median, D2H
-    copies and cudaStreamSynchronize calls, with the count reads the
+    on sys.path: the cold wall, three warm walls (on a Parquet path, with a
+    package that has the scan cache, three more each after the cache was
+    emptied: ``cache_cold_s``), a timed warm run's host steps
+    (``HostSteps``: read + bridge in all, on the IO threads and on the loop,
+    the loop's prefetch wait, the emitter), and one profiled run's device
+    busy time, idle share of the warm median, D2H copies and
+    cudaStreamSynchronize calls, with the count reads the
     operator-statistics ledger made in it (0 where the package has none)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2111,13 +2179,15 @@ def query_walls(dev, streams) -> dict:
         from quokka_tpu_torch import obs
     except ImportError:  # a checkout from before the ledger
         obs = None
+    try:
+        from quokka_tpu_torch.runtime import scancache
+    except ImportError:  # a checkout from before the scan cache
+        scancache = None
 
     def ledger_reads() -> int:
         return 0 if obs is None else obs.REGISTRY.counter("opstats.count_reads").value
 
     ctx = QuokkaContext(io_channels=2, exec_channels=2, device=dev)
-    Engine = engine_mod.Engine
-    real = Engine._read_and_bridge
     out = {}
     for q, stream in streams.items():
         def run():
@@ -2129,29 +2199,33 @@ def query_walls(dev, streams) -> dict:
 
         cold = run()
         warm = [run() for _ in range(3)]
-        spent = [0.0]
-
-        def read_and_bridge(self, *a):
-            t = time.perf_counter()
-            try:
-                return real(self, *a)
-            finally:
-                spent[0] += time.perf_counter() - t
-
-        Engine._read_and_bridge = read_and_bridge
-        try:
+        cache_cold = []
+        if q in PARQUET_PATHS and scancache is not None:
+            for _ in range(3):
+                scancache.clear()
+                cache_cold.append(run())
+            run()  # warm the cache again for the timed and profiled runs
+        with HostSteps(engine_mod.Engine) as steps:
             timed = run()
-        finally:
-            Engine._read_and_bridge = real
+        st = steps.report(timed)
         reads0 = ledger_reads()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run()
         busy, d2h, syncs = profile_counts(prof)
         med = sorted(warm)[1]
-        out[q] = {"cold_s": cold, "warm_s": warm, "timed_wall_s": timed,
-                  "read_bridge_s": spent[0], "device_busy_s": busy,
+        out[q] = {"cold_s": cold, "warm_s": warm, "cache_cold_s": cache_cold,
+                  "timed_wall_s": timed,
+                  "read_bridge_s": st.get("read+bridge (IO threads)", 0.0)
+                  + st.get("read+bridge (loop)", 0.0),
+                  "io_read_bridge_s": st.get("read+bridge (IO threads)", 0.0),
+                  "loop_read_bridge_s": st.get("read+bridge (loop)", 0.0),
+                  "loop_reads": st["loop_reads"], "prefetch_wait_s": st["prefetch wait"],
+                  "emitter_s": st.get("emitter (sink to host)", 0.0), "host_steps": st,
+                  "device_busy_s": busy,
                   "idle_share_of_warm": 1 - busy / med, "d2h": d2h, "syncs": syncs,
                   "ledger_count_reads": ledger_reads() - reads0}
+    if scancache is not None:
+        scancache.clear()
     return out
 
 
@@ -2200,23 +2274,35 @@ def walls_only(args) -> int:
     native.build_all()
     dev = torch.device("cuda", 0)
     paths = args.walls_paths.split(",")
-    unknown = sorted(set(paths) - set(WALL_TPCH) - set(WALL_TICKS) - {"vector", "ann"})
+    unknown = sorted(set(paths) - set(WALL_TPCH) - set(WALL_TICKS) - set(PARQUET_PATHS)
+                     - {"vector", "ann"})
     if unknown:
         print(f"chip_smoke: --walls-paths: no path {unknown}", file=sys.stderr)
         return 2
     streams = {}
-    if set(paths) & set(WALL_TPCH):
+    if set(paths) & (set(WALL_TPCH) | set(PARQUET_PATHS)):
         tables = make_tpch(args.sf, args.seed)
         streams.update({q: (lambda ctx, q=q: tpch_stream(q, ctx, tables))
                         for q in paths if q in WALL_TPCH})
+    if set(paths) & set(PARQUET_PATHS):
+        # the files this checkout's smoke writes: both packages read the same
+        files = write_tpch_parquet(tables, ROOT / "build" / "chip_smoke", args.sf, args.seed)
+        streams.update({q: (lambda ctx, q=q: tpch_stream(PARQUET_PATHS[q], ctx, tables, files))
+                        for q in paths if q in PARQUET_PATHS})
     if set(paths) & set(WALL_TICKS):
         ticks = make_ticks(args.sf, args.seed)
         streams.update({q: (lambda ctx, q=q: tick_stream(q, ctx, ticks))
                         for q in paths if q in WALL_TICKS})
     if {"vector", "ann"} & set(paths):
         streams.update(vector_streams(dev, pkg, args))
+    if args.no_readahead:
+        # the IO pool alone, without the Parquet reader's one-segment readahead
+        from quokka_tpu_torch.dataset import readers
+
+        readers._READAHEAD.arm = lambda *a, **k: None
     walls = query_walls(dev, {p: streams[p] for p in paths})
-    print(json.dumps({"walls": walls, "package": str(pkg)}))
+    print(json.dumps({"walls": walls, "package": str(pkg),
+                      "readahead": not args.no_readahead}))
     return 0
 
 
@@ -2449,6 +2535,7 @@ class Capture:
         self.every = {n: [] for n in keep_every}  # every call's arguments
         self._best = {}
         self._saved = []
+        self._lock = threading.Lock()  # the engine lands batches on its IO threads
 
     def __enter__(self):
         for name, (mod, attr, size) in self.targets.items():
@@ -2456,13 +2543,14 @@ class Capture:
             self._saved.append((mod, attr, real))
 
             def wrap(*a, _name=name, _real=real, _size=size, **kw):
-                self.calls[_name] += 1
-                if _name in self.every:
-                    self.every[_name].append((a, kw))
                 s = _size(*a, **kw)
-                if s >= self._best.get(_name, -1):
-                    self._best[_name] = s
-                    self.args[_name] = (a, kw)
+                with self._lock:
+                    self.calls[_name] += 1
+                    if _name in self.every:
+                        self.every[_name].append((a, kw))
+                    if s >= self._best.get(_name, -1):
+                        self._best[_name] = s
+                        self.args[_name] = (a, kw)
                 return _real(*a, **kw)
 
             setattr(mod, attr, wrap)
@@ -2472,6 +2560,86 @@ class Capture:
         for mod, attr, real in reversed(self._saved):
             setattr(mod, attr, real)
         return False
+
+
+class HostSteps:
+    """Times the engine's host steps during one run, by thread: read +
+    bridge on the IO threads (``quokka-io``), the task loop's wait for a
+    prefetched batch, its own synchronous reads (a channel's first batch
+    the pool did not warm; every read in a package without the pool), the
+    rest of its input tasks, each executor kind's tasks, and the emitter's
+    conversions of sink batches to the host (``quokka-emit``).  Works on a
+    package without the pool or emitter too (another checkout's, timed in
+    turns): there every read is the loop's."""
+
+    def __init__(self, engine_cls):
+        self.cls = engine_cls
+        self.spent = {}
+        self.loop_reads = 0
+        self._lock = threading.Lock()
+        self._saved = []
+
+    def _add(self, what, t):
+        with self._lock:
+            self.spent[what] = self.spent.get(what, 0.0) + time.perf_counter() - t
+
+    def _wrap(self, attr, name_of):
+        real = getattr(self.cls, attr, None)
+        if real is None:
+            return
+        self._saved.append((attr, real))
+
+        def timed(engine, *a, _real=real):
+            t = time.perf_counter()
+            try:
+                return _real(engine, *a)
+            finally:
+                self._add(name_of(engine, *a), t)
+
+        setattr(self.cls, attr, timed)
+
+    def __enter__(self):
+        def read_name(engine, *a):
+            if threading.current_thread().name.startswith("quokka-io"):
+                return "read+bridge (IO threads)"
+            with self._lock:
+                self.loop_reads += 1
+            return "read+bridge (loop)"
+
+        self._wrap("_read_and_bridge", read_name)
+        self._wrap("_take_prefetched", lambda *a: "take")
+        self._wrap("handle_input_task", lambda *a: "input tasks")
+        self._wrap("handle_exec_task", lambda engine, task: "exec " + type(
+            engine.execs[(task.actor, task.channel)]).__name__)
+        self._wrap("_convert_and_append", lambda *a: "emitter (sink to host)")
+        return self
+
+    def __exit__(self, *exc):
+        for attr, real in reversed(self._saved):
+            setattr(self.cls, attr, real)
+        return False
+
+    def report(self, wall: float) -> dict:
+        """Seconds by step; the loop's steps apart from what ran beside it:
+        ``prefetch wait`` is the loop's time in taking batches less its own
+        reads, ``input tasks`` the rest of them, and ``rest`` the wall less
+        every step of the loop."""
+        sp = dict(self.spent)
+        loop_read = sp.get("read+bridge (loop)", 0.0)
+        take = sp.pop("take", loop_read)
+        sp["prefetch wait"] = take - loop_read
+        sp["input tasks"] = sp.get("input tasks", 0.0) - take
+        beside = ("read+bridge (IO threads)", "emitter (sink to host)")
+        sp["rest (plan, lowering, engine loop)"] = wall - sum(
+            v for k, v in sp.items() if k not in beside)
+        return {"wall_s": wall, "loop_reads": self.loop_reads, **sp}
+
+    def line(self, wall: float) -> str:
+        r = self.report(wall)
+        steps = sorted(((k, v) for k, v in r.items() if k not in ("wall_s", "loop_reads")),
+                       key=lambda kv: -kv[1])
+        return (f"wall {wall:.4f}; " + ", ".join(f"{k} {v:.4f}" for k, v in steps)
+                + f"; {r['loop_reads']} reads on the loop")
 
 
 class Row20Spy:
@@ -2667,6 +2835,167 @@ def mesh_paths(tables, ticks):
                          ["K16", "K19 bounds", "K20a", "K20b"]),
         "mesh shift": (tk("shift"), check_shift, "shift", ["K19 bounds"]),
     }
+
+
+def _bits(cols: dict) -> dict:
+    """A result's columns as comparable bits: floats and dates as integers."""
+    import numpy as np
+
+    out = {}
+    for k, v in cols.items():
+        v = np.asarray(v)
+        if v.dtype.kind in "fM":
+            v = v.view(np.int64 if v.dtype.itemsize == 8 else np.int32)
+        out[k] = v
+    return out
+
+
+def overlap_phase(ctx, tables, oracles, counters, args, must) -> dict:
+    """The host overlap on the card: TPC-H Q1 and Q3 through ``read_parquet``
+    over the made tables' Parquet files (``write_tpch_parquet``), once cold
+    after ``scancache.clear()``, then three times warm, every kernel count
+    set to 0 before each run and read after it.  Each run must match the
+    numpy oracle and launch the kernels of its TableReader twin (``must``,
+    K23 on the cold run only); the cold run must miss the scan cache on
+    every input batch, land each with one K23 launch and read at most one
+    batch a channel on the task loop's thread; each warm run must hit the
+    cache on every input batch, miss none, launch no K23, stage no bytes for
+    the host -> device copy and return the cold run's bits; and no
+    ``quokka-io`` or ``quokka-emit`` thread may be alive after a collect.
+    It prints each run's wall and host steps (read + bridge on the IO
+    threads, the loop's prefetch wait and its own reads)."""
+    import torch
+
+    from quokka_tpu_torch.ops import pack
+    from quokka_tpu_torch.runtime import engine as engine_mod
+    from quokka_tpu_torch.runtime import scancache
+
+    Engine = engine_mod.Engine
+    files = write_tpch_parquet(tables, ROOT / "build" / "chip_smoke", args.sf, args.seed)
+    checks = {"q1": check_q1, "q3": check_q3}
+    report = {"files": files}
+    for path, q in PARQUET_PATHS.items():
+        scancache.clear()
+        runs, cold_bits = [], None
+        for i in range(4):
+            label = "cold" if i == 0 else f"warm {i}"
+            lock, tls = threading.Lock(), threading.local()
+            # (thread, actor, channel) per batch taken; staged batches and
+            # K23 launches in all and inside the scan, and the scan's bytes
+            reads, landed = [], {"staged": 0, "k23": 0, "scan staged": 0, "scan k23": 0,
+                                 "scan bytes": 0}
+            real_rb, real_stage = Engine._read_and_bridge, pack.stage
+            real_decode = pack.decode_launch
+
+            def recorded(self, info, channel, lineage, _real=real_rb):
+                with lock:
+                    reads.append((threading.current_thread().name, info.id, channel))
+                tls.scan = True
+                try:
+                    return _real(self, info, channel, lineage)
+                finally:
+                    tls.scan = False
+
+            def counted_stage(*a, _real=real_stage):
+                st = _real(*a)
+                with lock:
+                    landed["staged"] += 1
+                    if getattr(tls, "scan", False):
+                        landed["scan staged"] += 1
+                        landed["scan bytes"] += st.buf.numel()
+                return st
+
+            def counted_decode(st, _real=real_decode):
+                outs = _real(st)
+                with lock:
+                    n = 1 if st.n_desc else 0
+                    landed["k23"] += n
+                    if getattr(tls, "scan", False):
+                        landed["scan k23"] += n
+                return outs
+
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+            before = scancache.GLOBAL.stats()
+            Engine._read_and_bridge, pack.stage = recorded, counted_stage
+            pack.decode_launch = counted_decode
+            try:
+                with HostSteps(Engine) as steps:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got = collect_numpy(tpch_stream(q, ctx, tables, files), path)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            finally:
+                Engine._read_and_bridge, pack.stage = real_rb, real_stage
+                pack.decode_launch = real_decode
+            launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+            after = scancache.GLOBAL.stats()
+            hits, misses = after["hits"] - before["hits"], after["misses"] - before["misses"]
+            left = [t.name for t in threading.enumerate()
+                    if t.name.startswith(("quokka-io", "quokka-emit"))]
+            g = ctx.latest_graph
+            batches = sum(g.store.tget("LIT", (a.id, ch), -1) + 1
+                          for a in g.actors.values() if a.kind == "input"
+                          for ch in range(a.channels))
+            on_loop = {}
+            for name, actor, ch in reads:
+                if not name.startswith("quokka-io"):
+                    on_loop[(actor, ch)] = on_loop.get((actor, ch), 0) + 1
+            checks[q](got, oracles[q])
+            if left:
+                fail(f"{path} {label}: pool threads alive after the collect: {left}")
+            missing = [k for k in must[path] if launches[k] == 0 and (i == 0 or k != "K23")]
+            if missing:
+                fail(f"{path} {label}: kernels not launched: {missing}")
+            if len(reads) != batches:
+                fail(f"{path} {label}: {len(reads)} batches taken for {batches} lineages")
+            # every landing (the scan's, and an executor's own: Q3's top-k)
+            # is one staged copy and one K23 launch
+            if not launches["K23"] == landed["k23"] == landed["staged"]:
+                fail(f"{path} {label}: {launches['K23']} K23 launches, {landed['k23']} K23 "
+                     f"calls for {landed['staged']} staged batches")
+            scan = (landed["scan staged"], landed["scan k23"])
+            if i == 0:
+                if (hits, misses) != (0, batches) or scan != (batches, batches):
+                    fail(f"{path} cold: {hits} scan-cache hits and {misses} misses, the scan "
+                         f"staged {scan[0]} batches with {scan[1]} K23 launches, for "
+                         f"{batches} input batches")
+                if any(n > 1 for n in on_loop.values()):
+                    fail(f"{path} cold: more than one read a channel on the task loop: "
+                         f"{on_loop}")
+                cold_bits = _bits(got)
+            else:
+                if (hits, misses) != (batches, 0) or scan != (0, 0) or landed["scan bytes"]:
+                    fail(f"{path} {label}: {hits} scan-cache hits and {misses} misses for "
+                         f"{batches} input batches; the scan launched {scan[1]} K23 and "
+                         f"staged {landed['scan bytes']} bytes for the copy to the device")
+                bits = _bits(got)
+                if bits.keys() != cold_bits.keys() or not all(
+                        np_equal(bits[k], cold_bits[k]) for k in bits):
+                    fail(f"{path} {label}: the result differs from the cold run's bits")
+            st = steps.report(wall)
+            runs.append({"run": label, "wall_s": wall, "batches": batches,
+                         "scan_cache_hits": hits, "scan_cache_misses": misses,
+                         "k23": launches["K23"], "scan_k23": scan[1],
+                         "scan_staged_bytes": landed["scan bytes"],
+                         "reads_on_loop": sum(on_loop.values()), "host_steps": st})
+            print(f"overlap {path} {label}: wall {wall:.4f} s; {batches} input batches, "
+                  f"scan cache {hits} hits / {misses} misses, the scan's K23 launches "
+                  f"{scan[1]} of {launches['K23']} and {landed['scan bytes']} B staged; "
+                  f"read+bridge on the IO threads "
+                  f"{st.get('read+bridge (IO threads)', 0.0):.4f} s, prefetch wait "
+                  f"{st['prefetch wait']:.4f} s, {st['loop_reads']} reads on the loop "
+                  f"{st.get('read+bridge (loop)', 0.0):.4f} s; matches the numpy oracle")
+        report[path] = runs
+    scancache.clear()
+    return report
+
+
+def np_equal(a, b) -> bool:
+    import numpy as np
+
+    return a.shape == b.shape and bool(np.all(a == b))
 
 
 def mesh_phase(dev, tables, ticks, oracles, engine_walls, counters):
@@ -2964,8 +3293,9 @@ def rank_plan_rows(dev, plans, launches_by_path, skewed, seed: int):
     inputs, the radix sort under both against its plain version index for
     index, then each timed whole and by part (range and pack passes, digit
     passes, rank pass, fill), beside its plain version, its bound and one
-    stable torch.sort of the valid rows' packed key (the library column: a
-    yardstick, not the same function)."""
+    stable torch.sort of the valid rows' packed key (K13p's library column:
+    a yardstick, not the same function); K10's library column is
+    torch.unique over the valid rows' stacked limbs, the same dense rank."""
     import torch
     from quokka_tpu_torch.ops import join, kernels
 
@@ -3093,13 +3423,26 @@ def rank_plan_rows(dev, plans, launches_by_path, skewed, seed: int):
         n = valid.shape[0]
         return nbytes(*limbs, valid) + 8 * ((p + 1 + 2 * n) if with_bps else p)
 
+    def unique_ms(limbs, valid):
+        """One torch.unique(keys, dim=0, sorted=True, return_inverse=True)
+        over the valid rows' stacked int64 limbs: the same dense rank as
+        K10's on those rows (held to it here), the library column."""
+        if any(l.is_floating_point() for l in limbs):
+            return None
+        keys = torch.stack([l.to(torch.int64) for l in limbs], 1)[valid]
+        _, inv = torch.unique(keys, dim=0, sorted=True, return_inverse=True)
+        if not torch.equal(inv, kernels.dense_rank(limbs, valid)[0][valid]):
+            fail("torch.unique's inverse differs from K10's ranks on the valid rows")
+        return cuda_ms(lambda: torch.unique(keys, dim=0, sorted=True, return_inverse=True))
+
     def k10_at(limbs, valid, path):
         fn = lambda: kernels.dense_rank(limbs, valid)
         whole, split = split_us(fn)
         return dict(launches=launches_by_path[path]["K10"], ms=cuda_ms(fn),
                     plain_ms=cuda_ms(lambda: kernels.dense_rank_plain(limbs, valid), iters=5),
                     bound_ms=bound_ms(rank_bytes(limbs, valid)), device_us=whole,
-                    split_device_us=split, library_ms=yardstick_ms(limbs, valid),
+                    split_device_us=split, library_ms=unique_ms(limbs, valid),
+                    sort_yardstick_ms=yardstick_ms(limbs, valid),
                     shape=f"{path}'s plan: {valid.shape[0]} rows, {len(limbs)} limbs "
                           f"{[str(l.dtype) for l in limbs]}")
 
@@ -3126,7 +3469,9 @@ def rank_plan_rows(dev, plans, launches_by_path, skewed, seed: int):
               f"{sp['range_pack']:.1f}, digit passes {sp['digits']:.1f}, rank pass "
               f"{sp['pass']:.1f}, fill {sp['fill']:.1f}, memset {sp['other']:.1f}), "
               f"{at['ms']:.4f} ms, plain {at['plain_ms']:.4f} ms, bound {at['bound_ms']:.5f} ms, "
-              f"torch.sort of the packed key {at['library_ms']:.4f} ms")
+              + (f"torch.unique (the same dense rank) {at['library_ms']} ms, torch.sort of the "
+                 f"packed key {at['sort_yardstick_ms']:.4f} ms" if "sort_yardstick_ms" in at
+                 else f"torch.sort of the packed key {at['library_ms']:.4f} ms"))
 
     out = []
     row10 = k10_at(q4_l, q4_v, "q4")
@@ -3171,10 +3516,14 @@ def main() -> int:
                     help="only time Q1, Q3 and Q5 through the package in --package and "
                          "print one JSON line (what --parent runs)")
     ap.add_argument("--walls-paths", default=",".join(COMPARED),
-                    help="with --walls-only: the paths to time, comma-separated, of q1, q3, "
-                         "q5, q13, q7, tumbling, hopping, session, sliding, shift, vector "
-                         "and ann")
+                    help="with --walls-only, or with --parent: the paths to time, "
+                         "comma-separated, of q1, q3, q5, q13, q7, q21, tumbling, hopping, "
+                         "session, sliding, shift, vector, ann, and q1pq and q3pq (Q1 and Q3 "
+                         "over Parquet files of the made tables)")
     ap.add_argument("--package", default=str(ROOT))
+    ap.add_argument("--no-readahead", action="store_true",
+                    help="with --walls-only: run without the Parquet reader's readahead "
+                         "(the IO pool alone), to time what the readahead adds")
     args = ap.parse_args()
 
     import torch
@@ -3217,6 +3566,7 @@ def smoke(dev, card: str, args) -> int:
     from quokka_tpu_torch.ops.batch import key_limbs
     from quokka_tpu_torch.ops.expr_compile import plan_aggregation
     from quokka_tpu_torch.runtime import engine as engine_mod
+    from quokka_tpu_torch.runtime import scancache
 
     for mod in ("jax", "quokka_tpu", "pyarrow", "pandas"):
         if mod in sys.modules:
@@ -3636,10 +3986,14 @@ def smoke(dev, card: str, args) -> int:
         land = landing[path] = {"batches": 0, "encode_s": 0.0, "stage_s": 0.0,
                                 "wire_bytes": 0, "logical_bytes": 0}
 
+        # the engine's IO threads land the batches side by side
+        land_lock = threading.Lock()
+
         def counted_h2d(table, device, *a, _land=land, **kw):
             # the batches the query lands on the card (the optimizer's
             # catalog lands its samples on the CPU)
-            _land["batches"] += torch.device(device).type == "cuda"
+            with land_lock:
+                _land["batches"] += torch.device(device).type == "cuda"
             return real_h2d(table, device, *a, **kw)
 
         def timed_encode(*a, _land=land, **kw):
@@ -3647,14 +4001,16 @@ def smoke(dev, card: str, args) -> int:
             try:
                 return real_encode(*a, **kw)
             finally:
-                _land["encode_s"] += time.perf_counter() - t
+                with land_lock:
+                    _land["encode_s"] += time.perf_counter() - t
 
         def timed_stage(*a, _land=land, **kw):
             t = time.perf_counter()
             st = real_stage(*a, **kw)
-            _land["stage_s"] += time.perf_counter() - t
-            _land["wire_bytes"] += st.buf.numel()
-            _land["logical_bytes"] += sum(o.numel() * o.element_size() for o in st.outs)
+            with land_lock:
+                _land["stage_s"] += time.perf_counter() - t
+                _land["wire_bytes"] += st.buf.numel()
+                _land["logical_bytes"] += sum(o.numel() * o.element_size() for o in st.outs)
             return st
         t_path = time.perf_counter()
         exp = oracles[oracle_of.get(path, path)]
@@ -3672,6 +4028,7 @@ def smoke(dev, card: str, args) -> int:
         join.hash_join_general = counted_general
         bridge.host_to_device, pack._encode, pack.stage = counted_h2d, timed_encode, timed_stage
         charged0 = charged()
+        scancache.clear()  # the cold run lands every batch (the ANN file's too)
         if path.startswith("skewjoin"):
             engine_mod.BatchCache.put = counted_put
         if path in sort_paths:
@@ -3859,57 +4216,27 @@ def smoke(dev, card: str, args) -> int:
     report["mesh"], mesh_launches, mesh_cap = mesh_phase(dev, tables, ticks, oracles, walls,
                                                          counters)
 
+    # -- phase 4c: the host overlap, Q1 and Q3 over Parquet cold then warm --------
+    report["overlap"] = overlap_phase(ctx, tables, oracles, counters, args,
+                                      {p: paths[q][2] for p, q in PARQUET_PATHS.items()})
+
     # -- phase 5: where the time goes ----------------------------------------------
-    # a warm run of each path with the engine's host steps timed: the read +
-    # bridge of every input batch, the rest of the input tasks (K1, the
-    # partition split K4, the batch cache), and each executor kind's tasks
-    # (joins, aggregates, top-k, the result's copy to the host)
-    Engine = engine_mod.Engine
-    real = (Engine._read_and_bridge, Engine.handle_input_task, Engine.handle_exec_task)
+    # a warm run of each path with the engine's host steps timed (HostSteps):
+    # read + bridge on the IO threads, the loop's wait for them and its own
+    # reads, the rest of the input tasks (K1, the partition split K4, the
+    # batch cache), each executor kind's tasks (joins, aggregates, top-k,
+    # the sink's wait for its results) and the emitter's copies to the host
     host_steps = {}
     for path, (stream, *_) in paths.items():
         set_strategy(path)
-        spent = {}
-
-        def add(what, t):
-            spent[what] = spent.get(what, 0.0) + time.perf_counter() - t
-
-        def read_and_bridge(self, *a):
-            t = time.perf_counter()
-            try:
-                return real[0](self, *a)
-            finally:
-                add("read+bridge", t)
-
-        def input_task(self, task):
-            t = time.perf_counter()
-            try:
-                return real[1](self, task)
-            finally:
-                add("input tasks", t)
-
-        def exec_task(self, task):
-            t = time.perf_counter()
-            try:
-                return real[2](self, task)
-            finally:
-                add("exec " + type(self.execs[(task.actor, task.channel)]).__name__, t)
-
-        Engine._read_and_bridge, Engine.handle_input_task, Engine.handle_exec_task = (
-            read_and_bridge, input_task, exec_task)
-        try:
+        with HostSteps(engine_mod.Engine) as steps:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             collect_numpy(stream(), path)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        finally:
-            Engine._read_and_bridge, Engine.handle_input_task, Engine.handle_exec_task = real
-        spent["input tasks"] -= spent["read+bridge"]
-        spent["rest (plan, lowering, engine loop)"] = wall - sum(spent.values())
-        host_steps[path] = {"wall_s": wall, **spent}
-        print(f"where ({path} timed warm run, host seconds): wall {wall:.4f}; " + ", ".join(
-            f"{k} {v:.4f}" for k, v in sorted(spent.items(), key=lambda kv: -kv[1])))
+        host_steps[path] = steps.report(wall)
+        print(f"where ({path} timed warm run, host seconds): {steps.line(wall)}")
     set_strategy()
     report["host_steps"] = host_steps
     q1_reader = TableReader(li)
@@ -3970,31 +4297,45 @@ def smoke(dev, card: str, args) -> int:
     set_strategy()
     report["profiles"] = profiles
 
-    # -- phase 5b: Q1, Q3, Q5 beside the parent's tree, in turns ------------------
+    # -- phase 5b: --walls-paths beside the parent's tree, in turns -----------------
     if args.parent:
         runs = []
         for label, pkg in (("parent", args.parent), ("change", str(ROOT)),
                            ("change", str(ROOT)), ("parent", args.parent)):
             r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--walls-only",
                                 "--package", pkg, "--sf", str(args.sf), "--seed",
-                                str(args.seed)], capture_output=True, text=True, timeout=600)
+                                str(args.seed), "--walls-paths", args.walls_paths],
+                               capture_output=True, text=True, timeout=600)
             lines = [l for l in r.stdout.splitlines() if l.startswith('{"walls"')]
             if r.returncode or not lines:
                 fail(f"walls-only run of {pkg} failed ({r.returncode}): {r.stderr[-2000:]}")
             runs.append((label, json.loads(lines[-1])["walls"]))
         report["parent_compare"] = runs
-        for q in COMPARED:
+        for q in args.walls_paths.split(","):
             for label, w in runs:
                 v = w[q]
-                print(f"compare {q} {label}: warm {[round(x, 4) for x in v['warm_s']]} s, "
-                      f"read+bridge {v['read_bridge_s']:.4f} s of a {v['timed_wall_s']:.4f} s "
-                      f"run, idle share {v['idle_share_of_warm']:.4f}, {v['d2h']} D2H copies, "
+                print(f"compare {q} {label}: cold {v['cold_s']:.4f} s, warm "
+                      f"{[round(x, 4) for x in v['warm_s']]} s"
+                      + (f", scan cache emptied {[round(x, 4) for x in v['cache_cold_s']]} s"
+                         if v.get("cache_cold_s") else "")
+                      + f"; timed run {v['timed_wall_s']:.4f} s: read+bridge "
+                      f"{v['read_bridge_s']:.4f} s ({v.get('io_read_bridge_s', 0.0):.4f} on the "
+                      f"IO threads, {v.get('loop_reads', 0)} reads on the loop), prefetch wait "
+                      f"{v.get('prefetch_wait_s', 0.0):.4f} s, emitter "
+                      f"{v.get('emitter_s', 0.0):.4f} s; idle share "
+                      f"{v['idle_share_of_warm']:.4f}, {v['d2h']} D2H copies, "
                       f"{v['syncs']} cudaStreamSynchronize, {v['ledger_count_reads']} ledger "
                       "count reads")
-            parent = {(w[q]["d2h"], w[q]["syncs"]) for label, w in runs if label == "parent"}
-            change = {(w[q]["d2h"] - w[q]["ledger_count_reads"],
-                       w[q]["syncs"] - w[q]["ledger_count_reads"])
-                      for label, w in runs if label == "change"}
+            if q not in COMPARED:
+                continue
+            # each side less its own ledger's reads (a parent from before
+            # the ledger made none)
+            def own(w):
+                return (w[q]["d2h"] - w[q]["ledger_count_reads"],
+                        w[q]["syncs"] - w[q]["ledger_count_reads"])
+
+            parent = {own(w) for label, w in runs if label == "parent"}
+            change = {own(w) for label, w in runs if label == "change"}
             if len(parent) != 1 or change != parent:
                 fail(f"{q}: D2H copies and stream syncs (less the ledger's count reads) "
                      f"{sorted(change)} differ from the parent's {sorted(parent)}")
@@ -5518,8 +5859,12 @@ def smoke(dev, card: str, args) -> int:
             print(f"  library: {kk['library_ms']:.4f} ms, {kk['library_device_us']:.1f} "
                   "device us per call")
         if "split_device_us" in kk:
-            print(f"  device us by part: {kk['split_device_us']}; a stable torch.sort of the "
-                  f"packed key (a yardstick, not the same function) {kk['library_ms']:.4f} ms")
+            print(f"  device us by part: {kk['split_device_us']}; "
+                  + (f"torch.unique, the same dense rank, {kk['library_ms']} ms; "
+                     f"a stable torch.sort of the packed key (a yardstick, not the same "
+                     f"function) {kk['sort_yardstick_ms']:.4f} ms" if "sort_yardstick_ms" in kk
+                     else f"a stable torch.sort of the packed key (a yardstick, not the same "
+                     f"function) {kk['library_ms']:.4f} ms"))
         for sub in ("q3", "q4", "q5", "q7", "q13", "q21", "tumbling", "hopping", "build",
                     "skew", "big"):
             if isinstance(kk.get(sub), dict):

@@ -7,13 +7,23 @@ Reader protocol, as the reference's:
                                  pyarrow Table
 Lineage entries are small, picklable descriptions of an input slice.
 pyarrow is imported only by the readers that take Arrow or Parquet input.
+
+The Parquet reader reads one segment ahead on a small host pool
+(``_Readahead``) and names the bytes of each lineage (``cache_key``) for
+the engine's scan cache (``runtime/scancache.py``); the in-memory readers
+name none and bypass it.
 """
 
 from __future__ import annotations
 
+import collections
 import datetime
+import functools
 import glob as globmod
 import os
+import threading
+import weakref
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence
 
 from quokka_tpu_torch.expression import (
@@ -71,6 +81,79 @@ class InputArrowDataset:
         return self.table.slice(start, length)
 
 
+class _Readahead:
+    """One-segment scan readahead: while a channel's current batch lands
+    and computes, the channel's next lineage is read on a small host pool,
+    so a cold scan overlaps its reads with the engine's work.  A slot is
+    served only to the dataset object that armed it, for the lineage it was
+    armed for, and while the file's identity (``_file_ident``, taken before
+    the read) is unchanged: a rewritten file, or a later dataset that
+    reuses a dead one's ``id``, reads anew.  A mismatched or failed slot
+    falls back to the synchronous read, which raises a read error again.
+    One slot per (dataset, channel); the slot table is FIFO-bounded, so
+    dead datasets cannot pin read tables.  The pool reads on the host only."""
+
+    _MAX_SLOTS = 64
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._pool: Optional[ThreadPoolExecutor] = None
+        self._slots: "collections.OrderedDict" = collections.OrderedDict()
+
+    def _ensure_pool(self) -> ThreadPoolExecutor:
+        with self._lock:
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(max_workers=2,
+                                                thread_name_prefix="quokka-readahead")
+            return self._pool
+
+    def take(self, ds, channel: int, lineage, ident):
+        """The table read ahead for this exact dataset, lineage and file
+        identity, or None."""
+        with self._lock:
+            ent = self._slots.pop((id(ds), channel), None)
+        if ent is None:
+            return None
+        ref, armed_lineage, armed_ident, fut = ent
+        if ref() is not ds or armed_lineage != lineage or ident is None \
+                or armed_ident != ident:
+            return None
+        try:
+            return fut.result()
+        except Exception:
+            return None  # the synchronous read raises it again
+
+    def arm(self, ds, channel: int, lineage, ident, read_fn) -> None:
+        if ident is None:
+            return  # no identity to check the slot against
+        fut = self._ensure_pool().submit(read_fn)
+        with self._lock:
+            self._slots[(id(ds), channel)] = (weakref.ref(ds), lineage, ident, fut)
+            while len(self._slots) > self._MAX_SLOTS:
+                self._slots.popitem(last=False)
+
+
+_READAHEAD = _Readahead()
+
+
+def _file_ident(path: str):
+    """(mtime_ns, size) of a file, or None when it cannot be read."""
+    try:
+        st = os.stat(path)
+    except OSError:
+        return None
+    return st.st_mtime_ns, st.st_size
+
+
+def _successor_map(state: Dict[int, List]) -> Dict:
+    """(channel, lineage) -> the channel's next lineage."""
+    succ = {}
+    for ch, pieces in state.items():
+        for cur, nxt in zip(pieces, pieces[1:]):
+            succ[(ch, cur)] = nxt
+    return succ
+
+
 def _expand_paths(path) -> List[str]:
     if isinstance(path, (list, tuple)):
         out = []
@@ -99,6 +182,7 @@ class InputParquetDataset:
         # scan to the row groups owning the queries' closest IVF cells when
         # a sidecar index exists (dataset/vector.py)
         self.ann_prune = None
+        self._dict_cols: Dict[str, List[str]] = {}  # file -> its string columns
 
     @property
     def schema(self):
@@ -125,20 +209,45 @@ class InputParquetDataset:
                         meta.row_group(rg), self.predicate):
                     continue
                 pieces.append((f, rg))
-        return {ch: pieces[ch::num_channels] for ch in range(num_channels)}
+        state = {ch: pieces[ch::num_channels] for ch in range(num_channels)}
+        self._succ = _successor_map(state)
+        return state
 
     def execute(self, channel: int, lineage):
+        table = _READAHEAD.take(self, channel, lineage, _file_ident(lineage[0]))
+        if table is None:
+            table = self._read(lineage)
+        nxt = getattr(self, "_succ", {}).get((channel, lineage))
+        if nxt is not None:
+            # the identity is taken before the read, so bytes of a file
+            # rewritten under the read do not match it afterwards
+            _READAHEAD.arm(self, channel, nxt, _file_ident(nxt[0]),
+                           functools.partial(self._read, nxt))
+        return table
+
+    def _read(self, lineage):
         import pyarrow as pa
         import pyarrow.parquet as pq
 
         f, rg = lineage
         # dictionary-encoded string pages come back as DictionaryArray: the
         # bridge then skips a host-side re-encode
-        schema = pq.read_schema(f)
-        dict_cols = [fld.name for fld in schema
-                     if pa.types.is_string(fld.type) or pa.types.is_large_string(fld.type)]
+        dict_cols = self._dict_cols.get(f)
+        if dict_cols is None:
+            dict_cols = self._dict_cols[f] = [
+                fld.name for fld in pq.read_schema(f)
+                if pa.types.is_string(fld.type) or pa.types.is_large_string(fld.type)]
         return pq.ParquetFile(f, read_dictionary=dict_cols).read_row_group(
             rg, columns=self.columns)
+
+    def cache_key(self, channel: int, lineage):
+        """The scan cache's identity of this lineage's bytes: mtime_ns and
+        size guard against serving a rewritten file."""
+        f, rg = lineage
+        ident = _file_ident(f)
+        if ident is None:
+            return None
+        return ("parquet", f, rg, *ident, tuple(self.columns) if self.columns else None)
 
 
 def _rowgroup_prunable(rg_meta, predicate: Expr) -> bool:

@@ -207,13 +207,14 @@ def batch_from_numpy(columns: Dict[str, np.ndarray], valid: np.ndarray,
 # ---------------------------------------------------------------------------
 
 
-def device_to_host(batch: DeviceBatch) -> Dict[str, np.ndarray]:
+def device_to_host(batch: DeviceBatch, pinned: bool = False) -> Dict[str, np.ndarray]:
     """Live rows as numpy: strings object (None = null), dates
     datetime64[D] (NaT = null), ints int64 (float64 with NaN where a column
     has nulls, as pandas shows them), floats float64, bools bool, vectors
-    2-D float64 ``[rows, dim]``."""
+    2-D float64 ``[rows, dim]``.  ``pinned``: the copies land in page-locked
+    buffers (``pack.get_packed``), which the live rows are then taken from."""
     host = pack.get_packed([batch.valid] + [c.codes if isinstance(c, StrCol) else c.data
-                                            for c in batch.columns.values()])
+                                            for c in batch.columns.values()], pinned=pinned)
     mask = host[0]
     out: Dict[str, np.ndarray] = {}
     for (name, col), arr in zip(batch.columns.items(), host[1:]):

@@ -124,6 +124,7 @@ def stream_ptr(device) -> int:
 
 
 _TICKETS = {}  # (device index, stream) -> zeroed int32 tickets
+_TICKETS_LOCK = threading.Lock()
 
 
 def tickets(device, stream: int, count: int = 1):
@@ -133,9 +134,10 @@ def tickets(device, stream: int, count: int = 1):
     import torch
 
     key = (device.index, stream)
-    t = _TICKETS.get(key)
-    if t is None or t.numel() < count:
-        t = _TICKETS[key] = torch.zeros(count, dtype=torch.int32, device=device)
+    with _TICKETS_LOCK:  # the engine's threads share the default stream
+        t = _TICKETS.get(key)
+        if t is None or t.numel() < count:
+            t = _TICKETS[key] = torch.zeros(count, dtype=torch.int32, device=device)
     return t
 
 

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -99,8 +100,12 @@ class _FloatPlan:
         self.tlen = tlen  # power-of-two table length when mode == "dict"
 
 
-# batch signature -> per-leaf sticky plans
+# batch signature -> per-leaf sticky plans.  The engine's IO threads encode
+# side by side: each call decides on the plans it read, and its decisions
+# join the stored ones under _LOCK (the wider wins), so a plan still only
+# widens.  _LOCK also guards LAUNCHES.
 _PLANS: Dict[Tuple, List] = {}
+_LOCK = threading.Lock()
 
 
 class _Narrow:
@@ -207,6 +212,21 @@ def _float_dict_encode(flat: np.ndarray, plan: Optional[_FloatPlan]):
     return codes, uniq.view(flat.dtype), plan
 
 
+def _rank(plan) -> Tuple[int, int]:
+    """A plan's place in its lattice: int wires uint8 < uint16 < full;
+    float dictionaries by table length, below full."""
+    if isinstance(plan, _IntPlan):
+        return (_WIDTH.get(plan.wire, 2), 0)
+    return (1, 0) if plan.mode == "full" else (0, plan.tlen)
+
+
+def _join(stored, decided):
+    """The wider of a stored plan and a call's decision."""
+    if stored is None or _rank(decided) >= _rank(stored):
+        return decided
+    return stored
+
+
 def _encode(leaves: Sequence):
     """(wires, layout) of one batch, updating its signature's sticky plans.
     The layout is the reference's: ("valid", padded), ("bool", shape),
@@ -219,8 +239,22 @@ def _encode(leaves: Sequence):
             arr = np.ascontiguousarray(arr)
             sig.append((str(arr.dtype), arr.shape))
         items.append(arr)
-    plans = _PLANS.setdefault(tuple(sig), [None] * len(items))
+    with _LOCK:
+        stored = _PLANS.setdefault(tuple(sig), [None] * len(items))
+        read = list(stored)
+    plans = list(read)
+    try:
+        return _encode_with(items, plans)
+    finally:
+        with _LOCK:
+            for idx, (was, now) in enumerate(zip(read, plans)):
+                if now is not was:
+                    stored[idx] = _join(stored[idx], now)
 
+
+def _encode_with(items: List, plans: List):
+    """The wires and layout of ``items`` under ``plans`` (this call's copy
+    of its signature's plans, updated in place with its decisions)."""
     wires: List = []
     layout: List[Tuple] = []
     for idx, arr in enumerate(items):
@@ -422,7 +456,8 @@ def decode_launch(st: Staged) -> List[torch.Tensor]:
     if st.n_desc:
         native.check(_lib().qk_decode(st.buf.data_ptr(), st.desc_off, st.n_desc, st.max_n,
                                       native.stream_ptr(dev)), "qk_decode")
-        LAUNCHES += 1
+        with _LOCK:
+            LAUNCHES += 1
     return st.outs
 
 
@@ -447,7 +482,19 @@ def pack_put(leaves: Sequence, device) -> List[torch.Tensor]:
     return decode_launch(st)
 
 
-def get_packed(arrays: Sequence[torch.Tensor]) -> List[np.ndarray]:
+def get_packed(arrays: Sequence[torch.Tensor], pinned: bool = False) -> List[np.ndarray]:
     """Read tensors back to the host as numpy, leaf by leaf, with no device
-    program (the reference's rule for this direction)."""
-    return [a.cpu().numpy() for a in arrays]
+    program (the reference's rule for this direction).  With ``pinned``, a
+    device tensor lands in page-locked memory (a DMA at the link's rate on
+    the caller's current stream, which the copy then waits for) and comes
+    back as a numpy view of it."""
+    if not pinned:
+        return [a.cpu().numpy() for a in arrays]
+    out = []
+    for a in arrays:
+        if a.is_cuda:
+            h = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+            h.copy_(a)
+            a = h
+        out.append(a.numpy())
+    return out

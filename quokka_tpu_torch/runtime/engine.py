@@ -2,8 +2,8 @@
 ``quokka_tpu/runtime/engine.py``, the happy path).
 
 ``TaskGraph`` holds actors (input readers and executor channels) and the
-edges between them; ``Engine`` runs it to completion in one thread with the
-reference's scheduling discipline: input tasks run only when their stage is
+edges between them; ``Engine`` runs it to completion on one task loop with
+the reference's scheduling discipline: input tasks run only when their stage is
 current, executor tasks consume contiguous runs of ready batches from one
 source actor at a time (the lowest stage first, so a join's build side is
 consumed before its probe side), and every produced batch is pushed through
@@ -32,15 +32,34 @@ adaptations), resolves its deferred device counts at the flush cadence, and
 The input tasks run under the input actor's mark too, so the wire decode
 (K23) and the source predicate (K1) are charged to the scan.
 
+Host overlap, as the reference's: an IO pool (``quokka-io`` threads, two
+to four) reads and lands each input channel's next lineage while the loop
+runs other tasks, every stage-0 channel's first read starting before the
+loop; a landed batch comes from the device scan cache
+(``runtime/scancache.py``) when the reader names its bytes; and a blocking
+sink's conversion to the host runs on one ``quokka-emit`` thread, in
+order, at most ``_EMIT_INFLIGHT`` batches behind, flushed before a sink
+channel is marked done.  The IO threads run on the default stream of the
+graph's device, the stream the loop's kernels queue on, so a landed batch
+is ordered before any kernel that reads it; the emitter copies on a stream
+of its own into page-locked buffers, after an event the loop recorded at
+the emit.  An error on either pool
+reaches ``run``'s caller through the future that carried it.  Unlike the
+reference, which leaves reads in flight at shutdown (``shutdown(wait=
+False)``), ``run`` cancels the queued reads and waits for the running ones:
+on the card a read that outlived its query would allocate device memory
+and launch K23 inside the next query's measured window.
+
 Left for later slices, and raising where a plan would need them:
-checkpoints, spill, lineage replay and recovery, the scan cache, the
-compile plane, and the prefetch / emitter threads.
+checkpoints, spill, lineage replay and recovery, and the compile plane.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import hashlib
+import threading
 import time
 import uuid
 from collections import defaultdict
@@ -53,6 +72,7 @@ from quokka_tpu_torch.obs import opstats
 from quokka_tpu_torch.ops import bridge, kernels
 from quokka_tpu_torch.ops.batch import DeviceBatch
 from quokka_tpu_torch.planner import adapt as adapt_mod
+from quokka_tpu_torch.runtime import scancache
 from quokka_tpu_torch.runtime.dataset import ResultDataset
 from quokka_tpu_torch.runtime.tables import ControlStore
 from quokka_tpu_torch.runtime.task import ExecutorTask, TapedInputTask
@@ -62,6 +82,10 @@ from quokka_tpu_torch.target_info import (
     PassThroughPartitioner,
     TargetInfo,
 )
+
+
+# Guards the engine's lazily made pools against a double start.
+_LAZY_INIT_LOCK = threading.Lock()
 
 
 def new_query_id() -> str:
@@ -301,7 +325,9 @@ class TaskGraph:
 
     def cleanup(self) -> None:
         """The query is over: the ledger's final snapshot (deferred counts
-        resolved), the cardinality profile, and devprof's per-query GC."""
+        resolved), the cardinality profile, devprof's per-query GC, and the
+        scan cache's accounting of the query (its batches stay cached)."""
+        scancache.GLOBAL.drop_query(self.query_id)
         opstats.OPSTATS.on_query_gc(self.query_id, plan_fp=self.plan_fp)
 
     def result(self, actor_id: int) -> ResultDataset:
@@ -309,7 +335,8 @@ class TaskGraph:
 
 
 class Engine:
-    """Task manager + coordinator for the embedded single-thread runtime."""
+    """Task manager + coordinator of the embedded runtime: one task loop, with
+    its IO pool and emitter thread beside it."""
 
     def __init__(self, graph: TaskGraph):
         self.g = graph
@@ -330,6 +357,18 @@ class Engine:
         self._push_seqs: Dict[Tuple[int, int], int] = {}
         self.qid = graph.query_id
         self._dispatches = 0
+        # the host-overlap pools, made on first use: the IO pool and its
+        # one read a channel ((actor, channel) -> (seq, future)), the
+        # emitter and its futures in order
+        self._prefetch_pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
+        self._prefetch: Optional[dict] = None
+        self._emit_pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
+        self._emit_futs: List[concurrent.futures.Future] = []
+        self._emit_lock = threading.Lock()
+        self._emit_stream: Optional[torch.cuda.Stream] = None  # the emitter's copies, on the card
+        dev = graph.device
+        self._cuda_index = (None if dev.type != "cuda" else
+                            dev.index if dev.index is not None else torch.cuda.current_device())
         # the plan's topology on the ledger, exec actors labelled with their
         # executor (a fused stage with its member chain)
         opstats.OPSTATS.register_plan(
@@ -449,13 +488,104 @@ class Engine:
 
     # -- input ----------------------------------------------------------------
     def _read_and_bridge(self, info: ActorInfo, channel: int, lineage) -> DeviceBatch:
+        """Read one lineage and land it on the device: the read, the
+        projection, the host encode, one copy and K23.  Runs on the IO
+        threads (the first read of a channel the pool did not warm runs on
+        the loop).  A lineage whose bytes the reader names comes from the
+        scan cache when it is there: no read, encode, copy or K23."""
+        ckey = None
+        key_fn = getattr(info.reader, "cache_key", None)
+        if key_fn is not None and scancache.GLOBAL.enabled:
+            base = key_fn(channel, lineage)
+            if base is not None:
+                ckey = (base, tuple(info.projection or ()), tuple(info.sorted_by or ()),
+                        str(self.g.device))
+                cached = scancache.GLOBAL.get(ckey, query=self.qid)
+                if cached is not None:
+                    return cached
         table = info.reader.execute(channel, lineage)
         if info.projection is not None:
             keep = [c for c in info.projection if c in table.column_names]
             table = table.select(keep)
         if isinstance(table, bridge.HostTable):
-            return bridge.host_to_device(table, self.g.device, sorted_by=info.sorted_by)
-        return bridge.arrow_to_device(table, self.g.device, sorted_by=info.sorted_by)
+            batch = bridge.host_to_device(table, self.g.device, sorted_by=info.sorted_by)
+        else:
+            batch = bridge.arrow_to_device(table, self.g.device, sorted_by=info.sorted_by)
+        if ckey is not None:
+            scancache.GLOBAL.put(ckey, batch)
+        return batch
+
+    def _io_threads(self) -> int:
+        n = sum(a.channels for a in self.g.actors.values() if a.kind == "input")
+        return max(2, min(4, n))
+
+    def _pool_init(self) -> None:
+        """Each pool thread works on the graph's device (its default
+        stream: the one the loop's kernels queue on)."""
+        if self._cuda_index is not None:
+            torch.cuda.set_device(self._cuda_index)
+
+    def _ensure_prefetch_pool(self) -> dict:
+        if self._prefetch is None:
+            with _LAZY_INIT_LOCK:
+                if self._prefetch is None:
+                    self._prefetch_pool = concurrent.futures.ThreadPoolExecutor(
+                        max_workers=self._io_threads(), thread_name_prefix="quokka-io",
+                        initializer=self._pool_init)
+                    self._prefetch = {}
+        return self._prefetch
+
+    def _io_read(self, info: ActorInfo, channel: int, lineage) -> DeviceBatch:
+        # under the channel's operator mark, as the loop's read was: K23's
+        # charges go to the scan
+        with opstats.OPSTATS.current_op(self.qid, info.id, channel):
+            return self._read_and_bridge(info, channel, lineage)
+
+    def _submit_read(self, info: ActorInfo, channel: int, seq: int) -> None:
+        lineage = self.store.tget("LT", (info.id, channel, seq))
+        if lineage is not None:
+            self._prefetch[(info.id, channel)] = (
+                seq, self._prefetch_pool.submit(self._io_read, info, channel, lineage))
+
+    def _take_prefetched(self, info: ActorInfo, task: TapedInputTask, seq: int) -> DeviceBatch:
+        """The channel's batch for ``seq``: the IO pool's when it read this
+        seq (its error raised here), else read on the loop; then the next
+        seq's read goes to the pool while this batch computes."""
+        pf = self._ensure_prefetch_pool()
+        ent = pf.pop((task.actor, task.channel), None)
+        batch = None
+        if ent is not None:
+            want, fut = ent
+            if want == seq:
+                batch = fut.result()
+            elif not fut.cancel():
+                fut.result()  # a read of another seq: its error is still an error
+        if batch is None:
+            lineage = self.store.tget("LT", (task.actor, task.channel, seq))
+            batch = self._read_and_bridge(info, task.channel, lineage)
+        nxt = task.peek_next_seq()
+        if nxt is not None:
+            self._submit_read(info, task.channel, nxt)
+        return batch
+
+    def _warm_prefetch(self, actors) -> None:
+        """Start every stage-0 input channel's first read before the loop,
+        so the first reads run side by side instead of each on first
+        touch."""
+        self._ensure_prefetch_pool()
+        for info in actors:
+            if info.kind == "input" and info.stage == 0:
+                for ch in range(info.channels):
+                    self._submit_read(info, ch, 0)  # none for a channel with no lineage
+
+    def _shutdown_prefetch(self) -> None:
+        """Cancel the queued reads and wait for the running ones: a read
+        that outlived the query would land a batch on the device after it."""
+        pool = self._prefetch_pool
+        if pool is not None:
+            self._prefetch_pool = None
+            self._prefetch = None
+            pool.shutdown(wait=True, cancel_futures=True)
 
     def _throttled(self, info: ActorInfo, src_ch: int, seq: int) -> bool:
         """Back-pressure: an input channel waits while seq runs more than
@@ -481,9 +611,8 @@ class Engine:
         if self._throttled(info, task.channel, seq):
             self.store.ntt_push(task.actor, task)
             return False
-        lineage = self.store.tget("LT", (task.actor, task.channel, seq))
         with opstats.OPSTATS.current_op(self.qid, task.actor, task.channel):
-            batch = self._read_and_bridge(info, task.channel, lineage)
+            batch = self._take_prefetched(info, task, seq)
             rows_raw = self._rows_of(batch)  # what the reader read
             if info.predicate is not None:
                 batch = info.predicate(batch)
@@ -530,6 +659,10 @@ class Engine:
                     opstats.OPSTATS.exec_out(self.qid, task.actor, task.channel,
                                              self._rows_of(o))
                     out_seq += 1
+            if info.blocking_dataset is not None:
+                # every sink batch lands before DST says done: a consumer may
+                # act on "done" at once
+                self._flush_emits()
             self.store.tset("LIT", (task.actor, task.channel), out_seq - 1)
             self.store.sadd("DST", (task.actor, task.channel), "done")
             return True
@@ -558,15 +691,84 @@ class Engine:
         self.store.ntt_push(task.actor, task.advance(consumed, out_seq))
         return True
 
+    # at most this many sink batches wait on the emitter (it bounds the
+    # device memory that unconverted batches hold)
+    _EMIT_INFLIGHT = 8
+
     def _emit(self, info: ActorInfo, channel: int, seq: int, out: DeviceBatch) -> None:
         if info.blocking_dataset is not None:
-            info.blocking_dataset.append(channel, bridge.device_to_host(out), seq=seq)
+            # a sink's conversion waits on the device and copies to the host:
+            # it runs on the emitter so the loop keeps queueing device work;
+            # one thread keeps the order, and appends are keyed by seq.  On
+            # the card the copy waits for the loop's work so far (an event
+            # on the loop's stream), not for what the loop queues after it
+            ready = None
+            if out.valid.is_cuda:
+                ready = torch.cuda.Event()
+                ready.record()
+            self._emit_submit(lambda: self._convert_and_append(info, channel, seq, out, ready))
         else:
             self.push(info.id, channel, seq, out)
 
+    def _convert_and_append(self, info: ActorInfo, channel: int, seq: int,
+                            out: DeviceBatch, ready) -> None:
+        if ready is None:
+            host = bridge.device_to_host(out)
+        else:
+            # on the emitter's own stream, into page-locked buffers: the DMA
+            # runs at the link's rate beside the loop's kernels, and holds
+            # neither their stream nor the host.  ``out`` is held here until
+            # its copies have ended, so its memory is not reused under them
+            with torch.cuda.stream(self._emit_stream):
+                self._emit_stream.wait_event(ready)
+                host = bridge.device_to_host(out, pinned=True)
+        info.blocking_dataset.append(channel, host, seq=seq)
+
+    def _emit_submit(self, fn) -> None:
+        if self._emit_pool is None:
+            with _LAZY_INIT_LOCK:
+                if self._emit_pool is None:
+                    if self._cuda_index is not None:
+                        self._emit_stream = torch.cuda.Stream(self._cuda_index)
+                    self._emit_pool = concurrent.futures.ThreadPoolExecutor(
+                        max_workers=1, thread_name_prefix="quokka-emit",
+                        initializer=self._pool_init)
+        with self._emit_lock:
+            self._emit_futs.append(self._emit_pool.submit(fn))
+        while True:
+            with self._emit_lock:
+                if len(self._emit_futs) <= self._EMIT_INFLIGHT:
+                    break
+                f = self._emit_futs.pop(0)
+            f.result()  # outside the lock: the conversion waits on the device
+
+    def _flush_emits(self) -> None:
+        with self._emit_lock:
+            futs, self._emit_futs = self._emit_futs, []
+        for f in futs:
+            f.result()  # the first conversion or append error raises here
+
+    def _shutdown_emitter(self) -> None:
+        pool = self._emit_pool
+        if pool is not None:
+            self._emit_pool = None
+            pool.shutdown(wait=True, cancel_futures=True)
+
     # -- coordinator loop -----------------------------------------------------
     def run(self, timeout: float = 3600.0) -> None:
+        """Run the graph to its end: the loop, then every sink batch landed;
+        on the way out, with or without an error, both pools are shut down
+        (queued work cancelled, running work waited for)."""
+        try:
+            self._run(timeout)
+            self._flush_emits()
+        finally:
+            self._shutdown_prefetch()
+            self._shutdown_emitter()
+
+    def _run(self, timeout: float) -> None:
         actors = sorted(self.g.actors.values(), key=lambda a: (a.stage, a.id))
+        self._warm_prefetch(actors)
         stages = sorted({a.stage for a in actors})
         stage_idx = 0
         t0 = time.time()

@@ -23,6 +23,10 @@ class TapedInputTask:
     def current_seq(self) -> Optional[int]:
         return self.tape[0] if self.tape else None
 
+    def peek_next_seq(self) -> Optional[int]:
+        """Seq after the current one (the IO prefetch looks one step ahead)."""
+        return self.tape[1] if len(self.tape) > 1 else None
+
     def advance(self) -> "TapedInputTask":
         return TapedInputTask(self.actor, self.channel, self.tape[1:])
 

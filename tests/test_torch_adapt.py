@@ -25,10 +25,18 @@ from quokka_tpu.ops import kernels as ref_kernels
 from quokka_tpu.planner import adapt as ref_adapt
 from quokka_tpu_torch.ops import kernels
 from quokka_tpu_torch.planner import adapt, decide
-from quokka_tpu_torch.runtime import engine
+from quokka_tpu_torch.runtime import engine, scancache
 from quokka_tpu_torch.target_info import HashPartitioner
 
 from torch_port_util import fresh_aot  # noqa: F401
+
+
+@pytest.fixture(autouse=True)
+def cold_scans():
+    """Every query here lands its batches anew (K26 and the bridge run)."""
+    scancache.clear()
+    yield
+    scancache.clear()
 
 
 def _pids(n, n_parts, seed):

@@ -1874,3 +1874,60 @@ def test_radix_sort_same_bits_every_run(cuda_device):
     first = kernels.sort_perm(limbs, valid)
     for _ in range(3):
         _same_bits((kernels.sort_perm(limbs, valid),), (first,))
+
+
+def test_q1_over_parquet_warm_run_lands_nothing_and_gives_the_cold_bits(cuda_device, tmp_path):
+    """Q1 over a Parquet file on the card: the warm runs come from the scan
+    cache (every batch a hit, no K23 launch) and give the cold run's bits;
+    no IO or emitter thread outlives a collect."""
+    import threading
+
+    pa = pytest.importorskip("pyarrow")
+    pq = pytest.importorskip("pyarrow.parquet")
+    from quokka_tpu_torch import QuokkaContext
+    from quokka_tpu_torch.runtime import scancache
+
+    r = np.random.default_rng(23)
+    n = 5 * 65_536
+    pq.write_table(pa.table({
+        "l_quantity": r.integers(1, 51, n).astype(np.float64),
+        "l_extendedprice": r.uniform(900, 100_000, n).round(2),
+        "l_discount": r.integers(0, 11, n) / 100.0,
+        "l_tax": r.integers(0, 9, n) / 100.0,
+        "l_returnflag": np.array(["A", "N", "R"])[r.integers(0, 3, n)],
+        "l_linestatus": np.array(["F", "O"])[r.integers(0, 2, n)],
+        "l_shipdate": pa.array(r.integers(8036, 10562, n).astype("datetime64[D]"))}),
+        str(tmp_path / "lineitem.parquet"), row_group_size=65_536)
+    ctx = QuokkaContext(io_channels=2, exec_channels=2, device=cuda_device)
+
+    def run():
+        out = (ctx.read_parquet(str(tmp_path / "lineitem.parquet"))
+               .filter_sql("l_shipdate <= date '1998-12-01' - interval '90' day")
+               .groupby(["l_returnflag", "l_linestatus"])
+               .agg_sql("sum(l_quantity) as sum_qty, sum(l_extendedprice * (1 - l_discount)) "
+                        "as sum_disc_price, avg(l_tax) as avg_tax, count(*) as count_order")
+               .collect().sort_values(["l_returnflag", "l_linestatus"]).reset_index(drop=True))
+        assert not [t for t in threading.enumerate()
+                    if t.name.startswith(("quokka-io", "quokka-emit"))]
+        return out
+
+    scancache.clear()
+    try:
+        k23 = pack.LAUNCHES
+        cold = run()
+        assert pack.LAUNCHES - k23 == 5
+        assert int(cold["count_order"].sum()) > 0
+        for _ in range(2):
+            before = scancache.GLOBAL.stats()
+            k23 = pack.LAUNCHES
+            warm = run()
+            after = scancache.GLOBAL.stats()
+            assert pack.LAUNCHES == k23
+            assert (after["hits"] - before["hits"], after["misses"] - before["misses"]) == (5, 0)
+            for c in cold.columns:
+                a, b = cold[c].to_numpy(), warm[c].to_numpy()
+                if a.dtype.kind == "f":
+                    a, b = a.view(np.int64), b.view(np.int64)
+                np.testing.assert_array_equal(a, b)
+    finally:
+        scancache.clear()

@@ -28,6 +28,7 @@ from quokka_tpu.obs import explain as ref_explain
 from quokka_tpu.obs import opstats as ref_opstats
 from quokka_tpu_torch import obs
 from quokka_tpu_torch.obs import devprof, explain, opstats
+from quokka_tpu_torch.runtime import scancache
 
 from torch_port_util import fresh_aot  # noqa: F401
 from test_torch_q1 import q1
@@ -410,6 +411,7 @@ def test_slice_operator_rows_equal_the_reference(tpch, query, monkeypatch, fresh
         return q3(pkg, ctx, tpch).collect()
 
     calls = {k: 0 for k in CALLS}
+    lock = threading.Lock()  # K23's plain version runs on the engine's IO threads
     for kernel, (mod, attr) in CALLS.items():
         owner = importlib.import_module(f"quokka_tpu_torch.{mod}")
         if "." in attr:
@@ -418,11 +420,13 @@ def test_slice_operator_rows_equal_the_reference(tpch, query, monkeypatch, fresh
         real = getattr(owner, attr)
 
         def counted(*a, _k=kernel, _real=real, **kw):
-            calls[_k] += 1
+            with lock:
+                calls[_k] += 1
             return _real(*a, **kw)
 
         monkeypatch.setattr(owner, attr, counted)
     devprof.reset()
+    scancache.clear()  # the scan lands its batches (K23) in this run
     port_ctx = quokka_tpu_torch.QuokkaContext(io_channels=2, exec_channels=2, device="cpu")
     run(quokka_tpu_torch, port_ctx)
     port = obs.OPSTATS.last_finished()

@@ -25,6 +25,8 @@ from quokka_tpu import QuokkaContext as RefContext
 from quokka_tpu.ops import pack as ref_pack
 from quokka_tpu_torch import QuokkaContext
 from quokka_tpu_torch.ops import pack
+from quokka_tpu_torch.runtime import scancache
+from quokka_tpu_torch.runtime.engine import Engine
 
 from torch_port_util import fresh_aot  # noqa: F401
 from test_torch_q1 import pandas_q1, q1, same
@@ -36,19 +38,21 @@ NULL_I32 = np.iinfo(np.int32).min
 
 class _ThisThread(dict):
     """A module-wide plan or program cache that also records the keys the
-    test's own thread set.  The caches are shared by every thread of the
-    process: a query that another test left running (a service's or a
-    stream's thread) lands its batches through them too, so the checks read
-    only the entries of the calls under test (``mine``).  ``_own_caches``
-    installs them for each test and puts the module's own back after it."""
+    test's own threads set: the test's thread and the IO threads of the
+    engines it started (``owners``), which land the port's batches.  The
+    caches are shared by every thread of the process: a query that another
+    test left running (a service's or a stream's thread) lands its batches
+    through them too, so the checks read only the entries of the calls
+    under test (``mine``).  ``_own_caches`` installs them for each test and
+    puts the module's own back after it."""
 
-    def __init__(self):
+    def __init__(self, owners=None):
         super().__init__()
-        self.owner = threading.get_ident()
+        self.owners = {threading.get_ident()} if owners is None else owners
         self.own = []
 
     def _note(self, key):
-        if threading.get_ident() == self.owner and key not in self.own:
+        if threading.get_ident() in self.owners and key not in self.own:
             self.own.append(key)
 
     def setdefault(self, key, default=None):
@@ -71,7 +75,27 @@ class _ThisThread(dict):
 def _own_caches(monkeypatch):
     monkeypatch.setattr(ref_pack, "_PLANS", _ThisThread())
     monkeypatch.setattr(ref_pack, "_DECODE_PROGRAMS", _ThisThread())
-    monkeypatch.setattr(pack, "_PLANS", _ThisThread())
+    # the port's engines started in the test, and the threads that landed
+    # batches for them (their IO pools')
+    owners, engines = {threading.get_ident()}, set()
+    real_pool, real_read = Engine._ensure_prefetch_pool, Engine._read_and_bridge
+
+    def ensure_pool(self):
+        engines.add(self)
+        return real_pool(self)
+
+    def read_and_bridge(self, *a):
+        if self in engines:
+            owners.add(threading.get_ident())
+        return real_read(self, *a)
+
+    monkeypatch.setattr(Engine, "_ensure_prefetch_pool", ensure_pool)
+    monkeypatch.setattr(Engine, "_read_and_bridge", read_and_bridge)
+    monkeypatch.setattr(pack, "_PLANS", _ThisThread(owners))
+    # a warm scan lands nothing: every query here reads its files anew
+    scancache.clear()
+    yield
+    scancache.clear()
 
 
 def _clear():
